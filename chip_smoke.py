@@ -1,0 +1,324 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Builds the hand-written CUDA kernels from the checkout's sources, holds each
+against its plain PyTorch version, drives the port's main path — the three
+strategies through ``build(..., kernel="cuda")`` and the reference timing
+protocol — at full size, checks the answers, and times each kernel beside
+its bound and the library call. Every phase prints one JSON line; any failed
+check raises, and the script exits non-zero. The line before the last is
+``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
+
+Needs a CUDA device and ``nvcc``; without a card it exits non-zero and
+prints no result. Writes no CSV (it times through ``benchmark_strategy``,
+which writes none) and imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+N_REPS = 100
+CHAIN_SAMPLES = 5
+
+# The committed 4x8 correctness fixture (data/matrix_4_8.txt, vector_8.txt)
+# and its product.
+FIXTURE_MATRIX = [
+    [2.4, 2.1, 8.4, 4.1, 5.0, 6.0, 7.0, 8.0],
+    [9.4, 1.2, 3.45, 0.1, 5.0, 6.0, 7.0, 8.0],
+    [1.4, 4.6, 0.99, 1.0, 5.0, 6.0, 7.0, 8.0],
+    [0.1, 2.5, 4.6, 10.0, 5.0, 6.0, 7.0, 8.0],
+]
+FIXTURE_VECTOR = [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0]
+FIXTURE_PRODUCT = [222.2, 196.55, 191.57, 232.9]
+
+CHECK_SHAPES = [(4, 8), (1000, 3001), (4096, 4096), (120, 60000)]
+# (strategy, n, dtype, logical shards on cuda:0)
+MAIN_CONFIGS = [
+    ("blockwise", 65536, "bfloat16", 1),
+    ("rowwise", 32768, "bfloat16", 1),
+    ("colwise", 32768, "bfloat16", 1),
+    ("blockwise", 32768, "bfloat16", 1),
+    # fp32 at p=1 beside the 2x2 logical mesh: the same dtype and bytes,
+    # so the difference between the two is the combine and the 3 extra
+    # launches.
+    ("blockwise", 32768, "float32", 1),
+    ("blockwise", 32768, "float32", 4),
+]
+# The shapes and dtypes the main path hands the kernel: the p=1 bf16
+# matrices, and the 16384² fp32 blocks of the 2x2 mesh. The last is the
+# head of the kernels line.
+KERNEL_SHAPES = [(16384, "float32"), (32768, "bfloat16"), (65536, "bfloat16")]
+# The fp32 output against the plain version at those shapes: sums of
+# k >= 16384 positive terms in another order differ by about sqrt(k)·eps32.
+MAIN_SHAPE_RTOL = 1e-4
+ASYMMETRIC_SHAPES = [(120, 60000), (1200, 60000)]
+# Peak fp32 rate outside the tensor cores (H100 SXM data sheet): the
+# GEMV's 2·m·k flops run there.
+FP32_PEAK_FLOPS = 67e12
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this test runs "
+              "on a CUDA card only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from matvec_mpi_multiplier_torch import get_strategy, make_mesh
+    from matvec_mpi_multiplier_torch.bench.timing import benchmark_strategy
+    from matvec_mpi_multiplier_torch.ops import _build
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda, gemv_plain
+    from matvec_mpi_multiplier_torch.utils.constants import (
+        H100_HBM_PEAK_GBPS,
+        H100_L2_BYTES,
+    )
+    from matvec_mpi_multiplier_torch.utils.convert import torch_dtype
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+
+    def uniform(shape, dtype):
+        """Operands on the card, uniform [0, 10) (the reference's range),
+        made in row chunks so no full-size fp32 copy is ever held."""
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        flat = out.view(-1, shape[-1]) if len(shape) > 1 else out.view(1, -1)
+        rows = max(1, (1 << 28) // flat.shape[1])
+        for i in range(0, flat.shape[0], rows):
+            n = min(rows, flat.shape[0] - i)
+            flat[i:i + n] = torch.rand(
+                (n, flat.shape[1]), generator=gen, device=dev
+            ) * 10
+        return out
+
+    def event_ms(fn, reps: int, warmup: int = 2) -> float:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / reps
+
+    # ---- 1. env ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    nvcc = _build.find_nvcc()
+    nvcc_version = subprocess.run(
+        [nvcc, "--version"], capture_output=True, text=True, check=True,
+        timeout=60,
+    ).stdout.strip().splitlines()[-1]
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "capability": list(torch.cuda.get_device_capability(dev)),
+          "device": torch.cuda.get_device_name(dev), "nvcc": nvcc_version,
+          "nvidia_smi": smi, "allow_tf32": False})
+    print(smi, flush=True)
+
+    # ---- 2. build, from the sources, with no prior build directory ----
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    log = _build.build_library()
+    build_s = time.perf_counter() - t0
+    _build.load_library()
+    root = Path(__file__).resolve().parent
+    emit({"phase": "build", "source": str(_build.SOURCE.relative_to(root)),
+          "seconds": round(build_s, 3),
+          "ptxas": [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                    if "Used" in ln or "spill" in ln]})
+
+    # ---- 3. kernel against its plain version ----
+    for m, k in CHECK_SHAPES:
+        for name in ("bfloat16", "float16", "float32", "float64"):
+            dtype = torch_dtype(name)
+            if (m, k) == (4, 8):
+                a = torch.tensor(FIXTURE_MATRIX, dtype=torch.float64).to(dev, dtype)
+                x = torch.tensor(FIXTURE_VECTOR, dtype=torch.float64).to(dev, dtype)
+            else:
+                a, x = uniform((m, k), dtype), uniform((k,), dtype)
+            y1, y2 = gemv_cuda(a, x), gemv_cuda(a, x)
+            ref = gemv_plain(a, x)
+            torch.cuda.synchronize(dev)
+            # fp64 sums agree to ~k·eps64. The fp32 accumulator of
+            # bf16/fp16/fp32 input, summed in another order, differs by
+            # about sqrt(k)·eps32: 1e-5 up to k = 4096, 1e-4 at k >= 32768.
+            rtol = 1e-12 if dtype == torch.float64 else (1e-5 if k <= 4096 else 1e-4)
+            rel = ((y1 - ref).abs() / ref.abs()).max().item()
+            check(rel <= rtol, f"gemv {m}x{k} {name}: rel err {rel} > {rtol}")
+            check(torch.equal(y1, y2), f"gemv {m}x{k} {name}: two runs differ")
+            if (m, k) == (4, 8) and dtype == torch.float64:
+                expect = torch.tensor(FIXTURE_PRODUCT, dtype=torch.float64, device=dev)
+                check(torch.allclose(y1, expect, rtol=1e-12, atol=0),
+                      f"fixture product {y1.tolist()} != {FIXTURE_PRODUCT}")
+            emit({"phase": "kernel_vs_plain", "kernel": "gemv", "shape": [m, k],
+                  "dtype": name, "max_abs_err": (y1 - ref).abs().max().item(),
+                  "max_rel_err": rel, "rtol": rtol, "bitwise_repeatable": True})
+            del a, x, y1, y2, ref
+
+    # ---- 4. main path through the entry points ----
+    n1 = max(1, N_REPS // 10)
+    calls_per_config = 1 + CHAIN_SAMPLES * (2 * n1 + N_REPS) + 1  # + the check
+    gemv_cuda.launches = 0
+    expected = 0
+    operands: dict = {}
+    for strategy, n, name, shards in MAIN_CONFIGS:
+        dtype = torch_dtype(name)
+        if operands.get("key") != (n, name):
+            operands.clear()
+            torch.cuda.empty_cache()
+            operands.update(key=(n, name), a=uniform((n, n), dtype),
+                            x=uniform((n,), dtype))
+        a, x = operands["a"], operands["x"]
+        mesh = make_mesh(1) if shards == 1 else make_mesh(shards, devices=[dev] * shards)
+        strat = get_strategy(strategy)
+        before = gemv_cuda.launches
+        res = benchmark_strategy(strat, mesh, a, x, n_reps=N_REPS,
+                                 mode="amortized", measure="chain",
+                                 kernel="cuda", chain_samples=CHAIN_SAMPLES)
+        y = strat.build(mesh, kernel="cuda")(*strat.place(a, x, mesh))
+        ref = gemv_plain(a, x).to(dtype)
+        torch.cuda.synchronize(dev)
+        launched = gemv_cuda.launches - before
+        expected += calls_per_config * shards
+        check(launched == calls_per_config * shards,
+              f"{strategy} {n}² {name} p={shards}: {launched} kernel launches, "
+              f"expected {calls_per_config * shards}")
+        # y and the plain product, both cast back to the storage dtype: one
+        # bf16 ulp (2^-7) apart at most; fp32 sums in another order, 1e-4.
+        rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+        rel = ((y.float() - ref.float()).abs() / ref.float().abs()).max().item()
+        check(y.shape == (n,) and bool(torch.isfinite(y).all()),
+              f"{strategy}: y is not {n} finite values")
+        check(rel <= rtol, f"{strategy} {n}² {name} p={shards}: rel err {rel} > {rtol}")
+        ms = res.mean_time_s * 1e3
+        bound_ms = res.gbps * res.mean_time_s / H100_HBM_PEAK_GBPS * 1e3
+        emit({"phase": "main", "strategy": strategy, "shape": [n, n],
+              "dtype": name, "mesh": list(mesh.grid), "shards_on_cuda0": shards,
+              "kernel": "cuda", "mode": res.mode, "measure": res.measure,
+              "n_reps": N_REPS, "ms": ms, "gbps": res.gbps,
+              "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+              "launches": launched, "max_rel_err": rel, "rtol": rtol})
+        del y, ref
+    main_launches = gemv_cuda.launches
+    check(main_launches == expected and main_launches > 0,
+          f"main path launched the kernel {main_launches} times, expected {expected}")
+    operands.clear()
+    torch.cuda.empty_cache()
+
+    # ---- 5. kernels: time, bound, plain, library ----
+    probe = torch.empty(1 << 30, dtype=torch.int16, device=dev)  # 2 GiB
+    probe_dst = torch.empty_like(probe)
+    copy_ms = event_ms(lambda: probe_dst.copy_(probe), reps=10)
+    probe_gbps = 2 * probe.numel() * 2 / (copy_ms * 1e-3) / 1e9
+    del probe, probe_dst
+    at = {}
+    for n, name in KERNEL_SHAPES:
+        dtype = torch_dtype(name)
+        a, x = uniform((n, n), dtype), uniform((n,), dtype)
+        y, ref = gemv_cuda(a, x), gemv_plain(a, x)
+        rel = ((y - ref).abs() / ref.abs()).max().item()
+        check(rel <= MAIN_SHAPE_RTOL,
+              f"gemv {n}² {name}: rel err {rel} > {MAIN_SHAPE_RTOL}")
+        nbytes = (n * n + n) * a.element_size() + n * y.element_size()
+        bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+        ops_ms = 2 * n * n / FP32_PEAK_FLOPS * 1e3
+        at[f"{n}x{n}"] = {
+            "dtype": name,
+            "ms": event_ms(lambda: gemv_cuda(a, x), reps=50),
+            "plain_ms": event_ms(lambda: gemv_plain(a, x), reps=5, warmup=1),
+            "library_ms": event_ms(lambda: torch.matmul(a, x[:, None]), reps=50),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms_probe": nbytes / (probe_gbps * 1e9) * 1e3,
+            "max_abs_err": (y - ref).abs().max().item(),
+            "max_rel_err": rel, "rtol": MAIN_SHAPE_RTOL,
+        }
+        del a, x, y, ref
+        torch.cuda.empty_cache()
+
+    # The reference's asymmetric regime: few rows, k = 60000. One warp per
+    # row leaves most of the card idle here; timed one launch at a time
+    # after overwriting 4x the L2, so A comes from HBM as in a cold call.
+    flush = torch.empty(4 * H100_L2_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def cold_ms(fn, reps: int = 20) -> float:
+        fn()
+        pairs = []
+        for _ in range(reps):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize(dev)
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    for m, k in ASYMMETRIC_SHAPES:
+        for name in ("bfloat16", "float32"):
+            dtype = torch_dtype(name)
+            a, x = uniform((m, k), dtype), uniform((k,), dtype)
+            ms = cold_ms(lambda: gemv_cuda(a, x))
+            nbytes = (m * k + k) * a.element_size() + m * 4
+            bound_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+            emit({"phase": "asymmetric", "kernel": "gemv", "shape": [m, k],
+                  "dtype": name, "warps": m, "l2": "flushed", "ms": ms,
+                  "library_ms": cold_ms(lambda: torch.matmul(a, x[:, None])),
+                  "bound_ms": bound_ms, "share_of_bound": bound_ms / ms})
+    del flush
+    head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
+    emit({"kernels": [{
+        "name": "gemv", "route": "cuda",
+        "source": "matvec_mpi_multiplier_torch/csrc/gemv.cu",
+        "replaces": "matvec_mpi_multiplier_tpu/ops/pallas_gemv.py:61",
+        "launches": main_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in at.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_call": "torch.matmul(a, x[:, None]) in a's dtype, allow_tf32=False",
+        "hbm_probe_gbps": probe_gbps, "hbm_nominal_gbps": H100_HBM_PEAK_GBPS,
+        "at": at,
+    }]})
+
+    # ---- 6. result ----
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,227 @@
+"""Benchmark sweep driver CLI (the matvec sweep of the JAX package's
+``bench/sweep.py``).
+
+Reference analog: ``test.sh`` — for each strategy it runs
+``n_proc ∈ {1,2,6,12,24}`` × ``n ∈ {600,1800,...,10200}`` square sizes
+(``test.sh:5,8``), appending to the per-strategy CSV. The asymmetric sweep
+(120–1200 × 60000, quirk Q10) is first-class here too.
+
+Usage::
+
+    python -m matvec_mpi_multiplier_torch.bench.sweep --strategy blockwise \\
+        --sizes 32768 --dtype bfloat16
+    python -m matvec_mpi_multiplier_torch.bench.sweep --platform cpu \\
+        --host-devices 4 --sizes 64 --n-reps 3
+
+``--platform cuda`` (the default) runs on the CUDA devices and fails when
+there are none; ``--platform cpu --host-devices p`` runs on p logical CPU
+shards. Operands are generated in memory from ``--seed`` (the numpy
+generator of ``utils/io.py``, so both packages time the same data);
+``--use-files`` goes through ``./data/matrix_*.txt``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from ..models import available_strategies, get_strategy
+from ..ops import available_kernels
+from ..parallel.mesh import make_mesh
+from ..utils import io
+from ..utils.errors import ConfigError, MatvecError
+from .metrics import append_result, csv_path
+from .timing import MEASURE_METHODS, TIMING_MODES, benchmark_strategy
+
+# The reference's sweeps (test.sh:5,8 and the asymmetric CSVs' sizes).
+SQUARE_SIZES = list(range(600, 10201, 1200))
+ASYMMETRIC_SIZES = [(r, 60000) for r in range(120, 1201, 120)]
+
+
+def platform_devices(platform: str, host_devices: int | None) -> list[torch.device]:
+    """The device list a sweep meshes over."""
+    if platform == "cpu":
+        return [torch.device("cpu")] * (host_devices or 1)
+    if host_devices is not None:
+        raise ConfigError("--host-devices applies to --platform cpu only")
+    if not torch.cuda.is_available():
+        raise ConfigError(
+            "--platform cuda (the default) found no CUDA device; pass "
+            "--platform cpu for a CPU run"
+        )
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def device_counts_available(n: int) -> list[int]:
+    """Power-of-two subset mesh sizes up to ``n`` devices (plus ``n``) — the
+    analog of test.sh's {1,2,6,12,24} process list on a fixed machine."""
+    counts = []
+    c = 1
+    while c <= n:
+        counts.append(c)
+        c *= 2
+    if counts[-1] != n:
+        counts.append(n)
+    return counts
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="matvec-torch-sweep",
+        description="Benchmark sweep over strategies x device counts x sizes "
+        "(the PyTorch port's replacement for the reference's test.sh).",
+    )
+    p.add_argument(
+        "--strategy", nargs="+", default=["all"],
+        help=f"strategies to run: {available_strategies()} or 'all'",
+    )
+    p.add_argument(
+        "--devices", nargs="+", type=int, default=None,
+        help="device counts to sweep (default: powers of two up to available)",
+    )
+    p.add_argument(
+        "--sweep", choices=["square", "asymmetric", "both"], default="square",
+        help="size sweep: square 600..10200 step 1200 (test.sh:8) or "
+        "asymmetric 120..1200 x 60000 (the long-contraction regime)",
+    )
+    p.add_argument(
+        "--sizes", nargs="+", type=int, default=None,
+        help="explicit square sizes, overriding --sweep",
+    )
+    p.add_argument("--dtype", default="float32", help="operand dtype")
+    p.add_argument(
+        "--n-reps", type=int, default=100,
+        help="repetitions per config (reference: 100, src/multiplier_rowwise.c:135)",
+    )
+    p.add_argument(
+        "--mode", choices=list(TIMING_MODES) + ["both"], default="amortized",
+        help="'amortized': operands resident on the device; 'reference': "
+        "host->device transfer timed every rep (quirk Q5 parity)",
+    )
+    p.add_argument(
+        "--kernel", default="cuda",
+        help=f"local GEMV kernel: {available_kernels()}",
+    )
+    p.add_argument(
+        "--measure", choices=list(MEASURE_METHODS), default="auto",
+        help="'chain': slope between event-timed call chains (amortized "
+        "default); 'sync': literal per-rep fence protocol (reference "
+        "default); 'loop' is not ported yet",
+    )
+    p.add_argument(
+        "--chain-samples", type=int, default=None,
+        help="independent chain-slope estimates per config (median reported; "
+        "default 5)",
+    )
+    p.add_argument(
+        "--use-files", action="store_true",
+        help="load operands via the ./data/matrix_*.txt convention",
+    )
+    p.add_argument("--data-root", default=None, help="data directory override")
+    p.add_argument(
+        "--platform", choices=["cuda", "cpu"], default="cuda",
+        help="devices to mesh over: the CUDA devices (default) or CPU shards",
+    )
+    p.add_argument(
+        "--host-devices", type=int, default=None,
+        help="with --platform cpu: number of logical CPU shards, the "
+        "reference's 'mpiexec -n p on one machine' analog",
+    )
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--no-csv", action="store_true", help="print results without writing CSVs"
+    )
+    return p
+
+
+def resolve_strategies(names: list[str]) -> list[str]:
+    available = available_strategies()
+    if "all" in names:
+        return available
+    for n in names:
+        if n not in available:
+            raise SystemExit(f"unknown strategy {n!r}; available: {available}")
+    return names
+
+
+def operands(n_rows: int, n_cols: int, args):
+    if args.use_files:
+        return io.ensure_data(n_rows, n_cols, args.data_root, seed=args.seed)
+    return (
+        io.generate_matrix(n_rows, n_cols, seed=args.seed),
+        io.generate_vector(n_cols, seed=args.seed + 1),
+    )
+
+
+def run_sweep(args: argparse.Namespace) -> int:
+    if args.kernel not in available_kernels():
+        raise SystemExit(
+            f"unknown kernel {args.kernel!r}; available: {available_kernels()}"
+        )
+    if args.measure in ("chain", "loop") and args.mode in ("reference", "both"):
+        raise SystemExit(
+            f"--measure {args.measure} cannot time --mode reference; use "
+            "--measure sync or auto"
+        )
+    devices = platform_devices(args.platform, args.host_devices)
+    strategies = resolve_strategies(args.strategy)
+    counts = args.devices or device_counts_available(len(devices))
+    if args.sizes:
+        sizes = [(s, s) for s in args.sizes]
+    elif args.sweep == "square":
+        sizes = [(s, s) for s in SQUARE_SIZES]
+    elif args.sweep == "asymmetric":
+        sizes = list(ASYMMETRIC_SIZES)
+    else:
+        sizes = [(s, s) for s in SQUARE_SIZES] + list(ASYMMETRIC_SIZES)
+    modes = list(TIMING_MODES) if args.mode == "both" else [args.mode]
+    meshes = {n: make_mesh(n, devices=devices) for n in counts}
+
+    n_ok = n_skip = 0
+    # Sizes outermost: each operand pair is generated once and shared.
+    for n_rows, n_cols in sizes:
+        a = x = None
+        for name in strategies:
+            strat = get_strategy(name)
+            for n_dev in counts:
+                mesh = meshes[n_dev]
+                try:
+                    strat.validate(n_rows, n_cols, mesh)
+                except MatvecError as e:
+                    print(f"skip {name} {n_rows}x{n_cols} p={n_dev}: {e}")
+                    n_skip += 1
+                    continue
+                if a is None:
+                    a, x = operands(n_rows, n_cols, args)
+                for mode in modes:
+                    kwargs = dict(
+                        dtype=args.dtype, n_reps=args.n_reps, mode=mode,
+                        measure=args.measure, kernel=args.kernel,
+                    )
+                    if args.chain_samples is not None:
+                        kwargs["chain_samples"] = args.chain_samples
+                    result = benchmark_strategy(strat, mesh, a, x, **kwargs)
+                    if not args.no_csv:
+                        append_result(result, args.data_root)
+                    print(
+                        f"{result.strategy} {n_rows}x{n_cols} p={n_dev} [{mode}] "
+                        f"mean={result.mean_time_s:.6f}s "
+                        f"{result.gflops:.2f} GFLOP/s {result.gbps:.2f} GB/s"
+                    )
+                    n_ok += 1
+    if not args.no_csv:
+        for name in strategies:
+            for mode in modes:
+                print(f"CSV: {csv_path(name, args.data_root, mode=mode)}")
+    print(f"{n_ok} configs timed, {n_skip} skipped")
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    return run_sweep(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,103 @@
+"""Build and load the CUDA kernels: ``nvcc`` into a shared library, ctypes.
+
+The kernels have a plain C interface (``csrc/*.cu``), so no PyTorch headers
+are compiled: ``nvcc`` builds the library in seconds, at first use, into
+the package's own ``build/`` directory (``matvec_mpi_multiplier_torch/build``,
+so an installed copy never shares it with another environment), and
+rebuilds it when the source or the flags change (a hash stamp beside the
+library). Nothing here falls back: a missing ``nvcc`` or a failed build
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SOURCE = PACKAGE_DIR / "csrc" / "gemv.cu"
+BUILD_DIR = PACKAGE_DIR / "build"
+LIB_NAME = "libmatvec_torch_gemv.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # Registers, shared memory and spills per kernel, in the build log.
+    "-Xptxas=-v",
+)
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from PATH, else ``$CUDA_HOME/bin`` (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", DEFAULT_CUDA_HOME)) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        f"nvcc not found on PATH or at {candidate}: the CUDA GEMV kernel "
+        f"({SOURCE.name}) cannot be built, and the cuda tier has no fallback. "
+        "Install the CUDA toolkit or set CUDA_HOME; CPU tensors use the "
+        "plain version and need no build."
+    )
+
+
+def library_path() -> Path:
+    return BUILD_DIR / LIB_NAME
+
+
+def _stamp_path() -> Path:
+    return library_path().with_name(LIB_NAME + ".sha256")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def build_library() -> str:
+    """Compile ``csrc/gemv.cu``; return the compiler's log."""
+    nvcc = find_nvcc()
+    out = library_path()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        capture_output=True, text=True, check=False,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed to build {SOURCE} (exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    _stamp_path().write_text(_digest())
+    return proc.stdout + proc.stderr
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built first if absent or stale."""
+    stamp = _stamp_path()
+    if not (library_path().exists() and stamp.exists()
+            and stamp.read_text() == _digest()):
+        build_library()
+    lib = ctypes.CDLL(str(library_path()))
+    # Every pointer and the stream as c_void_p: an undeclared argument is
+    # passed as a 32-bit int and the pointer is cut.
+    lib.matvec_gemv.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.matvec_gemv.restype = ctypes.c_int
+    lib.matvec_error_string.argtypes = [ctypes.c_int]
+    lib.matvec_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,85 @@
+"""Local GEMV kernels: the per-device compute tier.
+
+Reference analog: ``multiply_std_rowwise`` (``src/matr_utils.c:86-96``) and
+the fused scale+partial-sum colwise kernel (``src/multiplier_colwise.c:105-129``).
+The port's counterpart of the JAX package's ``ops/gemv.py``. Tiers:
+
+* ``torch`` — a rank-2 ``torch.matmul``, the library tier (the ``xla`` tier's
+  counterpart);
+* ``torch_colwise`` — explicit scale-then-sum (``xla_colwise``'s);
+* ``cuda`` — the hand-written kernel (``ops/cuda_gemv.py``; ``pallas``'s),
+  registered when ``ops`` is imported and the default of every strategy.
+
+All kernels share the signature ``gemv(a, x) -> y`` with ``a: (m, k)``,
+``x: (k,)``, ``y: (m,)``, and return their *accumulator* dtype — fp32 for
+bf16/fp16/fp32 inputs, fp64 for fp64 — not the storage dtype. The
+strategies combine across devices on the accumulator and cast back to
+storage only at the end.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Protocol
+
+import torch
+
+_ACC = {
+    torch.bfloat16: torch.float32,
+    torch.float16: torch.float32,
+    torch.float32: torch.float32,
+    torch.float64: torch.float64,
+}
+
+
+class GemvKernel(Protocol):
+    def __call__(self, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor: ...
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulator (and output) dtype of every kernel for ``dtype`` input."""
+    try:
+        return _ACC[dtype]
+    except KeyError:
+        raise ValueError(
+            f"gemv takes bf16, fp16, fp32 or fp64 operands, got {dtype}"
+        ) from None
+
+
+def gemv_torch(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Library GEMV: a rank-2 matmul against ``x`` as a (k, 1) column, on
+    operands widened to the accumulator dtype (what ``preferred_element_type``
+    does for the JAX package's ``gemv_xla``)."""
+    acc = acc_dtype(a.dtype)
+    return torch.matmul(a.to(acc), x.to(acc)[:, None])[:, 0]
+
+
+def gemv_colwise_torch(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Colwise-style local kernel: scale column ``j`` by ``x_j``, then sum
+    each row (``multiply_colwise``, ``src/multiplier_colwise.c:107-122``)."""
+    acc = acc_dtype(a.dtype)
+    return (a.to(acc) * x.to(acc)[None, :]).sum(1)
+
+
+_KERNELS: dict[str, GemvKernel] = {
+    "torch": gemv_torch,
+    "torch_colwise": gemv_colwise_torch,
+}
+
+
+def register_kernel(name: str, fn: GemvKernel) -> None:
+    _KERNELS[name] = fn
+
+
+def get_kernel(name: str | Callable) -> GemvKernel:
+    if callable(name):
+        return name
+    try:
+        return _KERNELS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown gemv kernel {name!r}; available: {sorted(_KERNELS)}"
+        ) from None
+
+
+def available_kernels() -> list[str]:
+    return sorted(_KERNELS)

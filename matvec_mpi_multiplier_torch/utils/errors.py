@@ -1,0 +1,65 @@
+"""Error types for the framework (the port's own copy).
+
+Same names and messages as the JAX package's ``utils/errors.py``, so callers
+and tests can treat the two packages alike. The reference has no exception
+system: MPI failures are decoded and printed by ``process_error``
+(``src/utils.c:10-23``) and invalid configurations print a message and
+``return 0`` (``src/multiplier_rowwise.c:74``, quirk Q9 in SURVEY.md).
+
+Two reference bugs stay fixed:
+
+* Q2 — ``src/multiplier_colwise.c:151-153`` guards ``n_cols % comm_sz`` but the
+  error message names ``n_rows``. Our message names the dimension actually
+  checked.
+* Q3 — ``src/multiplier_blockwise.c:275-281`` only checks
+  ``(n_rows*n_cols) % comm_sz``; the correct condition is
+  ``n_rows % grid_rows == 0 and n_cols % grid_cols == 0``.
+"""
+
+from __future__ import annotations
+
+
+class MatvecError(Exception):
+    """Base class for all framework errors."""
+
+
+class ShardingError(MatvecError):
+    """A matrix/vector shape is incompatible with the requested sharding."""
+
+
+class DataFileError(MatvecError):
+    """A data file is missing or malformed.
+
+    Reference analog: the "Unable to locate matrix/vector file" path at
+    ``src/multiplier_rowwise.c:110-129`` (which exits with status 0, Q9).
+    """
+
+
+class ConfigError(MatvecError):
+    """Invalid benchmark / sweep configuration."""
+
+
+class TimingError(MatvecError):
+    """A timing measurement failed to produce a usable number.
+
+    Raised instead of emitting a clamped/garbage value: a benchmark row that
+    cannot be measured must be absent, never present-but-wrong
+    (``src/multiplier_rowwise.c:135-151`` is the contract this protects).
+    """
+
+
+def check_divisible(value: int, divisor: int, what: str, by_what: str) -> None:
+    """Raise ShardingError unless ``value % divisor == 0``.
+
+    Mirrors the reference's divisibility guards (``src/multiplier_rowwise.c:72-75``,
+    ``src/multiplier_colwise.c:151-154``, ``src/multiplier_blockwise.c:275-281``)
+    but raises instead of printing + ``return 0``, and always names the correct
+    dimension (fixing Q2).
+    """
+    if divisor <= 0:
+        raise ShardingError(f"{by_what} must be positive, got {divisor}")
+    if value % divisor != 0:
+        raise ShardingError(
+            f"{what} ({value}) is not divisible by {by_what} ({divisor}); "
+            f"the {what} axis cannot be evenly sharded"
+        )
