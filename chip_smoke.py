@@ -3,17 +3,27 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the hand-written CUDA kernels from the checkout's sources, holds each
-against its plain PyTorch version, drives the port's main path — the three
-strategies through ``build(..., kernel="cuda")`` and the reference timing
-protocol — at full size, checks the answers, and times each kernel beside
-its bound and the library call. Every phase prints one JSON line; any failed
+Builds the hand-written CUDA kernels (``csrc/gemv.cu``, ``csrc/gemm.cu``)
+from the checkout's sources, holds each against its plain PyTorch version,
+and drives the port's paths at full size, each with the kernels' launch
+counts set to 0 just before it and read just after:
+
+* the three strategies through ``build(..., kernel="cuda")`` and the
+  reference timing protocol (the GEMV);
+* the serving engine through ``bench.serve.run_serve``: a mixed-width
+  request stream at 65536² bf16 on one card and at 32768² fp32 on a 2x2
+  logical mesh, narrow blocks through the GEMV and promoted blocks through
+  the GEMM;
+* the GEMM through the sweep's entry point, ``benchmark_gemm``.
+
+It checks the answers and times each kernel beside its bound, its plain
+version and the library call. Every phase prints one JSON line; any failed
 check raises, and the script exits non-zero. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and ``nvcc``; without a card it exits non-zero and
-prints no result. Writes no CSV (it times through ``benchmark_strategy``,
-which writes none) and imports nothing of the JAX package.
+prints no result. Writes no CSV (``benchmark_*`` and ``run_serve`` write
+none) and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -63,8 +74,33 @@ KERNEL_SHAPES = [(16384, "float32"), (32768, "bfloat16"), (65536, "bfloat16")]
 MAIN_SHAPE_RTOL = 1e-4
 ASYMMETRIC_SHAPES = [(120, 60000), (1200, 60000)]
 # Peak fp32 rate outside the tensor cores (H100 SXM data sheet): the
-# GEMV's 2·m·k flops run there.
+# GEMV's 2·m·k flops run there, as do the GEMM's for fp32 (FFMA) and fp64
+# (DFMA, the same 67 TFLOP/s).
 FP32_PEAK_FLOPS = 67e12
+# Dense bf16/fp16 tensor-core peak (H100 SXM data sheet): the GEMM's
+# 16-bit route (mma.sync).
+TENSOR_PEAK_FLOPS = 989e12
+
+# (m, k, n): the 4x8 fixture, a ragged shape, the engine's widths at 4096²,
+# and a square GEMM that tiles n.
+GEMM_CHECK_SHAPES = [(4, 8, 3), (1000, 3001, 5), (4096, 4096, 1),
+                     (4096, 4096, 4), (4096, 4096, 32), (4096, 4096, 128),
+                     (2048, 2048, 2048)]
+# (label, strategy, n, dtype, logical shards on cuda:0, steady requests)
+SERVE_CONFIGS = [
+    ("65536_bf16", "blockwise", 65536, "bfloat16", 1, 200),
+    ("2x2_32768_fp32", "blockwise", 32768, "float32", 4, 40),
+]
+SERVE_MAX_BUCKET = 32
+SERVE_PROMOTE = 4
+# (m, k, n, dtype): the engine's promoted buckets at 65536² bf16, the 2x2
+# mesh's 16384² fp32 shard at width 8, and the sweep's square GEMM. The
+# kernels line reports GEMM_HEAD, the widest bucket of the full-width cell.
+GEMM_TIME_SHAPES = [(65536, 65536, 4, "bfloat16"), (65536, 65536, 8, "bfloat16"),
+                    (65536, 65536, 16, "bfloat16"), (65536, 65536, 32, "bfloat16"),
+                    (16384, 16384, 8, "float32"), (4096, 4096, 4096, "bfloat16"),
+                    (4096, 4096, 4096, "float32")]
+GEMM_HEAD = 3
 
 
 def emit(obj: dict) -> None:
@@ -88,9 +124,23 @@ def main() -> int:
               "on a CUDA card only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import numpy as np
+
     from matvec_mpi_multiplier_torch import get_strategy, make_mesh
-    from matvec_mpi_multiplier_torch.bench.timing import benchmark_strategy
+    from matvec_mpi_multiplier_torch.bench.serve import (
+        DEFAULT_WIDTH_MIX,
+        _request_pool,
+        resident_matrix,
+        run_serve,
+    )
+    from matvec_mpi_multiplier_torch.bench.timing import (
+        benchmark_gemm,
+        benchmark_strategy,
+    )
+    from matvec_mpi_multiplier_torch.engine import MatvecEngine, bucket_for
+    from matvec_mpi_multiplier_torch.models.gemm import build_gemm
     from matvec_mpi_multiplier_torch.ops import _build
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda, gemm_plain
     from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda, gemv_plain
     from matvec_mpi_multiplier_torch.utils.constants import (
         H100_HBM_PEAK_GBPS,
@@ -130,6 +180,34 @@ def main() -> int:
         torch.cuda.synchronize(dev)
         return start.elapsed_time(end) / reps
 
+    def check_serve_replay(strategy, mesh, n, dtype, n_requests) -> dict:
+        """run_serve's steady stream (the same seeded A, pool and width
+        sequence) replayed through a fresh engine: the kernels are bitwise
+        deterministic, so these are run_serve's results. Every result must
+        be finite and of the right shape, and one request of each width
+        must match the plain version after the cast to the storage dtype."""
+        a = resident_matrix(n, n, dtype, dev, args.seed)
+        engine = MatvecEngine(a, mesh, strategy=strategy, kernel="cuda",
+                              max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE)
+        widths = [w for w in DEFAULT_WIDTH_MIX if w <= SERVE_MAX_BUCKET]
+        pool = _request_pool(n, widths, dtype, seed=args.seed + 1)
+        sequence = np.random.default_rng(args.seed + 2).choice(
+            list(pool), size=n_requests)
+        # bf16: one ulp after the cast; fp32: sums in another order.
+        rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+        rel = {}
+        for w in map(int, sequence):
+            y = engine.submit(pool[w]).result()
+            check(tuple(y.shape) == (n, w) and bool(torch.isfinite(y).all()),
+                  f"serve replay: a width-{w} result is not {n}x{w} finite values")
+            if w not in rel:
+                ref = gemm_plain(a, pool[w].to(dev)).to(dtype).cpu().float()
+                rel[w] = ((y.float() - ref).abs() / ref.abs()).max().item()
+                check(rel[w] <= rtol, f"serve replay width {w}: rel err {rel[w]} > {rtol}")
+        del engine, a
+        return {"requests": len(sequence), "all_finite": True, "rtol": rtol,
+                "max_rel_err_by_width": {str(w): rel[w] for w in sorted(rel)}}
+
     # ---- 1. env ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -153,10 +231,20 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.load_library()
     root = Path(__file__).resolve().parent
-    emit({"phase": "build", "source": str(_build.SOURCE.relative_to(root)),
-          "seconds": round(build_s, 3),
-          "ptxas": [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                    if "Used" in ln or "spill" in ln]})
+    # ptxas reports each kernel as "Compiling entry function '<name>'"
+    # followed by its "Used N registers, ..." line.
+    ptxas, entry = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "Used" in ln and entry is not None:
+            ptxas.append({"kernel": entry, "used": ln.split(":", 1)[-1].strip()})
+    emit({"phase": "build",
+          "sources": [str(s.relative_to(root)) for s in _build.SOURCES],
+          "seconds": round(build_s, 3), "ptxas": ptxas,
+          "spills": sorted({ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                            if "spill" in ln}),
+          "warnings": [ln.strip() for ln in log.splitlines() if "warning" in ln]})
 
     # ---- 3. kernel against its plain version ----
     for m, k in CHECK_SHAPES:
@@ -297,13 +385,154 @@ def main() -> int:
                   "dtype": name, "warps": m, "l2": "flushed", "ms": ms,
                   "library_ms": cold_ms(lambda: torch.matmul(a, x[:, None])),
                   "bound_ms": bound_ms, "share_of_bound": bound_ms / ms})
-    del flush
+    del flush, a, x
+    torch.cuda.empty_cache()
+
+    # ---- 6. gemm against its plain version ----
+    for m, k, n in GEMM_CHECK_SHAPES:
+        for name in ("bfloat16", "float16", "float32", "float64"):
+            dtype = torch_dtype(name)
+            if (m, k) == (4, 8):
+                a = torch.tensor(FIXTURE_MATRIX, dtype=torch.float64).to(dev, dtype)
+            else:
+                a = uniform((m, k), dtype)
+            b = uniform((k, n), dtype)
+            c1, c2 = gemm_cuda(a, b), gemm_cuda(a, b)
+            ref = gemm_plain(a, b)
+            # Pad independence: the real columns of a bucket are bitwise the
+            # same whether its pad columns hold zeros or random values (and
+            # the same as with no pad at all).
+            width = bucket_for(n) if n < 128 and bucket_for(n) > n else n + 3
+            padded = {"zeros": torch.zeros((k, width), dtype=dtype, device=dev),
+                      "random": uniform((k, width), dtype)}
+            pad_ok = True
+            for block in padded.values():
+                block[:, :n] = b
+                pad_ok &= torch.equal(gemm_cuda(a, block)[:, :n], c1)
+            torch.cuda.synchronize(dev)
+            rtol = 1e-12 if dtype == torch.float64 else (1e-5 if k <= 4096 else 1e-4)
+            rel = ((c1 - ref).abs() / ref.abs()).max().item()
+            check(rel <= rtol, f"gemm {m}x{k}x{n} {name}: rel err {rel} > {rtol}")
+            check(torch.equal(c1, c2), f"gemm {m}x{k}x{n} {name}: two runs differ")
+            check(pad_ok, f"gemm {m}x{k}x{n} {name}: pad columns changed a real one")
+            emit({"phase": "kernel_vs_plain", "kernel": "gemm", "shape": [m, k, n],
+                  "dtype": name, "max_abs_err": (c1 - ref).abs().max().item(),
+                  "max_rel_err": rel, "rtol": rtol, "bitwise_repeatable": True,
+                  "pad_independent": {"width": width, "pads": list(padded)}})
+            del a, b, c1, c2, ref, padded
+    torch.cuda.empty_cache()
+
+    # ---- 7, 8. serve: this slice's path, at full width and on a 2x2 mesh ----
+    launches_by_path = {"gemv": {"strategies": main_launches}, "gemm": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, strategy, n, name, shards, n_requests in SERVE_CONFIGS:
+            dtype = torch_dtype(name)
+            mesh = make_mesh(1) if shards == 1 else make_mesh(shards, devices=[dev] * shards)
+            snapshot = Path(tmp) / f"{label}.json"
+            gemv_cuda.launches = gemm_cuda.launches = 0
+            res = run_serve(strategy, mesh, n, n, dtype=name, kernel="cuda",
+                            max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE,
+                            n_requests=n_requests, seed=args.seed,
+                            metrics_out=str(snapshot))
+            torch.cuda.synchronize(dev)
+            launched = {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches}
+            dispatches = json.loads(snapshot.read_text())["counters"][
+                "engine_dispatches_total"]
+            # Each engine dispatch runs its kernel once per shard.
+            check(launched["gemv"] > 0 and launched["gemm"] > 0
+                  and launched["gemv"] + launched["gemm"] == dispatches * shards,
+                  f"serve {label}: launches {launched}, {dispatches} dispatches "
+                  f"x {shards} shards")
+            check(res.compiles_steady == 0,
+                  f"serve {label}: {res.compiles_steady} steady-phase builds")
+            for kernel_name, count in launched.items():
+                launches_by_path[kernel_name][f"serve_{label}"] = count
+            torch.cuda.empty_cache()
+            checked = check_serve_replay(strategy, mesh, n, dtype, n_requests)
+            emit({"phase": "serve", "config": label, "strategy": strategy,
+                  "shape": [n, n], "dtype": name, "mesh": list(mesh.grid),
+                  "shards_on_cuda0": shards, "kernel": "cuda",
+                  "max_bucket": SERVE_MAX_BUCKET, "b_star": res.b_star,
+                  "n_requests": res.n_requests, "total_cols": res.total_cols,
+                  "wall_s": res.wall_s, "req_per_s": res.rps,
+                  "cols_per_s": res.cols_per_s,
+                  "p50_dispatch_ms": res.p50_dispatch_ms,
+                  "p99_dispatch_ms": res.p99_dispatch_ms,
+                  "compiles_warmup": res.compiles_warmup,
+                  "compiles_steady": res.compiles_steady,
+                  "hits_steady": res.hits_steady, "promo_b": res.promo_b,
+                  "promo_gemm_s": res.promo_gemm_s, "promo_seq_s": res.promo_seq_s,
+                  "promo_speedup": res.promo_speedup, "dispatches": dispatches,
+                  "launches": launched, "replay_check": checked})
+            torch.cuda.empty_cache()
+
+    # ---- 9. gemm through the sweep's entry point ----
+    a, b = uniform((4096, 4096), torch.bfloat16), uniform((4096, 4096), torch.bfloat16)
+    mesh = make_mesh(1)
+    gemm_cuda.launches = 0
+    res = benchmark_gemm("blockwise", mesh, a, b, n_reps=N_REPS, mode="amortized",
+                         measure="chain", kernel="cuda", chain_samples=CHAIN_SAMPLES)
+    c = build_gemm("blockwise", mesh, kernel="cuda")(a, b)
+    ref = gemm_plain(a, b).to(torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    check(gemm_cuda.launches == calls_per_config,
+          f"benchmark_gemm launched the kernel {gemm_cuda.launches} times, "
+          f"expected {calls_per_config}")
+    launches_by_path["gemm"]["benchmark_gemm"] = gemm_cuda.launches
+    rel = ((c.float() - ref.float()).abs() / ref.float().abs()).max().item()
+    check(c.shape == (4096, 4096) and rel <= 2 ** -7,
+          f"benchmark_gemm's program: rel err {rel} after the bf16 cast")
+    emit({"phase": "benchmark_gemm", "strategy": res.strategy, "shape": [4096, 4096],
+          "n_rhs": res.n_rhs, "dtype": res.dtype, "mode": res.mode,
+          "measure": res.measure, "n_reps": N_REPS, "ms": res.mean_time_s * 1e3,
+          "tflops": res.gflops / 1e3, "launches": gemm_cuda.launches,
+          "max_rel_err": rel, "rtol": 2 ** -7})
+    del a, b, c, ref
+    torch.cuda.empty_cache()
+
+    # ---- 10. gemm: time, bound, plain, library ----
+    gemm_at = {}
+    held = {}
+    for m, k, n, name in GEMM_TIME_SHAPES:
+        dtype = torch_dtype(name)
+        if held.get("key") != (m, k, name):
+            held.clear()
+            torch.cuda.empty_cache()
+            held.update(key=(m, k, name), a=uniform((m, k), dtype))
+        a = held["a"]
+        b = uniform((k, n), dtype)
+        c, ref = gemm_cuda(a, b), gemm_plain(a, b)
+        rtol = 1e-5 if k <= 4096 else 1e-4
+        rel = ((c - ref).abs() / ref.abs()).max().item()
+        check(rel <= rtol, f"gemm {m}x{k}x{n} {name}: rel err {rel} > {rtol}")
+        nbytes = (m * k + k * n) * a.element_size() + m * n * c.element_size()
+        bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+        peak = TENSOR_PEAK_FLOPS if a.element_size() == 2 else FP32_PEAK_FLOPS
+        ops_ms = 2 * m * k * n / peak * 1e3
+        gemm_at[f"{m}x{k}x{n}_{name}"] = {
+            "dtype": name,
+            "route": "mma.sync" if a.element_size() == 2 else "ffma",
+            "ms": event_ms(lambda: gemm_cuda(a, b), reps=20),
+            "plain_ms": event_ms(lambda: gemm_plain(a, b), reps=3, warmup=1),
+            "library_ms": event_ms(lambda: torch.matmul(a, b), reps=20),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": (c - ref).abs().max().item(),
+            "max_rel_err": rel, "rtol": rtol,
+        }
+        del b, c, ref
+    held.clear()
+    torch.cuda.empty_cache()
+
+    # ---- 11. the kernels line ----
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
+    gemm_head = gemm_at["{0}x{1}x{2}_{3}".format(*GEMM_TIME_SHAPES[GEMM_HEAD])]
     emit({"kernels": [{
         "name": "gemv", "route": "cuda",
         "source": "matvec_mpi_multiplier_torch/csrc/gemv.cu",
         "replaces": "matvec_mpi_multiplier_tpu/ops/pallas_gemv.py:61",
-        "launches": main_launches,
+        "launches": sum(launches_by_path["gemv"].values()),
+        "launches_by_path": launches_by_path["gemv"],
         "max_abs_err": max(v["max_abs_err"] for v in at.values()),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -311,9 +540,21 @@ def main() -> int:
         "library_call": "torch.matmul(a, x[:, None]) in a's dtype, allow_tf32=False",
         "hbm_probe_gbps": probe_gbps, "hbm_nominal_gbps": H100_HBM_PEAK_GBPS,
         "at": at,
+    }, {
+        "name": "gemm", "route": "cuda",
+        "source": "matvec_mpi_multiplier_torch/csrc/gemm.cu",
+        "replaces": "matvec_mpi_multiplier_tpu/ops/pallas_gemm.py:48",
+        "launches": sum(launches_by_path["gemm"].values()),
+        "launches_by_path": launches_by_path["gemm"],
+        "max_abs_err": gemm_head["max_abs_err"],
+        "ms": gemm_head["ms"], "plain_ms": gemm_head["plain_ms"],
+        "bound_ms": gemm_head["bound_ms"], "bound_by": gemm_head["bound_by"],
+        "library_ms": gemm_head["library_ms"],
+        "library_call": "torch.matmul(a, b) in a's dtype, allow_tf32=False",
+        "at": gemm_at,
     }]})
 
-    # ---- 6. result ----
+    # ---- 12. result ----
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,474 @@
+"""Serve-throughput benchmark: the request-stream face of the suite.
+
+The port's counterpart of the JAX package's ``bench/serve.py``, its
+sequential protocol. Where ``bench.sweep`` measures one matvec at a time,
+this drives the serving engine (``engine/``) with a mixed-width stream of
+right-hand-side blocks against a resident sharded ``A`` and reports:
+
+* **requests/sec** and **columns/sec** over the steady phase;
+* **p50/p99 dispatch latency** — ``submit()`` entry to return: the host's
+  cost of one request, which on the card includes the request's pageable
+  host→device copy but not the device's execution (the stream drains once
+  at the end). Percentiles come from the obs histogram;
+* **compile counts** per phase — after warmup covers the widths,
+  ``compiles_steady`` must be 0 across the mixed-width replay;
+* the **GEMV→GEMM promotion check** — one block of ``b*`` columns against
+  ``b*`` single-column dispatches, through the same warm engine under the
+  same wall-clock protocol.
+
+Rows land in ``data/out/serve_<strategy>.csv`` under the JAX package's
+header, byte for byte. Columns of modes the port does not have yet (load,
+chaos, quantized storage, speculative) carry the JAX package's defaults;
+those modes' flags raise ``ConfigError``.
+
+Usage::
+
+    python -m matvec_mpi_multiplier_torch.bench.serve --strategy blockwise \\
+        --sizes 65536 --dtype bfloat16 --promote 4
+    python -m matvec_mpi_multiplier_torch.bench.serve --platform cpu \\
+        --host-devices 8 --sizes 64 --n-requests 20
+
+    # or through the sweep CLI:
+    python -m matvec_mpi_multiplier_torch.bench.sweep --op serve ...
+
+This is timing code: host syncs are deliberate protocol fences here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..engine.core import MatvecEngine
+from ..models import available_strategies
+from ..models.base import not_ported
+from ..obs.registry import MetricsRegistry
+from ..parallel.mesh import Mesh
+from ..utils.convert import dtype_name, torch_dtype
+from ..utils.errors import MatvecError
+
+# Default request-width mix: single vectors through full buckets, with
+# off-bucket widths (3, 6, 12, 24) so the pad/unpad path is always
+# exercised. Clipped to --max-bucket.
+DEFAULT_WIDTH_MIX = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+
+SERVE_CSV_HEADER = (
+    "n_rows, n_cols, n_devices, strategy, dtype, kernel, combine, "
+    "b_star, max_bucket, n_requests, total_cols, wall_s, rps, cols_per_s, "
+    "p50_dispatch_ms, p99_dispatch_ms, compiles_warmup, compiles_steady, "
+    "hits_steady, promo_b, promo_gemm_s, promo_seq_s, promo_speedup, "
+    "arrival, rate_req_s, concurrency, coalesce, mean_batch_width, "
+    "coalesce_ratio, success_rate, failed_requests, retries, downgrades, "
+    "dtype_storage, resident_bytes, speculated, escalation_rate, "
+    "spec_bandwidth_ratio"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeResult:
+    """One serve-bench measurement (one CSV row)."""
+
+    n_rows: int
+    n_cols: int
+    n_devices: int
+    strategy: str
+    dtype: str
+    kernel: str
+    combine: str
+    b_star: int | None
+    max_bucket: int
+    n_requests: int
+    total_cols: int
+    wall_s: float
+    p50_dispatch_ms: float
+    p99_dispatch_ms: float
+    compiles_warmup: int
+    compiles_steady: int
+    hits_steady: int
+    # Promotion check: one b-wide GEMM dispatch vs b sequential single-RHS
+    # dispatches, per-request wall seconds (NaN when promotion is off).
+    promo_b: int
+    promo_gemm_s: float
+    promo_seq_s: float
+    # Columns of the JAX package's other protocols, at its defaults for a
+    # sequential, fault-free, native run.
+    arrival: str = "closed"
+    rate_req_s: float = float("nan")
+    concurrency: int = 1
+    coalesce: int = 0
+    mean_batch_width: float = float("nan")
+    coalesce_ratio: float = float("nan")
+    failed_requests: int = 0
+    retries: int = 0
+    downgrades: int = 0
+    dtype_storage: str = "native"
+    resident_bytes: int = 0
+    speculated: int = 0
+    escalation_rate: float = float("nan")
+    spec_bandwidth_ratio: float = float("nan")
+
+    @property
+    def success_rate(self) -> float:
+        if self.n_requests == 0:
+            return float("nan")
+        return (self.n_requests - self.failed_requests) / self.n_requests
+
+    @property
+    def rps(self) -> float:
+        return self.n_requests / self.wall_s
+
+    @property
+    def cols_per_s(self) -> float:
+        return self.total_cols / self.wall_s
+
+    @property
+    def promo_speedup(self) -> float:
+        """How many times faster the promoted block GEMM serves its batch
+        than sequential dispatch would (>1 = promotion pays)."""
+        if not (self.promo_gemm_s > 0):
+            return float("nan")
+        return self.promo_seq_s / self.promo_gemm_s
+
+
+def serve_csv_path(strategy: str, root=None):
+    from .metrics import out_dir
+
+    return out_dir(root) / f"serve_{strategy}.csv"
+
+
+def append_serve_result(result: ServeResult, root=None):
+    from ..parallel.distributed import is_main_process
+    from .metrics import _append_row
+
+    path = serve_csv_path(result.strategy, root)
+    if not is_main_process():
+        return path
+    row = (
+        f"{result.n_rows}, {result.n_cols}, {result.n_devices}, "
+        f"{result.strategy}, {result.dtype}, {result.kernel}, "
+        f"{result.combine}, "
+        f"{result.b_star if result.b_star is not None else -1}, "
+        f"{result.max_bucket}, {result.n_requests}, {result.total_cols}, "
+        f"{result.wall_s:.6f}, {result.rps:.2f}, {result.cols_per_s:.2f}, "
+        f"{result.p50_dispatch_ms:.4f}, {result.p99_dispatch_ms:.4f}, "
+        f"{result.compiles_warmup}, {result.compiles_steady}, "
+        f"{result.hits_steady}, {result.promo_b}, "
+        f"{result.promo_gemm_s:.6f}, {result.promo_seq_s:.6f}, "
+        f"{result.promo_speedup:.3f}, {result.arrival}, "
+        f"{result.rate_req_s:.2f}, {result.concurrency}, "
+        f"{result.coalesce}, {result.mean_batch_width:.3f}, "
+        f"{result.coalesce_ratio:.3f}, {result.success_rate:.4f}, "
+        f"{result.failed_requests}, {result.retries}, {result.downgrades}, "
+        f"{result.dtype_storage}, {result.resident_bytes}, "
+        f"{result.speculated}, {result.escalation_rate:.4f}, "
+        f"{result.spec_bandwidth_ratio:.4f}"
+    )
+    _append_row(path, SERVE_CSV_HEADER, row)
+    return path
+
+
+def resident_matrix(
+    m: int, k: int, dtype: torch.dtype, device: torch.device, seed: int
+) -> torch.Tensor:
+    """A seeded uniform [0, 10) (m, k) matrix made on ``device`` in row
+    chunks (the reference's range), so that no float64 host copy of a
+    full-width A is ever held (65536² would be 34 GB)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = torch.empty((m, k), dtype=dtype, device=device)
+    rows = max(1, (1 << 28) // max(1, k))
+    for i in range(0, m, rows):
+        n = min(rows, m - i)
+        out[i:i + n] = torch.rand((n, k), generator=gen, device=device) * 10
+    return out
+
+
+def _request_pool(
+    k: int, widths: Sequence[int], dtype: torch.dtype, seed: int
+) -> dict[int, torch.Tensor]:
+    """One seeded host block per distinct width — generated once so the
+    timed loop measures dispatch, not the RNG. Drawn in float64 with numpy
+    and cast by torch, so every dtype (bf16 included) works without numpy
+    knowing it."""
+    rng = np.random.default_rng(seed)
+    return {
+        w: torch.from_numpy(rng.uniform(0, 10, (k, w))).to(dtype)
+        for w in sorted(set(widths))
+    }
+
+
+def _drain(futures) -> None:
+    """Protocol fence: materialize every outstanding result."""
+    for fut in futures:
+        fut.result()
+
+
+def measure_promotion(
+    engine: MatvecEngine, pool: dict[int, torch.Tensor], *, n_reps: int = 20
+) -> tuple[int, float, float]:
+    """One promoted block dispatch vs the same columns served one by one,
+    through the SAME warm engine and the same wall-clock protocol (submit
+    everything, drain once). Returns per-request seconds
+    ``(b, t_gemm, t_seq)``, or ``(0, nan, nan)`` when promotion is off."""
+    if engine.b_star is None:
+        return 0, float("nan"), float("nan")
+    b = max(2, min(engine.b_star, engine.max_bucket))
+    block = pool.get(b)
+    if block is None:
+        block = _request_pool(engine.k, [b], engine.dtype, seed=7)[b]
+    cols = [block[:, j].contiguous() for j in range(b)]
+
+    # Warm both paths (build + first-run costs out of the timed region).
+    _drain([engine.submit(block)])
+    _drain([engine.submit(c) for c in cols])
+
+    start = time.perf_counter()
+    _drain([engine.submit(block) for _ in range(n_reps)])
+    t_gemm = (time.perf_counter() - start) / n_reps
+
+    start = time.perf_counter()
+    futures = []
+    for _ in range(n_reps):
+        futures.extend(engine.submit(c) for c in cols)
+    _drain(futures)
+    t_seq = (time.perf_counter() - start) / n_reps
+    return b, t_gemm, t_seq
+
+
+def run_serve(
+    strategy_name: str,
+    mesh: Mesh,
+    m: int,
+    k: int,
+    *,
+    dtype: str = "float32",
+    kernel: str = "cuda",
+    combine: str | None = None,
+    n_requests: int = 200,
+    max_bucket: int = 32,
+    widths: Sequence[int] | None = None,
+    promote: str | int | None = "auto",
+    donate: bool = True,
+    seed: int = 0,
+    promo_reps: int = 20,
+    metrics_out: str | None = None,
+) -> ServeResult:
+    """Run the serve protocol for one (strategy, shape, mesh) config.
+
+    A is made on the mesh's first device (:func:`resident_matrix`) and
+    placed by the engine. ``metrics_out`` writes the run's metrics snapshot
+    (engine counters + the steady-phase dispatch-latency histogram, one
+    registry) as JSON.
+    """
+    if widths is None:
+        widths = [w for w in DEFAULT_WIDTH_MIX if w <= max_bucket]
+    registry = MetricsRegistry()
+    engine = MatvecEngine(
+        resident_matrix(m, k, torch_dtype(dtype), mesh.devices[0], seed),
+        mesh, strategy=strategy_name, kernel=kernel, combine=combine,
+        max_bucket=max_bucket, promote=promote, donate=donate,
+        metrics=registry,
+    )
+    latency_hist = registry.histogram(
+        "serve_dispatch_latency_ms",
+        "steady-phase submit() entry-to-return host time",
+        # Sized to the run: percentiles exact over the whole steady phase.
+        window=max(n_requests, 1),
+    )
+    pool = _request_pool(k, widths, engine.dtype, seed=seed + 1)
+
+    # ---- warmup: cover the program set, then fence ----
+    engine.warmup(widths)
+    _drain([engine.submit(pool[w]) for w in sorted(set(widths))])
+    warm_stats = engine.stats
+    compiles_warmup = warm_stats.compiles
+
+    # ---- steady phase: mixed-width replay, drain once ----
+    rng = np.random.default_rng(seed + 2)
+    sequence = rng.choice(list(pool), size=n_requests)
+    futures = []
+    start = time.perf_counter()
+    for w in sequence:
+        t0 = time.perf_counter()
+        futures.append(engine.submit(pool[int(w)]))
+        latency_hist.observe((time.perf_counter() - t0) * 1e3)
+    _drain(futures)
+    wall = time.perf_counter() - start
+    steady_stats = engine.stats
+
+    promo_b, promo_gemm, promo_seq = measure_promotion(
+        engine, pool, n_reps=promo_reps
+    )
+    if metrics_out is not None:
+        _ = engine.stats  # refresh the in_flight gauge before exporting
+        path = Path(metrics_out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(registry.snapshot(), indent=2) + "\n")
+    engine.close()
+    return ServeResult(
+        n_rows=m,
+        n_cols=k,
+        n_devices=mesh.size,
+        strategy=strategy_name,
+        dtype=dtype_name(engine.dtype),
+        kernel=kernel if isinstance(kernel, str) else "custom",
+        combine=combine or "default",
+        b_star=engine.b_star,
+        max_bucket=max_bucket,
+        n_requests=n_requests,
+        total_cols=int(sum(int(w) for w in sequence)),
+        wall_s=wall,
+        p50_dispatch_ms=latency_hist.percentile(50),
+        p99_dispatch_ms=latency_hist.percentile(99),
+        compiles_warmup=compiles_warmup,
+        compiles_steady=steady_stats.compiles - compiles_warmup,
+        hits_steady=steady_stats.hits - warm_stats.hits,
+        promo_b=promo_b,
+        promo_gemm_s=promo_gemm,
+        promo_seq_s=promo_seq,
+        resident_bytes=engine.resident_bytes,
+    )
+
+
+# The flags that select the JAX package's load, chaos, multi-tenant, solver
+# and reshard modes, with their defaults: any other value raises.
+_LATER_FLAGS = {
+    "solver_op": "matvec", "arrival": "closed", "concurrency": None,
+    "coalesce": None, "fault_spec": None, "poison_rate": 0.0,
+    "tenants": None, "reshard": "off",
+}
+
+
+def _check_ported(args: argparse.Namespace) -> None:
+    for flag, default in _LATER_FLAGS.items():
+        if getattr(args, flag, default) != default:
+            raise not_ported(f"--{flag.replace('_', '-')} (serve mode)")
+
+
+def run_serve_sweep(args: argparse.Namespace) -> int:
+    """The ``--op serve`` body shared by this module's CLI and
+    ``bench.sweep``: the sequential protocol for every (size, strategy,
+    device count)."""
+    from ..parallel.mesh import make_mesh
+    from .sweep import (
+        SQUARE_SIZES,
+        device_counts_available,
+        platform_devices,
+        resolve_strategies,
+    )
+
+    _check_ported(args)
+    devices = platform_devices(args.platform, args.host_devices)
+    strategies = resolve_strategies(args.strategy)
+    counts = args.devices or device_counts_available(len(devices))
+    sizes = (
+        [(s, s) for s in args.sizes] if args.sizes
+        else [(s, s) for s in SQUARE_SIZES]
+    )
+    meshes = {n: make_mesh(n, devices=devices) for n in counts}
+    promote = args.promote
+    if promote == "never":
+        promote = None
+    elif promote not in (None, "auto"):
+        promote = int(promote)
+    metrics_out = getattr(args, "metrics_out", None)
+    n_done = 0
+    for m, k in sizes:
+        for name in strategies:
+            for n_dev in counts:
+                try:
+                    result = run_serve(
+                        name, meshes[n_dev], m, k, dtype=args.dtype,
+                        kernel=args.kernel, combine=getattr(args, "combine", None),
+                        n_requests=args.n_requests,
+                        max_bucket=args.max_bucket, promote=promote,
+                        seed=args.seed, metrics_out=metrics_out,
+                    )
+                except MatvecError as e:
+                    print(f"skip {name} {m}x{k} p={n_dev}: {e}")
+                    continue
+                path = None if args.no_csv else append_serve_result(
+                    result, args.data_root
+                )
+                print(
+                    f"serve {name} {m}x{k} p={n_dev} "
+                    f"b*={result.b_star} {result.rps:.1f} req/s "
+                    f"{result.cols_per_s:.1f} cols/s "
+                    f"p50={result.p50_dispatch_ms:.3f}ms "
+                    f"p99={result.p99_dispatch_ms:.3f}ms "
+                    f"compiles={result.compiles_warmup}+"
+                    f"{result.compiles_steady} "
+                    f"promo x{result.promo_speedup:.2f} @b={result.promo_b}"
+                )
+                if path is not None:
+                    print(f"CSV: {path}")
+                n_done += 1
+    if n_done and metrics_out is not None:
+        print(f"metrics: {metrics_out}")
+    print(f"{n_done} serve configs measured")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m matvec_mpi_multiplier_torch.bench.serve",
+        description="Serve-throughput benchmark: mixed-width request "
+        "stream against a resident sharded A through the serving engine "
+        "(engine/), sequential protocol.",
+    )
+    p.add_argument(
+        "--strategy", nargs="+", default=["all"],
+        help=f"strategies to serve: {available_strategies()} or 'all'",
+    )
+    p.add_argument("--devices", nargs="+", type=int, default=None)
+    p.add_argument("--sizes", nargs="+", type=int, default=None)
+    p.add_argument("--dtype", default="float32")
+    p.add_argument("--kernel", default="cuda")
+    p.add_argument(
+        "--combine", default=None,
+        help="the strategy's own combine schedule (others are not ported)",
+    )
+    p.add_argument("--n-requests", type=int, default=200,
+                   help="steady-phase request count")
+    p.add_argument("--max-bucket", type=int, default=32,
+                   help="widest batch bucket (power-of-two ladder below it)")
+    p.add_argument(
+        "--promote", default="auto",
+        help="GEMV->GEMM crossover b*: 'auto' (the static default until "
+        "the tuning slice), an int, or 'never'",
+    )
+    p.add_argument("--metrics-out", default=None, metavar="FILE",
+                   help="write the metrics snapshot after each config")
+    # The JAX package's other modes, kept as flags so that asking for one
+    # says it is not ported rather than that the flag is unknown.
+    p.add_argument("--op", dest="solver_op", default="matvec")
+    for flag in ("--arrival", "--coalesce", "--fault-spec", "--reshard"):
+        p.add_argument(flag, default=_LATER_FLAGS[flag[2:].replace("-", "_")])
+    p.add_argument("--concurrency", nargs="+", type=int, default=None)
+    p.add_argument("--poison-rate", type=float, default=0.0)
+    p.add_argument("--tenants", type=int, default=None)
+    p.add_argument("--data-root", default=None)
+    p.add_argument("--no-csv", action="store_true")
+    p.add_argument(
+        "--platform", choices=["cuda", "cpu"], default="cuda",
+        help="devices to mesh over: the CUDA devices (default) or CPU shards",
+    )
+    p.add_argument("--host-devices", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    return run_serve_sweep(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

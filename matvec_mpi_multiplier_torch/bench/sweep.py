@@ -1,5 +1,5 @@
-"""Benchmark sweep driver CLI (the matvec sweep of the JAX package's
-``bench/sweep.py``).
+"""Benchmark sweep CLI (the port's counterpart of the JAX package's
+``bench/sweep.py``: ``--op matvec``, ``gemm`` and ``serve``).
 
 Reference analog: ``test.sh`` — for each strategy it runs
 ``n_proc ∈ {1,2,6,12,24}`` × ``n ∈ {600,1800,...,10200}`` square sizes
@@ -12,12 +12,18 @@ Usage::
         --sizes 32768 --dtype bfloat16
     python -m matvec_mpi_multiplier_torch.bench.sweep --platform cpu \\
         --host-devices 4 --sizes 64 --n-reps 3
+    python -m matvec_mpi_multiplier_torch.bench.sweep --op gemm \\
+        --strategy blockwise --sizes 4096 --n-rhs 4096 --dtype bfloat16
+    python -m matvec_mpi_multiplier_torch.bench.sweep --op serve \\
+        --strategy blockwise --sizes 65536 --dtype bfloat16 --promote 4
 
 ``--platform cuda`` (the default) runs on the CUDA devices and fails when
 there are none; ``--platform cpu --host-devices p`` runs on p logical CPU
 shards. Operands are generated in memory from ``--seed`` (the numpy
 generator of ``utils/io.py``, so both packages time the same data);
-``--use-files`` goes through ``./data/matrix_*.txt``.
+``--use-files`` goes through ``./data/matrix_*.txt`` (matvec only). ``--op
+gemm`` times ``C = A @ B`` (rows in ``gemm_<strategy>.csv``); ``--op serve``
+delegates to ``bench/serve.py``.
 """
 
 from __future__ import annotations
@@ -28,12 +34,18 @@ import sys
 import torch
 
 from ..models import available_strategies, get_strategy
-from ..ops import available_kernels
+from ..models.gemm import available_gemm_strategies, validate_gemm
+from ..ops import available_gemm_kernels, available_kernels
 from ..parallel.mesh import make_mesh
 from ..utils import io
 from ..utils.errors import ConfigError, MatvecError
 from .metrics import append_result, csv_path
-from .timing import MEASURE_METHODS, TIMING_MODES, benchmark_strategy
+from .timing import (
+    MEASURE_METHODS,
+    TIMING_MODES,
+    benchmark_gemm,
+    benchmark_strategy,
+)
 
 # The reference's sweeps (test.sh:5,8 and the asymmetric CSVs' sizes).
 SQUARE_SIZES = list(range(600, 10201, 1200))
@@ -75,7 +87,27 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--strategy", nargs="+", default=["all"],
-        help=f"strategies to run: {available_strategies()} or 'all'",
+        help=f"strategies to run: {available_strategies()} or 'all' "
+        f"(with --op gemm: {available_gemm_strategies()})",
+    )
+    p.add_argument(
+        "--op", choices=["matvec", "gemm", "serve"], default="matvec",
+        help="operation to sweep: matvec (y = A·x), gemm (C = A @ B; rows in "
+        "gemm_<strategy>.csv) or serve (a mixed-width request stream through "
+        "the serving engine; rows in serve_<strategy>.csv — bench/serve.py)",
+    )
+    p.add_argument("--n-requests", type=int, default=200,
+                   help="with --op serve: steady-phase request count")
+    p.add_argument("--max-bucket", type=int, default=32,
+                   help="with --op serve: widest batch bucket")
+    p.add_argument(
+        "--promote", default="auto",
+        help="with --op serve: GEMV->GEMM crossover b* — 'auto' (the static "
+        "default), an int, or 'never'",
+    )
+    p.add_argument(
+        "--n-rhs", type=int, default=None,
+        help="with --op gemm: columns of B (default: square, n_rhs = n_cols)",
     )
     p.add_argument(
         "--devices", nargs="+", type=int, default=None,
@@ -102,7 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--kernel", default="cuda",
-        help=f"local GEMV kernel: {available_kernels()}",
+        help=f"local kernel: {available_kernels()} (with --op gemm: "
+        f"{available_gemm_kernels()})",
     )
     p.add_argument(
         "--measure", choices=list(MEASURE_METHODS), default="auto",
@@ -136,8 +169,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def resolve_strategies(names: list[str]) -> list[str]:
-    available = available_strategies()
+def resolve_strategies(names: list[str], op: str = "matvec") -> list[str]:
+    available = available_gemm_strategies() if op == "gemm" else available_strategies()
     if "all" in names:
         return available
     for n in names:
@@ -156,9 +189,23 @@ def operands(n_rows: int, n_cols: int, args):
 
 
 def run_sweep(args: argparse.Namespace) -> int:
-    if args.kernel not in available_kernels():
+    if args.op == "serve":
+        # The serve protocol has its own loop (warmup/steady phases,
+        # futures, promotion check) — bench/serve.py.
+        from .serve import run_serve_sweep
+
+        return run_serve_sweep(args)
+    gemm = args.op == "gemm"
+    if gemm and args.use_files:
         raise SystemExit(
-            f"unknown kernel {args.kernel!r}; available: {available_kernels()}"
+            "--use-files is matvec-only (the reference's vector-file "
+            "convention has no rank-2 right-hand side); gemm operands are "
+            "generated in memory"
+        )
+    kernels = available_gemm_kernels() if gemm else available_kernels()
+    if args.kernel not in kernels:
+        raise SystemExit(
+            f"unknown {args.op} kernel {args.kernel!r}; available: {kernels}"
         )
     if args.measure in ("chain", "loop") and args.mode in ("reference", "both"):
         raise SystemExit(
@@ -166,7 +213,7 @@ def run_sweep(args: argparse.Namespace) -> int:
             "--measure sync or auto"
         )
     devices = platform_devices(args.platform, args.host_devices)
-    strategies = resolve_strategies(args.strategy)
+    strategies = resolve_strategies(args.strategy, args.op)
     counts = args.devices or device_counts_available(len(devices))
     if args.sizes:
         sizes = [(s, s) for s in args.sizes]
@@ -182,18 +229,24 @@ def run_sweep(args: argparse.Namespace) -> int:
     n_ok = n_skip = 0
     # Sizes outermost: each operand pair is generated once and shared.
     for n_rows, n_cols in sizes:
+        n_rhs = (args.n_rhs or n_cols) if gemm else 1
         a = x = None
         for name in strategies:
-            strat = get_strategy(name)
             for n_dev in counts:
                 mesh = meshes[n_dev]
                 try:
-                    strat.validate(n_rows, n_cols, mesh)
+                    if gemm:
+                        validate_gemm(name, n_rows, n_cols, n_rhs, mesh)
+                    else:
+                        get_strategy(name).validate(n_rows, n_cols, mesh)
                 except MatvecError as e:
                     print(f"skip {name} {n_rows}x{n_cols} p={n_dev}: {e}")
                     n_skip += 1
                     continue
-                if a is None:
+                if a is None and gemm:
+                    a = io.generate_matrix(n_rows, n_cols, seed=args.seed)
+                    x = io.generate_matrix(n_cols, n_rhs, seed=args.seed + 1)
+                elif a is None:
                     a, x = operands(n_rows, n_cols, args)
                 for mode in modes:
                     kwargs = dict(
@@ -202,7 +255,12 @@ def run_sweep(args: argparse.Namespace) -> int:
                     )
                     if args.chain_samples is not None:
                         kwargs["chain_samples"] = args.chain_samples
-                    result = benchmark_strategy(strat, mesh, a, x, **kwargs)
+                    if gemm:
+                        result = benchmark_gemm(name, mesh, a, x, **kwargs)
+                    else:
+                        result = benchmark_strategy(
+                            get_strategy(name), mesh, a, x, **kwargs
+                        )
                     if not args.no_csv:
                         append_result(result, args.data_root)
                     print(
@@ -213,8 +271,9 @@ def run_sweep(args: argparse.Namespace) -> int:
                     n_ok += 1
     if not args.no_csv:
         for name in strategies:
+            label = f"gemm_{name}" if gemm else name
             for mode in modes:
-                print(f"CSV: {csv_path(name, args.data_root, mode=mode)}")
+                print(f"CSV: {csv_path(label, args.data_root, mode=mode)}")
     print(f"{n_ok} configs timed, {n_skip} skipped")
     return 0
 

@@ -27,7 +27,7 @@ for reference):
   the slope ``(T(N2) - T(N1)) / (N2 - N1)``, the median of the samples.
 * ``sync`` — the literal per-rep protocol, reported as the mean.
 * ``loop`` — a device-side rep loop; on CUDA that is a captured graph, which
-  comes with the serving-engine slice. Asking for it raises ``ConfigError``.
+  comes with the CUDA-graph slice. Asking for it raises ``ConfigError``.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import Mesh, shard
 from ..utils.constants import DEFAULT_N_REPS, DTYPE_ITEMSIZE
 from ..utils.convert import dtype_name, from_numpy, torch_dtype
 from ..utils.errors import ConfigError, TimingError
@@ -166,8 +166,8 @@ def resolve_measure(mode: str, measure: str) -> str:
     if measure == "loop":
         raise ConfigError(
             "measure='loop' needs a device-side rep loop, which on CUDA is a "
-            "captured CUDA graph; it comes with the serving-engine slice of "
-            "the port (ROADMAP.md). Use measure='chain' or 'sync'"
+            "captured CUDA graph; it comes with the CUDA-graph slice of the "
+            "port (ROADMAP.md, queue A 3b). Use measure='chain' or 'sync'"
         )
     if measure == "auto":
         measure = "chain" if mode == "amortized" else "sync"
@@ -266,21 +266,70 @@ def benchmark_strategy(
     a, x = _prepare_operands(a, x, dtype)
     strategy.validate(a.shape[0], a.shape[1], mesh)
     fn = strategy.build(mesh, kernel=kernel, gather_output=gather_output)
-    times = time_matvec(
+    return _run_benchmark(
         fn, a, x, place=lambda a_, x_: strategy.place(a_, x_, mesh),
-        mesh=mesh, n_reps=n_reps, mode=mode, measure=measure,
-        chain_samples=chain_samples,
+        mesh=mesh, strategy_name=strategy.name, n_rhs=1, n_reps=n_reps,
+        mode=mode, measure=measure, chain_samples=chain_samples,
+    )
+
+
+def _run_benchmark(
+    fn: Callable, a: torch.Tensor, rhs: torch.Tensor, *, place: Callable,
+    mesh: Mesh, strategy_name: str, n_rhs: int, n_reps: int, mode: str,
+    measure: str, chain_samples: int,
+) -> TimingResult:
+    """The protocol around one built function, reduced to one result."""
+    times = time_matvec(
+        fn, a, rhs, place=place, mesh=mesh, n_reps=n_reps, mode=mode,
+        measure=measure, chain_samples=chain_samples,
     )
     reported = np.median(times) if measure == "chain" else np.mean(times)
     return TimingResult(
         n_rows=a.shape[0],
         n_cols=a.shape[1],
         n_devices=mesh.size,
-        strategy=strategy.name,
+        strategy=strategy_name,
         dtype=dtype_name(a.dtype),
         mode=mode,
         measure=measure,
         mean_time_s=float(reported),
         times_s=tuple(times),
         n_reps=n_reps,
+        n_rhs=n_rhs,
+    )
+
+
+def benchmark_gemm(
+    name: str,
+    mesh: Mesh,
+    a,
+    b,
+    *,
+    dtype: str | None = None,
+    n_reps: int = DEFAULT_N_REPS,
+    mode: str = "amortized",
+    measure: str = "auto",
+    kernel: str | Callable = "cuda",
+    gather_output: bool = True,
+    chain_samples: int = DEFAULT_CHAIN_SAMPLES,
+) -> TimingResult:
+    """Benchmark one GEMM (strategy, mesh, size) configuration.
+
+    Same protocol as :func:`benchmark_strategy` with a rank-2 right-hand
+    side; the result's strategy is recorded as ``gemm_<name>`` so GEMM rows
+    land in their own per-strategy CSVs, and ``n_rhs`` is ``b``'s columns.
+    """
+    from ..models.gemm import build_gemm, gemm_shardings, validate_gemm
+
+    measure = resolve_measure(mode, measure)
+    a, b = _prepare_operands(a, b, dtype)
+    validate_gemm(name, a.shape[0], a.shape[1], b.shape[1], mesh)
+    fn = build_gemm(name, mesh, kernel=kernel, gather_output=gather_output)
+    spec_a, spec_b = gemm_shardings(name, mesh)
+    return _run_benchmark(
+        fn, a, b,
+        place=lambda a_, b_: (shard(a_, spec_a, mesh), shard(b_, spec_b, mesh)),
+        mesh=mesh, strategy_name=f"gemm_{name}", n_rhs=b.shape[1],
+        n_reps=n_reps, mode=mode, measure=measure,
+        chain_samples=chain_samples,
     )

@@ -15,7 +15,10 @@ object that knows
 
 :meth:`build` returns ``matvec(a, x) -> y`` closed over the mesh. It takes
 placed operands, or plain tensors, which it places itself, and runs
-:meth:`validate` on every call.
+:meth:`validate` on every call. :meth:`build_batched` is the same program
+for a block ``B`` of right-hand sides (one column per request) with a GEMM
+kernel: the specs gain an unsharded trailing batch axis
+(:meth:`batched_specs`) and the shard bodies are rank-agnostic.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..ops import get_kernel
+from ..ops import gemm_kernel_name_for, get_gemm_kernel, get_kernel
 from ..parallel.mesh import Mesh, ShardedTensor, shard, unshard
 from ..utils.errors import ConfigError, ShardingError
 
@@ -75,6 +78,36 @@ class MatvecStrategy(abc.ABC):
         spec_a, spec_x, _ = self.specs(mesh)
         return shard(a, spec_a, mesh), shard(x, spec_x, mesh)
 
+    # ---- batched (multi-RHS) machinery ----
+
+    def batched_specs(self, mesh: Mesh) -> tuple[tuple, tuple, tuple]:
+        """Specs for (A, B, C) of the batched ``C = A @ B``: A keeps its
+        matvec placement, B and C gain an unsharded trailing batch axis
+        (each column of B is one right-hand side, cut exactly as x)."""
+        spec_a, spec_x, spec_y = self.specs(mesh)
+        return spec_a, _append_batch_axis(spec_x), _append_batch_axis(spec_y)
+
+    def place_batched(
+        self, a: torch.Tensor, b: torch.Tensor, mesh: Mesh
+    ) -> tuple[ShardedTensor, ShardedTensor]:
+        """Cut A and a (k, n_rhs) block B for :meth:`build_batched`."""
+        if a.dim() != 2 or b.dim() != 2 or b.shape[0] != a.shape[1]:
+            raise ValueError(
+                f"batched matvec needs a (m, k) matrix and a (k, n) block, "
+                f"got {tuple(a.shape)} and {tuple(b.shape)}"
+            )
+        self.validate(a.shape[0], a.shape[1], mesh)
+        spec_a, spec_b, _ = self.batched_specs(mesh)
+        return shard(a, spec_a, mesh), shard(b, spec_b, mesh)
+
+    def _check_build_args(self, combine, stages, dtype_storage) -> None:
+        if combine not in (None, self.combine):
+            raise not_ported(f"combine={combine!r} for {self.name}")
+        if stages is not None:
+            raise not_ported("stages (the staged overlap schedules)")
+        if dtype_storage not in (None, "native"):
+            raise not_ported(f"dtype_storage={dtype_storage!r}")
+
     def build(
         self,
         mesh: Mesh,
@@ -97,28 +130,56 @@ class MatvecStrategy(abc.ABC):
         the ring/overlap/auto schedules, ``stages`` and ``dtype_storage``
         wait for later slices and raise ``ConfigError``.
         """
-        if combine not in (None, self.combine):
-            raise not_ported(f"combine={combine!r} for {self.name}")
-        if stages is not None:
-            raise not_ported("stages (the staged overlap schedules)")
-        if dtype_storage not in (None, "native"):
-            raise not_ported(f"dtype_storage={dtype_storage!r}")
+        self._check_build_args(combine, stages, dtype_storage)
         if gather_output == "ring":
             raise not_ported("gather_output='ring'")
         if not isinstance(gather_output, bool):
             raise ValueError(
                 f"gather_output must be True or False; got {gather_output!r}"
             )
-        return self._build_plain(mesh, kernel=kernel, gather_output=gather_output)
+        return self._build_plain(
+            mesh, get_kernel(kernel), gather_output, batched=False
+        )
+
+    def build_batched(
+        self,
+        mesh: Mesh,
+        *,
+        kernel: str | Callable = "cuda",
+        gather_output: bool = True,
+        combine: str | None = None,
+        stages: int | str | None = None,
+        dtype_storage: str | None = None,
+    ) -> Callable:
+        """Return ``matmul(a, b) -> c`` for a BLOCK of right-hand sides:
+        ``b`` is ``(k, n_rhs)``, one column per request, and the whole block
+        rides this strategy's program as one GEMM per shard (the promotion
+        of n_rhs GEMVs). ``kernel`` names a GEMM tier
+        (``ops/gemm_kernels.py``); a GEMV tier name maps to its rank-2 face
+        (``gemm_kernel_name_for``). The other arguments follow
+        :meth:`build`; ``gather_output`` takes bools only.
+        """
+        self._check_build_args(combine, stages, dtype_storage)
+        if not isinstance(gather_output, bool):
+            raise ValueError(
+                "batched gather_output must be True or False (the explicit "
+                f"ring gather is matvec-only); got {gather_output!r}"
+            )
+        if isinstance(kernel, str):
+            kernel = gemm_kernel_name_for(kernel)
+        return self._build_plain(
+            mesh, get_gemm_kernel(kernel), gather_output, batched=True
+        )
 
     def _build_plain(
-        self, mesh: Mesh, *, kernel: str | Callable, gather_output: bool
+        self, mesh: Mesh, kern: Callable, gather_output: bool, *, batched: bool
     ) -> Callable:
-        kern = get_kernel(kernel)
-        spec_a, spec_x, spec_y = self.specs(mesh)
+        specs = self.batched_specs if batched else self.specs
+        place = self.place_batched if batched else self.place
+        spec_a, spec_x, spec_y = specs(mesh)
         body = self.local_body(mesh, kern)
 
-        def matvec(a, x):
+        def run(a, x):
             placed = isinstance(a, ShardedTensor)
             if placed != isinstance(x, ShardedTensor):
                 raise ShardingError(
@@ -126,16 +187,21 @@ class MatvecStrategy(abc.ABC):
                 )
             self.validate(a.shape[0], a.shape[1], mesh)
             if not placed:
-                a, x = self.place(a, x, mesh)
+                a, x = place(a, x, mesh)
             elif (a.mesh, a.spec, x.spec) != (mesh, spec_a, spec_x):
                 raise ShardingError(
                     f"operands were placed for another strategy or mesh "
                     f"(specs {a.spec}, {x.spec}; {self.name} needs "
                     f"{spec_a}, {spec_x})"
                 )
-            y = ShardedTensor(
-                tuple(body(a.shards, x.shards)), (a.shape[0],), spec_y, mesh
-            )
+            shape = (a.shape[0], *x.shape[1:])
+            y = ShardedTensor(tuple(body(a.shards, x.shards)), shape, spec_y, mesh)
             return unshard(y) if gather_output else y
 
-        return matvec
+        return run
+
+
+def _append_batch_axis(spec: tuple) -> tuple:
+    """Extend a rank-1 spec with an unsharded trailing batch axis. ``()``
+    (fully replicated) already covers any rank and stays as it is."""
+    return spec + (None,) if spec else spec

@@ -1,12 +1,12 @@
 """Build and load the CUDA kernels: ``nvcc`` into a shared library, ctypes.
 
 The kernels have a plain C interface (``csrc/*.cu``), so no PyTorch headers
-are compiled: ``nvcc`` builds the library in seconds, at first use, into
-the package's own ``build/`` directory (``matvec_mpi_multiplier_torch/build``,
-so an installed copy never shares it with another environment), and
-rebuilds it when the source or the flags change (a hash stamp beside the
-library). Nothing here falls back: a missing ``nvcc`` or a failed build
-raises.
+are compiled: one ``nvcc`` call builds every source into one library in
+seconds, at first use, into the package's own ``build/`` directory
+(``matvec_mpi_multiplier_torch/build``, so an installed copy never shares it
+with another environment), and rebuilds it when a source or the flags
+change (a hash stamp beside the library). Nothing here falls back: a
+missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -20,9 +20,9 @@ import subprocess
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE_DIR / "csrc" / "gemv.cu"
+SOURCES = tuple(sorted((PACKAGE_DIR / "csrc").glob("*.cu")))
 BUILD_DIR = PACKAGE_DIR / "build"
-LIB_NAME = "libmatvec_torch_gemv.so"
+LIB_NAME = "libmatvec_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -41,10 +41,10 @@ def find_nvcc() -> str:
     if candidate.is_file():
         return str(candidate)
     raise RuntimeError(
-        f"nvcc not found on PATH or at {candidate}: the CUDA GEMV kernel "
-        f"({SOURCE.name}) cannot be built, and the cuda tier has no fallback. "
-        "Install the CUDA toolkit or set CUDA_HOME; CPU tensors use the "
-        "plain version and need no build."
+        f"nvcc not found on PATH or at {candidate}: the CUDA kernels "
+        f"({', '.join(s.name for s in SOURCES)}) cannot be built, and the "
+        "cuda tier has no fallback. Install the CUDA toolkit or set "
+        "CUDA_HOME; CPU tensors use the plain version and need no build."
     )
 
 
@@ -57,26 +57,30 @@ def _stamp_path() -> Path:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for source in SOURCES:
+        h.update(source.name.encode())
+        h.update(source.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 
 
 def build_library() -> str:
-    """Compile ``csrc/gemv.cu``; return the compiler's log."""
+    """Compile every ``csrc/*.cu`` into one library; return the compiler's
+    log."""
     nvcc = find_nvcc()
     out = library_path()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
         capture_output=True, text=True, check=False,
     )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed to build {SOURCE} (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
+            f"nvcc failed to build {[s.name for s in SOURCES]} "
+            f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     _stamp_path().write_text(_digest())
@@ -98,6 +102,11 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.matvec_gemv.restype = ctypes.c_int
+    lib.matvec_gemm.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.matvec_gemm.restype = ctypes.c_int
     lib.matvec_error_string.argtypes = [ctypes.c_int]
     lib.matvec_error_string.restype = ctypes.c_char_p
     return lib

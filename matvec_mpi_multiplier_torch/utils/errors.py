@@ -39,6 +39,16 @@ class ConfigError(MatvecError):
     """Invalid benchmark / sweep configuration."""
 
 
+class DeadlineExceededError(MatvecError):
+    """A serving request's ``deadline_ms`` elapsed before dispatch.
+
+    Raised by ``MatvecFuture.result()`` when the engine's backpressure gate
+    (``engine/core.py``) held the request past its deadline: dispatching
+    stale work would burn device time on an answer nobody is waiting for,
+    so the future fails instead. The dispatch never happened — the request
+    can be retried."""
+
+
 class TimingError(MatvecError):
     """A timing measurement failed to produce a usable number.
 

@@ -134,21 +134,33 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_missing_nvcc_raises_and_nothing_falls_back(monkeypatch, tmp_path):
-    """Without nvcc the build raises a clear error, and a non-CPU tensor
-    never falls back to the plain version or a library call."""
+    """Without nvcc the build raises a clear error naming both sources, and
+    a non-CPU tensor never falls back to the plain version or a library
+    call — for the GEMV and for the GEMM."""
+    from matvec_mpi_multiplier_torch.ops import cuda_gemm
+
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     _build.load_library.cache_clear()
-    with pytest.raises(RuntimeError, match="nvcc not found"):
+    assert [s.name for s in _build.SOURCES] == ["gemm.cu", "gemv.cu"]
+    with pytest.raises(RuntimeError, match="nvcc not found.*gemm.cu, gemv.cu"):
         _build.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_library()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library()
-    before = gemv_cuda.launches
+    calls = []
+    for plain in ("gemv_plain", "gemm_plain"):
+        module = cuda_gemv if plain == "gemv_plain" else cuda_gemm
+        monkeypatch.setattr(module, plain, lambda *args: calls.append(args))
+    monkeypatch.setattr(torch, "matmul", lambda *args: calls.append(args))
+    before = (gemv_cuda.launches, cuda_gemm.gemm_cuda.launches)
     a = torch.ones(4, 8, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         gemv_cuda(a, torch.ones(8, device="meta"))
-    assert gemv_cuda.launches == before
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_gemm.gemm_cuda(a, torch.ones(8, 3, device="meta"))
+    assert (gemv_cuda.launches, cuda_gemm.gemm_cuda.launches) == before
+    assert calls == []
     assert not (tmp_path / "build").exists()
