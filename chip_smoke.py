@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the hand-written CUDA kernels (``csrc/gemv.cu``, ``csrc/gemm.cu``)
-from the checkout's sources, holds each against its plain PyTorch version,
-and drives the port's paths at full size, each with the kernels' launch
-counts set to 0 just before it and read just after:
+Builds the hand-written CUDA kernels (``csrc/gemv.cu``, ``csrc/gemm.cu``,
+``csrc/quant_gemv.cu``; one ``nvcc`` each, in parallel) from the
+checkout's sources, holds each against its plain PyTorch version, and
+drives the port's paths at full size, each with the kernels' launch counts
+set to 0 just before it and read just after:
 
 * the three strategies through ``build(..., kernel="cuda")`` and the
   reference timing protocol (the GEMV);
@@ -14,7 +15,12 @@ counts set to 0 just before it and read just after:
   request stream at 65536² bf16 on one card and at 32768² fp32 on a 2x2
   logical mesh, narrow blocks through the GEMV and promoted blocks through
   the GEMM;
-* the GEMM through the sweep's entry point, ``benchmark_gemm``.
+* the GEMM through the sweep's entry point, ``benchmark_gemm``;
+* quantized storage (int8, int8c, fp8): the quantizer on the card against
+  the CPU, ``benchmark_strategy(..., dtype_storage=...)`` at 65536² fp32
+  and colwise 32768² on 4 logical shards, and ``run_serve`` from an int8c
+  resident at 65536² fp32 and an int8 one on a 2x2 mesh, every matvec and
+  promoted block through the block-scaled GEMV.
 
 It checks the answers and times each kernel beside its bound, its plain
 version and the library call. Every phase prints one JSON line; any failed
@@ -102,6 +108,32 @@ GEMM_TIME_SHAPES = [(65536, 65536, 4, "bfloat16"), (65536, 65536, 8, "bfloat16")
                     (4096, 4096, 4096, "float32")]
 GEMM_HEAD = 3
 
+# Quantized storage. (m, k, block): the 4x8 fixture's shape, JAX's block-48
+# test shape, a ragged shape, a square one and the asymmetric regime, whose
+# default block at k = 60000 is 32.
+QUANT_CHECK_SHAPES = [(4, 8, 4), (6, 96, 48), (1000, 3008, 64), (4096, 4096, 128),
+                      (120, 60000, 32)]
+QUANT_FORMATS = ("int8", "int8c", "fp8")
+QUANT_WIDTHS = (None, 4, 32)  # x as (k,), (k, 4), (k, 32)
+# (strategy, n, format, logical shards on cuda:0); native rows are the
+# comparison at the same A.
+QUANT_MAIN_CONFIGS = [
+    ("blockwise", 65536, "native", 1), ("blockwise", 65536, "int8", 1),
+    ("blockwise", 65536, "int8c", 1), ("blockwise", 65536, "fp8", 1),
+    ("colwise", 32768, "int8c", 4),
+]
+# (label, strategy, n, dtype, format, logical shards on cuda:0, requests)
+QUANT_SERVE_CONFIGS = [
+    ("65536_fp32_int8c", "blockwise", 65536, "float32", "int8c", 1, 200),
+    ("2x2_32768_fp32_int8", "blockwise", 32768, "float32", "int8", 4, 40),
+]
+# (n, format, width): the shapes the quantized path hands the kernel; the
+# last row is the 2x2 mesh's 16384² int8 shard. QUANT_HEAD is the kernels
+# line's head: the int8c vector at full width, the serve cell's GEMV.
+QUANT_TIME_SHAPES = [(65536, f, w) for f in QUANT_FORMATS for w in (1, 4, 32)] + [
+    (16384, "int8", 1)]
+QUANT_HEAD = 3
+
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -139,9 +171,22 @@ def main() -> int:
     )
     from matvec_mpi_multiplier_torch.engine import MatvecEngine, bucket_for
     from matvec_mpi_multiplier_torch.models.gemm import build_gemm
+    from matvec_mpi_multiplier_torch.parallel.mesh import ShardedTensor, unshard
     from matvec_mpi_multiplier_torch.ops import _build
     from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda, gemm_plain
     from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda, gemv_plain
+    from matvec_mpi_multiplier_torch.ops.cuda_quant import (
+        quant_gemv_cuda,
+        quant_gemv_plain,
+    )
+    from matvec_mpi_multiplier_torch.ops.quantize import (
+        CHUNK_BYTES,
+        FP32_LEVEL_RELERR,
+        INT8_EPS,
+        INT8C_EPS,
+        QuantizedMatrix,
+        quantize_matrix,
+    )
     from matvec_mpi_multiplier_torch.utils.constants import (
         H100_HBM_PEAK_GBPS,
         H100_L2_BYTES,
@@ -524,9 +569,305 @@ def main() -> int:
     held.clear()
     torch.cuda.empty_cache()
 
-    # ---- 11. the kernels line ----
+    # ---- quantized storage: helpers ----
+    def payload_abs(qa):
+        """|payload| leaf by leaf (e4m3's sign bit cleared), so that
+        quant_gemv_plain(payload_abs(qa), |x|) bounds |deq(A)|·|x|."""
+        def clear_sign(leaf):
+            if leaf.dtype == torch.int8:
+                return leaf.abs()
+            if leaf.dtype == torch.float32:  # the scales, >= 0
+                return leaf
+            return (leaf.view(torch.uint8) & 0x7F).view(leaf.dtype)
+        return qa.map(clear_sign)
+
+    def quant_bound(qa, n: int, nbytes: int):
+        """The larger of the payload's bytes over the HBM rate and the
+        flops (2·m·k·n of the contraction plus the dequantization's
+        multiply, and add for int8c) over the FFMA peak."""
+        m, k = qa.shape
+        levels = 2 if qa.fmt == "int8c" else 1
+        bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+        ops_ms = (2 * m * k * n + (2 * levels - 1) * m * k) / FP32_PEAK_FLOPS * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+    def engine_payload(engine) -> QuantizedMatrix:
+        """The engine's resident payload, its shards gathered leaf by leaf."""
+        st = engine._a
+        first = st.shards[0]
+
+        def gather(attr):
+            if getattr(first, attr) is None:
+                return None
+            parts = tuple(getattr(s, attr) for s in st.shards)
+            return unshard(ShardedTensor(parts, (engine.m, -1), st.spec, st.mesh))
+
+        return QuantizedMatrix(*(gather(f) for f in ("q", "scales", "q2", "scales2")),
+                               fmt=first.fmt, block=first.block, out_dtype=first.dtype)
+
+    def check_quant_serve_replay(strategy, mesh, n, dtype, fmt, n_requests) -> dict:
+        """run_serve's steady stream replayed through a fresh quantized
+        engine (A dropped once quantized): every result finite and of the
+        right shape, and one request of each width within 1e-4 of
+        |deq(A)|·|x| of quant_gemv_plain on the engine's own payload."""
+        engine = MatvecEngine(resident_matrix(n, n, dtype, dev, args.seed), mesh,
+                              strategy=strategy, kernel="cuda", dtype_storage=fmt,
+                              max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE)
+        payload = engine_payload(engine)
+        widths = [w for w in DEFAULT_WIDTH_MIX if w <= SERVE_MAX_BUCKET]
+        pool = _request_pool(n, widths, dtype, seed=args.seed + 1)
+        sequence = np.random.default_rng(args.seed + 2).choice(list(pool), size=n_requests)
+        worst = {}
+        for w in map(int, sequence):
+            y = engine.submit(pool[w]).result()
+            check(tuple(y.shape) == (n, w) and bool(torch.isfinite(y).all()),
+                  f"quant serve replay: a width-{w} result is not {n}x{w} finite values")
+            if w not in worst:
+                xw = pool[w].to(dev)
+                ref = quant_gemv_plain(payload, xw).cpu()
+                scale = quant_gemv_plain(payload_abs(payload), xw.abs()).cpu()
+                worst[w] = ((y.double() - ref.double()).abs() / scale.double()).max().item()
+                check(worst[w] <= 1e-4, f"quant serve replay width {w}: {worst[w]} of "
+                      "|deq(A)|·|x| > 1e-4")
+        del engine, payload
+        return {"requests": len(sequence), "all_finite": True, "tol_of_scale": 1e-4,
+                "max_err_over_scale_by_width": {str(w): worst[w] for w in sorted(worst)}}
+
+    # ---- 11. quant_gemv against its plain version ----
+    for m, k, block in QUANT_CHECK_SHAPES:
+        for name in ("bfloat16", "float16", "float32", "float64"):
+            dtype = torch_dtype(name)
+            a = (uniform((m, k), torch.float32) - 5).to(dtype)  # both signs
+            tol = 1e-12 if dtype == torch.float64 else (1e-5 if k <= 4096 else 1e-4)
+            for fmt in QUANT_FORMATS:
+                qa = quantize_matrix(a, fmt, block=block)
+                worst, max_abs, pads_equal_unpadded = 0.0, 0.0, True
+                for w in QUANT_WIDTHS:
+                    x = uniform((k,) if w is None else (k, w), dtype)
+                    y1, y2 = quant_gemv_cuda(qa, x), quant_gemv_cuda(qa, x)
+                    ref = quant_gemv_plain(qa, x)
+                    scale = quant_gemv_plain(payload_abs(qa), x)
+                    torch.cuda.synchronize(dev)
+                    err = (y1 - ref).abs()
+                    check(bool((err <= tol * scale).all()),
+                          f"quant_gemv {m}x{k}/{block} {fmt} {name} n={w}: error over "
+                          f"{tol} of |deq(A)|·|x|")
+                    check(torch.equal(y1, y2),
+                          f"quant_gemv {m}x{k} {fmt} {name} n={w}: two runs differ")
+                    worst = max(worst, (err / scale.clamp_min(1e-300)).max().item())
+                    max_abs = max(max_abs, err.max().item())
+                    if w is None:
+                        continue
+                    # The real columns, whether the pad columns hold zeros or
+                    # random values (the engine pads to its buckets).
+                    width = bucket_for(w) if bucket_for(w) > w else w + 3
+                    real = []
+                    for pad in ("zeros", "random"):
+                        block_x = (torch.zeros((k, width), dtype=dtype, device=dev)
+                                   if pad == "zeros" else uniform((k, width), dtype))
+                        block_x[:, :w] = x
+                        real.append(quant_gemv_cuda(qa, block_x)[:, :w])
+                    check(torch.equal(real[0], real[1]),
+                          f"quant_gemv {m}x{k} {fmt} {name} n={w}: pad columns changed "
+                          "a real one")
+                    pads_equal_unpadded &= torch.equal(real[0], y1)
+                emit({"phase": "quant_vs_plain", "kernel": "quant_gemv", "shape": [m, k],
+                      "block": block, "format": fmt, "dtype": name,
+                      "widths": [1 if w is None else w for w in QUANT_WIDTHS],
+                      "max_abs_err": max_abs, "max_err_over_scale": worst, "tol": tol,
+                      "bitwise_repeatable": True, "pad_independent": True,
+                      "padded_equals_unpadded": pads_equal_unpadded})
+                del qa
+            del a
+    torch.cuda.empty_cache()
+
+    # ---- 12. the quantizer on the card against the CPU ----
+    for name in ("float32", "bfloat16"):
+        dtype = torch_dtype(name)
+        spread = torch.empty((1000, 1), device=dev).uniform_(-8, 8, generator=gen).exp()
+        a = (torch.randn((1000, 3008), generator=gen, device=dev) * spread).to(dtype)
+        for fmt in QUANT_FORMATS:
+            on_card, on_host = quantize_matrix(a, fmt), quantize_matrix(a.cpu(), fmt)
+            same = all(
+                (c is None and h is None)
+                or torch.equal(c.cpu().view(torch.uint8), h.view(torch.uint8))
+                for c, h in zip(on_card.leaves, on_host.leaves))
+            check(same and on_card.block == on_host.block,
+                  f"quantize_matrix {name} {fmt}: the card's payload or scales differ "
+                  "from the CPU's")
+            emit({"phase": "quantizer", "shape": [1000, 3008], "dtype": name,
+                  "format": fmt, "block": on_card.block, "bitwise_equal_cpu": True})
+
+    # ---- 13. strategies at full width from quantized storage ----
+    quant_launches = {}
+    held = {}
+    for strategy, n, fmt, shards in QUANT_MAIN_CONFIGS:
+        if held.get("n") != n:
+            held.clear()
+            torch.cuda.empty_cache()
+            a, x = uniform((n, n), torch.float32), uniform((n,), torch.float32)
+            # The fp64 oracle, |A|·|x| and each row's max, in row chunks.
+            xd = x.double()
+            exact, absprod, amax = [], [], []
+            rows = max(1, CHUNK_BYTES // (n * 8))
+            for i in range(0, n, rows):
+                c = a[i:i + rows].double()
+                exact.append(c @ xd)
+                absprod.append(c.abs() @ xd.abs())
+                amax.append(c.abs().amax(1))
+                del c
+            held.update(n=n, a=a, x=x, exact=torch.cat(exact), absprod=torch.cat(absprod),
+                        amax=torch.cat(amax))
+        a, x = held["a"], held["x"]
+        mesh = make_mesh(1) if shards == 1 else make_mesh(shards, devices=[dev] * shards)
+        strat = get_strategy(strategy)
+        storage = None if fmt == "native" else fmt
+        quant_gemv_cuda.launches = gemv_cuda.launches = 0
+        res = benchmark_strategy(strat, mesh, a, x, n_reps=N_REPS, mode="amortized",
+                                 measure="chain", kernel="cuda",
+                                 chain_samples=CHAIN_SAMPLES, dtype_storage=storage)
+        quantize_s = None
+        if storage is None:
+            y = strat.build(mesh, kernel="cuda")(*strat.place(a, x, mesh))
+            nbytes = (n * n + n) * 4 + n * 4
+        else:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            qa = quantize_matrix(a, fmt, contraction_shards=strat.contraction_shards(mesh))
+            torch.cuda.synchronize(dev)
+            quantize_s = time.perf_counter() - t0
+            y = strat.build(mesh, kernel="cuda", dtype_storage=fmt)(qa, x)
+            nbytes = qa.nbytes + n * 4 + n * 4
+            del qa
+        torch.cuda.synchronize(dev)
+        launched = {"quant_gemv": quant_gemv_cuda.launches, "gemv": gemv_cuda.launches}
+        kernel_name = "gemv" if storage is None else "quant_gemv"
+        check(launched[kernel_name] == calls_per_config * shards
+              and sum(launched.values()) == launched[kernel_name],
+              f"{strategy} {n}² {fmt} p={shards}: launches {launched}, expected "
+              f"{calls_per_config * shards} of {kernel_name}")
+        if storage is not None:
+            quant_launches[f"{strategy}_{n}_{fmt}_p{shards}"] = launched["quant_gemv"]
+        err = (y.double() - held["exact"]).abs()
+        check(y.shape == (n,) and bool(torch.isfinite(y).all()),
+              f"{strategy} {fmt}: y is not {n} finite values")
+        normwise = (err.max() / held["exact"].abs().max()).item()
+        slack = (torch.finfo(torch.float32).eps * n * held["amax"].max()
+                 * x.abs().max().double())
+        budget = {}
+        if fmt in ("int8", "int8c"):
+            eps = INT8_EPS if fmt == "int8" else INT8C_EPS
+            bound = n * eps * held["amax"] * x.abs().max().double() + slack
+            budget["worst_case"] = bool((err <= bound).all())
+            check(budget["worst_case"], f"{strategy} {n}² {fmt}: over the worst-case budget")
+        if fmt == "int8c":
+            budget["normwise"] = normwise <= FP32_LEVEL_RELERR
+            check(budget["normwise"], f"{strategy} {n}² int8c: normwise {normwise} > "
+                  f"{FP32_LEVEL_RELERR}")
+        if fmt == "fp8":
+            budget["elementwise_2^-4"] = bool((err <= 2.0 ** -4 * held["absprod"]).all())
+            check(budget["elementwise_2^-4"], f"{strategy} {n}² fp8: over 2^-4 |A|·|x|")
+        if fmt == "native":
+            budget["rel_1e-4"] = normwise <= 1e-4
+            check(budget["rel_1e-4"], f"{strategy} {n}² native: rel err {normwise}")
+        ms = res.mean_time_s * 1e3
+        bound_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+        emit({"phase": "quant_main", "strategy": strategy, "shape": [n, n],
+              "dtype": "float32", "format": fmt, "mesh": list(mesh.grid),
+              "shards_on_cuda0": shards, "kernel": "cuda", "measure": res.measure,
+              "n_reps": N_REPS, "ms": ms, "bytes": nbytes, "bound_ms": bound_ms,
+              "share_of_bound": bound_ms / ms, "quantize_s": quantize_s,
+              "launches": launched, "max_abs_err": err.max().item(),
+              "normwise_rel_err": normwise, "budget": budget})
+        del y, err
+    held.clear()
+    torch.cuda.empty_cache()
+
+    # ---- 14. serve from a quantized resident ----
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, strategy, n, name, fmt, shards, n_requests in QUANT_SERVE_CONFIGS:
+            dtype = torch_dtype(name)
+            mesh = make_mesh(1) if shards == 1 else make_mesh(shards, devices=[dev] * shards)
+            snapshot = Path(tmp) / f"{label}.json"
+            quant_gemv_cuda.launches = gemv_cuda.launches = gemm_cuda.launches = 0
+            res = run_serve(strategy, mesh, n, n, dtype=name, kernel="cuda",
+                            max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE,
+                            n_requests=n_requests, seed=args.seed,
+                            metrics_out=str(snapshot), dtype_storage=fmt)
+            torch.cuda.synchronize(dev)
+            launched = {"quant_gemv": quant_gemv_cuda.launches, "gemv": gemv_cuda.launches,
+                        "gemm": gemm_cuda.launches}
+            dispatches = json.loads(snapshot.read_text())["counters"][
+                "engine_dispatches_total"]
+            check(launched["quant_gemv"] == dispatches * shards
+                  and launched["gemv"] == launched["gemm"] == 0,
+                  f"serve {label}: launches {launched}, {dispatches} dispatches x {shards}")
+            check(res.compiles_steady == 0 and res.dtype_storage == fmt,
+                  f"serve {label}: {res.compiles_steady} steady builds, storage "
+                  f"{res.dtype_storage}")
+            quant_launches[f"serve_{label}"] = launched["quant_gemv"]
+            torch.cuda.empty_cache()
+            checked = check_quant_serve_replay(strategy, mesh, n, dtype, fmt, n_requests)
+            native_bytes = n * n * dtype.itemsize
+            emit({"phase": "quant_serve", "config": label, "strategy": strategy,
+                  "shape": [n, n], "dtype": name, "format": fmt, "mesh": list(mesh.grid),
+                  "shards_on_cuda0": shards, "kernel": "cuda",
+                  "max_bucket": SERVE_MAX_BUCKET, "b_star": res.b_star,
+                  "n_requests": res.n_requests, "total_cols": res.total_cols,
+                  "wall_s": res.wall_s, "req_per_s": res.rps,
+                  "cols_per_s": res.cols_per_s,
+                  "p50_dispatch_ms": res.p50_dispatch_ms,
+                  "p99_dispatch_ms": res.p99_dispatch_ms,
+                  "compiles_warmup": res.compiles_warmup,
+                  "compiles_steady": res.compiles_steady,
+                  "hits_steady": res.hits_steady, "promo_b": res.promo_b,
+                  "promo_gemm_s": res.promo_gemm_s, "promo_seq_s": res.promo_seq_s,
+                  "promo_speedup": res.promo_speedup, "dispatches": dispatches,
+                  "launches": launched, "resident_bytes": res.resident_bytes,
+                  "resident_over_native": res.resident_bytes / native_bytes,
+                  "replay_check": checked})
+            torch.cuda.empty_cache()
+
+    # ---- 15. quant_gemv: time, bound, plain, the native GEMV ----
+    quant_at = {}
+    held = {}
+    for n, fmt, w in QUANT_TIME_SHAPES:
+        if held.get("n") != n:
+            held.clear()
+            torch.cuda.empty_cache()
+            held["n"], held["a"] = n, uniform((n, n), torch.float32)
+        a = held["a"]
+        if held.get("fmt") != fmt:
+            held.pop("qa", None)
+            held["fmt"], held["qa"] = fmt, quantize_matrix(a, fmt)
+        qa = held["qa"]
+        x = uniform((n,) if w == 1 else (n, w), torch.float32)
+        y, ref = quant_gemv_cuda(qa, x), quant_gemv_plain(qa, x)
+        scale = quant_gemv_plain(payload_abs(qa), x)
+        err = (y - ref).abs()
+        check(bool((err <= 1e-4 * scale).all()),
+              f"quant_gemv {n}² {fmt} n={w}: error over 1e-4 of |deq(A)|·|x|")
+        bound_ms, bound_by = quant_bound(qa, w, qa.nbytes + (x.numel() + y.numel()) * 4)
+        native = (lambda: gemv_cuda(a, x)) if w == 1 else (lambda: gemm_cuda(a, x))
+        quant_at[f"{n}x{n}_{fmt}_n{w}"] = {
+            "format": fmt, "width": w, "block": qa.block, "payload_bytes": qa.nbytes,
+            "ms": event_ms(lambda: quant_gemv_cuda(qa, x), reps=20 if w == 1 else 10),
+            "plain_ms": event_ms(lambda: quant_gemv_plain(qa, x), reps=2, warmup=1),
+            "library_ms": None,
+            "native_ms": event_ms(native, reps=10),
+            "native_call": "gemv_cuda(a, x)" if w == 1 else "gemm_cuda(a, x)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err.max().item(),
+            "max_err_over_scale": (err / scale.clamp_min(1e-300)).max().item(),
+        }
+        del x, y, ref, scale, err
+    held.clear()
+    torch.cuda.empty_cache()
+
+    # ---- 16. the kernels line ----
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
     gemm_head = gemm_at["{0}x{1}x{2}_{3}".format(*GEMM_TIME_SHAPES[GEMM_HEAD])]
+    quant_head = quant_at["{0}x{0}_{1}_n{2}".format(*QUANT_TIME_SHAPES[QUANT_HEAD])]
     emit({"kernels": [{
         "name": "gemv", "route": "cuda",
         "source": "matvec_mpi_multiplier_torch/csrc/gemv.cu",
@@ -552,9 +893,23 @@ def main() -> int:
         "library_ms": gemm_head["library_ms"],
         "library_call": "torch.matmul(a, b) in a's dtype, allow_tf32=False",
         "at": gemm_at,
+    }, {
+        "name": "quant_gemv", "route": "cuda",
+        "source": "matvec_mpi_multiplier_torch/csrc/quant_gemv.cu",
+        "replaces": "matvec_mpi_multiplier_tpu/ops/pallas_quant.py:42",
+        "launches": sum(quant_launches.values()),
+        "launches_by_path": quant_launches,
+        "max_abs_err": quant_head["max_abs_err"],
+        "ms": quant_head["ms"], "plain_ms": quant_head["plain_ms"],
+        "bound_ms": quant_head["bound_ms"], "bound_by": quant_head["bound_by"],
+        # No PyTorch call computes a block-scaled GEMV; native_ms is the
+        # port's own GEMV on the same A in fp32, what quantizing must beat.
+        "library_ms": None, "native_ms": quant_head["native_ms"],
+        "native_call": quant_head["native_call"],
+        "at": quant_at,
     }]})
 
-    # ---- 12. result ----
+    # ---- 17. result ----
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -17,9 +17,11 @@ right-hand-side blocks against a resident sharded ``A`` and reports:
   same wall-clock protocol.
 
 Rows land in ``data/out/serve_<strategy>.csv`` under the JAX package's
-header, byte for byte. Columns of modes the port does not have yet (load,
-chaos, quantized storage, speculative) carry the JAX package's defaults;
-those modes' flags raise ``ConfigError``.
+header, byte for byte. ``--dtype-storage int8|int8c|fp8`` serves from a
+quantized resident (the row records the resolved format and the engine's
+resident bytes). Columns of modes the port does not have yet (load, chaos,
+speculative) carry the JAX package's defaults; those modes' flags raise
+``ConfigError``.
 
 Usage::
 
@@ -260,13 +262,15 @@ def run_serve(
     seed: int = 0,
     promo_reps: int = 20,
     metrics_out: str | None = None,
+    dtype_storage: str | None = None,
 ) -> ServeResult:
     """Run the serve protocol for one (strategy, shape, mesh) config.
 
     A is made on the mesh's first device (:func:`resident_matrix`) and
-    placed by the engine. ``metrics_out`` writes the run's metrics snapshot
-    (engine counters + the steady-phase dispatch-latency histogram, one
-    registry) as JSON.
+    placed by the engine; with ``dtype_storage`` the engine quantizes it
+    there and drops it, so the card holds the payload alone while serving.
+    ``metrics_out`` writes the run's metrics snapshot (engine counters + the
+    steady-phase dispatch-latency histogram, one registry) as JSON.
     """
     if widths is None:
         widths = [w for w in DEFAULT_WIDTH_MIX if w <= max_bucket]
@@ -275,7 +279,7 @@ def run_serve(
         resident_matrix(m, k, torch_dtype(dtype), mesh.devices[0], seed),
         mesh, strategy=strategy_name, kernel=kernel, combine=combine,
         max_bucket=max_bucket, promote=promote, donate=donate,
-        metrics=registry,
+        metrics=registry, dtype_storage=dtype_storage,
     )
     latency_hist = registry.histogram(
         "serve_dispatch_latency_ms",
@@ -334,6 +338,7 @@ def run_serve(
         promo_b=promo_b,
         promo_gemm_s=promo_gemm,
         promo_seq_s=promo_seq,
+        dtype_storage=engine.storage,
         resident_bytes=engine.resident_bytes,
     )
 
@@ -351,6 +356,8 @@ def _check_ported(args: argparse.Namespace) -> None:
     for flag, default in _LATER_FLAGS.items():
         if getattr(args, flag, default) != default:
             raise not_ported(f"--{flag.replace('_', '-')} (serve mode)")
+    if getattr(args, "dtype_storage", None) == "speculate":
+        raise not_ported("--dtype-storage speculate (speculative serving)")
 
 
 def run_serve_sweep(args: argparse.Namespace) -> int:
@@ -391,12 +398,18 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
                         n_requests=args.n_requests,
                         max_bucket=args.max_bucket, promote=promote,
                         seed=args.seed, metrics_out=metrics_out,
+                        dtype_storage=getattr(args, "dtype_storage", None),
                     )
                 except MatvecError as e:
                     print(f"skip {name} {m}x{k} p={n_dev}: {e}")
                     continue
                 path = None if args.no_csv else append_serve_result(
                     result, args.data_root
+                )
+                storage_suffix = (
+                    f" storage={result.dtype_storage} "
+                    f"resident={result.resident_bytes / 1e6:.2f}MB"
+                    if result.dtype_storage != "native" else ""
                 )
                 print(
                     f"serve {name} {m}x{k} p={n_dev} "
@@ -407,6 +420,7 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
                     f"compiles={result.compiles_warmup}+"
                     f"{result.compiles_steady} "
                     f"promo x{result.promo_speedup:.2f} @b={result.promo_b}"
+                    f"{storage_suffix}"
                 )
                 if path is not None:
                     print(f"CSV: {path}")
@@ -447,6 +461,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--metrics-out", default=None, metavar="FILE",
                    help="write the metrics snapshot after each config")
+    p.add_argument(
+        "--dtype-storage", dest="dtype_storage", default=None,
+        choices=["native", "int8", "int8c", "fp8", "auto", "speculate"],
+        help="resident-A storage format (ops/quantize.py): quantize A once "
+        "at residency and serve from the low-bit payload; 'auto' has no "
+        "tuning cache yet and serves native; 'speculate' is not ported. CSV "
+        "rows record the resolved format + resident bytes",
+    )
     # The JAX package's other modes, kept as flags so that asking for one
     # says it is not ported rather than that the flag is unknown.
     p.add_argument("--op", dest="solver_op", default="matvec")

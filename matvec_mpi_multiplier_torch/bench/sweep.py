@@ -23,12 +23,14 @@ shards. Operands are generated in memory from ``--seed`` (the numpy
 generator of ``utils/io.py``, so both packages time the same data);
 ``--use-files`` goes through ``./data/matrix_*.txt`` (matvec only). ``--op
 gemm`` times ``C = A @ B`` (rows in ``gemm_<strategy>.csv``); ``--op serve``
-delegates to ``bench/serve.py``.
+delegates to ``bench/serve.py``. ``--dtype-storage int8|int8c|fp8`` times
+the strategies against a quantized A (rows labelled ``<strategy>_<format>``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import torch
@@ -124,6 +126,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--dtype", default="float32", help="operand dtype")
     p.add_argument(
+        "--dtype-storage", dest="dtype_storage", default=None,
+        choices=["native", "int8", "int8c", "fp8", "auto"],
+        help="resident-A storage format (ops/quantize.py): quantize A per "
+        "config and measure the strategy against the low-bit payload. Rows "
+        "are labelled <strategy>_<format> so native and quantized "
+        "measurements of the same config coexist in the CSVs. --op serve "
+        "forwards it to the engine; 'auto' is serve-only",
+    )
+    p.add_argument(
         "--n-reps", type=int, default=100,
         help="repetitions per config (reference: 100, src/multiplier_rowwise.c:135)",
     )
@@ -188,6 +199,13 @@ def operands(n_rows: int, n_cols: int, args):
     )
 
 
+def csv_label(name: str, op: str, storage: str | None = None) -> str:
+    """The strategy label as CSV rows record it: ``gemm_<name>`` for GEMM
+    rows, then ``_<format>`` for quantized storage."""
+    label = f"gemm_{name}" if op == "gemm" else name
+    return label if storage in (None, "native") else f"{label}_{storage}"
+
+
 def run_sweep(args: argparse.Namespace) -> int:
     if args.op == "serve":
         # The serve protocol has its own loop (warmup/steady phases,
@@ -195,6 +213,13 @@ def run_sweep(args: argparse.Namespace) -> int:
         from .serve import run_serve_sweep
 
         return run_serve_sweep(args)
+    storage = getattr(args, "dtype_storage", None)
+    if storage == "auto":
+        raise SystemExit(
+            "--dtype-storage auto is serve-only (the engine resolves it at "
+            "construction); a matvec/gemm sweep measures ONE format per run: "
+            "name it (int8/int8c/fp8)"
+        )
     gemm = args.op == "gemm"
     if gemm and args.use_files:
         raise SystemExit(
@@ -255,12 +280,16 @@ def run_sweep(args: argparse.Namespace) -> int:
                     )
                     if args.chain_samples is not None:
                         kwargs["chain_samples"] = args.chain_samples
+                    if storage not in (None, "native"):
+                        kwargs["dtype_storage"] = storage
                     if gemm:
                         result = benchmark_gemm(name, mesh, a, x, **kwargs)
                     else:
                         result = benchmark_strategy(
                             get_strategy(name), mesh, a, x, **kwargs
                         )
+                    result = dataclasses.replace(
+                        result, strategy=csv_label(name, args.op, storage))
                     if not args.no_csv:
                         append_result(result, args.data_root)
                     print(
@@ -271,7 +300,7 @@ def run_sweep(args: argparse.Namespace) -> int:
                     n_ok += 1
     if not args.no_csv:
         for name in strategies:
-            label = f"gemm_{name}" if gemm else name
+            label = csv_label(name, args.op, storage)
             for mode in modes:
                 print(f"CSV: {csv_path(label, args.data_root, mode=mode)}")
     print(f"{n_ok} configs timed, {n_skip} skipped")

@@ -39,6 +39,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..models.base import shard_operand
+from ..ops.quantize import NATIVE, normalize_storage, quantize_matrix
 from ..parallel.mesh import Mesh, shard
 from ..utils.constants import DEFAULT_N_REPS, DTYPE_ITEMSIZE
 from ..utils.convert import dtype_name, from_numpy, torch_dtype
@@ -252,6 +254,7 @@ def benchmark_strategy(
     kernel: str | Callable = "cuda",
     gather_output: bool = True,
     chain_samples: int = DEFAULT_CHAIN_SAMPLES,
+    dtype_storage: str | None = None,
 ) -> TimingResult:
     """Benchmark one (strategy, mesh, size) configuration — the body of the
     reference's per-config run (``src/multiplier_rowwise.c:54-176``) minus
@@ -260,12 +263,17 @@ def benchmark_strategy(
     ``a``/``x`` are numpy arrays (host data) or tensors (which may already
     live on the card, so multi-GB operands never cross the host link).
     Reported time: mean over reps for ``sync``, median of the slope
-    samples for ``chain``.
+    samples for ``chain``. ``dtype_storage`` measures the quantized
+    residency: A is quantized outside the timed region (:func:`_maybe_quantize`)
+    and the strategy runs against the payload. The result's ``gbps`` still
+    counts native bytes, so the CSVs stay comparable across formats.
     """
     measure = resolve_measure(mode, measure)
     a, x = _prepare_operands(a, x, dtype)
     strategy.validate(a.shape[0], a.shape[1], mesh)
-    fn = strategy.build(mesh, kernel=kernel, gather_output=gather_output)
+    fn = strategy.build(mesh, kernel=kernel, gather_output=gather_output,
+                        dtype_storage=dtype_storage)
+    a = _maybe_quantize(a, dtype_storage, strategy, mesh, mode)
     return _run_benchmark(
         fn, a, x, place=lambda a_, x_: strategy.place(a_, x_, mesh),
         mesh=mesh, strategy_name=strategy.name, n_rhs=1, n_reps=n_reps,
@@ -273,8 +281,22 @@ def benchmark_strategy(
     )
 
 
+def _maybe_quantize(a: torch.Tensor, dtype_storage, strategy, mesh: Mesh, mode: str):
+    """Quantize the benchmark operand when a storage format is requested —
+    the once-at-residency step, here once per config. Amortized mode
+    quantizes on the mesh's first device, where the payload is timed;
+    reference mode where A is, so its timed placement moves the payload."""
+    if normalize_storage(dtype_storage) == NATIVE:
+        return a
+    if mode == "amortized":
+        a = a.to(mesh.devices[0])
+    return quantize_matrix(
+        a, dtype_storage, contraction_shards=strategy.contraction_shards(mesh),
+    )
+
+
 def _run_benchmark(
-    fn: Callable, a: torch.Tensor, rhs: torch.Tensor, *, place: Callable,
+    fn: Callable, a, rhs: torch.Tensor, *, place: Callable,
     mesh: Mesh, strategy_name: str, n_rhs: int, n_reps: int, mode: str,
     measure: str, chain_samples: int,
 ) -> TimingResult:
@@ -312,23 +334,28 @@ def benchmark_gemm(
     kernel: str | Callable = "cuda",
     gather_output: bool = True,
     chain_samples: int = DEFAULT_CHAIN_SAMPLES,
+    dtype_storage: str | None = None,
 ) -> TimingResult:
     """Benchmark one GEMM (strategy, mesh, size) configuration.
 
     Same protocol as :func:`benchmark_strategy` with a rank-2 right-hand
     side; the result's strategy is recorded as ``gemm_<name>`` so GEMM rows
     land in their own per-strategy CSVs, and ``n_rhs`` is ``b``'s columns.
+    ``dtype_storage`` follows :func:`benchmark_strategy`.
     """
+    from ..models import get_strategy
     from ..models.gemm import build_gemm, gemm_shardings, validate_gemm
 
     measure = resolve_measure(mode, measure)
     a, b = _prepare_operands(a, b, dtype)
     validate_gemm(name, a.shape[0], a.shape[1], b.shape[1], mesh)
-    fn = build_gemm(name, mesh, kernel=kernel, gather_output=gather_output)
+    fn = build_gemm(name, mesh, kernel=kernel, gather_output=gather_output,
+                    dtype_storage=dtype_storage)
     spec_a, spec_b = gemm_shardings(name, mesh)
+    a = _maybe_quantize(a, dtype_storage, get_strategy(name), mesh, mode)
     return _run_benchmark(
         fn, a, b,
-        place=lambda a_, b_: (shard(a_, spec_a, mesh), shard(b_, spec_b, mesh)),
+        place=lambda a_, b_: (shard_operand(a_, spec_a, mesh), shard(b_, spec_b, mesh)),
         mesh=mesh, strategy_name=f"gemm_{name}", n_rhs=b.shape[1],
         n_reps=n_reps, mode=mode, measure=measure,
         chain_samples=chain_samples,

@@ -16,6 +16,12 @@ serves a stream of right-hand sides through three mechanisms:
   reading A once instead of ``b`` times; narrower blocks go one column at a
   time through the GEMV (``csrc/gemv.cu``).
 
+With ``dtype_storage`` (int8, int8c, fp8) the resident operand is a
+quantized payload instead of ``A`` (``ops/quantize.py``): construction
+quantizes ``A`` once, on ``A``'s own device, and every dispatch, vector or
+promoted block, runs the hand-written block-scaled GEMV
+(``csrc/quant_gemv.cu``) on it.
+
 ``submit`` returns a :class:`MatvecFuture` once the request's work is
 enqueued; the host waits for the card only when the caller materializes the
 result. Two host-side costs stay inside ``submit``: the request's
@@ -34,10 +40,11 @@ count lives in a :class:`~..obs.registry.MetricsRegistry`
 (:class:`EngineStats` is a view over it).
 
 Left for later slices (ROADMAP.md, queue A 5): the tracer and timeline
-spans, the resilience ladder, fault injection and the integrity gate,
-residency/tenancy/reshard hooks, quantized, speculative and solver submits,
-lowering fingerprints, CUDA-graph capture, tuned ``promote="auto"`` and
-RHS buffer reuse. Their arguments raise ``ConfigError``.
+spans, the resilience ladder (and with it the native safe tier of quantized
+storage), fault injection and the integrity gate, residency/tenancy/reshard
+hooks, speculative and solver submits, lowering fingerprints, CUDA-graph
+capture, tuned ``promote="auto"`` and ``dtype_storage="auto"``, and RHS
+buffer reuse. Their arguments raise ``ConfigError``.
 """
 
 from __future__ import annotations
@@ -50,9 +57,15 @@ import numpy as np
 import torch
 
 from ..models import get_strategy
-from ..models.base import MatvecStrategy, not_ported
+from ..models.base import MatvecStrategy, not_ported, shard_operand
 from ..obs.registry import MetricsRegistry
 from ..ops import gemm_kernel_name_for, get_gemm_kernel, get_kernel
+from ..ops.quantize import (
+    NATIVE,
+    get_storage_kernel,
+    normalize_storage,
+    quantize_matrix,
+)
 from ..parallel.mesh import Mesh, ShardedTensor, shard, unshard
 from ..utils.convert import dtype_name, from_numpy, torch_dtype
 from ..utils.errors import ConfigError, DeadlineExceededError
@@ -73,7 +86,7 @@ DEFAULT_PROMOTE_B = 4
 
 # The JAX package's other constructor arguments, not ported yet.
 _LATER_ARGS = frozenset({
-    "solver_kernel", "stages", "dtype_storage", "trace_jsonl",
+    "solver_kernel", "stages", "trace_jsonl",
     "trace_capacity", "resilience", "fault_plan", "integrity_gate",
     "retain_host", "defer_placement", "label_prefix", "exec_cache",
     "residency_listener", "timeline",
@@ -228,9 +241,18 @@ class MatvecEngine:
         None (default) keeps the unbounded contract.
     metrics : the MetricsRegistry the engine counts into (default: a fresh
         private one).
+    dtype_storage : the resident format of A: None/``"native"`` (A itself),
+        ``"int8"``, ``"int8c"`` or ``"fp8"`` (quantized once here, on A's
+        device, with the strategy's contraction shards; ``kernel`` then names
+        a quantized-storage tier). The engine keeps no reference to the
+        native A: the port has no native safe tier yet (the resilience
+        ladder), so holding A would double the card's footprint for nothing.
+        ``"auto"`` has no tuning cache to read yet and takes the JAX
+        package's cold-cache path: native, ``storage_reason="auto_miss"``.
+        ``"speculate"`` is not ported.
 
-    The JAX package's other arguments (``stages``, ``dtype_storage``,
-    ``resilience``, ``trace_jsonl``, ...) raise ``ConfigError``.
+    The JAX package's other arguments (``stages``, ``resilience``,
+    ``trace_jsonl``, ...) raise ``ConfigError``.
     """
 
     def __init__(
@@ -248,6 +270,7 @@ class MatvecEngine:
         gather_output: bool = True,
         max_in_flight: int | None = None,
         metrics: MetricsRegistry | None = None,
+        dtype_storage: str | None = None,
         **later,
     ):
         for name in later:
@@ -282,14 +305,19 @@ class MatvecEngine:
         # batched fallback for a matvec-only schedule).
         self._matvec_combine = combine
         self._gemm_combine = combine if combine in ("psum", "psum_scatter") else None
+        self.storage = self._resolve_storage(dtype_storage)
         self.kernel = kernel
-        get_kernel(kernel)  # unknown names fail here, not requests deep
         self.gather_output = gather_output
         self.max_bucket = max_bucket
         bucket_ladder(max_bucket)  # validates
         self.b_star = self._resolve_promotion(promote)
-        if self.b_star is not None:
-            get_gemm_kernel(kernel if callable(kernel) else gemm_kernel_name_for(kernel))
+        # Unknown kernel names fail here, not requests deep.
+        if self.storage != NATIVE:
+            get_storage_kernel(kernel)  # one kernel serves both ranks
+        else:
+            get_kernel(kernel)
+            if self.b_star is not None:
+                get_gemm_kernel(kernel if callable(kernel) else gemm_kernel_name_for(kernel))
         if max_in_flight is not None and max_in_flight < 1:
             raise ConfigError(f"max_in_flight must be >= 1, got {max_in_flight}")
         self.max_in_flight = max_in_flight
@@ -337,15 +365,54 @@ class MatvecEngine:
             ),
         )
         # Resident for the engine's life: at p=1 on A's own device the shard
-        # IS a (no copy).
-        self._a = shard(a, spec_a, mesh)
-        self.resident_bytes = a.numel() * a.element_size()
+        # IS a (or its payload: no copy). A quantized engine drops A here.
+        if self.storage != NATIVE:
+            a = quantize_matrix(
+                a, self.storage,
+                contraction_shards=self.strategy.contraction_shards(mesh),
+            )
+            self.storage_block = a.block
+            self.resident_bytes = a.nbytes
+        else:
+            self.storage_block = None
+            self.resident_bytes = a.numel() * a.element_size()
+        self._a = shard_operand(a, spec_a, mesh)
+        del a
         self.metrics.gauge(
-            "engine_resident_bytes", "device bytes of the resident A operand"
+            "engine_resident_bytes",
+            "device bytes of the resident A operand (payload + scales for "
+            "quantized storage)",
         ).set(self.resident_bytes)
+        # Info metric: the label set carries the fact, the value is always 1.
+        self.metrics.gauge(
+            f'engine_storage_format{{format="{self.storage}",'
+            f'dtype="{dtype_name(self.dtype)}",reason="{self.storage_reason}"}}',
+            "resident-A storage format (info metric; value is always 1)",
+        ).set(1)
         self._closed = False
 
     # ---- configuration ----
+
+    def _resolve_storage(self, dtype_storage: str | None) -> str:
+        """Pin the resident-A storage format at construction and record why
+        (``storage_reason``: ``"default"``, ``"explicit"`` or
+        ``"auto_miss"``). An explicit format fails loudly when the strategy
+        cannot serve it."""
+        self.storage_reason = "default" if dtype_storage is None else "explicit"
+        if dtype_storage == "speculate":
+            raise not_ported("dtype_storage='speculate' (speculative serving)")
+        if dtype_storage == "auto":
+            # No tuning cache yet: every lookup is the JAX package's miss.
+            self.storage_reason = "auto_miss"
+            return NATIVE
+        fmt = normalize_storage(dtype_storage)
+        if fmt != NATIVE and not self.strategy.storage_combine_ok(None):
+            raise ConfigError(
+                f"strategy {self.strategy.name!r} binds an A-tiling combine "
+                "schedule, which cannot compose with quantized "
+                f"dtype_storage={fmt!r}"
+            )
+        return fmt
 
     def _resolve_promotion(self, promote: str | int | None) -> int | None:
         """The crossover ``b*``: blocks of ``b >= b_star`` columns take the
@@ -368,25 +435,25 @@ class MatvecEngine:
     def _matvec_key(self) -> ExecKey:
         return ExecKey(
             "matvec", self.strategy.name, self._kernel_label(),
-            self._matvec_combine, 1, dtype_name(self.dtype),
+            self._matvec_combine, 1, dtype_name(self.dtype), self.storage,
         )
 
     def _gemm_key(self, bucket: int) -> ExecKey:
         return ExecKey(
             "gemm", self.strategy.name, self._kernel_label(),
-            self._gemm_combine, bucket, dtype_name(self.dtype),
+            self._gemm_combine, bucket, dtype_name(self.dtype), self.storage,
         )
 
     def _build_matvec(self) -> Callable:
         return self.strategy.build(
             self.mesh, kernel=self.kernel, gather_output=self.gather_output,
-            combine=self._matvec_combine,
+            combine=self._matvec_combine, dtype_storage=self.storage,
         )
 
     def _build_gemm(self) -> Callable:
         return self.strategy.build_batched(
             self.mesh, kernel=self.kernel, gather_output=self.gather_output,
-            combine=self._gemm_combine,
+            combine=self._gemm_combine, dtype_storage=self.storage,
         )
 
     # ---- dispatch ----

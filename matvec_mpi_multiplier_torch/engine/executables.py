@@ -4,7 +4,7 @@ The port's counterpart of the JAX package's ``engine/executables.py``.
 PyTorch runs eagerly, so there is no lowering to compile: a "compile" here
 is one build of the key's strategy function (``MatvecStrategy.build`` or
 ``build_batched``), held under an explicit key (op × strategy × kernel ×
-combine × bucket × dtype) with compile and hit counters the serve bench
+combine × bucket × dtype × storage) with compile and hit counters the serve bench
 reports — a flat ``compiles`` across a warm stream is the
 zero-recompilation criterion. Lowering fingerprints belong to the static
 analysis slice, and CUDA-graph capture of each key's program to the graph
@@ -28,7 +28,7 @@ class ExecKey(NamedTuple):
     combine: str | None
     bucket: int  # RHS columns (1 for the matvec path)
     dtype: str
-    # Resident-A storage format; only "native" is ported.
+    # Resident-A storage format: "native", or int8/int8c/fp8 (ops/quantize.py).
     storage: str = "native"
 
     def label(self) -> str:

@@ -19,6 +19,12 @@ placed operands, or plain tensors, which it places itself, and runs
 for a block ``B`` of right-hand sides (one column per request) with a GEMM
 kernel: the specs gain an unsharded trailing batch axis
 (:meth:`batched_specs`) and the shard bodies are rank-agnostic.
+
+``dtype_storage`` (int8, int8c, fp8; ``ops/quantize.py``) makes the built
+function take a :class:`~..ops.quantize.QuantizedMatrix` in A's place: each
+leaf (payload, scales, and the int8c pair) is cut with A's own spec, and the
+local kernel becomes the quantized one (``"cuda"``: the hand-written
+block-scaled GEMV, for both ranks of the right-hand side).
 """
 
 from __future__ import annotations
@@ -29,10 +35,48 @@ from typing import Callable, Sequence
 import torch
 
 from ..ops import gemm_kernel_name_for, get_gemm_kernel, get_kernel
+from ..ops.quantize import (
+    NATIVE,
+    QuantizedMatrix,
+    get_storage_kernel,
+    normalize_storage,
+)
 from ..parallel.mesh import Mesh, ShardedTensor, shard, unshard
 from ..utils.errors import ConfigError, ShardingError
 
 Body = Callable[[Sequence[torch.Tensor], Sequence[torch.Tensor]], list]
+
+# Combine schedules of the JAX package that tile A inside their own bodies,
+# so they cannot consume a quantized payload (none is ported yet; the names
+# keep the check in place for when they are).
+STORAGE_INCOMPATIBLE_COMBINES = frozenset(
+    ("overlap", "overlap_ring", "ring_overlap", "pallas_ring")
+)
+
+
+def shard_operand(a, spec: tuple, mesh: Mesh) -> ShardedTensor:
+    """Place A by ``spec``: a tensor as it is, a :class:`QuantizedMatrix`
+    leaf by leaf with the same spec (one per-shard ``QuantizedMatrix`` per
+    device). The scale planes' columns split with A's because every shard
+    holds whole blocks (``default_block``)."""
+    if not isinstance(a, QuantizedMatrix):
+        return shard(a, spec, mesh)
+    leaves = [None if leaf is None else shard(leaf, spec, mesh).shards
+              for leaf in a.leaves]
+    shards = tuple(
+        QuantizedMatrix(*(None if cut is None else cut[f] for cut in leaves),
+                        fmt=a.fmt, block=a.block, out_dtype=a.dtype)
+        for f in range(mesh.size)
+    )
+    return ShardedTensor(shards, a.shape, tuple(spec), mesh)
+
+
+def storage_of(a) -> str:
+    """The storage format of an operand, placed or not: ``"native"`` for a
+    tensor, the payload's format for a QuantizedMatrix."""
+    if isinstance(a, ShardedTensor):
+        a = a.shards[0]
+    return a.fmt if isinstance(a, QuantizedMatrix) else NATIVE
 
 
 def not_ported(what: str) -> ConfigError:
@@ -66,17 +110,61 @@ class MatvecStrategy(abc.ABC):
         """Raise ShardingError if the shape cannot be evenly sharded."""
 
     def place(
-        self, a: torch.Tensor, x: torch.Tensor, mesh: Mesh
+        self, a, x: torch.Tensor, mesh: Mesh
     ) -> tuple[ShardedTensor, ShardedTensor]:
-        """Cut A and x into per-shard contiguous tensors on their devices."""
-        if a.dim() != 2 or x.dim() != 1 or x.shape[0] != a.shape[1]:
+        """Cut A (a tensor or a QuantizedMatrix) and x into per-shard
+        contiguous tensors on their devices."""
+        if len(a.shape) != 2 or x.dim() != 1 or x.shape[0] != a.shape[1]:
             raise ValueError(
                 f"matvec needs a (m, k) matrix and a (k,) vector, got "
                 f"{tuple(a.shape)} and {tuple(x.shape)}"
             )
-        self.validate(a.shape[0], a.shape[1], mesh)
+        self._check_operand(a, mesh)
         spec_a, spec_x, _ = self.specs(mesh)
-        return shard(a, spec_a, mesh), shard(x, spec_x, mesh)
+        return shard_operand(a, spec_a, mesh), shard(x, spec_x, mesh)
+
+    def _check_operand(self, a, mesh: Mesh) -> None:
+        self.validate(a.shape[0], a.shape[1], mesh)
+        if isinstance(a, QuantizedMatrix):
+            shards = self.contraction_shards(mesh)
+            if (a.shape[1] // shards) % a.block:
+                raise ShardingError(
+                    f"a {a.fmt} payload in blocks of {a.block} does not cut "
+                    f"into {shards} contraction shards of whole blocks; "
+                    f"quantize it with contraction_shards={shards}"
+                )
+
+    # ---- quantized-storage machinery ----
+
+    def contraction_shards(self, mesh: Mesh) -> int:
+        """Devices A's contraction (column) axis is sharded across — the
+        denominator of the quantization block choice
+        (``ops.quantize.default_block``)."""
+        spec_a = self.specs(mesh)[0]
+        k_axes = spec_a[1] if len(spec_a) > 1 else None
+        if k_axes is None:
+            return 1
+        names = (k_axes,) if isinstance(k_axes, str) else tuple(k_axes)
+        shards = 1
+        for name in names:
+            shards *= mesh.shape[name]
+        return shards
+
+    def storage_combine_ok(self, combine: str | None) -> bool:
+        """True when ``combine`` composes with quantized storage: the
+        un-staged family only (:data:`STORAGE_INCOMPATIBLE_COMBINES`)."""
+        if combine in (None, "auto"):
+            combine = self.combine
+        return combine not in STORAGE_INCOMPATIBLE_COMBINES
+
+    def _check_storage_combine(self, combine: str | None) -> None:
+        if not self.storage_combine_ok(combine):
+            effective = combine if combine not in (None, "auto") else self.combine
+            raise ConfigError(
+                f"combine {effective!r} tiles A inside its schedule body "
+                "and cannot compose with quantized dtype_storage; use the "
+                "un-staged family or native storage"
+            )
 
     # ---- batched (multi-RHS) machinery ----
 
@@ -88,25 +176,29 @@ class MatvecStrategy(abc.ABC):
         return spec_a, _append_batch_axis(spec_x), _append_batch_axis(spec_y)
 
     def place_batched(
-        self, a: torch.Tensor, b: torch.Tensor, mesh: Mesh
+        self, a, b: torch.Tensor, mesh: Mesh
     ) -> tuple[ShardedTensor, ShardedTensor]:
-        """Cut A and a (k, n_rhs) block B for :meth:`build_batched`."""
-        if a.dim() != 2 or b.dim() != 2 or b.shape[0] != a.shape[1]:
+        """Cut A (a tensor or a QuantizedMatrix) and a (k, n_rhs) block B
+        for :meth:`build_batched`."""
+        if len(a.shape) != 2 or b.dim() != 2 or b.shape[0] != a.shape[1]:
             raise ValueError(
                 f"batched matvec needs a (m, k) matrix and a (k, n) block, "
                 f"got {tuple(a.shape)} and {tuple(b.shape)}"
             )
-        self.validate(a.shape[0], a.shape[1], mesh)
+        self._check_operand(a, mesh)
         spec_a, spec_b, _ = self.batched_specs(mesh)
-        return shard(a, spec_a, mesh), shard(b, spec_b, mesh)
+        return shard_operand(a, spec_a, mesh), shard(b, spec_b, mesh)
 
-    def _check_build_args(self, combine, stages, dtype_storage) -> None:
+    def _check_build_args(self, combine, stages, dtype_storage) -> str:
+        """Validate the build arguments; return the canonical storage."""
+        storage = normalize_storage(dtype_storage)
+        if storage != NATIVE:
+            self._check_storage_combine(combine)
         if combine not in (None, self.combine):
             raise not_ported(f"combine={combine!r} for {self.name}")
         if stages is not None:
             raise not_ported("stages (the staged overlap schedules)")
-        if dtype_storage not in (None, "native"):
-            raise not_ported(f"dtype_storage={dtype_storage!r}")
+        return storage
 
     def build(
         self,
@@ -127,19 +219,26 @@ class MatvecStrategy(abc.ABC):
         :class:`ShardedTensor` of per-device y blocks in the strategy's
         native layout. ``combine`` may name only this instance's own
         schedule (:attr:`combine`; colwise chooses it by ``scatter_output``);
-        the ring/overlap/auto schedules, ``stages`` and ``dtype_storage``
-        wait for later slices and raise ``ConfigError``.
+        the ring/overlap/auto schedules and ``stages`` wait for later slices
+        and raise ``ConfigError``.
+
+        ``dtype_storage`` selects the storage format of ``A``: None or
+        ``"native"`` is the plain tensor path; ``"int8"``/``"int8c"``/
+        ``"fp8"`` make the built function take a QuantizedMatrix (quantized
+        with ``contraction_shards=self.contraction_shards(mesh)``) in ``a``'s
+        place, and ``kernel`` then names a quantized-storage tier
+        (``ops.quantize.get_storage_kernel``). Other names raise
+        ``ConfigError``.
         """
-        self._check_build_args(combine, stages, dtype_storage)
+        storage = self._check_build_args(combine, stages, dtype_storage)
         if gather_output == "ring":
             raise not_ported("gather_output='ring'")
         if not isinstance(gather_output, bool):
             raise ValueError(
                 f"gather_output must be True or False; got {gather_output!r}"
             )
-        return self._build_plain(
-            mesh, get_kernel(kernel), gather_output, batched=False
-        )
+        kern = get_kernel(kernel) if storage == NATIVE else get_storage_kernel(kernel)
+        return self._build_plain(mesh, kern, gather_output, storage, batched=False)
 
     def build_batched(
         self,
@@ -157,22 +256,27 @@ class MatvecStrategy(abc.ABC):
         of n_rhs GEMVs). ``kernel`` names a GEMM tier
         (``ops/gemm_kernels.py``); a GEMV tier name maps to its rank-2 face
         (``gemm_kernel_name_for``). The other arguments follow
-        :meth:`build`; ``gather_output`` takes bools only.
+        :meth:`build`; ``gather_output`` takes bools only. Under quantized
+        ``dtype_storage`` the quantized kernel serves the block as it is
+        (it is rank-agnostic), so the GEMM promotion keeps the format.
         """
-        self._check_build_args(combine, stages, dtype_storage)
+        storage = self._check_build_args(combine, stages, dtype_storage)
         if not isinstance(gather_output, bool):
             raise ValueError(
                 "batched gather_output must be True or False (the explicit "
                 f"ring gather is matvec-only); got {gather_output!r}"
             )
-        if isinstance(kernel, str):
-            kernel = gemm_kernel_name_for(kernel)
-        return self._build_plain(
-            mesh, get_gemm_kernel(kernel), gather_output, batched=True
-        )
+        if storage != NATIVE:
+            kern = get_storage_kernel(kernel)
+        else:
+            if isinstance(kernel, str):
+                kernel = gemm_kernel_name_for(kernel)
+            kern = get_gemm_kernel(kernel)
+        return self._build_plain(mesh, kern, gather_output, storage, batched=True)
 
     def _build_plain(
-        self, mesh: Mesh, kern: Callable, gather_output: bool, *, batched: bool
+        self, mesh: Mesh, kern: Callable, gather_output: bool, storage: str,
+        *, batched: bool,
     ) -> Callable:
         specs = self.batched_specs if batched else self.specs
         place = self.place_batched if batched else self.place
@@ -187,12 +291,19 @@ class MatvecStrategy(abc.ABC):
                 )
             self.validate(a.shape[0], a.shape[1], mesh)
             if not placed:
+                if storage_of(a) != storage:
+                    raise ConfigError(
+                        f"this {self.name} program serves {storage} storage "
+                        f"and got a {storage_of(a)} A (quantize A with "
+                        "ops.quantize.quantize_matrix, or build for its format)"
+                    )
                 a, x = place(a, x, mesh)
-            elif (a.mesh, a.spec, x.spec) != (mesh, spec_a, spec_x):
+            elif (a.mesh, a.spec, x.spec, storage_of(a)) != (
+                    mesh, spec_a, spec_x, storage):
                 raise ShardingError(
-                    f"operands were placed for another strategy or mesh "
-                    f"(specs {a.spec}, {x.spec}; {self.name} needs "
-                    f"{spec_a}, {spec_x})"
+                    f"operands were placed for another strategy, mesh or "
+                    f"storage (specs {a.spec}, {x.spec}, {storage_of(a)} A; "
+                    f"{self.name} needs {spec_a}, {spec_x}, {storage} A)"
                 )
             shape = (a.shape[0], *x.shape[1:])
             y = ShardedTensor(tuple(body(a.shards, x.shards)), shape, spec_y, mesh)

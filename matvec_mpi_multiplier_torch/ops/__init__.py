@@ -1,6 +1,6 @@
-"""Compute kernels. Importing the package registers every GEMV and GEMM
-tier; the CUDA kernels themselves are built only when a CUDA tensor first
-reaches one."""
+"""Compute kernels. Importing the package registers every GEMV, GEMM and
+quantized-storage tier; the CUDA kernels themselves are built only when a
+CUDA tensor first reaches one."""
 
 from .gemv import available_kernels, get_kernel, register_kernel
 from .gemm_kernels import (
@@ -9,10 +9,11 @@ from .gemm_kernels import (
     get_gemm_kernel,
     register_gemm_kernel,
 )
-from . import cuda_gemm, cuda_gemv  # noqa: F401  (register "cuda")
+from .quantize import get_storage_kernel, register_storage_kernel
+from . import cuda_gemm, cuda_gemv, cuda_quant  # noqa: F401  (register "cuda")
 
 __all__ = [
     "available_kernels", "get_kernel", "register_kernel",
     "available_gemm_kernels", "gemm_kernel_name_for", "get_gemm_kernel",
-    "register_gemm_kernel",
+    "register_gemm_kernel", "get_storage_kernel", "register_storage_kernel",
 ]

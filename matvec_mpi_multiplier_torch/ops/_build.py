@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels: ``nvcc`` into a shared library, ctypes.
 
 The kernels have a plain C interface (``csrc/*.cu``), so no PyTorch headers
-are compiled: one ``nvcc`` call builds every source into one library in
-seconds, at first use, into the package's own ``build/`` directory
+are compiled: one ``nvcc -c`` per source, all started together, then one
+link into one library, in seconds, at first use, into the package's own
+``build/`` directory
 (``matvec_mpi_multiplier_torch/build``, so an installed copy never shares it
 with another environment), and rebuilds it when a source or the flags
 change (a hash stamp beside the library). Nothing here falls back: a
@@ -25,7 +26,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 LIB_NAME = "libmatvec_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # Registers, shared memory and spills per kernel, in the build log.
     "-Xptxas=-v",
 )
@@ -66,25 +67,44 @@ def _digest() -> str:
 
 
 def build_library() -> str:
-    """Compile every ``csrc/*.cu`` into one library; return the compiler's
-    log."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` each, in parallel) and link
+    them into one library; return the compiler's log."""
     nvcc = find_nvcc()
     out = library_path()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed to build {[s.name for s in SOURCES]} "
-            f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+    tag = f"{os.getpid()}.tmp"
+    objects = [out.with_name(f"{s.stem}.{tag}.o") for s in SOURCES]
+    tmp = out.with_name(f"{out.name}.{tag}")
+    try:
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(SOURCES, objects)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(src.name, proc.returncode, log)
+                  for src, proc, log in zip(SOURCES, procs, logs) if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed to compile " + "".join(
+                f"\n{name} (exit {rc}):\n{log}" for name, rc, log in failed))
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True, check=False,
         )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to link {[s.name for s in SOURCES]} "
+                f"(exit {link.returncode}):\n{link.stdout}{link.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
     _stamp_path().write_text(_digest())
-    return proc.stdout + proc.stderr
+    return "".join(logs) + link.stdout + link.stderr
 
 
 @functools.cache
@@ -107,6 +127,14 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.matvec_gemm.restype = ctypes.c_int
+    # q2/scales2 are NULL (None) outside int8c.
+    lib.matvec_quant_gemv.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p,
+    ]
+    lib.matvec_quant_gemv.restype = ctypes.c_int
     lib.matvec_error_string.argtypes = [ctypes.c_int]
     lib.matvec_error_string.restype = ctypes.c_char_p
     return lib

@@ -298,7 +298,7 @@ def test_request_validation(rng):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"stages": 2}, {"dtype_storage": "int8"}, {"resilience": object()},
+    {"stages": 2}, {"dtype_storage": "speculate"}, {"resilience": object()},
     {"fault_plan": object()}, {"integrity_gate": True}, {"trace_jsonl": "t.jsonl"},
     {"retain_host": True}, {"label_prefix": "tenant-1/"}, {"solver_kernel": "auto"},
     {"combine": "ring"}, {"combine": "auto"},

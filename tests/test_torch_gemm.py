@@ -281,7 +281,7 @@ def test_build_batched_maps_gemv_tier_names():
         np.testing.assert_allclose(c.numpy(), a_t.numpy() @ b_t.numpy(), rtol=1e-12)
     with pytest.raises(KeyError, match="unknown gemm kernel"):
         get_strategy("rowwise").build_batched(port_mesh(2), kernel="pallas")
-    for kwargs in ({"combine": "ring"}, {"stages": 2}, {"dtype_storage": "int8"}):
+    for kwargs in ({"combine": "ring"}, {"stages": 2}, {"combine": "overlap"}):
         with pytest.raises(ConfigError, match="ROADMAP.md"):
             get_strategy("colwise").build_batched(port_mesh(2), **kwargs)
     with pytest.raises(ValueError, match="True or False"):

@@ -134,33 +134,48 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_missing_nvcc_raises_and_nothing_falls_back(monkeypatch, tmp_path):
-    """Without nvcc the build raises a clear error naming both sources, and
+    """Without nvcc the build raises a clear error naming every source, and
     a non-CPU tensor never falls back to the plain version or a library
-    call — for the GEMV and for the GEMM."""
-    from matvec_mpi_multiplier_torch.ops import cuda_gemm
+    call — for the GEMV, the GEMM and the block-scaled GEMV (which also
+    never reaches the scan tier or a dequantized A)."""
+    from matvec_mpi_multiplier_torch.ops import cuda_gemm, cuda_quant, quantize
 
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     _build.load_library.cache_clear()
-    assert [s.name for s in _build.SOURCES] == ["gemm.cu", "gemv.cu"]
-    with pytest.raises(RuntimeError, match="nvcc not found.*gemm.cu, gemv.cu"):
+    assert [s.name for s in _build.SOURCES] == ["gemm.cu", "gemv.cu", "quant_gemv.cu"]
+    with pytest.raises(RuntimeError, match="nvcc not found.*gemm.cu, gemv.cu, quant_gemv.cu"):
         _build.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_library()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library()
     calls = []
-    for plain in ("gemv_plain", "gemm_plain"):
-        module = cuda_gemv if plain == "gemv_plain" else cuda_gemm
+    for module, plain in ((cuda_gemv, "gemv_plain"), (cuda_gemm, "gemm_plain"),
+                          (cuda_quant, "quant_gemv_plain"),
+                          (cuda_quant, "_dequantized_rows"),
+                          (quantize, "matvec_quantized"), (quantize, "dequantize")):
         monkeypatch.setattr(module, plain, lambda *args: calls.append(args))
     monkeypatch.setattr(torch, "matmul", lambda *args: calls.append(args))
-    before = (gemv_cuda.launches, cuda_gemm.gemm_cuda.launches)
+    kernels = (gemv_cuda, cuda_gemm.gemm_cuda, cuda_quant.quant_gemv_cuda)
+    before = [k.launches for k in kernels]
     a = torch.ones(4, 8, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         gemv_cuda(a, torch.ones(8, device="meta"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_gemm.gemm_cuda(a, torch.ones(8, 3, device="meta"))
-    assert (gemv_cuda.launches, cuda_gemm.gemm_cuda.launches) == before
+    for fmt in ("int8", "int8c", "fp8"):
+        payload = torch.float8_e4m3fn if fmt == "fp8" else torch.int8
+        leaves = [torch.zeros(4, 8, dtype=payload, device="meta"),
+                  torch.ones(4, 2, device="meta")]
+        if fmt == "int8c":
+            leaves += [torch.zeros(4, 8, dtype=torch.int8, device="meta"),
+                       torch.ones(4, 2, device="meta")]
+        qa = quantize.QuantizedMatrix(*leaves, fmt=fmt, block=4, out_dtype=torch.float32)
+        for x in (torch.ones(8, device="meta"), torch.ones(8, 3, device="meta")):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                cuda_quant.quant_gemv_cuda(qa, x)
+    assert [k.launches for k in kernels] == before
     assert calls == []
     assert not (tmp_path / "build").exists()

@@ -223,7 +223,7 @@ def test_placed_operands_reused_and_checked():
 @pytest.mark.parametrize(
     "kwargs",
     [{"combine": "ring"}, {"combine": "auto"}, {"stages": 2},
-     {"dtype_storage": "int8"}, {"gather_output": "ring"}],
+     {"combine": "overlap"}, {"gather_output": "ring"}],
 )
 def test_later_slice_arguments_raise(kwargs):
     with pytest.raises(ConfigError, match="ROADMAP.md"):
