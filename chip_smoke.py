@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the hand-written CUDA kernels (``csrc/gemv.cu``, ``csrc/gemm.cu``,
-``csrc/quant_gemv.cu``; one ``nvcc`` each, in parallel) from the
-checkout's sources, holds each against its plain PyTorch version, and
-drives the port's paths at full size, each with the kernels' launch counts
-set to 0 just before it and read just after:
+``csrc/quant_gemv.cu``, ``csrc/solver_step.cu``; one ``nvcc`` each, in
+parallel) from the checkout's sources, holds each against its plain
+PyTorch version, and drives the port's paths at full size, each with the
+kernels' launch counts set to 0 just before it and read just after:
 
 * the three strategies through ``build(..., kernel="cuda")`` and the
   reference timing protocol (the GEMV);
@@ -20,7 +20,14 @@ set to 0 just before it and read just after:
   the CPU, ``benchmark_strategy(..., dtype_storage=...)`` at 65536² fp32
   and colwise 32768² on 4 logical shards, and ``run_serve`` from an int8c
   resident at 65536² fp32 and an int8 one on a 2x2 mesh, every matvec and
-  promoted block through the block-scaled GEMV.
+  promoted block through the block-scaled GEMV;
+* served solvers through ``MatvecEngine.submit(op=...)`` on the seeded SPD
+  ``solver_operand`` built on the card: cg and chebyshev at 65536² fp32
+  rowwise on both iteration tiers (``torch``, and ``cuda_fused``, one fused
+  step per iteration), gmres, power and lanczos on the ``torch`` tier,
+  fused cg on colwise 32768² over 4 logical shards and from an int8c
+  resident at 65536², and ``bench.serve.run_serve_solver`` (20 cg solves
+  at 65536² on both tiers).
 
 It checks the answers and times each kernel beside its bound, its plain
 version and the library call. Every phase prints one JSON line; any failed
@@ -134,6 +141,28 @@ QUANT_TIME_SHAPES = [(65536, f, w) for f in QUANT_FORMATS for w in (1, 4, 32)] +
     (16384, "int8", 1)]
 QUANT_HEAD = 3
 
+# Served solvers. The fused step against its plain version, (m_loc, k_loc,
+# n, off): rowwise shards (off = 0, all of p) and a colwise segment at
+# off > 0; a payload's k rounds up to a multiple of 8 (whole scale blocks).
+# The full-width case is SOLVER_N below.
+SOLVER_CHECK_SHAPES = [(4, 8, 8, 0), (96, 96, 96, 0), (1000, 3001, 3001, 0),
+                       (4096, 4096, 4096, 0), (4096, 1024, 4096, 2048)]
+SOLVER_CHECK_STORAGE = ("float32", "float64", "bfloat16", "int8", "int8c", "fp8")
+SOLVER_OPS_FUSED = ("cg", "chebyshev")
+SOLVER_N = 65536  # rowwise, p = 1, fp32, solver_operand built on the card
+SOLVER_COLWISE_N = 32768  # colwise on 4 logical shards
+SOLVER_RTOL = 1e-5
+# power and lanczos in fp32: the eigenresidual's rounding floor at this
+# width sits near 1e-5 of lambda, so they stop at 1e-4.
+SOLVER_EIGEN_RTOL = 1e-4
+# The Gershgorin interval [1, 5.5e4] is wide against the spectrum
+# [2.1e4, 3.3e4]: about 1200 Chebyshev iterations at rtol 1e-4. At 1e-5 the
+# fp32 recurrence stalls: on an H100 it ended 3000 iterations at a relative
+# residual of 1.26e-5 (PERF.md), the floor its rounding leaves at this width.
+CHEBYSHEV_RTOL = 1e-4
+CHEBYSHEV_MAXITER = 3000
+SOLVER_SERVE_SOLVES = 20
+
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -162,8 +191,11 @@ def main() -> int:
     from matvec_mpi_multiplier_torch.bench.serve import (
         DEFAULT_WIDTH_MIX,
         _request_pool,
+        gershgorin_interval,
         resident_matrix,
         run_serve,
+        run_serve_solver,
+        solver_operand,
     )
     from matvec_mpi_multiplier_torch.bench.timing import (
         benchmark_gemm,
@@ -178,6 +210,10 @@ def main() -> int:
     from matvec_mpi_multiplier_torch.ops.cuda_quant import (
         quant_gemv_cuda,
         quant_gemv_plain,
+    )
+    from matvec_mpi_multiplier_torch.ops.cuda_solver import (
+        solver_step_cuda,
+        solver_step_plain,
     )
     from matvec_mpi_multiplier_torch.ops.quantize import (
         CHUNK_BYTES,
@@ -864,7 +900,349 @@ def main() -> int:
     held.clear()
     torch.cuda.empty_cache()
 
-    # ---- 16. the kernels line ----
+    # ---- served solvers: helpers ----
+    def step_inputs(op, n, acc, kf):
+        """Seeded step operands: ap = p·(1 + u), so pᵀap > 0 without
+        cancellation; Chebyshev on the interval [1, 100] at step index kf."""
+        def vec():
+            return torch.randn(n, generator=gen, device=dev).to(acc)
+
+        x, r, p = vec(), vec(), vec()
+        ap = p * (1 + torch.rand(n, generator=gen, device=dev).to(acc))
+        if op == "cg":
+            s_in = torch.sum(r * r).reshape(1)
+        else:
+            d, c = 50.5, 49.5
+            s_in = torch.tensor([1 / d, kf, d, c * c], dtype=acc, device=dev)
+        return x, r, p, ap, s_in
+
+    def abs_product(a_local, v):
+        """|A|·|v| (|deq(A)|·|v| for a payload), row chunks of |A| at a time."""
+        if isinstance(a_local, QuantizedMatrix):
+            return quant_gemv_plain(payload_abs(a_local), v.abs())
+        rows = max(1, CHUNK_BYTES // (a_local.shape[1] * 8))
+        return torch.cat([gemv_plain(a_local[i:i + rows].abs(), v.abs())
+                          for i in range(0, a_local.shape[0], rows)])
+
+    def step_check(op, a_local, off, inputs, tol, what) -> dict:
+        """The step twice on the card and once plain: bitwise repeatable,
+        and within tol (of each vector's largest element, of the scalars,
+        of |A|·|p2| for the partial)."""
+        out1 = solver_step_cuda(op, a_local, off, *inputs)
+        out2 = solver_step_cuda(op, a_local, off, *inputs)
+        ref = solver_step_plain(op, a_local, off, *inputs)
+        torch.cuda.synchronize(dev)
+        check(all(torch.equal(u, v) for u, v in zip(out1, out2)),
+              f"solver_step {what}: two runs differ")
+        seg = ref[2][off:off + a_local.shape[1]]
+        err = {
+            "vectors": max(((o - w).abs().max() / w.abs().max()).item()
+                           for o, w in zip(out1[:3], ref[:3])),
+            "scalars": ((out1[3] - ref[3]).abs() / ref[3].abs()).max().item(),
+            "partial": ((out1[4] - ref[4]).abs() / abs_product(a_local, seg)).max().item(),
+        }
+        check(all(e <= tol for e in err.values()), f"solver_step {what}: errors {err} > {tol}")
+        return {**err, "max_abs_err": max((o - w).abs().max().item() for o, w in zip(out1, ref))}
+
+    wrappers = {"gemv": gemv_cuda, "gemm": gemm_cuda, "quant_gemv": quant_gemv_cuda,
+                "solver_step": solver_step_cuda}
+    solver_paths = {name: {} for name in wrappers}
+
+    def drive(label, fn):
+        """One solver path, with every launch count set to 0 just before it
+        and read just after; a solver path runs no GEMM (promote=None)."""
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        out = fn()
+        torch.cuda.synchronize(dev)
+        counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
+        check(counts["gemm"] == 0, f"{label}: the GEMM ran {counts['gemm']} times")
+        for name, count in counts.items():
+            if count:
+                solver_paths[name][label] = count
+        return out, counts
+
+    def timed_solve(engine, **kw):
+        """submit(op=...).result() on the host clock: the host-stepped loop,
+        its verification matvecs and the copy of x."""
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = engine.submit(**kw).result()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def rel_residual(a, b, x) -> float:
+        """||b − A x|| / ||b||, recomputed on the card in fp64 row chunks."""
+        xd, bd = x.to(dev, torch.float64), b.to(dev, torch.float64)
+        rows = max(1, CHUNK_BYTES // (a.shape[1] * 8))
+        r = torch.cat([bd[i:i + rows] - a[i:i + rows].double() @ xd
+                       for i in range(0, a.shape[0], rows)])
+        return (r.norm() / bd.norm()).item()
+
+    def rel_diff(x, ref) -> float:
+        return ((x - ref).abs().max() / ref.abs().max()).item()
+
+    def seeded_rhs(n):
+        return torch.from_numpy(
+            np.random.default_rng(args.seed + 1).standard_normal(n).astype(np.float32))
+
+    # The recomputed residual may exceed the engine's fp32 one by the fp32
+    # rounding of A x (about 1e-7 of |A|·|x| per element): 10% slack.
+    residual_bound = 1.1 * SOLVER_RTOL
+
+    # ---- 16. solver_step against its plain version ----
+    for m, k, n, off in SOLVER_CHECK_SHAPES:
+        for storage in SOLVER_CHECK_STORAGE:
+            quant = storage in QUANT_FORMATS
+            k_s = -(-k // 8) * 8 if quant else k
+            n_s = k_s if off == 0 else n
+            dtype = torch.float32 if quant else torch_dtype(storage)
+            acc = torch.float64 if dtype == torch.float64 else torch.float32
+            a = (uniform((m, k_s), torch.float32) - 5).to(dtype)  # both signs
+            a_local = quantize_matrix(a, storage) if quant else a
+            tol = 1e-12 if acc == torch.float64 else (1e-5 if k_s <= 4096 else 1e-4)
+            for i, op in enumerate(SOLVER_OPS_FUSED):
+                inputs = step_inputs(op, n_s, acc, kf=3.0 * i)
+                err = step_check(op, a_local, off, inputs, tol,
+                                 f"{op} {m}x{k_s}@{off} n={n_s} {storage}")
+                emit({"phase": "solver_step_vs_plain", "kernel": "solver_step", "op": op,
+                      "shape": [m, k_s], "n": n_s, "off": off, "storage": storage,
+                      "tol": tol, "errors": err, "bitwise_repeatable": True})
+            del a, a_local
+    torch.cuda.empty_cache()
+
+    # At full width: the check, then the times. unfused_ms is one iteration
+    # of the torch tier's body on the same A (gemv_cuda plus its vector ops,
+    # without the strategy's placement and the predicate read).
+    n = SOLVER_N
+    a = uniform((n, n), torch.float32)
+    step_at = {}
+    for op in SOLVER_OPS_FUSED:
+        inputs = step_inputs(op, n, torch.float32, kf=3.0)
+        err = step_check(op, a, 0, inputs, 1e-4, f"{op} {n}² fp32")
+        emit({"phase": "solver_step_vs_plain", "kernel": "solver_step", "op": op,
+              "shape": [n, n], "n": n, "off": 0, "storage": "float32", "tol": 1e-4,
+              "errors": err, "bitwise_repeatable": True})
+        x, r, p, ap, s_in = inputs
+        thr = SOLVER_RTOL * torch.sqrt(torch.sum(r * r))
+        if op == "cg":
+            rz = s_in[0]
+            x_best, rr_best = x.clone(), rz.clone()
+
+            def unfused():
+                ap2 = gemv_cuda(a, p)
+                pap = torch.sum(p * ap2)
+                safe = pap > 0
+                alpha = torch.where(safe, rz / torch.where(safe, pap, 1.0), 0.0)
+                x2 = x + alpha * p
+                r2 = r - alpha * ap2
+                rr = torch.sum(r2 * r2)
+                beta = torch.where(safe, rr / torch.where(rz != 0, rz, 1.0), 0.0)
+                better = rr < rr_best
+                return (r2 + beta * p, torch.where(better, x2, x_best),
+                        torch.where(better, rr, rr_best), torch.sqrt(rr) <= thr)
+        else:
+            d, c = torch.tensor(50.5, device=dev), torch.tensor(49.5, device=dev)
+            b_rr = torch.sum(r * r)
+
+            def unfused():
+                factor = 0.25 * c * c * s_in[0]
+                alpha_new = 1.0 / (d - factor)
+                p2 = r + factor * s_in[0] * p
+                ap2 = gemv_cuda(a, p2)
+                x2 = x + alpha_new * p2
+                r2 = r - alpha_new * ap2
+                rr = torch.sum(r2 * r2)
+                return x2, torch.stack((torch.sqrt(rr) <= thr, ~torch.isfinite(rr)
+                                        | (rr > b_rr * 1e12)))
+        nbytes = n * n * 4 + 8 * n * 4  # A; x, r, p, ap read; x2, r2, p2, partial written
+        bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+        ops_ms = (2 * n * n + 10 * n) / FP32_PEAK_FLOPS * 1e3
+        step_at[op] = {
+            "shape": [n, n], "storage": "float32",
+            "ms": event_ms(lambda: solver_step_cuda(op, a, 0, *inputs), reps=20),
+            "plain_ms": event_ms(lambda: solver_step_plain(op, a, 0, *inputs), reps=3,
+                                 warmup=1),
+            "unfused_ms": event_ms(unfused, reps=20),
+            "gemv_ms": event_ms(lambda: gemv_cuda(a, p), reps=20),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err["max_abs_err"],
+        }
+        del inputs, x, r, p, ap, s_in, unfused
+    del a
+    torch.cuda.empty_cache()
+
+    # ---- 17. served solvers at 65536² fp32, rowwise, p=1, both tiers ----
+    n = SOLVER_N
+    mesh1 = make_mesh(1)
+    t0 = time.perf_counter()
+    a = solver_operand(n, "float32", args.seed, device=dev)
+    interval = gershgorin_interval(a)
+    torch.cuda.synchronize(dev)
+    operand_s = time.perf_counter() - t0
+    b = seeded_rhs(n)
+    engines = {tier: MatvecEngine(a, mesh1, strategy="rowwise", promote=None,
+                                  solver_kernel=tier) for tier in ("torch", "cuda_fused")}
+    solver_main, native_x = {}, {}
+    for op, kw in (("cg", {"rtol": SOLVER_RTOL}),
+                   ("chebyshev", {"rtol": CHEBYSHEV_RTOL, "interval": interval,
+                                  "maxiter": CHEBYSHEV_MAXITER})):
+        for tier, engine in engines.items():
+            label = f"solver_{op}_{tier}"
+            (res, ms), counts = drive(label, lambda: timed_solve(
+                engine, op=op, rhs=b, **kw))
+            rel = rel_residual(a, b, res.x)
+            check(res.converged and rel <= 1.1 * kw["rtol"],
+                  f"{label}: residual {rel} of ||b|| > {1.1 * kw['rtol']}")
+            if tier == "cuda_fused":
+                # One step per iteration; the prologue and the verification
+                # are the unfused GEMV.
+                check(counts["solver_step"] == res.n_iters and counts["gemv"] == 2,
+                      f"{label}: launches {counts}, {res.n_iters} iterations")
+            else:
+                check(counts["solver_step"] == 0 and counts["gemv"] > res.n_iters,
+                      f"{label}: launches {counts}, {res.n_iters} iterations")
+            native_x[op, tier] = res.x
+            solver_main[label] = {
+                "op": op, "tier": tier, "rtol": kw["rtol"], "n_iters": res.n_iters,
+                "solve_ms": ms,
+                "ms_per_iter": ms / res.n_iters, "residual_norm": res.residual_norm,
+                "rel_residual_recomputed": rel, "launches": counts}
+        diff = rel_diff(native_x[op, "cuda_fused"], native_x[op, "torch"])
+        check(diff <= 1e-3, f"{op}: fused and unfused x differ by {diff} > 1e-3")
+        solver_main[f"solver_{op}_cuda_fused"]["x_rel_diff_to_torch"] = diff
+    eigen = {}
+    for op, rtol in (("gmres", SOLVER_RTOL), ("power", SOLVER_EIGEN_RTOL),
+                     ("lanczos", SOLVER_EIGEN_RTOL)):
+        label = f"solver_{op}_torch"
+        (res, ms), counts = drive(label, lambda: timed_solve(
+            engines["torch"], op=op, rhs=b, rtol=rtol))
+        check(res.converged and counts["solver_step"] == 0 and counts["gemv"] > 0,
+              f"{label}: launches {counts}")
+        if op == "gmres":
+            rel = rel_residual(a, b, res.x)
+            check(rel <= residual_bound, f"{label}: residual {rel} > {residual_bound}")
+        else:
+            eigen[op] = res.value
+        solver_main[label] = {"op": op, "tier": "torch", "rtol": rtol, "n_iters": res.n_iters,
+                              "solve_ms": ms, "value": res.value,
+                              "residual_norm": res.residual_norm, "launches": counts}
+    lam_diff = abs(eigen["power"] - eigen["lanczos"]) / abs(eigen["lanczos"])
+    check(lam_diff <= SOLVER_EIGEN_RTOL, f"power and lanczos lambda_1 differ by {lam_diff}")
+    # Host share: each loop iteration's wall time beyond its device work
+    # (the step, or the unfused body), from chebyshev's long run.
+    host = {}
+    for tier, device_ms in (("cuda_fused", step_at["chebyshev"]["ms"]),
+                            ("torch", step_at["chebyshev"]["unfused_ms"])):
+        per_iter = solver_main[f"solver_chebyshev_{tier}"]["ms_per_iter"]
+        host[tier] = {"ms_per_iter": per_iter, "device_ms_per_iter": device_ms,
+                      "host_ms_per_iter": per_iter - device_ms,
+                      "host_share": (per_iter - device_ms) / per_iter}
+    emit({"phase": "solver_main", "shape": [n, n], "dtype": "float32", "strategy": "rowwise",
+          "mesh": list(mesh1.grid), "interval": list(interval),
+          "operand_s": operand_s, "solves": solver_main,
+          "lambda_1": eigen, "lambda_rel_diff": lam_diff, "host": host})
+    del engines
+
+    # ---- 18. fused cg from an int8c resident at 65536² fp32 ----
+    q_engines = {tier: MatvecEngine(a, mesh1, strategy="rowwise", promote=None,
+                                    solver_kernel=tier, dtype_storage="int8c")
+                 for tier in ("torch", "cuda_fused")}
+    del a  # the engines hold the payload alone
+    torch.cuda.empty_cache()
+    quant_solve, q_x = {}, {}
+    for tier, engine in q_engines.items():
+        label = f"solver_cg_int8c_{tier}"
+        (res, ms), counts = drive(label, lambda: timed_solve(
+            engine, op="cg", rhs=b, rtol=SOLVER_RTOL))
+        check(res.converged and counts["gemv"] == 0, f"{label}: launches {counts}")
+        if tier == "cuda_fused":
+            check(counts["solver_step"] == res.n_iters and counts["quant_gemv"] == 2,
+                  f"{label}: launches {counts}, {res.n_iters} iterations")
+        else:
+            check(counts["solver_step"] == 0 and counts["quant_gemv"] > res.n_iters,
+                  f"{label}: launches {counts}, {res.n_iters} iterations")
+        q_x[tier] = res.x
+        quant_solve[label] = {"n_iters": res.n_iters, "solve_ms": ms,
+                              "ms_per_iter": ms / res.n_iters,
+                              "residual_norm": res.residual_norm, "launches": counts,
+                              "resident_bytes": engine.resident_bytes}
+    tiers_diff = rel_diff(q_x["cuda_fused"], q_x["torch"])
+    check(tiers_diff <= 1e-3, f"int8c: fused and unfused x differ by {tiers_diff}")
+    # The JAX package's budget for an int8c solve against the native one
+    # (tests/test_solvers.py:327): 5e-2.
+    native_diff = rel_diff(q_x["cuda_fused"], native_x["cg", "torch"])
+    check(native_diff <= 5e-2, f"int8c: x differs from the native solve by {native_diff}")
+    emit({"phase": "solver_int8c", "shape": [n, n], "dtype": "float32",
+          "strategy": "rowwise", "storage": "int8c", "rtol": SOLVER_RTOL,
+          "solves": quant_solve, "x_rel_diff_tiers": tiers_diff,
+          "x_rel_diff_to_native": native_diff, "native_budget": 5e-2})
+    del q_engines, q_x, native_x
+    torch.cuda.empty_cache()
+
+    # ---- 19. fused cg, colwise 32768² fp32 on 4 logical shards ----
+    n = SOLVER_COLWISE_N
+    a = solver_operand(n, "float32", args.seed, device=dev)
+    b = seeded_rhs(n)
+    mesh4 = make_mesh(4, devices=[dev] * 4)
+    colwise, col_x = {}, {}
+    for tier in ("torch", "cuda_fused"):
+        engine = MatvecEngine(a, mesh4, strategy="colwise", promote=None, solver_kernel=tier)
+        label = f"solver_cg_colwise4_{tier}"
+        (res, ms), counts = drive(label, lambda: timed_solve(
+            engine, op="cg", rhs=b, rtol=SOLVER_RTOL))
+        rel = rel_residual(a, b, res.x)
+        check(res.converged and rel <= residual_bound, f"{label}: residual {rel}")
+        if tier == "cuda_fused":
+            check(counts["solver_step"] == res.n_iters * 4 and counts["gemv"] == 2 * 4,
+                  f"{label}: launches {counts}, {res.n_iters} iterations x 4 shards")
+        col_x[tier] = res.x
+        colwise[label] = {"n_iters": res.n_iters, "solve_ms": ms,
+                          "ms_per_iter": ms / res.n_iters, "rel_residual_recomputed": rel,
+                          "launches": counts}
+        del engine
+    diff = rel_diff(col_x["cuda_fused"], col_x["torch"])
+    check(diff <= 1e-3, f"colwise: fused and unfused x differ by {diff}")
+    emit({"phase": "solver_colwise", "shape": [n, n], "dtype": "float32",
+          "strategy": "colwise", "mesh": list(mesh4.grid), "shards_on_cuda0": 4,
+          "solves": colwise, "x_rel_diff_tiers": diff})
+    del a, b, col_x
+    torch.cuda.empty_cache()
+
+    # ---- 20. run_serve_solver: 20 cg solves at 65536² fp32, both tiers ----
+    with tempfile.TemporaryDirectory() as tmp:
+        for tier in ("torch", "cuda_fused"):
+            snapshot = Path(tmp) / f"solver_{tier}.json"
+            label = f"serve_solver_cg_{tier}"
+            res, counts = drive(label, lambda: run_serve_solver(
+                "rowwise", mesh1, SOLVER_N, op="cg", solver_kernel=tier, rtol=SOLVER_RTOL,
+                n_solves=SOLVER_SERVE_SOLVES, seed=args.seed, metrics_out=str(snapshot)))
+            iters = int(json.loads(snapshot.read_text())["histograms"][
+                "solver_iterations"]["sum"])  # warmup and steady solves
+            check(res.compiles_steady == 0 and res.divergences == 0,
+                  f"{label}: {res.compiles_steady} steady builds, "
+                  f"{res.divergences} divergences")
+            if tier == "cuda_fused":
+                check(counts["solver_step"] == iters,
+                      f"{label}: {counts['solver_step']} steps for {iters} iterations")
+            else:
+                check(counts["solver_step"] == 0 and counts["gemv"] > iters,
+                      f"{label}: launches {counts}, {iters} iterations")
+            emit({"phase": "serve_solver", "op": "cg", "solver_kernel": tier,
+                  "shape": [SOLVER_N, SOLVER_N], "dtype": res.dtype,
+                  "strategy": res.strategy, "rtol": res.rtol, "n_solves": res.n_solves,
+                  "iterations_last": res.iterations, "iterations_total": iters,
+                  "final_residual": res.final_residual,
+                  "time_per_iter_ms": res.time_per_iter_ms,
+                  "solve_p50_ms": res.solve_p50_ms, "solve_p99_ms": res.solve_p99_ms,
+                  "solves_per_s": res.solves_per_s, "wall_s": res.wall_s,
+                  "compiles_warmup": res.compiles_warmup,
+                  "compiles_steady": res.compiles_steady, "launches": counts})
+            torch.cuda.empty_cache()
+    launches_by_path["gemv"].update(solver_paths["gemv"])
+    quant_launches.update(solver_paths["quant_gemv"])
+
+    # ---- 21. the kernels line ----
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
     gemm_head = gemm_at["{0}x{1}x{2}_{3}".format(*GEMM_TIME_SHAPES[GEMM_HEAD])]
     quant_head = quant_at["{0}x{0}_{1}_n{2}".format(*QUANT_TIME_SHAPES[QUANT_HEAD])]
@@ -907,9 +1285,24 @@ def main() -> int:
         "library_ms": None, "native_ms": quant_head["native_ms"],
         "native_call": quant_head["native_call"],
         "at": quant_at,
+    }, {
+        "name": "solver_step", "route": "cuda",
+        "source": "matvec_mpi_multiplier_torch/csrc/solver_step.cu",
+        "replaces": "matvec_mpi_multiplier_tpu/ops/pallas_solver.py:190",
+        # Each step call is two kernel launches: the update, then the GEMV.
+        "launches": sum(solver_paths["solver_step"].values()),
+        "kernel_launches_per_call": 2,
+        "launches_by_path": solver_paths["solver_step"],
+        "max_abs_err": step_at["cg"]["max_abs_err"],
+        "ms": step_at["cg"]["ms"], "plain_ms": step_at["cg"]["plain_ms"],
+        "bound_ms": step_at["cg"]["bound_ms"], "bound_by": step_at["cg"]["bound_by"],
+        # No single PyTorch call computes a solver iteration; unfused_ms is
+        # one iteration of the torch tier's body on the same A.
+        "library_ms": None, "unfused_ms": step_at["cg"]["unfused_ms"],
+        "at": step_at,
     }]})
 
-    # ---- 17. result ----
+    # ---- 22. result ----
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -23,12 +23,20 @@ resident bytes). Columns of modes the port does not have yet (load, chaos,
 speculative) carry the JAX package's defaults; those modes' flags raise
 ``ConfigError``.
 
+``--op cg|gmres|power|lanczos|chebyshev`` serves ANSWERS instead
+(:func:`run_serve_solver`): each request is one solve against the seeded SPD
+:func:`solver_operand`, ``--n-requests`` is the steady solve count, and rows
+land in ``serve_solver_<strategy>.csv`` under the JAX package's header.
+``--solver-kernel torch|cuda_fused|auto`` picks the iteration tier.
+
 Usage::
 
     python -m matvec_mpi_multiplier_torch.bench.serve --strategy blockwise \\
         --sizes 65536 --dtype bfloat16 --promote 4
     python -m matvec_mpi_multiplier_torch.bench.serve --platform cpu \\
         --host-devices 8 --sizes 64 --n-requests 20
+    python -m matvec_mpi_multiplier_torch.bench.serve --op cg \\
+        --strategy rowwise --sizes 65536 --solver-kernel cuda_fused --rtol 1e-5
 
     # or through the sweep CLI:
     python -m matvec_mpi_multiplier_torch.bench.sweep --op serve ...
@@ -49,13 +57,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..engine.core import MatvecEngine
+from ..engine.core import DEFAULT_SOLVER_MAXITER, SOLVER_KERNELS, MatvecEngine
 from ..models import available_strategies
 from ..models.base import not_ported
 from ..obs.registry import MetricsRegistry
 from ..parallel.mesh import Mesh
-from ..utils.convert import dtype_name, torch_dtype
-from ..utils.errors import MatvecError
+from ..solvers import SOLVER_OPS
+from ..utils.convert import dtype_name, from_numpy, torch_dtype
+from ..utils.errors import ConfigError, MatvecError, SolverDivergedError
 
 # Default request-width mix: single vectors through full buckets, with
 # off-bucket widths (3, 6, 12, 24) so the pad/unpad path is always
@@ -343,10 +352,323 @@ def run_serve(
     )
 
 
-# The flags that select the JAX package's load, chaos, multi-tenant, solver
-# and reshard modes, with their defaults: any other value raises.
+# ---------------------------------------------------------------- solvers
+
+SOLVER_CSV_HEADER = (
+    "n, n_devices, strategy, dtype, combine, op, solver_kernel, rtol, "
+    "maxiter, n_solves, iterations, final_residual, final_value, "
+    "time_per_iter_ms, solve_p50_ms, solve_p99_ms, wall_s, "
+    "solves_per_s, compiles_warmup, compiles_steady, divergences"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverServeResult:
+    """One solver-serve measurement (one CSV row).
+
+    ``iterations``/``final_residual``/``final_value`` are the LAST converged
+    solve's telemetry; ``time_per_iter_ms`` is steady-phase wall time over
+    total iterations, both summed over CONVERGED solves only — a diverged
+    solve burns its full cap and would flatter the per-iteration number.
+    Divergences are counted, never folded in."""
+
+    n: int
+    n_devices: int
+    strategy: str
+    dtype: str
+    combine: str
+    op: str
+    solver_kernel: str
+    rtol: float
+    maxiter: int
+    n_solves: int
+    iterations: int
+    final_residual: float
+    final_value: float
+    time_per_iter_ms: float
+    solve_p50_ms: float
+    solve_p99_ms: float
+    wall_s: float
+    compiles_warmup: int
+    compiles_steady: int
+    divergences: int
+
+    @property
+    def solves_per_s(self) -> float:
+        if not (self.wall_s > 0):
+            return float("nan")
+        return self.n_solves / self.wall_s
+
+
+def solver_csv_path(strategy: str, root=None):
+    from .metrics import out_dir
+
+    return out_dir(root) / f"serve_solver_{strategy}.csv"
+
+
+def append_solver_result(result: SolverServeResult, root=None):
+    from ..parallel.distributed import is_main_process
+    from .metrics import _append_row
+
+    path = solver_csv_path(result.strategy, root)
+    if not is_main_process():
+        return path
+    row = (
+        f"{result.n}, {result.n_devices}, {result.strategy}, "
+        f"{result.dtype}, {result.combine}, {result.op}, "
+        f"{result.solver_kernel}, "
+        f"{result.rtol:g}, {result.maxiter}, {result.n_solves}, "
+        f"{result.iterations}, {result.final_residual:.6e}, "
+        f"{result.final_value:.6e}, {result.time_per_iter_ms:.4f}, "
+        f"{result.solve_p50_ms:.4f}, {result.solve_p99_ms:.4f}, "
+        f"{result.wall_s:.6f}, {result.solves_per_s:.2f}, "
+        f"{result.compiles_warmup}, {result.compiles_steady}, "
+        f"{result.divergences}"
+    )
+    _append_row(path, SOLVER_CSV_HEADER, row)
+    return path
+
+
+def solver_operand(n: int, dtype, seed: int, *, device=None):
+    """Seeded symmetric diagonally-dominant SPD operand: uniform(-1, 1)
+    symmetrized, diagonal set to the absolute row sum plus one. Every
+    Gershgorin disc then sits in [1, ·]: SPD with a bounded condition regime,
+    valid for all five served ops. One diagonal entry is boosted 1.5× to
+    isolate the dominant eigenvalue for the eigen ops.
+
+    With ``device=None`` this is the JAX package's numpy construction, bit
+    for bit, returned as a numpy array (the CPU tests hold the two packages
+    against each other on it). With a ``device``, it is the SAME FAMILY WITH
+    DIFFERENT DRAWS: the uniforms come from a ``torch.Generator`` on that
+    device, in float32, and the matrix is built there in row chunks, so a
+    full-width A (65536² fp32, 17 GB) never passes through host memory and
+    the card holds at most the draws plus the result (2× A) and one
+    float64 chunk. Returns a tensor of ``dtype`` on ``device``."""
+    if device is None:
+        rng = np.random.default_rng(seed)
+        g = rng.uniform(-1.0, 1.0, (n, n))
+        a = (g + g.T) / 2.0
+        np.fill_diagonal(a, np.abs(a).sum(axis=1) + 1.0)
+        a[0, 0] *= 1.5
+        return a.astype(dtype)
+    device = torch.device(device)
+    dt = dtype if isinstance(dtype, torch.dtype) else torch_dtype(str(np.dtype(dtype)))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    g = torch.empty((n, n), dtype=torch.float32, device=device)
+    rows = max(1, (1 << 25) // n)  # 128 MiB of float32 per draw chunk
+    for i in range(0, n, rows):
+        j = min(n, i + rows)
+        g[i:j] = torch.rand((j - i, n), generator=gen, device=device) * 2 - 1
+    a = torch.empty((n, n), dtype=dt, device=device)
+    for i in range(0, n, rows):
+        j = min(n, i + rows)
+        blk = (g[i:j].double() + g[:, i:j].T.double()) / 2.0
+        diag = torch.arange(j - i, device=device)
+        blk[diag, diag + i] = blk.abs().sum(dim=1) + 1.0
+        if i == 0:
+            blk[0, 0] *= 1.5
+        a[i:j] = blk.to(dt)
+        del blk
+    del g
+    return a
+
+
+def gershgorin_interval(a) -> tuple[float, float]:
+    """Enclosing spectral interval from Gershgorin discs: chebyshev's
+    required ``interval=(λ_min, λ_max)`` without an eigendecomposition.
+    Bounds, not estimates: a wider interval costs iterations, never
+    correctness. A numpy array takes the JAX package's formula as it is; a
+    tensor is read in float64 row chunks on its own device."""
+    if not isinstance(a, torch.Tensor):
+        d = np.abs(np.diag(a)).astype(np.float64)
+        r = np.abs(a).astype(np.float64).sum(axis=1) - d
+        return float((np.diag(a) - r).min()), float((np.diag(a) + r).max())
+    n = a.shape[0]
+    rows = max(1, (1 << 25) // max(1, a.shape[1]))
+    lo, hi = [], []
+    for i in range(0, n, rows):
+        blk = a[i:i + rows].double()
+        d = blk.diagonal(offset=i)
+        r = blk.abs().sum(dim=1) - d.abs()
+        lo.append((d - r).min())
+        hi.append((d + r).max())
+    return float(torch.stack(lo).min()), float(torch.stack(hi).max())
+
+
+def run_serve_solver(
+    strategy_name: str,
+    mesh: Mesh,
+    n: int,
+    *,
+    op: str,
+    dtype: str = "float32",
+    kernel: str = "cuda",
+    solver_kernel: str = "torch",
+    combine: str | None = None,
+    dtype_storage: str | None = None,
+    rtol: float = 1e-6,
+    rtol_sweep: Sequence[float] | None = None,
+    maxiter: int | None = None,
+    restart: int | None = None,
+    steps: int | None = None,
+    n_solves: int = 20,
+    donate: bool = True,
+    seed: int = 0,
+    metrics_out: str | None = None,
+) -> SolverServeResult:
+    """Run the solver-serve protocol for one (op, strategy, n, mesh) config:
+    one warmup solve (the build), then ``n_solves`` steady solves with fresh
+    seeded right-hand sides (start vectors for the eigen ops), each
+    materialized at once — a solve's latency IS submit-to-answer.
+
+    The operand is :func:`solver_operand`: the JAX package's numpy draws on
+    a CPU mesh, the device-built family on a CUDA mesh (made on the mesh's
+    first device). rtol and maxiter are per-call arguments, every steady
+    solve hits the warm executable, and ``compiles_steady`` must be 0.
+    ``SolverDivergedError`` is counted and tolerated; any other failure
+    aborts the run. ``rtol_sweep`` cycles the steady solves across a
+    tolerance ladder (the CSV's rtol column records the tightest).
+    """
+    if op not in SOLVER_OPS:
+        raise ConfigError(f"unknown solver op {op!r}; served ops: {SOLVER_OPS}")
+    dev0 = mesh.devices[0]
+    if dev0.type == "cpu":
+        a = from_numpy(solver_operand(n, "float64", seed), "cpu").to(torch_dtype(dtype))
+    else:
+        a = solver_operand(n, dtype, seed, device=dev0)
+    interval = gershgorin_interval(a) if op == "chebyshev" else None
+    registry = MetricsRegistry()
+    engine = MatvecEngine(
+        a, mesh, strategy=strategy_name, kernel=kernel,
+        solver_kernel=solver_kernel, combine=combine,
+        dtype_storage=dtype_storage, dtype=dtype,
+        donate=donate, metrics=registry,
+    )
+    del a  # a quantized engine holds the payload alone
+    solve_hist = registry.histogram(
+        "serve_solve_latency_ms",
+        "steady-phase submit-entry to materialized-answer host time",
+        window=max(n_solves, 1),
+    )
+    rng = np.random.default_rng(seed + 1)
+    rhs_pool = [
+        torch.from_numpy(rng.standard_normal(n)).to(engine.dtype)
+        for _ in range(n_solves + 1)
+    ]
+    rtols = tuple(rtol_sweep) if rtol_sweep else (rtol,)
+
+    def solve(b, i=0):
+        return engine.submit(
+            op=op, rhs=b, rtol=rtols[i % len(rtols)], maxiter=maxiter,
+            restart=restart, steps=steps, interval=interval,
+        ).result()
+
+    # ---- warmup: one solve builds the loop; tolerate divergence the same
+    # way the steady phase does (warmup's job is the executable).
+    try:
+        solve(rhs_pool[-1])
+    except SolverDivergedError:
+        pass
+    warm_stats = engine.stats
+    compiles_warmup = warm_stats.compiles
+
+    # ---- steady phase: every solve must hit the warm executable ----
+    divergences = 0
+    total_iters = 0
+    converged_s = 0.0
+    last_iters, last_resid, last_value = 0, float("nan"), float("nan")
+    start = time.perf_counter()
+    for i in range(n_solves):
+        t0 = time.perf_counter()
+        try:
+            res = solve(rhs_pool[i], i)
+        except SolverDivergedError:
+            divergences += 1
+            continue
+        dt = time.perf_counter() - t0
+        solve_hist.observe(dt * 1e3)
+        converged_s += dt
+        total_iters += res.n_iters
+        last_iters = res.n_iters
+        last_resid = res.residual_norm
+        last_value = res.value
+    wall = time.perf_counter() - start
+    steady_stats = engine.stats
+    if metrics_out is not None:
+        path = Path(metrics_out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(registry.snapshot(), indent=2) + "\n")
+    engine.close()
+    return SolverServeResult(
+        n=n,
+        n_devices=mesh.size,
+        strategy=strategy_name,
+        dtype=dtype_name(engine.dtype),
+        combine=combine or "default",
+        op=op,
+        solver_kernel=solver_kernel,
+        rtol=min(rtols),
+        maxiter=DEFAULT_SOLVER_MAXITER if maxiter is None else int(maxiter),
+        n_solves=n_solves,
+        iterations=last_iters,
+        final_residual=last_resid,
+        final_value=last_value,
+        time_per_iter_ms=(
+            converged_s * 1e3 / total_iters if total_iters else float("nan")
+        ),
+        solve_p50_ms=solve_hist.percentile(50),
+        solve_p99_ms=solve_hist.percentile(99),
+        wall_s=wall,
+        compiles_warmup=compiles_warmup,
+        compiles_steady=steady_stats.compiles - compiles_warmup,
+        divergences=divergences,
+    )
+
+
+def _run_solver_config(args, name: str, mesh: Mesh, n: int) -> bool:
+    """One ``--op <solver>`` config of :func:`run_serve_sweep`: run, write
+    the row, print the summary. False when the config was skipped."""
+    try:
+        result = run_serve_solver(
+            name, mesh, n, op=args.solver_op, dtype=args.dtype,
+            kernel=args.kernel, combine=getattr(args, "combine", None),
+            dtype_storage=getattr(args, "dtype_storage", None),
+            solver_kernel=getattr(args, "solver_kernel", "torch") or "torch",
+            rtol=getattr(args, "rtol", 1e-6),
+            rtol_sweep=getattr(args, "rtol_sweep", None),
+            maxiter=getattr(args, "maxiter", None),
+            restart=getattr(args, "restart", None),
+            steps=getattr(args, "steps", None),
+            n_solves=args.n_requests, seed=args.seed,
+            metrics_out=getattr(args, "metrics_out", None),
+        )
+    except MatvecError as e:
+        print(f"skip {name} {n}x{n} p={mesh.size}: {e}")
+        return False
+    path = None if args.no_csv else append_solver_result(result, args.data_root)
+    print(
+        f"serve-solver {result.op} {name} {n}x{n} "
+        f"p={mesh.size} tier={result.solver_kernel} "
+        f"solves={result.n_solves} "
+        f"iters={result.iterations} "
+        f"resid={result.final_residual:.3e} "
+        f"t/iter={result.time_per_iter_ms:.3f}ms "
+        f"p50={result.solve_p50_ms:.2f}ms "
+        f"p99={result.solve_p99_ms:.2f}ms "
+        f"compiles={result.compiles_warmup}+"
+        f"{result.compiles_steady} "
+        f"div={result.divergences}"
+    )
+    if path is not None:
+        print(f"CSV: {path}")
+    return True
+
+
+# The flags that select the JAX package's load, chaos, multi-tenant and
+# reshard modes, with their defaults: any other value raises.
 _LATER_FLAGS = {
-    "solver_op": "matvec", "arrival": "closed", "concurrency": None,
+    "arrival": "closed", "concurrency": None,
     "coalesce": None, "fault_spec": None, "poison_rate": 0.0,
     "tenants": None, "reshard": "off",
 }
@@ -387,10 +709,16 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
     elif promote not in (None, "auto"):
         promote = int(promote)
     metrics_out = getattr(args, "metrics_out", None)
+    # Solver mode: --op selects a served solver; the namespace attribute is
+    # solver_op because bench.sweep forwards its own args.op ("serve").
+    solver_op = getattr(args, "solver_op", "matvec") or "matvec"
     n_done = 0
     for m, k in sizes:
         for name in strategies:
             for n_dev in counts:
+                if solver_op != "matvec":
+                    n_done += _run_solver_config(args, name, meshes[n_dev], m)
+                    continue
                 try:
                     result = run_serve(
                         name, meshes[n_dev], m, k, dtype=args.dtype,
@@ -469,9 +797,48 @@ def build_parser() -> argparse.ArgumentParser:
         "tuning cache yet and serves native; 'speculate' is not ported. CSV "
         "rows record the resolved format + resident bytes",
     )
+    p.add_argument(
+        "--op", dest="solver_op", default="matvec",
+        choices=["matvec"] + list(SOLVER_OPS),
+        help="serve answers instead of multiplies (solvers/): each request is "
+        "one solve of A x = b (cg/gmres/chebyshev) or an eigenpair estimate "
+        "(power/lanczos) against a seeded SPD operand; --n-requests becomes "
+        "the steady solve count and rows land in serve_solver_<strategy>.csv",
+    )
+    p.add_argument(
+        "--solver-kernel", default="torch", choices=list(SOLVER_KERNELS),
+        help="with --op cg|chebyshev: the iteration tier — the unfused "
+        "PyTorch loop, the fused CUDA step (ops/cuda_solver.py), or 'auto' "
+        "(no tuning cache yet: the unfused tier)",
+    )
+    p.add_argument(
+        "--rtol", type=float, default=1e-6,
+        help="with --op <solver>: relative convergence tolerance (a per-call "
+        "argument — changing it never builds again)",
+    )
+    p.add_argument(
+        "--rtol-sweep", nargs="+", type=float, default=None,
+        help="with --op <solver>: cycle steady solves across this rtol "
+        "ladder instead of one fixed --rtol — shows compiles_steady=0 "
+        "across the whole ladder",
+    )
+    p.add_argument(
+        "--maxiter", type=int, default=None,
+        help="with --op <solver>: iteration cap (per-call; default: the "
+        "engine's DEFAULT_SOLVER_MAXITER)",
+    )
+    p.add_argument(
+        "--restart", type=int, default=None,
+        help="with --op gmres: restart length (part of the executable's "
+        "bucket key)",
+    )
+    p.add_argument(
+        "--steps", type=int, default=None,
+        help="with --op lanczos: Krylov steps (part of the executable's "
+        "bucket key)",
+    )
     # The JAX package's other modes, kept as flags so that asking for one
     # says it is not ported rather than that the flag is unknown.
-    p.add_argument("--op", dest="solver_op", default="matvec")
     for flag in ("--arrival", "--coalesce", "--fault-spec", "--reshard"):
         p.add_argument(flag, default=_LATER_FLAGS[flag[2:].replace("-", "_")])
     p.add_argument("--concurrency", nargs="+", type=int, default=None)

@@ -14,6 +14,9 @@
 // moves 512 contiguous bytes per load), marked streaming (__ldcs) so it does
 // not evict x, which every warp re-reads through the read-only path (__ldg).
 //
+// x has A's type, or for the fused solver step (matvec_gemv_acc_x) the
+// accumulator type.
+//
 // Numerics: the accumulator is float for bf16/fp16/fp32 input and double
 // for fp64 input, and y is written in the accumulator type (the registry's
 // contract, ops/gemv.py). Each lane sums a fixed set of elements in a fixed
@@ -45,11 +48,14 @@ __device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
 
-template <typename T, typename Acc>
+template <typename T, typename X, typename Acc>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-gemv_kernel(const T* __restrict__ a, const T* __restrict__ x,
+gemv_kernel(const T* __restrict__ a, const X* __restrict__ x,
             Acc* __restrict__ y, int64_t m, int64_t k) {
   constexpr int kVec = 16 / sizeof(T);
+  // 16-byte loads of x per vector of A: 1 when x has A's type, 2 for bf16 or
+  // fp16 A against an fp32 x.
+  constexpr int kXVec = kVec * sizeof(X) / 16;
   const int lane = threadIdx.x % kWarp;
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
@@ -67,9 +73,11 @@ gemv_kernel(const T* __restrict__ a, const T* __restrict__ x,
 #pragma unroll 4
     for (int64_t i = lane; i < nvec; i += kWarp) {
       const uint4 pa = __ldcs(av + i);
-      const uint4 px = __ldg(xv + i);
+      uint4 px[kXVec];
+#pragma unroll
+      for (int j = 0; j < kXVec; ++j) px[j] = __ldg(xv + i * kXVec + j);
       const T* ea = reinterpret_cast<const T*>(&pa);
-      const T* ex = reinterpret_cast<const T*>(&px);
+      const X* ex = reinterpret_cast<const X*>(px);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         acc += static_cast<Acc>(widen(ea[e])) * static_cast<Acc>(widen(ex[e]));
@@ -87,15 +95,24 @@ gemv_kernel(const T* __restrict__ a, const T* __restrict__ x,
   if (lane == 0) y[row] = acc;
 }
 
-template <typename T, typename Acc>
+template <typename T, typename X, typename Acc>
 cudaError_t launch(const void* a, const void* x, void* y, int64_t m, int64_t k,
                    cudaStream_t stream) {
   const int64_t blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  gemv_kernel<T, Acc><<<static_cast<unsigned>(blocks), kWarp * kWarpsPerBlock,
-                        0, stream>>>(static_cast<const T*>(a),
-                                     static_cast<const T*>(x),
-                                     static_cast<Acc*>(y), m, k);
+  gemv_kernel<T, X, Acc><<<static_cast<unsigned>(blocks), kWarp * kWarpsPerBlock,
+                           0, stream>>>(static_cast<const T*>(a),
+                                        static_cast<const X*>(x),
+                                        static_cast<Acc*>(y), m, k);
   return cudaGetLastError();
+}
+
+// cudaSuccess for a shape the kernel takes, else the error to return.
+cudaError_t check_shape(int64_t m, int64_t k) {
+  if (m <= 0 || k < 0) return cudaErrorInvalidValue;
+  if ((m + kWarpsPerBlock - 1) / kWarpsPerBlock > INT_MAX) {
+    return cudaErrorInvalidConfiguration;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -105,16 +122,29 @@ cudaError_t launch(const void* a, const void* x, void* y, int64_t m, int64_t k,
 // `stream` and returns cudaGetLastError() after the launch.
 extern "C" int matvec_gemv(int dtype, const void* a, const void* x, void* y,
                            int64_t m, int64_t k, void* stream) {
-  if (m <= 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if ((m + kWarpsPerBlock - 1) / kWarpsPerBlock > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
+  if (const cudaError_t bad = check_shape(m, k)) return static_cast<int>(bad);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch<__nv_bfloat16, float>(a, x, y, m, k, s));
-    case 1: return static_cast<int>(launch<__half, float>(a, x, y, m, k, s));
-    case 2: return static_cast<int>(launch<float, float>(a, x, y, m, k, s));
-    case 3: return static_cast<int>(launch<double, double>(a, x, y, m, k, s));
+    case 0: return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16, float>(a, x, y, m, k, s));
+    case 1: return static_cast<int>(launch<__half, __half, float>(a, x, y, m, k, s));
+    case 2: return static_cast<int>(launch<float, float, float>(a, x, y, m, k, s));
+    case 3: return static_cast<int>(launch<double, double, double>(a, x, y, m, k, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same GEMV with x in the ACCUMULATOR type (fp32 for bf16/fp16/fp32 A,
+// fp64 for fp64 A): the fused solver step (csrc/solver_step.cu) multiplies
+// A by its fp32 direction vector without casting it to A's dtype first.
+extern "C" int matvec_gemv_acc_x(int dtype, const void* a, const void* x, void* y,
+                                 int64_t m, int64_t k, void* stream) {
+  if (const cudaError_t bad = check_shape(m, k)) return static_cast<int>(bad);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return static_cast<int>(launch<__nv_bfloat16, float, float>(a, x, y, m, k, s));
+    case 1: return static_cast<int>(launch<__half, float, float>(a, x, y, m, k, s));
+    case 2: return static_cast<int>(launch<float, float, float>(a, x, y, m, k, s));
+    case 3: return static_cast<int>(launch<double, double, double>(a, x, y, m, k, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

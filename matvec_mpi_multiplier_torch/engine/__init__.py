@@ -1,8 +1,8 @@
 """Serving engine: batched multi-RHS dispatch against a resident sharded A.
 
 The port's counterpart of the JAX package's ``engine/``, its plain native
-path: ``core.py`` (the engine, its futures, promotion, backpressure and
-deadlines), ``buckets.py`` (the shape ladder) and ``executables.py`` (the
+path and its served solvers: ``core.py`` (the engine, its futures,
+promotion, backpressure, deadlines and ``submit(op=...)`` solves), ``buckets.py`` (the shape ladder) and ``executables.py`` (the
 per-key program cache). Benchmarked by ``bench/serve.py`` (``--op serve``).
 The scheduler, registry and global scheduler wait for later slices
 (ROADMAP.md).
@@ -17,6 +17,8 @@ import importlib
 _EXPORTS = {
     "MatvecEngine": ".core",
     "MatvecFuture": ".core",
+    "SolverFuture": ".core",
+    "DEFAULT_SOLVER_MAXITER": ".core",
     "EngineStats": ".core",
     "DEFAULT_PROMOTE_B": ".core",
     "ExecutableCache": ".executables",

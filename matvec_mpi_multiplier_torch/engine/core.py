@@ -22,6 +22,18 @@ quantizes ``A`` once, on ``A``'s own device, and every dispatch, vector or
 promoted block, runs the hand-written block-scaled GEMV
 (``csrc/quant_gemv.cu``) on it.
 
+``submit(op="cg"|"gmres"|"power"|"lanczos"|"chebyshev", rhs=b, ...)`` serves
+an ANSWER instead of a multiply: an iterative solve (``solvers/``) against
+the resident A, returned as a :class:`SolverFuture`. The iteration tier is
+the constructor's ``solver_kernel``: ``"torch"`` runs each iteration as the
+strategy's matvec plus PyTorch vector ops, ``"cuda_fused"`` as one fused
+step per shard (``ops/cuda_solver.py``, the hand-written
+``csrc/solver_step.cu``). The solver loop is host-stepped: it reads one
+predicate per iteration, so a solver ``submit`` returns only after the
+solve has been enqueued to its end and its last predicate read (the JAX
+engine returns at once); only the verification matvec after the loop may
+still be running, and ``result()`` then copies to the host.
+
 ``submit`` returns a :class:`MatvecFuture` once the request's work is
 enqueued; the host waits for the card only when the caller materializes the
 result. Two host-side costs stay inside ``submit``: the request's
@@ -42,9 +54,10 @@ count lives in a :class:`~..obs.registry.MetricsRegistry`
 Left for later slices (ROADMAP.md, queue A 5): the tracer and timeline
 spans, the resilience ladder (and with it the native safe tier of quantized
 storage), fault injection and the integrity gate, residency/tenancy/reshard
-hooks, speculative and solver submits, lowering fingerprints, CUDA-graph
-capture, tuned ``promote="auto"`` and ``dtype_storage="auto"``, and RHS
-buffer reuse. Their arguments raise ``ConfigError``.
+hooks, speculative submits, lowering fingerprints, CUDA-graph capture (and
+with it the graph-captured solver loop), tuned ``promote="auto"``,
+``dtype_storage="auto"`` and ``solver_kernel="auto"``, and RHS buffer
+reuse. Their arguments raise ``ConfigError``.
 """
 
 from __future__ import annotations
@@ -68,7 +81,15 @@ from ..ops.quantize import (
 )
 from ..parallel.mesh import Mesh, ShardedTensor, shard, unshard
 from ..utils.convert import dtype_name, from_numpy, torch_dtype
-from ..utils.errors import ConfigError, DeadlineExceededError
+from ..solvers import (
+    DEFAULT_RESTART,
+    DEFAULT_STEPS,
+    SOLVER_OPS,
+    SolverResult,
+    build_solver,
+    solver_bucket,
+)
+from ..utils.errors import ConfigError, DeadlineExceededError, SolverDivergedError
 from .buckets import (
     DEFAULT_MAX_BUCKET,
     bucket_for,
@@ -84,9 +105,17 @@ from .executables import ExecKey, ExecStats, ExecutableCache
 # tuning slice, so every lookup is the JAX package's cache miss.
 DEFAULT_PROMOTE_B = 4
 
+# Iteration cap when a solver submit leaves ``maxiter`` unset.
+DEFAULT_SOLVER_MAXITER = 1000
+
+# The solver iteration tiers: the unfused PyTorch loop, the fused CUDA step,
+# and "auto" (no tuning cache yet: the unfused tier, the JAX package's
+# cache-miss choice).
+SOLVER_KERNELS = ("torch", "cuda_fused", "auto")
+
 # The JAX package's other constructor arguments, not ported yet.
 _LATER_ARGS = frozenset({
-    "solver_kernel", "stages", "trace_jsonl",
+    "stages", "trace_jsonl",
     "trace_capacity", "resilience", "fault_plan", "integrity_gate",
     "retain_host", "defer_placement", "label_prefix", "exec_cache",
     "residency_listener", "timeline",
@@ -180,6 +209,102 @@ class MatvecFuture:
         return value
 
 
+class SolverFuture:
+    """Handle to one served solve (``engine.submit(op="cg", ...)``).
+
+    Mirrors :class:`MatvecFuture`'s face — ``done()`` / ``exception()`` /
+    ``result()`` / ``retired``. The contract differs: ``result()`` either
+    returns a CONVERGED answer or raises :class:`SolverDivergedError` — when
+    the loop hit its iteration cap still above tolerance, or when the
+    answer is non-finite. An unconverged or corrupt ``x`` is never
+    returned: a solver's whole point is the answer."""
+
+    def __init__(
+        self, res: SolverResult | None, op: str, rtol: float, cap: int,
+        dispatch: _Dispatch | None = None, materialize_hist=None,
+        iter_hist=None, divergence_counter=None, residual_gauge=None,
+        iter_time_hist=None, submit_t0: float | None = None,
+    ):
+        self._res = res
+        self.op = op
+        self._rtol = rtol
+        self._cap = cap  # maxiter (lanczos: its step count)
+        self._dispatch = dispatch
+        self._error: Exception | None = None
+        self.retired = False
+        self._materialize_hist = materialize_hist
+        self._iter_hist = iter_hist
+        self._divergence_counter = divergence_counter
+        self._residual_gauge = residual_gauge
+        self._iter_time_hist = iter_time_hist
+        self._submit_t0 = submit_t0
+
+    @classmethod
+    def failed(cls, error: Exception) -> "SolverFuture":
+        """A solve that was never dispatched (deadline exceeded):
+        ``result()`` raises ``error``, ``done()`` is immediately True."""
+        fut = cls(None, op="", rtol=0.0, cap=0)
+        fut._error = error
+        return fut
+
+    def done(self) -> bool:
+        """True when the solve's device work has completed (never blocks)."""
+        return self._dispatch is None or self._dispatch.query()
+
+    def exception(self) -> Exception | None:
+        return self._error
+
+    def result(self) -> SolverResult:
+        """Materialize the solve on the host: a :class:`SolverResult` whose
+        ``x`` is a CPU tensor and whose telemetry fields are Python scalars.
+        Raises :class:`SolverDivergedError` if the loop exited on its cap
+        (the partial iterate is withheld — retry with a larger ``maxiter``
+        or a looser ``rtol``) or the answer is non-finite."""
+        self.retired = True
+        if self._error is not None:
+            raise self._error
+        t0 = time.perf_counter()
+        res = self._res
+        x = res.x.cpu()
+        n_iters = int(res.n_iters)
+        # One copy for the three device scalars.
+        rnorm, value, converged = torch.stack((
+            res.residual_norm.double(), res.value.double(), res.converged.double(),
+        )).tolist()
+        if self._iter_hist is not None:
+            self._iter_hist.observe(n_iters)
+        if self._residual_gauge is not None:
+            self._residual_gauge.set(rnorm)
+        if self._iter_time_hist is not None and self._submit_t0 is not None:
+            # Total solve wall time per iteration (submit entry to here,
+            # device wait included).
+            self._iter_time_hist.observe(
+                (time.perf_counter() - self._submit_t0) * 1e3 / max(n_iters, 1))
+        if not bool(torch.isfinite(x).all()) or not np.isfinite(rnorm):
+            self._error = SolverDivergedError(
+                f"{self.op} solve produced a non-finite result "
+                f"(residual_norm={rnorm}); the answer is withheld — check "
+                "the operand for NaN/Inf"
+            )
+            raise self._error
+        if not converged:
+            if self._divergence_counter is not None:
+                self._divergence_counter.inc()
+            self._error = SolverDivergedError(
+                f"{self.op} solve exhausted its iteration cap "
+                f"({self._cap}) at residual_norm={rnorm:.6e} without "
+                f"meeting rtol={self._rtol:g}; the partial iterate is "
+                "withheld (converged or typed failure, never a silently "
+                "wrong x) — retry with a larger maxiter, a looser rtol, or "
+                "a better-suited op"
+            )
+            raise self._error
+        if self._materialize_hist is not None:
+            self._materialize_hist.observe((time.perf_counter() - t0) * 1e3)
+        return SolverResult(x=x, value=value, n_iters=n_iters,
+                            residual_norm=rnorm, converged=True)
+
+
 class EngineStats(ExecStats):
     """Executable-cache counters plus dispatch-level ones (a point-in-time
     view over the engine's metrics registry). ``in_flight`` is the
@@ -250,6 +375,14 @@ class MatvecEngine:
         ``"auto"`` has no tuning cache to read yet and takes the JAX
         package's cold-cache path: native, ``storage_reason="auto_miss"``.
         ``"speculate"`` is not ported.
+    solver_kernel : the iteration tier of solver submits: ``"torch"`` (the
+        unfused loop: the strategy's matvec plus PyTorch vector ops, the JAX
+        package's ``"xla"`` tier), ``"cuda_fused"`` (one fused step per shard
+        and iteration, ``ops/cuda_solver.py``, the JAX package's
+        ``"pallas_fused"``; cg and chebyshev on rowwise or colwise only —
+        the strategy/combine half is checked here, the op half at submit)
+        or ``"auto"``, which has no tuning cache yet and takes the unfused
+        tier, as the JAX package does on a miss.
 
     The JAX package's other arguments (``stages``, ``resilience``,
     ``trace_jsonl``, ...) raise ``ConfigError``.
@@ -271,6 +404,7 @@ class MatvecEngine:
         max_in_flight: int | None = None,
         metrics: MetricsRegistry | None = None,
         dtype_storage: str | None = None,
+        solver_kernel: str = "torch",
         **later,
     ):
         for name in later:
@@ -287,6 +421,19 @@ class MatvecEngine:
         self.strategy = (
             get_strategy(strategy) if isinstance(strategy, str) else strategy
         )
+        if solver_kernel not in SOLVER_KERNELS:
+            raise ConfigError(
+                f"solver_kernel must be 'torch', 'cuda_fused' or 'auto'; "
+                f"got {solver_kernel!r}"
+            )
+        self.solver_kernel = solver_kernel
+        if solver_kernel == "cuda_fused":
+            # The strategy/combine half of the fused tier's contract fails
+            # here, not requests deep; the op half (cg/chebyshev only) is
+            # submit()'s: this engine may serve matvecs and other ops too.
+            from ..ops.cuda_solver import check_fused_solver
+
+            check_fused_solver("cg", self.strategy.name, combine, mesh)
         a = _as_tensor(a)
         if a.dim() != 2:
             raise ConfigError(f"A must be rank 2, got shape {tuple(a.shape)}")
@@ -304,6 +451,9 @@ class MatvecEngine:
         # gather of rowwise/blockwise is its default (the JAX package's
         # batched fallback for a matvec-only schedule).
         self._matvec_combine = combine
+        # The REQUESTED combine, for the fused solver tier, which owns its
+        # combine spelling.
+        self._requested_combine = combine
         self._gemm_combine = combine if combine in ("psum", "psum_scatter") else None
         self.storage = self._resolve_storage(dtype_storage)
         self.kernel = kernel
@@ -356,6 +506,9 @@ class MatvecEngine:
             "engine_materialize_latency_ms",
             "result() materialization host time (device wait included)",
         )
+        # Solver metric handles, created on the FIRST solver submit so a
+        # pure-matvec engine's snapshot has no solver_* entries.
+        self._solver_metrics = None
         self._cache = ExecutableCache(
             compile_counter=self.metrics.counter(
                 "engine_compiles_total", "executable builds"
@@ -504,13 +657,18 @@ class MatvecEngine:
 
     def submit(
         self,
-        x,
+        x=None,
         *,
+        rhs=None,
         deadline_ms: float | None = None,
         op: str = "matvec",
         rtol: float | None = None,
+        maxiter: int | None = None,
+        restart: int | None = None,
+        steps: int | None = None,
+        interval: tuple[float, float] | None = None,
         integrity: bool | None = None,
-    ) -> MatvecFuture:
+    ) -> MatvecFuture | SolverFuture:
         """Dispatch one request: a ``(k,)`` vector or a ``(k, b)`` block of
         ``b`` right-hand sides (columns). Returns once the work is enqueued
         (after the backpressure drain, when the high-water mark forces one);
@@ -525,20 +683,43 @@ class MatvecEngine:
         up to one drain. A request that made it to dispatch always
         completes.
 
-        ``op`` other than ``"matvec"`` (served solvers), ``rtol``
-        (speculative serving) and ``integrity`` (the integrity gate) are
-        not ported yet and raise ``ConfigError``.
+        ``op`` (default ``"matvec"``) selects a SERVED SOLVER instead of a
+        multiply: ``"cg"``/``"gmres"``/``"chebyshev"`` solve ``A x = b``
+        against the resident A, ``"power"``/``"lanczos"`` estimate its
+        extremal eigenpair (the request vector is then the start vector).
+        ``rhs`` is an alias for the positional request; ``rtol`` (default
+        1e-6) and ``maxiter`` (default :data:`DEFAULT_SOLVER_MAXITER`) are
+        per-call arguments of one built loop (changing them never builds
+        again), while ``restart`` (gmres) and ``steps`` (lanczos) are shapes
+        keyed into the executable's bucket. ``interval=(λ_min, λ_max)`` is
+        chebyshev's required spectral interval. Solver submits return a
+        :class:`SolverFuture` once the host-stepped loop has been enqueued to
+        its end (module docstring). ``rtol`` on a plain matvec (speculative
+        serving) and ``integrity`` (the integrity gate) are not ported yet
+        and raise ``ConfigError``.
         """
         t0 = time.monotonic()
         t0_perf = time.perf_counter()
-        if op != "matvec":
-            raise not_ported(f"submit(op={op!r})")
-        if rtol is not None:
+        if rhs is not None:
+            if x is not None:
+                raise ConfigError(
+                    "pass the request as either the positional x or rhs=, not both"
+                )
+            x = rhs
+        if x is None:
+            raise ConfigError("submit() needs a request vector or block")
+        if op == "matvec" and rtol is not None:
             raise not_ported("submit(rtol=...) (speculative serving)")
         if integrity is not None:
             raise not_ported("submit(integrity=...) (the integrity gate)")
         x = _as_tensor(x).to(self.dtype)
         self._c_requests.inc()
+        if op != "matvec":
+            return self._submit_solver(
+                x, op=op, rtol=rtol, maxiter=maxiter, restart=restart,
+                steps=steps, interval=interval, deadline_ms=deadline_ms,
+                t0=t0, t0_perf=t0_perf,
+            )
         if x.dim() == 1:
             if x.shape[0] != self.k:
                 raise ConfigError(
@@ -590,6 +771,173 @@ class MatvecEngine:
             raise
         fut = MatvecFuture(parts, vector=x.dim() == 1,
                            materialize_hist=self._h_materialize)
+        self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
+        return fut
+
+    # ---- served solvers ----
+
+    def _solver_metric_handles(self):
+        """The solver metrics, with the JAX package's names, created on
+        first use: requests counter, iterations histogram, divergence
+        counter, residual gauge, per-iteration time histogram."""
+        if self._solver_metrics is None:
+            self._solver_metrics = (
+                self.metrics.counter(
+                    "solver_requests_total", "solver submits accepted"
+                ),
+                self.metrics.histogram(
+                    "solver_iterations",
+                    "iterations the solver loop ran per solve",
+                ),
+                self.metrics.counter(
+                    "solver_divergences_total",
+                    "solves that exhausted their cap unconverged "
+                    "(SolverDivergedError raised at materialization)",
+                ),
+                self.metrics.gauge(
+                    "solver_residual_norm",
+                    "true residual norm of the last materialized solve",
+                ),
+                self.metrics.histogram(
+                    "solver_iteration_time",
+                    "per-iteration solve wall time, ms (submit-to-"
+                    "materialize / n_iters)",
+                ),
+            )
+        return self._solver_metrics
+
+    def _resolve_solver_kernel(self, op: str) -> str:
+        """The iteration tier one solve of ``op`` runs: "cuda_fused" or
+        "torch". An explicit "cuda_fused" re-raises the fused tier's typed
+        errors for an op it does not serve; "auto" has no tuning cache to
+        read yet and stays on the unfused tier (the JAX package's miss)."""
+        if self.solver_kernel == "cuda_fused":
+            from ..ops.cuda_solver import check_fused_solver
+
+            check_fused_solver(op, self.strategy.name, self._requested_combine, self.mesh)
+            return "cuda_fused"
+        return "torch"
+
+    def _solver_key(self, op: str, bucket: int) -> ExecKey:
+        """A solver executable's cache identity: the matvec key with the op
+        swapped in and its shape parameter (GMRES restart, Lanczos steps) in
+        the bucket field. A fused solve keys on kernel="cuda_fused" and the
+        fused body's own combine."""
+        if self._resolve_solver_kernel(op) == "cuda_fused":
+            from ..ops.cuda_solver import check_fused_solver
+
+            return ExecKey(
+                op, self.strategy.name, "cuda_fused",
+                check_fused_solver(op, self.strategy.name, self._requested_combine,
+                                   self.mesh),
+                bucket, dtype_name(self.dtype), self.storage,
+            )
+        return ExecKey(
+            op, self.strategy.name, self._kernel_label(), self._matvec_combine,
+            bucket, dtype_name(self.dtype), self.storage,
+        )
+
+    def _build_solver(self, key: ExecKey, restart: int, steps: int) -> Callable:
+        fused = key.kernel == "cuda_fused"
+        return build_solver(
+            key.op, self.strategy, self.mesh, dtype=self.dtype,
+            kernel="cuda_fused" if fused else self.kernel,
+            combine=self._requested_combine if fused else self._matvec_combine,
+            dtype_storage=self.storage, restart=restart, steps=steps,
+        )
+
+    def _submit_solver(
+        self, rhs: torch.Tensor, *, op, rtol, maxiter, restart, steps,
+        interval, deadline_ms, t0, t0_perf,
+    ) -> SolverFuture:
+        """The solver twin of :meth:`submit`'s dispatch tail: validate on
+        the host (the last place a typed ConfigError can catch the knobs),
+        run the deadline/backpressure gate, then ONE dispatch of the
+        solver's built loop."""
+        if op not in SOLVER_OPS:
+            raise ConfigError(
+                f"unknown op {op!r}; expected 'matvec' or one of "
+                f"{sorted(SOLVER_OPS)}"
+            )
+        if self.m != self.k:
+            raise ConfigError(
+                f"op={op!r} iterates against a square resident A; this "
+                f"engine holds {self.m}x{self.k}"
+            )
+        if rhs.dim() != 1 or rhs.shape[0] != self.k:
+            raise ConfigError(
+                f"op={op!r} takes one (k,) right-hand side with "
+                f"k={self.k}; got shape {tuple(rhs.shape)}"
+            )
+        rtol = float(1e-6 if rtol is None else rtol)
+        if not (rtol > 0.0):
+            raise ConfigError(f"rtol must be > 0, got {rtol}")
+        maxiter = DEFAULT_SOLVER_MAXITER if maxiter is None else int(maxiter)
+        if maxiter < 1:
+            raise ConfigError(f"maxiter must be >= 1, got {maxiter}")
+        restart = DEFAULT_RESTART if restart is None else int(restart)
+        steps = DEFAULT_STEPS if steps is None else int(steps)
+        if op == "chebyshev":
+            if interval is None:
+                raise ConfigError(
+                    "op='chebyshev' needs interval=(lambda_min, "
+                    "lambda_max) — the semi-iteration is defined by its "
+                    "spectral interval (estimate one with op='power'/"
+                    "'lanczos')"
+                )
+            lo, hi = float(interval[0]), float(interval[1])
+            # Strictly ordered: reversed endpoints flip the recurrence's sign
+            # structure, and a zero-width interval makes c = 0 with d = lo —
+            # config mistakes, caught here rather than as a maxiter'd
+            # divergence.
+            if not (0.0 < lo < hi):
+                raise ConfigError(
+                    f"chebyshev interval needs 0 < lambda_min < "
+                    f"lambda_max (strict: a reversed or zero-width "
+                    f"interval has no convergent semi-iteration); got "
+                    f"({lo}, {hi})"
+                )
+        else:
+            lo = hi = 0.0
+        bucket = solver_bucket(op, restart=restart, steps=steps)
+        c_requests, iter_hist, c_div, g_resid, iter_time_hist = (
+            self._solver_metric_handles())
+        c_requests.inc()
+
+        def expired() -> bool:
+            return deadline_ms is not None and (time.monotonic() - t0) * 1e3 > deadline_ms
+
+        def fail() -> SolverFuture:
+            self._c_deadline_failures.inc()
+            self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
+            return SolverFuture.failed(DeadlineExceededError(
+                f"request deadline of {deadline_ms} ms elapsed in the "
+                "backpressure gate before dispatch"
+            ))
+
+        if deadline_ms is not None and deadline_ms <= 0:
+            return fail()
+        self._admit()
+        if expired():
+            return fail()
+        try:
+            self._c_cols.inc()
+            key = self._solver_key(op, bucket)
+            fn = self._cache.get(key, lambda: self._build_solver(key, restart, steps))
+            self._c_dispatches.inc()
+            res = fn(self._a, rhs.to(self.mesh.devices[0]), rtol, maxiter, lo, hi)
+            dispatch = self._track(_Dispatch(self._cuda_devices))
+        except BaseException:
+            self._c_dispatch_failures.inc()
+            self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
+            raise
+        fut = SolverFuture(
+            res, op=op, rtol=rtol, cap=steps if op == "lanczos" else maxiter,
+            dispatch=dispatch, materialize_hist=self._h_materialize,
+            iter_hist=iter_hist, divergence_counter=c_div,
+            residual_gauge=g_resid, iter_time_hist=iter_time_hist,
+            submit_t0=t0_perf,
+        )
         self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
         return fut
 

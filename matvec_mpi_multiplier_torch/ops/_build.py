@@ -122,6 +122,8 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.matvec_gemv.restype = ctypes.c_int
+    lib.matvec_gemv_acc_x.argtypes = lib.matvec_gemv.argtypes
+    lib.matvec_gemv_acc_x.restype = ctypes.c_int
     lib.matvec_gemm.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
@@ -135,6 +137,16 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.matvec_quant_gemv.restype = ctypes.c_int
+    # op, fmt, dtype; A (or q), scales, q2, scales2 (NULL where absent),
+    # block; x, r, p, ap, s_in; x2, r2, p2, s_out, partial; n, m_loc, k_loc,
+    # off; the stream.
+    lib.matvec_solver_step.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        *[ctypes.c_void_p] * 4, ctypes.c_int64,
+        *[ctypes.c_void_p] * 10,
+        *[ctypes.c_int64] * 4, ctypes.c_void_p,
+    ]
+    lib.matvec_solver_step.restype = ctypes.c_int
     lib.matvec_error_string.argtypes = [ctypes.c_int]
     lib.matvec_error_string.restype = ctypes.c_char_p
     return lib

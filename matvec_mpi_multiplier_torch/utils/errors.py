@@ -49,6 +49,19 @@ class DeadlineExceededError(MatvecError):
     can be retried."""
 
 
+class SolverDivergedError(MatvecError):
+    """A served iterative solve hit its iteration cap without meeting its
+    tolerance.
+
+    Raised by ``SolverFuture.result()`` (``engine/core.py``) when the solver
+    loop (``solvers/``) exhausted ``maxiter`` with its convergence predicate
+    still false, or produced a non-finite answer. The partial iterate is
+    NOT returned: an unconverged ``x`` is a silently wrong answer, and the
+    contract is converged-or-typed-failure. Retry with a larger
+    ``maxiter``, a looser ``rtol``, another op, or (for chebyshev) a
+    corrected spectral interval."""
+
+
 class TimingError(MatvecError):
     """A timing measurement failed to produce a usable number.
 

@@ -300,7 +300,7 @@ def test_request_validation(rng):
 @pytest.mark.parametrize("kwargs", [
     {"stages": 2}, {"dtype_storage": "speculate"}, {"resilience": object()},
     {"fault_plan": object()}, {"integrity_gate": True}, {"trace_jsonl": "t.jsonl"},
-    {"retain_host": True}, {"label_prefix": "tenant-1/"}, {"solver_kernel": "auto"},
+    {"retain_host": True}, {"label_prefix": "tenant-1/"}, {"exec_cache": object()},
     {"combine": "ring"}, {"combine": "auto"},
 ])
 def test_later_slice_arguments_raise(rng, kwargs):
@@ -312,7 +312,7 @@ def test_later_slice_arguments_raise(rng, kwargs):
 def test_later_slice_submits_raise(rng):
     a, X = make_operands(rng)
     eng = engine(a)
-    for kwargs in ({"op": "cg"}, {"rtol": 1e-3}, {"integrity": True}):
+    for kwargs in ({"rtol": 1e-3}, {"integrity": True}):
         with pytest.raises(ConfigError, match="ROADMAP.md"):
             eng.submit(X[:, 0], **kwargs)
     assert eng.stats.dispatches == 0

@@ -136,16 +136,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_missing_nvcc_raises_and_nothing_falls_back(monkeypatch, tmp_path):
     """Without nvcc the build raises a clear error naming every source, and
     a non-CPU tensor never falls back to the plain version or a library
-    call — for the GEMV, the GEMM and the block-scaled GEMV (which also
-    never reaches the scan tier or a dequantized A)."""
-    from matvec_mpi_multiplier_torch.ops import cuda_gemm, cuda_quant, quantize
+    call — for the GEMV, the GEMM, the block-scaled GEMV (which also
+    never reaches the scan tier or a dequantized A) and the fused solver
+    step."""
+    from matvec_mpi_multiplier_torch.ops import cuda_gemm, cuda_quant, cuda_solver, quantize
 
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     _build.load_library.cache_clear()
-    assert [s.name for s in _build.SOURCES] == ["gemm.cu", "gemv.cu", "quant_gemv.cu"]
-    with pytest.raises(RuntimeError, match="nvcc not found.*gemm.cu, gemv.cu, quant_gemv.cu"):
+    assert [s.name for s in _build.SOURCES] == ["gemm.cu", "gemv.cu", "quant_gemv.cu",
+                                                "solver_step.cu"]
+    with pytest.raises(RuntimeError, match="nvcc not found.*gemm.cu, gemv.cu, quant_gemv.cu, "
+                       "solver_step.cu"):
         _build.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_library()
@@ -155,10 +158,13 @@ def test_missing_nvcc_raises_and_nothing_falls_back(monkeypatch, tmp_path):
     for module, plain in ((cuda_gemv, "gemv_plain"), (cuda_gemm, "gemm_plain"),
                           (cuda_quant, "quant_gemv_plain"),
                           (cuda_quant, "_dequantized_rows"),
-                          (quantize, "matvec_quantized"), (quantize, "dequantize")):
+                          (quantize, "matvec_quantized"), (quantize, "dequantize"),
+                          (cuda_solver, "solver_step_plain"), (cuda_solver, "gemv_plain"),
+                          (cuda_solver, "quant_gemv_plain")):
         monkeypatch.setattr(module, plain, lambda *args: calls.append(args))
     monkeypatch.setattr(torch, "matmul", lambda *args: calls.append(args))
-    kernels = (gemv_cuda, cuda_gemm.gemm_cuda, cuda_quant.quant_gemv_cuda)
+    kernels = (gemv_cuda, cuda_gemm.gemm_cuda, cuda_quant.quant_gemv_cuda,
+               cuda_solver.solver_step_cuda)
     before = [k.launches for k in kernels]
     a = torch.ones(4, 8, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -176,6 +182,12 @@ def test_missing_nvcc_raises_and_nothing_falls_back(monkeypatch, tmp_path):
         for x in (torch.ones(8, device="meta"), torch.ones(8, 3, device="meta")):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 cuda_quant.quant_gemv_cuda(qa, x)
+        vectors = [torch.ones(8, device="meta") for _ in range(4)]
+        for op, width in (("cg", 1), ("chebyshev", 4)):
+            s_in = torch.ones(width, device="meta")
+            for shard in (a, qa):
+                with pytest.raises(RuntimeError, match="nvcc not found"):
+                    cuda_solver.solver_step_cuda(op, shard, 0, *vectors, s_in)
     assert [k.launches for k in kernels] == before
     assert calls == []
     assert not (tmp_path / "build").exists()

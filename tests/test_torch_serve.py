@@ -158,7 +158,7 @@ def test_sweep_op_serve_delegates(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--op", "cg"], ["--arrival", "poisson"], ["--concurrency", "4"],
+    ["--arrival", "burst"], ["--arrival", "poisson"], ["--concurrency", "4"],
     ["--coalesce", "on"], ["--fault-spec", "dispatch:device_error:p=0.1"],
     ["--poison-rate", "0.1"], ["--tenants", "2"], ["--reshard", "auto"],
 ])
