@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the hand-written CUDA kernels (``csrc/gemv.cu``, ``csrc/gemm.cu``,
-``csrc/quant_gemv.cu``, ``csrc/solver_step.cu``; one ``nvcc`` each, in
-parallel) from the checkout's sources, holds each against its plain
+``csrc/quant_gemv.cu``, ``csrc/solver_step.cu``, ``csrc/ring_gemv.cu``; one
+``nvcc`` each, in parallel) from the checkout's sources, holds each against its plain
 PyTorch version, and drives the port's paths at full size, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
@@ -27,7 +27,13 @@ kernels' launch counts set to 0 just before it and read just after:
   step per iteration), gmres, power and lanczos on the ``torch`` tier,
   fused cg on colwise 32768² over 4 logical shards and from an int8c
   resident at 65536², and ``bench.serve.run_serve_solver`` (20 cg solves
-  at 65536² on both tiers).
+  at 65536² on both tiers);
+* colwise's combine schedules on 4 logical shards at 65536² bf16: the ring
+  GEMV against its plain version (p = 1, 2, 4, 8, 16), ``benchmark_strategy``
+  with every colwise combine (``pallas_ring`` through the ring GEMV, the
+  others through the GEMV) and rowwise/blockwise's ``ring``/``overlap``
+  gathers, each held against ``psum`` and to no panel-sized allocation, and
+  ``run_serve`` with ``pallas_ring`` and ``overlap@4``.
 
 It checks the answers and times each kernel beside its bound, its plain
 version and the library call. Every phase prints one JSON line; any failed
@@ -163,6 +169,27 @@ CHEBYSHEV_RTOL = 1e-4
 CHEBYSHEV_MAXITER = 3000
 SOLVER_SERVE_SOLVES = 20
 
+# The ring GEMV and the combine schedules. (m, k) checked for p = 1, 2, 4, 8:
+# a square shape and a ragged one (1003 rows per chunk and 1542-byte bf16
+# rows at p = 8); p = 16 (a non-portable cluster) at the first.
+RING_CHECK_SHAPES = [(4096, 4096), (8024, 6168)]
+RING_CHECK_DTYPES = ("float32", "bfloat16", "float64")
+RING_N = 65536  # bf16, the north-star shape
+RING_TIME_P = (4, 8)  # the kernels line's head is the first
+# (strategy, combine, stages, mesh) at RING_N bf16 on 4 logical shards of
+# cuda:0; "1d" is make_1d_mesh(4), "2x2" make_mesh(4).
+RING_MAIN_CONFIGS = [
+    ("colwise", "psum", None, "1d"), ("colwise", "psum_scatter", None, "1d"),
+    ("colwise", "ring", None, "1d"), ("colwise", "ring_overlap", None, "1d"),
+    ("colwise", "a2a", None, "1d"), ("colwise", "overlap", None, "1d"),
+    ("colwise", "overlap", 8, "1d"), ("colwise", "overlap_ring", None, "1d"),
+    ("colwise", "pallas_ring", None, "1d"),
+    ("rowwise", "ring", None, "1d"), ("rowwise", "overlap", None, "1d"),
+    ("blockwise", "ring", None, "2x2"), ("blockwise", "overlap", None, "2x2"),
+]
+# (combine, stages, steady requests) for run_serve, colwise on the 1-D mesh.
+RING_SERVE_CONFIGS = [("pallas_ring", None, 200), ("overlap", 4, 40)]
+
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -187,7 +214,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
-    from matvec_mpi_multiplier_torch import get_strategy, make_mesh
+    from matvec_mpi_multiplier_torch import get_strategy, make_1d_mesh, make_mesh
     from matvec_mpi_multiplier_torch.bench.serve import (
         DEFAULT_WIDTH_MIX,
         _request_pool,
@@ -203,13 +230,21 @@ def main() -> int:
     )
     from matvec_mpi_multiplier_torch.engine import MatvecEngine, bucket_for
     from matvec_mpi_multiplier_torch.models.gemm import build_gemm
-    from matvec_mpi_multiplier_torch.parallel.mesh import ShardedTensor, unshard
+    from matvec_mpi_multiplier_torch.parallel.mesh import (
+        ShardedTensor,
+        psum_scatter,
+        unshard,
+    )
     from matvec_mpi_multiplier_torch.ops import _build
     from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda, gemm_plain
     from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda, gemv_plain
     from matvec_mpi_multiplier_torch.ops.cuda_quant import (
         quant_gemv_cuda,
         quant_gemv_plain,
+    )
+    from matvec_mpi_multiplier_torch.ops.cuda_ring import (
+        ring_gemv_cuda,
+        ring_gemv_plain,
     )
     from matvec_mpi_multiplier_torch.ops.cuda_solver import (
         solver_step_cuda,
@@ -1242,10 +1277,209 @@ def main() -> int:
     launches_by_path["gemv"].update(solver_paths["gemv"])
     quant_launches.update(solver_paths["quant_gemv"])
 
-    # ---- 21. the kernels line ----
+    # ---- 21. ring_gemv against its plain version ----
+    def ring_mesh(kind: str, p: int = 4):
+        return make_1d_mesh(p, devices=[dev] * p) if kind == "1d" else make_mesh(
+            p, devices=[dev] * p)
+
+    def ring_operands(a, x, p):
+        """Rank d's column panel and x segment, as colwise places them."""
+        st_a, st_x = get_strategy("colwise").place(a, x, ring_mesh("1d", p))
+        return list(st_a.shards), list(st_x.shards)
+
+    def ring_check(a, x, p, what) -> dict:
+        """The ring GEMV twice on the card and once plain: bitwise
+        repeatable, and within the GEMV's tolerance of |A|·|x| (the
+        operands are positive, so that is the plain result itself)."""
+        panels, segs = ring_operands(a, x, p)
+        y1, y2 = ring_gemv_cuda(panels, segs), ring_gemv_cuda(panels, segs)
+        ref = ring_gemv_plain(panels, segs)
+        torch.cuda.synchronize(dev)
+        k = a.shape[1]
+        tol = 1e-12 if a.dtype == torch.float64 else (1e-5 if k <= 4096 else 1e-4)
+        check(all(torch.equal(u, v) for u, v in zip(y1, y2)),
+              f"ring_gemv {what} p={p}: two runs differ")
+        rel = max(((u - r).abs() / r.abs()).max().item() for u, r in zip(y1, ref))
+        check(rel <= tol, f"ring_gemv {what} p={p}: rel err {rel} > {tol}")
+        return {"max_abs_err": max((u - r).abs().max().item() for u, r in zip(y1, ref)),
+                "max_rel_err": rel, "rtol": tol}
+
+    for m, k in RING_CHECK_SHAPES:
+        for name in RING_CHECK_DTYPES:
+            dtype = torch_dtype(name)
+            a, x = uniform((m, k), dtype), uniform((k,), dtype)
+            for p in (1, 2, 4, 8, 16) if (m, k) == RING_CHECK_SHAPES[0] else (1, 2, 4, 8):
+                err = ring_check(a, x, p, f"{m}x{k} {name}")
+                emit({"phase": "ring_vs_plain", "kernel": "ring_gemv", "shape": [m, k],
+                      "dtype": name, "p": p, "bitwise_repeatable": True, **err})
+            del a, x
+    n = RING_N
+    a, x = uniform((n, n), torch.bfloat16), uniform((n,), torch.bfloat16)
+    ring_at = {}
+    for p in RING_TIME_P:
+        err = ring_check(a, x, p, f"{n}x{n} bfloat16")
+        emit({"phase": "ring_vs_plain", "kernel": "ring_gemv", "shape": [n, n],
+              "dtype": "bfloat16", "p": p, "bitwise_repeatable": True, **err})
+        panels, segs = ring_operands(a, x, p)
+        mesh = ring_mesh("1d", p)
+        nbytes = (n * n + n) * a.element_size() + n * 4
+        bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+        ops_ms = 2 * n * n / FP32_PEAK_FLOPS * 1e3
+        ring_at[f"{n}x{n}_p{p}"] = {
+            "dtype": "bfloat16", "p": p,
+            "ms": event_ms(lambda: ring_gemv_cuda(panels, segs), reps=50),
+            "plain_ms": event_ms(lambda: ring_gemv_plain(panels, segs), reps=3, warmup=1),
+            "library_ms": event_ms(lambda: torch.matmul(a, x[:, None]), reps=50),
+            "psum_scatter_ms": event_ms(lambda: psum_scatter(
+                [gemv_cuda(pa, s) for pa, s in zip(panels, segs)], mesh,
+                mesh.axis_names), reps=50),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            **err,
+        }
+        del panels, segs
+    torch.cuda.empty_cache()
+
+    # ---- 22. every combine through benchmark_strategy, 65536² bf16, 4 shards ----
+    ring_launches = {}
+    ref_y = None
+    for strategy, combine, stages, kind in RING_MAIN_CONFIGS:
+        mesh = ring_mesh(kind)
+        p = mesh.size
+        strat = get_strategy(strategy)
+        s = None
+        if combine.startswith("overlap"):
+            s = strat.resolve_stages(n, n, mesh, stages, strat.overlap_chunk_devices(mesh),
+                                     torch.bfloat16)
+        # Kernel launches per matvec: one GEMV per shard, per ring tile
+        # (ring_overlap), or per (chunk, stage) cell (colwise overlap) or
+        # stage (the overlap gathers); one ring GEMV for pallas_ring.
+        per_call = {"ring_overlap": p * p, "pallas_ring": 0}.get(combine, p)
+        if combine.startswith("overlap"):
+            per_call = p * p * s if strategy == "colwise" else p * s
+        gemv_cuda.launches = ring_gemv_cuda.launches = 0
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = benchmark_strategy(strat, mesh, a, x, n_reps=N_REPS, mode="amortized",
+                                 measure="chain", kernel="cuda",
+                                 chain_samples=CHAIN_SAMPLES, combine=combine, stages=stages)
+        torch.cuda.synchronize(dev)
+        peak_extra = torch.cuda.max_memory_allocated(dev) - base
+        y = strat.build(mesh, kernel="cuda", combine=combine, stages=stages)(
+            *strat.place(a, x, mesh))
+        torch.cuda.synchronize(dev)
+        launched = {"gemv": gemv_cuda.launches, "ring_gemv": ring_gemv_cuda.launches}
+        label = f"{strategy}_{combine}" + (f"@{s}" if s else "")
+        expect = {"gemv": calls_per_config * per_call,
+                  "ring_gemv": calls_per_config if combine == "pallas_ring" else 0}
+        check(launched == expect, f"{label}: launches {launched}, expected {expect}")
+        if combine == "pallas_ring":
+            ring_launches[f"ring_main_{label}"] = launched["ring_gemv"]
+        # Beyond A itself: its shards (at most A's bytes) and O(m) per shard;
+        # a copy of a panel (or of 1/S of one) would be 1-2 GB per shard.
+        slack = p * 64 * n * 4
+        check(peak_extra <= n * n * a.element_size() + slack,
+              f"{label}: allocated {peak_extra} bytes beyond A, more than its "
+              f"shards and {slack} bytes")
+        if ref_y is None:
+            ref_y = y  # colwise psum, the first config
+            plain = gemv_plain(a, x).to(torch.bfloat16)
+            rel_plain = ((y.float() - plain.float()).abs() / plain.float().abs()).max().item()
+            check(rel_plain <= 2 ** -7, f"{label}: rel err {rel_plain} against the plain GEMV")
+            del plain
+        # bf16 outputs of fp32 sums taken in other orders: one bf16 ulp.
+        rel = ((y.float() - ref_y.float()).abs() / ref_y.float().abs()).max().item()
+        check(y.shape == (n,) and bool(torch.isfinite(y).all()) and rel <= 2 ** -7,
+              f"{label}: rel err {rel} against psum > 2^-7")
+        ms = res.mean_time_s * 1e3
+        bound_ms = res.gbps * res.mean_time_s / H100_HBM_PEAK_GBPS * 1e3
+        emit({"phase": "ring_main", "strategy": strategy, "combine": combine,
+              "stages": s, "shape": [n, n], "dtype": "bfloat16", "mesh": list(mesh.grid),
+              "shards_on_cuda0": p, "measure": res.measure, "n_reps": N_REPS, "ms": ms,
+              "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+              "launches": launched, "launches_per_matvec": per_call or 1,
+              "peak_bytes_beyond_a": peak_extra, "max_rel_err_vs_psum": rel,
+              "rtol": 2 ** -7})
+        del y
+    del a, x, ref_y
+    torch.cuda.empty_cache()
+
+    # ---- 23. run_serve through pallas_ring and overlap@4 ----
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = ring_mesh("1d")
+        p = mesh.size
+        for combine, stages, n_requests in RING_SERVE_CONFIGS:
+            label = combine + (f"@{stages}" if stages else "")
+            snapshot = Path(tmp) / f"ring_{label}.json"
+            gemv_cuda.launches = gemm_cuda.launches = ring_gemv_cuda.launches = 0
+            res = run_serve("colwise", mesh, n, n, dtype="bfloat16", kernel="cuda",
+                            combine=combine, stages=stages, max_bucket=SERVE_MAX_BUCKET,
+                            promote=SERVE_PROMOTE, n_requests=n_requests,
+                            seed=args.seed, metrics_out=str(snapshot))
+            torch.cuda.synchronize(dev)
+            launched = {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches,
+                        "ring_gemv": ring_gemv_cuda.launches}
+            dispatches = json.loads(snapshot.read_text())["counters"][
+                "engine_dispatches_total"]
+            if combine == "pallas_ring":
+                # Vectors through the ring kernel, promoted blocks through
+                # the GEMM on each shard (the default batched psum).
+                ok = (launched["gemv"] == 0 and launched["ring_gemv"] > 0
+                      and launched["gemm"] > 0 and launched["gemm"] % p == 0
+                      and launched["ring_gemv"] + launched["gemm"] // p == dispatches)
+                ring_launches[f"serve_{label}"] = launched["ring_gemv"]
+            else:
+                cells = p * p * stages  # per dispatch, vector or block
+                ok = (launched["ring_gemv"] == 0 and launched["gemv"] > 0
+                      and launched["gemm"] > 0
+                      and launched["gemv"] + launched["gemm"] == dispatches * cells)
+            check(ok, f"serve {label}: launches {launched}, {dispatches} dispatches")
+            check(res.compiles_warmup == 5 and res.compiles_steady == 0,
+                  f"serve {label}: builds {res.compiles_warmup} + {res.compiles_steady}")
+            torch.cuda.empty_cache()
+            # One request of each width through a fresh engine of the same
+            # configuration: its labels, and its results against the plain GEMM.
+            engine = MatvecEngine(resident_matrix(n, n, torch.bfloat16, dev, args.seed),
+                                  mesh, strategy="colwise", kernel="cuda", combine=combine,
+                                  stages=stages, max_bucket=SERVE_MAX_BUCKET,
+                                  promote=SERVE_PROMOTE)
+            labels = {"matvec": engine._matvec_key().label(),
+                      "gemm": engine._gemm_key(SERVE_MAX_BUCKET).label()}
+            check(labels["matvec"].split(":")[3] == label,
+                  f"serve {label}: matvec ExecKey {labels['matvec']}")
+            a_ref = resident_matrix(n, n, torch.bfloat16, dev, args.seed)
+            widths = [w for w in DEFAULT_WIDTH_MIX if w <= SERVE_MAX_BUCKET]
+            pool = _request_pool(n, widths, torch.bfloat16, seed=args.seed + 1)
+            rel = {}
+            for w in widths:
+                y = engine.submit(pool[w]).result()
+                ref = gemm_plain(a_ref, pool[w].to(dev)).to(torch.bfloat16).cpu().float()
+                rel[str(w)] = ((y.float() - ref).abs() / ref.abs()).max().item()
+                check(tuple(y.shape) == (n, w) and rel[str(w)] <= 2 ** -7,
+                      f"serve {label} width {w}: rel err {rel[str(w)]}")
+            del engine, a_ref, pool
+            torch.cuda.empty_cache()
+            emit({"phase": "ring_serve", "strategy": "colwise", "combine": combine,
+                  "stages": stages, "shape": [n, n], "dtype": "bfloat16",
+                  "mesh": list(mesh.grid), "shards_on_cuda0": p, "kernel": "cuda",
+                  "max_bucket": SERVE_MAX_BUCKET, "b_star": res.b_star,
+                  "n_requests": res.n_requests, "total_cols": res.total_cols,
+                  "wall_s": res.wall_s, "req_per_s": res.rps,
+                  "cols_per_s": res.cols_per_s,
+                  "p50_dispatch_ms": res.p50_dispatch_ms,
+                  "p99_dispatch_ms": res.p99_dispatch_ms,
+                  "compiles_warmup": res.compiles_warmup,
+                  "compiles_steady": res.compiles_steady,
+                  "promo_speedup": res.promo_speedup, "dispatches": dispatches,
+                  "launches": launched, "exec_keys": labels,
+                  "replay_max_rel_err_by_width": rel, "rtol": 2 ** -7})
+
+    # ---- 24. the kernels line ----
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
     gemm_head = gemm_at["{0}x{1}x{2}_{3}".format(*GEMM_TIME_SHAPES[GEMM_HEAD])]
     quant_head = quant_at["{0}x{0}_{1}_n{2}".format(*QUANT_TIME_SHAPES[QUANT_HEAD])]
+    ring_head = ring_at[f"{RING_N}x{RING_N}_p{RING_TIME_P[0]}"]
     emit({"kernels": [{
         "name": "gemv", "route": "cuda",
         "source": "matvec_mpi_multiplier_torch/csrc/gemv.cu",
@@ -1300,9 +1534,25 @@ def main() -> int:
         # one iteration of the torch tier's body on the same A.
         "library_ms": None, "unfused_ms": step_at["cg"]["unfused_ms"],
         "at": step_at,
+    }, {
+        "name": "ring_gemv", "route": "cuda",
+        "source": "matvec_mpi_multiplier_torch/csrc/ring_gemv.cu",
+        "replaces": "matvec_mpi_multiplier_tpu/ops/pallas_collective.py:67",
+        "launches": sum(ring_launches.values()),
+        "launches_by_path": ring_launches,
+        "max_abs_err": ring_head["max_abs_err"],
+        "ms": ring_head["ms"], "plain_ms": ring_head["plain_ms"],
+        "bound_ms": ring_head["bound_ms"], "bound_by": ring_head["bound_by"],
+        # No PyTorch call computes a ring reduce-scatter GEMV over p panels;
+        # the yardstick is one matmul of the unsharded A, and psum_scatter_ms
+        # the un-fused schedule (gemv_cuda per panel, then psum_scatter).
+        "library_ms": ring_head["library_ms"],
+        "library_call": "torch.matmul(a, x[:, None]) on the unsharded A",
+        "psum_scatter_ms": ring_head["psum_scatter_ms"],
+        "at": ring_at,
     }]})
 
-    # ---- 22. result ----
+    # ---- 25. result ----
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

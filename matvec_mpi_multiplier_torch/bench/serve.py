@@ -263,6 +263,7 @@ def run_serve(
     dtype: str = "float32",
     kernel: str = "cuda",
     combine: str | None = None,
+    stages: int | None = None,
     n_requests: int = 200,
     max_bucket: int = 32,
     widths: Sequence[int] | None = None,
@@ -278,6 +279,7 @@ def run_serve(
     A is made on the mesh's first device (:func:`resident_matrix`) and
     placed by the engine; with ``dtype_storage`` the engine quantizes it
     there and drops it, so the card holds the payload alone while serving.
+    ``combine`` and ``stages`` go to the engine (``MatvecEngine``).
     ``metrics_out`` writes the run's metrics snapshot (engine counters + the
     steady-phase dispatch-latency histogram, one registry) as JSON.
     """
@@ -287,7 +289,7 @@ def run_serve(
     engine = MatvecEngine(
         resident_matrix(m, k, torch_dtype(dtype), mesh.devices[0], seed),
         mesh, strategy=strategy_name, kernel=kernel, combine=combine,
-        max_bucket=max_bucket, promote=promote, donate=donate,
+        stages=stages, max_bucket=max_bucket, promote=promote, donate=donate,
         metrics=registry, dtype_storage=dtype_storage,
     )
     latency_hist = registry.histogram(
@@ -506,6 +508,7 @@ def run_serve_solver(
     kernel: str = "cuda",
     solver_kernel: str = "torch",
     combine: str | None = None,
+    stages: int | None = None,
     dtype_storage: str | None = None,
     rtol: float = 1e-6,
     rtol_sweep: Sequence[float] | None = None,
@@ -541,7 +544,7 @@ def run_serve_solver(
     registry = MetricsRegistry()
     engine = MatvecEngine(
         a, mesh, strategy=strategy_name, kernel=kernel,
-        solver_kernel=solver_kernel, combine=combine,
+        solver_kernel=solver_kernel, combine=combine, stages=stages,
         dtype_storage=dtype_storage, dtype=dtype,
         donate=donate, metrics=registry,
     )
@@ -633,6 +636,7 @@ def _run_solver_config(args, name: str, mesh: Mesh, n: int) -> bool:
         result = run_serve_solver(
             name, mesh, n, op=args.solver_op, dtype=args.dtype,
             kernel=args.kernel, combine=getattr(args, "combine", None),
+            stages=getattr(args, "stages", None),
             dtype_storage=getattr(args, "dtype_storage", None),
             solver_kernel=getattr(args, "solver_kernel", "torch") or "torch",
             rtol=getattr(args, "rtol", 1e-6),
@@ -723,6 +727,7 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
                     result = run_serve(
                         name, meshes[n_dev], m, k, dtype=args.dtype,
                         kernel=args.kernel, combine=getattr(args, "combine", None),
+                        stages=getattr(args, "stages", None),
                         n_requests=args.n_requests,
                         max_bucket=args.max_bucket, promote=promote,
                         seed=args.seed, metrics_out=metrics_out,
@@ -776,7 +781,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kernel", default="cuda")
     p.add_argument(
         "--combine", default=None,
-        help="the strategy's own combine schedule (others are not ported)",
+        help="combine schedule (or 'auto': no tuning cache yet, the "
+        "static default)",
+    )
+    p.add_argument(
+        "--stages", type=int, default=None,
+        help="with --combine overlap: pin the staged schedule's stage "
+        "count S (default: 2, the tuning cache's miss; clamped per shape)",
     )
     p.add_argument("--n-requests", type=int, default=200,
                    help="steady-phase request count")

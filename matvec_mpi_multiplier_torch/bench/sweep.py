@@ -25,6 +25,8 @@ generator of ``utils/io.py``, so both packages time the same data);
 gemm`` times ``C = A @ B`` (rows in ``gemm_<strategy>.csv``); ``--op serve``
 delegates to ``bench/serve.py``. ``--dtype-storage int8|int8c|fp8`` times
 the strategies against a quantized A (rows labelled ``<strategy>_<format>``).
+``--combine`` names the combine schedule (strategies without it are
+skipped) and ``--stages`` pins the staged ``overlap`` schedules' S.
 """
 
 from __future__ import annotations
@@ -149,6 +151,27 @@ def build_parser() -> argparse.ArgumentParser:
         f"{available_gemm_kernels()})",
     )
     p.add_argument(
+        "--combine",
+        default=None,
+        choices=[
+            "auto", "psum", "psum_scatter", "ring", "ring_overlap", "a2a",
+            "gather", "overlap", "overlap_ring", "pallas_ring",
+        ],
+        help="combine-schedule override: a concrete schedule name, or "
+        "'auto' (no tuning cache yet: the static default) — see "
+        "MatvecStrategy.build. 'overlap' is the staged pipeline (stage "
+        "count from --stages); 'pallas_ring' the fused ring kernel (1-D "
+        "meshes, matvec only). Strategies without the schedule are skipped",
+    )
+    p.add_argument(
+        "--stages",
+        type=int,
+        default=None,
+        help="with --combine overlap: pin the pipeline's stage count S "
+        "(default: 2, the tuning cache's miss); clamped down to the "
+        "largest valid divisor of the per-device chunk",
+    )
+    p.add_argument(
         "--measure", choices=list(MEASURE_METHODS), default="auto",
         help="'chain': slope between event-timed call chains (amortized "
         "default); 'sync': literal per-rep fence protocol (reference "
@@ -232,6 +255,12 @@ def run_sweep(args: argparse.Namespace) -> int:
         raise SystemExit(
             f"unknown {args.op} kernel {args.kernel!r}; available: {kernels}"
         )
+    if gemm and args.combine == "gather":
+        raise SystemExit(
+            "--combine gather is matvec-only; gemm accepts the in-body "
+            "schedules (psum, psum_scatter, ring, ring_overlap, a2a, "
+            "overlap, overlap_ring) or auto"
+        )
     if args.measure in ("chain", "loop") and args.mode in ("reference", "both"):
         raise SystemExit(
             f"--measure {args.measure} cannot time --mode reference; use "
@@ -257,13 +286,26 @@ def run_sweep(args: argparse.Namespace) -> int:
         n_rhs = (args.n_rhs or n_cols) if gemm else 1
         a = x = None
         for name in strategies:
+            strat = get_strategy(name)
+            if args.combine is not None and not (
+                strat.supports_combine_batched(args.combine) if gemm
+                else strat.supports_combine(args.combine)
+            ):
+                # e.g. --combine psum_scatter under --strategy all: rowwise
+                # has no such schedule. A skip, not a crash.
+                print(f"skip {name} {n_rows}x{n_cols}: no combine schedule "
+                      f"{args.combine!r} for this strategy")
+                n_skip += 1
+                continue
+            # The strategy the schedule binds validates the shape (the
+            # scatter family's rows, pallas_ring's 1-D mesh).
+            bound = None if args.combine in (None, "auto") else strat.with_combine(args.combine)
             for n_dev in counts:
                 mesh = meshes[n_dev]
                 try:
                     if gemm:
                         validate_gemm(name, n_rows, n_cols, n_rhs, mesh)
-                    else:
-                        get_strategy(name).validate(n_rows, n_cols, mesh)
+                    (bound or strat).validate(n_rows, n_cols, mesh)
                 except MatvecError as e:
                     print(f"skip {name} {n_rows}x{n_cols} p={n_dev}: {e}")
                     n_skip += 1
@@ -282,12 +324,14 @@ def run_sweep(args: argparse.Namespace) -> int:
                         kwargs["chain_samples"] = args.chain_samples
                     if storage not in (None, "native"):
                         kwargs["dtype_storage"] = storage
+                    if args.combine is not None:
+                        kwargs["combine"] = args.combine
+                    if args.stages is not None:
+                        kwargs["stages"] = args.stages
                     if gemm:
                         result = benchmark_gemm(name, mesh, a, x, **kwargs)
                     else:
-                        result = benchmark_strategy(
-                            get_strategy(name), mesh, a, x, **kwargs
-                        )
+                        result = benchmark_strategy(strat, mesh, a, x, **kwargs)
                     result = dataclasses.replace(
                         result, strategy=csv_label(name, args.op, storage))
                     if not args.no_csv:

@@ -254,6 +254,8 @@ def benchmark_strategy(
     kernel: str | Callable = "cuda",
     gather_output: bool = True,
     chain_samples: int = DEFAULT_CHAIN_SAMPLES,
+    combine: str | None = None,
+    stages: int | str | None = None,
     dtype_storage: str | None = None,
 ) -> TimingResult:
     """Benchmark one (strategy, mesh, size) configuration — the body of the
@@ -263,7 +265,9 @@ def benchmark_strategy(
     ``a``/``x`` are numpy arrays (host data) or tensors (which may already
     live on the card, so multi-GB operands never cross the host link).
     Reported time: mean over reps for ``sync``, median of the slope
-    samples for ``chain``. ``dtype_storage`` measures the quantized
+    samples for ``chain``. ``combine`` selects the combine schedule by name
+    and ``stages`` pins the staged ``overlap`` schedules' stage count (see
+    ``MatvecStrategy.build``). ``dtype_storage`` measures the quantized
     residency: A is quantized outside the timed region (:func:`_maybe_quantize`)
     and the strategy runs against the payload. The result's ``gbps`` still
     counts native bytes, so the CSVs stay comparable across formats.
@@ -272,6 +276,7 @@ def benchmark_strategy(
     a, x = _prepare_operands(a, x, dtype)
     strategy.validate(a.shape[0], a.shape[1], mesh)
     fn = strategy.build(mesh, kernel=kernel, gather_output=gather_output,
+                        combine=combine, stages=stages,
                         dtype_storage=dtype_storage)
     a = _maybe_quantize(a, dtype_storage, strategy, mesh, mode)
     return _run_benchmark(
@@ -334,6 +339,8 @@ def benchmark_gemm(
     kernel: str | Callable = "cuda",
     gather_output: bool = True,
     chain_samples: int = DEFAULT_CHAIN_SAMPLES,
+    combine: str | None = None,
+    stages: int | str | None = None,
     dtype_storage: str | None = None,
 ) -> TimingResult:
     """Benchmark one GEMM (strategy, mesh, size) configuration.
@@ -341,7 +348,8 @@ def benchmark_gemm(
     Same protocol as :func:`benchmark_strategy` with a rank-2 right-hand
     side; the result's strategy is recorded as ``gemm_<name>`` so GEMM rows
     land in their own per-strategy CSVs, and ``n_rhs`` is ``b``'s columns.
-    ``dtype_storage`` follows :func:`benchmark_strategy`.
+    ``combine``, ``stages`` and ``dtype_storage`` follow ``build_gemm`` and
+    :func:`benchmark_strategy`.
     """
     from ..models import get_strategy
     from ..models.gemm import build_gemm, gemm_shardings, validate_gemm
@@ -350,7 +358,7 @@ def benchmark_gemm(
     a, b = _prepare_operands(a, b, dtype)
     validate_gemm(name, a.shape[0], a.shape[1], b.shape[1], mesh)
     fn = build_gemm(name, mesh, kernel=kernel, gather_output=gather_output,
-                    dtype_storage=dtype_storage)
+                    combine=combine, stages=stages, dtype_storage=dtype_storage)
     spec_a, spec_b = gemm_shardings(name, mesh)
     a = _maybe_quantize(a, dtype_storage, get_strategy(name), mesh, mode)
     return _run_benchmark(

@@ -51,13 +51,21 @@ numpy has; ``result()`` returns a CPU tensor in the engine's dtype. Every
 count lives in a :class:`~..obs.registry.MetricsRegistry`
 (:class:`EngineStats` is a view over it).
 
+``combine`` names any schedule the strategy offers (colwise's ring, a2a,
+staged overlap and fused ``pallas_ring`` reductions; the gather schedules of
+rowwise and blockwise), resolved once at construction; the staged schedules'
+stage count S is pinned then too and baked into the executable keys
+(``overlap@S``).
+
 Left for later slices (ROADMAP.md, queue A 5): the tracer and timeline
 spans, the resilience ladder (and with it the native safe tier of quantized
 storage), fault injection and the integrity gate, residency/tenancy/reshard
 hooks, speculative submits, lowering fingerprints, CUDA-graph capture (and
-with it the graph-captured solver loop), tuned ``promote="auto"``,
-``dtype_storage="auto"`` and ``solver_kernel="auto"``, and RHS buffer
-reuse. Their arguments raise ``ConfigError``.
+with it the graph-captured solver loop), and RHS buffer reuse; their
+arguments raise ``ConfigError``. The tuned ``"auto"`` values of
+``promote``, ``combine``, ``stages``, ``dtype_storage`` and
+``solver_kernel`` wait for the tuning cache: each takes the JAX package's
+cache-miss choice.
 """
 
 from __future__ import annotations
@@ -115,7 +123,7 @@ SOLVER_KERNELS = ("torch", "cuda_fused", "auto")
 
 # The JAX package's other constructor arguments, not ported yet.
 _LATER_ARGS = frozenset({
-    "stages", "trace_jsonl",
+    "trace_jsonl",
     "trace_capacity", "resilience", "fault_plan", "integrity_gate",
     "retain_host", "defer_placement", "label_prefix", "exec_cache",
     "residency_listener", "timeline",
@@ -351,8 +359,19 @@ class MatvecEngine:
     kernel : local GEMV tier name (``ops/gemv.py``; default ``"cuda"``, the
         hand-written kernel); the GEMM path maps it through
         ``gemm_kernel_name_for``.
-    combine : the strategy's own combine schedule or None; any other name
-        raises (the ring/overlap/auto schedules are not ported yet).
+    combine : combine schedule name (``models``: colwise's ``psum``,
+        ``psum_scatter``, ``ring``, ``ring_overlap``, ``a2a``, ``overlap``,
+        ``overlap_ring``, ``pallas_ring``; the ``gather``/``ring``/
+        ``overlap`` gathers of rowwise and blockwise), ``"auto"`` (no tuning
+        cache yet: the static default, the JAX package's miss), or None for
+        the static default. Resolved once here for both paths: a schedule
+        the batched path has no face for (``pallas_ring``, the gather
+        family) leaves promoted blocks on the strategy's default.
+    stages : stage count of the staged ``overlap`` schedules — an int
+        (clamped down the shape's stage ladder), or None/``"auto"`` (no
+        tuning cache yet: ``DEFAULT_OVERLAP_STAGES``). Resolved once here
+        and baked into the executable keys (``overlap@S``); ignored by every
+        other schedule.
     dtype : operand dtype (default: ``a``'s).
     max_bucket : widest bucket in the ladder; wider requests split.
     promote : the GEMV→GEMM crossover ``b*``: an int, None (never promote),
@@ -384,8 +403,8 @@ class MatvecEngine:
         or ``"auto"``, which has no tuning cache yet and takes the unfused
         tier, as the JAX package does on a miss.
 
-    The JAX package's other arguments (``stages``, ``resilience``,
-    ``trace_jsonl``, ...) raise ``ConfigError``.
+    The JAX package's other arguments (``resilience``, ``trace_jsonl``,
+    ...) raise ``ConfigError``.
     """
 
     def __init__(
@@ -396,6 +415,7 @@ class MatvecEngine:
         strategy: str | MatvecStrategy = "rowwise",
         kernel: str | Callable = "cuda",
         combine: str | None = None,
+        stages: int | str | None = None,
         dtype=None,
         max_bucket: int = DEFAULT_MAX_BUCKET,
         promote: str | int | None = "auto",
@@ -445,17 +465,12 @@ class MatvecEngine:
             raise ConfigError(
                 f"engine gather_output must be True or False; got {gather_output!r}"
             )
-        if combine not in (None, self.strategy.combine):
-            raise not_ported(f"engine combine={combine!r} for {self.strategy.name}")
-        # The batched path has the in-body reductions only; the output
-        # gather of rowwise/blockwise is its default (the JAX package's
-        # batched fallback for a matvec-only schedule).
-        self._matvec_combine = combine
+        self.storage = self._resolve_storage(dtype_storage)
         # The REQUESTED combine, for the fused solver tier, which owns its
         # combine spelling.
         self._requested_combine = combine
-        self._gemm_combine = combine if combine in ("psum", "psum_scatter") else None
-        self.storage = self._resolve_storage(dtype_storage)
+        self._matvec_combine, self._gemm_combine = self._resolve_combine(combine)
+        self.stages = self._resolve_stages(stages)
         self.kernel = kernel
         self.gather_output = gather_output
         self.max_bucket = max_bucket
@@ -567,6 +582,57 @@ class MatvecEngine:
             )
         return fmt
 
+    def _resolve_combine(self, combine: str | None) -> tuple[str | None, str | None]:
+        """Pin the combine schedule of both paths at construction. An
+        explicit name binds the matvec path always, and the batched path
+        when the strategy has a batched face for it (``pallas_ring`` and the
+        gather family leave it on the strategy's default). ``"auto"`` has no
+        tuning cache to read yet: both paths take the default (None)."""
+        if combine not in (None, "auto") and not self.strategy.supports_combine(combine):
+            # Fail at construction, not requests deep.
+            raise ConfigError(
+                f"strategy {self.strategy.name!r} has no combine schedule "
+                f"{combine!r}"
+            )
+        if (self.storage != NATIVE and combine not in (None, "auto")
+                and not self.strategy.storage_combine_ok(combine)):
+            raise ConfigError(
+                f"combine {combine!r} tiles A inside its schedule body and "
+                f"cannot compose with quantized dtype_storage={self.storage!r}"
+            )
+        if combine in (None, "auto"):
+            return None, None
+        batched_ok = combine in self.strategy.combine_candidates_batched(self.mesh)
+        return combine, (combine if batched_ok else None)
+
+    def _effective_combine(self, combine: str | None) -> str | None:
+        """The schedule a path runs: the resolved name, or the strategy
+        instance's own binding (colwise_overlap & co.) when none was given."""
+        return combine if combine is not None else self.strategy.combine
+
+    def _is_overlap(self, combine: str | None) -> bool:
+        return self._effective_combine(combine).startswith("overlap")
+
+    def _resolve_stages(self, stages: int | str | None) -> int | None:
+        """Pin the overlap stage count S at construction (None when no path
+        runs an overlap schedule): the explicit int clamped to the shape's
+        ladder, or the cache-miss default."""
+        if not (self._is_overlap(self._matvec_combine)
+                or self._is_overlap(self._gemm_combine)):
+            return None
+        return self.strategy.resolve_stages(
+            self.m, self.k, self.mesh, stages,
+            self.strategy.overlap_chunk_devices(self.mesh), self.dtype,
+        )
+
+    def _combine_label(self, combine: str | None) -> str | None:
+        """The combine identity an executable is cached under: the staged
+        schedules embed their pinned S (``overlap@4``), as the JAX engine's
+        labels do; a strategy-bound overlap labels the same way."""
+        if self.stages is not None and self._is_overlap(combine):
+            return f"{self._effective_combine(combine)}@{self.stages}"
+        return combine
+
     def _resolve_promotion(self, promote: str | int | None) -> int | None:
         """The crossover ``b*``: blocks of ``b >= b_star`` columns take the
         single-GEMM path; below it, per-column GEMV dispatches. None
@@ -588,25 +654,29 @@ class MatvecEngine:
     def _matvec_key(self) -> ExecKey:
         return ExecKey(
             "matvec", self.strategy.name, self._kernel_label(),
-            self._matvec_combine, 1, dtype_name(self.dtype), self.storage,
+            self._combine_label(self._matvec_combine), 1,
+            dtype_name(self.dtype), self.storage,
         )
 
     def _gemm_key(self, bucket: int) -> ExecKey:
         return ExecKey(
             "gemm", self.strategy.name, self._kernel_label(),
-            self._gemm_combine, bucket, dtype_name(self.dtype), self.storage,
+            self._combine_label(self._gemm_combine), bucket,
+            dtype_name(self.dtype), self.storage,
         )
 
     def _build_matvec(self) -> Callable:
         return self.strategy.build(
             self.mesh, kernel=self.kernel, gather_output=self.gather_output,
-            combine=self._matvec_combine, dtype_storage=self.storage,
+            combine=self._matvec_combine, stages=self.stages,
+            dtype_storage=self.storage,
         )
 
     def _build_gemm(self) -> Callable:
         return self.strategy.build_batched(
             self.mesh, kernel=self.kernel, gather_output=self.gather_output,
-            combine=self._gemm_combine, dtype_storage=self.storage,
+            combine=self._gemm_combine, stages=self.stages,
+            dtype_storage=self.storage,
         )
 
     # ---- dispatch ----
@@ -833,8 +903,9 @@ class MatvecEngine:
                 bucket, dtype_name(self.dtype), self.storage,
             )
         return ExecKey(
-            op, self.strategy.name, self._kernel_label(), self._matvec_combine,
-            bucket, dtype_name(self.dtype), self.storage,
+            op, self.strategy.name, self._kernel_label(),
+            self._combine_label(self._matvec_combine), bucket,
+            dtype_name(self.dtype), self.storage,
         )
 
     def _build_solver(self, key: ExecKey, restart: int, steps: int) -> Callable:
@@ -843,6 +914,7 @@ class MatvecEngine:
             key.op, self.strategy, self.mesh, dtype=self.dtype,
             kernel="cuda_fused" if fused else self.kernel,
             combine=self._requested_combine if fused else self._matvec_combine,
+            stages=None if fused else self.stages,
             dtype_storage=self.storage, restart=restart, steps=steps,
         )
 

@@ -5,12 +5,22 @@ from __future__ import annotations
 
 from .base import MatvecStrategy
 from .blockwise import BlockwiseStrategy
-from .colwise import ColwiseStrategy
+from .colwise import (
+    ColwiseAllToAllStrategy,
+    ColwiseOverlapStrategy,
+    ColwiseRingOverlapStrategy,
+    ColwiseRingStrategy,
+    ColwiseStrategy,
+)
 from .rowwise import RowwiseStrategy
 
 STRATEGIES: dict[str, type[MatvecStrategy]] = {
     RowwiseStrategy.name: RowwiseStrategy,
     ColwiseStrategy.name: ColwiseStrategy,
+    ColwiseRingStrategy.name: ColwiseRingStrategy,
+    ColwiseRingOverlapStrategy.name: ColwiseRingOverlapStrategy,
+    ColwiseAllToAllStrategy.name: ColwiseAllToAllStrategy,
+    ColwiseOverlapStrategy.name: ColwiseOverlapStrategy,
     BlockwiseStrategy.name: BlockwiseStrategy,
 }
 
@@ -33,6 +43,10 @@ __all__ = [
     "MatvecStrategy",
     "RowwiseStrategy",
     "ColwiseStrategy",
+    "ColwiseRingStrategy",
+    "ColwiseRingOverlapStrategy",
+    "ColwiseAllToAllStrategy",
+    "ColwiseOverlapStrategy",
     "BlockwiseStrategy",
     "STRATEGIES",
     "get_strategy",

@@ -52,6 +52,13 @@ class BlockwiseStrategy(MatvecStrategy):
 
         return body
 
+    def overlap_reduce_axes(self, mesh: Mesh):
+        # The staged overlap gather (combine="overlap", models/base.py) sums
+        # each stage's partial over the grid columns — the reference's
+        # reduce-over-grid-columns (:144-210), 1/S of the rows at a time —
+        # then ring-gathers over 'rows'.
+        return MESH_AXIS_COLS
+
     def validate(self, n_rows: int, n_cols: int, mesh: Mesh) -> None:
         self._check_mesh(mesh)
         r, c = mesh_grid_shape(mesh)

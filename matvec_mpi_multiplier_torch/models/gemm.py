@@ -7,13 +7,15 @@ give the canonical distributed matmul decompositions:
 * ``rowwise``   — A row-sharded, B replicated, C row-sharded;
 * ``colwise``   — A and B contraction-sharded, partial C's summed (psum);
 * ``blockwise`` — A block-sharded on the 2-D mesh, B sharded over 'cols' on
-  its contraction axis, psum over 'cols', C sharded over 'rows'.
+  its contraction axis, psum over 'cols', C sharded over 'rows';
+* ``colwise_ring`` / ``colwise_ring_overlap`` / ``colwise_a2a`` /
+  ``colwise_overlap`` — the colwise decomposition with C row-sharded and the
+  combine as the neighbor-ring reduce-scatter, the ring-SUMMA walk (each
+  step's GEMM tile feeding the chunk in flight), the balanced all-to-all,
+  or the staged pipeline (``parallel/ring.py``).
 
 Implementation: each strategy's own ``build_batched`` (models/base.py), so
-GEMM and matvec share one compute/combine path per strategy. The JAX
-package's ``colwise_ring*``, ``colwise_a2a`` and ``colwise_overlap`` names
-wait for the ring/overlap slice (ROADMAP.md, queue A 12) and raise
-``ConfigError``.
+GEMM and matvec share one compute/combine path per strategy.
 """
 
 from __future__ import annotations
@@ -23,11 +25,14 @@ from typing import Callable
 from ..parallel.mesh import Mesh, mesh_grid_shape
 from ..utils.constants import MESH_AXIS_COLS, MESH_AXIS_ROWS
 from ..utils.errors import ShardingError, check_divisible
-from .base import not_ported
 
-GEMM_STRATEGIES = ("blockwise", "colwise", "rowwise")
-# The JAX package's ring/overlap bindings, not ported yet.
-_LATER = ("colwise_a2a", "colwise_overlap", "colwise_ring", "colwise_ring_overlap")
+# The JAX package's GEMM names; each is the matvec registry's strategy of
+# the same name, whose batched specs place (A, B, C): the colwise_* four
+# scatter C's rows over the ring.
+GEMM_STRATEGIES = (
+    "blockwise", "colwise", "colwise_a2a", "colwise_overlap", "colwise_ring",
+    "colwise_ring_overlap", "rowwise",
+)
 
 
 def available_gemm_strategies() -> list[str]:
@@ -35,8 +40,6 @@ def available_gemm_strategies() -> list[str]:
 
 
 def _known(name: str) -> None:
-    if name in _LATER:
-        raise not_ported(f"gemm strategy {name!r}")
     if name not in GEMM_STRATEGIES:
         raise KeyError(
             f"unknown gemm strategy {name!r}; available: "
@@ -51,6 +54,10 @@ def validate_gemm(name: str, m: int, k: int, n: int, mesh: Mesh) -> None:
         check_divisible(m, mesh.size, "m (rows of A)", "number of devices")
     elif name == "colwise":
         check_divisible(k, mesh.size, "k (contraction dim)", "number of devices")
+    elif name.startswith("colwise_"):
+        check_divisible(k, mesh.size, "k (contraction dim)", "number of devices")
+        # They scatter C's rows: each device ends with m/p of them.
+        check_divisible(m, mesh.size, "m (rows of A)", "number of devices")
     else:  # blockwise
         if MESH_AXIS_ROWS not in mesh.axis_names or MESH_AXIS_COLS not in mesh.axis_names:
             raise ShardingError(
@@ -86,8 +93,15 @@ def build_gemm(
 
     ``kernel`` names a local-matmul tier from the GEMM registry
     (``ops/gemm_kernels.py``): ``"cuda"`` (the default, the hand-written
-    kernel) or ``"torch"``. The other arguments follow
-    ``MatvecStrategy.build_batched``.
+    kernel) or ``"torch"``. ``combine`` selects the combine schedule by
+    name, as ``MatvecStrategy.build`` does for matvec: for the colwise
+    family ``"psum"``, ``"psum_scatter"``, ``"ring"``, ``"ring_overlap"``,
+    ``"a2a"``, ``"overlap"`` or ``"overlap_ring"``; ``"auto"`` is the
+    tuning-cache miss (the static default); the rank-1-only
+    ``"pallas_ring"`` is rejected. ``stages`` pins the overlap stage count.
+    The other arguments follow ``MatvecStrategy.build_batched``: the
+    registry names ``colwise_ring`` & co. are the matvec registry's
+    bindings of the same schedules.
     """
     from . import get_strategy
 
@@ -96,3 +110,13 @@ def build_gemm(
         mesh, kernel=kernel, gather_output=gather_output, combine=combine,
         stages=stages, dtype_storage=dtype_storage,
     )
+
+
+def gemm_combine_candidates(name: str, mesh: Mesh) -> tuple[str, ...]:
+    """Combine schedules one GEMM strategy offers: the in-body family only
+    (``MatvecStrategy.combine_candidates_batched``); empty for strategies
+    whose combine is the output gather."""
+    from . import get_strategy
+
+    _known(name)
+    return get_strategy(name).combine_candidates_batched(mesh)

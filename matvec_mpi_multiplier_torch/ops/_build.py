@@ -147,6 +147,13 @@ def load_library() -> ctypes.CDLL:
         *[ctypes.c_int64] * 4, ctypes.c_void_p,
     ]
     lib.matvec_solver_step.restype = ctypes.c_int
+    # dtype, p; arrays of p pointers to the panels, the x segments and the
+    # output chunks; m, k/p; the stream.
+    lib.matvec_ring_gemv.argtypes = [
+        ctypes.c_int, ctypes.c_int, *[ctypes.POINTER(ctypes.c_void_p)] * 3,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.matvec_ring_gemv.restype = ctypes.c_int
     lib.matvec_error_string.argtypes = [ctypes.c_int]
     lib.matvec_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,7 +17,10 @@ row-major). The collectives are explicit tensor ops:
 * all-gather (:func:`unshard`) is a ``torch.cat`` onto the mesh's first device;
 * :func:`psum` sums over the reduced axes in shard-index order 0…n−1, so the
   result is deterministic;
-* :func:`psum_scatter` is that sum split by rows.
+* :func:`psum_scatter` is that sum split by rows;
+* :func:`ppermute` moves each shard's block to the shard its permutation
+  names (on one card, a list rotation: nothing is copied);
+* :func:`all_to_all` sends row chunk j of shard i to shard j.
 
 No collective here reads a value back to the host.
 """
@@ -284,4 +287,40 @@ def psum_scatter(
         rows = total.shape[0] // n
         for i, f in members:
             out[f] = total[i * rows:(i + 1) * rows].to(mesh.devices[f])
+    return out
+
+
+def ppermute(
+    blocks: Sequence[torch.Tensor], mesh: Mesh, axes, perm
+) -> list[torch.Tensor]:
+    """``lax.ppermute`` over ``axes``: within each group of devices that
+    share their other coordinates, the block of reduced index ``src`` goes
+    to reduced index ``dst`` for every ``(src, dst)`` in ``perm``. A device
+    that receives nothing gets zeros, as in JAX."""
+    axes = _axes(axes)
+    out: list[torch.Tensor] = [None] * mesh.size  # type: ignore[list-item]
+    for members in _reduce_groups(mesh, axes):
+        flat = dict(members)  # reduced index -> flat device index
+        for src, dst in perm:
+            out[flat[dst]] = blocks[flat[src]].to(mesh.devices[flat[dst]])
+    return [torch.zeros_like(b) if o is None else o for o, b in zip(out, blocks)]
+
+
+def all_to_all(
+    blocks: Sequence[torch.Tensor], mesh: Mesh, axes
+) -> list[torch.Tensor]:
+    """``lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=True)`` over
+    ``axes``: each block is cut into n equal row chunks, and device j gets
+    chunk j of every device of its group, concatenated in reduced-index
+    order."""
+    axes = _axes(axes)
+    n = _axes_size(mesh, axes)
+    out: list[torch.Tensor] = [None] * mesh.size  # type: ignore[list-item]
+    for members in _reduce_groups(mesh, axes):
+        rows = blocks[members[0][1]].shape[0] // n
+        for j, fj in members:
+            dev = mesh.devices[fj]
+            out[fj] = torch.cat(
+                [blocks[fi][j * rows:(j + 1) * rows].to(dev) for _, fi in members]
+            )
     return out

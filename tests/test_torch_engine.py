@@ -1,7 +1,7 @@
 """The port's serving engine against the JAX package's (engine/).
 
 Mirrors tests/test_engine.py and tests/test_engine_backpressure.py, minus
-tuning and ``combine="auto"``. The same seeded numpy A and requests go
+tuning (the combine schedules are in tests/test_torch_overlap.py). The same seeded numpy A and requests go
 through the JAX package's ``MatvecEngine`` on the conftest's 8-device CPU
 mesh and through the port's on 8 logical CPU shards, whose default ``cuda``
 tier computes the kernels' plain versions on CPU tensors.
@@ -297,11 +297,12 @@ def test_request_validation(rng):
         MatvecEngine(np.ones(8, np.float32), port_mesh())
 
 
+# stages= and combine= (ring, auto) are ported: their cases are in
+# tests/test_torch_overlap.py::test_engine_combine_and_stages_arguments.
 @pytest.mark.parametrize("kwargs", [
-    {"stages": 2}, {"dtype_storage": "speculate"}, {"resilience": object()},
+    {"dtype_storage": "speculate"}, {"resilience": object()},
     {"fault_plan": object()}, {"integrity_gate": True}, {"trace_jsonl": "t.jsonl"},
     {"retain_host": True}, {"label_prefix": "tenant-1/"}, {"exec_cache": object()},
-    {"combine": "ring"}, {"combine": "auto"},
 ])
 def test_later_slice_arguments_raise(rng, kwargs):
     a, _ = make_operands(rng)

@@ -40,7 +40,7 @@ from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda, gemm_plain
 from matvec_mpi_multiplier_torch.ops.gemm_kernels import gemm_torch
 from matvec_mpi_multiplier_torch.parallel.mesh import make_1d_mesh, make_mesh, shard
 from matvec_mpi_multiplier_torch.utils.convert import from_numpy
-from matvec_mpi_multiplier_torch.utils.errors import ConfigError, ShardingError
+from matvec_mpi_multiplier_torch.utils.errors import ShardingError
 
 from conftest import FIXTURE_MATRIX
 
@@ -81,12 +81,9 @@ def as_f64(y):
 
 
 def test_gemm_strategy_registry():
-    """The JAX package's names minus the ring/overlap bindings, which wait
-    for their slice; an unknown name raises KeyError as in JAX."""
-    later = {"colwise_a2a", "colwise_overlap", "colwise_ring", "colwise_ring_overlap"}
-    assert gemm.available_gemm_strategies() == [
-        n for n in jax_gemm.available_gemm_strategies() if n not in later
-    ]
+    """The JAX package's names, the ring/overlap bindings included; an
+    unknown name raises KeyError as in JAX."""
+    assert gemm.available_gemm_strategies() == jax_gemm.available_gemm_strategies()
     with pytest.raises(KeyError, match="unknown gemm strategy"):
         gemm.build_gemm("diagonal", port_mesh(1))
 
@@ -94,12 +91,22 @@ def test_gemm_strategy_registry():
 @pytest.mark.parametrize(
     "name", ["colwise_ring", "colwise_ring_overlap", "colwise_a2a", "colwise_overlap"]
 )
-def test_ring_names_are_not_ported(name):
-    for call in (lambda: gemm.build_gemm(name, port_mesh(2)),
-                 lambda: gemm.validate_gemm(name, 16, 16, 8, port_mesh(2)),
-                 lambda: gemm.gemm_shardings(name, port_mesh(2))):
-        with pytest.raises(ConfigError, match="ROADMAP.md"):
-            call()
+def test_ring_names_are_not_ported(devices, name):
+    """The ring/overlap GEMM names (ported by the ring/overlap slice):
+    build_gemm agrees with the JAX package's, validate_gemm refuses what
+    it refuses, and gemm_shardings cuts C's rows over the ring."""
+    a_j, b_j, a_t, b_t = operands(16, 16, 8, seed=14)
+    c_j = jax_gemm.build_gemm(name, mv_jax.make_mesh(2))(a_j, b_j)
+    c_t = gemm.build_gemm(name, port_mesh(2))(a_t, b_t)
+    np.testing.assert_allclose(as_f64(c_t), as_f64(c_j), rtol=1e-12)
+    gemm.validate_gemm(name, 16, 16, 8, port_mesh(2))
+    with pytest.raises(ShardingError, match="m \\(rows of A\\)"):
+        gemm.validate_gemm(name, 15, 16, 8, port_mesh(2))
+    with pytest.raises(JaxShardingError, match="m \\(rows of A\\)"):
+        jax_gemm.validate_gemm(name, 15, 16, 8, mv_jax.make_mesh(2))
+    mesh = port_mesh(2)
+    assert gemm.gemm_shardings(name, mesh) == ((None, mesh.axis_names),
+                                               (mesh.axis_names, None))
 
 
 def test_gemm_kernel_registry():
@@ -271,7 +278,7 @@ def test_gemm_placement_matches_jax(devices, name):
 
 
 def test_build_batched_maps_gemv_tier_names():
-    """A GEMV tier name builds its GEMM face; later-slice arguments raise."""
+    """A GEMV tier name builds its GEMM face; combine and stages build."""
     from matvec_mpi_multiplier_torch import get_strategy
 
     a_t = torch.from_numpy(np.random.default_rng(6).uniform(0, 10, (8, 8)))
@@ -281,9 +288,11 @@ def test_build_batched_maps_gemv_tier_names():
         np.testing.assert_allclose(c.numpy(), a_t.numpy() @ b_t.numpy(), rtol=1e-12)
     with pytest.raises(KeyError, match="unknown gemm kernel"):
         get_strategy("rowwise").build_batched(port_mesh(2), kernel="pallas")
+    # The colwise schedules (ported by the ring/overlap slice) batch too.
+    a_c = torch.from_numpy(np.random.default_rng(8).uniform(0, 10, (8, 8)))
     for kwargs in ({"combine": "ring"}, {"stages": 2}, {"combine": "overlap"}):
-        with pytest.raises(ConfigError, match="ROADMAP.md"):
-            get_strategy("colwise").build_batched(port_mesh(2), **kwargs)
+        c = get_strategy("colwise").build_batched(port_mesh(2), **kwargs)(a_c, b_t)
+        np.testing.assert_allclose(c.numpy(), a_c.numpy() @ b_t.numpy(), rtol=1e-12)
     with pytest.raises(ValueError, match="True or False"):
         get_strategy("colwise").build_batched(port_mesh(2), gather_output="ring")
 

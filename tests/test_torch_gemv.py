@@ -146,9 +146,9 @@ def test_missing_nvcc_raises_and_nothing_falls_back(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     _build.load_library.cache_clear()
     assert [s.name for s in _build.SOURCES] == ["gemm.cu", "gemv.cu", "quant_gemv.cu",
-                                                "solver_step.cu"]
+                                                "ring_gemv.cu", "solver_step.cu"]
     with pytest.raises(RuntimeError, match="nvcc not found.*gemm.cu, gemv.cu, quant_gemv.cu, "
-                       "solver_step.cu"):
+                       "ring_gemv.cu, solver_step.cu"):
         _build.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_library()

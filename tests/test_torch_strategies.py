@@ -28,7 +28,7 @@ from matvec_mpi_multiplier_tpu.parallel.mesh import make_1d_mesh as jax_1d_mesh
 from matvec_mpi_multiplier_tpu.utils.errors import ShardingError as JaxShardingError
 from matvec_mpi_multiplier_torch.parallel.mesh import make_1d_mesh, make_mesh
 from matvec_mpi_multiplier_torch.utils.convert import from_numpy
-from matvec_mpi_multiplier_torch.utils.errors import ConfigError, ShardingError
+from matvec_mpi_multiplier_torch.utils.errors import ShardingError
 
 from conftest import FIXTURE_MATRIX, FIXTURE_PRODUCT, FIXTURE_VECTOR
 
@@ -225,26 +225,39 @@ def test_placed_operands_reused_and_checked():
     [{"combine": "ring"}, {"combine": "auto"}, {"stages": 2},
      {"combine": "overlap"}, {"gather_output": "ring"}],
 )
-def test_later_slice_arguments_raise(kwargs):
-    with pytest.raises(ConfigError, match="ROADMAP.md"):
-        mv_torch.get_strategy("colwise").build(port_mesh(2), **kwargs)
+def test_later_slice_arguments_raise(devices, kwargs):
+    """The build arguments the first slices refused (the ring/overlap
+    slice ported them): each now builds, and agrees with the JAX package."""
+    a, x = uniform((16, 32), seed=12)
+    y_j, y_t = run_both("colwise", 2, a, x, **kwargs)
+    np.testing.assert_allclose(y_t, y_j, **TOL["float64"])
 
 
 @pytest.mark.parametrize(
     "scatter_output,combine",
     [(False, "psum_scatter"), (True, "psum"), (False, "a2a"), (True, "a2a")],
 )
-def test_unported_colwise_schedule_raises(scatter_output, combine):
-    """scatter_output is the one way to choose colwise's schedule; build()
-    refuses any other name than the instance's own."""
+def test_unported_colwise_schedule_raises(devices, scatter_output, combine):
+    """build(combine=) rebinds a colwise instance to any of its schedules,
+    whatever its own, as in the JAX package (these raised before the
+    ring/overlap slice)."""
+    a, x = uniform((16, 32), seed=13)
+    kw = {"scatter_output": scatter_output}
+    y_j, y_t = run_both("colwise", 4, a, x, strategy_kwargs=kw, combine=combine)
+    np.testing.assert_allclose(y_t, y_j, **TOL["float64"])
     strat = mv_torch.ColwiseStrategy(scatter_output=scatter_output)
-    with pytest.raises(ConfigError, match="ROADMAP.md"):
-        strat.build(port_mesh(2), combine=combine)
-    strat.build(port_mesh(2), combine=strat.combine)
+    y_own = strat.build(port_mesh(4), combine=strat.combine)(
+        torch.from_numpy(a), torch.from_numpy(x))
+    np.testing.assert_allclose(y_own.numpy(), a @ x, rtol=1e-12)
 
 
 def test_registry():
-    assert mv_torch.available_strategies() == ["blockwise", "colwise", "rowwise"]
+    """The seven names of the JAX package's registry."""
+    assert mv_torch.available_strategies() == [
+        "blockwise", "colwise", "colwise_a2a", "colwise_overlap", "colwise_ring",
+        "colwise_ring_overlap", "rowwise",
+    ]
+    assert mv_torch.available_strategies() == sorted(mv_jax.available_strategies())
     with pytest.raises(KeyError, match="unknown strategy"):
         mv_torch.get_strategy("diagonal")
 

@@ -129,9 +129,10 @@ def test_sweep_cli_writes_reference_csvs(tmp_path, capsys):
         "--n-reps", "3", "--measure", "sync", "--data-root", str(tmp_path),
     ])
     assert rc == 0
-    assert "9 configs timed, 0 skipped" in capsys.readouterr().out
+    # Every registry strategy, the four colwise_* bindings included, at p = 1, 2, 4.
+    assert "21 configs timed, 0 skipped" in capsys.readouterr().out
     out = tmp_path / "out"
-    for name in ("rowwise", "colwise", "blockwise"):
+    for name in ("rowwise", "colwise", "blockwise", "colwise_ring", "colwise_a2a"):
         lines = (out / f"{name}.csv").read_text().splitlines()
         assert lines[0] == jax_constants.CSV_HEADER
         assert [ln.split(", ")[:3] for ln in lines[1:]] == [
@@ -140,7 +141,7 @@ def test_sweep_cli_writes_reference_csvs(tmp_path, capsys):
             assert len(ln.split(", ")[3].split(".")[1]) == 6  # "%f"
     ext = (out / "results_extended.csv").read_text().splitlines()
     assert ext[0] == jax_constants.CSV_HEADER_EXTENDED
-    assert len(ext) == 10
+    assert len(ext) == 22
     assert all(ln.split(", ")[5:8] == ["float32", "amortized", "sync"]
                for ln in ext[1:])
 
