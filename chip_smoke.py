@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the hand-written CUDA kernels (``csrc/gemv.cu``, ``csrc/gemm.cu``,
-``csrc/quant_gemv.cu``, ``csrc/solver_step.cu``, ``csrc/ring_gemv.cu``; one
-``nvcc`` each, in parallel) from the checkout's sources, holds each against its plain
+``csrc/quant_gemv.cu``, ``csrc/solver_step.cu``, ``csrc/ring_gemv.cu``,
+``csrc/flash_attention.cu``; one ``nvcc`` each, in parallel) from the checkout's sources, holds each against its plain
 PyTorch version, and drives the port's paths at full size, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
@@ -33,7 +33,18 @@ kernels' launch counts set to 0 just before it and read just after:
   with every colwise combine (``pallas_ring`` through the ring GEMV, the
   others through the GEMV) and rowwise/blockwise's ``ring``/``overlap``
   gathers, each held against ``psum`` and to no panel-sized allocation, and
-  ``run_serve`` with ``pallas_ring`` and ``overlap@4``.
+  ``run_serve`` with ``pallas_ring`` and ``overlap@4``;
+* sequence-parallel attention: the flash-attention partial against its
+  plain version (JAX's test shapes, a fully masked block, a ragged q-tile,
+  d = 256, a ragged KV tile, the ring's hop and Ulysses' local shape), then
+  ``build_ring_attention`` and ``build_ulysses_attention`` on both tiers,
+  causal and not, at s = 16384, h = 8, d_head = 128 bf16 on a 2x2 logical
+  mesh (flash against xla, the xla tier on fp32 inputs against an fp64
+  dense oracle, the multichip dryrun's checks) and at s = 4000, where the
+  JAX package's predicate refuses every block and the kernel runs all the
+  same; a gradient through the flash ring against the xla ring's, and
+  each tier's gradient cost at s = 16384; ``bench.attention.run_attention_study``
+  at s = 4096 and 16384.
 
 It checks the answers and times each kernel beside its bound, its plain
 version and the library call. Every phase prints one JSON line; any failed
@@ -55,6 +66,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 N_REPS = 100
@@ -190,6 +202,29 @@ RING_MAIN_CONFIGS = [
 # (combine, stages, steady requests) for run_serve, colwise on the 1-D mesh.
 RING_SERVE_CONFIGS = [("pallas_ring", None, 200), ("overlap", 4, 40)]
 
+# The flash-attention partial: (h, sq, sk, d, q offset, k offset) checked in
+# fp32 and bf16 k/v, causal and not. The JAX kernel test's shape with offset
+# q positions; a fully masked block (keys all after the queries, causal
+# only); sq = 8·25 (a ragged q-tile) with sk = 3·128; d = 256 (two column
+# chunks); the ring's hop shape at s = 4000 on 4 shards (sk = 1000: a ragged
+# KV tile, and a shape the JAX package's predicate refuses); the ring's hop
+# shape at s = 16384 on 4 shards; Ulysses' local step (2 heads of 8 per
+# shard, the whole sequence). The kernels line's head is the s = 16384 hop
+# shape in bf16, non-causal.
+FLASH_CHECK_SHAPES = [(2, 256, 512, 128, 96, 0), (1, 128, 128, 128, 0, 1000),
+                      (2, 200, 384, 128, 50, 0), (2, 256, 256, 256, 30, 0),
+                      (8, 1000, 1000, 128, 0, 0),
+                      (8, 4096, 4096, 128, 0, 0), (2, 16384, 16384, 128, 0, 0)]
+FLASH_TOL = 2e-5  # rtol = atol, as the JAX package's kernel test
+# The JAX attention study's width (scripts/attention_study.py:38-44) at its
+# "real backend" length, on the 2x2 logical mesh of cuda:0.
+ATT_S, ATT_H, ATT_D = 16384, 8, 128
+ATT_STUDY_SEQS = (4096, 16384)
+ATT_GRAD_S = 4096
+# A sequence length at which JAX's predicate refuses both flash blocks (the
+# ring's (1000, 1000) hops, Ulysses' (4000, 4000) step): the kernel runs.
+ATT_REFUSED_S = 4000
+
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -214,7 +249,16 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
-    from matvec_mpi_multiplier_torch import get_strategy, make_1d_mesh, make_mesh
+    from matvec_mpi_multiplier_torch import (
+        build_ring_attention,
+        build_ulysses_attention,
+        get_strategy,
+        make_1d_mesh,
+        make_mesh,
+    )
+    from matvec_mpi_multiplier_torch.bench.attention import COLUMNS as ATTENTION_COLUMNS
+    from matvec_mpi_multiplier_torch.bench.attention import report as attention_report
+    from matvec_mpi_multiplier_torch.bench.attention import run_attention_study
     from matvec_mpi_multiplier_torch.bench.serve import (
         DEFAULT_WIDTH_MIX,
         _request_pool,
@@ -236,6 +280,11 @@ def main() -> int:
         unshard,
     )
     from matvec_mpi_multiplier_torch.ops import _build
+    from matvec_mpi_multiplier_torch.ops.attention import flash_path_available
+    from matvec_mpi_multiplier_torch.ops.cuda_attention import (
+        flash_partial_cuda,
+        flash_partial_plain,
+    )
     from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda, gemm_plain
     from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda, gemv_plain
     from matvec_mpi_multiplier_torch.ops.cuda_quant import (
@@ -1475,11 +1524,353 @@ def main() -> int:
                   "launches": launched, "exec_keys": labels,
                   "replay_max_rel_err_by_width": rel, "rtol": 2 ** -7})
 
-    # ---- 24. the kernels line ----
+    # ---- 24. flash_attention against its plain version ----
+    def flash_operands(h, sq, sk, d, kdt, q_off, k_off):
+        """Pre-scaled standard normal q (fp32), k and v in ``kdt``, and
+        global positions starting at the offsets."""
+        q = torch.randn((h, sq, d), generator=gen, device=dev) * d ** -0.5
+        k, v = (torch.randn((h, sk, d), generator=gen, device=dev).to(kdt)
+                for _ in range(2))
+        q_pos = torch.arange(sq, dtype=torch.int32, device=dev) + q_off
+        k_pos = torch.arange(sk, dtype=torch.int32, device=dev) + k_off
+        return q, k, v, q_pos, k_pos
+
+    def flash_check(operands, causal, what):
+        """The kernel twice and the plain partial once: bitwise repeatable,
+        the same non-finite entries (m = -inf on fully masked rows), and
+        o, m, l within rtol = atol = FLASH_TOL. Returns the errors, the
+        kernel's partial and the plain one."""
+        a, b = (flash_partial_cuda(*operands, causal), flash_partial_cuda(*operands, causal))
+        ref = flash_partial_plain(*operands, causal=causal)
+        torch.cuda.synchronize(dev)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)), f"flash {what}: two runs differ")
+        err = {}
+        for name, x, r in zip(("o", "m", "l"), a, ref):
+            fin = torch.isfinite(r)
+            check(torch.equal(torch.isfinite(x), fin) and torch.equal(x[~fin], r[~fin]),
+                  f"flash {what}: the non-finite entries of {name} differ")
+            dx = (x[fin] - r[fin]).abs()
+            excess = (dx - FLASH_TOL * r[fin].abs()).max().item() if dx.numel() else 0.0
+            check(excess <= FLASH_TOL, f"flash {what}: {name} beyond rtol = atol = {FLASH_TOL}")
+            err[name] = dx.max().item() if dx.numel() else 0.0
+        return ({"max_abs_err": max(err.values()), "max_abs_err_by_output": err,
+                 "rtol": FLASH_TOL, "atol": FLASH_TOL}, a, ref)
+
+    def unmasked_pairs(q_pos, k_pos, causal) -> int:
+        if not causal:
+            return q_pos.numel() * k_pos.numel()
+        k_sorted = torch.sort(k_pos).values
+        return int(torch.searchsorted(k_sorted, q_pos, right=True).sum().item())
+
+    def sdpa_call(q, k, v, causal, dtype):
+        """The library yardstick: one scaled_dot_product_attention call on
+        (1, h, s, d) in ``dtype`` (normalized output, not a partial), under
+        the first backend that takes it, in PyTorch's order."""
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        qq, kk, vv = (x.to(dtype)[None] for x in (q, k, v))
+        for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            def call(backend=backend):
+                with sdpa_kernel([backend]):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qq, kk, vv, is_causal=causal, scale=1.0)
+            try:
+                with warnings.catch_warnings():  # each refusal also warns
+                    warnings.simplefilter("ignore")
+                    call()
+                torch.cuda.synchronize(dev)
+            except RuntimeError:
+                continue
+            return call, backend.name
+        raise RuntimeError("no scaled_dot_product_attention backend ran")
+
+    flash_at = {}
+    for h, sq, sk, d, q_off, k_off in FLASH_CHECK_SHAPES:
+        big = sq >= 4096
+        for name in ("float32", "bfloat16"):
+            for causal in (False, True) if k_off <= sq else (True,):
+                what = f"{h}x{sq}x{sk}x{d} {name} causal={causal} q+{q_off} k+{k_off}"
+                operands = flash_operands(h, sq, sk, d, torch_dtype(name), q_off, k_off)
+                err, (o, m, l), plain = flash_check(operands, causal, what)
+                line = {"phase": "flash_vs_plain", "kernel": "flash_attention",
+                        "shape": [h, sq, sk, d], "kv_dtype": name, "causal": causal,
+                        "q_offset": q_off, "k_offset": k_off, "bitwise_repeatable": True,
+                        **err}
+                if k_off > sq:
+                    check(bool(torch.isneginf(m).all()) and bool((l == 0).all())
+                          and bool(torch.isfinite(o).all()),
+                          f"flash {what}: fully masked rows not (m=-inf, l=0, finite o)")
+                    line["fully_masked_rows"] = "m=-inf, l=0, o finite"
+                if big:
+                    q, k, v, q_pos, k_pos = operands
+                    nbytes = (8 * h * sq * d + 2 * h * sk * d * k.element_size()
+                              + 8 * h * sq + 4 * (sq + sk))
+                    pairs = unmasked_pairs(q_pos, k_pos, causal)
+                    bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+                    ops_ms = 4 * h * d * pairs / FP32_PEAK_FLOPS * 1e3
+                    times = {
+                        "ms": event_ms(lambda: flash_partial_cuda(*operands, causal), reps=10),
+                        "plain_ms": event_ms(
+                            lambda: flash_partial_plain(*operands, causal=causal), reps=3,
+                            warmup=1),
+                    }
+                    diagonal = causal and q_off == k_off and sq == sk
+                    if not causal or diagonal:
+                        call, backend = sdpa_call(q, k, v, causal, torch.float32)
+                        times["library_ms"] = event_ms(call, reps=10)
+                        times["library_backend"] = backend
+                        call, backend = sdpa_call(q, k, v, causal, k.dtype)
+                        times[f"library_{name}_ms"] = event_ms(call, reps=10)
+                        times[f"library_{name}_backend"] = backend
+                    flash_at[f"{h}x{sq}x{sk}x{d}_{name}_causal{int(causal)}"] = {
+                        **times, "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                        "unmasked_pairs": pairs, **err}
+                    line.update(times)
+                emit(line)
+                del operands, o, m, l, plain
+            torch.cuda.empty_cache()
+
+    # ---- 25. ring and Ulysses attention at full width, 2x2 logical mesh ----
+    att_mesh = make_mesh(4, devices=[dev] * 4)
+    flash_launches = {}
+    att_launches = {"ring": 16, "ulysses": 4}  # 4 shards x 4 hops; 4 local steps
+    builders = {"ring": build_ring_attention, "ulysses": build_ulysses_attention}
+
+    def att_inputs(s, dtype):
+        return [torch.randn((s, ATT_H, ATT_D), generator=gen, device=dev).to(dtype)
+                for _ in range(3)]
+
+    def allclose_excess(got, want, tol) -> float:
+        """max(|got - want| - tol·|want|): within tolerance iff <= tol."""
+        return ((got - want).abs() - tol * want.abs()).max().item()
+
+    qkv = att_inputs(ATT_S, torch.bfloat16)
+    for schedule, build in builders.items():
+        for causal in (False, True):
+            outs, walls = {}, {}
+            for kernel in ("xla", "flash"):
+                fn = build(att_mesh, causal=causal, gather_output=True, kernel=kernel)
+                flash_partial_cuda.launches = 0
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    outs[kernel] = fn(*qkv)
+                torch.cuda.synchronize(dev)
+                walls[kernel] = (time.perf_counter() - t0) * 1e3
+                launched = flash_partial_cuda.launches
+                expect = att_launches[schedule] if kernel == "flash" else 0
+                check(launched == expect,
+                      f"{schedule} {kernel} causal={causal}: {launched} kernel launches, "
+                      f"expected {expect}")
+                if kernel == "flash":
+                    flash_launches[f"{schedule}_causal{int(causal)}"] = launched
+                o = outs[kernel]
+                check(tuple(o.shape) == (ATT_S, ATT_H, ATT_D) and o.dtype == torch.float32
+                      and bool(torch.isfinite(o).all()),
+                      f"{schedule} {kernel}: not {ATT_S}x{ATT_H}x{ATT_D} finite fp32 values")
+            excess = allclose_excess(outs["flash"], outs["xla"], 2e-4)
+            check(excess <= 2e-4, f"{schedule} causal={causal}: flash differs from xla "
+                  "beyond 2e-4")
+            emit({"phase": "attention_main", "schedule": schedule, "causal": causal,
+                  "shape": [ATT_S, ATT_H, ATT_D], "dtype": "bfloat16",
+                  "mesh": list(att_mesh.grid), "shards_on_cuda0": att_mesh.size,
+                  "xla_wall_ms": walls["xla"], "flash_wall_ms": walls["flash"],
+                  "launches": att_launches[schedule],
+                  "max_abs_diff_flash_vs_xla": (outs["flash"] - outs["xla"]).abs().max().item(),
+                  "rtol": 2e-4, "atol": 2e-4})
+            del outs
+            torch.cuda.empty_cache()
+    del qkv
+
+    # Both schedules at a length whose blocks the JAX package's predicate
+    # refuses: on the card the flash tier still runs the kernel on every
+    # block, never the plain partial.
+    s_r, p_r = ATT_REFUSED_S, att_mesh.size
+    check(not flash_path_available(s_r // p_r, s_r // p_r, ATT_D)
+          and not flash_path_available(s_r, s_r, ATT_D),
+          f"s = {s_r}: JAX's predicate takes a block; pick a length it refuses")
+    qkv = att_inputs(s_r, torch.bfloat16)
+    for schedule, build in builders.items():
+        for causal in (False, True):
+            outs = {}
+            for kernel in ("xla", "flash"):
+                flash_partial_cuda.launches = 0
+                with torch.no_grad():
+                    outs[kernel] = build(att_mesh, causal=causal, gather_output=True,
+                                         kernel=kernel)(*qkv)
+                torch.cuda.synchronize(dev)
+                launched = flash_partial_cuda.launches
+                expect = att_launches[schedule] if kernel == "flash" else 0
+                check(launched == expect,
+                      f"{schedule} {kernel} causal={causal} s={s_r}: {launched} kernel "
+                      f"launches, expected {expect}")
+                check(bool(torch.isfinite(outs[kernel]).all()),
+                      f"{schedule} {kernel} s={s_r}: non-finite output")
+            flash_launches[f"{schedule}_refused_s{s_r}_causal{int(causal)}"] = \
+                att_launches[schedule]
+            excess = allclose_excess(outs["flash"], outs["xla"], 2e-4)
+            check(excess <= 2e-4, f"{schedule} causal={causal} s={s_r}: flash differs "
+                  "from xla beyond 2e-4")
+            emit({"phase": "attention_refused_shape", "schedule": schedule,
+                  "causal": causal, "shape": [s_r, ATT_H, ATT_D], "dtype": "bfloat16",
+                  "mesh": list(att_mesh.grid), "jax_predicate_takes_block": False,
+                  "launches": att_launches[schedule],
+                  "max_abs_diff_flash_vs_xla": (outs["flash"] - outs["xla"]).abs().max().item(),
+                  "rtol": 2e-4, "atol": 2e-4})
+            del outs
+    del qkv
+    torch.cuda.empty_cache()
+
+    # The xla tier on fp32 inputs against the fp64 dense oracle, head by head.
+    q32, k32, v32 = att_inputs(ATT_S, torch.float32)
+    for causal in (False, True):
+        with torch.no_grad():
+            outs = {name: build(att_mesh, causal=causal, gather_output=True)(q32, k32, v32)
+                    for name, build in builders.items()}
+        worst = {name: 0.0 for name in outs}
+        for head in range(ATT_H):
+            q64, k64, v64 = (x[:, head].double() for x in (q32, k32, v32))
+            w = (q64 @ k64.T) / ATT_D ** 0.5
+            if causal:
+                w.masked_fill_(torch.ones(ATT_S, ATT_S, dtype=torch.bool,
+                                          device=dev).triu_(1), -torch.inf)
+            w -= w.amax(dim=1, keepdim=True)
+            w.exp_()
+            w /= w.sum(dim=1, keepdim=True)
+            oracle = w @ v64
+            del w
+            for name, o in outs.items():
+                worst[name] = max(worst[name],
+                                  allclose_excess(o[:, head].double(), oracle, 2e-5))
+        for name in outs:
+            check(worst[name] <= 2e-5, f"{name} xla causal={causal}: fp32 output beyond "
+                  "2e-5 of the fp64 dense oracle")
+        emit({"phase": "attention_oracle", "schedules": sorted(outs), "causal": causal,
+              "shape": [ATT_S, ATT_H, ATT_D], "dtype": "float32", "kernel": "xla",
+              "oracle": "fp64 dense, head by head", "rtol": 2e-5, "atol": 2e-5,
+              "max_excess_by_schedule": worst})
+        del outs
+        torch.cuda.empty_cache()
+
+    # The multichip dryrun's attention checks (__graft_entry__.py), on the
+    # 2x2 mesh of cuda:0: causal single-head ring against a numpy oracle at
+    # 1e-4, then the flash tier against the xla tier at d_head = 128.
+    s_small, d_small = att_mesh.size * 4, 8
+    rng = np.random.default_rng(args.seed)
+    qn, kn, vn = (rng.standard_normal((s_small, d_small)).astype(np.float32)
+                  for _ in range(3))
+    o = build_ring_attention(att_mesh, causal=True, gather_output=True)(
+        *(torch.from_numpy(x).to(dev) for x in (qn, kn, vn)))
+    scores = (qn.astype(np.float64) @ kn.astype(np.float64).T) / np.sqrt(d_small)
+    scores = np.where(np.tril(np.ones((s_small, s_small), bool)), scores, -np.inf)
+    w = np.exp(scores - scores.max(axis=1, keepdims=True))
+    oracle = (w / w.sum(axis=1, keepdims=True)) @ vn.astype(np.float64)
+    np.testing.assert_allclose(o.cpu().numpy(), oracle, rtol=1e-4, atol=1e-4)
+    sf = att_mesh.size * 128
+    qf, kf, vf = (torch.from_numpy(rng.standard_normal((sf, 128)).astype(np.float32)).to(dev)
+                  for _ in range(3))
+    o_xla = build_ring_attention(att_mesh, causal=True, gather_output=True)(qf, kf, vf)
+    flash_partial_cuda.launches = 0
+    o_flash = build_ring_attention(att_mesh, causal=True, gather_output=True,
+                                   kernel="flash")(qf, kf, vf)
+    torch.cuda.synchronize(dev)
+    check(flash_partial_cuda.launches == 16, "dryrun flash ring: launches "
+          f"{flash_partial_cuda.launches}, expected 16")
+    flash_launches["dryrun_ring"] = flash_partial_cuda.launches
+    np.testing.assert_allclose(o_flash.cpu().numpy(), o_xla.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4)
+    emit({"phase": "attention_dryrun", "mesh": list(att_mesh.grid),
+          "causal_ring_vs_numpy": {"shape": [s_small, d_small], "rtol": 1e-4},
+          "flash_vs_xla": {"shape": [sf, 128], "rtol": 1e-4,
+                           "max_abs_diff": (o_flash - o_xla).abs().max().item()}})
+
+    # ---- 26. a gradient step through the flash ring on the card ----
+    leaves = att_inputs(ATT_GRAD_S, torch.float32)
+    grads = {}
+    for kernel in ("xla", "flash"):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        flash_partial_cuda.launches = 0
+        o = build_ring_attention(att_mesh, causal=True, gather_output=True,
+                                 kernel=kernel)(*xs)
+        grads[kernel] = torch.autograd.grad((o ** 2).sum(), xs)
+        torch.cuda.synchronize(dev)
+        if kernel == "flash":
+            check(flash_partial_cuda.launches == 16,
+                  f"flash ring gradient: {flash_partial_cuda.launches} launches")
+            flash_launches["ring_grad"] = flash_partial_cuda.launches
+        del o, xs
+    excess = max(allclose_excess(f, x, 1e-4) for f, x in zip(grads["flash"], grads["xla"]))
+    check(excess <= 1e-4, "flash ring gradients differ from the xla ring's beyond 1e-4")
+    emit({"phase": "attention_grad", "schedule": "ring", "causal": True,
+          "shape": [ATT_GRAD_S, ATT_H, ATT_D], "dtype": "float32", "loss": "sum(o^2)",
+          "max_abs_diff_by_input": [(f - x).abs().max().item()
+                                    for f, x in zip(grads["flash"], grads["xla"])],
+          "rtol": 1e-4, "atol": 1e-4})
+    del grads, leaves
+    torch.cuda.empty_cache()
+
+    # What a gradient costs at full length: the wall time and the peak of
+    # device memory above the inputs of one forward and backward through
+    # each tier's ring on fp32 inputs (the flash backward recomputes each
+    # hop's block in fp32; the xla tier keeps every hop's tiles for autograd).
+    leaves = att_inputs(ATT_S, torch.float32)
+    cost = {}
+    for kernel in ("xla", "flash"):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        flash_partial_cuda.launches = 0
+        t0 = time.perf_counter()
+        o = build_ring_attention(att_mesh, causal=True, gather_output=True,
+                                 kernel=kernel)(*xs)
+        g = torch.autograd.grad((o ** 2).sum(), xs)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        check(all(bool(torch.isfinite(x).all()) for x in g),
+              f"{kernel} ring gradient at s={ATT_S}: non-finite")
+        if kernel == "flash":
+            check(flash_partial_cuda.launches == 16,
+                  f"flash ring gradient at s={ATT_S}: {flash_partial_cuda.launches} launches")
+            flash_launches[f"ring_grad_s{ATT_S}"] = flash_partial_cuda.launches
+        cost[kernel] = {"wall_ms": wall_ms,
+                        "peak_mib": (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20}
+        del o, g, xs
+        torch.cuda.empty_cache()
+    emit({"phase": "attention_grad_cost", "schedule": "ring", "causal": True,
+          "shape": [ATT_S, ATT_H, ATT_D], "dtype": "float32", "loss": "sum(o^2)",
+          "mesh": list(att_mesh.grid), "one_shot": True, **cost})
+    del leaves
+
+    # ---- 27. the attention study, 2x2 logical mesh ----
+    flash_partial_cuda.launches = 0
+    rows = run_attention_study(att_mesh, ATT_STUDY_SEQS, heads=ATT_H, d_head=ATT_D,
+                               dtype="bfloat16", causal=False, n_reps=4,
+                               seed=args.seed, samples=3)
+    torch.cuda.synchronize(dev)
+    flash_launches["study"] = flash_partial_cuda.launches
+    check(flash_partial_cuda.launches > 0, "the study launched no flash kernel")
+    for row in rows:
+        check(not row["refused"], f"study s={row['s']}: JAX's predicate refuses "
+              f"{row['refused']}")
+        check(all(row[c] for c in ATTENTION_COLUMNS), f"study s={row['s']}: unmeasurable")
+        emit({"phase": "attention_study", "s": row["s"], "heads": ATT_H, "d_head": ATT_D,
+              "dtype": "bfloat16", "causal": False, "mesh": list(att_mesh.grid),
+              "measure": "chain", "n_reps": 4, "samples": 3,
+              **{f"{c}_ms": row[c]["ms"] for c in ATTENTION_COLUMNS},
+              "refused": sorted(row["refused"])})
+    print(attention_report(rows, att_mesh, heads=ATT_H, d_head=ATT_D, dtype="bfloat16",
+                           causal=False, n_reps=4), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 28. the kernels line ----
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
     gemm_head = gemm_at["{0}x{1}x{2}_{3}".format(*GEMM_TIME_SHAPES[GEMM_HEAD])]
     quant_head = quant_at["{0}x{0}_{1}_n{2}".format(*QUANT_TIME_SHAPES[QUANT_HEAD])]
     ring_head = ring_at[f"{RING_N}x{RING_N}_p{RING_TIME_P[0]}"]
+    flash_head = flash_at["8x4096x4096x128_bfloat16_causal0"]
     emit({"kernels": [{
         "name": "gemv", "route": "cuda",
         "source": "matvec_mpi_multiplier_torch/csrc/gemv.cu",
@@ -1550,9 +1941,25 @@ def main() -> int:
         "library_call": "torch.matmul(a, x[:, None]) on the unsharded A",
         "psum_scatter_ms": ring_head["psum_scatter_ms"],
         "at": ring_at,
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "matvec_mpi_multiplier_torch/csrc/flash_attention.cu",
+        "replaces": "matvec_mpi_multiplier_tpu/ops/pallas_attention.py:59",
+        "launches": sum(flash_launches.values()),
+        "launches_by_path": flash_launches,
+        "max_abs_err": flash_head["max_abs_err"],
+        "ms": flash_head["ms"], "plain_ms": flash_head["plain_ms"],
+        "bound_ms": flash_head["bound_ms"], "bound_by": flash_head["bound_by"],
+        # SDPA returns the normalized output, not the partial; the same q, k
+        # and v as (1, h, s, d), fp32 (and bf16: library_bfloat16_ms).
+        "library_ms": flash_head["library_ms"],
+        "library_call": "torch.nn.functional.scaled_dot_product_attention on "
+                        "(1, h, s, d) fp32, scale=1, under the backend named",
+        "library_backend": flash_head["library_backend"],
+        "at": flash_at,
     }]})
 
-    # ---- 25. result ----
+    # ---- 29. result ----
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

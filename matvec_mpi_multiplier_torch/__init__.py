@@ -27,6 +27,8 @@ _EXPORTS = {
     "available_strategies": (".models", "available_strategies"),
     "make_mesh": (".parallel.mesh", "make_mesh"),
     "make_1d_mesh": (".parallel.mesh", "make_1d_mesh"),
+    "build_ring_attention": (".parallel.attention", "build_ring_attention"),
+    "build_ulysses_attention": (".parallel.attention", "build_ulysses_attention"),
     "io": (".utils.io", None),
     "MatvecError": (".utils.errors", "MatvecError"),
     "ShardingError": (".utils.errors", "ShardingError"),

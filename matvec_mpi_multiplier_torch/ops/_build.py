@@ -154,6 +154,13 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.matvec_ring_gemv.restype = ctypes.c_int
+    # dtype of k and v; q, k, v, q_pos, k_pos, o, m, l; h, sq, sk, d;
+    # causal; the stream.
+    lib.matvec_flash_partial.argtypes = [
+        ctypes.c_int, *[ctypes.c_void_p] * 8, *[ctypes.c_int64] * 4,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.matvec_flash_partial.restype = ctypes.c_int
     lib.matvec_error_string.argtypes = [ctypes.c_int]
     lib.matvec_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,113 @@
+"""The hand-written CUDA flash-attention partial (``csrc/flash_attention.cu``)
+and its plain version.
+
+Replaces the JAX package's Pallas kernel
+(``matvec_mpi_multiplier_tpu/ops/pallas_attention.py::_flash_kernel``): the
+partial ``(o_unnorm, m, l)`` of a pre-scaled Q against one KV block, with the
+causal mask by global positions, scores and online softmax never leaving the
+SM. It is bound by its fp32 operations (4·d per unmasked (q, k) pair); the
+source describes the design.
+
+:func:`flash_partial_cuda` launches the kernel for CUDA tensors, or raises:
+a missing ``nvcc``, a failed build, a refused launch or a shape the kernel
+does not take (``d % 128 != 0``) is an error, never a quiet switch to the
+plain version. For tensors on the CPU, and only there, it computes
+:func:`flash_partial_plain`. ``flash_partial_cuda.launches`` counts the
+kernel's launches (nothing else adds to it).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .attention import reference_partial
+from .cuda_gemv import _DTYPE_CODES
+
+# The kernel's head-dim chunk: d must be a multiple of it.
+D_CHUNK = 128
+
+
+def flash_partial_plain(q, k, v, q_pos, k_pos, *, causal: bool):
+    """The kernel's plain version: :func:`reference_partial` with its two
+    sums over the keys in fp64, rounded once."""
+    return reference_partial(q, k, v, q_pos, k_pos, causal=causal,
+                             sum_dtype=torch.float64)
+
+
+def _check(q, k, v, q_pos, k_pos) -> None:
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(
+            f"flash partial needs q (h, sq, d) and k, v (h, sk, d), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    h, sq, d = q.shape
+    if k.shape[0] != h or k.shape[2] != d:
+        raise ValueError(
+            f"flash partial: q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+            "in heads or head dim"
+        )
+    if q_pos.shape != (sq,) or k_pos.shape != (k.shape[1],):
+        raise ValueError(
+            f"flash partial needs q_pos ({sq},) and k_pos ({k.shape[1]},), got "
+            f"{tuple(q_pos.shape)} and {tuple(k_pos.shape)}"
+        )
+    if not all(x.dtype.is_floating_point for x in (q, k, v)) or k.dtype != v.dtype:
+        raise ValueError(
+            f"flash partial needs float q and k, v of one dtype, got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}"
+        )
+    if any(x.device != q.device for x in (k, v, q_pos, k_pos)):
+        raise ValueError("flash partial needs q, k, v and the positions on one device")
+
+
+def flash_partial_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(o_unnorm, m, l)`` by the CUDA kernel (the plain version for CPU
+    tensors). q, k and v of another float dtype than the kernel's (q fp32;
+    k, v bf16 or fp32) are cast to fp32 first, the cast the kernel makes on
+    load."""
+    _check(q, k, v, q_pos, k_pos)
+    if q.device.type == "cpu":
+        return flash_partial_plain(q, k, v, q_pos, k_pos, causal=causal)
+    h, sq, d = q.shape
+    sk = k.shape[1]
+    if d % D_CHUNK or sq == 0 or sk == 0:
+        raise ValueError(
+            f"the flash kernel takes d a multiple of {D_CHUNK} and sq, sk >= 1, "
+            f"got q {tuple(q.shape)} and k {tuple(k.shape)}"
+        )
+    lib = _build.load_library()
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_partial_cuda runs on CUDA or CPU tensors, got {q.device}")
+    q = q.float().contiguous()
+    if k.dtype not in (torch.bfloat16, torch.float32):
+        k, v = k.float(), v.float()
+    k, v = k.contiguous(), v.contiguous()
+    q_pos = q_pos.to(torch.int32).contiguous()
+    k_pos = k_pos.to(torch.int32).contiguous()
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the flash kernel needs 16-byte aligned q, k and v")
+    o = torch.empty((h, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((h, sq), dtype=torch.float32, device=q.device)
+    l = torch.empty((h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.matvec_flash_partial(
+            _DTYPE_CODES[k.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q_pos.data_ptr(), k_pos.data_ptr(), o.data_ptr(), m.data_ptr(),
+            l.data_ptr(), h, sq, sk, d, int(causal), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"flash partial kernel launch failed for q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)} {k.dtype}: {lib.matvec_error_string(rc).decode()} "
+            f"(cudaError {rc})"
+        )
+    flash_partial_cuda.launches += 1
+    return o, m, l
+
+
+flash_partial_cuda.launches = 0  # type: ignore[attr-defined]

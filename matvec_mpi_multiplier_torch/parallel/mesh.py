@@ -20,7 +20,8 @@ row-major). The collectives are explicit tensor ops:
 * :func:`psum_scatter` is that sum split by rows;
 * :func:`ppermute` moves each shard's block to the shard its permutation
   names (on one card, a list rotation: nothing is copied);
-* :func:`all_to_all` sends row chunk j of shard i to shard j.
+* :func:`all_to_all` sends chunk j of shard i (cut along ``split_axis``) to
+  shard j, which concatenates what it gets along ``concat_axis``.
 
 No collective here reads a value back to the host.
 """
@@ -307,20 +308,30 @@ def ppermute(
 
 
 def all_to_all(
-    blocks: Sequence[torch.Tensor], mesh: Mesh, axes
+    blocks: Sequence[torch.Tensor], mesh: Mesh, axes, split_axis: int = 0,
+    concat_axis: int = 0,
 ) -> list[torch.Tensor]:
-    """``lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=True)`` over
-    ``axes``: each block is cut into n equal row chunks, and device j gets
-    chunk j of every device of its group, concatenated in reduced-index
-    order."""
+    """``lax.all_to_all(..., split_axis, concat_axis, tiled=True)`` over
+    ``axes``: each block is cut along ``split_axis`` into n equal chunks, and
+    device j gets chunk j of every device of its group, concatenated along
+    ``concat_axis`` in reduced-index order. Each chunk keeps its dtype."""
     axes = _axes(axes)
     n = _axes_size(mesh, axes)
     out: list[torch.Tensor] = [None] * mesh.size  # type: ignore[list-item]
     for members in _reduce_groups(mesh, axes):
-        rows = blocks[members[0][1]].shape[0] // n
+        block = blocks[members[0][1]]
+        if block.shape[split_axis] % n:
+            raise ValueError(
+                f"all_to_all: split_axis {split_axis} of a block of shape "
+                f"{tuple(block.shape)} is not divisible by the {n} devices of "
+                f"axes {axes}"
+            )
+        size = block.shape[split_axis] // n
         for j, fj in members:
             dev = mesh.devices[fj]
             out[fj] = torch.cat(
-                [blocks[fi][j * rows:(j + 1) * rows].to(dev) for _, fi in members]
+                [blocks[fi].narrow(split_axis, j * size, size).to(dev)
+                 for _, fi in members],
+                dim=concat_axis,
             )
     return out

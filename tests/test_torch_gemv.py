@@ -137,18 +137,22 @@ def test_missing_nvcc_raises_and_nothing_falls_back(monkeypatch, tmp_path):
     """Without nvcc the build raises a clear error naming every source, and
     a non-CPU tensor never falls back to the plain version or a library
     call — for the GEMV, the GEMM, the block-scaled GEMV (which also
-    never reaches the scan tier or a dequantized A) and the fused solver
-    step."""
-    from matvec_mpi_multiplier_torch.ops import cuda_gemm, cuda_quant, cuda_solver, quantize
+    never reaches the scan tier or a dequantized A), the fused solver step
+    and the flash-attention partial (directly and through the flash tier's
+    flash_block_partial)."""
+    from matvec_mpi_multiplier_torch.ops import (
+        attention, cuda_attention, cuda_gemm, cuda_quant, cuda_solver, quantize,
+    )
 
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     _build.load_library.cache_clear()
-    assert [s.name for s in _build.SOURCES] == ["gemm.cu", "gemv.cu", "quant_gemv.cu",
-                                                "ring_gemv.cu", "solver_step.cu"]
-    with pytest.raises(RuntimeError, match="nvcc not found.*gemm.cu, gemv.cu, quant_gemv.cu, "
-                       "ring_gemv.cu, solver_step.cu"):
+    assert [s.name for s in _build.SOURCES] == ["flash_attention.cu", "gemm.cu", "gemv.cu",
+                                                "quant_gemv.cu", "ring_gemv.cu",
+                                                "solver_step.cu"]
+    with pytest.raises(RuntimeError, match="nvcc not found.*flash_attention.cu, gemm.cu, "
+                       "gemv.cu, quant_gemv.cu, ring_gemv.cu, solver_step.cu"):
         _build.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_library()
@@ -160,11 +164,13 @@ def test_missing_nvcc_raises_and_nothing_falls_back(monkeypatch, tmp_path):
                           (cuda_quant, "_dequantized_rows"),
                           (quantize, "matvec_quantized"), (quantize, "dequantize"),
                           (cuda_solver, "solver_step_plain"), (cuda_solver, "gemv_plain"),
-                          (cuda_solver, "quant_gemv_plain")):
+                          (cuda_solver, "quant_gemv_plain"),
+                          (cuda_attention, "flash_partial_plain"),
+                          (attention, "reference_partial")):
         monkeypatch.setattr(module, plain, lambda *args: calls.append(args))
     monkeypatch.setattr(torch, "matmul", lambda *args: calls.append(args))
     kernels = (gemv_cuda, cuda_gemm.gemm_cuda, cuda_quant.quant_gemv_cuda,
-               cuda_solver.solver_step_cuda)
+               cuda_solver.solver_step_cuda, cuda_attention.flash_partial_cuda)
     before = [k.launches for k in kernels]
     a = torch.ones(4, 8, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -188,6 +194,12 @@ def test_missing_nvcc_raises_and_nothing_falls_back(monkeypatch, tmp_path):
             for shard in (a, qa):
                 with pytest.raises(RuntimeError, match="nvcc not found"):
                     cuda_solver.solver_step_cuda(op, shard, 0, *vectors, s_in)
+    q, kv = torch.ones(2, 8, 128, device="meta"), torch.ones(2, 128, 128, device="meta")
+    pos = [torch.zeros(n, dtype=torch.int32, device="meta") for n in (8, 128)]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_attention.flash_partial_cuda(q, kv, kv, *pos, True)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        attention.flash_block_partial(q, kv, kv, *pos, causal=True)
     assert [k.launches for k in kernels] == before
     assert calls == []
     assert not (tmp_path / "build").exists()
