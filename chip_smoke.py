@@ -47,7 +47,10 @@ kernels' launch counts set to 0 just before it and read just after:
   at s = 4096 and 16384.
 
 It checks the answers and times each kernel beside its bound, its plain
-version and the library call. Every phase prints one JSON line; any failed
+version and the library call. The GEMM is held to its plain version on each
+of its routes (``wgmma_tma``, ``mma_sync``, ``ffma``, ``dfma``), bitwise
+repeatable and independent of pad columns and of row slices of A, and its
+routes are counted on every path. Every phase prints one JSON line; any failed
 check raises, and the script exits non-zero. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 
@@ -105,18 +108,23 @@ KERNEL_SHAPES = [(16384, "float32"), (32768, "bfloat16"), (65536, "bfloat16")]
 MAIN_SHAPE_RTOL = 1e-4
 ASYMMETRIC_SHAPES = [(120, 60000), (1200, 60000)]
 # Peak fp32 rate outside the tensor cores (H100 SXM data sheet): the
-# GEMV's 2·m·k flops run there, as do the GEMM's for fp32 (FFMA) and fp64
-# (DFMA, the same 67 TFLOP/s).
+# GEMV's 2·m·k flops run there, as do the GEMM's for fp32 (FFMA).
 FP32_PEAK_FLOPS = 67e12
+# Peak fp64 rate outside the tensor cores (H100 SXM data sheet): the GEMM's
+# fp64 route (DFMA). 67 TFLOP/s is the fp64 tensor-core (DMMA) rate.
+FP64_PEAK_FLOPS = 34e12
 # Dense bf16/fp16 tensor-core peak (H100 SXM data sheet): the GEMM's
-# 16-bit route (mma.sync).
+# 16-bit routes (wgmma, mma.sync).
 TENSOR_PEAK_FLOPS = 989e12
 
-# (m, k, n): the 4x8 fixture, a ragged shape, the engine's widths at 4096²,
-# and a square GEMM that tiles n.
+# (m, k, n): the 4x8 fixture, a ragged k (mma_sync for 16-bit A), the
+# engine's widths at 4096², a ragged m with a bucket-4 B (8-byte rows), a
+# k that is a multiple of 8 but not of the 64-deep k-block, and the
+# operation face: a square GEMM, n = 256 and a ragged n > 128.
 GEMM_CHECK_SHAPES = [(4, 8, 3), (1000, 3001, 5), (4096, 4096, 1),
-                     (4096, 4096, 4), (4096, 4096, 32), (4096, 4096, 128),
-                     (2048, 2048, 2048)]
+                     (4096, 4096, 4), (1000, 4096, 4), (4096, 4104, 8),
+                     (4096, 4096, 32), (4096, 4096, 128), (2048, 2048, 2048),
+                     (2048, 2048, 256), (2048, 2048, 300)]
 # (label, strategy, n, dtype, logical shards on cuda:0, steady requests)
 SERVE_CONFIGS = [
     ("65536_bf16", "blockwise", 65536, "bfloat16", 1, 200),
@@ -124,13 +132,17 @@ SERVE_CONFIGS = [
 ]
 SERVE_MAX_BUCKET = 32
 SERVE_PROMOTE = 4
-# (m, k, n, dtype): the engine's promoted buckets at 65536² bf16, the 2x2
-# mesh's 16384² fp32 shard at width 8, and the sweep's square GEMM. The
-# kernels line reports GEMM_HEAD, the widest bucket of the full-width cell.
+# (m, k, n, dtype): the engine's promoted buckets at 65536² bf16 (4-32 in
+# the serve cells, 64 and 128 on the engine's default ladder), the 2x2
+# mesh's 16384² fp32 shard at its buckets 4-32, and the sweep's square
+# GEMM. The kernels line reports GEMM_HEAD, the widest bucket of the
+# full-width cell.
 GEMM_TIME_SHAPES = [(65536, 65536, 4, "bfloat16"), (65536, 65536, 8, "bfloat16"),
                     (65536, 65536, 16, "bfloat16"), (65536, 65536, 32, "bfloat16"),
-                    (16384, 16384, 8, "float32"), (4096, 4096, 4096, "bfloat16"),
-                    (4096, 4096, 4096, "float32")]
+                    (65536, 65536, 64, "bfloat16"), (65536, 65536, 128, "bfloat16"),
+                    (16384, 16384, 4, "float32"), (16384, 16384, 8, "float32"),
+                    (16384, 16384, 16, "float32"), (16384, 16384, 32, "float32"),
+                    (4096, 4096, 4096, "bfloat16"), (4096, 4096, 4096, "float32")]
 GEMM_HEAD = 3
 
 # Quantized storage. (m, k, block): the 4x8 fixture's shape, JAX's block-48
@@ -285,7 +297,12 @@ def main() -> int:
         flash_partial_cuda,
         flash_partial_plain,
     )
-    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda, gemm_plain
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import (
+        default_gemm_tiles,
+        gemm_cuda,
+        gemm_plain,
+        launch_info,
+    )
     from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda, gemv_plain
     from matvec_mpi_multiplier_torch.ops.cuda_quant import (
         quant_gemv_cuda,
@@ -331,6 +348,16 @@ def main() -> int:
                 (n, flat.shape[1]), generator=gen, device=dev
             ) * 10
         return out
+
+    def gemm_plan(a, b):
+        """The plan gemm_cuda takes for A and B (its route, tile and stages)."""
+        return default_gemm_tiles(a.shape[0], b.shape[1], a.shape[1], a.dtype,
+                                  aligned=a.data_ptr() % 16 == 0,
+                                  b_aligned=b.data_ptr() % 16 == 0)
+
+    def reset_gemm() -> None:
+        gemm_cuda.launches = 0
+        gemm_cuda.route_launches.clear()
 
     def event_ms(fn, reps: int, warmup: int = 2) -> float:
         for _ in range(warmup):
@@ -554,6 +581,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. gemm against its plain version ----
+    # Route launches by path: the check shapes here (not a path: their
+    # launches are not counted in the kernels line's "launches"), the serve
+    # cells, benchmark_gemm and the combine serve cells below.
+    gemm_routes = {}
+    reset_gemm()
     for m, k, n in GEMM_CHECK_SHAPES:
         for name in ("bfloat16", "float16", "float32", "float64"):
             dtype = torch_dtype(name)
@@ -562,8 +594,15 @@ def main() -> int:
             else:
                 a = uniform((m, k), dtype)
             b = uniform((k, n), dtype)
+            plan = gemm_plan(a, b)
             c1, c2 = gemm_cuda(a, b), gemm_cuda(a, b)
             ref = gemm_plain(a, b)
+            # Row-slice independence: rows r0..r1 of A alone give the same
+            # bits as the same rows of the whole product; r1 - r0 is not a
+            # multiple of the row tile, so the slice's tiles split elsewhere.
+            r0, r1 = (1, m - 1) if m < 8 else (3, m - 2)
+            check((r1 - r0) % plan.bm != 0, f"gemm {m}x{k}x{n}: slice {r0}:{r1}")
+            rows_ok = torch.equal(gemm_cuda(a[r0:r1], b), c1[r0:r1])
             # Pad independence: the real columns of a bucket are bitwise the
             # same whether its pad columns hold zeros or random values (and
             # the same as with no pad at all).
@@ -580,11 +619,19 @@ def main() -> int:
             check(rel <= rtol, f"gemm {m}x{k}x{n} {name}: rel err {rel} > {rtol}")
             check(torch.equal(c1, c2), f"gemm {m}x{k}x{n} {name}: two runs differ")
             check(pad_ok, f"gemm {m}x{k}x{n} {name}: pad columns changed a real one")
+            check(rows_ok, f"gemm {m}x{k}x{n} {name}: rows {r0}:{r1} of A alone differ "
+                  "from the same rows of the whole product")
             emit({"phase": "kernel_vs_plain", "kernel": "gemm", "shape": [m, k, n],
-                  "dtype": name, "max_abs_err": (c1 - ref).abs().max().item(),
+                  "dtype": name, "route": plan.route, "tile": [plan.bm, plan.bn],
+                  "b_load": plan.b_load, "max_abs_err": (c1 - ref).abs().max().item(),
                   "max_rel_err": rel, "rtol": rtol, "bitwise_repeatable": True,
-                  "pad_independent": {"width": width, "pads": list(padded)}})
+                  "pad_independent": {"width": width, "pads": list(padded)},
+                  "row_slice_independent": [r0, r1]})
             del a, b, c1, c2, ref, padded
+    torch.cuda.synchronize(dev)
+    gemm_routes["kernel_vs_plain"] = dict(gemm_cuda.route_launches)
+    check(gemm_routes["kernel_vs_plain"].get("mma_sync", 0) > 0,
+          "no check shape took the mma_sync route")
     torch.cuda.empty_cache()
 
     # ---- 7, 8. serve: this slice's path, at full width and on a 2x2 mesh ----
@@ -594,13 +641,19 @@ def main() -> int:
             dtype = torch_dtype(name)
             mesh = make_mesh(1) if shards == 1 else make_mesh(shards, devices=[dev] * shards)
             snapshot = Path(tmp) / f"{label}.json"
-            gemv_cuda.launches = gemm_cuda.launches = 0
+            gemv_cuda.launches = 0
+            reset_gemm()
             res = run_serve(strategy, mesh, n, n, dtype=name, kernel="cuda",
                             max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE,
                             n_requests=n_requests, seed=args.seed,
                             metrics_out=str(snapshot))
             torch.cuda.synchronize(dev)
             launched = {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches}
+            gemm_routes[f"serve_{label}"] = dict(gemm_cuda.route_launches)
+            route = "wgmma_tma" if dtype.itemsize == 2 else "ffma"
+            check(set(gemm_routes[f"serve_{label}"]) == {route},
+                  f"serve {label}: GEMM routes {gemm_routes[f'serve_{label}']}, "
+                  f"expected {route} only")
             dispatches = json.loads(snapshot.read_text())["counters"][
                 "engine_dispatches_total"]
             # Each engine dispatch runs its kernel once per shard.
@@ -634,7 +687,7 @@ def main() -> int:
     # ---- 9. gemm through the sweep's entry point ----
     a, b = uniform((4096, 4096), torch.bfloat16), uniform((4096, 4096), torch.bfloat16)
     mesh = make_mesh(1)
-    gemm_cuda.launches = 0
+    reset_gemm()
     res = benchmark_gemm("blockwise", mesh, a, b, n_reps=N_REPS, mode="amortized",
                          measure="chain", kernel="cuda", chain_samples=CHAIN_SAMPLES)
     c = build_gemm("blockwise", mesh, kernel="cuda")(a, b)
@@ -644,6 +697,9 @@ def main() -> int:
           f"benchmark_gemm launched the kernel {gemm_cuda.launches} times, "
           f"expected {calls_per_config}")
     launches_by_path["gemm"]["benchmark_gemm"] = gemm_cuda.launches
+    gemm_routes["benchmark_gemm"] = dict(gemm_cuda.route_launches)
+    check(set(gemm_routes["benchmark_gemm"]) == {"wgmma_tma"},
+          f"benchmark_gemm's GEMM routes: {gemm_routes['benchmark_gemm']}")
     rel = ((c.float() - ref.float()).abs() / ref.float().abs()).max().item()
     check(c.shape == (4096, 4096) and rel <= 2 ** -7,
           f"benchmark_gemm's program: rel err {rel} after the bf16 cast")
@@ -656,6 +712,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 10. gemm: time, bound, plain, library ----
+    def build_registers(plan, dtype) -> int:
+        """Registers per thread of the kernel a GEMM plan launches, from the
+        ptxas lines of this run's build log (phase 2)."""
+        bf16 = int(dtype == torch.bfloat16)
+        if plan.route == "wgmma_tma":
+            tag = (f"gemm_wgmma_kernelILb{bf16}ELi{plan.bn}ELi{plan.bm // 128}"
+                   f"ELb{int(plan.b_load == 'tma')}E")
+        elif plan.route == "mma_sync":
+            tag = f"gemm_mma_kernelILb{bf16}ELi{plan.bn}E"
+        else:
+            tag = f"gemm_{plan.route}_kernelILi{plan.bn}E"
+        used = [e["used"] for e in ptxas if tag in e["kernel"]]
+        check(len(used) == 1, f"the build log has {len(used)} entries for {tag}")
+        return int(used[0].split("Used ")[1].split(" registers")[0])
+
     gemm_at = {}
     held = {}
     for m, k, n, name in GEMM_TIME_SHAPES:
@@ -666,17 +737,28 @@ def main() -> int:
             held.update(key=(m, k, name), a=uniform((m, k), dtype))
         a = held["a"]
         b = uniform((k, n), dtype)
+        plan = gemm_plan(a, b)
         c, ref = gemm_cuda(a, b), gemm_plain(a, b)
         rtol = 1e-5 if k <= 4096 else 1e-4
         rel = ((c - ref).abs() / ref.abs()).max().item()
         check(rel <= rtol, f"gemm {m}x{k}x{n} {name}: rel err {rel} > {rtol}")
         nbytes = (m * k + k * n) * a.element_size() + m * n * c.element_size()
         bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
-        peak = TENSOR_PEAK_FLOPS if a.element_size() == 2 else FP32_PEAK_FLOPS
+        peak = {2: TENSOR_PEAK_FLOPS, 4: FP32_PEAK_FLOPS, 8: FP64_PEAK_FLOPS}[
+            a.element_size()]
         ops_ms = 2 * m * k * n / peak * 1e3
+        launch = launch_info(plan, m, n, dtype)
+        registers = build_registers(plan, dtype)
+        check(registers == launch["registers"],
+              f"gemm {m}x{k}x{n} {name}: {registers} registers in the build log, "
+              f"{launch['registers']} in the loaded kernel")
         gemm_at[f"{m}x{k}x{n}_{name}"] = {
-            "dtype": name,
-            "route": "mma.sync" if a.element_size() == 2 else "ffma",
+            "dtype": name, "route": plan.route, "face": plan.face,
+            "tile": [plan.bm, plan.bn, plan.bk], "stages": plan.stages,
+            "b_load": plan.b_load, "kernel_launches_per_call": plan.launches,
+            "dynamic_smem_bytes": launch["dynamic_smem_bytes"],
+            "static_smem_bytes": launch["static_smem_bytes"],
+            "registers": registers, "threads": launch["threads"], "grid": launch["grid"],
             "ms": event_ms(lambda: gemm_cuda(a, b), reps=20),
             "plain_ms": event_ms(lambda: gemm_plain(a, b), reps=3, warmup=1),
             "library_ms": event_ms(lambda: torch.matmul(a, b), reps=20),
@@ -1461,7 +1543,8 @@ def main() -> int:
         for combine, stages, n_requests in RING_SERVE_CONFIGS:
             label = combine + (f"@{stages}" if stages else "")
             snapshot = Path(tmp) / f"ring_{label}.json"
-            gemv_cuda.launches = gemm_cuda.launches = ring_gemv_cuda.launches = 0
+            gemv_cuda.launches = ring_gemv_cuda.launches = 0
+            reset_gemm()
             res = run_serve("colwise", mesh, n, n, dtype="bfloat16", kernel="cuda",
                             combine=combine, stages=stages, max_bucket=SERVE_MAX_BUCKET,
                             promote=SERVE_PROMOTE, n_requests=n_requests,
@@ -1469,6 +1552,10 @@ def main() -> int:
             torch.cuda.synchronize(dev)
             launched = {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches,
                         "ring_gemv": ring_gemv_cuda.launches}
+            launches_by_path["gemm"][f"serve_ring_{label}"] = launched["gemm"]
+            gemm_routes[f"serve_ring_{label}"] = dict(gemm_cuda.route_launches)
+            check(set(gemm_routes[f"serve_ring_{label}"]) == {"wgmma_tma"},
+                  f"serve {label}: GEMM routes {gemm_routes[f'serve_ring_{label}']}")
             dispatches = json.loads(snapshot.read_text())["counters"][
                 "engine_dispatches_total"]
             if combine == "pallas_ring":
@@ -1895,6 +1982,11 @@ def main() -> int:
         "bound_ms": gemm_head["bound_ms"], "bound_by": gemm_head["bound_by"],
         "library_ms": gemm_head["library_ms"],
         "library_call": "torch.matmul(a, b) in a's dtype, allow_tf32=False",
+        # Routes: wgmma_tma (bf16/fp16 A that TMA can describe), mma_sync
+        # (other 16-bit A), ffma (fp32), dfma (fp64); a wgmma_tma call whose
+        # B is transposed first is two kernel launches (see "at").
+        "gemm_route": gemm_head["route"],
+        "route_launches_by_path": gemm_routes,
         "at": gemm_at,
     }, {
         "name": "quant_gemv", "route": "cuda",

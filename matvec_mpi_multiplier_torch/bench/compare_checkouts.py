@@ -1,0 +1,111 @@
+"""Two checkouts of the port on one card: the GEMM and the serve cells.
+
+    python3 matvec_mpi_multiplier_torch/bench/compare_checkouts.py ROOT [ROOT ...]
+
+Runs each ROOT (a checkout, or an unpacked ``git archive``) in a process of
+its own, in the order given (``parent change change parent`` is the fair
+order), and prints one JSON line per run: ``gemm_cuda``'s time at
+``chip_smoke.py``'s GEMM shapes (CUDA events, 20 launches), its host cost
+per call on a tiny product, and ``run_serve`` at ``chip_smoke.py``'s serve
+cells (req/s, p50/p99 dispatch ms, promotion speedup). Each ROOT builds its
+own kernels. Needs a CUDA card; numbers from two runs compare only when
+they come from one command on one card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+GEMM_SHAPES = [(65536, 65536, n, "bfloat16") for n in (4, 8, 16, 32, 64, 128)] + [
+    (16384, 16384, n, "float32") for n in (4, 8, 16, 32)] + [
+    (4096, 4096, 4096, "bfloat16"), (4096, 4096, 4096, "float32")]
+# (label, strategy, n, dtype, shards on cuda:0, mesh kind, combine, stages,
+# requests): chip_smoke.py's SERVE_CONFIGS and RING_SERVE_CONFIGS.
+SERVE_CELLS = [
+    ("65536_bf16", "blockwise", 65536, "bfloat16", 1, "2d", None, None, 200),
+    ("2x2_32768_fp32", "blockwise", 32768, "float32", 4, "2d", None, None, 40),
+    ("colwise_pallas_ring", "colwise", 65536, "bfloat16", 4, "1d", "pallas_ring", None, 200),
+    ("colwise_overlap@4", "colwise", 65536, "bfloat16", 4, "1d", "overlap", 4, 40),
+]
+
+
+def measure(root: Path) -> dict:
+    """This process's measurements of the port under ``root``."""
+    here = Path(__file__).resolve().parent  # not an import root
+    sys.path[:] = [str(root)] + [p for p in sys.path if Path(p or ".").resolve() != here]
+    import torch
+
+    from matvec_mpi_multiplier_torch import make_1d_mesh, make_mesh
+    from matvec_mpi_multiplier_torch.bench.serve import run_serve
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def uniform(shape, dtype):
+        return (torch.rand(shape, generator=gen, device=dev) * 10).to(dtype)
+
+    def event_ms(fn, reps=20):
+        fn(), fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize(dev)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / reps
+
+    out = {"root": str(root), "gemm_ms": {}, "serve": {}}
+    held = {}
+    for m, k, n, name in GEMM_SHAPES:
+        dtype = getattr(torch, name)
+        if held.get("key") != (m, k, name):
+            held.clear()
+            torch.cuda.empty_cache()
+            held.update(key=(m, k, name), a=uniform((m, k), dtype))
+        b = uniform((k, n), dtype)
+        out["gemm_ms"][f"{m}x{k}x{n}_{name}"] = event_ms(lambda: gemm_cuda(held["a"], b))
+    held.clear()
+    torch.cuda.empty_cache()
+    a, b = uniform((128, 64), torch.bfloat16), uniform((64, 8), torch.bfloat16)
+    event_ms(lambda: gemm_cuda(a, b))
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        gemm_cuda(a, b)
+    torch.cuda.synchronize(dev)
+    out["host_us_per_call_128x64x8"] = (time.perf_counter() - t0) / 2000 * 1e6
+    for label, strategy, n, dtype, shards, kind, combine, stages, requests in SERVE_CELLS:
+        devices = [dev] * shards
+        mesh = (make_1d_mesh(shards, devices=devices) if kind == "1d"
+                else make_mesh(1) if shards == 1 else make_mesh(shards, devices=devices))
+        res = run_serve(strategy, mesh, n, n, dtype=dtype, kernel="cuda", combine=combine,
+                        stages=stages, max_bucket=32, promote=4, n_requests=requests, seed=0)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        out["serve"][label] = {"req_per_s": res.rps, "p50_dispatch_ms": res.p50_dispatch_ms,
+                               "p99_dispatch_ms": res.p99_dispatch_ms,
+                               "promo_speedup": res.promo_speedup}
+    return out
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) == 2 and argv[0] == "--one":
+        print(json.dumps(measure(Path(argv[1]).resolve())), flush=True)
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for root in argv:
+        proc = subprocess.run([sys.executable, __file__, "--one", root], check=False)
+        if proc.returncode:
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

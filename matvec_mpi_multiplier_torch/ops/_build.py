@@ -124,11 +124,19 @@ def load_library() -> ctypes.CDLL:
     lib.matvec_gemv.restype = ctypes.c_int
     lib.matvec_gemv_acc_x.argtypes = lib.matvec_gemv.argtypes
     lib.matvec_gemv_acc_x.restype = ctypes.c_int
+    # dtype, route, bm, bn, stages; A, B, Bt scratch (NULL outside
+    # wgmma_tma), C; m, n, k; the stream.
     lib.matvec_gemm.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_int] * 5, *[ctypes.c_void_p] * 4,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.matvec_gemm.restype = ctypes.c_int
+    # dtype, route, bm, bn, stages, direct_b; m, n; int out[5].
+    lib.matvec_gemm_launch_info.argtypes = [
+        *[ctypes.c_int] * 6, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.matvec_gemm_launch_info.restype = ctypes.c_int
     # q2/scales2 are NULL (None) outside int8c.
     lib.matvec_quant_gemv.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,

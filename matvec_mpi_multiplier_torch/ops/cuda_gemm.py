@@ -2,21 +2,29 @@
 
 Replaces the JAX package's Pallas kernel
 (``matvec_mpi_multiplier_tpu/ops/pallas_gemm.py::_mm_kernel``). At the
-engine's bucket widths the kernel is bound by the HBM bytes of A; one block
-spans all n <= 128 columns so A is read once per dispatch. bf16/fp16 run on
-``mma.sync`` with fp32 accumulate, fp32 on FFMA (IEEE, never TF32), fp64 on
-DFMA. The source describes the design.
+engine's bucket widths the kernel is bound by the HBM bytes of A; one tile
+spans all n <= 128 columns so A is read once per dispatch. Its routes
+(:func:`default_gemm_tiles` plans them from A alone): bf16/fp16 on ``wgmma``
+fed by TMA (``wgmma_tma``, two launches: B's transpose, then the GEMM), or
+on ``mma.sync`` where TMA cannot describe A (``mma_sync``); fp32 on FFMA
+(``ffma``, IEEE, never TF32); fp64 on DFMA (``dfma``). The source describes
+the design.
 
 :func:`gemm_cuda` launches the kernel for a CUDA tensor, or raises: a
 missing ``nvcc``, a failed build or a refused launch is an error, never a
-quiet switch to another tier. Unlike the Pallas tier there is no fallback
-for unaligned shapes: the kernel covers every shape. For a tensor on the
-CPU, and only there, it computes :func:`gemm_plain`.
-``gemm_cuda.launches`` counts the kernel's launches (nothing else adds to
-it).
+quiet switch to another tier or route. Unlike the Pallas tier there is no
+fallback for unaligned shapes: the kernel covers every shape. For a tensor
+on the CPU, and only there, it computes :func:`gemm_plain`.
+``gemm_cuda.launches`` counts the wrapper's kernel calls (nothing else adds
+to it) and ``gemm_cuda.route_launches`` the same calls by route.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from collections import Counter
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +32,84 @@ from . import _build
 from .gemm_kernels import register_gemm_kernel
 from .gemv import acc_dtype
 from .cuda_gemv import _DTYPE_CODES, PLAIN_CHUNK_BYTES
+
+
+# Route codes of ``matvec_gemm`` (``csrc/gemm.cu``'s ``Route``).
+ROUTE_CODES = {"wgmma_tma": 0, "mma_sync": 1, "ffma": 2, "dfma": 3}
+# Shared memory one block may use on an H100 (227 KB, opted in above 48 KB).
+SMEM_LIMIT = 232448
+# Tile widths: n <= 128 takes the smallest that covers it (one tile spans
+# every column, A streams once); wider n tiles over 128 columns.
+TILE_WIDTHS = (8, 16, 32, 64, 128)
+WGMMA_MAX_STAGES = 8
+FFMA_MAX_STAGES = 6
+
+
+class GemmPlan(NamedTuple):
+    """How ``csrc/gemm.cu`` computes one (m, k) x (k, n) product."""
+
+    route: str          # wgmma_tma, mma_sync, ffma or dfma
+    bm: int             # rows per tile
+    bn: int             # columns per tile
+    bk: int             # k-block depth: one fresh partial per k-block
+    stages: int         # shared-memory ring depth (1: register double buffer)
+    face: str           # "bytes" (n <= 128: one tile spans n) or "operations"
+    b_load: str         # how B reaches the tile: "tma" (as it is, MN-major),
+                        # "transposed" (a pre-pass, then TMA), "cp.async",
+                        # "registers"
+    smem_bytes: int     # shared memory per block, dynamic or static
+    launches: int       # kernel launches per call (with "transposed": 2)
+
+
+def _tile_width(n: int) -> int:
+    return next((w for w in TILE_WIDTHS if w >= n), TILE_WIDTHS[-1])
+
+
+@functools.lru_cache(maxsize=256)
+def default_gemm_tiles(m: int, n: int, k: int, dtype: torch.dtype,
+                       aligned: bool = True, b_aligned: bool = True) -> GemmPlan:
+    """The static plan for ``gemm_cuda`` on an (m, k) A of ``dtype`` and a
+    (k, n) B: the Hopper counterpart of the JAX package's
+    ``default_gemm_tiles`` (``ops/pallas_gemm.py:86``). ``aligned`` and
+    ``b_aligned`` say whether A's and B's base addresses are 16-byte
+    aligned.
+
+    The route depends on A alone (dtype, k, alignment), never on n or B:
+    16-bit A goes to ``wgmma_tma`` when TMA can describe it (its row pitch
+    ``2k`` and its base 16-byte aligned), else to ``mma_sync``. n picks the
+    tile, and B's pitch and alignment only how B reaches it (on
+    ``wgmma_tma``'s operation face TMA reads B as it is where its rows are a
+    multiple of 16 bytes, else a pre-pass transposes it); every tile and B
+    path of a route computes each element with the same instructions in
+    the same order. The k-block depth is the dtype's (64, 32, 16) and there
+    is no split-K."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"gemm takes bf16/fp16/fp32/fp64, got {dtype}")
+    bn = _tile_width(n)
+    face = "bytes" if n <= TILE_WIDTHS[-1] else "operations"
+    if dtype in (torch.bfloat16, torch.float16):
+        if k % 8 == 0 and aligned:
+            # The operation face takes 256-row tiles: 3/4 of the L2 bytes
+            # per flop of 128 x 128.
+            bm = 128 if face == "bytes" else 256
+            direct = face == "operations" and n % 8 == 0 and b_aligned
+            stage = (bm + bn) * 64 * 2
+            stages = min(WGMMA_MAX_STAGES,
+                         (SMEM_LIMIT - 1024 - 16 * WGMMA_MAX_STAGES) // stage)
+            return GemmPlan("wgmma_tma", bm, bn, 64, stages, face,
+                            "tma" if direct else "transposed",
+                            1024 + stages * stage + 16 * stages, 1 if direct else 2)
+        return GemmPlan("mma_sync", 128, bn, 64, 1, face, "registers",
+                        (128 + bn) * 72 * 2, 1)
+    if dtype == torch.float32:
+        # Tiles up to 32 wide take at most half the shared memory, so two
+        # blocks share an SM (1 KB of each SM's is reserved per block).
+        stage = (128 + bn) * 32 * 4
+        budget = SMEM_LIMIT if bn >= 64 else SMEM_LIMIT // 2 - 1024
+        stages = min(FFMA_MAX_STAGES, (budget - 1024 - 8 * FFMA_MAX_STAGES) // stage)
+        return GemmPlan("ffma", 128, bn, 32, stages, face, "cp.async",
+                        1024 + stages * stage + 8 * stages, 1)
+    return GemmPlan("dfma", 64, bn, 16, 1, face, "registers", (64 * 17 + 16 * bn) * 8, 1)
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,22 +155,48 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = torch.empty((m, n), dtype=acc_dtype(a.dtype), device=a.device)
     if m == 0 or n == 0:
         return c
+    if k == 0:
+        return c.zero_()
+    plan = default_gemm_tiles(m, n, k, a.dtype, aligned=a.data_ptr() % 16 == 0,
+                              b_aligned=b.data_ptr() % 16 == 0)
+    # The pre-pass's scratch: B transposed, so both operands are K-major.
+    bt = (torch.empty((n, k), dtype=a.dtype, device=a.device)
+          if plan.b_load == "transposed" else None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.matvec_gemm(
-            _DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            m, n, k, stream,
+            _DTYPE_CODES[a.dtype], ROUTE_CODES[plan.route], plan.bm, plan.bn,
+            plan.stages, a.data_ptr(), b.data_ptr(), None if bt is None else bt.data_ptr(),
+            c.data_ptr(), m, n, k, stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"gemm kernel launch failed for A {tuple(a.shape)} B "
-            f"{tuple(b.shape)} {a.dtype}: "
+            f"{tuple(b.shape)} {a.dtype} ({plan.route}): "
             f"{lib.matvec_error_string(rc).decode()} (cudaError {rc})"
         )
     gemm_cuda.launches += 1
+    gemm_cuda.route_launches[plan.route] += 1
     return c
 
 
+def launch_info(plan: GemmPlan, m: int, n: int, dtype: torch.dtype) -> dict:
+    """The launch ``gemm_cuda`` makes for ``plan`` at (m, n) on the current
+    card: CTAs, registers per thread (the built kernel's), shared memory and
+    threads per CTA."""
+    out = (ctypes.c_int * 5)()
+    lib = _build.load_library()
+    rc = lib.matvec_gemm_launch_info(_DTYPE_CODES[dtype], ROUTE_CODES[plan.route],
+                                     plan.bm, plan.bn, plan.stages,
+                                     int(plan.b_load == "tma"), m, n, out)
+    if rc != 0:
+        raise RuntimeError(f"no launch for {plan} at ({m}, {n}): "
+                           f"{lib.matvec_error_string(rc).decode()}")
+    return {"grid": out[0], "registers": out[1], "dynamic_smem_bytes": out[2],
+            "static_smem_bytes": out[3], "threads": out[4]}
+
+
 gemm_cuda.launches = 0  # type: ignore[attr-defined]
+gemm_cuda.route_launches = Counter()  # type: ignore[attr-defined]
 
 register_gemm_kernel("cuda", gemm_cuda)

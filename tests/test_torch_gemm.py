@@ -150,6 +150,24 @@ def test_gemm_cuda_matches_xla_where_pallas_cannot_tile(shape, dtype):
     np.testing.assert_allclose(gemm_cuda(a_t, b_t).numpy(), want, **KERNEL_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype,itemsize", [(torch.bfloat16, 2), (torch.float32, 4)])
+@pytest.mark.parametrize("shape", [(4, 8, 3), (7, 13, 5), (33, 100, 1), (32, 256, 128),
+                                   (64, 512, 256)])
+def test_gemm_tiles_cover_what_pallas_cannot_tile(shape, dtype, itemsize):
+    """The JAX package's default_gemm_tiles has no tiling for unaligned
+    shapes (its kernel falls back to XLA); the port's plan covers every
+    shape with a route of its own kernel, whose k-block is the dtype's."""
+    m, k, n = shape
+    jax_tiles = default_gemm_tiles(m, n, k, itemsize)
+    plan = cuda_gemm.default_gemm_tiles(m, n, k, dtype)
+    assert plan.route in cuda_gemm.ROUTE_CODES
+    assert plan.bk == (64 if itemsize == 2 else 32)
+    if jax_tiles is None:
+        assert (m, k, n) in [(4, 8, 3), (7, 13, 5), (33, 100, 1)]
+    else:
+        assert plan.bn >= min(n, 128) and plan.route in ("wgmma_tma", "ffma")
+
+
 def test_gemm_plain_row_chunks_are_exact(monkeypatch):
     """Chunking the rows changes no row's sum: bitwise equal results."""
     _, _, a, b = operands(96, 128, 8, "bfloat16")
