@@ -36,7 +36,10 @@ kernels' launch counts set to 0 just before it and read just after:
   ``run_serve`` with ``pallas_ring`` and ``overlap@4``;
 * sequence-parallel attention: the flash-attention partial against its
   plain version (JAX's test shapes, a fully masked block, a ragged q-tile,
-  d = 256, a ragged KV tile, the ring's hop and Ulysses' local shape), then
+  d = 256, a ragged KV tile, the ring's hop and Ulysses' local shape), each
+  on the route ``flash_route`` plans (``wgmma_split`` for bf16 k/v at d =
+  128, ``ffma`` for the rest), rows 37:203 of the hop shape alone bitwise
+  the full call's, then
   ``build_ring_attention`` and ``build_ulysses_attention`` on both tiers,
   causal and not, at s = 16384, h = 8, d_head = 128 bf16 on a 2x2 logical
   mesh (flash against xla, the xla tier on fp32 inputs against an fp64
@@ -44,7 +47,8 @@ kernels' launch counts set to 0 just before it and read just after:
   JAX package's predicate refuses every block and the kernel runs all the
   same; a gradient through the flash ring against the xla ring's, and
   each tier's gradient cost at s = 16384; ``bench.attention.run_attention_study``
-  at s = 4096 and 16384.
+  at s = 4096 and 16384. Every flash launch on bf16 inputs must take
+  ``wgmma_split``, every one on fp32 inputs ``ffma``.
 
 It checks the answers and times each kernel beside its bound, its plain
 version and the library call. The GEMM is held to its plain version on each
@@ -228,6 +232,12 @@ FLASH_CHECK_SHAPES = [(2, 256, 512, 128, 96, 0), (1, 128, 128, 128, 0, 1000),
                       (8, 1000, 1000, 128, 0, 0),
                       (8, 4096, 4096, 128, 0, 0), (2, 16384, 16384, 128, 0, 0)]
 FLASH_TOL = 2e-5  # rtol = atol, as the JAX package's kernel test
+# bf16 tensor-core passes per product that hold FLASH_TOL: q and P each split
+# in three (tests/test_torch_flash_route.py shows two miss). The flash
+# partial's bound_ms counts the function's 4·d flops per unmasked pair once
+# at TENSOR_PEAK_FLOPS; split3_ceiling_ms, the ceiling of the three-pass
+# design, counts them FLASH_SPLIT_PASSES times.
+FLASH_SPLIT_PASSES = 3
 # The JAX attention study's width (scripts/attention_study.py:38-44) at its
 # "real backend" length, on the 2x2 logical mesh of cuda:0.
 ATT_S, ATT_H, ATT_D = 16384, 8, 128
@@ -296,6 +306,10 @@ def main() -> int:
     from matvec_mpi_multiplier_torch.ops.cuda_attention import (
         flash_partial_cuda,
         flash_partial_plain,
+        flash_route,
+    )
+    from matvec_mpi_multiplier_torch.ops.cuda_attention import (
+        launch_info as flash_launch_info,
     )
     from matvec_mpi_multiplier_torch.ops.cuda_gemm import (
         default_gemm_tiles,
@@ -1679,11 +1693,25 @@ def main() -> int:
             for causal in (False, True) if k_off <= sq else (True,):
                 what = f"{h}x{sq}x{sk}x{d} {name} causal={causal} q+{q_off} k+{k_off}"
                 operands = flash_operands(h, sq, sk, d, torch_dtype(name), q_off, k_off)
+                route = flash_route(torch_dtype(name), d)
+                before = flash_partial_cuda.route_launches[route]
                 err, (o, m, l), plain = flash_check(operands, causal, what)
+                check(flash_partial_cuda.route_launches[route] == before + 2,
+                      f"flash {what}: the kernel did not take its planned route {route}")
                 line = {"phase": "flash_vs_plain", "kernel": "flash_attention",
                         "shape": [h, sq, sk, d], "kv_dtype": name, "causal": causal,
-                        "q_offset": q_off, "k_offset": k_off, "bitwise_repeatable": True,
-                        **err}
+                        "q_offset": q_off, "k_offset": k_off, "route": route,
+                        "bitwise_repeatable": True, **err}
+                if (h, sq) == (8, 4096):
+                    # Rows 37:203 alone: bitwise the full call's rows.
+                    q, k, v, q_pos, k_pos = operands
+                    part = flash_partial_cuda(q[:, 37:203], k, v, q_pos[37:203], k_pos,
+                                              causal)
+                    torch.cuda.synchronize(dev)
+                    check(all(torch.equal(x, y[:, 37:203]) for x, y in zip(part, (o, m, l))),
+                          f"flash {what}: rows 37:203 alone differ from the full call's")
+                    line["row_slice_bitwise"] = [37, 203]
+                    del part
                 if k_off > sq:
                     check(bool(torch.isneginf(m).all()) and bool((l == 0).all())
                           and bool(torch.isfinite(o).all()),
@@ -1695,7 +1723,13 @@ def main() -> int:
                               + 8 * h * sq + 4 * (sq + sk))
                     pairs = unmasked_pairs(q_pos, k_pos, causal)
                     bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
-                    ops_ms = 4 * h * d * pairs / FP32_PEAK_FLOPS * 1e3
+                    # The least time of the work: its 4·d flops per unmasked
+                    # pair once at the tensor cores' peak. split3_ceiling_ms
+                    # is the wgmma_split design's ceiling (three bf16 passes
+                    # per product), ffma_bound_ms the ffma route's (fp32 FFMA).
+                    ops_ms = 4 * h * d * pairs / TENSOR_PEAK_FLOPS * 1e3
+                    split3_ms = FLASH_SPLIT_PASSES * ops_ms
+                    ffma_ms = 4 * h * d * pairs / FP32_PEAK_FLOPS * 1e3
                     times = {
                         "ms": event_ms(lambda: flash_partial_cuda(*operands, causal), reps=10),
                         "plain_ms": event_ms(
@@ -1710,10 +1744,22 @@ def main() -> int:
                         call, backend = sdpa_call(q, k, v, causal, k.dtype)
                         times[f"library_{name}_ms"] = event_ms(call, reps=10)
                         times[f"library_{name}_backend"] = backend
-                    flash_at[f"{h}x{sq}x{sk}x{d}_{name}_causal{int(causal)}"] = {
-                        **times, "bound_ms": max(bytes_ms, ops_ms),
+                    bound = max(bytes_ms, ops_ms)
+                    split3 = max(bytes_ms, split3_ms)
+                    ffma_bound = max(bytes_ms, ffma_ms)
+                    times.update({
+                        "route": route, "bound_ms": bound,
                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                        "unmasked_pairs": pairs, **err}
+                        "split3_ceiling_ms": split3, "ffma_bound_ms": ffma_bound,
+                        "share_of_bound": bound / times["ms"],
+                        "share_of_split3_ceiling": split3 / times["ms"],
+                        "share_of_ffma_bound": ffma_bound / times["ms"],
+                        "unmasked_pairs": pairs})
+                    key = f"{h}x{sq}x{sk}x{d}_{name}_causal"
+                    if causal and f"{key}0" in flash_at:
+                        times["share_of_noncausal_ms"] = (
+                            times["ms"] / flash_at[f"{key}0"]["ms"])
+                    flash_at[f"{key}{int(causal)}"] = {**times, **err}
                     line.update(times)
                 emit(line)
                 del operands, o, m, l, plain
@@ -1721,7 +1767,20 @@ def main() -> int:
 
     # ---- 25. ring and Ulysses attention at full width, 2x2 logical mesh ----
     att_mesh = make_mesh(4, devices=[dev] * 4)
-    flash_launches = {}
+    flash_launches, flash_routes = {}, {}
+
+    def reset_flash() -> None:
+        flash_partial_cuda.launches = 0
+        flash_partial_cuda.route_launches.clear()
+
+    def record_flash(path: str, route: str) -> None:
+        """The path's kernel launches since reset_flash(), all on ``route``:
+        bf16 inputs take wgmma_split, fp32 inputs ffma."""
+        flash_launches[path] = flash_partial_cuda.launches
+        flash_routes[path] = dict(flash_partial_cuda.route_launches)
+        check(flash_routes[path] == {route: flash_launches[path]},
+              f"{path}: flash launches by route {flash_routes[path]}, expected all "
+              f"{flash_launches[path]} on {route}")
     att_launches = {"ring": 16, "ulysses": 4}  # 4 shards x 4 hops; 4 local steps
     builders = {"ring": build_ring_attention, "ulysses": build_ulysses_attention}
 
@@ -1739,7 +1798,7 @@ def main() -> int:
             outs, walls = {}, {}
             for kernel in ("xla", "flash"):
                 fn = build(att_mesh, causal=causal, gather_output=True, kernel=kernel)
-                flash_partial_cuda.launches = 0
+                reset_flash()
                 torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
                 with torch.no_grad():
@@ -1752,7 +1811,7 @@ def main() -> int:
                       f"{schedule} {kernel} causal={causal}: {launched} kernel launches, "
                       f"expected {expect}")
                 if kernel == "flash":
-                    flash_launches[f"{schedule}_causal{int(causal)}"] = launched
+                    record_flash(f"{schedule}_causal{int(causal)}", "wgmma_split")
                 o = outs[kernel]
                 check(tuple(o.shape) == (ATT_S, ATT_H, ATT_D) and o.dtype == torch.float32
                       and bool(torch.isfinite(o).all()),
@@ -1765,6 +1824,7 @@ def main() -> int:
                   "mesh": list(att_mesh.grid), "shards_on_cuda0": att_mesh.size,
                   "xla_wall_ms": walls["xla"], "flash_wall_ms": walls["flash"],
                   "launches": att_launches[schedule],
+                  "flash_route_launches": flash_routes[f"{schedule}_causal{int(causal)}"],
                   "max_abs_diff_flash_vs_xla": (outs["flash"] - outs["xla"]).abs().max().item(),
                   "rtol": 2e-4, "atol": 2e-4})
             del outs
@@ -1783,7 +1843,7 @@ def main() -> int:
         for causal in (False, True):
             outs = {}
             for kernel in ("xla", "flash"):
-                flash_partial_cuda.launches = 0
+                reset_flash()
                 with torch.no_grad():
                     outs[kernel] = build(att_mesh, causal=causal, gather_output=True,
                                          kernel=kernel)(*qkv)
@@ -1795,8 +1855,7 @@ def main() -> int:
                       f"launches, expected {expect}")
                 check(bool(torch.isfinite(outs[kernel]).all()),
                       f"{schedule} {kernel} s={s_r}: non-finite output")
-            flash_launches[f"{schedule}_refused_s{s_r}_causal{int(causal)}"] = \
-                att_launches[schedule]
+            record_flash(f"{schedule}_refused_s{s_r}_causal{int(causal)}", "wgmma_split")
             excess = allclose_excess(outs["flash"], outs["xla"], 2e-4)
             check(excess <= 2e-4, f"{schedule} causal={causal} s={s_r}: flash differs "
                   "from xla beyond 2e-4")
@@ -1859,13 +1918,13 @@ def main() -> int:
     qf, kf, vf = (torch.from_numpy(rng.standard_normal((sf, 128)).astype(np.float32)).to(dev)
                   for _ in range(3))
     o_xla = build_ring_attention(att_mesh, causal=True, gather_output=True)(qf, kf, vf)
-    flash_partial_cuda.launches = 0
+    reset_flash()
     o_flash = build_ring_attention(att_mesh, causal=True, gather_output=True,
                                    kernel="flash")(qf, kf, vf)
     torch.cuda.synchronize(dev)
     check(flash_partial_cuda.launches == 16, "dryrun flash ring: launches "
           f"{flash_partial_cuda.launches}, expected 16")
-    flash_launches["dryrun_ring"] = flash_partial_cuda.launches
+    record_flash("dryrun_ring", "ffma")
     np.testing.assert_allclose(o_flash.cpu().numpy(), o_xla.cpu().numpy(), rtol=1e-4,
                                atol=1e-4)
     emit({"phase": "attention_dryrun", "mesh": list(att_mesh.grid),
@@ -1878,7 +1937,7 @@ def main() -> int:
     grads = {}
     for kernel in ("xla", "flash"):
         xs = [x.clone().requires_grad_(True) for x in leaves]
-        flash_partial_cuda.launches = 0
+        reset_flash()
         o = build_ring_attention(att_mesh, causal=True, gather_output=True,
                                  kernel=kernel)(*xs)
         grads[kernel] = torch.autograd.grad((o ** 2).sum(), xs)
@@ -1886,7 +1945,7 @@ def main() -> int:
         if kernel == "flash":
             check(flash_partial_cuda.launches == 16,
                   f"flash ring gradient: {flash_partial_cuda.launches} launches")
-            flash_launches["ring_grad"] = flash_partial_cuda.launches
+            record_flash("ring_grad", "ffma")
         del o, xs
     excess = max(allclose_excess(f, x, 1e-4) for f, x in zip(grads["flash"], grads["xla"]))
     check(excess <= 1e-4, "flash ring gradients differ from the xla ring's beyond 1e-4")
@@ -1909,7 +1968,7 @@ def main() -> int:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        flash_partial_cuda.launches = 0
+        reset_flash()
         t0 = time.perf_counter()
         o = build_ring_attention(att_mesh, causal=True, gather_output=True,
                                  kernel=kernel)(*xs)
@@ -1921,7 +1980,7 @@ def main() -> int:
         if kernel == "flash":
             check(flash_partial_cuda.launches == 16,
                   f"flash ring gradient at s={ATT_S}: {flash_partial_cuda.launches} launches")
-            flash_launches[f"ring_grad_s{ATT_S}"] = flash_partial_cuda.launches
+            record_flash(f"ring_grad_s{ATT_S}", "ffma")
         cost[kernel] = {"wall_ms": wall_ms,
                         "peak_mib": (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20}
         del o, g, xs
@@ -1932,12 +1991,12 @@ def main() -> int:
     del leaves
 
     # ---- 27. the attention study, 2x2 logical mesh ----
-    flash_partial_cuda.launches = 0
+    reset_flash()
     rows = run_attention_study(att_mesh, ATT_STUDY_SEQS, heads=ATT_H, d_head=ATT_D,
                                dtype="bfloat16", causal=False, n_reps=4,
                                seed=args.seed, samples=3)
     torch.cuda.synchronize(dev)
-    flash_launches["study"] = flash_partial_cuda.launches
+    record_flash("study", "wgmma_split")
     check(flash_partial_cuda.launches > 0, "the study launched no flash kernel")
     for row in rows:
         check(not row["refused"], f"study s={row['s']}: JAX's predicate refuses "
@@ -2042,6 +2101,16 @@ def main() -> int:
         "max_abs_err": flash_head["max_abs_err"],
         "ms": flash_head["ms"], "plain_ms": flash_head["plain_ms"],
         "bound_ms": flash_head["bound_ms"], "bound_by": flash_head["bound_by"],
+        # bound_ms: the work once at the tensor cores' peak; ffma_bound_ms:
+        # the same work's ceiling on fp32 FFMA (the ffma route's).
+        "ffma_bound_ms": flash_head["ffma_bound_ms"],
+        # Routes: wgmma_split (bf16 k/v, d = 128), ffma (fp32 k/v, d = 256).
+        "flash_route": flash_head["route"],
+        "route_launches_by_path": flash_routes,
+        # Registers per thread and shared memory per CTA of each kernel.
+        "launch_info": {"wgmma_split": flash_launch_info("wgmma_split", torch.bfloat16),
+                        "ffma_bf16": flash_launch_info("ffma", torch.bfloat16),
+                        "ffma_fp32": flash_launch_info("ffma", torch.float32)},
         # SDPA returns the normalized output, not the partial; the same q, k
         # and v as (1, h, s, d), fp32 (and bf16: library_bfloat16_ms).
         "library_ms": flash_head["library_ms"],

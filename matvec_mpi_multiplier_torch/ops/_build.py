@@ -22,6 +22,8 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = tuple(sorted((PACKAGE_DIR / "csrc").glob("*.cu")))
+# Headers the sources include: part of the stamp, so an edit rebuilds.
+HEADERS = tuple(sorted((PACKAGE_DIR / "csrc").glob("*.cuh")))
 BUILD_DIR = PACKAGE_DIR / "build"
 LIB_NAME = "libmatvec_torch_kernels.so"
 NVCC_FLAGS = (
@@ -59,7 +61,7 @@ def _stamp_path() -> Path:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for source in SOURCES:
+    for source in (*SOURCES, *HEADERS):
         h.update(source.name.encode())
         h.update(source.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -162,13 +164,18 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.matvec_ring_gemv.restype = ctypes.c_int
-    # dtype of k and v; q, k, v, q_pos, k_pos, o, m, l; h, sq, sk, d;
-    # causal; the stream.
+    # route, dtype of k and v; q, k, v, q_pos, k_pos, o, m, l; h, sq, sk,
+    # d; causal; the stream.
     lib.matvec_flash_partial.argtypes = [
-        ctypes.c_int, *[ctypes.c_void_p] * 8, *[ctypes.c_int64] * 4,
+        ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 8, *[ctypes.c_int64] * 4,
         ctypes.c_int, ctypes.c_void_p,
     ]
     lib.matvec_flash_partial.restype = ctypes.c_int
+    # route, dtype; int out[5].
+    lib.matvec_flash_launch_info.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.matvec_flash_launch_info.restype = ctypes.c_int
     lib.matvec_error_string.argtypes = [ctypes.c_int]
     lib.matvec_error_string.restype = ctypes.c_char_p
     return lib

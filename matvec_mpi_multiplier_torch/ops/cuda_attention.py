@@ -5,18 +5,26 @@ Replaces the JAX package's Pallas kernel
 (``matvec_mpi_multiplier_tpu/ops/pallas_attention.py::_flash_kernel``): the
 partial ``(o_unnorm, m, l)`` of a pre-scaled Q against one KV block, with the
 causal mask by global positions, scores and online softmax never leaving the
-SM. It is bound by its fp32 operations (4·d per unmasked (q, k) pair); the
-source describes the design.
+SM. It is bound by its operations (4·d per unmasked (q, k) pair). Its
+routes (:func:`flash_route` plans them from k's dtype and d alone):
+``wgmma_split`` (bf16 k and v, d = 128: q and the softmax weights split
+into three bf16 parts on the tensor cores, K and V fed by TMA) and
+``ffma`` (fp32 k and v, or d = 256: fp32 FFMA). The source describes the
+design.
 
 :func:`flash_partial_cuda` launches the kernel for CUDA tensors, or raises:
 a missing ``nvcc``, a failed build, a refused launch or a shape the kernel
 does not take (``d % 128 != 0``) is an error, never a quiet switch to the
-plain version. For tensors on the CPU, and only there, it computes
-:func:`flash_partial_plain`. ``flash_partial_cuda.launches`` counts the
-kernel's launches (nothing else adds to it).
+plain version or another route. For tensors on the CPU, and only there, it
+computes :func:`flash_partial_plain`. ``flash_partial_cuda.launches``
+counts the kernel's launches (nothing else adds to it), and
+``flash_partial_cuda.route_launches`` the same launches by route.
 """
 
 from __future__ import annotations
+
+import ctypes
+from collections import Counter
 
 import torch
 
@@ -26,6 +34,19 @@ from .cuda_gemv import _DTYPE_CODES
 
 # The kernel's head-dim chunk: d must be a multiple of it.
 D_CHUNK = 128
+# Route codes of ``matvec_flash_partial`` (``csrc/flash_attention.cu``'s
+# ``Route``).
+ROUTE_CODES = {"wgmma_split": 0, "ffma": 1}
+# The head dim of the wgmma_split route: every attention path's d_head.
+SPLIT_D = 128
+
+
+def flash_route(k_dtype: torch.dtype, d: int) -> str:
+    """The route ``flash_partial_cuda`` takes for k and v of ``k_dtype`` and
+    head dim ``d``: ``wgmma_split`` for bf16 at d = 128, ``ffma`` for the
+    rest (another float dtype is cast to fp32 first). Planned from these
+    two alone, never after a failure."""
+    return "wgmma_split" if k_dtype == torch.bfloat16 and d == SPLIT_D else "ffma"
 
 
 def flash_partial_plain(q, k, v, q_pos, k_pos, *, causal: bool):
@@ -82,6 +103,7 @@ def flash_partial_cuda(
     lib = _build.load_library()
     if q.device.type != "cuda":
         raise ValueError(f"flash_partial_cuda runs on CUDA or CPU tensors, got {q.device}")
+    route = flash_route(k.dtype, d)
     q = q.float().contiguous()
     if k.dtype not in (torch.bfloat16, torch.float32):
         k, v = k.float(), v.float()
@@ -96,18 +118,34 @@ def flash_partial_cuda(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.matvec_flash_partial(
-            _DTYPE_CODES[k.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            q_pos.data_ptr(), k_pos.data_ptr(), o.data_ptr(), m.data_ptr(),
-            l.data_ptr(), h, sq, sk, d, int(causal), stream,
+            ROUTE_CODES[route], _DTYPE_CODES[k.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), h, sq, sk, d, int(causal), stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"flash partial kernel launch failed for q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)} {k.dtype}: {lib.matvec_error_string(rc).decode()} "
-            f"(cudaError {rc})"
+            f"{tuple(k.shape)} {k.dtype} on {route}: "
+            f"{lib.matvec_error_string(rc).decode()} (cudaError {rc})"
         )
     flash_partial_cuda.launches += 1
+    flash_partial_cuda.route_launches[route] += 1
     return o, m, l
 
 
 flash_partial_cuda.launches = 0  # type: ignore[attr-defined]
+flash_partial_cuda.route_launches = Counter()  # type: ignore[attr-defined]
+
+
+def launch_info(route: str, k_dtype: torch.dtype) -> dict:
+    """The kernel ``flash_partial_cuda`` launches on ``route`` for k and v of
+    ``k_dtype`` (bf16 or fp32), on the current card: registers per thread
+    (the built kernel's), shared memory, threads and q rows per CTA."""
+    out = (ctypes.c_int * 5)()
+    lib = _build.load_library()
+    rc = lib.matvec_flash_launch_info(ROUTE_CODES[route], _DTYPE_CODES[k_dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"no flash launch for {route} with {k_dtype}: "
+                           f"{lib.matvec_error_string(rc).decode()}")
+    return {"registers": out[0], "dynamic_smem_bytes": out[1],
+            "static_smem_bytes": out[2], "threads": out[3], "q_rows_per_cta": out[4]}

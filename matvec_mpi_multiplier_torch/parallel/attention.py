@@ -160,8 +160,12 @@ def _dense_block_attention(q, k, v, *, causal: bool) -> torch.Tensor:
 def _local_heads_attention(q, k, v, *, causal: bool, kernel: str) -> torch.Tensor:
     """Full local attention over (s, h, d_head) arrays in the requested
     tier: the per-head step both Ulysses branches share. Takes the storage
-    dtype (the exchanges deliver it un-upcast) and computes in fp32."""
-    q, k, v = (x.float().transpose(0, 1) for x in (q, k, v))  # (h, s, dh)
+    dtype (the exchanges deliver it un-upcast) and computes in fp32. The
+    flash tier hands the kernel K and V in that dtype (its bf16 load is
+    exact, and bf16 takes the kernel's tensor-core route); only q is
+    upcast, to be pre-scaled."""
+    q = q.float().transpose(0, 1)  # (h, s, dh)
+    k, v = (x.transpose(0, 1) for x in (k, v))
     if kernel == "flash":
         s, dh = q.shape[1], q.shape[2]
         pos = torch.arange(s, dtype=torch.int32, device=q.device)
@@ -171,7 +175,7 @@ def _local_heads_attention(q, k, v, *, causal: bool, kernel: str) -> torch.Tenso
         )
         o = o_u / torch.clamp(l, min=1e-30)[..., None]
     else:
-        o = _dense_block_attention(q, k, v, causal=causal)
+        o = _dense_block_attention(q, k.float(), v.float(), causal=causal)
     return o.transpose(0, 1)
 
 
