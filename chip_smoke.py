@@ -20,7 +20,9 @@ kernels' launch counts set to 0 just before it and read just after:
   the CPU, ``benchmark_strategy(..., dtype_storage=...)`` at 65536² fp32
   and colwise 32768² on 4 logical shards, and ``run_serve`` from an int8c
   resident at 65536² fp32 and an int8 one on a 2x2 mesh, every matvec and
-  promoted block through the block-scaled GEMV;
+  promoted block through the block-scaled GEMV on the route ``quant_route``
+  plans (``wgmma_split`` for fp32 x; each call's route is counted and
+  checked);
 * served solvers through ``MatvecEngine.submit(op=...)`` on the seeded SPD
   ``solver_operand`` built on the card: cg and chebyshev at 65536² fp32
   rowwise on both iteration tiers (``torch``, and ``cuda_fused``, one fused
@@ -150,12 +152,16 @@ GEMM_TIME_SHAPES = [(65536, 65536, 4, "bfloat16"), (65536, 65536, 8, "bfloat16")
 GEMM_HEAD = 3
 
 # Quantized storage. (m, k, block): the 4x8 fixture's shape, JAX's block-48
-# test shape, a ragged shape, a square one and the asymmetric regime, whose
-# default block at k = 60000 is 32.
+# test shape, a ragged shape, a square one, the asymmetric regime, whose
+# default block at k = 60000 is 32, and a k and block that are not multiples
+# of 16 (every dtype on the fma route). Each dtype takes the route
+# quant_route plans: bf16/fp16 x wgmma, fp32 wgmma_split, fp64 fma.
 QUANT_CHECK_SHAPES = [(4, 8, 4), (6, 96, 48), (1000, 3008, 64), (4096, 4096, 128),
-                      (120, 60000, 32)]
+                      (120, 60000, 32), (100, 1000, 8)]
 QUANT_FORMATS = ("int8", "int8c", "fp8")
-QUANT_WIDTHS = (None, 4, 32)  # x as (k,), (k, 4), (k, 32)
+# x as (k,) and (k, n): every tile of the tensor-core routes (16, 32 and 64
+# rows of parts), 33 past one tile of 32 columns, and 128, four tiles.
+QUANT_WIDTHS = (None, 2, 4, 8, 16, 32, 33, 128)
 # (strategy, n, format, logical shards on cuda:0); native rows are the
 # comparison at the same A.
 QUANT_MAIN_CONFIGS = [
@@ -168,12 +174,16 @@ QUANT_SERVE_CONFIGS = [
     ("65536_fp32_int8c", "blockwise", 65536, "float32", "int8c", 1, 200),
     ("2x2_32768_fp32_int8", "blockwise", 32768, "float32", "int8", 4, 40),
 ]
-# (n, format, width): the shapes the quantized path hands the kernel; the
-# last row is the 2x2 mesh's 16384² int8 shard. QUANT_HEAD is the kernels
-# line's head: the int8c vector at full width, the serve cell's GEMV.
-QUANT_TIME_SHAPES = [(65536, f, w) for f in QUANT_FORMATS for w in (1, 4, 32)] + [
-    (16384, "int8", 1)]
-QUANT_HEAD = 3
+# (n, format, width, x's dtype): the shapes the quantized path hands the
+# kernel, with fp32 x (wgmma_split: int8's vector on its CUDA-core face,
+# n = 2 on the tensor cores at the tile a vector takes); bf16 x at n = 4, 32
+# (wgmma, one part); the 2x2 mesh's 16384² int8 shard. QUANT_HEAD is the
+# kernels line's head: the int8c vector at full width, the serve cell's GEMV.
+QUANT_TIME_SHAPES = [(65536, f, w, "float32") for f in QUANT_FORMATS
+                     for w in (1, 2, 4, 32)] + [
+    (65536, "int8", 4, "bfloat16"), (65536, "int8", 32, "bfloat16"),
+    (16384, "int8", 1, "float32")]
+QUANT_HEAD = 4
 
 # Served solvers. The fused step against its plain version, (m_loc, k_loc,
 # n, off): rowwise shards (off = 0, all of p) and a colwise segment at
@@ -319,8 +329,11 @@ def main() -> int:
     )
     from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda, gemv_plain
     from matvec_mpi_multiplier_torch.ops.cuda_quant import (
+        ROUTE_PARTS,
+        payload_aligned,
         quant_gemv_cuda,
         quant_gemv_plain,
+        quant_route,
     )
     from matvec_mpi_multiplier_torch.ops.cuda_ring import (
         ring_gemv_cuda,
@@ -797,15 +810,24 @@ def main() -> int:
             return (leaf.view(torch.uint8) & 0x7F).view(leaf.dtype)
         return qa.map(clear_sign)
 
-    def quant_bound(qa, n: int, nbytes: int):
-        """The larger of the payload's bytes over the HBM rate and the
-        flops (2·m·k·n of the contraction plus the dequantization's
-        multiply, and add for int8c) over the FFMA peak."""
+    def quant_bound(qa, n: int, nbytes: int, route: str) -> dict:
+        """The least time the card could take: the larger of the bytes (the
+        payload and scales, x and y, once) over the HBM rate and the
+        contraction's 2·m·k·n flops over the tensor cores' 989 TFLOP/s.
+        Beside it, ffma_bound_ms, the same flops plus the dequantization's
+        multiply (and add for int8c) at the FFMA peak, the CUDA-core design's
+        ceiling; and passes_ceiling_ms, the route's passes (x's parts) times
+        the levels times 2·m·k·n on the tensor cores."""
         m, k = qa.shape
         levels = 2 if qa.fmt == "int8c" else 1
         bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
-        ops_ms = (2 * m * k * n + (2 * levels - 1) * m * k) / FP32_PEAK_FLOPS * 1e3
-        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+        ops_ms = 2 * m * k * n / TENSOR_PEAK_FLOPS * 1e3
+        ffma_ms = (2 * m * k * n + (2 * levels - 1) * m * k) / FP32_PEAK_FLOPS * 1e3
+        passes = max(1, ROUTE_PARTS[route])
+        return {"bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "ffma_bound_ms": max(bytes_ms, ffma_ms),
+                "passes_ceiling_ms": passes * levels * ops_ms, "passes": passes}
 
     def engine_payload(engine) -> QuantizedMatrix:
         """The engine's resident payload, its shards gathered leaf by leaf."""
@@ -858,12 +880,21 @@ def main() -> int:
             for fmt in QUANT_FORMATS:
                 qa = quantize_matrix(a, fmt, block=block)
                 worst, max_abs, pads_equal_unpadded = 0.0, 0.0, True
+                route = quant_route(fmt, dtype, m, k, 1, block, payload_aligned(qa))
+                quant_gemv_cuda.route_launches.clear()
                 for w in QUANT_WIDTHS:
                     x = uniform((k,) if w is None else (k, w), dtype)
+                    check(quant_route(fmt, dtype, m, k, w or 1, block,
+                                      payload_aligned(qa)) == route,
+                          f"quant_gemv {m}x{k} {fmt} {name}: the plan depends on n")
+                    before = quant_gemv_cuda.route_launches[route]
                     y1, y2 = quant_gemv_cuda(qa, x), quant_gemv_cuda(qa, x)
                     ref = quant_gemv_plain(qa, x)
                     scale = quant_gemv_plain(payload_abs(qa), x)
                     torch.cuda.synchronize(dev)
+                    check(quant_gemv_cuda.route_launches[route] == before + 2,
+                          f"quant_gemv {m}x{k} {fmt} {name} n={w}: not on the planned "
+                          f"route {route}: {dict(quant_gemv_cuda.route_launches)}")
                     err = (y1 - ref).abs()
                     check(bool((err <= tol * scale).all()),
                           f"quant_gemv {m}x{k}/{block} {fmt} {name} n={w}: error over "
@@ -887,8 +918,11 @@ def main() -> int:
                           f"quant_gemv {m}x{k} {fmt} {name} n={w}: pad columns changed "
                           "a real one")
                     pads_equal_unpadded &= torch.equal(real[0], y1)
+                check(set(quant_gemv_cuda.route_launches) == {route},
+                      f"quant_gemv {m}x{k} {fmt} {name}: routes "
+                      f"{dict(quant_gemv_cuda.route_launches)}, planned {route}")
                 emit({"phase": "quant_vs_plain", "kernel": "quant_gemv", "shape": [m, k],
-                      "block": block, "format": fmt, "dtype": name,
+                      "block": block, "format": fmt, "dtype": name, "quant_route": route,
                       "widths": [1 if w is None else w for w in QUANT_WIDTHS],
                       "max_abs_err": max_abs, "max_err_over_scale": worst, "tol": tol,
                       "bitwise_repeatable": True, "pad_independent": True,
@@ -915,7 +949,7 @@ def main() -> int:
                   "format": fmt, "block": on_card.block, "bitwise_equal_cpu": True})
 
     # ---- 13. strategies at full width from quantized storage ----
-    quant_launches = {}
+    quant_launches, quant_routes = {}, {}
     held = {}
     for strategy, n, fmt, shards in QUANT_MAIN_CONFIGS:
         if held.get("n") != n:
@@ -939,6 +973,7 @@ def main() -> int:
         strat = get_strategy(strategy)
         storage = None if fmt == "native" else fmt
         quant_gemv_cuda.launches = gemv_cuda.launches = 0
+        quant_gemv_cuda.route_launches.clear()
         res = benchmark_strategy(strat, mesh, a, x, n_reps=N_REPS, mode="amortized",
                                  measure="chain", kernel="cuda",
                                  chain_samples=CHAIN_SAMPLES, dtype_storage=storage)
@@ -963,7 +998,11 @@ def main() -> int:
               f"{strategy} {n}² {fmt} p={shards}: launches {launched}, expected "
               f"{calls_per_config * shards} of {kernel_name}")
         if storage is not None:
-            quant_launches[f"{strategy}_{n}_{fmt}_p{shards}"] = launched["quant_gemv"]
+            path = f"{strategy}_{n}_{fmt}_p{shards}"
+            quant_launches[path] = launched["quant_gemv"]
+            quant_routes[path] = dict(quant_gemv_cuda.route_launches)
+            check(set(quant_routes[path]) == {"wgmma_split"},
+                  f"{path}: quant routes {quant_routes[path]}, planned wgmma_split")
         err = (y.double() - held["exact"]).abs()
         check(y.shape == (n,) and bool(torch.isfinite(y).all()),
               f"{strategy} {fmt}: y is not {n} finite values")
@@ -1006,6 +1045,7 @@ def main() -> int:
             mesh = make_mesh(1) if shards == 1 else make_mesh(shards, devices=[dev] * shards)
             snapshot = Path(tmp) / f"{label}.json"
             quant_gemv_cuda.launches = gemv_cuda.launches = gemm_cuda.launches = 0
+            quant_gemv_cuda.route_launches.clear()
             res = run_serve(strategy, mesh, n, n, dtype=name, kernel="cuda",
                             max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE,
                             n_requests=n_requests, seed=args.seed,
@@ -1022,6 +1062,9 @@ def main() -> int:
                   f"serve {label}: {res.compiles_steady} steady builds, storage "
                   f"{res.dtype_storage}")
             quant_launches[f"serve_{label}"] = launched["quant_gemv"]
+            quant_routes[f"serve_{label}"] = dict(quant_gemv_cuda.route_launches)
+            check(set(quant_routes[f"serve_{label}"]) == {"wgmma_split"},
+                  f"serve {label}: quant routes {quant_routes[f'serve_{label}']}")
             torch.cuda.empty_cache()
             checked = check_quant_serve_replay(strategy, mesh, n, dtype, fmt, n_requests)
             native_bytes = n * n * dtype.itemsize
@@ -1047,32 +1090,44 @@ def main() -> int:
     # ---- 15. quant_gemv: time, bound, plain, the native GEMV ----
     quant_at = {}
     held = {}
-    for n, fmt, w in QUANT_TIME_SHAPES:
-        if held.get("n") != n:
+    for n, fmt, w, name in QUANT_TIME_SHAPES:
+        dtype = torch_dtype(name)
+        if held.get("key") != (n, name):
             held.clear()
             torch.cuda.empty_cache()
-            held["n"], held["a"] = n, uniform((n, n), torch.float32)
+            held["key"], held["a"] = (n, name), uniform((n, n), torch.float32).to(dtype)
         a = held["a"]
         if held.get("fmt") != fmt:
             held.pop("qa", None)
             held["fmt"], held["qa"] = fmt, quantize_matrix(a, fmt)
         qa = held["qa"]
-        x = uniform((n,) if w == 1 else (n, w), torch.float32)
+        x = uniform((n,) if w == 1 else (n, w), dtype)
+        route = quant_route(fmt, dtype, n, n, w, qa.block, payload_aligned(qa))
+        quant_gemv_cuda.route_launches.clear()
         y, ref = quant_gemv_cuda(qa, x), quant_gemv_plain(qa, x)
+        check(dict(quant_gemv_cuda.route_launches) == {route: 1},
+              f"quant_gemv {n}² {fmt} n={w} {name}: routes "
+              f"{dict(quant_gemv_cuda.route_launches)}, planned {route}")
         scale = quant_gemv_plain(payload_abs(qa), x)
         err = (y - ref).abs()
         check(bool((err <= 1e-4 * scale).all()),
-              f"quant_gemv {n}² {fmt} n={w}: error over 1e-4 of |deq(A)|·|x|")
-        bound_ms, bound_by = quant_bound(qa, w, qa.nbytes + (x.numel() + y.numel()) * 4)
+              f"quant_gemv {n}² {fmt} n={w} {name}: error over 1e-4 of |deq(A)|·|x|")
+        bound = quant_bound(qa, w, qa.nbytes + x.numel() * x.element_size()
+                            + y.numel() * y.element_size(), route)
         native = (lambda: gemv_cuda(a, x)) if w == 1 else (lambda: gemm_cuda(a, x))
-        quant_at[f"{n}x{n}_{fmt}_n{w}"] = {
-            "format": fmt, "width": w, "block": qa.block, "payload_bytes": qa.nbytes,
+        quant_at[f"{n}x{n}_{fmt}_n{w}" + ("" if name == "float32" else f"_{name}")] = {
+            "format": fmt, "width": w, "x_dtype": name, "block": qa.block,
+            "payload_bytes": qa.nbytes, "quant_route": route,
+            # int8's vector face on the tensor-core routes runs on the CUDA
+            # cores (the kernel's choice, by format).
+            "consumer": "fma" if route == "fma" or (w == 1 and fmt == "int8") else "wgmma",
             "ms": event_ms(lambda: quant_gemv_cuda(qa, x), reps=20 if w == 1 else 10),
             "plain_ms": event_ms(lambda: quant_gemv_plain(qa, x), reps=2, warmup=1),
             "library_ms": None,
             "native_ms": event_ms(native, reps=10),
-            "native_call": "gemv_cuda(a, x)" if w == 1 else "gemm_cuda(a, x)",
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "native_call": ("gemv_cuda(a, x)" if w == 1 else "gemm_cuda(a, x)")
+            + f", a {name}",
+            **bound,
             "max_abs_err": err.max().item(),
             "max_err_over_scale": (err / scale.clamp_min(1e-300)).max().item(),
         }
@@ -1127,12 +1182,16 @@ def main() -> int:
     wrappers = {"gemv": gemv_cuda, "gemm": gemm_cuda, "quant_gemv": quant_gemv_cuda,
                 "solver_step": solver_step_cuda}
     solver_paths = {name: {} for name in wrappers}
+    # The routes the fused step's quantized GEMV took, by path.
+    step_quant_routes = {}
 
     def drive(label, fn):
         """One solver path, with every launch count set to 0 just before it
         and read just after; a solver path runs no GEMM (promote=None)."""
         for wrapper in wrappers.values():
             wrapper.launches = 0
+        quant_gemv_cuda.route_launches.clear()
+        solver_step_cuda.quant_route_launches.clear()
         out = fn()
         torch.cuda.synchronize(dev)
         counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
@@ -1140,6 +1199,10 @@ def main() -> int:
         for name, count in counts.items():
             if count:
                 solver_paths[name][label] = count
+        if counts["quant_gemv"]:
+            quant_routes[label] = dict(quant_gemv_cuda.route_launches)
+        if solver_step_cuda.quant_route_launches:
+            step_quant_routes[label] = dict(solver_step_cuda.quant_route_launches)
         return out, counts
 
     def timed_solve(engine, **kw):
@@ -1339,6 +1402,9 @@ def main() -> int:
         if tier == "cuda_fused":
             check(counts["solver_step"] == res.n_iters and counts["quant_gemv"] == 2,
                   f"{label}: launches {counts}, {res.n_iters} iterations")
+            check(step_quant_routes.get(label) == {"wgmma_split": res.n_iters},
+                  f"{label}: the step's quantized GEMV took "
+                  f"{step_quant_routes.get(label)}, planned wgmma_split")
         else:
             check(counts["solver_step"] == 0 and counts["quant_gemv"] > res.n_iters,
                   f"{label}: launches {counts}, {res.n_iters} iterations")
@@ -1346,6 +1412,8 @@ def main() -> int:
         quant_solve[label] = {"n_iters": res.n_iters, "solve_ms": ms,
                               "ms_per_iter": ms / res.n_iters,
                               "residual_norm": res.residual_norm, "launches": counts,
+                              "quant_routes": quant_routes.get(label, {}),
+                              "step_quant_routes": step_quant_routes.get(label, {}),
                               "resident_bytes": engine.resident_bytes}
     tiers_diff = rel_diff(q_x["cuda_fused"], q_x["torch"])
     check(tiers_diff <= 1e-3, f"int8c: fused and unfused x differ by {tiers_diff}")
@@ -2056,10 +2124,20 @@ def main() -> int:
         "max_abs_err": quant_head["max_abs_err"],
         "ms": quant_head["ms"], "plain_ms": quant_head["plain_ms"],
         "bound_ms": quant_head["bound_ms"], "bound_by": quant_head["bound_by"],
+        # bound_ms counts the contraction once on the tensor cores;
+        # ffma_bound_ms is the CUDA-core design's ceiling, passes_ceiling_ms
+        # the route's passes over x's parts (see quant_bound).
+        "ffma_bound_ms": quant_head["ffma_bound_ms"],
+        "passes_ceiling_ms": quant_head["passes_ceiling_ms"],
         # No PyTorch call computes a block-scaled GEMV; native_ms is the
         # port's own GEMV on the same A in fp32, what quantizing must beat.
         "library_ms": None, "native_ms": quant_head["native_ms"],
         "native_call": quant_head["native_call"],
+        # Routes: wgmma (bf16/fp16 x), wgmma_split (fp32 x), fma (fp64 x and
+        # shapes TMA or wgmma cannot take); a tensor-core call on a block of
+        # columns is two kernel launches (x's parts, then the GEMV).
+        "quant_route": quant_head["quant_route"], "consumer": quant_head["consumer"],
+        "route_launches_by_path": quant_routes,
         "at": quant_at,
     }, {
         "name": "solver_step", "route": "cuda",

@@ -1,15 +1,18 @@
 """Two checkouts of the port on one card: the GEMM and the serve cells.
 
-    python3 matvec_mpi_multiplier_torch/bench/compare_checkouts.py ROOT [ROOT ...]
+    python3 matvec_mpi_multiplier_torch/bench/compare_checkouts.py [--quant] ROOT [ROOT ...]
 
 Runs each ROOT (a checkout, or an unpacked ``git archive``) in a process of
 its own, in the order given (``parent change change parent`` is the fair
 order), and prints one JSON line per run: ``gemm_cuda``'s time at
 ``chip_smoke.py``'s GEMM shapes (CUDA events, 20 launches), its host cost
 per call on a tiny product, and ``run_serve`` at ``chip_smoke.py``'s serve
-cells (req/s, p50/p99 dispatch ms, promotion speedup). Each ROOT builds its
-own kernels. Needs a CUDA card; numbers from two runs compare only when
-they come from one command on one card.
+cells (req/s, p50/p99 dispatch ms, promotion speedup). With ``--quant`` it
+runs the quantized side instead: ``quant_gemv_cuda``'s time at 65536² fp32
+for each format and width 1, 4 and 32 (CUDA events, 10 launches), and
+``run_serve`` at ``chip_smoke.py``'s two quantized serve cells. Each ROOT
+builds its own kernels. Needs a CUDA card; numbers from two runs compare
+only when they come from one command on one card.
 """
 
 from __future__ import annotations
@@ -31,10 +34,19 @@ SERVE_CELLS = [
     ("colwise_pallas_ring", "colwise", 65536, "bfloat16", 4, "1d", "pallas_ring", None, 200),
     ("colwise_overlap@4", "colwise", 65536, "bfloat16", 4, "1d", "overlap", 4, 40),
 ]
+# (label, strategy, n, dtype, shards on cuda:0, storage, requests):
+# chip_smoke.py's QUANT_SERVE_CONFIGS.
+QUANT_SERVE_CELLS = [
+    ("65536_fp32_int8c", "blockwise", 65536, "float32", 1, "int8c", 200),
+    ("2x2_32768_fp32_int8", "blockwise", 32768, "float32", 4, "int8", 40),
+]
+QUANT_N = 65536
+QUANT_WIDTHS = (1, 4, 32)
 
 
-def measure(root: Path) -> dict:
-    """This process's measurements of the port under ``root``."""
+def measure(root: Path, quant: bool = False) -> dict:
+    """This process's measurements of the port under ``root``: the GEMM and
+    the serve cells, or with ``quant`` the quantized GEMV and serve cells."""
     here = Path(__file__).resolve().parent  # not an import root
     sys.path[:] = [str(root)] + [p for p in sys.path if Path(p or ".").resolve() != here]
     import torch
@@ -60,6 +72,8 @@ def measure(root: Path) -> dict:
         torch.cuda.synchronize(dev)
         return start.elapsed_time(end) / reps
 
+    if quant:
+        return measure_quant(root, dev, uniform, event_ms)
     out = {"root": str(root), "gemm_ms": {}, "serve": {}}
     held = {}
     for m, k, n, name in GEMM_SHAPES:
@@ -93,15 +107,53 @@ def measure(root: Path) -> dict:
     return out
 
 
+def measure_quant(root: Path, dev, uniform, event_ms) -> dict:
+    """``quant_gemv_cuda`` at 65536² fp32 per format and width, then the
+    quantized serve cells, for the port under ``root``."""
+    import torch
+
+    from matvec_mpi_multiplier_torch import make_mesh
+    from matvec_mpi_multiplier_torch.bench.serve import run_serve
+    from matvec_mpi_multiplier_torch.ops.cuda_quant import quant_gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.quantize import quantize_matrix
+
+    out = {"root": str(root), "quant_gemv_ms": {}, "serve": {}}
+    a = uniform((QUANT_N, QUANT_N), torch.float32)
+    for fmt in ("int8", "int8c", "fp8"):
+        qa = quantize_matrix(a, fmt)
+        for w in QUANT_WIDTHS:
+            x = uniform((QUANT_N,) if w == 1 else (QUANT_N, w), torch.float32)
+            out["quant_gemv_ms"][f"{QUANT_N}x{QUANT_N}_{fmt}_n{w}"] = event_ms(
+                lambda: quant_gemv_cuda(qa, x), reps=10)
+        del qa
+        torch.cuda.empty_cache()
+    del a
+    torch.cuda.empty_cache()
+    for label, strategy, n, dtype, shards, storage, requests in QUANT_SERVE_CELLS:
+        mesh = make_mesh(1) if shards == 1 else make_mesh(shards, devices=[dev] * shards)
+        res = run_serve(strategy, mesh, n, n, dtype=dtype, kernel="cuda", max_bucket=32,
+                        promote=4, n_requests=requests, seed=0, dtype_storage=storage)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        out["serve"][label] = {"req_per_s": res.rps, "p50_dispatch_ms": res.p50_dispatch_ms,
+                               "p99_dispatch_ms": res.p99_dispatch_ms,
+                               "promo_speedup": res.promo_speedup}
+    return out
+
+
 def main(argv: list[str]) -> int:
+    quant = bool(argv) and argv[0] == "--quant"
+    if quant:
+        argv = argv[1:]
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(measure(Path(argv[1]).resolve())), flush=True)
+        print(json.dumps(measure(Path(argv[1]).resolve(), quant)), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv:
-        proc = subprocess.run([sys.executable, __file__, "--one", root], check=False)
+        flags = ["--quant"] if quant else []
+        proc = subprocess.run([sys.executable, __file__, *flags, "--one", root], check=False)
         if proc.returncode:
             return proc.returncode
     return 0

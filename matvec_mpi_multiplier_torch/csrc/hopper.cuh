@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the kernels that feed the
 // tensor cores through TMA: shared-memory addresses, mbarriers, TMA tile
 // loads, wgmma descriptors for the 128-byte swizzle and the wgmma
-// instructions themselves, and the host's handle on cuTensorMapEncodeTiled.
-// Included by gemm.cu and flash_attention.cu; everything is internal to the
+// instructions themselves (A from shared memory, or from registers), and the
+// host's handle on cuTensorMapEncodeTiled. Included by gemm.cu,
+// flash_attention.cu and quant_gemv.cu; everything is internal to the
 // including source (an anonymous namespace).
 
 #pragma once
@@ -249,6 +250,106 @@ __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da, uint64_t 
   if constexpr (BN == 32) wgmma_m64n32k16<kBf16, kTransB>(d, da, db, accumulate);
   if constexpr (BN == 64) wgmma_m64n64k16<kBf16, kTransB>(d, da, db, accumulate);
   if constexpr (BN == 128) wgmma_m64n128k16<kBf16, kTransB>(d, da, db, accumulate);
+}
+
+// Waits until at most N committed wgmma groups of this warpgroup are in
+// flight: the registers the older groups read or write are then free.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// wgmma.mma_async m64nNk16 with A from registers (the RS form), f32 +=
+// 16-bit x 16-bit, B K-major in shared memory. Warp w of the warpgroup
+// holds rows 16w .. 16w + 15 of A; lane l with g = l / 4, t = l % 4 holds
+// a[0] = row g, k 2t and 2t + 1 (the first in the low half); a[1] = row
+// g + 8, the same k; a[2] = row g, k 2t + 8 and 2t + 9; a[3] = row g + 8,
+// those k. The registers of a and d must not change until a wait_group
+// covers the instruction.
+#define MATVEC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define MATVEC_D8(i) MATVEC_D4(i), MATVEC_D4(i + 4)
+#define MATVEC_D16(i) MATVEC_D8(i), MATVEC_D8(i + 8)
+#define MATVEC_D32(i) MATVEC_D16(i), MATVEC_D16(i + 16)
+#define MATVEC_A4 "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
+
+template <bool kBf16>
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t db, uint32_t accumulate) {
+  if constexpr (kBf16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : MATVEC_D8(0)
+        : MATVEC_A4, "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : MATVEC_D8(0)
+        : MATVEC_A4, "l"(db), "r"(accumulate));
+  }
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t db, uint32_t accumulate) {
+  if constexpr (kBf16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : MATVEC_D16(0)
+        : MATVEC_A4, "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : MATVEC_D16(0)
+        : MATVEC_A4, "l"(db), "r"(accumulate));
+  }
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db, uint32_t accumulate) {
+  if constexpr (kBf16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : MATVEC_D32(0)
+        : MATVEC_A4, "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : MATVEC_D32(0)
+        : MATVEC_A4, "l"(db), "r"(accumulate));
+  }
+}
+
+#undef MATVEC_D4
+#undef MATVEC_D8
+#undef MATVEC_D16
+#undef MATVEC_D32
+#undef MATVEC_A4
+
+template <bool kBf16, int BN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2], const uint32_t (&a)[4],
+                                         uint64_t db, uint32_t accumulate) {
+  if constexpr (BN == 16) wgmma_rs_m64n16k16<kBf16>(d, a, db, accumulate);
+  if constexpr (BN == 32) wgmma_rs_m64n32k16<kBf16>(d, a, db, accumulate);
+  if constexpr (BN == 64) wgmma_rs_m64n64k16<kBf16>(d, a, db, accumulate);
 }
 
 // ---------------------------------------------------------------- host

@@ -20,10 +20,12 @@
 // 2. The row GEMV of the shard against p2[off : off + k_loc], one warp per
 //    row: csrc/gemv.cu's loop instantiated with x in the ACCUMULATOR type
 //    (matvec_gemv_acc_x), or csrc/quant_gemv.cu's vector face with x in the
-//    accumulator type for an int8 / int8c / fp8 payload. The fused step reads
-//    p in the accumulator type (the TPU kernel's pseg.astype(acc)), where the
-//    unfused tier casts it to A's dtype first: for bf16 or fp16 A the two
-//    differ, which is why this cannot simply call matvec_gemv.
+//    accumulator type for an int8 / int8c / fp8 payload (on the tensor cores
+//    for fp32: the pre-pass that splits p2's segment, then the GEMV). The
+//    fused step reads p in the accumulator type (the TPU kernel's
+//    pseg.astype(acc)), where the unfused tier casts it to A's dtype first:
+//    for bf16 or fp16 A the two differ, which is why this cannot simply call
+//    matvec_gemv.
 //
 // Why two launches cost nothing a fused one would save: p2 is 4n bytes
 // (256 KB at n = 65536 fp32) and stays in the 50 MB L2 between the two
@@ -34,19 +36,24 @@
 // What bounds the step: HBM bytes, m_loc * k_loc * itemsize (or the payload's
 // bytes) + 8n * acc_itemsize (x, r, p, ap read; x2, r2, p2 and the partial
 // written): 5.13 ms at 65536^2 fp32 at 3.35 TB/s. The GEMV streams A once in
-// 16-byte loads (4-byte payload loads for quantized storage); the update is
+// 16-byte loads (TMA-fed payload tiles for quantized storage); the update is
 // one block, latency-bound, and small beside it.
 //
 // Numerics: the accumulator is float, or double for fp64 A (x, r, p, ap,
 // s_in and every output are in it). The vector updates round the product and
 // the sum separately (no FMA contraction), as the plain PyTorch version's
 // separate multiply and add do, so given the same scalars they agree
-// bitwise; the reductions use FMA. Quantized storage dequantizes in
-// registers as quant_gemv.cu does, with its association: each element is
-// fl(s * q) (int8c: fl(fl(s1 q1) + fl(s2 q2))) multiplied into the sum, not
-// the TPU kernel's s * sum(q * p) per block; the unfused tier's kernel
-// computes the same dequantized operator. No atomics and no split-K: the
-// step is bitwise the same from run to run.
+// bitwise; the reductions use FMA. Quantized storage runs quant_gemv.cu's
+// vector face on the route the wrapper plans (ops/cuda_quant.py::
+// quant_route, passed in as a code): fp32 p on wgmma_split (int8's vector
+// face on the CUDA cores, int8c's and fp8's on the tensor cores), with the
+// TPU kernel's association, s * sum(q * p) per block (a fresh fp32 partial
+// per block, scaled and summed in block order, int8c's levels summed apart
+// and then added), as the unfused tier's kernel on the same route; fp64 p
+// (or a shape the tensor cores cannot take) on fma, each element
+// dequantized as fl(s * q) (int8c: fl(fl(s1 q1) + fl(s2 q2))) and
+// multiplied into the sum.
+// No atomics and no split-K: the step is bitwise the same from run to run.
 //
 // Left for later: a persistent cooperative kernel with a grid sync (update
 // and GEMV in one launch), and graph capture of a chunk of iterations.
@@ -58,9 +65,9 @@
 // The row GEMVs of csrc/gemv.cu and csrc/quant_gemv.cu (one library).
 extern "C" int matvec_gemv_acc_x(int dtype, const void* a, const void* x, void* y,
                                  int64_t m, int64_t k, void* stream);
-extern "C" int matvec_quant_gemv(int fmt, int dtype, const void* q,
+extern "C" int matvec_quant_gemv(int route, int fmt, int dtype, const void* q,
                                  const void* scales, const void* q2,
-                                 const void* scales2, const void* x, void* y,
+                                 const void* scales2, const void* x, void* y, void* xs,
                                  int64_t m, int64_t k, int64_t n, int64_t block,
                                  void* stream);
 
@@ -180,13 +187,16 @@ cudaError_t launch_update(int op, const void* x, const void* r, const void* p,
 // accumulator is fp64 for 3, else fp32, and x, r, p, ap, s_in, x2, r2, p2,
 // s_out and partial are all in it. a is the (m_loc, k_loc) row-major shard
 // (native), or the payload q with its (m_loc, k_loc / block) fp32 scales (and
-// q2/scales2 for int8c, else NULL). The vectors are (n,); s_in is (1,) for cg
-// and (4,) for chebyshev, s_out (1,) or (2,); partial is (m_loc,), the shard's
+// q2/scales2 for int8c, else NULL), with qroute, quant_gemv.cu's route code
+// for the accumulator's x, and xs, its scratch (NULL on fma); qroute and xs
+// are ignored for native A. The vectors are (n,); s_in is (1,) for cg and
+// (4,) for chebyshev, s_out (1,) or (2,); partial is (m_loc,), the shard's
 // product with p2[off : off + k_loc]. Enqueues the update kernel and then the
 // GEMV on `stream`, checking each launch; returns 0 or the cudaError.
 extern "C" int matvec_solver_step(int op, int fmt, int dtype, const void* a,
                                   const void* scales, const void* q2,
-                                  const void* scales2, int64_t block,
+                                  const void* scales2, int64_t block, int qroute,
+                                  void* xs,
                                   const void* x, const void* r, const void* p,
                                   const void* ap, const void* s_in, void* x2,
                                   void* r2, void* p2, void* s_out, void* partial,
@@ -206,6 +216,6 @@ extern "C" int matvec_solver_step(int op, int fmt, int dtype, const void* a,
   const void* seg = static_cast<const char*>(p2) + off * (wide ? 8 : 4);
   if (fmt < 0) return matvec_gemv_acc_x(dtype, a, seg, partial, m_loc, k_loc, stream);
   // quant_gemv's x dtype code for the accumulator: fp32 (2) or fp64 (3).
-  return matvec_quant_gemv(fmt, wide ? 3 : 2, a, scales, q2, scales2, seg, partial,
-                           m_loc, k_loc, 1, block, stream);
+  return matvec_quant_gemv(qroute, fmt, wide ? 3 : 2, a, scales, q2, scales2, seg, partial,
+                           xs, m_loc, k_loc, 1, block, stream);
 }

@@ -139,20 +139,21 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int),
     ]
     lib.matvec_gemm_launch_info.restype = ctypes.c_int
-    # q2/scales2 are NULL (None) outside int8c.
+    # route, fmt, dtype; q, scales, q2, scales2 (NULL (None) outside int8c),
+    # x, y, the parts' scratch (NULL on fma); m, k, n, block; the stream.
     lib.matvec_quant_gemv.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 7,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p,
     ]
     lib.matvec_quant_gemv.restype = ctypes.c_int
     # op, fmt, dtype; A (or q), scales, q2, scales2 (NULL where absent),
-    # block; x, r, p, ap, s_in; x2, r2, p2, s_out, partial; n, m_loc, k_loc,
-    # off; the stream.
+    # block, the quantized GEMV's route and scratch (NULL on fma or native);
+    # x, r, p, ap, s_in; x2, r2, p2, s_out, partial; n, m_loc, k_loc, off;
+    # the stream.
     lib.matvec_solver_step.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        *[ctypes.c_void_p] * 4, ctypes.c_int64,
+        *[ctypes.c_void_p] * 4, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
         *[ctypes.c_void_p] * 10,
         *[ctypes.c_int64] * 4, ctypes.c_void_p,
     ]

@@ -3,20 +3,41 @@ plain version: the ``cuda`` tier for quantized storage.
 
 Replaces the JAX package's Pallas kernel
 (``matvec_mpi_multiplier_tpu/ops/pallas_quant.py::_quant_gemv_kernel``).
-One launch computes ``deq(A) @ x`` over an int8 / int8c / fp8
+One call computes ``deq(A) @ x`` over an int8 / int8c / fp8
 :class:`~.quantize.QuantizedMatrix` for ``x`` of shape ``(k,)`` or
 ``(k, n)``, converting each payload element in registers: the dequantized
-``A`` never exists in device memory. int8c's two levels run in the same
-pass. The source says what bounds it and how.
+``A`` never exists in device memory. It is bound by the payload's bytes.
+Its routes (:func:`quant_route` plans them from the format, x's dtype, k,
+the block and the payload's alignment, never from x's values):
 
-:func:`quant_gemv_cuda` launches the kernel for CUDA tensors, or raises: a
-missing ``nvcc``, a failed build or a refused launch is an error, never a
-quiet switch to another tier. For tensors on the CPU, and only there, it
-computes :func:`quant_gemv_plain`. ``quant_gemv_cuda.launches`` counts the
-kernel's launches (nothing else adds to it).
+* ``wgmma`` (bf16 or fp16 x) and ``wgmma_split`` (fp32 x, split by a
+  pre-pass into :data:`SPLIT_PARTS` bf16 parts): the payload streams
+  through TMA, is converted exactly to the 16-bit operand type and meets
+  x on the tensor cores, A from registers. Each quantization block's
+  partial is fresh in fp32 and scaled once per row and block, summed in
+  block order, int8c's levels apart and then added: the JAX package's
+  association (``ops/quantize.py::matvec_quantized``). int8's vector face
+  (n = 1) sums the same partials in fp32 FMA on the CUDA cores, x exact,
+  where it measured faster.
+* ``fma``: fp64 x, and any shape TMA or ``wgmma`` cannot take (``k % 16``,
+  ``block % 16``, a payload not 16-byte aligned): FMA on the CUDA cores,
+  each element dequantized as fl(s1·q1) (+ fl(s2·q2)).
+
+The source says what bounds each route and how.
+
+:func:`quant_gemv_cuda` launches the planned route for CUDA tensors, or
+raises: a missing ``nvcc``, a failed build or a refused launch is an error,
+never a quiet switch to another route or tier. For tensors on the CPU, and
+only there, it computes :func:`quant_gemv_plain`.
+``quant_gemv_cuda.launches`` counts its calls on the card (nothing else adds
+to it; a tensor-core call is two kernel launches, the pre-pass and the
+GEMV, but for int8's vector face), and ``quant_gemv_cuda.route_launches``
+the same calls by route.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -27,6 +48,57 @@ from .quantize import QuantizedMatrix, register_storage_kernel
 
 # The C entry's format codes (csrc/quant_gemv.cu::matvec_quant_gemv).
 _FORMAT_CODES = {"int8": 0, "int8c": 1, "fp8": 2}
+# Route codes of ``matvec_quant_gemv`` (``csrc/quant_gemv.cu``'s ``Route``).
+ROUTE_CODES = {"wgmma": 0, "wgmma_split": 1, "fma": 2}
+# bf16 parts of fp32 x on wgmma_split: x = x0 + x1 + r, |r| <= 2^-16 |x|,
+# holds 1e-5 of |deq(A)|·|x| at every check shape (the rounding errors'
+# signs differ: at most 0.1 of the bar); one part misses it
+# (tests/test_torch_quant_route.py).
+SPLIT_PARTS = 2
+# 16-bit parts of x a route's pre-pass writes (its scratch).
+ROUTE_PARTS = {"wgmma": 1, "wgmma_split": SPLIT_PARTS, "fma": 0}
+# k and the block must be multiples of wgmma's depth (16 values), and the
+# payload's base 16-byte aligned, for TMA and wgmma; TMA's coordinates are
+# 32-bit.
+TC_K = 16
+TC_MAX_DIM = 2**31 - 1
+
+
+def quant_route(fmt: str, dtype: torch.dtype, m: int, k: int, n: int, block: int,
+                aligned: bool) -> str:
+    """The route :func:`quant_gemv_cuda` takes for a ``fmt`` payload of
+    shape (m, k) in blocks of ``block``, 16-byte aligned or not, against x
+    of ``dtype`` with ``n`` columns: ``wgmma`` for bf16 and fp16 x,
+    ``wgmma_split`` for fp32, ``fma`` for fp64 and for a shape the tensor
+    cores cannot take (k or the block not a multiple of 16, an unaligned
+    payload, m or k past 2^31 - 1). Planned from these alone, never after
+    a failure; m and n do not change it (the kernel sets its tile by
+    them)."""
+    if fmt not in _FORMAT_CODES:
+        raise ValueError(f"quant_route takes int8, int8c or fp8, got {fmt!r}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"quant_route takes bf16/fp16/fp32/fp64 x, got {dtype}")
+    if m < 1 or n < 1 or k < 1 or block < 1 or k % block:
+        raise ValueError(f"no route for a ({m}, {k}) payload in blocks of {block}, n = {n}")
+    if (dtype == torch.float64 or k % TC_K or block % TC_K or not aligned
+            or max(m, k) > TC_MAX_DIM):
+        return "fma"
+    return "wgmma_split" if dtype == torch.float32 else "wgmma"
+
+
+def payload_aligned(qa: QuantizedMatrix) -> bool:
+    """Whether every payload level's base is 16-byte aligned (TMA's rule)."""
+    return all(q.data_ptr() % 16 == 0 for q in (qa.q, qa.q2) if q is not None)
+
+
+def route_scratch(route: str, k: int, n: int, device) -> torch.Tensor | None:
+    """The pre-pass's scratch for x's parts on ``route``: (n, parts, k)
+    16-bit values (unused by int8's vector face, which reads x itself), or
+    None on ``fma``."""
+    parts = ROUTE_PARTS[route]
+    if not parts:
+        return None
+    return torch.empty((n, parts, k), dtype=torch.int16, device=device)
 
 
 def _dequantized_rows(qa: QuantizedMatrix, rows: slice, acc: torch.dtype) -> torch.Tensor:
@@ -89,7 +161,8 @@ def _check(qa: QuantizedMatrix, x: torch.Tensor) -> None:
 
 
 def quant_gemv_cuda(qa: QuantizedMatrix, x: torch.Tensor) -> torch.Tensor:
-    """``deq(A) @ x`` by the CUDA kernel (plain version for CPU tensors)."""
+    """``deq(A) @ x`` by the CUDA kernel on the route :func:`quant_route`
+    plans (plain version for CPU tensors)."""
     _check(qa, x)
     if x.device.type == "cpu":
         return quant_gemv_plain(qa, x)
@@ -101,25 +174,29 @@ def quant_gemv_cuda(qa: QuantizedMatrix, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((m, *x.shape[1:]), dtype=acc_dtype(qa.dtype), device=x.device)
     if m == 0 or n == 0:
         return y
+    route = quant_route(qa.fmt, x.dtype, m, k, n, qa.block, payload_aligned(qa))
+    xs = route_scratch(route, k, n, x.device)
     q2 = None if qa.q2 is None else qa.q2.data_ptr()
     s2 = None if qa.scales2 is None else qa.scales2.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.matvec_quant_gemv(
-            _FORMAT_CODES[qa.fmt], _DTYPE_CODES[qa.dtype], qa.q.data_ptr(),
-            qa.scales.data_ptr(), q2, s2, x.data_ptr(), y.data_ptr(),
-            m, k, n, qa.block, stream,
+            ROUTE_CODES[route], _FORMAT_CODES[qa.fmt], _DTYPE_CODES[qa.dtype],
+            qa.q.data_ptr(), qa.scales.data_ptr(), q2, s2, x.data_ptr(), y.data_ptr(),
+            None if xs is None else xs.data_ptr(), m, k, n, qa.block, stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"quant_gemv kernel launch failed for a {qa.fmt} ({m}, {k}) payload, "
-            f"x {tuple(x.shape)} {x.dtype}: "
+            f"x {tuple(x.shape)} {x.dtype} on {route}: "
             f"{lib.matvec_error_string(rc).decode()} (cudaError {rc})"
         )
     quant_gemv_cuda.launches += 1
+    quant_gemv_cuda.route_launches[route] += 1
     return y
 
 
 quant_gemv_cuda.launches = 0  # type: ignore[attr-defined]
+quant_gemv_cuda.route_launches = Counter()  # type: ignore[attr-defined]
 
 register_storage_kernel("cuda", quant_gemv_cuda)

@@ -22,11 +22,15 @@ read per iteration.
 a missing ``nvcc``, a failed build or a refused launch is an error, never a
 quiet switch to another tier. For CPU tensors, and only there, it computes
 :func:`solver_step_plain`. ``solver_step_cuda.launches`` counts step calls
-(each is two kernel launches); nothing else adds to it.
+(each is two kernel launches, three on a quantized shard's tensor-core
+route); nothing else adds to it. ``solver_step_cuda.quant_route_launches``
+counts the quantized shards' steps by the route their GEMV took
+(``ops/cuda_quant.py::quant_route``).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable
 
 import torch
@@ -44,7 +48,14 @@ from ..solvers.ops import f32_scalar, placed_operand
 from ..utils.errors import ConfigError, ShardingError
 from . import _build
 from .cuda_gemv import _DTYPE_CODES, gemv_plain
-from .cuda_quant import _FORMAT_CODES, quant_gemv_plain
+from .cuda_quant import (
+    _FORMAT_CODES,
+    ROUTE_CODES,
+    payload_aligned,
+    quant_gemv_plain,
+    quant_route,
+    route_scratch,
+)
 from .gemv import acc_dtype, get_kernel
 from .quantize import NATIVE, QuantizedMatrix, get_storage_kernel, normalize_storage
 
@@ -225,9 +236,14 @@ def solver_step_cuda(op, a_local, off, x, r, p, ap, s_in):
     x2, r2, p2 = torch.empty_like(x), torch.empty_like(r), torch.empty_like(p)
     s_out = torch.empty(1 if op == "cg" else 2, dtype=x.dtype, device=x.device)
     partial = torch.empty(m_loc, dtype=x.dtype, device=x.device)
+    route, xs = None, None
     if isinstance(a_local, QuantizedMatrix):
         fmt, block = _FORMAT_CODES[a_local.fmt], a_local.block
         leaves = [None if leaf is None else leaf.data_ptr() for leaf in a_local.leaves]
+        # The GEMV's x is p2's segment in the accumulator dtype.
+        route = quant_route(a_local.fmt, x.dtype, m_loc, k_loc, 1, block,
+                            payload_aligned(a_local))
+        xs = route_scratch(route, k_loc, 1, x.device)
     else:
         fmt, block = _NATIVE_FORMAT, 0
         leaves = [a_local.data_ptr(), None, None, None]
@@ -235,6 +251,7 @@ def solver_step_cuda(op, a_local, off, x, r, p, ap, s_in):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.matvec_solver_step(
             _OP_CODES[op], fmt, _DTYPE_CODES[a_local.dtype], *leaves, block,
+            ROUTE_CODES[route] if route else 0, None if xs is None else xs.data_ptr(),
             x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(), s_in.data_ptr(),
             x2.data_ptr(), r2.data_ptr(), p2.data_ptr(), s_out.data_ptr(),
             partial.data_ptr(), x.shape[0], m_loc, k_loc, off, stream,
@@ -247,10 +264,13 @@ def solver_step_cuda(op, a_local, off, x, r, p, ap, s_in):
             f"(cudaError {rc})"
         )
     solver_step_cuda.launches += 1
+    if route:
+        solver_step_cuda.quant_route_launches[route] += 1
     return x2, r2, p2, s_out, partial
 
 
 solver_step_cuda.launches = 0  # type: ignore[attr-defined]
+solver_step_cuda.quant_route_launches = Counter()  # type: ignore[attr-defined]
 
 
 # ------------------------------------------------------------ the loop

@@ -6,7 +6,10 @@ residency into a low-bit payload plus per-(row, k-block) float32 scales, and
 every later matvec reads the payload instead of ``A``. No kernel ever holds
 a dequantized full-width ``A``: the hand-written kernel
 (``csrc/quant_gemv.cu``) converts each payload element in registers, and the
-scan tier here upcasts one (m, block) tile at a time.
+scan tier here upcasts one (m, block) tile at a time. Both sum one partial
+per k-block, scaled once per row and block, in block order, and int8c's
+levels apart before adding them (the kernel's ``fma`` route, for fp64 x and
+shapes the tensor cores cannot take, scales each element instead).
 
 Formats (:data:`STORAGE_FORMATS`):
 
