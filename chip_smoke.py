@@ -10,7 +10,10 @@ PyTorch version, and drives the port's paths at full size, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
 * the three strategies through ``build(..., kernel="cuda")`` and the
-  reference timing protocol (the GEMV);
+  reference timing protocol (the GEMV, on its ``rows`` route), and
+  ``bench/sweep.py``'s asymmetric cells (120..1200 x 60000 fp32, each
+  strategy at p = 1 through ``benchmark_strategy``), whose short rows take
+  the GEMV's ``split`` route;
 * the serving engine through ``bench.serve.run_serve``: a mixed-width
   request stream at 65536² bf16 on one card and at 32768² fp32 on a 2x2
   logical mesh, narrow blocks through the GEMV and promoted blocks through
@@ -53,7 +56,12 @@ kernels' launch counts set to 0 just before it and read just after:
   ``wgmma_split``, every one on fp32 inputs ``ffma``.
 
 It checks the answers and times each kernel beside its bound, its plain
-version and the library call. The GEMM is held to its plain version on each
+version and the library call. The GEMV is held to its plain version on both
+of its routes (``rows``, ``split``, planned by ``gemv_plan``), every other
+route and grid bitwise equal to the planned one, row slices bitwise equal
+to the full call's, and timed with a cold L2 at the sweeps' shapes (all of
+``ASYMMETRIC_SIZES`` in fp32 and bf16, two in fp64; ``SQUARE_SIZES`` in
+fp32) beside ``torch.matmul``. The GEMM is held to its plain version on each
 of its routes (``wgmma_tma``, ``mma_sync``, ``ffma``, ``dfma``), bitwise
 repeatable and independent of pad columns and of row slices of A, and its
 routes are counted on every path. Every phase prints one JSON line; any failed
@@ -76,6 +84,7 @@ import sys
 import tempfile
 import time
 import warnings
+from collections import Counter
 from pathlib import Path
 
 N_REPS = 100
@@ -92,7 +101,16 @@ FIXTURE_MATRIX = [
 FIXTURE_VECTOR = [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0]
 FIXTURE_PRODUCT = [222.2, 196.55, 191.57, 232.9]
 
-CHECK_SHAPES = [(4, 8), (1000, 3001), (4096, 4096), (120, 60000)]
+# The GEMV against its plain version, every route and grid bitwise the
+# planned one's: the fixture, a misaligned k, a square shape, the
+# asymmetric regime, m = 1, an m that is not a multiple of 8 (split), a bf16
+# row that is not 16-byte aligned, and k shorter than one slab at a ragged
+# m (rows).
+CHECK_SHAPES = [(4, 8), (1000, 3001), (4096, 4096), (120, 60000), (1, 60000),
+                (123, 60000), (120, 60001), (2501, 999)]
+# The GEMV's row slices: rows 0:120 and 1000:1123 of this A (rows route)
+# against the slices' own calls (split), bitwise.
+GEMV_SLICE_SHAPE = (8192, 60000)
 # (strategy, n, dtype, logical shards on cuda:0)
 MAIN_CONFIGS = [
     ("blockwise", 65536, "bfloat16", 1),
@@ -112,7 +130,9 @@ KERNEL_SHAPES = [(16384, "float32"), (32768, "bfloat16"), (65536, "bfloat16")]
 # The fp32 output against the plain version at those shapes: sums of
 # k >= 16384 positive terms in another order differ by about sqrt(k)·eps32.
 MAIN_SHAPE_RTOL = 1e-4
-ASYMMETRIC_SHAPES = [(120, 60000), (1200, 60000)]
+# The asymmetric phase times bench/sweep.py's ASYMMETRIC_SIZES in fp32 and
+# bf16, and these in fp64; the square-sweep phase its SQUARE_SIZES in fp32.
+ASYMMETRIC_FP64 = [(120, 60000), (1200, 60000)]
 # Peak fp32 rate outside the tensor cores (H100 SXM data sheet): the
 # GEMV's 2·m·k flops run there, as do the GEMM's for fp32 (FFMA).
 FP32_PEAK_FLOPS = 67e12
@@ -187,10 +207,12 @@ QUANT_HEAD = 4
 
 # Served solvers. The fused step against its plain version, (m_loc, k_loc,
 # n, off): rowwise shards (off = 0, all of p) and a colwise segment at
-# off > 0; a payload's k rounds up to a multiple of 8 (whole scale blocks).
+# off > 0, and a short shard whose native GEMV takes the split route; a
+# payload's k rounds up to a multiple of 8 (whole scale blocks).
 # The full-width case is SOLVER_N below.
 SOLVER_CHECK_SHAPES = [(4, 8, 8, 0), (96, 96, 96, 0), (1000, 3001, 3001, 0),
-                       (4096, 4096, 4096, 0), (4096, 1024, 4096, 2048)]
+                       (4096, 4096, 4096, 0), (4096, 1024, 4096, 2048),
+                       (120, 20000, 24000, 3000)]
 SOLVER_CHECK_STORAGE = ("float32", "float64", "bfloat16", "int8", "int8c", "fp8")
 SOLVER_OPS_FUSED = ("cg", "chebyshev")
 SOLVER_N = 65536  # rowwise, p = 1, fp32, solver_operand built on the card
@@ -300,6 +322,7 @@ def main() -> int:
         run_serve_solver,
         solver_operand,
     )
+    from matvec_mpi_multiplier_torch.bench.sweep import ASYMMETRIC_SIZES, SQUARE_SIZES
     from matvec_mpi_multiplier_torch.bench.timing import (
         benchmark_gemm,
         benchmark_strategy,
@@ -327,7 +350,14 @@ def main() -> int:
         gemm_plain,
         launch_info,
     )
-    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda, gemv_plain
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import (
+        _launch,
+        _layout,
+        gemv_cuda,
+        gemv_plain,
+        gemv_plan,
+        sm_count,
+    )
     from matvec_mpi_multiplier_torch.ops.cuda_quant import (
         ROUTE_PARTS,
         payload_aligned,
@@ -466,6 +496,20 @@ def main() -> int:
           "warnings": [ln.strip() for ln in log.splitlines() if "warning" in ln]})
 
     # ---- 3. kernel against its plain version ----
+    # The GEMV's plan on this card, and its launches by route on each path
+    # (the check shapes here are no path of the kernels line's "launches").
+    sms = sm_count(dev)
+    gemv_routes = {}
+    gemv_cuda.route_launches.clear()
+
+    def other_plans(m, k, dtype):
+        """Every route and grid the plan did not pick: rows; split on 1
+        and 2 blocks an SM, and on a 7-SM grid (few warps, long runs)."""
+        if k == 0:
+            return [_layout("rows", m, k, dtype, sms)]
+        return [_layout("rows", m, k, dtype, sms), _layout("split", m, k, dtype, sms, 1),
+                _layout("split", m, k, dtype, sms, 2), _layout("split", m, k, dtype, 7, 2)]
+
     for m, k in CHECK_SHAPES:
         for name in ("bfloat16", "float16", "float32", "float64"):
             dtype = torch_dtype(name)
@@ -474,9 +518,17 @@ def main() -> int:
                 x = torch.tensor(FIXTURE_VECTOR, dtype=torch.float64).to(dev, dtype)
             else:
                 a, x = uniform((m, k), dtype), uniform((k,), dtype)
+            plan = gemv_plan(m, k, dtype, dtype, sms)
+            before = gemv_cuda.route_launches[plan.route]
             y1, y2 = gemv_cuda(a, x), gemv_cuda(a, x)
             ref = gemv_plain(a, x)
             torch.cuda.synchronize(dev)
+            check(gemv_cuda.route_launches[plan.route] == before + 2,
+                  f"gemv {m}x{k} {name}: not on the planned route {plan.route}")
+            # One association for every route and grid: bitwise equal.
+            for other in other_plans(m, k, dtype):
+                check(torch.equal(_launch(a, x, other), y1),
+                      f"gemv {m}x{k} {name}: {other} differs from {plan.route}")
             # fp64 sums agree to ~k·eps64. The fp32 accumulator of
             # bf16/fp16/fp32 input, summed in another order, differs by
             # about sqrt(k)·eps32: 1e-5 up to k = 4096, 1e-4 at k >= 32768.
@@ -489,14 +541,39 @@ def main() -> int:
                 check(torch.allclose(y1, expect, rtol=1e-12, atol=0),
                       f"fixture product {y1.tolist()} != {FIXTURE_PRODUCT}")
             emit({"phase": "kernel_vs_plain", "kernel": "gemv", "shape": [m, k],
-                  "dtype": name, "max_abs_err": (y1 - ref).abs().max().item(),
-                  "max_rel_err": rel, "rtol": rtol, "bitwise_repeatable": True})
+                  "dtype": name, "route": plan.route, "grid": plan.grid,
+                  "max_abs_err": (y1 - ref).abs().max().item(),
+                  "max_rel_err": rel, "rtol": rtol, "bitwise_repeatable": True,
+                  "bitwise_equal_plans": [[q.route, q.grid]
+                                          for q in other_plans(m, k, dtype)]})
             del a, x, y1, y2, ref
+    gemv_routes["kernel_vs_plain"] = dict(gemv_cuda.route_launches)
+    check(set(gemv_routes["kernel_vs_plain"]) == {"rows", "split"},
+          f"gemv check shapes took {gemv_routes['kernel_vs_plain']}, not both routes")
+    # A row slice gives the full call's rows bitwise, though the full A
+    # takes rows and the slice split.
+    m, k = GEMV_SLICE_SHAPE
+    for name in ("bfloat16", "float16", "float32", "float64"):
+        dtype = torch_dtype(name)
+        a, x = uniform((m, k), dtype), uniform((k,), dtype)
+        full = gemv_cuda(a, x)
+        routes = {"full": gemv_plan(m, k, dtype, dtype, sms).route}
+        for lo, hi in ((0, 120), (1000, 1123)):
+            routes[f"{lo}:{hi}"] = gemv_plan(hi - lo, k, dtype, dtype, sms).route
+            check(torch.equal(gemv_cuda(a[lo:hi], x), full[lo:hi]),
+                  f"gemv rows {lo}:{hi} of {m}x{k} {name} differ from the full call's")
+        check(routes == {"full": "rows", "0:120": "split", "1000:1123": "split"},
+              f"gemv row slices of {m}x{k} {name}: routes {routes}")
+        emit({"phase": "gemv_row_slice", "kernel": "gemv", "shape": [m, k], "dtype": name,
+              "routes": routes, "bitwise_equal": True})
+        del a, x, full
+    torch.cuda.empty_cache()
 
     # ---- 4. main path through the entry points ----
     n1 = max(1, N_REPS // 10)
     calls_per_config = 1 + CHAIN_SAMPLES * (2 * n1 + N_REPS) + 1  # + the check
     gemv_cuda.launches = 0
+    gemv_cuda.route_launches.clear()
     expected = 0
     operands: dict = {}
     for strategy, n, name, shards in MAIN_CONFIGS:
@@ -540,6 +617,11 @@ def main() -> int:
     main_launches = gemv_cuda.launches
     check(main_launches == expected and main_launches > 0,
           f"main path launched the kernel {main_launches} times, expected {expected}")
+    # The main path's square shapes (65536², 32768², the 2x2 mesh's 16384²
+    # blocks) fill the card one warp per row.
+    gemv_routes["strategies"] = dict(gemv_cuda.route_launches)
+    check(gemv_routes["strategies"] == {"rows": main_launches},
+          f"main path GEMV routes {gemv_routes['strategies']}, expected rows only")
     operands.clear()
     torch.cuda.empty_cache()
 
@@ -560,8 +642,10 @@ def main() -> int:
         nbytes = (n * n + n) * a.element_size() + n * y.element_size()
         bytes_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
         ops_ms = 2 * n * n / FP32_PEAK_FLOPS * 1e3
+        plan = gemv_plan(n, n, dtype, dtype, sms)
         at[f"{n}x{n}"] = {
-            "dtype": name,
+            "dtype": name, "route": plan.route, "grid": plan.grid,
+            "bytes_in_flight": plan.bytes_in_flight,
             "ms": event_ms(lambda: gemv_cuda(a, x), reps=50),
             "plain_ms": event_ms(lambda: gemv_plain(a, x), reps=5, warmup=1),
             "library_ms": event_ms(lambda: torch.matmul(a, x[:, None]), reps=50),
@@ -574,16 +658,24 @@ def main() -> int:
         del a, x, y, ref
         torch.cuda.empty_cache()
 
-    # The reference's asymmetric regime: few rows, k = 60000. One warp per
-    # row leaves most of the card idle here; timed one launch at a time
-    # after overwriting 4x the L2, so A comes from HBM as in a cold call.
+    # The reference's sweeps, timed one launch at a time after overwriting
+    # 4x the L2, so A comes from HBM as in a cold call: bench/sweep.py's
+    # asymmetric cells (few rows, k = 60000; fp32 and bf16, and two in fp64)
+    # and its square cells (fp32). Each beside torch.matmul on the same
+    # operands and its byte bound; the plan's route for each. The flush
+    # writes, so the call also pays for writing back the L2's dirty lines;
+    # the *_read_flush fields time the same calls after a flush that reads
+    # (clean lines), which shows that share.
     flush = torch.empty(4 * H100_L2_BYTES // 4, dtype=torch.float32, device=dev)
 
-    def cold_ms(fn, reps: int = 20) -> float:
+    def cold_ms(fn, reps: int = 20, read_flush: bool = False) -> float:
         fn()
         pairs = []
         for _ in range(reps):
-            flush.zero_()
+            if read_flush:
+                flush.sum()
+            else:
+                flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -593,18 +685,93 @@ def main() -> int:
         torch.cuda.synchronize(dev)
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
-    for m, k in ASYMMETRIC_SHAPES:
-        for name in ("bfloat16", "float32"):
-            dtype = torch_dtype(name)
-            a, x = uniform((m, k), dtype), uniform((k,), dtype)
-            ms = cold_ms(lambda: gemv_cuda(a, x))
-            nbytes = (m * k + k) * a.element_size() + m * 4
-            bound_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
-            emit({"phase": "asymmetric", "kernel": "gemv", "shape": [m, k],
-                  "dtype": name, "warps": m, "l2": "flushed", "ms": ms,
-                  "library_ms": cold_ms(lambda: torch.matmul(a, x[:, None])),
-                  "bound_ms": bound_ms, "share_of_bound": bound_ms / ms})
-    del flush, a, x
+    def cold_line(phase, m, k, name) -> dict:
+        dtype = torch_dtype(name)
+        a, x = uniform((m, k), dtype), uniform((k,), dtype)
+        plan = gemv_plan(m, k, dtype, dtype, sms)
+        before = gemv_cuda.route_launches[plan.route]
+        y, ref = gemv_cuda(a, x), gemv_plain(a, x)
+        torch.cuda.synchronize(dev)
+        check(gemv_cuda.route_launches[plan.route] == before + 1,
+              f"gemv {m}x{k} {name}: not on the planned route {plan.route}")
+        rtol = 1e-12 if dtype == torch.float64 else (1e-5 if k <= 4096 else 1e-4)
+        rel = ((y - ref).abs() / ref.abs()).max().item()
+        check(rel <= rtol, f"gemv {m}x{k} {name}: rel err {rel} > {rtol}")
+        ms = cold_ms(lambda: gemv_cuda(a, x))
+        library_ms = cold_ms(lambda: torch.matmul(a, x[:, None]))
+        nbytes = (m * k + k) * a.element_size() + m * y.element_size()
+        bound_ms = nbytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+        line = {"phase": phase, "kernel": "gemv", "shape": [m, k], "dtype": name,
+                "route": plan.route, "grid": plan.grid, "launches_per_call": plan.launches,
+                "slabs_per_warp": plan.slabs_per_warp,
+                "bytes_in_flight": plan.bytes_in_flight, "l2": "flushed", "ms": ms,
+                "library_ms": library_ms, "of_library": ms / library_ms,
+                "ms_read_flush": cold_ms(lambda: gemv_cuda(a, x), read_flush=True),
+                "library_ms_read_flush": cold_ms(lambda: torch.matmul(a, x[:, None]),
+                                                 read_flush=True),
+                "bound_ms": bound_ms, "bound_by": "bytes", "share_of_bound": bound_ms / ms,
+                "max_abs_err": (y - ref).abs().max().item(), "max_rel_err": rel,
+                "rtol": rtol}
+        emit(line)
+        return line
+
+    gemv_cuda.route_launches.clear()
+    asym_at = {}
+    for name in ("float32", "bfloat16", "float64"):
+        for m, k in ASYMMETRIC_FP64 if name == "float64" else ASYMMETRIC_SIZES:
+            asym_at[f"{m}x{k}_{name}"] = cold_line("asymmetric", m, k, name)
+            torch.cuda.empty_cache()
+    square_at = {}
+    for n in SQUARE_SIZES:
+        square_at[f"{n}x{n}_float32"] = cold_line("square_sweep", n, n, "float32")
+    gemv_routes["asymmetric_and_square_timing"] = dict(gemv_cuda.route_launches)
+    check(set(gemv_routes["asymmetric_and_square_timing"]) == {"rows", "split"},
+          "the sweeps' shapes did not take both GEMV routes: "
+          f"{gemv_routes['asymmetric_and_square_timing']}")
+    del flush
+    torch.cuda.empty_cache()
+
+    # bench/sweep.py's asymmetric cells end to end at p = 1: each strategy
+    # through benchmark_strategy (chain measure, fp32, the sweep's dtype),
+    # every call one GEMV on the route its shape plans.
+    mesh1 = make_mesh(1)
+    sweep_calls = 1 + CHAIN_SAMPLES * (2 * n1 + N_REPS) + 1  # + the check
+    gemv_cuda.launches = 0
+    gemv_cuda.route_launches.clear()
+    expect_routes = Counter()
+    for m, k in ASYMMETRIC_SIZES:
+        a, x = uniform((m, k), torch.float32), uniform((k,), torch.float32)
+        route = gemv_plan(m, k, torch.float32, torch.float32, sms).route
+        ref = gemv_plain(a, x)
+        for strategy in ("rowwise", "colwise", "blockwise"):
+            strat = get_strategy(strategy)
+            before = gemv_cuda.launches
+            res = benchmark_strategy(strat, mesh1, a, x, n_reps=N_REPS, mode="amortized",
+                                     measure="chain", kernel="cuda",
+                                     chain_samples=CHAIN_SAMPLES)
+            y = strat.build(mesh1, kernel="cuda")(*strat.place(a, x, mesh1))
+            torch.cuda.synchronize(dev)
+            launched = gemv_cuda.launches - before
+            expect_routes[route] += sweep_calls
+            check(launched == sweep_calls,
+                  f"sweep {strategy} {m}x{k}: {launched} launches, expected {sweep_calls}")
+            rel = ((y - ref).abs() / ref.abs()).max().item()
+            check(tuple(y.shape) == (m,) and rel <= 1e-4,
+                  f"sweep {strategy} {m}x{k}: rel err {rel} > 1e-4")
+            ms = res.mean_time_s * 1e3
+            bound_ms = res.gbps * res.mean_time_s / H100_HBM_PEAK_GBPS * 1e3
+            emit({"phase": "sweep_asymmetric", "strategy": strategy, "shape": [m, k],
+                  "dtype": "float32", "mesh": list(mesh1.grid), "kernel": "cuda",
+                  "mode": res.mode, "measure": res.measure, "n_reps": N_REPS,
+                  "route": route, "ms": ms, "gbps": res.gbps, "bound_ms": bound_ms,
+                  "share_of_bound": bound_ms / ms, "launches": launched,
+                  "max_rel_err": rel, "rtol": 1e-4})
+        del a, x, ref, y
+    sweep_launches = gemv_cuda.launches
+    gemv_routes["sweep_asymmetric"] = dict(gemv_cuda.route_launches)
+    check(gemv_routes["sweep_asymmetric"] == dict(expect_routes),
+          f"sweep GEMV routes {gemv_routes['sweep_asymmetric']}, expected "
+          f"{dict(expect_routes)}")
     torch.cuda.empty_cache()
 
     # ---- 6. gemm against its plain version ----
@@ -662,13 +829,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7, 8. serve: this slice's path, at full width and on a 2x2 mesh ----
-    launches_by_path = {"gemv": {"strategies": main_launches}, "gemm": {}}
+    launches_by_path = {"gemv": {"strategies": main_launches,
+                                 "sweep_asymmetric": sweep_launches}, "gemm": {}}
     with tempfile.TemporaryDirectory() as tmp:
         for label, strategy, n, name, shards, n_requests in SERVE_CONFIGS:
             dtype = torch_dtype(name)
             mesh = make_mesh(1) if shards == 1 else make_mesh(shards, devices=[dev] * shards)
             snapshot = Path(tmp) / f"{label}.json"
             gemv_cuda.launches = 0
+            gemv_cuda.route_launches.clear()
             reset_gemm()
             res = run_serve(strategy, mesh, n, n, dtype=name, kernel="cuda",
                             max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE,
@@ -677,6 +846,9 @@ def main() -> int:
             torch.cuda.synchronize(dev)
             launched = {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches}
             gemm_routes[f"serve_{label}"] = dict(gemm_cuda.route_launches)
+            gemv_routes[f"serve_{label}"] = dict(gemv_cuda.route_launches)
+            check(gemv_routes[f"serve_{label}"] == {"rows": launched["gemv"]},
+                  f"serve {label}: GEMV routes {gemv_routes[f'serve_{label}']}")
             route = "wgmma_tma" if dtype.itemsize == 2 else "ffma"
             check(set(gemm_routes[f"serve_{label}"]) == {route},
                   f"serve {label}: GEMM routes {gemm_routes[f'serve_{label}']}, "
@@ -1182,8 +1354,9 @@ def main() -> int:
     wrappers = {"gemv": gemv_cuda, "gemm": gemm_cuda, "quant_gemv": quant_gemv_cuda,
                 "solver_step": solver_step_cuda}
     solver_paths = {name: {} for name in wrappers}
-    # The routes the fused step's quantized GEMV took, by path.
+    # The routes the fused step's quantized and native GEMVs took, by path.
     step_quant_routes = {}
+    step_gemv_routes = {}
 
     def drive(label, fn):
         """One solver path, with every launch count set to 0 just before it
@@ -1192,6 +1365,8 @@ def main() -> int:
             wrapper.launches = 0
         quant_gemv_cuda.route_launches.clear()
         solver_step_cuda.quant_route_launches.clear()
+        gemv_cuda.route_launches.clear()
+        solver_step_cuda.gemv_route_launches.clear()
         out = fn()
         torch.cuda.synchronize(dev)
         counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
@@ -1203,6 +1378,12 @@ def main() -> int:
             quant_routes[label] = dict(quant_gemv_cuda.route_launches)
         if solver_step_cuda.quant_route_launches:
             step_quant_routes[label] = dict(solver_step_cuda.quant_route_launches)
+        if counts["gemv"]:
+            gemv_routes[label] = dict(gemv_cuda.route_launches)
+            check(sum(gemv_routes[label].values()) == counts["gemv"],
+                  f"{label}: GEMV routes {gemv_routes[label]} for {counts['gemv']} launches")
+        if solver_step_cuda.gemv_route_launches:
+            step_gemv_routes[label] = dict(solver_step_cuda.gemv_route_launches)
         return out, counts
 
     def timed_solve(engine, **kw):
@@ -1233,6 +1414,7 @@ def main() -> int:
     residual_bound = 1.1 * SOLVER_RTOL
 
     # ---- 16. solver_step against its plain version ----
+    solver_step_cuda.gemv_route_launches.clear()
     for m, k, n, off in SOLVER_CHECK_SHAPES:
         for storage in SOLVER_CHECK_STORAGE:
             quant = storage in QUANT_FORMATS
@@ -1251,6 +1433,9 @@ def main() -> int:
                       "shape": [m, k_s], "n": n_s, "off": off, "storage": storage,
                       "tol": tol, "errors": err, "bitwise_repeatable": True})
             del a, a_local
+    step_gemv_routes["solver_step_vs_plain"] = dict(solver_step_cuda.gemv_route_launches)
+    check(set(step_gemv_routes["solver_step_vs_plain"]) == {"rows", "split"},
+          f"the step's check shapes took GEMV routes {step_gemv_routes['solver_step_vs_plain']}")
     torch.cuda.empty_cache()
 
     # At full width: the check, then the times. unfused_ms is one iteration
@@ -2091,6 +2276,10 @@ def main() -> int:
         "replaces": "matvec_mpi_multiplier_tpu/ops/pallas_gemv.py:61",
         "launches": sum(launches_by_path["gemv"].values()),
         "launches_by_path": launches_by_path["gemv"],
+        # Routes: rows (one warp per row, m >= 4 warps an SM) and split (every
+        # row's slabs over the resident warps, then a second launch that
+        # sums them); launches (wrapper calls) by path and route.
+        "route_launches_by_path": gemv_routes,
         "max_abs_err": max(v["max_abs_err"] for v in at.values()),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2098,6 +2287,13 @@ def main() -> int:
         "library_call": "torch.matmul(a, x[:, None]) in a's dtype, allow_tf32=False",
         "hbm_probe_gbps": probe_gbps, "hbm_nominal_gbps": H100_HBM_PEAK_GBPS,
         "at": at,
+        # Cold-L2 single launches at the sweeps' shapes (see the lines).
+        "asymmetric": {key: {f: v[f] for f in ("route", "ms", "library_ms", "bound_ms",
+                                                "share_of_bound")}
+                       for key, v in asym_at.items()},
+        "square_sweep": {key: {f: v[f] for f in ("route", "ms", "library_ms", "bound_ms",
+                                                  "share_of_bound")}
+                         for key, v in square_at.items()},
     }, {
         "name": "gemm", "route": "cuda",
         "source": "matvec_mpi_multiplier_torch/csrc/gemm.cu",
@@ -2147,6 +2343,9 @@ def main() -> int:
         "launches": sum(solver_paths["solver_step"].values()),
         "kernel_launches_per_call": 2,
         "launches_by_path": solver_paths["solver_step"],
+        # A native shard's GEMV by the route gemv_plan picks (split: one
+        # kernel launch more); by path, and on the check shapes.
+        "gemv_route_launches_by_path": step_gemv_routes,
         "max_abs_err": step_at["cg"]["max_abs_err"],
         "ms": step_at["cg"]["ms"], "plain_ms": step_at["cg"]["plain_ms"],
         "bound_ms": step_at["cg"]["bound_ms"], "bound_by": step_at["cg"]["bound_by"],

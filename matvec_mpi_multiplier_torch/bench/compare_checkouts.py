@@ -1,6 +1,6 @@
 """Two checkouts of the port on one card: the GEMM and the serve cells.
 
-    python3 matvec_mpi_multiplier_torch/bench/compare_checkouts.py [--quant] ROOT [ROOT ...]
+    python3 matvec_mpi_multiplier_torch/bench/compare_checkouts.py [--quant|--gemv] ROOT [ROOT ...]
 
 Runs each ROOT (a checkout, or an unpacked ``git archive``) in a process of
 its own, in the order given (``parent change change parent`` is the fair
@@ -10,14 +10,20 @@ per call on a tiny product, and ``run_serve`` at ``chip_smoke.py``'s serve
 cells (req/s, p50/p99 dispatch ms, promotion speedup). With ``--quant`` it
 runs the quantized side instead: ``quant_gemv_cuda``'s time at 65536² fp32
 for each format and width 1, 4 and 32 (CUDA events, 10 launches), and
-``run_serve`` at ``chip_smoke.py``'s two quantized serve cells. Each ROOT
-builds its own kernels. Needs a CUDA card; numbers from two runs compare
+``run_serve`` at ``chip_smoke.py``'s two quantized serve cells. With
+``--gemv`` it times the GEMV: ``gemv_cuda`` at the sweep's asymmetric
+shapes (``bench/sweep.py``'s ``ASYMMETRIC_SIZES``, fp32 and bf16, one launch
+at a time after overwriting 4x the L2, median of 20, as ``chip_smoke.py``'s
+``asymmetric`` phase), at ``chip_smoke.py``'s ``KERNEL_SHAPES`` (CUDA
+events, 50 launches) and the fused cg step at 65536² fp32 (20 launches).
+Each ROOT builds its own kernels. Needs a CUDA card; numbers from two runs compare
 only when they come from one command on one card.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -42,11 +48,16 @@ QUANT_SERVE_CELLS = [
 ]
 QUANT_N = 65536
 QUANT_WIDTHS = (1, 4, 32)
+# chip_smoke.py's KERNEL_SHAPES and its fused step's width.
+GEMV_SQUARE = [(16384, "float32"), (32768, "bfloat16"), (65536, "bfloat16")]
+GEMV_STEP_N = 65536
+MODES = ("--quant", "--gemv")
 
 
-def measure(root: Path, quant: bool = False) -> dict:
+def measure(root: Path, mode: str | None = None) -> dict:
     """This process's measurements of the port under ``root``: the GEMM and
-    the serve cells, or with ``quant`` the quantized GEMV and serve cells."""
+    the serve cells, or with ``--quant`` the quantized GEMV and serve cells,
+    or with ``--gemv`` the GEMV and the fused step."""
     here = Path(__file__).resolve().parent  # not an import root
     sys.path[:] = [str(root)] + [p for p in sys.path if Path(p or ".").resolve() != here]
     import torch
@@ -72,8 +83,10 @@ def measure(root: Path, quant: bool = False) -> dict:
         torch.cuda.synchronize(dev)
         return start.elapsed_time(end) / reps
 
-    if quant:
+    if mode == "--quant":
         return measure_quant(root, dev, uniform, event_ms)
+    if mode == "--gemv":
+        return measure_gemv(root, dev, uniform, event_ms)
     out = {"root": str(root), "gemm_ms": {}, "serve": {}}
     held = {}
     for m, k, n, name in GEMM_SHAPES:
@@ -141,18 +154,66 @@ def measure_quant(root: Path, dev, uniform, event_ms) -> dict:
     return out
 
 
+def measure_gemv(root: Path, dev, uniform, event_ms) -> dict:
+    """``gemv_cuda`` at the asymmetric shapes (cold L2) and the square ones,
+    then the fused cg step at 65536² fp32, for the port under ``root``."""
+    import torch
+
+    from matvec_mpi_multiplier_torch.bench.sweep import ASYMMETRIC_SIZES
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_solver import solver_step_cuda
+    from matvec_mpi_multiplier_torch.utils.constants import H100_L2_BYTES
+
+    flush = torch.empty(4 * H100_L2_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def cold_ms(fn, reps=20):
+        fn()
+        pairs = []
+        for _ in range(reps):
+            flush.zero_()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize(dev)
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    out = {"root": str(root), "asymmetric_ms": {}, "square_ms": {}}
+    for m, k in ASYMMETRIC_SIZES:
+        for name in ("float32", "bfloat16"):
+            a, x = uniform((m, k), getattr(torch, name)), uniform((k,), getattr(torch, name))
+            out["asymmetric_ms"][f"{m}x{k}_{name}"] = cold_ms(lambda: gemv_cuda(a, x))
+    del flush
+    for n, name in GEMV_SQUARE:
+        torch.cuda.empty_cache()
+        a, x = uniform((n, n), getattr(torch, name)), uniform((n,), getattr(torch, name))
+        out["square_ms"][f"{n}x{n}_{name}"] = event_ms(lambda: gemv_cuda(a, x), reps=50)
+        del a, x
+    torch.cuda.empty_cache()
+    n = GEMV_STEP_N
+    a = uniform((n, n), torch.float32)
+    x = torch.zeros(n, device=dev)
+    r, p, ap = (uniform((n,), torch.float32) for _ in range(3))
+    s_in = torch.sum(r * r).reshape(1)
+    out["cg_step_ms"] = event_ms(lambda: solver_step_cuda("cg", a, 0, x, r, p, ap, s_in),
+                                 reps=20)
+    out["gemv_routes"] = dict(getattr(gemv_cuda, "route_launches", {}))
+    return out
+
+
 def main(argv: list[str]) -> int:
-    quant = bool(argv) and argv[0] == "--quant"
-    if quant:
+    mode = argv[0] if argv and argv[0] in MODES else None
+    if mode:
         argv = argv[1:]
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(measure(Path(argv[1]).resolve(), quant)), flush=True)
+        print(json.dumps(measure(Path(argv[1]).resolve(), mode)), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv:
-        flags = ["--quant"] if quant else []
+        flags = [mode] if mode else []
         proc = subprocess.run([sys.executable, __file__, *flags, "--one", root], check=False)
         if proc.returncode:
             return proc.returncode

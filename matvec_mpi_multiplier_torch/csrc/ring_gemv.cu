@@ -37,7 +37,7 @@
 // Rows past m/p (the last cluster of a ragged chunk) compute nothing but
 // still cross every barrier.
 //
-// Each tile row is gemv.cu's loop: one warp per row, 16-byte streaming loads
+// Each tile row is one warp's lane-strided loop: 16-byte streaming loads
 // of A where the row and x are 16-byte aligned (k/p * itemsize need not be a
 // multiple of 16: 1542-byte bf16 rows at p = 8, k = 6168) and a scalar path
 // otherwise, a fixed shuffle tree. No atomics, no split-K: the result is

@@ -17,9 +17,12 @@
 //    elements in order, and a fixed shuffle tree plus one shared-memory round
 //    reduces the block, so the two dependent reductions need no grid sync
 //    and are bitwise repeatable. It writes x2, r2, p2 and s_out.
-// 2. The row GEMV of the shard against p2[off : off + k_loc], one warp per
-//    row: csrc/gemv.cu's loop instantiated with x in the ACCUMULATOR type
-//    (matvec_gemv_acc_x), or csrc/quant_gemv.cu's vector face with x in the
+// 2. The row GEMV of the shard against p2[off : off + k_loc]: csrc/gemv.cu
+//    instantiated with x in the ACCUMULATOR type (matvec_gemv_acc_x), on
+//    the route the wrapper plans (ops/cuda_gemv.py::gemv_plan, passed in
+//    as int gplan[3] with its scratch: one warp per row, or for a short
+//    shard the row's slabs spread over every resident warp and summed by a
+//    second launch, one association either way), or csrc/quant_gemv.cu's vector face with x in the
 //    accumulator type for an int8 / int8c / fp8 payload (on the tensor cores
 //    for fp32: the pre-pass that splits p2's segment, then the GEMV). The
 //    fused step reads p in the accumulator type (the TPU kernel's
@@ -53,7 +56,7 @@
 // (or a shape the tensor cores cannot take) on fma, each element
 // dequantized as fl(s * q) (int8c: fl(fl(s1 q1) + fl(s2 q2))) and
 // multiplied into the sum.
-// No atomics and no split-K: the step is bitwise the same from run to run.
+// No atomics: the step is bitwise the same from run to run.
 //
 // Left for later: a persistent cooperative kernel with a grid sync (update
 // and GEMV in one launch), and graph capture of a chunk of iterations.
@@ -63,8 +66,9 @@
 #include <cstdint>
 
 // The row GEMVs of csrc/gemv.cu and csrc/quant_gemv.cu (one library).
-extern "C" int matvec_gemv_acc_x(int dtype, const void* a, const void* x, void* y,
-                                 int64_t m, int64_t k, void* stream);
+extern "C" int matvec_gemv_acc_x(int dtype, const int* plan, const void* a, const void* x,
+                                 void* y, void* scratch, int64_t m, int64_t k,
+                                 void* stream);
 extern "C" int matvec_quant_gemv(int route, int fmt, int dtype, const void* q,
                                  const void* scales, const void* q2,
                                  const void* scales2, const void* x, void* y, void* xs,
@@ -189,14 +193,15 @@ cudaError_t launch_update(int op, const void* x, const void* r, const void* p,
 // (native), or the payload q with its (m_loc, k_loc / block) fp32 scales (and
 // q2/scales2 for int8c, else NULL), with qroute, quant_gemv.cu's route code
 // for the accumulator's x, and xs, its scratch (NULL on fma); qroute and xs
-// are ignored for native A. The vectors are (n,); s_in is (1,) for cg and
+// are ignored for native A, and gplan and gscratch, the native GEMV's plan
+// (gemv.cu's int plan[3]) and scratch, for quantized storage. The vectors are (n,); s_in is (1,) for cg and
 // (4,) for chebyshev, s_out (1,) or (2,); partial is (m_loc,), the shard's
 // product with p2[off : off + k_loc]. Enqueues the update kernel and then the
 // GEMV on `stream`, checking each launch; returns 0 or the cudaError.
 extern "C" int matvec_solver_step(int op, int fmt, int dtype, const void* a,
                                   const void* scales, const void* q2,
                                   const void* scales2, int64_t block, int qroute,
-                                  void* xs,
+                                  void* xs, const int* gplan, void* gscratch,
                                   const void* x, const void* r, const void* p,
                                   const void* ap, const void* s_in, void* x2,
                                   void* r2, void* p2, void* s_out, void* partial,
@@ -214,7 +219,9 @@ extern "C" int matvec_solver_step(int op, int fmt, int dtype, const void* a,
            : launch_update<float>(op, x, r, p, ap, s_in, x2, r2, p2, s_out, n, s);
   if (up != cudaSuccess) return static_cast<int>(up);
   const void* seg = static_cast<const char*>(p2) + off * (wide ? 8 : 4);
-  if (fmt < 0) return matvec_gemv_acc_x(dtype, a, seg, partial, m_loc, k_loc, stream);
+  if (fmt < 0) {
+    return matvec_gemv_acc_x(dtype, gplan, a, seg, partial, gscratch, m_loc, k_loc, stream);
+  }
   // quant_gemv's x dtype code for the accumulator: fp32 (2) or fp64 (3).
   return matvec_quant_gemv(qroute, fmt, wide ? 3 : 2, a, scales, q2, scales2, seg, partial,
                            xs, m_loc, k_loc, 1, block, stream);

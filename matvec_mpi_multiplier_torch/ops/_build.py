@@ -119,8 +119,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path()))
     # Every pointer and the stream as c_void_p: an undeclared argument is
     # passed as a 32-bit int and the pointer is cut.
+    # dtype; int plan[3] (route, grid, warps); A, x, y, the split route's
+    # scratch (NULL on rows); m, k; the stream.
     lib.matvec_gemv.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), *[ctypes.c_void_p] * 4,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.matvec_gemv.restype = ctypes.c_int
@@ -148,12 +150,14 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.matvec_quant_gemv.restype = ctypes.c_int
     # op, fmt, dtype; A (or q), scales, q2, scales2 (NULL where absent),
-    # block, the quantized GEMV's route and scratch (NULL on fma or native);
-    # x, r, p, ap, s_in; x2, r2, p2, s_out, partial; n, m_loc, k_loc, off;
-    # the stream.
+    # block, the quantized GEMV's route and scratch (NULL on fma or native),
+    # the native GEMV's int plan[3] and scratch (NULL for quantized storage
+    # and on rows); x, r, p, ap, s_in; x2, r2, p2, s_out, partial; n, m_loc,
+    # k_loc, off; the stream.
     lib.matvec_solver_step.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         *[ctypes.c_void_p] * 4, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
         *[ctypes.c_void_p] * 10,
         *[ctypes.c_int64] * 4, ctypes.c_void_p,
     ]

@@ -23,9 +23,10 @@ a missing ``nvcc``, a failed build or a refused launch is an error, never a
 quiet switch to another tier. For CPU tensors, and only there, it computes
 :func:`solver_step_plain`. ``solver_step_cuda.launches`` counts step calls
 (each is two kernel launches, three on a quantized shard's tensor-core
-route); nothing else adds to it. ``solver_step_cuda.quant_route_launches``
+route or a native shard's split GEMV); nothing else adds to it. ``solver_step_cuda.quant_route_launches``
 counts the quantized shards' steps by the route their GEMV took
-(``ops/cuda_quant.py::quant_route``).
+(``ops/cuda_quant.py::quant_route``), ``solver_step_cuda.gemv_route_launches``
+the native shards' steps by theirs (``ops/cuda_gemv.py::gemv_plan``).
 """
 
 from __future__ import annotations
@@ -47,7 +48,14 @@ from ..solvers.common import (
 from ..solvers.ops import f32_scalar, placed_operand
 from ..utils.errors import ConfigError, ShardingError
 from . import _build
-from .cuda_gemv import _DTYPE_CODES, gemv_plain
+from .cuda_gemv import (
+    _DTYPE_CODES,
+    gemv_plain,
+    gemv_plan,
+    plan_codes,
+    plan_scratch,
+    sm_count,
+)
 from .cuda_quant import (
     _FORMAT_CODES,
     ROUTE_CODES,
@@ -236,7 +244,7 @@ def solver_step_cuda(op, a_local, off, x, r, p, ap, s_in):
     x2, r2, p2 = torch.empty_like(x), torch.empty_like(r), torch.empty_like(p)
     s_out = torch.empty(1 if op == "cg" else 2, dtype=x.dtype, device=x.device)
     partial = torch.empty(m_loc, dtype=x.dtype, device=x.device)
-    route, xs = None, None
+    route, xs, gplan, gscratch = None, None, None, None
     if isinstance(a_local, QuantizedMatrix):
         fmt, block = _FORMAT_CODES[a_local.fmt], a_local.block
         leaves = [None if leaf is None else leaf.data_ptr() for leaf in a_local.leaves]
@@ -247,11 +255,16 @@ def solver_step_cuda(op, a_local, off, x, r, p, ap, s_in):
     else:
         fmt, block = _NATIVE_FORMAT, 0
         leaves = [a_local.data_ptr(), None, None, None]
+        # The GEMV's x is p2's segment in the accumulator dtype.
+        gplan = gemv_plan(m_loc, k_loc, a_local.dtype, x.dtype, sm_count(x.device))
+        gscratch = plan_scratch(gplan, a_local.dtype, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.matvec_solver_step(
             _OP_CODES[op], fmt, _DTYPE_CODES[a_local.dtype], *leaves, block,
             ROUTE_CODES[route] if route else 0, None if xs is None else xs.data_ptr(),
+            None if gplan is None else plan_codes(gplan),
+            None if gscratch is None else gscratch.data_ptr(),
             x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(), s_in.data_ptr(),
             x2.data_ptr(), r2.data_ptr(), p2.data_ptr(), s_out.data_ptr(),
             partial.data_ptr(), x.shape[0], m_loc, k_loc, off, stream,
@@ -266,11 +279,14 @@ def solver_step_cuda(op, a_local, off, x, r, p, ap, s_in):
     solver_step_cuda.launches += 1
     if route:
         solver_step_cuda.quant_route_launches[route] += 1
+    else:
+        solver_step_cuda.gemv_route_launches[gplan.route] += 1
     return x2, r2, p2, s_out, partial
 
 
 solver_step_cuda.launches = 0  # type: ignore[attr-defined]
 solver_step_cuda.quant_route_launches = Counter()  # type: ignore[attr-defined]
+solver_step_cuda.gemv_route_launches = Counter()  # type: ignore[attr-defined]
 
 
 # ------------------------------------------------------------ the loop

@@ -73,6 +73,30 @@ def test_gemv_matches_jax(shape, dtype):
                                    rtol=1e-12)
 
 
+# The reference's asymmetric regime (the shapes the kernel's split route
+# takes on a card) and a bf16 row that is not 16-byte aligned (k odd). No
+# aligned Pallas tiling exists at k = 60000 or 60001, so the JAX function
+# takes its XLA path. Operands are drawn in fp32, to keep host memory small.
+LONG_ROW_CASES = [((120, 60000), "float32"), ((120, 60000), "bfloat16"),
+                  ((120, 60000), "float64"), ((1200, 60000), "float32"),
+                  ((1200, 60000), "bfloat16"), ((120, 60001), "bfloat16")]
+
+
+@pytest.mark.parametrize("shape, dtype", LONG_ROW_CASES)
+def test_gemv_matches_jax_long_rows(shape, dtype):
+    rng = np.random.default_rng(shape[1])
+    a = rng.random(shape, dtype=np.float32) * 10
+    x = rng.random(shape[1], dtype=np.float32) * 10
+    a_j, x_j = jnp.asarray(a, JAX_DTYPES[dtype]), jnp.asarray(x, JAX_DTYPES[dtype])
+    a_t, x_t = from_numpy(np.asarray(a_j), "cpu"), from_numpy(np.asarray(x_j), "cpu")
+    y_pallas = np.asarray(gemv_pallas(a_j, x_j))
+    np.testing.assert_allclose(y_pallas, np.asarray(gemv_xla(a_j, x_j)), **tolerance(dtype))
+    for fn in (gemv_plain, gemv_cuda):
+        y = fn(a_t, x_t)
+        assert y.dtype == acc_dtype(a_t.dtype)
+        np.testing.assert_allclose(y.numpy(), y_pallas, **tolerance(dtype))
+
+
 def test_gemv_plain_row_chunks_are_exact(monkeypatch):
     """Chunking the rows changes no row's sum: bitwise equal results."""
     _, _, a, x = operands((256, 1024), "bfloat16")
