@@ -13,11 +13,15 @@ kernels' launch counts set to 0 just before it and read just after:
   reference timing protocol (the GEMV, on its ``rows`` route), and
   ``bench/sweep.py``'s asymmetric cells (120..1200 x 60000 fp32, each
   strategy at p = 1 through ``benchmark_strategy``), whose short rows take
-  the GEMV's ``split`` route;
+  the GEMV's ``split`` route, each timed under both measures: ``loop`` (the
+  default, dependent reps as replays of captured CUDA graphs) and
+  ``chain``, with the loop's bump timed on its own and the cells whose A
+  fits the L2 marked ``l2_resident``;
 * the serving engine through ``bench.serve.run_serve``: a mixed-width
   request stream at 65536² bf16 on one card and at 32768² fp32 on a 2x2
   logical mesh, narrow blocks through the GEMV and promoted blocks through
-  the GEMM;
+  the GEMM, every key's program captured once as a CUDA graph and replayed
+  (launches = (dispatches + captures) x shards);
 * the GEMM through the sweep's entry point, ``benchmark_gemm``;
 * quantized storage (int8, int8c, fp8): the quantizer on the card against
   the CPU, ``benchmark_strategy(..., dtype_storage=...)`` at 65536² fp32
@@ -32,13 +36,16 @@ kernels' launch counts set to 0 just before it and read just after:
   step per iteration), gmres, power and lanczos on the ``torch`` tier,
   fused cg on colwise 32768² over 4 logical shards and from an int8c
   resident at 65536², and ``bench.serve.run_serve_solver`` (20 cg solves
-  at 65536² on both tiers);
+  at 65536² on both tiers); cg and chebyshev as a device loop of captured
+  chunks against the host-stepped loop at 65536² fp32, both tiers, equal
+  iterations and x bitwise;
 * colwise's combine schedules on 4 logical shards at 65536² bf16: the ring
   GEMV against its plain version (p = 1, 2, 4, 8, 16), ``benchmark_strategy``
   with every colwise combine (``pallas_ring`` through the ring GEMV, the
   others through the GEMV) and rowwise/blockwise's ``ring``/``overlap``
-  gathers, each held against ``psum`` and to no panel-sized allocation, and
-  ``run_serve`` with ``pallas_ring`` and ``overlap@4``;
+  gathers under both measures, each held against ``psum`` and to no
+  panel-sized allocation, and ``run_serve`` with ``pallas_ring`` and
+  ``overlap@4``;
 * sequence-parallel attention: the flash-attention partial against its
   plain version (JAX's test shapes, a fully masked block, a ragged q-tile,
   d = 256, a ragged KV tile, the ring's hop and Ulysses' local shape), each
@@ -51,9 +58,16 @@ kernels' launch counts set to 0 just before it and read just after:
   dense oracle, the multichip dryrun's checks) and at s = 4000, where the
   JAX package's predicate refuses every block and the kernel runs all the
   same; a gradient through the flash ring against the xla ring's, and
-  each tier's gradient cost at s = 16384; ``bench.attention.run_attention_study``
-  at s = 4096 and 16384. Every flash launch on bf16 inputs must take
-  ``wgmma_split``, every one on fp32 inputs ``ffma``.
+  each tier's gradient cost at s = 16384; both flash schedules at d_head =
+  16 and 64 (the wrapper pads d) against the fp64 oracle at 2e-5;
+  ``bench.attention.run_attention_study`` at s = 4096 and 16384 (looped
+  timing). Every flash launch on bf16 inputs at d_head 128 must take
+  ``wgmma_split``, every one on fp32 inputs ``ffma``;
+* CUDA graphs: every kernel route captured and replayed, each replay
+  bitwise equal to its eager launch (the GEMV's ``rows`` and ``split``; the
+  GEMM's four routes; the block-scaled GEMV's three; the fused step for cg
+  and chebyshev; the ring GEMV at p = 2, 4, 8; the flash partial on both
+  routes, at d = 16 and 64 too, against its plain version at 2e-5).
 
 It checks the answers and times each kernel beside its bound, its plain
 version and the library call. The GEMV is held to its plain version on both
@@ -114,6 +128,8 @@ GEMV_SLICE_SHAPE = (8192, 60000)
 # (strategy, n, dtype, logical shards on cuda:0)
 MAIN_CONFIGS = [
     ("blockwise", 65536, "bfloat16", 1),
+    ("rowwise", 65536, "bfloat16", 1),
+    ("colwise", 65536, "bfloat16", 1),
     ("rowwise", 32768, "bfloat16", 1),
     ("colwise", 32768, "bfloat16", 1),
     ("blockwise", 32768, "bfloat16", 1),
@@ -227,6 +243,16 @@ SOLVER_EIGEN_RTOL = 1e-4
 # residual of 1.26e-5 (PERF.md), the floor its rounding leaves at this width.
 CHEBYSHEV_RTOL = 1e-4
 CHEBYSHEV_MAXITER = 3000
+# The device loop against the host-stepped one for cg. On the solver
+# operand (condition number about 1.6) cg converges inside one chunk, and
+# at a tighter tolerance the fused tier's recurrence residual underflows to
+# 0 inside one chunk too. So cg runs on the operand with 0..LOOP_CMP_RAMP
+# added along its diagonal (still SPD, condition number about 30) at an
+# unreachable tolerance, to a cap that runs the first chunk eagerly,
+# replays the captured one and reaches the periodic refresh at 50.
+LOOP_CMP_RAMP = 6e5
+LOOP_CMP_RTOL = 1e-30
+LOOP_CMP_MAXITER = 60
 SOLVER_SERVE_SOLVES = 20
 
 # The ring GEMV and the combine schedules. (m, k) checked for p = 1, 2, 4, 8:
@@ -322,16 +348,22 @@ def main() -> int:
         run_serve_solver,
         solver_operand,
     )
+    from matvec_mpi_multiplier_torch.bench import timing as timing_mod
     from matvec_mpi_multiplier_torch.bench.sweep import ASYMMETRIC_SIZES, SQUARE_SIZES
     from matvec_mpi_multiplier_torch.bench.timing import (
         benchmark_gemm,
         benchmark_strategy,
     )
+    from matvec_mpi_multiplier_torch.ops.graphs import capture
+    from matvec_mpi_multiplier_torch.solvers import build_solver
+    from matvec_mpi_multiplier_torch.solvers.ops import _build_solver, placed_operand
+    from matvec_mpi_multiplier_torch.solvers.device_loop import DEFAULT_CHUNK
     from matvec_mpi_multiplier_torch.engine import MatvecEngine, bucket_for
     from matvec_mpi_multiplier_torch.models.gemm import build_gemm
     from matvec_mpi_multiplier_torch.parallel.mesh import (
         ShardedTensor,
         psum_scatter,
+        shard,
         unshard,
     )
     from matvec_mpi_multiplier_torch.ops import _build
@@ -457,6 +489,58 @@ def main() -> int:
         return {"requests": len(sequence), "all_finite": True, "rtol": rtol,
                 "max_rel_err_by_width": {str(w): rel[w] for w in sorted(rel)}}
 
+    # The reps measure="loop" runs: every run of k reps replays k, and the
+    # first capture of a loop runs one rep eagerly first. Each rep is one
+    # call of the strategy's program, so the kernels' counts follow.
+    loop_reps = Counter()
+    loop_run, loop_graph = timing_mod._DeviceLoop.run, timing_mod._DeviceLoop.graph
+
+    def counted_run(self, k):
+        loop_reps["reps"] += k
+        return loop_run(self, k)
+
+    def counted_graph(self, reps):
+        if not self.graphs:
+            loop_reps["reps"] += 1  # the warm rep before the first capture
+        return loop_graph(self, reps)
+
+    timing_mod._DeviceLoop.run = counted_run
+    timing_mod._DeviceLoop.graph = counted_graph
+    n1 = max(1, N_REPS // 10)
+    chain_calls = 1 + CHAIN_SAMPLES * (2 * n1 + N_REPS)  # the warm-up call, the chains
+
+    def both_measures(strat, mesh, a, x, **kw) -> tuple[dict, dict]:
+        """benchmark_strategy under chain and under loop on the same
+        operands, in one run: the results and the program calls each made."""
+        res, calls = {}, {}
+        for measure in ("chain", "loop"):
+            before = loop_reps["reps"]
+            res[measure] = benchmark_strategy(
+                strat, mesh, a, x, n_reps=N_REPS, mode="amortized", measure=measure,
+                kernel="cuda", chain_samples=CHAIN_SAMPLES, **kw)
+            calls[measure] = (chain_calls if measure == "chain"
+                              else loop_reps["reps"] - before)
+        return res, calls
+
+    def measure_fields(res, calls) -> dict:
+        """Both measures' ms, share of the bound and calls, and loop/chain."""
+        out = {}
+        for measure, r in res.items():
+            ms = r.mean_time_s * 1e3
+            bound_ms = r.gbps * r.mean_time_s / H100_HBM_PEAK_GBPS * 1e3
+            out[measure] = {"ms": ms, "share_of_bound": bound_ms / ms,
+                            "samples_ms": [t * 1e3 for t in r.times_s],
+                            "program_calls": calls[measure]}
+        out["bound_ms"] = bound_ms
+        out["loop_over_chain"] = out["loop"]["ms"] / out["chain"]["ms"]
+        return out
+
+    def engine_runs(snapshot) -> tuple[int, int]:
+        """An engine's (dispatches, captures) from its metrics snapshot: each
+        capture of a key's program runs it once eagerly first."""
+        counters = json.loads(snapshot.read_text())["counters"]
+        return counters["engine_dispatches_total"], counters["engine_compiles_total"]
+
     # ---- 1. env ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -570,8 +654,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. main path through the entry points ----
-    n1 = max(1, N_REPS // 10)
-    calls_per_config = 1 + CHAIN_SAMPLES * (2 * n1 + N_REPS) + 1  # + the check
+    calls_per_config = chain_calls + 1  # + the check
     gemv_cuda.launches = 0
     gemv_cuda.route_launches.clear()
     expected = 0
@@ -587,17 +670,16 @@ def main() -> int:
         mesh = make_mesh(1) if shards == 1 else make_mesh(shards, devices=[dev] * shards)
         strat = get_strategy(strategy)
         before = gemv_cuda.launches
-        res = benchmark_strategy(strat, mesh, a, x, n_reps=N_REPS,
-                                 mode="amortized", measure="chain",
-                                 kernel="cuda", chain_samples=CHAIN_SAMPLES)
+        res, calls = both_measures(strat, mesh, a, x)
         y = strat.build(mesh, kernel="cuda")(*strat.place(a, x, mesh))
         ref = gemv_plain(a, x).to(dtype)
         torch.cuda.synchronize(dev)
         launched = gemv_cuda.launches - before
-        expected += calls_per_config * shards
-        check(launched == calls_per_config * shards,
+        want = (calls["chain"] + calls["loop"] + 1) * shards
+        expected += want
+        check(launched == want,
               f"{strategy} {n}² {name} p={shards}: {launched} kernel launches, "
-              f"expected {calls_per_config * shards}")
+              f"expected {want}")
         # y and the plain product, both cast back to the storage dtype: one
         # bf16 ulp (2^-7) apart at most; fp32 sums in another order, 1e-4.
         rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
@@ -605,14 +687,14 @@ def main() -> int:
         check(y.shape == (n,) and bool(torch.isfinite(y).all()),
               f"{strategy}: y is not {n} finite values")
         check(rel <= rtol, f"{strategy} {n}² {name} p={shards}: rel err {rel} > {rtol}")
-        ms = res.mean_time_s * 1e3
-        bound_ms = res.gbps * res.mean_time_s / H100_HBM_PEAK_GBPS * 1e3
+        times = measure_fields(res, calls)
         emit({"phase": "main", "strategy": strategy, "shape": [n, n],
               "dtype": name, "mesh": list(mesh.grid), "shards_on_cuda0": shards,
-              "kernel": "cuda", "mode": res.mode, "measure": res.measure,
-              "n_reps": N_REPS, "ms": ms, "gbps": res.gbps,
-              "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
-              "launches": launched, "max_rel_err": rel, "rtol": rtol})
+              "kernel": "cuda", "mode": "amortized", "measure": "loop",
+              "n_reps": N_REPS, "ms": times["loop"]["ms"], "chain_ms": times["chain"]["ms"],
+              "bound_ms": times["bound_ms"],
+              "share_of_bound": times["loop"]["share_of_bound"],
+              "measures": times, "launches": launched, "max_rel_err": rel, "rtol": rtol})
         del y, ref
     main_launches = gemv_cuda.launches
     check(main_launches == expected and main_launches > 0,
@@ -732,10 +814,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # bench/sweep.py's asymmetric cells end to end at p = 1: each strategy
-    # through benchmark_strategy (chain measure, fp32, the sweep's dtype),
-    # every call one GEMV on the route its shape plans.
+    # through benchmark_strategy (fp32, the sweep's dtype) under both
+    # measures, every call one GEMV on the route its shape plans. An A that
+    # fits the L2 (l2_resident) stays there from one looped rep to the next:
+    # its loop time may read above the HBM byte bound.
     mesh1 = make_mesh(1)
-    sweep_calls = 1 + CHAIN_SAMPLES * (2 * n1 + N_REPS) + 1  # + the check
     gemv_cuda.launches = 0
     gemv_cuda.route_launches.clear()
     expect_routes = Counter()
@@ -746,32 +829,60 @@ def main() -> int:
         for strategy in ("rowwise", "colwise", "blockwise"):
             strat = get_strategy(strategy)
             before = gemv_cuda.launches
-            res = benchmark_strategy(strat, mesh1, a, x, n_reps=N_REPS, mode="amortized",
-                                     measure="chain", kernel="cuda",
-                                     chain_samples=CHAIN_SAMPLES)
+            res, calls = both_measures(strat, mesh1, a, x)
             y = strat.build(mesh1, kernel="cuda")(*strat.place(a, x, mesh1))
             torch.cuda.synchronize(dev)
             launched = gemv_cuda.launches - before
-            expect_routes[route] += sweep_calls
-            check(launched == sweep_calls,
-                  f"sweep {strategy} {m}x{k}: {launched} launches, expected {sweep_calls}")
+            want = calls["chain"] + calls["loop"] + 1  # + the check
+            expect_routes[route] += want
+            check(launched == want,
+                  f"sweep {strategy} {m}x{k}: {launched} launches, expected {want}")
             rel = ((y - ref).abs() / ref.abs()).max().item()
             check(tuple(y.shape) == (m,) and rel <= 1e-4,
                   f"sweep {strategy} {m}x{k}: rel err {rel} > 1e-4")
-            ms = res.mean_time_s * 1e3
-            bound_ms = res.gbps * res.mean_time_s / H100_HBM_PEAK_GBPS * 1e3
+            times = measure_fields(res, calls)
             emit({"phase": "sweep_asymmetric", "strategy": strategy, "shape": [m, k],
                   "dtype": "float32", "mesh": list(mesh1.grid), "kernel": "cuda",
-                  "mode": res.mode, "measure": res.measure, "n_reps": N_REPS,
-                  "route": route, "ms": ms, "gbps": res.gbps, "bound_ms": bound_ms,
-                  "share_of_bound": bound_ms / ms, "launches": launched,
-                  "max_rel_err": rel, "rtol": 1e-4})
+                  "mode": "amortized", "measure": "loop", "n_reps": N_REPS,
+                  "route": route, "ms": times["loop"]["ms"],
+                  "chain_ms": times["chain"]["ms"], "bound_ms": times["bound_ms"],
+                  "share_of_bound": times["loop"]["share_of_bound"],
+                  "l2_resident": m * k * 4 <= H100_L2_BYTES,
+                  "loop_below_chain": times["loop"]["ms"] < times["chain"]["ms"],
+                  "measures": times, "launches": launched, "max_rel_err": rel,
+                  "rtol": 1e-4})
         del a, x, ref, y
     sweep_launches = gemv_cuda.launches
     gemv_routes["sweep_asymmetric"] = dict(gemv_cuda.route_launches)
     check(gemv_routes["sweep_asymmetric"] == dict(expect_routes),
           f"sweep GEMV routes {gemv_routes['sweep_asymmetric']}, expected "
           f"{dict(expect_routes)}")
+    # The loop's bump on its own (bench/timing.py::_rep with a program that
+    # returns a fixed out): Σ out² and the carry's update, a graph of 64
+    # bumps replayed, per bump. The out forms the loop meets: the first
+    # asymmetric cell's fp32 y (a dot and an addcmul_), the 65536² bf16 y
+    # (a cast first) and a 4-shard bf16 y (rowwise without its gather: the
+    # shards gathered first, then the cast).
+    m, k = ASYMMETRIC_SIZES[0]
+    n_sq = 65536
+    mesh_b = make_mesh(4, devices=[dev] * 4)
+    eps = torch.zeros((), dtype=torch.float32, device=dev)
+    bump_cases = (
+        ("fp32", [m, k], uniform((m,), torch.float32), uniform((k,), torch.float32)),
+        ("bf16", [n_sq, n_sq], uniform((n_sq,), torch.bfloat16),
+         uniform((n_sq,), torch.bfloat16)),
+        ("bf16_4_shards", [n_sq, n_sq],
+         shard(uniform((n_sq,), torch.bfloat16),
+               get_strategy("rowwise").specs(mesh_b)[2], mesh_b),
+         uniform((n_sq,), torch.bfloat16)),
+    )
+    for out_form, shape, y, carry in bump_cases:
+        bumps, _ = capture(lambda: [timing_mod._rep(lambda _a, _x: y, None, carry,
+                                                    [carry], eps)
+                                    for _ in range(64)], dev)
+        emit({"phase": "loop_bump", "shape": shape, "out": out_form,
+              "ms_per_bump": event_ms(bumps.replay, reps=50) / 64})
+    del y, carry, bumps, bump_cases
     torch.cuda.empty_cache()
 
     # ---- 6. gemm against its plain version ----
@@ -853,13 +964,14 @@ def main() -> int:
             check(set(gemm_routes[f"serve_{label}"]) == {route},
                   f"serve {label}: GEMM routes {gemm_routes[f'serve_{label}']}, "
                   f"expected {route} only")
-            dispatches = json.loads(snapshot.read_text())["counters"][
-                "engine_dispatches_total"]
-            # Each engine dispatch runs its kernel once per shard.
+            dispatches, captures = engine_runs(snapshot)
+            # Each dispatch (a replay) and each capture's eager run calls
+            # the kernel once per shard.
             check(launched["gemv"] > 0 and launched["gemm"] > 0
-                  and launched["gemv"] + launched["gemm"] == dispatches * shards,
+                  and launched["gemv"] + launched["gemm"]
+                  == (dispatches + captures) * shards,
                   f"serve {label}: launches {launched}, {dispatches} dispatches "
-                  f"x {shards} shards")
+                  f"and {captures} captures x {shards} shards")
             check(res.compiles_steady == 0,
                   f"serve {label}: {res.compiles_steady} steady-phase builds")
             for kernel_name, count in launched.items():
@@ -880,6 +992,7 @@ def main() -> int:
                   "hits_steady": res.hits_steady, "promo_b": res.promo_b,
                   "promo_gemm_s": res.promo_gemm_s, "promo_seq_s": res.promo_seq_s,
                   "promo_speedup": res.promo_speedup, "dispatches": dispatches,
+                  "dispatch": "graph", "captures": captures,
                   "launches": launched, "replay_check": checked})
             torch.cuda.empty_cache()
 
@@ -1225,11 +1338,11 @@ def main() -> int:
             torch.cuda.synchronize(dev)
             launched = {"quant_gemv": quant_gemv_cuda.launches, "gemv": gemv_cuda.launches,
                         "gemm": gemm_cuda.launches}
-            dispatches = json.loads(snapshot.read_text())["counters"][
-                "engine_dispatches_total"]
-            check(launched["quant_gemv"] == dispatches * shards
+            dispatches, captures = engine_runs(snapshot)
+            check(launched["quant_gemv"] == (dispatches + captures) * shards
                   and launched["gemv"] == launched["gemm"] == 0,
-                  f"serve {label}: launches {launched}, {dispatches} dispatches x {shards}")
+                  f"serve {label}: launches {launched}, {dispatches} dispatches and "
+                  f"{captures} captures x {shards}")
             check(res.compiles_steady == 0 and res.dtype_storage == fmt,
                   f"serve {label}: {res.compiles_steady} steady builds, storage "
                   f"{res.dtype_storage}")
@@ -1386,9 +1499,16 @@ def main() -> int:
             step_gemv_routes[label] = dict(solver_step_cuda.gemv_route_launches)
         return out, counts
 
+    def steps_match(steps: int, iters: int, shards: int, solves: int = 1) -> bool:
+        """The fused step's calls on a device-loop path: one per iteration
+        and shard, plus at most DEFAULT_CHUNK - 1 predicated-off ones a
+        shard per solve (the masked tail of the last captured chunk)."""
+        return (steps % shards == 0
+                and iters * shards <= steps <= (iters + (DEFAULT_CHUNK - 1) * solves) * shards)
+
     def timed_solve(engine, **kw):
-        """submit(op=...).result() on the host clock: the host-stepped loop,
-        its verification matvecs and the copy of x."""
+        """submit(op=...).result() on the host clock: the loop, its
+        verification matvecs and the copy of x."""
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         res = engine.submit(**kw).result()
@@ -1401,6 +1521,46 @@ def main() -> int:
         r = torch.cat([bd[i:i + rows] - a[i:i + rows].double() @ xd
                        for i in range(0, a.shape[0], rows)])
         return (r.norm() / bd.norm()).item()
+
+    def ramp_diagonal(a) -> torch.Tensor:
+        """Add 0..LOOP_CMP_RAMP along A's diagonal in place; return the
+        diagonal as it was, for the caller to copy back."""
+        diagonal = a.diagonal().clone()
+        a.diagonal().add_(torch.linspace(0.0, LOOP_CMP_RAMP, a.shape[0], dtype=a.dtype,
+                                         device=a.device))
+        return diagonal
+
+    def compare_loops(label, op, kern, strategy, mesh, a, b_dev, rtol, maxiter, iv) -> dict:
+        """One configuration's device loop (what ``build_solver`` builds
+        there) against its host-stepped loop: equal iterations, more than
+        one chunk of them, and x, n_iters, residual_norm and converged
+        bitwise; the device loop solves twice (the second solve replays
+        only) and is timed on its second."""
+        check(build_solver(op, get_strategy(strategy), mesh, dtype=torch.float32,
+                           kernel=kern).loop == "device",
+              f"{label}: build_solver does not build the device loop")
+        a = placed_operand(get_strategy(strategy), mesh, a)  # one placement, one capture
+        got = {}
+        for loop in ("host", "device"):
+            fn = _build_solver(op, get_strategy(strategy), mesh, loop, dtype=torch.float32,
+                               kernel=kern)
+            for _ in range(2 if loop == "device" else 1):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                res = fn(a, b_dev, rtol, maxiter, *iv)
+                n_iters = int(res.n_iters)
+                torch.cuda.synchronize(dev)
+                got[loop] = (res, n_iters, (time.perf_counter() - t0) * 1e3)
+        (h, h_it, h_ms), (d, d_it, d_ms) = got["host"], got["device"]
+        same = all(torch.equal(getattr(h, f), getattr(d, f))
+                   for f in ("x", "n_iters", "residual_norm", "converged"))
+        check(h_it == d_it and h_it > DEFAULT_CHUNK and same,
+              f"{label}: the device loop ({d_it} iterations) differs from the "
+              f"host-stepped one ({h_it}), or did not capture")
+        return {"n_iters": h_it, "rtol": rtol, "maxiter": maxiter, "chunk": DEFAULT_CHUNK,
+                "converged": bool(d.converged), "result_bitwise_equal": True,
+                "host_ms": h_ms, "device_ms": d_ms,
+                "host_ms_per_iter": h_ms / h_it, "device_ms_per_iter": d_ms / d_it}
 
     def rel_diff(x, ref) -> float:
         return ((x - ref).abs().max() / ref.abs().max()).item()
@@ -1525,7 +1685,8 @@ def main() -> int:
             if tier == "cuda_fused":
                 # One step per iteration; the prologue and the verification
                 # are the unfused GEMV.
-                check(counts["solver_step"] == res.n_iters and counts["gemv"] == 2,
+                check(steps_match(counts["solver_step"], res.n_iters, 1)
+                      and counts["gemv"] == 2,
                       f"{label}: launches {counts}, {res.n_iters} iterations")
             else:
                 check(counts["solver_step"] == 0 and counts["gemv"] > res.n_iters,
@@ -1572,6 +1733,28 @@ def main() -> int:
           "lambda_1": eigen, "lambda_rel_diff": lam_diff, "host": host})
     del engines
 
+    # The device loop's captured chunks against the host-stepped loop on
+    # both tiers, same A and b: equal iterations and the result bitwise. cg
+    # on the ramped operand, capped (LOOP_CMP_RAMP); chebyshev on A itself
+    # to convergence (the first chunk eager, then about 70 replays).
+    b_dev = b.to(dev)
+    loop_cmp = {}
+    diagonal = ramp_diagonal(a)
+    for tier, kern in (("torch", "cuda"), ("cuda_fused", "cuda_fused")):
+        loop_cmp[f"cg_{tier}"] = compare_loops(
+            f"cg {tier}", "cg", kern, "rowwise", mesh1, a, b_dev, LOOP_CMP_RTOL,
+            LOOP_CMP_MAXITER, (0.0, 0.0))
+    a.diagonal().copy_(diagonal)
+    del diagonal
+    for tier, kern in (("torch", "cuda"), ("cuda_fused", "cuda_fused")):
+        loop_cmp[f"chebyshev_{tier}"] = compare_loops(
+            f"chebyshev {tier}", "chebyshev", kern, "rowwise", mesh1, a, b_dev,
+            CHEBYSHEV_RTOL, CHEBYSHEV_MAXITER, interval)
+    emit({"phase": "solver_loop", "shape": [n, n], "dtype": "float32",
+          "strategy": "rowwise", "mesh": list(mesh1.grid), "cg_diagonal_ramp": LOOP_CMP_RAMP,
+          "solves": loop_cmp})
+    del b_dev
+
     # ---- 18. fused cg from an int8c resident at 65536² fp32 ----
     q_engines = {tier: MatvecEngine(a, mesh1, strategy="rowwise", promote=None,
                                     solver_kernel=tier, dtype_storage="int8c")
@@ -1585,9 +1768,10 @@ def main() -> int:
             engine, op="cg", rhs=b, rtol=SOLVER_RTOL))
         check(res.converged and counts["gemv"] == 0, f"{label}: launches {counts}")
         if tier == "cuda_fused":
-            check(counts["solver_step"] == res.n_iters and counts["quant_gemv"] == 2,
+            check(steps_match(counts["solver_step"], res.n_iters, 1)
+                  and counts["quant_gemv"] == 2,
                   f"{label}: launches {counts}, {res.n_iters} iterations")
-            check(step_quant_routes.get(label) == {"wgmma_split": res.n_iters},
+            check(step_quant_routes.get(label) == {"wgmma_split": counts["solver_step"]},
                   f"{label}: the step's quantized GEMV took "
                   f"{step_quant_routes.get(label)}, planned wgmma_split")
         else:
@@ -1627,7 +1811,8 @@ def main() -> int:
         rel = rel_residual(a, b, res.x)
         check(res.converged and rel <= residual_bound, f"{label}: residual {rel}")
         if tier == "cuda_fused":
-            check(counts["solver_step"] == res.n_iters * 4 and counts["gemv"] == 2 * 4,
+            check(steps_match(counts["solver_step"], res.n_iters, 4)
+                  and counts["gemv"] == 2 * 4,
                   f"{label}: launches {counts}, {res.n_iters} iterations x 4 shards")
         col_x[tier] = res.x
         colwise[label] = {"n_iters": res.n_iters, "solve_ms": ms,
@@ -1639,7 +1824,18 @@ def main() -> int:
     emit({"phase": "solver_colwise", "shape": [n, n], "dtype": "float32",
           "strategy": "colwise", "mesh": list(mesh4.grid), "shards_on_cuda0": 4,
           "solves": colwise, "x_rel_diff_tiers": diff})
-    del a, b, col_x
+    # The captured chunks on 4 logical shards: colwise psum, both tiers, cg
+    # on the ramped operand, capped.
+    b_dev = b.to(dev)
+    ramp_diagonal(a)
+    loop_cmp = {f"cg_{tier}": compare_loops(
+        f"colwise4 cg {tier}", "cg", kern, "colwise", mesh4, a, b_dev, LOOP_CMP_RTOL,
+        LOOP_CMP_MAXITER, (0.0, 0.0)) for tier, kern in (("torch", "cuda"),
+                                                         ("cuda_fused", "cuda_fused"))}
+    emit({"phase": "solver_loop", "shape": [n, n], "dtype": "float32",
+          "strategy": "colwise", "mesh": list(mesh4.grid), "shards_on_cuda0": 4,
+          "cg_diagonal_ramp": LOOP_CMP_RAMP, "solves": loop_cmp})
+    del a, b, b_dev, col_x
     torch.cuda.empty_cache()
 
     # ---- 20. run_serve_solver: 20 cg solves at 65536² fp32, both tiers ----
@@ -1656,7 +1852,7 @@ def main() -> int:
                   f"{label}: {res.compiles_steady} steady builds, "
                   f"{res.divergences} divergences")
             if tier == "cuda_fused":
-                check(counts["solver_step"] == iters,
+                check(steps_match(counts["solver_step"], iters, 1, SOLVER_SERVE_SOLVES + 1),
                       f"{label}: {counts['solver_step']} steps for {iters} iterations")
             else:
                 check(counts["solver_step"] == 0 and counts["gemv"] > iters,
@@ -1759,9 +1955,7 @@ def main() -> int:
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        res = benchmark_strategy(strat, mesh, a, x, n_reps=N_REPS, mode="amortized",
-                                 measure="chain", kernel="cuda",
-                                 chain_samples=CHAIN_SAMPLES, combine=combine, stages=stages)
+        res, calls = both_measures(strat, mesh, a, x, combine=combine, stages=stages)
         torch.cuda.synchronize(dev)
         peak_extra = torch.cuda.max_memory_allocated(dev) - base
         y = strat.build(mesh, kernel="cuda", combine=combine, stages=stages)(
@@ -1769,8 +1963,9 @@ def main() -> int:
         torch.cuda.synchronize(dev)
         launched = {"gemv": gemv_cuda.launches, "ring_gemv": ring_gemv_cuda.launches}
         label = f"{strategy}_{combine}" + (f"@{s}" if s else "")
-        expect = {"gemv": calls_per_config * per_call,
-                  "ring_gemv": calls_per_config if combine == "pallas_ring" else 0}
+        program_calls = calls["chain"] + calls["loop"] + 1  # + the check
+        expect = {"gemv": program_calls * per_call,
+                  "ring_gemv": program_calls if combine == "pallas_ring" else 0}
         check(launched == expect, f"{label}: launches {launched}, expected {expect}")
         if combine == "pallas_ring":
             ring_launches[f"ring_main_{label}"] = launched["ring_gemv"]
@@ -1790,12 +1985,13 @@ def main() -> int:
         rel = ((y.float() - ref_y.float()).abs() / ref_y.float().abs()).max().item()
         check(y.shape == (n,) and bool(torch.isfinite(y).all()) and rel <= 2 ** -7,
               f"{label}: rel err {rel} against psum > 2^-7")
-        ms = res.mean_time_s * 1e3
-        bound_ms = res.gbps * res.mean_time_s / H100_HBM_PEAK_GBPS * 1e3
+        times = measure_fields(res, calls)
         emit({"phase": "ring_main", "strategy": strategy, "combine": combine,
               "stages": s, "shape": [n, n], "dtype": "bfloat16", "mesh": list(mesh.grid),
-              "shards_on_cuda0": p, "measure": res.measure, "n_reps": N_REPS, "ms": ms,
-              "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+              "shards_on_cuda0": p, "measure": "loop", "n_reps": N_REPS,
+              "ms": times["loop"]["ms"], "chain_ms": times["chain"]["ms"],
+              "bound_ms": times["bound_ms"],
+              "share_of_bound": times["loop"]["share_of_bound"], "measures": times,
               "launches": launched, "launches_per_matvec": per_call or 1,
               "peak_bytes_beyond_a": peak_extra, "max_rel_err_vs_psum": rel,
               "rtol": 2 ** -7})
@@ -1823,21 +2019,22 @@ def main() -> int:
             gemm_routes[f"serve_ring_{label}"] = dict(gemm_cuda.route_launches)
             check(set(gemm_routes[f"serve_ring_{label}"]) == {"wgmma_tma"},
                   f"serve {label}: GEMM routes {gemm_routes[f'serve_ring_{label}']}")
-            dispatches = json.loads(snapshot.read_text())["counters"][
-                "engine_dispatches_total"]
+            dispatches, captures = engine_runs(snapshot)
+            runs = dispatches + captures  # each capture runs its program once first
             if combine == "pallas_ring":
                 # Vectors through the ring kernel, promoted blocks through
                 # the GEMM on each shard (the default batched psum).
                 ok = (launched["gemv"] == 0 and launched["ring_gemv"] > 0
                       and launched["gemm"] > 0 and launched["gemm"] % p == 0
-                      and launched["ring_gemv"] + launched["gemm"] // p == dispatches)
+                      and launched["ring_gemv"] + launched["gemm"] // p == runs)
                 ring_launches[f"serve_{label}"] = launched["ring_gemv"]
             else:
                 cells = p * p * stages  # per dispatch, vector or block
                 ok = (launched["ring_gemv"] == 0 and launched["gemv"] > 0
                       and launched["gemm"] > 0
-                      and launched["gemv"] + launched["gemm"] == dispatches * cells)
-            check(ok, f"serve {label}: launches {launched}, {dispatches} dispatches")
+                      and launched["gemv"] + launched["gemm"] == runs * cells)
+            check(ok, f"serve {label}: launches {launched}, {dispatches} dispatches, "
+                  f"{captures} captures")
             check(res.compiles_warmup == 5 and res.compiles_steady == 0,
                   f"serve {label}: builds {res.compiles_warmup} + {res.compiles_steady}")
             torch.cuda.empty_cache()
@@ -2153,6 +2350,41 @@ def main() -> int:
         del outs
         torch.cuda.empty_cache()
 
+    # Both flash schedules at head dims the kernel pads (16 and 64: zero
+    # columns to 128), fp32 inputs, against the fp64 dense oracle at 2e-5 as
+    # the JAX package's test holds its flash ring at d_head = 16.
+    s_small_d = 1024
+    for d_small in (16, 64):
+        qs, ks, vs = (torch.randn((s_small_d, 4, d_small), generator=gen, device=dev)
+                      for _ in range(3))
+        worst = {}
+        for schedule, build in builders.items():
+            reset_flash()
+            with torch.no_grad():
+                o = build(att_mesh, causal=True, gather_output=True, kernel="flash")(
+                    qs, ks, vs)
+            torch.cuda.synchronize(dev)
+            check(flash_partial_cuda.launches == att_launches[schedule],
+                  f"{schedule} flash d_head={d_small}: {flash_partial_cuda.launches} launches")
+            record_flash(f"{schedule}_d{d_small}", "ffma")
+            worst[schedule] = 0.0
+            for head in range(4):
+                q64, k64, v64 = (t[:, head].double() for t in (qs, ks, vs))
+                w = (q64 @ k64.T) / d_small ** 0.5
+                w.masked_fill_(torch.ones(s_small_d, s_small_d, dtype=torch.bool,
+                                          device=dev).triu_(1), -torch.inf)
+                w = torch.softmax(w, dim=1)
+                worst[schedule] = max(worst[schedule],
+                                      allclose_excess(o[:, head].double(), w @ v64, 2e-5))
+            check(worst[schedule] <= 2e-5, f"{schedule} flash d_head={d_small}: beyond "
+                  "2e-5 of the fp64 oracle")
+        emit({"phase": "attention_small_head", "d_head": d_small,
+              "shape": [s_small_d, 4, d_small], "dtype": "float32", "causal": True,
+              "kernel": "flash", "padded_head_dim": 128, "mesh": list(att_mesh.grid),
+              "oracle": "fp64 dense, head by head", "rtol": 2e-5, "atol": 2e-5,
+              "max_excess_by_schedule": worst})
+    del qs, ks, vs, o
+
     # The multichip dryrun's attention checks (__graft_entry__.py), on the
     # 2x2 mesh of cuda:0: causal single-head ring against a numpy oracle at
     # 1e-4, then the flash tier against the xla tier at d_head = 128.
@@ -2257,14 +2489,84 @@ def main() -> int:
         check(all(row[c] for c in ATTENTION_COLUMNS), f"study s={row['s']}: unmeasurable")
         emit({"phase": "attention_study", "s": row["s"], "heads": ATT_H, "d_head": ATT_D,
               "dtype": "bfloat16", "causal": False, "mesh": list(att_mesh.grid),
-              "measure": "chain", "n_reps": 4, "samples": 3,
+              "measure": "loop", "n_reps": 4, "samples": 3,
               **{f"{c}_ms": row[c]["ms"] for c in ATTENTION_COLUMNS},
               "refused": sorted(row["refused"])})
     print(attention_report(rows, att_mesh, heads=ATT_H, d_head=ATT_D, dtype="bfloat16",
                            causal=False, n_reps=4), flush=True)
     torch.cuda.empty_cache()
 
-    # ---- 28. the kernels line ----
+    # ---- 28. graphs: every kernel route captured and replayed ----
+    # Each route's call captured as a CUDA graph (one eager launch first),
+    # replayed, and held bitwise equal to the eager launch on the same
+    # inputs; the wrapper's count grows by one a replay, none for the
+    # capture. The small head dims also against the plain partial.
+    def flat(out):
+        return [t for item in (out if isinstance(out, (tuple, list)) else [out])
+                for t in (item if isinstance(item, (tuple, list)) else [item])]
+
+    graph_routes = []
+
+    def graph_check(kernel, route, call, wrapper):
+        eager = flat(call())
+        graph, outs = capture(call, dev)
+        routes = getattr(wrapper, "route_launches", None)
+        before = wrapper.launches, (routes[route] if routes is not None else 0)
+        graph.replay(2)
+        torch.cuda.synchronize(dev)
+        check(wrapper.launches == before[0] + 2,
+              f"graphs {kernel} {route}: {wrapper.launches - before[0]} launches for 2 replays")
+        check(routes is None or routes[route] == before[1] + 2,
+              f"graphs {kernel}: the replays were not on {route}")
+        same = all(torch.equal(g, e) for g, e in zip(flat(outs), eager))
+        check(same, f"graphs {kernel} {route}: a replay differs from the eager launch")
+        graph_routes.append({"kernel": kernel, "route": route, "bitwise_equal": same})
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for m, k, route in ((4096, 4096, "rows"), (120, 60000, "split")):
+        a_g, x_g = uniform((m, k), f32), uniform((k,), f32)
+        check(gemv_plan(m, k, f32, f32, sms).route == route, f"gemv {m}x{k}: not {route}")
+        graph_check("gemv", route, lambda: gemv_cuda(a_g, x_g), gemv_cuda)
+    for (m, k, n_), dtype, route in (((4096, 4096, 64), bf16, "wgmma_tma"),
+                                     ((1000, 3001, 16), bf16, "mma_sync"),
+                                     ((2048, 2048, 32), f32, "ffma"),
+                                     ((1024, 1024, 16), torch.float64, "dfma")):
+        a_g, b_g = uniform((m, k), dtype), uniform((k, n_), dtype)
+        check(gemm_plan(a_g, b_g).route == route, f"gemm {m}x{k}x{n_}: not {route}")
+        graph_check("gemm", route, lambda: gemm_cuda(a_g, b_g), gemm_cuda)
+    for xdt, route in ((bf16, "wgmma"), (f32, "wgmma_split"), (torch.float64, "fma")):
+        # The payload of an A in x's dtype, the dtype the kernel takes x in.
+        qa = quantize_matrix((uniform((4096, 4096), f32) - 5).to(xdt), "int8")
+        x_g = (uniform((4096,), f32) - 5).to(xdt)
+        check(quant_route("int8", xdt, 4096, 4096, 1, qa.block, payload_aligned(qa))
+              == route, f"quant_gemv {xdt}: not on {route}")
+        graph_check("quant_gemv", route, lambda: quant_gemv_cuda(qa, x_g), quant_gemv_cuda)
+    a_g = uniform((4096, 4096), f32)
+    for op in SOLVER_OPS_FUSED:
+        inputs = step_inputs(op, 4096, f32, kf=1.0)
+        graph_check("solver_step", op, lambda: solver_step_cuda(op, a_g, 0, *inputs),
+                    solver_step_cuda)
+    a_g, x_g = uniform((4096, 4096), bf16), uniform((4096,), bf16)
+    for p_ring in (2, 4, 8):
+        panels, segs = ring_operands(a_g, x_g, p_ring)
+        graph_check("ring_gemv", f"p{p_ring}", lambda: ring_gemv_cuda(panels, segs),
+                    ring_gemv_cuda)
+    del qa, a_g, x_g, panels, segs
+    flash_graph = {}
+    for kdt, d, route in ((bf16, 128, "wgmma_split"), (f32, 128, "ffma"),
+                          (bf16, 16, "wgmma_split"), (bf16, 64, "wgmma_split"),
+                          (f32, 64, "ffma")):
+        ops_g = flash_operands(2, 256, 512, d, kdt, 96, 0)
+        check(flash_route(kdt, d) == route, f"flash {kdt} d={d}: not {route}")
+        err, _, _ = flash_check(ops_g, True, f"graphs d={d} {kdt}")
+        graph_check("flash_attention", route, lambda: flash_partial_cuda(*ops_g, True),
+                    flash_partial_cuda)
+        flash_graph[f"{route}_d{d}_{str(kdt).split('.')[-1]}"] = err
+    emit({"phase": "graphs", "routes": graph_routes,
+          "flash_small_head_vs_plain": flash_graph})
+    torch.cuda.empty_cache()
+
+    # ---- 29. the kernels line ----
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
     gemm_head = gemm_at["{0}x{1}x{2}_{3}".format(*GEMM_TIME_SHAPES[GEMM_HEAD])]
     quant_head = quant_at["{0}x{0}_{1}_n{2}".format(*QUANT_TIME_SHAPES[QUANT_HEAD])]
@@ -2397,7 +2699,7 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 29. result ----
+    # ---- 30. result ----
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,9 +6,10 @@ four schedule × tier variants of ``parallel/attention.py`` over a
 sequence-length ladder. Every variant is held against the replicated dense
 result before it is timed; a variant that disagrees raises (a speed table
 for an operator that diverged would be worse than none). Timing is the
-port's CUDA-event chain slope (``bench/timing.py::time_fn_chained``; the
-host clock on a CPU mesh), the median of its samples: the port has no
-device-side rep loop yet.
+device-looped slope (``bench/timing.py::time_fn_looped``, as the JAX study
+times): dependent reps ``fn(q, kv)`` with k and v stacked as the carry,
+replays of CUDA graphs on one card (eager reps, host clock, on a CPU mesh),
+the median of its samples.
 
 Cells marked ``†`` have block shapes that the JAX package's predicate
 (:func:`flash_path_available`) refuses: its flash tier runs its plain
@@ -38,7 +39,7 @@ from ..parallel.mesh import Mesh, make_mesh
 from ..utils.convert import torch_dtype
 from ..utils.errors import TimingError
 from .sweep import platform_devices
-from .timing import time_fn_chained
+from .timing import time_fn_looped
 
 COLUMNS = ("dense_replicated", "ring", "ring_flash", "ulysses", "ulysses_flash")
 
@@ -101,7 +102,8 @@ def run_attention_study(
         flops = 4.0 * s * s * heads * d_head * (0.5 if causal else 1.0)
         with torch.no_grad():
             oracle = dense_attention(q, k, v, causal=causal)
-            timed = {"dense_replicated": lambda: dense_attention(q, k, v, causal=causal)}
+            timed = {"dense_replicated":
+                     lambda q_, kv_: dense_attention(q_, kv_[0], kv_[1], causal=causal)}
             for name, fn in schedules.items():
                 # assert_allclose(rtol=tol, atol=tol), shard by shard.
                 for g, o in zip(fn(q, k, v).shards, oracle.chunk(p)):
@@ -110,12 +112,13 @@ def run_attention_study(
                         raise RuntimeError(
                             f"attention study s={s}: {name} differs from the "
                             f"replicated dense result beyond rtol = atol = {tol}")
-                timed[name] = lambda fn=fn: fn(q, k, v)
+                timed[name] = lambda q_, kv_, fn=fn: fn(q_, kv_[0], kv_[1])
             del oracle
+            kv = torch.stack((k, v))  # the carry the looped reps thread
             for name, fn in timed.items():
                 try:
-                    t = float(np.median(time_fn_chained(
-                        lambda fn=fn: fn(), (), mesh, n_reps=n_reps, samples=samples)))
+                    t = float(np.median(time_fn_looped(
+                        fn, (q, kv), mesh, n_reps=n_reps, samples=samples)))
                     entry[name] = {"ms": t * 1e3, "gflops": flops / t / 1e9}
                 except TimingError:
                     entry[name] = None
@@ -135,11 +138,11 @@ def report(rows: list[dict], mesh: Mesh, *, heads: int, d_head: int, dtype: str,
         f"Device: **{name}**, {mesh.size} shards over "
         f"{len(mesh.distinct_devices())} device(s), mesh {list(mesh.grid)}; "
         f"multi-head attention h={heads}, d_head={d_head}, {dtype} storage / "
-        f"fp32 statistics, causal={causal}; chain-slope timing ({n_reps} reps, "
+        f"fp32 statistics, causal={causal}; device-looped timing ({n_reps} reps, "
         "median of the samples; `bench/attention.py`). Every timed cell "
         "matched the replicated dense result first. `†`: the JAX package's "
         "flash predicate refuses the block shape (the kernel ran all the "
-        "same). `unmeasurable`: the chain "
+        "same). `unmeasurable`: the looped "
         "slope carried no signal.",
         "",
         "| seq len | dense (replicated) ms | ring ms | ring_flash ms "

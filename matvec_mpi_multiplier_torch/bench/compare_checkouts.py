@@ -1,6 +1,6 @@
 """Two checkouts of the port on one card: the GEMM and the serve cells.
 
-    python3 matvec_mpi_multiplier_torch/bench/compare_checkouts.py [--quant|--gemv] ROOT [ROOT ...]
+    python3 matvec_mpi_multiplier_torch/bench/compare_checkouts.py [--quant|--gemv|--graphs] ROOT [ROOT ...]
 
 Runs each ROOT (a checkout, or an unpacked ``git archive``) in a process of
 its own, in the order given (``parent change change parent`` is the fair
@@ -16,6 +16,10 @@ shapes (``bench/sweep.py``'s ``ASYMMETRIC_SIZES``, fp32 and bf16, one launch
 at a time after overwriting 4x the L2, median of 20, as ``chip_smoke.py``'s
 ``asymmetric`` phase), at ``chip_smoke.py``'s ``KERNEL_SHAPES`` (CUDA
 events, 50 launches) and the fused cg step at 65536² fp32 (20 launches).
+With ``--graphs`` it runs what a checkout's dispatch and loop choices move:
+``run_serve`` at the serve cells, chebyshev at 65536² fp32 through the
+engine on both solver tiers (ms per iteration) and ``run_serve_solver``'s
+20 cg solves on both tiers (solves/s).
 Each ROOT builds its own kernels. Needs a CUDA card; numbers from two runs compare
 only when they come from one command on one card.
 """
@@ -51,7 +55,9 @@ QUANT_WIDTHS = (1, 4, 32)
 # chip_smoke.py's KERNEL_SHAPES and its fused step's width.
 GEMV_SQUARE = [(16384, "float32"), (32768, "bfloat16"), (65536, "bfloat16")]
 GEMV_STEP_N = 65536
-MODES = ("--quant", "--gemv")
+MODES = ("--quant", "--gemv", "--graphs")
+# chip_smoke.py's served solvers: chebyshev's rtol, cap and width.
+SOLVER_N, CHEBYSHEV_RTOL, CHEBYSHEV_MAXITER = 65536, 1e-4, 3000
 
 
 def measure(root: Path, mode: str | None = None) -> dict:
@@ -88,6 +94,10 @@ def measure(root: Path, mode: str | None = None) -> dict:
     if mode == "--gemv":
         return measure_gemv(root, dev, uniform, event_ms)
     out = {"root": str(root), "gemm_ms": {}, "serve": {}}
+    if mode == "--graphs":
+        out = {"root": str(root), "serve": serve_cells(dev, make_mesh, make_1d_mesh, run_serve)}
+        out.update(measure_solvers(dev, make_mesh))
+        return out
     held = {}
     for m, k, n, name in GEMM_SHAPES:
         dtype = getattr(torch, name)
@@ -106,6 +116,16 @@ def measure(root: Path, mode: str | None = None) -> dict:
         gemm_cuda(a, b)
     torch.cuda.synchronize(dev)
     out["host_us_per_call_128x64x8"] = (time.perf_counter() - t0) / 2000 * 1e6
+    out["serve"] = serve_cells(dev, make_mesh, make_1d_mesh, run_serve)
+    return out
+
+
+def serve_cells(dev, make_mesh, make_1d_mesh, run_serve) -> dict:
+    """``run_serve`` at :data:`SERVE_CELLS`: req/s, p50/p99 dispatch ms,
+    promotion speedup."""
+    import torch
+
+    out = {}
     for label, strategy, n, dtype, shards, kind, combine, stages, requests in SERVE_CELLS:
         devices = [dev] * shards
         mesh = (make_1d_mesh(shards, devices=devices) if kind == "1d"
@@ -114,9 +134,52 @@ def measure(root: Path, mode: str | None = None) -> dict:
                         stages=stages, max_bucket=32, promote=4, n_requests=requests, seed=0)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
-        out["serve"][label] = {"req_per_s": res.rps, "p50_dispatch_ms": res.p50_dispatch_ms,
-                               "p99_dispatch_ms": res.p99_dispatch_ms,
-                               "promo_speedup": res.promo_speedup}
+        out[label] = {"req_per_s": res.rps, "p50_dispatch_ms": res.p50_dispatch_ms,
+                      "p99_dispatch_ms": res.p99_dispatch_ms,
+                      "promo_speedup": res.promo_speedup}
+    return out
+
+
+def measure_solvers(dev, make_mesh) -> dict:
+    """Chebyshev at 65536² fp32 rowwise through the engine on both tiers
+    (host clock around submit and result, ms per iteration), then
+    ``run_serve_solver``'s 20 cg solves on both tiers."""
+    import numpy as np
+    import torch
+
+    from matvec_mpi_multiplier_torch.bench.serve import (
+        gershgorin_interval,
+        run_serve_solver,
+        solver_operand,
+    )
+    from matvec_mpi_multiplier_torch.engine import MatvecEngine
+
+    mesh = make_mesh(1)
+    a = solver_operand(SOLVER_N, "float32", 0, device=dev)
+    interval = gershgorin_interval(a)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(SOLVER_N)
+                         .astype(np.float32))
+    out = {"chebyshev": {}, "serve_solver_cg": {}}
+    for tier in ("torch", "cuda_fused"):
+        engine = MatvecEngine(a, mesh, strategy="rowwise", promote=None, solver_kernel=tier)
+        for _ in range(2):  # the first solve builds the loop
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = engine.submit(op="chebyshev", rhs=b, rtol=CHEBYSHEV_RTOL,
+                                maxiter=CHEBYSHEV_MAXITER, interval=interval).result()
+            ms = (time.perf_counter() - t0) * 1e3
+        out["chebyshev"][tier] = {"n_iters": res.n_iters, "solve_ms": ms,
+                                  "ms_per_iter": ms / res.n_iters}
+        del engine
+    del a
+    torch.cuda.empty_cache()
+    for tier in ("torch", "cuda_fused"):
+        res = run_serve_solver("rowwise", mesh, SOLVER_N, op="cg", solver_kernel=tier,
+                               rtol=1e-5, n_solves=20, seed=0)
+        out["serve_solver_cg"][tier] = {"solves_per_s": res.solves_per_s,
+                                        "solve_p50_ms": res.solve_p50_ms,
+                                        "time_per_iter_ms": res.time_per_iter_ms}
+        torch.cuda.empty_cache()
     return out
 
 

@@ -173,9 +173,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--measure", choices=list(MEASURE_METHODS), default="auto",
-        help="'chain': slope between event-timed call chains (amortized "
-        "default); 'sync': literal per-rep fence protocol (reference "
-        "default); 'loop' is not ported yet",
+        help="'loop': k dependent reps on the device, replays of CUDA graphs "
+        "captured once per config (eager reps on the CPU), timed as one run "
+        "(amortized default); 'chain': slope between event-timed call "
+        "chains; 'sync': literal per-rep fence protocol (reference default)",
     )
     p.add_argument(
         "--chain-samples", type=int, default=None,

@@ -168,6 +168,15 @@ __device__ __forceinline__ bool aligned16(const T* a, const X* x) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(x)) % 16) == 0;
 }
 
+// A launch's device predicate: NULL runs the kernel; otherwise the kernel
+// returns at once when the byte it points to is 0 (a torch.bool on the card,
+// written by earlier work on the stream). A graph-captured loop passes the
+// flag of an iteration that may be inactive, so a skipped iteration streams
+// no A. The flag is uniform across the grid, so whole blocks leave together.
+__device__ __forceinline__ bool off(const unsigned char* pred) {
+  return pred != nullptr && *pred == 0;
+}
+
 // Slab s of row `arow`: its partial.
 template <typename T, typename X, typename Acc>
 __device__ __forceinline__ Acc row_slab(const T* arow, const X* x, int64_t k, int64_t s,
@@ -182,7 +191,8 @@ __device__ __forceinline__ Acc row_slab(const T* arow, const X* x, int64_t k, in
 template <typename T, typename X, typename Acc>
 __global__ void __launch_bounds__(kWarp * kMaxWarps, kMinBlocks)
 gemv_rows(const T* __restrict__ a, const X* __restrict__ x, Acc* __restrict__ y,
-          int64_t m, int64_t k) {
+          int64_t m, int64_t k, const unsigned char* __restrict__ pred) {
+  if (off(pred)) return;
   constexpr int64_t kSlab = kSlabBytes / sizeof(T);
   const int lane = threadIdx.x % kWarp;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) +
@@ -206,9 +216,10 @@ gemv_rows(const T* __restrict__ a, const X* __restrict__ x, Acc* __restrict__ y,
 template <typename T, typename X, typename Acc>
 __global__ void __launch_bounds__(kWarp * kMaxWarps, kMinBlocks)
 gemv_slabs(const T* __restrict__ a, const X* __restrict__ x, Acc* __restrict__ part,
-           int64_t m, int64_t k) {
+           int64_t m, int64_t k, const unsigned char* __restrict__ pred) {
   constexpr int64_t kSlab = kSlabBytes / sizeof(T);
   asm volatile("griddepcontrol.launch_dependents;");
+  if (off(pred)) return;
   const int lane = threadIdx.x % kWarp;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
   const int64_t w =
@@ -227,8 +238,10 @@ gemv_slabs(const T* __restrict__ a, const X* __restrict__ x, Acc* __restrict__ p
 // once pass 1 has finished and its stores are visible (griddepcontrol.wait).
 template <typename Acc>
 __global__ void __launch_bounds__(kSumThreads)
-gemv_sum(const Acc* __restrict__ part, Acc* __restrict__ y, int64_t m, int64_t slabs) {
+gemv_sum(const Acc* __restrict__ part, Acc* __restrict__ y, int64_t m, int64_t slabs,
+         const unsigned char* __restrict__ pred) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (off(pred)) return;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (row >= m) return;
   const Acc* p = part + row * slabs;
@@ -255,17 +268,18 @@ cudaError_t check_plan(const Plan& p, int64_t m, int64_t k, const void* scratch)
 
 template <typename T, typename X, typename Acc>
 cudaError_t launch(const Plan& p, const void* a, const void* x, void* y, void* scratch,
-                   int64_t m, int64_t k, cudaStream_t stream) {
+                   int64_t m, int64_t k, cudaStream_t stream, const void* pred_ptr) {
+  const unsigned char* pred = static_cast<const unsigned char*>(pred_ptr);
   if (const cudaError_t bad = check_plan<T>(p, m, k, scratch)) return bad;
   const T* ca = static_cast<const T*>(a);
   const X* cx = static_cast<const X*>(x);
   Acc* cy = static_cast<Acc*>(y);
   if (p.route == kRows) {
-    gemv_rows<T, X, Acc><<<p.grid, kWarp * p.warps, 0, stream>>>(ca, cx, cy, m, k);
+    gemv_rows<T, X, Acc><<<p.grid, kWarp * p.warps, 0, stream>>>(ca, cx, cy, m, k, pred);
     return cudaGetLastError();
   }
   Acc* part = static_cast<Acc*>(scratch);
-  gemv_slabs<T, X, Acc><<<p.grid, kWarp * p.warps, 0, stream>>>(ca, cx, part, m, k);
+  gemv_slabs<T, X, Acc><<<p.grid, kWarp * p.warps, 0, stream>>>(ca, cx, part, m, k, pred);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -280,7 +294,7 @@ cudaError_t launch(const Plan& p, const void* a, const void* x, void* y, void* s
   cfg.numAttrs = 1;
   constexpr int64_t kSlab = kSlabBytes / sizeof(T);
   err = cudaLaunchKernelEx(&cfg, gemv_sum<Acc>, static_cast<const Acc*>(part), cy, m,
-                           ceil_div(k, kSlab));
+                           ceil_div(k, kSlab), pred);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -293,18 +307,21 @@ Plan read_plan(const int* codes) { return Plan{codes[0], codes[1], codes[2]}; }
 // plan: int[3], the route (0 rows, 1 split), grid and warps per block of
 // ops/cuda_gemv.py::gemv_plan. A is (m, k) row-major and contiguous, x is
 // (k,), y is (m,); scratch holds m * ceil(k / slab) accumulators on split
-// (NULL on rows). Launches on `stream` and returns cudaGetLastError() after
-// the launches, or the error for a plan the kernels do not take.
+// (NULL on rows). pred: NULL, or a device byte that skips the launches'
+// work when 0 (see off()). Launches on `stream` and returns
+// cudaGetLastError() after the launches, or the error for a plan the
+// kernels do not take.
 extern "C" int matvec_gemv(int dtype, const int* plan, const void* a, const void* x,
-                           void* y, void* scratch, int64_t m, int64_t k, void* stream) {
+                           void* y, void* scratch, int64_t m, int64_t k, void* stream,
+                           const void* pred) {
   if (plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = read_plan(plan);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16, float>(p, a, x, y, scratch, m, k, s));
-    case 1: return static_cast<int>(launch<__half, __half, float>(p, a, x, y, scratch, m, k, s));
-    case 2: return static_cast<int>(launch<float, float, float>(p, a, x, y, scratch, m, k, s));
-    case 3: return static_cast<int>(launch<double, double, double>(p, a, x, y, scratch, m, k, s));
+    case 0: return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16, float>(p, a, x, y, scratch, m, k, s, pred));
+    case 1: return static_cast<int>(launch<__half, __half, float>(p, a, x, y, scratch, m, k, s, pred));
+    case 2: return static_cast<int>(launch<float, float, float>(p, a, x, y, scratch, m, k, s, pred));
+    case 3: return static_cast<int>(launch<double, double, double>(p, a, x, y, scratch, m, k, s, pred));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -314,15 +331,15 @@ extern "C" int matvec_gemv(int dtype, const int* plan, const void* a, const void
 // A by its fp32 direction vector without casting it to A's dtype first.
 extern "C" int matvec_gemv_acc_x(int dtype, const int* plan, const void* a, const void* x,
                                  void* y, void* scratch, int64_t m, int64_t k,
-                                 void* stream) {
+                                 void* stream, const void* pred) {
   if (plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = read_plan(plan);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch<__nv_bfloat16, float, float>(p, a, x, y, scratch, m, k, s));
-    case 1: return static_cast<int>(launch<__half, float, float>(p, a, x, y, scratch, m, k, s));
-    case 2: return static_cast<int>(launch<float, float, float>(p, a, x, y, scratch, m, k, s));
-    case 3: return static_cast<int>(launch<double, double, double>(p, a, x, y, scratch, m, k, s));
+    case 0: return static_cast<int>(launch<__nv_bfloat16, float, float>(p, a, x, y, scratch, m, k, s, pred));
+    case 1: return static_cast<int>(launch<__half, float, float>(p, a, x, y, scratch, m, k, s, pred));
+    case 2: return static_cast<int>(launch<float, float, float>(p, a, x, y, scratch, m, k, s, pred));
+    case 3: return static_cast<int>(launch<double, double, double>(p, a, x, y, scratch, m, k, s, pred));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -58,8 +58,12 @@
 // multiplied into the sum.
 // No atomics: the step is bitwise the same from run to run.
 //
+// The graph-captured solver loop (ops/cuda_solver.py) replays chunks of
+// steps; a step of an iteration that is no longer active gets a device
+// predicate of 0 and returns at once.
+//
 // Left for later: a persistent cooperative kernel with a grid sync (update
-// and GEMV in one launch), and graph capture of a chunk of iterations.
+// and GEMV in one launch).
 
 #include <cuda_runtime.h>
 
@@ -68,7 +72,7 @@
 // The row GEMVs of csrc/gemv.cu and csrc/quant_gemv.cu (one library).
 extern "C" int matvec_gemv_acc_x(int dtype, const int* plan, const void* a, const void* x,
                                  void* y, void* scratch, int64_t m, int64_t k,
-                                 void* stream);
+                                 void* stream, const void* pred);
 extern "C" int matvec_quant_gemv(int route, int fmt, int dtype, const void* q,
                                  const void* scales, const void* q2,
                                  const void* scales2, const void* x, void* y, void* xs,
@@ -120,8 +124,12 @@ __global__ void __launch_bounds__(kThreads)
 update_kernel(const Acc* __restrict__ x, const Acc* __restrict__ r,
               const Acc* __restrict__ p, const Acc* __restrict__ ap,
               const Acc* __restrict__ s_in, Acc* __restrict__ x2, Acc* r2,
-              Acc* __restrict__ p2, Acc* __restrict__ s_out, int64_t n) {
+              Acc* __restrict__ p2, Acc* __restrict__ s_out, int64_t n,
+              const unsigned char* __restrict__ pred) {
   static_assert(kWarps == kWarp, "warp 0 reduces one value per warp");
+  // A device predicate of 0 skips the step (csrc/gemv.cu's off()); the
+  // block leaves whole, before any barrier.
+  if (pred != nullptr && *pred == 0) return;
   __shared__ Acc red[kWarps + 1];
   const int64_t t = threadIdx.x;
   Acc alpha;
@@ -169,17 +177,20 @@ update_kernel(const Acc* __restrict__ x, const Acc* __restrict__ r,
 template <typename Acc>
 cudaError_t launch_update(int op, const void* x, const void* r, const void* p,
                           const void* ap, const void* s_in, void* x2, void* r2,
-                          void* p2, void* s_out, int64_t n, cudaStream_t s) {
+                          void* p2, void* s_out, int64_t n, cudaStream_t s,
+                          const void* pred_ptr) {
+  const unsigned char* pred = static_cast<const unsigned char*>(pred_ptr);
   const Acc *cx = static_cast<const Acc*>(x), *cr = static_cast<const Acc*>(r),
             *cp = static_cast<const Acc*>(p), *cap = static_cast<const Acc*>(ap),
             *cs = static_cast<const Acc*>(s_in);
   Acc *ox = static_cast<Acc*>(x2), *orr = static_cast<Acc*>(r2),
       *op2 = static_cast<Acc*>(p2), *os = static_cast<Acc*>(s_out);
   if (op == kCg) {
-    update_kernel<kCg, Acc><<<1, kThreads, 0, s>>>(cx, cr, cp, cap, cs, ox, orr, op2, os, n);
+    update_kernel<kCg, Acc><<<1, kThreads, 0, s>>>(cx, cr, cp, cap, cs, ox, orr, op2, os, n,
+                                                   pred);
   } else {
     update_kernel<kChebyshev, Acc><<<1, kThreads, 0, s>>>(cx, cr, cp, cap, cs, ox, orr, op2,
-                                                          os, n);
+                                                          os, n, pred);
   }
   return cudaGetLastError();
 }
@@ -196,8 +207,11 @@ cudaError_t launch_update(int op, const void* x, const void* r, const void* p,
 // are ignored for native A, and gplan and gscratch, the native GEMV's plan
 // (gemv.cu's int plan[3]) and scratch, for quantized storage. The vectors are (n,); s_in is (1,) for cg and
 // (4,) for chebyshev, s_out (1,) or (2,); partial is (m_loc,), the shard's
-// product with p2[off : off + k_loc]. Enqueues the update kernel and then the
-// GEMV on `stream`, checking each launch; returns 0 or the cudaError.
+// product with p2[off : off + k_loc]. pred: NULL, or a device byte that
+// skips the update and a native shard's GEMV when 0 (a quantized shard's
+// GEMV still runs, on the skipped update's outputs). Enqueues the update
+// kernel and then the GEMV on `stream`, checking each launch; returns 0 or
+// the cudaError.
 extern "C" int matvec_solver_step(int op, int fmt, int dtype, const void* a,
                                   const void* scales, const void* q2,
                                   const void* scales2, int64_t block, int qroute,
@@ -206,7 +220,7 @@ extern "C" int matvec_solver_step(int op, int fmt, int dtype, const void* a,
                                   const void* ap, const void* s_in, void* x2,
                                   void* r2, void* p2, void* s_out, void* partial,
                                   int64_t n, int64_t m_loc, int64_t k_loc,
-                                  int64_t off, void* stream) {
+                                  int64_t off, void* stream, const void* pred) {
   if ((op != kCg && op != kChebyshev) || fmt < -1 || fmt > 2 || dtype < 0 ||
       dtype > 3 || n <= 0 || m_loc <= 0 || k_loc <= 0 || off < 0 ||
       off + k_loc > n) {
@@ -215,12 +229,13 @@ extern "C" int matvec_solver_step(int op, int fmt, int dtype, const void* a,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = dtype == 3;
   const cudaError_t up =
-      wide ? launch_update<double>(op, x, r, p, ap, s_in, x2, r2, p2, s_out, n, s)
-           : launch_update<float>(op, x, r, p, ap, s_in, x2, r2, p2, s_out, n, s);
+      wide ? launch_update<double>(op, x, r, p, ap, s_in, x2, r2, p2, s_out, n, s, pred)
+           : launch_update<float>(op, x, r, p, ap, s_in, x2, r2, p2, s_out, n, s, pred);
   if (up != cudaSuccess) return static_cast<int>(up);
   const void* seg = static_cast<const char*>(p2) + off * (wide ? 8 : 4);
   if (fmt < 0) {
-    return matvec_gemv_acc_x(dtype, gplan, a, seg, partial, gscratch, m_loc, k_loc, stream);
+    return matvec_gemv_acc_x(dtype, gplan, a, seg, partial, gscratch, m_loc, k_loc, stream,
+                             pred);
   }
   // quant_gemv's x dtype code for the accumulator: fp32 (2) or fp64 (3).
   return matvec_quant_gemv(qroute, fmt, wide ? 3 : 2, a, scales, q2, scales2, seg, partial,

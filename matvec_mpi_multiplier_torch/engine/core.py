@@ -28,17 +28,30 @@ the resident A, returned as a :class:`SolverFuture`. The iteration tier is
 the constructor's ``solver_kernel``: ``"torch"`` runs each iteration as the
 strategy's matvec plus PyTorch vector ops, ``"cuda_fused"`` as one fused
 step per shard (``ops/cuda_solver.py``, the hand-written
-``csrc/solver_step.cu``). The solver loop is host-stepped: it reads one
-predicate per iteration, so a solver ``submit`` returns only after the
-solve has been enqueued to its end and its last predicate read (the JAX
-engine returns at once); only the verification matvec after the loop may
-still be running, and ``result()`` then copies to the host.
+``csrc/solver_step.cu``). CG and Chebyshev run on the device in masked
+chunks of iterations, each chunk a captured CUDA graph on one card, the host
+reading the continuation flag once per chunk (``solvers/device_loop.py``);
+GMRES, power and Lanczos read it once per iteration. Either way a solver
+``submit`` returns only after the solve has been enqueued to its end and its
+last flag read (the JAX engine returns at once); only the verification
+matvec after the loop may still be running, and ``result()`` then copies to
+the host.
+
+**Dispatch.** On a mesh whose shards all lie on one CUDA device, each
+:class:`ExecKey`'s program is captured once as a CUDA graph (``warmup`` or
+the key's first dispatch; a capture counts as the key's compile) and every
+dispatch replays it: the request is copied into the key's static input,
+through pinned memory without blocking the host for a host request
+(device to device for a request already on the card), the graph replays,
+and the static output is copied into the future's own tensor, so no future
+aliases a buffer the next replay writes. On the CPU, and on a mesh over
+more than one CUDA device, every dispatch runs the key's program eagerly
+(``stats.dispatch`` says which).
 
 ``submit`` returns a :class:`MatvecFuture` once the request's work is
 enqueued; the host waits for the card only when the caller materializes the
-result. Two host-side costs stay inside ``submit``: the request's
-host→device copy (a pageable ``tensor.to(device)``, which blocks the host
-for the copy) and, with ``max_in_flight``, the backpressure gate: at the
+result. With ``max_in_flight`` the backpressure gate stays inside
+``submit``: at the
 high-water mark ``submit`` waits for the OLDEST outstanding dispatch
 (drain-oldest) instead of enqueueing unboundedly ahead of the card. A CUDA
 event recorded after each dispatch is its completion handle: ``query()``
@@ -57,12 +70,11 @@ rowwise and blockwise), resolved once at construction; the staged schedules'
 stage count S is pinned then too and baked into the executable keys
 (``overlap@S``).
 
-Left for later slices (ROADMAP.md, queue A 5): the tracer and timeline
-spans, the resilience ladder (and with it the native safe tier of quantized
-storage), fault injection and the integrity gate, residency/tenancy/reshard
-hooks, speculative submits, lowering fingerprints, CUDA-graph capture (and
-with it the graph-captured solver loop), and RHS buffer reuse; their
-arguments raise ``ConfigError``. The tuned ``"auto"`` values of
+Left for later slices (ROADMAP.md, queue A items 2, 4, 5, 6 and 9): the
+tracer and timeline spans, the resilience ladder (and with it the native
+safe tier of quantized storage), fault injection and the integrity gate,
+residency/tenancy/reshard hooks, speculative submits and lowering
+fingerprints; their arguments raise ``ConfigError``. The tuned ``"auto"`` values of
 ``promote``, ``combine``, ``stages``, ``dtype_storage`` and
 ``solver_kernel`` wait for the tuning cache: each takes the JAX package's
 cache-miss choice.
@@ -81,6 +93,7 @@ from ..models import get_strategy
 from ..models.base import MatvecStrategy, not_ported, shard_operand
 from ..obs.registry import MetricsRegistry
 from ..ops import gemm_kernel_name_for, get_gemm_kernel, get_kernel
+from ..ops.graphs import capture, single_cuda_device
 from ..ops.quantize import (
     NATIVE,
     get_storage_kernel,
@@ -151,6 +164,50 @@ class _Dispatch:
     def synchronize(self) -> None:
         for e in self.events:
             e.synchronize()
+
+
+class _EagerProgram:
+    """One key's program dispatched eagerly: the request is placed by the
+    strategy's spec (a host request: a blocking pageable copy) and the
+    program runs."""
+
+    def __init__(self, fn: Callable, a, spec, mesh: Mesh):
+        self.fn, self.a, self.spec, self.mesh = fn, a, spec, mesh
+
+    def __call__(self, rhs: torch.Tensor):
+        return self.fn(self.a, shard(rhs, self.spec, self.mesh))
+
+
+class _CapturedProgram:
+    """One key's program captured as a CUDA graph on the mesh's one CUDA
+    device, against a static input of the request's shape.
+
+    A dispatch copies the request into the static input (a host request
+    through pinned memory, ``non_blocking``: PyTorch's pinned-memory cache
+    keeps the staging block until its copy has run, so the host never waits
+    for the card here; a request already on the card device to device),
+    replays, and copies the static output into a fresh tensor the future
+    owns."""
+
+    def __init__(self, fn: Callable, a, spec, mesh: Mesh, shape: tuple,
+                 dtype: torch.dtype, device: torch.device):
+        self.device = device
+        self.static_in = torch.zeros(shape, dtype=dtype, device=device)
+        placed = shard(self.static_in, spec, mesh)  # views: one device
+        self.graph, self.static_out = capture(lambda: fn(a, placed), device)
+
+    def __call__(self, rhs: torch.Tensor):
+        with torch.cuda.device(self.device):
+            if rhs.device.type == "cpu":
+                self.static_in.copy_(rhs.pin_memory(), non_blocking=True)
+            else:
+                self.static_in.copy_(rhs)
+            self.graph.replay()
+            out = self.static_out
+            if isinstance(out, ShardedTensor):
+                return ShardedTensor(tuple(s.clone() for s in out.shards), out.shape,
+                                     out.spec, out.mesh)
+            return out.clone()
 
 
 class MatvecFuture:
@@ -315,7 +372,9 @@ class SolverFuture:
 
 class EngineStats(ExecStats):
     """Executable-cache counters plus dispatch-level ones (a point-in-time
-    view over the engine's metrics registry). ``in_flight`` is the
+    view over the engine's metrics registry). ``dispatch`` is ``"graph"``
+    (each key's program captured once and replayed) or ``"eager"`` (the CPU,
+    or a mesh over several CUDA devices). ``in_flight`` is the
     outstanding-dispatch count at snapshot time; ``drains`` counts blocking
     waits the backpressure high-water mark forced; ``deadline_failures``
     counts requests failed (never dispatched) because their ``deadline_ms``
@@ -324,9 +383,10 @@ class EngineStats(ExecStats):
     def __init__(
         self, compiles: int, hits: int, requests: int, dispatches: int,
         cols: int, in_flight: int = 0, drains: int = 0,
-        deadline_failures: int = 0,
+        deadline_failures: int = 0, dispatch: str = "eager",
     ):
         super().__init__(compiles=compiles, hits=hits)
+        self.dispatch = dispatch
         self.requests = requests
         self.dispatches = dispatches
         self.cols = cols
@@ -377,8 +437,12 @@ class MatvecEngine:
     promote : the GEMV→GEMM crossover ``b*``: an int, None (never promote),
         or ``"auto"`` — which has no tuning cache to read yet and takes the
         JAX package's cache-miss default, :data:`DEFAULT_PROMOTE_B`.
-    donate : accepted for parity with the JAX package; the port does not
-        reuse the RHS buffer yet (every request allocates its own).
+    donate : a request already on the mesh's first card is handed to the
+        engine, which reads its buffer where it lies (eager dispatch places
+        it by views, captured dispatch copies it into the key's static
+        input); the caller must not write it until the future is done.
+        ``donate=False`` copies such a request first. A host request is
+        copied either way.
     gather_output : as in ``MatvecStrategy.build`` (bools only).
     max_in_flight : backpressure high-water mark — the most outstanding
         dispatches ``submit`` tolerates before waiting on the OLDEST one.
@@ -486,6 +550,8 @@ class MatvecEngine:
         if max_in_flight is not None and max_in_flight < 1:
             raise ConfigError(f"max_in_flight must be >= 1, got {max_in_flight}")
         self.max_in_flight = max_in_flight
+        self.donate = donate
+        self._graph_device = single_cuda_device(mesh.devices)
         self._outstanding: deque = deque()
         self._cuda_devices = [d for d in mesh.distinct_devices() if d.type == "cuda"]
         spec_a, self._spec_x, _ = self.strategy.specs(mesh)
@@ -665,19 +731,27 @@ class MatvecEngine:
             dtype_name(self.dtype), self.storage,
         )
 
-    def _build_matvec(self) -> Callable:
-        return self.strategy.build(
+    def _program(self, fn: Callable, spec, shape: tuple):
+        """The dispatchable program of one key: captured on the mesh's one
+        CUDA device, else eager."""
+        if self._graph_device is None:
+            return _EagerProgram(fn, self._a, spec, self.mesh)
+        return _CapturedProgram(fn, self._a, spec, self.mesh, shape, self.dtype,
+                                self._graph_device)
+
+    def _build_matvec(self):
+        return self._program(self.strategy.build(
             self.mesh, kernel=self.kernel, gather_output=self.gather_output,
             combine=self._matvec_combine, stages=self.stages,
             dtype_storage=self.storage,
-        )
+        ), self._spec_x, (self.k,))
 
-    def _build_gemm(self) -> Callable:
-        return self.strategy.build_batched(
+    def _build_gemm(self, bucket: int):
+        return self._program(self.strategy.build_batched(
             self.mesh, kernel=self.kernel, gather_output=self.gather_output,
             combine=self._gemm_combine, stages=self.stages,
             dtype_storage=self.storage,
-        )
+        ), self._spec_b, (self.k, bucket))
 
     # ---- dispatch ----
 
@@ -704,16 +778,15 @@ class MatvecEngine:
             self._outstanding.append(dispatch)
         return dispatch
 
-    def _run(self, key: ExecKey, build, rhs: torch.Tensor, spec) -> tuple:
-        fn = self._cache.get(key, build)
+    def _run(self, key: ExecKey, build, rhs: torch.Tensor) -> tuple:
+        program = self._cache.get(key, build)
         self._c_dispatches.inc()
-        out = fn(self._a, shard(rhs, spec, self.mesh))
+        out = program(rhs)
         return out, self._track(_Dispatch(self._cuda_devices))
 
     def _dispatch_matvec(self, col: torch.Tensor) -> tuple:
         """One column -> one result part ``(output, None, dispatch)``."""
-        out, dispatch = self._run(self._matvec_key(), self._build_matvec,
-                                  col, self._spec_x)
+        out, dispatch = self._run(self._matvec_key(), self._build_matvec, col)
         return out, None, dispatch
 
     def _dispatch_block(self, chunk: torch.Tensor) -> tuple:
@@ -721,8 +794,8 @@ class MatvecEngine:
         width = chunk.shape[1]
         bucket = bucket_for(width, self.max_bucket)
         padded = pad_columns(chunk, bucket)
-        out, dispatch = self._run(self._gemm_key(bucket), self._build_gemm,
-                                  padded, self._spec_b)
+        out, dispatch = self._run(self._gemm_key(bucket),
+                                  lambda: self._build_gemm(bucket), padded)
         return out, width, dispatch
 
     def submit(
@@ -782,7 +855,10 @@ class MatvecEngine:
             raise not_ported("submit(rtol=...) (speculative serving)")
         if integrity is not None:
             raise not_ported("submit(integrity=...) (the integrity gate)")
-        x = _as_tensor(x).to(self.dtype)
+        x = _as_tensor(x)
+        if not self.donate and x.device.type != "cpu":
+            x = x.clone()  # the caller keeps its buffer
+        x = x.to(self.dtype)
         self._c_requests.inc()
         if op != "matvec":
             return self._submit_solver(
@@ -1024,8 +1100,9 @@ class MatvecEngine:
         program plus (when promotion is on) every GEMM bucket — by default
         the whole ladder, or exactly the buckets requests of ``widths``
         columns would dispatch to under :meth:`submit`'s routing (sub-``b*``
-        widths take the per-column path and build no GEMM bucket). Returns
-        the number of fresh builds."""
+        widths take the per-column path and build no GEMM bucket). On one
+        CUDA device each build captures its program's graph. Returns the
+        number of fresh builds."""
         before = self._cache.stats.compiles
         self._cache.get(self._matvec_key(), self._build_matvec)
         if self.b_star is not None:
@@ -1039,7 +1116,8 @@ class MatvecEngine:
                     for chunk in split_widths(w, self.max_bucket):
                         buckets.add(bucket_for(chunk, self.max_bucket))
             for bucket in sorted(buckets):
-                self._cache.get(self._gemm_key(bucket), self._build_gemm)
+                self._cache.get(self._gemm_key(bucket),
+                                lambda bucket=bucket: self._build_gemm(bucket))
         return self._cache.stats.compiles - before
 
     @property
@@ -1055,6 +1133,7 @@ class MatvecEngine:
             cols=self._c_cols.value,
             in_flight=in_flight, drains=self._c_drains.value,
             deadline_failures=self._c_deadline_failures.value,
+            dispatch="eager" if self._graph_device is None else "graph",
         )
 
     def close(self) -> None:

@@ -3,12 +3,12 @@
 The port's counterpart of the JAX package's ``engine/executables.py``.
 PyTorch runs eagerly, so there is no lowering to compile: a "compile" here
 is one build of the key's strategy function (``MatvecStrategy.build`` or
-``build_batched``), held under an explicit key (op × strategy × kernel ×
-combine × bucket × dtype × storage) with compile and hit counters the serve bench
-reports — a flat ``compiles`` across a warm stream is the
-zero-recompilation criterion. Lowering fingerprints belong to the static
-analysis slice, and CUDA-graph capture of each key's program to the graph
-slice (ROADMAP.md, queue A 16 and 3b).
+``build_batched``) and, on a mesh that lies on one CUDA device, the capture
+of its program as a CUDA graph (``engine/core.py``), held under an explicit
+key (op × strategy × kernel × combine × bucket × dtype × storage) with
+compile and hit counters the serve bench reports — a flat ``compiles``
+across a warm stream is the zero-recompilation criterion. Lowering
+fingerprints belong to the static-analysis item (ROADMAP.md, queue A 9).
 """
 
 from __future__ import annotations

@@ -120,10 +120,11 @@ def load_library() -> ctypes.CDLL:
     # Every pointer and the stream as c_void_p: an undeclared argument is
     # passed as a 32-bit int and the pointer is cut.
     # dtype; int plan[3] (route, grid, warps); A, x, y, the split route's
-    # scratch (NULL on rows); m, k; the stream.
+    # scratch (NULL on rows); m, k; the stream; the launch predicate (NULL
+    # or a device bool).
     lib.matvec_gemv.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_int), *[ctypes.c_void_p] * 4,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.matvec_gemv.restype = ctypes.c_int
     lib.matvec_gemv_acc_x.argtypes = lib.matvec_gemv.argtypes
@@ -153,13 +154,13 @@ def load_library() -> ctypes.CDLL:
     # block, the quantized GEMV's route and scratch (NULL on fma or native),
     # the native GEMV's int plan[3] and scratch (NULL for quantized storage
     # and on rows); x, r, p, ap, s_in; x2, r2, p2, s_out, partial; n, m_loc,
-    # k_loc, off; the stream.
+    # k_loc, off; the stream; the launch predicate (NULL or a device bool).
     lib.matvec_solver_step.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         *[ctypes.c_void_p] * 4, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
         *[ctypes.c_void_p] * 10,
-        *[ctypes.c_int64] * 4, ctypes.c_void_p,
+        *[ctypes.c_int64] * 4, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.matvec_solver_step.restype = ctypes.c_int
     # dtype, p; arrays of p pointers to the panels, the x segments and the

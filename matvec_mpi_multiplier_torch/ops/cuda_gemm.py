@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .graphs import refuse_predicate
 from .gemm_kernels import register_gemm_kernel
 from .gemv import acc_dtype
 from .cuda_gemv import _DTYPE_CODES, PLAIN_CHUNK_BYTES
@@ -147,6 +148,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check(a, b)
     if a.device.type == "cpu":
         return gemm_plain(a, b)
+    refuse_predicate("gemm_cuda")
     lib = _build.load_library()
     if a.device.type != "cuda":
         raise ValueError(f"gemm_cuda runs on CUDA or CPU tensors, got {a.device}")

@@ -26,7 +26,9 @@ computes :func:`gemv_plain`, so the CPU tests reach every line around the
 kernel. ``gemv_cuda.launches`` counts the wrapper's calls on the card (a
 ``split`` call is two kernel launches; nothing else adds to it), so a run
 can show that its path went through the kernel, and
-``gemv_cuda.route_launches`` the same calls by route.
+``gemv_cuda.route_launches`` the same calls by route. Inside
+``ops.graphs.launch_predicate`` the launch reads the predicate on the card
+and returns at once where it is False (y is then left unwritten).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 
 from . import _build
 from .gemv import acc_dtype, register_kernel
+from .graphs import predicate_ptr
 
 # The C entry's dtype codes (csrc/gemv.cu::matvec_gemv).
 _DTYPE_CODES = {
@@ -190,10 +193,12 @@ def _check(a: torch.Tensor, x: torch.Tensor) -> None:
         raise ValueError("gemv needs contiguous A and x (row pitch = k)")
 
 
-def _launch(a: torch.Tensor, x: torch.Tensor, plan: GemvPlan) -> torch.Tensor:
+def _launch(a: torch.Tensor, x: torch.Tensor, plan: GemvPlan,
+            pred: int | None = None) -> torch.Tensor:
     """One launch of ``csrc/gemv.cu`` on ``plan``, for CUDA tensors ``a``
     and ``x`` that passed :func:`_check`. Any plan of :func:`_layout` gives
-    the same y; :func:`gemv_cuda` launches :func:`gemv_plan`'s."""
+    the same y; :func:`gemv_cuda` launches :func:`gemv_plan`'s. ``pred``:
+    a launch predicate's address (``ops/graphs.py``), or None."""
     lib = _build.load_library()
     y = torch.empty(a.shape[0], dtype=acc_dtype(a.dtype), device=a.device)
     scratch = plan_scratch(plan, a.dtype, a.device)
@@ -202,7 +207,7 @@ def _launch(a: torch.Tensor, x: torch.Tensor, plan: GemvPlan) -> torch.Tensor:
         rc = lib.matvec_gemv(
             _DTYPE_CODES[a.dtype], plan_codes(plan), a.data_ptr(), x.data_ptr(),
             y.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            a.shape[0], a.shape[1], stream,
+            a.shape[0], a.shape[1], stream, pred,
         )
     if rc != 0:
         raise RuntimeError(
@@ -225,7 +230,7 @@ def gemv_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return torch.empty(0, dtype=acc_dtype(a.dtype), device=a.device)
     plan = gemv_plan(m, k, a.dtype, x.dtype, sm_count(a.device))
-    y = _launch(a, x, plan)
+    y = _launch(a, x, plan, predicate_ptr(a.device))
     gemv_cuda.launches += 1
     gemv_cuda.route_launches[plan.route] += 1
     return y

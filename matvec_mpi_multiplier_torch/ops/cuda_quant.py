@@ -42,6 +42,7 @@ from collections import Counter
 import torch
 
 from . import _build
+from .graphs import refuse_predicate
 from .cuda_gemv import _DTYPE_CODES, PLAIN_CHUNK_BYTES
 from .gemv import acc_dtype
 from .quantize import QuantizedMatrix, register_storage_kernel
@@ -166,6 +167,7 @@ def quant_gemv_cuda(qa: QuantizedMatrix, x: torch.Tensor) -> torch.Tensor:
     _check(qa, x)
     if x.device.type == "cpu":
         return quant_gemv_plain(qa, x)
+    refuse_predicate("quant_gemv_cuda")
     lib = _build.load_library()
     if x.device.type != "cuda":
         raise ValueError(f"quant_gemv_cuda runs on CUDA or CPU tensors, got {x.device}")

@@ -24,6 +24,7 @@ import torch
 
 from ..utils.errors import ShardingError
 from . import _build
+from .graphs import refuse_predicate
 from .cuda_gemv import _DTYPE_CODES, gemv_plain
 from .gemv import acc_dtype
 
@@ -105,6 +106,7 @@ def ring_gemv_cuda(
         return ring_gemv_plain(panels, x_segs)
     if a0.device.type != "cuda":
         raise ValueError(f"ring_gemv_cuda runs on CUDA or CPU tensors, got {a0.device}")
+    refuse_predicate("ring_gemv_cuda")
     lib = _build.load_library()
     p = len(panels)
     m, k = a0.shape

@@ -15,8 +15,10 @@ update and then multiplies the fresh ``p`` by the local shard; the
 partial leaves the step uncombined and meets the iteration's single
 combine — ``psum`` for colwise shards, a gather for rowwise. A prologue
 matvec seeds ``ap``; the exit is verified by a TRUE residual after the
-loop. As in ``solvers/ops.py`` the loop is host-stepped: one predicate
-read per iteration.
+loop. As in ``solvers/ops.py`` the loop runs on the device in masked chunks
+where they are captured (one card, native storage: one read per chunk, each
+chunk a CUDA graph), host-stepped elsewhere (one predicate read per
+iteration).
 
 :func:`solver_step_cuda` launches the kernels for CUDA tensors, or raises:
 a missing ``nvcc``, a failed build or a refused launch is an error, never a
@@ -45,7 +47,8 @@ from ..solvers.common import (
     keep_iterating,
     residual_norm,
 )
-from ..solvers.ops import f32_scalar, placed_operand
+from ..solvers.device_loop import ChunkedLoop, commit, when
+from ..solvers.ops import DeviceLoops, f32_scalar, placed_operand, solver_loop
 from ..utils.errors import ConfigError, ShardingError
 from . import _build
 from .cuda_gemv import (
@@ -65,6 +68,7 @@ from .cuda_quant import (
     route_scratch,
 )
 from .gemv import acc_dtype, get_kernel
+from .graphs import predicate_ptr, single_cuda_device
 from .quantize import NATIVE, QuantizedMatrix, get_storage_kernel, normalize_storage
 
 # The fixed-recurrence ops the fused tier serves. GMRES's Arnoldi and
@@ -268,6 +272,7 @@ def solver_step_cuda(op, a_local, off, x, r, p, ap, s_in):
             x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(), s_in.data_ptr(),
             x2.data_ptr(), r2.data_ptr(), p2.data_ptr(), s_out.data_ptr(),
             partial.data_ptr(), x.shape[0], m_loc, k_loc, off, stream,
+            predicate_ptr(x.device),
         )
     if rc != 0:
         raise RuntimeError(
@@ -308,17 +313,52 @@ def build_fused_solver(
     and runs one :func:`solver_step_cuda` per iteration (p shards: p step
     calls); the partials meet the iteration's one combine. The prologue and
     the verification matvecs are the unfused local GEMV (``gemv_cuda`` /
-    ``quant_gemv_cuda`` on ``p`` cast to A's dtype), as in the JAX package."""
+    ``quant_gemv_cuda`` on ``p`` cast to A's dtype), as in the JAX package.
+
+    On one CUDA device with native storage the iterations run in masked
+    chunks on the device (``solvers/device_loop.py``; the steps of an
+    inactive iteration take a launch predicate of False). Quantized storage
+    runs host-stepped: the step's quantized GEMV takes no predicate. Both
+    loops give the same iterate bitwise."""
+    return _build_fused_solver(op, strategy, mesh, None, dtype=dtype, combine=combine,
+                               dtype_storage=dtype_storage)
+
+
+def _build_fused_solver(
+    op: str,
+    strategy: MatvecStrategy,
+    mesh: Mesh,
+    loop: str | None,
+    *,
+    dtype: torch.dtype,
+    combine: str | None = None,
+    dtype_storage=None,
+) -> Callable[..., SolverResult]:
+    """:func:`build_fused_solver` with the loop named by the caller
+    (``solvers/ops.py::solver_loop``)."""
     combine_r = check_fused_solver(op, strategy.name, combine, mesh)
     storage = normalize_storage(dtype_storage)
+    loop = solver_loop(loop, op, mesh, predicated=storage == NATIVE)
     acc = acc_dtype(dtype)
     kern = get_kernel("cuda") if storage == NATIVE else get_storage_kernel("cuda")
     colwise = strategy.name == "colwise"
     devices = mesh.devices
     dev0 = devices[0]
 
+    def keep(rr, k, cap, threshold, b_rr):
+        """The loop's continuation predicate (a device bool)."""
+        ok = keep_iterating(torch.sqrt(rr), threshold, k, cap)
+        if op == "chebyshev":
+            # Early divergence exit (solvers/common.py).
+            ok = ok & ~diverged(rr, b_rr)
+        return ok
+
+    states = DeviceLoops(lambda step: _FusedState(
+        step, keep, acc, devices, op, single_cuda_device(devices)))
+
     def fn(a, b, rtol, maxiter, p0, p1):
-        shards = placed_operand(strategy, mesh, a).shards
+        placed = placed_operand(strategy, mesh, a)
+        shards = placed.shards
         k_loc = shards[0].shape[1]
         offs = [f * k_loc if colwise else 0 for f in range(mesh.size)]
 
@@ -339,15 +379,30 @@ def build_fused_solver(
         def per_shard(t):
             return [t.to(dev) for dev in devices]
 
+        def step(xs, rs, ps, aps, scal, dc2, k):
+            """One iteration's p step calls and its one combine."""
+            outs = []
+            for f in range(mesh.size):
+                if op == "cg":
+                    s_in = scal[f]
+                else:
+                    kf = (torch.full((1,), k, dtype=acc, device=devices[f])
+                          if isinstance(k, int) else k.to(device=devices[f], dtype=acc)
+                          .reshape(1))
+                    s_in = torch.cat((scal[f][:1], kf, dc2[f]))
+                outs.append(solver_step_cuda(
+                    op, shards[f], offs[f], xs[f], rs[f], ps[f], aps[f], s_in))
+            xs, rs, ps, scal, parts = (list(col) for col in zip(*outs))
+            return xs, rs, ps, scal, combine_parts(parts)  # the ONE combine
+
         b_acc = b.to(device=dev0, dtype=acc)
         b_rr = torch.sum(b_acc * b_acc)
         threshold = convergence_threshold(f32_scalar(rtol, acc, dev0), torch.sqrt(b_rr))
         bs = per_shard(b_acc)
-        xs = [torch.zeros_like(v) for v in bs]
-        rs, ps = bs, bs
         aps = full_mv(bs)  # prologue matvec seeds the rotation
         if op == "cg":
             scal = per_shard(b_rr.reshape(1))
+            dc2 = None
         else:
             lmin = f32_scalar(p0, acc, dev0)
             lmax = f32_scalar(p1, acc, dev0)
@@ -355,37 +410,95 @@ def build_fused_solver(
             c2 = ((lmax - lmin) / 2) ** 2
             scal = per_shard((1.0 / d).reshape(1))  # alpha of step 0
             dc2 = per_shard(torch.stack((d, c2)))
-        rr, k = b_rr, 0
 
-        def keep(rr, k):
-            ok = keep_iterating(torch.sqrt(rr), threshold, k, maxiter)
-            if op == "chebyshev":
-                # Early divergence exit (solvers/common.py).
-                ok = ok & ~diverged(rr, b_rr)
-            return bool(ok)
-
-        while keep(rr, k):
-            outs = []
-            for f in range(mesh.size):
-                if op == "cg":
-                    s_in = scal[f]
-                else:
-                    kf = torch.full((1,), k, dtype=acc, device=devices[f])
-                    s_in = torch.cat((scal[f][:1], kf, dc2[f]))
-                outs.append(solver_step_cuda(
-                    op, shards[f], offs[f], xs[f], rs[f], ps[f], aps[f], s_in))
-            xs, rs, ps, scal, parts = (list(col) for col in zip(*outs))
-            aps = combine_parts(parts)  # the iteration's ONE combine
-            rr = scal[0][0] if op == "cg" else scal[0][1]
-            k += 1
+        if loop == "host":
+            xs = [torch.zeros_like(v) for v in bs]
+            rs, ps = bs, bs
+            rr, k = b_rr, 0
+            while bool(keep(rr, k, maxiter, threshold, b_rr)):
+                xs, rs, ps, scal, aps = step(xs, rs, ps, aps, scal, dc2, k)
+                rr = scal[0][0] if op == "cg" else scal[0][1]
+                k += 1
+            x_out = xs
+        else:
+            state = states.get(placed, b_acc, step)
+            k = state.solve(threshold, b_rr, bs, aps, scal, dc2, maxiter)
+            x_out = [x.clone() for x in state.xs]
         # Verified exit: the TRUE residual of the returned iterate.
-        rnorm = residual_norm(b_acc - full_mv(xs)[0])
+        rnorm = residual_norm(b_acc - full_mv(x_out)[0])
         return SolverResult(
-            x=xs[0],
+            x=x_out[0],
             value=torch.full((), float("nan"), dtype=acc, device=dev0),
             n_iters=torch.tensor(k, dtype=torch.int32),
             residual_norm=rnorm,
             converged=rnorm <= threshold,
         )
 
+    fn.loop = loop
     return fn
+
+
+class _FusedState:
+    """The fused loop's state in fixed tensors on the device, one set per
+    resident operand, and its masked iteration (``solvers/device_loop.py``):
+    the steps run through :func:`when` on the device flag, so under capture
+    they take it as their launch predicate."""
+
+    def __init__(self, step, keep, acc, devices, op, device: torch.device | None):
+        self._step, self._keep, self.op = step, keep, op
+        self.acc, self.devices = acc, devices
+        self._device = device
+        self.loop = None
+
+    def _alloc(self, n: int) -> None:
+        acc, devices, op = self.acc, self.devices, self.op
+        dev0 = devices[0]
+        self.xs, self.rs, self.ps, self.aps = (
+            [torch.zeros(n, dtype=acc, device=dev) for dev in devices] for _ in range(4))
+        width = 1 if op == "cg" else 2
+        self.scal = [torch.zeros(width, dtype=acc, device=dev) for dev in devices]
+        self.dc2 = None if op == "cg" else [
+            torch.zeros(2, dtype=acc, device=dev) for dev in devices]
+        self.threshold, self.b_rr, self.rr = (
+            torch.zeros((), dtype=acc, device=dev0) for _ in range(3))
+        self.k, self.maxiter = (torch.zeros((), dtype=torch.int64, device=dev0)
+                                for _ in range(2))
+        self.go = torch.zeros((), dtype=torch.bool, device=dev0)
+        self.loop = ChunkedLoop(self.iteration, self.go, self.k, self._device)
+
+    def iteration(self) -> None:
+        go, k = self.go, self.k
+        old = (self.xs, self.rs, self.ps, self.scal, self.aps)
+        new = when(go, lambda: self._step(*old[:3], self.aps, self.scal, self.dc2, k),
+                   lambda: old)
+        rr = new[3][0][0] if self.op == "cg" else new[3][0][1]
+        k_new = k + 1
+        go_new = self._keep(rr, k_new, self.maxiter, self.threshold, self.b_rr)
+        for olds, news in zip(old, new):
+            for o, n_ in zip(olds, news):
+                commit(go.to(o.device), ((o, n_),))
+        commit(go, ((self.rr, rr), (self.k, k_new)))
+        torch.logical_and(go, go_new, out=go)
+
+    def solve(self, threshold, b_rr, bs, aps, scal, dc2, maxiter) -> int:
+        """Load one solve's start into the state and run the loop; return
+        the iteration count."""
+        if self.loop is None:
+            self._alloc(bs[0].shape[0])
+        self.threshold.copy_(threshold)
+        self.b_rr.copy_(b_rr)
+        for f, b in enumerate(bs):
+            self.xs[f].zero_()
+            self.rs[f].copy_(b)
+            self.ps[f].copy_(b)
+            self.aps[f].copy_(aps[f])
+            # chebyshev's step returns [alpha, rr]: the width-2 slot's first
+            # entry is what the next step reads.
+            self.scal[f][:scal[f].shape[0]].copy_(scal[f])
+            if dc2 is not None:
+                self.dc2[f].copy_(dc2[f])
+        self.rr.copy_(b_rr)
+        self.k.zero_()
+        self.maxiter.fill_(maxiter)
+        self.go.copy_(self._keep(self.rr, self.k, self.maxiter, self.threshold, self.b_rr))
+        return self.loop.run()

@@ -179,6 +179,17 @@ def _local_heads_attention(q, k, v, *, causal: bool, kernel: str) -> torch.Tenso
     return o.transpose(0, 1)
 
 
+def _check_heads_rank(q, k, v) -> None:
+    """Ulysses cuts the heads: q, k and v must be ``(s, h, d_head)``. The
+    JAX package's unpacking of ``q.shape`` raises ``ValueError`` for any
+    other rank; so does this."""
+    if any(x.dim() != 3 for x in (q, k, v)):
+        raise ValueError(
+            "ulysses attention needs (s, h, d_head) q, k and v, got shapes "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+
+
 def ulysses_attention(
     qs, ks, vs, mesh: Mesh, axes, *, causal: bool = False, kernel: str = "xla",
 ) -> list[torch.Tensor]:
@@ -192,6 +203,7 @@ def ulysses_attention(
     shard's ``(s/p, h, d_head)`` output block (fp32).
     """
     _check_kernel(kernel)
+    _check_heads_rank(qs[0], ks[0], vs[0])
     axes = _axes(axes)
     p = _axes_size(mesh, axes)
     h = qs[0].shape[1]
@@ -222,6 +234,8 @@ def _build(schedule, mesh: Mesh, *, causal: bool, gather_output: bool,
         s, p = q.shape[0], mesh.size
         if s % p != 0:
             raise ValueError(f"sequence length {s} not divisible by {p} devices")
+        if heads_parallel:
+            _check_heads_rank(q, k, v)
         if heads_parallel and q.shape[1] % p != 0:
             raise ValueError(f"{q.shape[1]} heads not divisible by {p} devices")
         blocks = [list(shard(x, spec, mesh).shards) for x in (q, k, v)]

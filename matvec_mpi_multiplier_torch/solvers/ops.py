@@ -19,14 +19,25 @@ on every shard (``csrc/gemv.cu``, or ``csrc/quant_gemv.cu`` for quantized
 storage), then the strategy's combine. The vectors live on the mesh's first
 device in the accumulator dtype (``promote(dtype, float32)``).
 
-**The loop is host-stepped.** PyTorch has no ``lax.while_loop``: each
-iteration enqueues its work and then reads its continuation predicate as
-one small device→host copy, one sync per iteration. CG and Chebyshev decide
-their true-residual refresh on the host from a predicate read once per
-iteration; only a refreshing iteration pays a second read. A GMRES cycle
-reads once (and its tiny least-squares SVD may sync), and Lanczos's
-fixed-depth loop reads nothing. The masked, graph-captured loop in chunks
-of K iterations comes with CUDA-graph capture (ROADMAP.md, queue A 3b).
+**The loop.** PyTorch has no ``lax.while_loop``. Where the mesh lies on
+one CUDA device and every kernel of the iteration takes a launch predicate
+(the ``"cuda"`` GEMV on native storage with any combine but
+``pallas_ring``, or the fused step on native storage), CG and Chebyshev run
+as the device loop (``solvers/device_loop.py``): masked chunks of
+iterations over state in fixed tensors, the iteration count and the
+continuation predicate on the device, one read per chunk, each chunk a
+captured CUDA graph; the true-residual refresh's matvec runs on exactly the
+iterations where the host-stepped loop runs it (its GEMV takes the refresh
+flag as a launch predicate). Everywhere else they run host-stepped: the
+loop enqueues each iteration's work and then reads its continuation
+predicate as one small device→host copy, and CG and Chebyshev decide their
+true-residual refresh on the host from that read. Both loops give the same
+iterate bitwise; :func:`_build_solver` builds either one (the eager device
+loop off the card), for the tests and ``chip_smoke.py`` to hold them
+against each other. GMRES, power and Lanczos stay host-stepped
+(ROADMAP.md, queue A): a GMRES cycle reads once (and its tiny
+least-squares SVD may sync), and Lanczos's fixed-depth loop reads
+nothing.
 
 The algorithms are the JAX package's, operation for operation: CG with a
 best-so-far iterate, a true-residual refresh every ``_RECOMPUTE_EVERY``
@@ -46,8 +57,11 @@ import torch
 
 from ..models.base import MatvecStrategy, shard_operand
 from ..ops.gemv import acc_dtype
+from ..ops.graphs import single_cuda_device
+from ..ops.quantize import NATIVE, normalize_storage
 from ..parallel.mesh import Mesh, ShardedTensor, shard
 from ..utils.convert import torch_dtype
+from .device_loop import ChunkedLoop, commit, when
 from .common import (
     SolverResult,
     convergence_threshold,
@@ -71,6 +85,9 @@ DEFAULT_STEPS = 32
 
 # True-residual refresh period for served CG.
 _RECOMPUTE_EVERY = 50
+
+# The ops whose loop can run on the device; the rest are host-stepped.
+DEVICE_LOOP_OPS = frozenset(("cg", "chebyshev"))
 
 _TINY = 1e-30  # division guard
 
@@ -157,7 +174,32 @@ def build_solver(
     combine) triple has no fused spelling), and ``"auto"`` takes it where
     it is supported and the ``"cuda"`` tier elsewhere. ``a`` may be the
     strategy's placed operand or a plain tensor/payload, placed once per
-    call. The square-matrix requirement is the engine's to check."""
+    call. The square-matrix requirement is the engine's to check.
+
+    cg and chebyshev run as the device loop where its chunks are captured,
+    host-stepped elsewhere (module docstring); the returned function's
+    ``loop`` attribute names the loop it runs."""
+    return _build_solver(
+        op, strategy, mesh, None, dtype=dtype, kernel=kernel, combine=combine,
+        stages=stages, dtype_storage=dtype_storage, restart=restart, steps=steps,
+    )
+
+
+def _build_solver(
+    op: str,
+    strategy: MatvecStrategy,
+    mesh: Mesh,
+    loop: str | None,
+    *,
+    dtype,
+    kernel: str | Callable = "cuda",
+    combine: str | None = None,
+    stages: int | None = None,
+    dtype_storage=None,
+    restart: int = DEFAULT_RESTART,
+    steps: int = DEFAULT_STEPS,
+) -> Callable[..., SolverResult]:
+    """:func:`build_solver` with the loop named by the caller (:func:`solver_loop`)."""
     if op not in SOLVER_OPS:
         raise ValueError(f"unknown solver op {op!r}; expected {SOLVER_OPS}")
     if op == "gmres" and restart < 1:
@@ -168,13 +210,13 @@ def build_solver(
     if kernel in ("cuda_fused", "auto"):
         # Lazy import: ops.cuda_solver imports solvers.common, and this
         # module loads during the solvers package's own __init__.
-        from ..ops.cuda_solver import build_fused_solver, fused_solver_supported
+        from ..ops.cuda_solver import _build_fused_solver, fused_solver_supported
 
         if kernel == "cuda_fused" or fused_solver_supported(
             op, strategy.name, combine, mesh
         ):
-            return build_fused_solver(
-                op, strategy, mesh, dtype=dtype, combine=combine,
+            return _build_fused_solver(
+                op, strategy, mesh, loop, dtype=dtype, combine=combine,
                 dtype_storage=dtype_storage,
             )
         kernel = "cuda"
@@ -185,6 +227,11 @@ def build_solver(
     spec_x = strategy.specs(mesh)[1]
     dev0 = mesh.devices[0]
     acc = acc_dtype(dtype)
+    device = single_cuda_device(mesh.devices)
+    combine_r = combine if combine is not None else strategy.combine
+    loop = solver_loop(loop, op, mesh, predicated=(
+        kernel == "cuda" and normalize_storage(dtype_storage) == NATIVE
+        and combine_r != "pallas_ring"))
 
     def _prologue(a, b, rtol):
         a = placed_operand(strategy, mesh, a)
@@ -215,6 +262,19 @@ def build_solver(
             x=x, value=_nan(), n_iters=_n_iters(k),
             residual_norm=rnorm, converged=rnorm <= threshold,
         )
+
+    if op == "cg" and loop == "device":
+        loops = DeviceLoops(lambda mv: _CgLoop(mv, acc, dev0, device))
+
+        def solver(a, b, rtol, maxiter, p0, p1):
+            b_acc, rtol_acc, mv = _prologue(a, b, rtol)
+            state = loops.get(a, b_acc, mv)
+            threshold, k = state.solve(b_acc, rtol_acc, maxiter)
+            return _linear_result(state.mv, b_acc, threshold, state.x.clone(), k,
+                                  x_alt=state.x_best.clone())
+
+        solver.loop = "device"
+        return solver
 
     if op == "cg":
 
@@ -261,6 +321,7 @@ def build_solver(
                       if refresh else k < maxiter)
             return _linear_result(mv, b_acc, threshold, x, k, x_alt=x_best)
 
+        solver.loop = "host"
         return solver
 
     if op == "gmres":
@@ -310,6 +371,7 @@ def build_solver(
                 k += 1
             return _linear_result(mv, b_acc, threshold, x_best, k)
 
+        solver.loop = "host"
         return solver
 
     if op == "power":
@@ -342,6 +404,7 @@ def build_solver(
                 converged=resid <= thresh_of(lam),
             )
 
+        solver.loop = "host"
         return solver
 
     if op == "lanczos":
@@ -387,6 +450,19 @@ def build_solver(
                 residual_norm=resid, converged=resid <= thresh,
             )
 
+        solver.loop = "host"
+        return solver
+
+    if loop == "device":  # chebyshev
+        loops = DeviceLoops(lambda mv: _ChebyshevLoop(mv, acc, dev0, device))
+
+        def solver(a, b, rtol, maxiter, p0, p1):
+            b_acc, rtol_acc, mv = _prologue(a, b, rtol)
+            state = loops.get(a, b_acc, mv)
+            threshold, k = state.solve(b_acc, rtol_acc, maxiter, p0, p1)
+            return _linear_result(state.mv, b_acc, threshold, state.x.clone(), k)
+
+        solver.loop = "device"
         return solver
 
     # chebyshev
@@ -439,4 +515,203 @@ def build_solver(
                 go = k < maxiter and not blown
         return _linear_result(mv, b_acc, threshold, x, k)
 
+    solver.loop = "host"
     return solver
+
+
+def solver_loop(loop: str | None, op: str, mesh: Mesh, *, predicated: bool) -> str:
+    """The loop a solver build runs, ``"device"`` or ``"host"``.
+
+    ``loop=None`` (what :func:`build_solver` passes) takes the device loop
+    for cg and chebyshev where its chunks are captured: the mesh lies on one
+    CUDA device and every kernel of the iteration takes a launch predicate
+    (``predicated``). Off the card (the CPU, several CUDA devices) the
+    device loop runs its chunks eagerly, with a host read per iteration and
+    masked iterations after the stop, so it runs there only where the
+    caller names it (``loop="device"``); ``loop="host"`` is always honored."""
+    if loop not in (None, "device", "host"):
+        raise ValueError(f"loop must be None, 'device' or 'host', got {loop!r}")
+    if loop == "host" or op not in DEVICE_LOOP_OPS:
+        return "host"
+    if single_cuda_device(mesh.devices) is not None:
+        return "device" if predicated else "host"
+    return loop or "host"
+
+
+class DeviceLoops:
+    """One device-loop state per resident operand, made by ``make(body)``
+    from the first call's iteration ``body`` (the torch tier's matvec, the
+    fused tier's step): the captured chunk reads the operand's shards and
+    the state's tensors where they were at capture, so a call on another
+    operand (or right-hand side shape) makes its own."""
+
+    # States kept at once; the oldest goes first (an engine has one operand).
+    KEEP = 4
+
+    def __init__(self, make: Callable):
+        self._make = make
+        self._states: dict = {}
+
+    def get(self, a, b_acc: torch.Tensor, body: Callable):
+        shards = a.shards if isinstance(a, ShardedTensor) else (a,)
+        key = (tuple(_data_ptrs(s) for s in shards), tuple(b_acc.shape), b_acc.dtype)
+        if key not in self._states:
+            if len(self._states) >= self.KEEP:
+                del self._states[next(iter(self._states))]
+            state = self._make(body)
+            state.a = a  # keep the operand the capture reads alive
+            self._states[key] = state
+        return self._states[key]
+
+
+def _data_ptrs(t) -> tuple:
+    leaves = getattr(t, "leaves", None)
+    if leaves is not None:  # a QuantizedMatrix shard
+        return tuple(0 if leaf is None else leaf.data_ptr() for leaf in leaves)
+    return (t.data_ptr(),)
+
+
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+class _CgLoop:
+    """The host-stepped CG loop's state and iteration, masked and on the
+    device (``solvers/device_loop.py``). Each iteration is the host-stepped
+    one, operation for operation: the refresh runs where that loop runs it
+    (every _RECOMPUTE_EVERY-th iteration and where the recurrence is about
+    to stop), through :func:`when`."""
+
+    def __init__(self, mv: Callable, acc: torch.dtype, dev0: torch.device,
+                 device: torch.device | None):
+        self.mv, self.acc, self.dev0 = mv, acc, dev0
+        self._device = device
+        self.loop = None
+
+    def _alloc(self, n: int) -> None:
+        acc, dev0 = self.acc, self.dev0
+        self.b, self.x, self.r, self.p, self.x_best = (
+            _zeros((n,), acc, dev0) for _ in range(5))
+        self.threshold, self.rz, self.rr_best = (_zeros((), acc, dev0) for _ in range(3))
+        self.k, self.maxiter = (_zeros((), torch.int64, dev0) for _ in range(2))
+        self.go = _zeros((), torch.bool, dev0)
+        self.loop = ChunkedLoop(self.iteration, self.go, self.k, self._device)
+
+    def iteration(self) -> None:
+        mv, go, x, r, p, rz = self.mv, self.go, self.x, self.r, self.p, self.rz
+        ap = when(go, lambda: mv(p), lambda: p)
+        pap = torch.sum(p * ap)
+        safe = pap > 0
+        alpha = torch.where(safe, rz / torch.where(safe, pap, 1.0), 0.0)
+        x_new = x + alpha * p
+        r_rec = r - alpha * ap
+        rr_rec = torch.sum(r_rec * r_rec)
+        about = torch.sqrt(rr_rec) <= self.threshold
+        k_new = self.k + 1
+        refresh = go & ((k_new % _RECOMPUTE_EVERY == 0) | about)
+        r_true = when(refresh, lambda: self.b - mv(x_new), lambda: r_rec)
+        rz_true = torch.sum(r_true * r_true)
+        r_new = torch.where(refresh, r_true, r_rec)
+        rz_new = torch.where(refresh, rz_true, rr_rec)
+        beta = torch.where(safe, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
+        p_new = r_new + beta * p
+        better = rz_new < self.rr_best
+        x_best = torch.where(better, x_new, self.x_best)
+        rr_best = torch.where(better, rz_new, self.rr_best)
+        go_new = torch.where(
+            refresh,
+            keep_iterating(torch.sqrt(rz_new), self.threshold, k_new, self.maxiter),
+            k_new < self.maxiter)
+        commit(go, ((self.x, x_new), (self.r, r_new), (self.p, p_new),
+                    (self.x_best, x_best), (self.rr_best, rr_best),
+                    (self.rz, rz_new), (self.k, k_new)))
+        torch.logical_and(go, go_new, out=go)
+
+    def solve(self, b_acc: torch.Tensor, rtol_acc: torch.Tensor, maxiter: int):
+        """Run the loop from x = 0; return ``(threshold, n_iters)``."""
+        if self.loop is None:
+            self._alloc(b_acc.shape[0])
+        self.b.copy_(b_acc)
+        threshold = convergence_threshold(rtol_acc, residual_norm(b_acc))
+        self.threshold.copy_(threshold)
+        self.x.zero_()
+        self.r.copy_(b_acc)
+        self.p.copy_(b_acc)
+        self.rz.copy_(torch.sum(b_acc * b_acc))
+        self.rr_best.copy_(self.rz)
+        self.x_best.zero_()
+        self.k.zero_()
+        self.maxiter.fill_(maxiter)
+        self.go.copy_(keep_iterating(torch.sqrt(self.rz), threshold, self.k, self.maxiter))
+        return threshold, self.loop.run()
+
+
+class _ChebyshevLoop:
+    """The host-stepped Chebyshev loop's state and iteration, masked and on
+    the device; the true-residual refresh where the recurrence is about to
+    stop, through :func:`when`."""
+
+    def __init__(self, mv: Callable, acc: torch.dtype, dev0: torch.device,
+                 device: torch.device | None):
+        self.mv, self.acc, self.dev0 = mv, acc, dev0
+        self._device = device
+        self.loop = None
+
+    def _alloc(self, n: int) -> None:
+        acc, dev0 = self.acc, self.dev0
+        self.b, self.x, self.r, self.p = (_zeros((n,), acc, dev0) for _ in range(4))
+        self.threshold, self.alpha, self.d, self.c, self.b_rr = (
+            _zeros((), acc, dev0) for _ in range(5))
+        self.k, self.maxiter = (_zeros((), torch.int64, dev0) for _ in range(2))
+        self.go = _zeros((), torch.bool, dev0)
+        self.loop = ChunkedLoop(self.iteration, self.go, self.k, self._device)
+
+    def iteration(self) -> None:
+        mv, go, k, c = self.mv, self.go, self.k, self.c
+        # The host-stepped loop's coefficient of step k (0, 1/2, then 1/4),
+        # as an accumulator value: the same products.
+        coef = torch.where(k == 0, 0.0, torch.where(k == 1, 0.5, 0.25)).to(self.acc)
+        factor = coef * c * c * self.alpha
+        alpha_new = 1.0 / (self.d - factor)
+        beta = factor * self.alpha
+        p_new = self.r + beta * self.p
+        ap = when(go, lambda: mv(p_new), lambda: p_new)
+        x_new = self.x + alpha_new * p_new
+        r_rec = self.r - alpha_new * ap
+        rr_rec = torch.sum(r_rec * r_rec)
+        about = torch.sqrt(rr_rec) <= self.threshold
+        blown = diverged(rr_rec, self.b_rr)
+        k_new = k + 1
+        refresh = go & about
+        r_true = when(refresh, lambda: self.b - mv(x_new), lambda: r_rec)
+        rr = torch.sum(r_true * r_true)
+        go_refresh = (keep_iterating(torch.sqrt(rr), self.threshold, k_new, self.maxiter)
+                      & ~diverged(rr, self.b_rr))
+        go_new = torch.where(about, go_refresh, (k_new < self.maxiter) & ~blown)
+        commit(go, ((self.x, x_new), (self.r, torch.where(about, r_true, r_rec)),
+                    (self.p, p_new), (self.alpha, alpha_new), (self.k, k_new)))
+        torch.logical_and(go, go_new, out=go)
+
+    def solve(self, b_acc: torch.Tensor, rtol_acc: torch.Tensor, maxiter: int,
+              p0, p1):
+        """Run the loop from x = 0 on the interval [p0, p1]; return
+        ``(threshold, n_iters)``."""
+        if self.loop is None:
+            self._alloc(b_acc.shape[0])
+        lmin = f32_scalar(p0, self.acc, self.dev0)
+        lmax = f32_scalar(p1, self.acc, self.dev0)
+        self.d.copy_((lmax + lmin) / 2)
+        self.c.copy_((lmax - lmin) / 2)
+        threshold = convergence_threshold(rtol_acc, residual_norm(b_acc))
+        self.threshold.copy_(threshold)
+        self.b.copy_(b_acc)
+        self.x.zero_()
+        self.r.copy_(b_acc)
+        self.p.zero_()
+        self.alpha.zero_()
+        self.b_rr.copy_(torch.sum(b_acc * b_acc))
+        self.k.zero_()
+        self.maxiter.fill_(maxiter)
+        self.go.copy_(keep_iterating(torch.sqrt(self.b_rr), threshold, self.k, self.maxiter)
+                      & ~diverged(self.b_rr, self.b_rr))
+        return threshold, self.loop.run()

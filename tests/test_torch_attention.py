@@ -206,6 +206,24 @@ def test_ulysses_rejects_indivisible_heads(devices):
         tatt.ulysses_attention(blocks, blocks, blocks, mesh, mesh.axis_names)
 
 
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_ulysses_rejects_rank2_inputs(devices, p):
+    """An (s, d) input has no heads to cut: the JAX package's unpacking
+    raises ValueError, and so does the port, in build_ulysses_attention and
+    ulysses_attention, for every p (before, the port took d as the head
+    count and returned a tensor that was not attention)."""
+    q = np.random.default_rng(5).standard_normal((24, 16)).astype(np.float32)
+    with pytest.raises(ValueError):
+        jatt.build_ulysses_attention(mv_jax.make_mesh(p))(q, q, q)
+    mesh = make_mesh(p, devices=[CPU] * p)
+    for kernel in ("xla", "flash"):
+        with pytest.raises(ValueError, match="needs \\(s, h, d_head\\)"):
+            build_ulysses_attention(mesh, kernel=kernel)(*[torch.from_numpy(q)] * 3)
+    blocks = list(torch.from_numpy(q).chunk(p))
+    with pytest.raises(ValueError, match="needs \\(s, h, d_head\\)"):
+        tatt.ulysses_attention(blocks, blocks, blocks, mesh, mesh.axis_names)
+
+
 def test_ulysses_single_shard_skips_the_exchange(monkeypatch):
     """p == 1: plain local attention, no all_to_all."""
     monkeypatch.setattr(tatt, "all_to_all", lambda *a, **kw: pytest.fail("exchanged"))

@@ -151,15 +151,26 @@ def test_partial_on_a_non_cpu_tensor_runs_the_kernel_whatever_the_predicate(
 
 def test_partial_on_a_non_cpu_tensor_raises_for_a_head_dim_the_kernel_refuses(
         monkeypatch):
-    """d_head 16 off the CPU: the wrapper raises before any build, and
-    nothing computes the plain partial."""
-    monkeypatch.setattr(_build, "load_library", lambda: pytest.fail("built"))
+    """Off the CPU, an empty head dim (the one d the kernel refuses) raises
+    before any build, and d_head 16, which the wrapper pads to the kernel's
+    128, goes to the kernel (its build): nothing computes the plain partial
+    either way."""
+    class Built(Exception):
+        pass
+
+    def build():
+        raise Built
+
+    monkeypatch.setattr(_build, "load_library", build)
     for module, plain in ((tpa, "reference_partial"),
                           (cuda_attention, "flash_partial_plain")):
         monkeypatch.setattr(module, plain, lambda *a, **k: pytest.fail("plain ran"))
-    q = torch.ones(2, 64, 16, device="meta")
     pos = torch.zeros(64, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="d a multiple of 128"):
+    q = torch.ones(2, 64, 0, device="meta")
+    with pytest.raises(ValueError, match="sq, sk, d >= 1"):
+        tpa.flash_block_partial(q, q, q, pos, pos, causal=True)
+    q = torch.ones(2, 64, 16, device="meta")
+    with pytest.raises(Built):
         tpa.flash_block_partial(q, q, q, pos, pos, causal=True)
 
 

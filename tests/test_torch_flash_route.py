@@ -23,6 +23,8 @@ from matvec_mpi_multiplier_torch.ops.cuda_attention import (
     flash_partial_cuda,
     flash_partial_plain,
     flash_route,
+    pad_head_dim,
+    padded_head_dim,
 )
 
 TOL = 2e-5  # rtol = atol: the kernel's bar against the exact partial
@@ -96,14 +98,34 @@ def excess(got, want) -> float:
     return worst
 
 
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [128, 256, 16, 64, 200])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_flash_route_plan(dtype, d):
-    """bf16 k/v at d = 128 (every attention path's head dim) take the
-    tensor-core route; fp32, fp16 (cast to fp32 first) and d = 256 the FFMA
-    one."""
-    want = "wgmma_split" if dtype == torch.bfloat16 and d == 128 else "ffma"
+    """bf16 k/v at d = 128 (every attention path's head dim), and any d the
+    kernel pads to 128, take the tensor-core route; fp32, fp16 (cast to
+    fp32 first) and d padded past 128 the FFMA one."""
+    want = "wgmma_split" if dtype == torch.bfloat16 and d <= 128 else "ffma"
     assert flash_route(dtype, d) == want
+    assert padded_head_dim(d) == (128 if d <= 128 else 256)
+
+
+@pytest.mark.parametrize("d", [16, 64, 200])
+@pytest.mark.parametrize("causal", [False, True])
+def test_padding_the_head_dim_is_exact(d, causal):
+    """The wrapper's zero padding of d (what the kernel runs on the card)
+    changes nothing: the plain partial of the padded q, k and v is zero in
+    o's padded columns, and cut back to d columns it holds the kernel's
+    bar (2e-5) against the unpadded one (the same sums, zero terms added)."""
+    q, k, v, q_pos, k_pos = operands(2, 96, 130, d, 20, 0, seed=d)
+    want = flash_partial_plain(q, k, v, q_pos, k_pos, causal=causal)
+    d_pad = padded_head_dim(d)
+    padded = [pad_head_dim(x, d_pad) for x in (q, k, v)]
+    assert all(x.shape[-1] == d_pad and x.is_contiguous() for x in padded)
+    assert all(torch.equal(x[..., :d], y) and not x[..., d:].any()
+               for x, y in zip(padded, (q, k, v)))
+    got = flash_partial_plain(*padded, q_pos, k_pos, causal=causal)
+    assert not got[0][..., d:].any()
+    assert excess((got[0][..., :d], got[1], got[2]), want) <= 0.0
 
 
 @pytest.mark.parametrize("scale", [1e-20, 1e-3, 1.0, 1e30])
@@ -163,7 +185,8 @@ def card():
 # KV tile); keys all after the queries (causal: every row fully masked).
 CARD_CASES = [("bf16", 2, 256, 300, 40, 0), ("fp32", 2, 256, 300, 40, 0),
               ("d256", 2, 256, 300, 40, 0), ("bf16", 8, 1000, 1000, 0, 0),
-              ("bf16", 1, 128, 128, 0, 1000)]
+              ("bf16", 1, 128, 128, 0, 1000), ("d16", 2, 256, 300, 40, 0),
+              ("d64", 2, 256, 300, 40, 0), ("d64fp32", 2, 256, 300, 40, 0)]
 
 
 @pytest.mark.cuda
@@ -176,8 +199,8 @@ def test_route_taken_and_row_slices_on_card(card, case, causal):
     bitwise (a row's result depends on the row, the keys and the positions,
     not on its place in a tile)."""
     kind, h, sq, sk, q_off, k_off = case
-    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
-    d = 256 if kind == "d256" else 128
+    dtype = torch.float32 if kind.endswith("fp32") else torch.bfloat16
+    d = {"d256": 256, "d16": 16, "d64": 64, "d64fp32": 64}.get(kind, 128)
     seed = 256 if sq == 256 else sq + sk
     q, k, v, q_pos, k_pos = (x.to(card) for x in operands(h, sq, sk, d, q_off, k_off, seed))
     k, v = k.to(dtype), v.to(dtype)

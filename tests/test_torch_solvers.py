@@ -21,6 +21,7 @@ multi-tenant test (the registry).
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -34,7 +35,7 @@ from matvec_mpi_multiplier_tpu.engine import MatvecEngine as JaxEngine
 from matvec_mpi_multiplier_tpu.engine.core import DEFAULT_SOLVER_MAXITER as JAX_MAXITER
 from matvec_mpi_multiplier_tpu.ops import quantize as jq
 from matvec_mpi_multiplier_tpu.utils import errors as jax_errors
-from matvec_mpi_multiplier_torch import solvers
+from matvec_mpi_multiplier_torch import get_strategy, solvers
 from matvec_mpi_multiplier_torch.bench import serve
 from matvec_mpi_multiplier_torch.engine import (
     DEFAULT_SOLVER_MAXITER,
@@ -43,6 +44,8 @@ from matvec_mpi_multiplier_torch.engine import (
 )
 from matvec_mpi_multiplier_torch.ops.cuda_solver import solver_step_cuda
 from matvec_mpi_multiplier_torch.parallel.mesh import make_mesh
+from matvec_mpi_multiplier_torch.solvers import device_loop
+from matvec_mpi_multiplier_torch.solvers.ops import _build_solver, solver_loop
 from matvec_mpi_multiplier_torch.utils.errors import (
     ConfigError,
     DeadlineExceededError,
@@ -477,3 +480,110 @@ def test_serve_cli_op(tmp_path, capsys, op, extra):
     assert rows[0]["op"] == op and rows[0]["n_solves"] == 3
     header = serve.solver_csv_path("colwise", tmp_path).read_text().splitlines()[0]
     assert header == jax_serve.SOLVER_CSV_HEADER
+
+
+# ------------------------------------------ the device loop (masked chunks)
+
+
+def _jax_solve(p, strategy, tier, op, a, b, **kw):
+    engine = JaxEngine(a, mv_jax.make_mesh(p), strategy=strategy, promote=None,
+                       solver_kernel="pallas_fused" if tier == "cuda_fused" else "xla")
+    return engine.submit(op=op, rhs=b, **kw).result()
+
+
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("op", ["cg", "chebyshev"])
+@pytest.mark.parametrize("tier,strategy", [
+    ("torch", "rowwise"), ("torch", "colwise"), ("torch", "blockwise"),
+    ("cuda_fused", "rowwise"), ("cuda_fused", "colwise"),
+])
+def test_device_loop_is_bitwise_the_host_stepped_loop(p, op, tier, strategy, monkeypatch):
+    """cg and chebyshev in masked chunks of 5 iterations, run eagerly,
+    against the host-stepped loop: the same x, n_iters and result fields
+    bitwise, at a cap that is not a multiple of the chunk (13) and to
+    convergence; the converged solve holds the JAX engine's tolerance (fp64:
+    equal iterations, x within 1e-10 of its largest element)."""
+    a, b = serve.solver_operand(N, "float64", seed=3), rhs()
+    interval = serve.gershgorin_interval(a) if op == "chebyshev" else (0.0, 0.0)
+    mesh = make_mesh(p, devices=[CPU] * p)
+    kernel = "cuda_fused" if tier == "cuda_fused" else "cuda"
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    monkeypatch.setattr(device_loop, "DEFAULT_CHUNK", 5)
+    fns = {loop: _build_solver(op, get_strategy(strategy), mesh, loop, dtype=at.dtype,
+                               kernel=kernel)
+           for loop in ("host", "device")}
+    assert {loop: fn.loop for loop, fn in fns.items()} == {"host": "host", "device": "device"}
+    for maxiter in (13, 1000):
+        got = {loop: fn(at, bt, 1e-10, maxiter, *interval) for loop, fn in fns.items()}
+        for field in dataclasses.fields(got["host"]):
+            h, d = (getattr(got[k], field.name) for k in ("host", "device"))
+            torch.testing.assert_close(h, d, rtol=0, atol=0, equal_nan=True)
+    res = got["device"]
+    assert bool(res.converged)
+    ref = _jax_solve(p, strategy, tier, op, a, b, rtol=1e-10, maxiter=1000,
+                     **({"interval": interval} if op == "chebyshev" else {}))
+    assert int(res.n_iters) == ref.n_iters
+    np.testing.assert_allclose(res.x.numpy(), ref.x, rtol=1e-10,
+                               atol=1e-10 * np.abs(ref.x).max())
+
+
+@pytest.mark.parametrize("op", ["cg", "chebyshev"])
+def test_device_loop_refreshes_where_the_host_loop_does(op, monkeypatch):
+    """Every shard GEMV the host-stepped loop runs, the device loop runs, and
+    no more: a cap of 123 at an unreachable tolerance puts CG's periodic
+    refresh at iterations 50 and 100, and chebyshev at rtol 1e-9 refreshes
+    where the recurrence is about to stop."""
+    a, b = serve.solver_operand(N, "float64", seed=3), rhs()
+    interval = serve.gershgorin_interval(a) if op == "chebyshev" else (0.0, 0.0)
+    rtol = 1e-300 if op == "cg" else 1e-9
+    mesh = make_mesh(4, devices=[CPU] * 4)
+    monkeypatch.setattr(device_loop, "DEFAULT_CHUNK", 8)
+    counts = {}
+    for loop in ("host", "device"):
+        calls = []
+
+        def kernel(a_, x_):
+            calls.append(1)
+            return a_ @ x_
+
+        fn = _build_solver(op, get_strategy("rowwise"), mesh, loop,
+                           dtype=torch.float64, kernel=kernel)
+        res = fn(torch.from_numpy(a), torch.from_numpy(b), rtol, 123, *interval)
+        counts[loop] = (len(calls), int(res.n_iters))
+    assert counts["host"] == counts["device"]
+    if op == "cg":
+        # 123 iterations, refreshes at 50 and 100, two verifications; x 4 shards.
+        assert counts["host"] == (4 * (123 + 2 + 2), 123)
+
+
+def test_solver_loop_choice():
+    """The public builders take the device loop only where its chunks are
+    captured: one CUDA device and every kernel of the iteration predicated.
+    On the CPU they build the host-stepped loop, and the device loop only
+    where the caller names it (cg and chebyshev); anything else is
+    refused."""
+    mesh = make_mesh(2, devices=[CPU] * 2)
+    strategy = get_strategy("rowwise")
+    for op in solvers.SOLVER_OPS:
+        assert solvers.build_solver(op, strategy, mesh, dtype=torch.float64).loop == "host"
+        assert _build_solver(op, strategy, mesh, "device", dtype=torch.float64).loop == (
+            "device" if op in ("cg", "chebyshev") else "host")
+        assert _build_solver(op, strategy, mesh, "host", dtype=torch.float64).loop == "host"
+    with pytest.raises(ValueError, match="loop must be"):
+        _build_solver("cg", strategy, mesh, "graph", dtype=torch.float64)
+    card = types.SimpleNamespace(devices=[torch.device("cuda", 0)] * 4)
+    cards = types.SimpleNamespace(devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
+    cases = [
+        # (loop asked for, op, mesh, every kernel predicated) -> loop built
+        ((None, "cg", card, True), "device"),
+        (("device", "chebyshev", card, True), "device"),
+        ((None, "cg", card, False), "host"),
+        (("device", "cg", card, False), "host"),
+        (("host", "cg", card, True), "host"),
+        ((None, "gmres", card, True), "host"),
+        ((None, "cg", cards, True), "host"),
+        (("device", "cg", cards, True), "device"),
+        ((None, "chebyshev", mesh, True), "host"),
+    ]
+    for (loop, op, on, predicated), want in cases:
+        assert solver_loop(loop, op, on, predicated=predicated) == want, (loop, op)
