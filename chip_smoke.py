@@ -68,6 +68,26 @@ kernels' launch counts set to 0 just before it and read just after:
   GEMM's four routes; the block-scaled GEMV's three; the fused step for cg
   and chebyshev; the ring GEMV at p = 2, 4, 8; the flash partial on both
   routes, at d = 16 and 64 too, against its plain version at 2e-5).
+* online reshard: every (src, dst) pair of ``parallel/reshard.py`` at
+  65536² bf16 on a 2x2 logical mesh, each destination shard bitwise
+  ``shard()`` of A in the destination layout, timed beside its copy bound
+  (bytes copied read and written over the device-copy probe's rate) with
+  its peak allocation; ``MatvecEngine.reshard`` under run_serve-style
+  traffic, rowwise -> blockwise -> rowwise, every result bitwise a fresh
+  engine's, no steady build after a warm reshard, memory back within one
+  panel after each commit, dispatches queued just before the commit right;
+  an int8c resident at 65536² fp32 moving its payload bitwise, and at
+  65536 x 512 quantized again from the retained host A (numpy oracle);
+* the tuning cache: ``tuning.search`` fills a temporary cache (the sweep's
+  asymmetric GEMV cells in bf16 and fp32, the 2x2 fp32 serve cell's GEMV,
+  GEMM buckets 16 and 32, stage count, combine and promotion crossover, and
+  cg's iteration tier at 16384² fp32), keyed by the card's fingerprint; a
+  second pass measures nothing, an entry under a JAX fingerprint never
+  applies, and an engine with every ``"auto"`` dispatches the winners,
+  bitwise what an engine with them named dispatches.
+
+Every section prints its seconds (``"phase": "seconds"`` lines, and all of
+them before the kernels line).
 
 It checks the answers and times each kernel beside its bound, its plain
 version and the library call. The GEMV is held to its plain version on both
@@ -91,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -304,6 +325,32 @@ ATT_GRAD_S = 4096
 # A sequence length at which JAX's predicate refuses both flash blocks (the
 # ring's (1000, 1000) hops, Ulysses' (4000, 4000) step): the kernel runs.
 ATT_REFUSED_S = 4000
+
+# Online reshard: every (src, dst) pair at 65536² bf16 on a 2x2 logical
+# mesh of cuda:0; the engine's migration under run_serve-style traffic of
+# RESHARD_REQUESTS requests (every width of the serve mix once, then seeded
+# draws); the int8c resident at 65536² fp32, whose blocks are the same in
+# every layout, and at 65536 x RESHARD_NEW_BLOCK_K, where colwise's 4 shards
+# halve the block, so the migration quantizes A again from the host copy.
+RESHARD_N = 65536
+RESHARD_REQUESTS = 20
+RESHARD_NEW_BLOCK_K = 512
+# The numpy oracle's budget for a quantized result
+# (tests/test_torch_engine_quantized.py): rtol, atol.
+QUANT_ORACLE_TOL = (1e-4, 1e-5)
+
+# The tune pass: the sweep's asymmetric GEMV cells in both dtypes, the 2x2
+# fp32 serve cell (32768² blockwise: its 16384² GEMV and its GEMM buckets 16
+# and 32, its stage count, combine and promotion crossover), and cg's
+# iteration tier at 16384² fp32 rowwise on one shard.
+TUNE_GEMV_ROWS = (120, 600, 720, 1200)
+TUNE_GEMV_K = 60000
+TUNE_SERVE_N = 32768
+TUNE_GEMM_BUCKETS = (16, 32)
+TUNE_SOLVER_N = 16384
+# An entry as the JAX package would write it for one of the same keys: its
+# fingerprint is never the port's, so it must never apply.
+JAX_FINGERPRINT = "gpu:NVIDIA_H100_80GB_HBM3:jax-0.4.35"
 
 
 def emit(obj: dict) -> None:
@@ -541,7 +588,20 @@ def main() -> int:
         counters = json.loads(snapshot.read_text())["counters"]
         return counters["engine_dispatches_total"], counters["engine_compiles_total"]
 
+    # Each section's seconds, printed as it ends (and all of them before
+    # the kernels line).
+    clock = {"section": None, "t0": time.perf_counter(), "seconds": {}}
+
+    def section(name: str) -> None:
+        now = time.perf_counter()
+        if clock["section"] is not None:
+            seconds = now - clock["t0"]
+            clock["seconds"][clock["section"]] = seconds
+            emit({"phase": "seconds", "section": clock["section"], "seconds": seconds})
+        clock["section"], clock["t0"] = name, now
+
     # ---- 1. env ----
+    section("1. env")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -558,6 +618,7 @@ def main() -> int:
     print(smi, flush=True)
 
     # ---- 2. build, from the sources, with no prior build directory ----
+    section("2. build, from the sources, with no prior build directory")
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     log = _build.build_library()
@@ -580,6 +641,7 @@ def main() -> int:
           "warnings": [ln.strip() for ln in log.splitlines() if "warning" in ln]})
 
     # ---- 3. kernel against its plain version ----
+    section("3. kernel against its plain version")
     # The GEMV's plan on this card, and its launches by route on each path
     # (the check shapes here are no path of the kernels line's "launches").
     sms = sm_count(dev)
@@ -654,6 +716,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. main path through the entry points ----
+    section("4. main path through the entry points")
     calls_per_config = chain_calls + 1  # + the check
     gemv_cuda.launches = 0
     gemv_cuda.route_launches.clear()
@@ -708,6 +771,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. kernels: time, bound, plain, library ----
+    section("5. kernels: time, bound, plain, library")
     probe = torch.empty(1 << 30, dtype=torch.int16, device=dev)  # 2 GiB
     probe_dst = torch.empty_like(probe)
     copy_ms = event_ms(lambda: probe_dst.copy_(probe), reps=10)
@@ -886,6 +950,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. gemm against its plain version ----
+    section("6. gemm against its plain version")
     # Route launches by path: the check shapes here (not a path: their
     # launches are not counted in the kernels line's "launches"), the serve
     # cells, benchmark_gemm and the combine serve cells below.
@@ -940,6 +1005,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7, 8. serve: this slice's path, at full width and on a 2x2 mesh ----
+    section("7, 8. serve: this slice's path, at full width and on a 2x2 mesh")
     launches_by_path = {"gemv": {"strategies": main_launches,
                                  "sweep_asymmetric": sweep_launches}, "gemm": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -997,6 +1063,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     # ---- 9. gemm through the sweep's entry point ----
+    section("9. gemm through the sweep's entry point")
     a, b = uniform((4096, 4096), torch.bfloat16), uniform((4096, 4096), torch.bfloat16)
     mesh = make_mesh(1)
     reset_gemm()
@@ -1024,6 +1091,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 10. gemm: time, bound, plain, library ----
+    section("10. gemm: time, bound, plain, library")
     def build_registers(plan, dtype) -> int:
         """Registers per thread of the kernel a GEMM plan launches, from the
         ptxas lines of this run's build log (phase 2)."""
@@ -1084,6 +1152,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- quantized storage: helpers ----
+    section("quantized storage: helpers")
     def payload_abs(qa):
         """|payload| leaf by leaf (e4m3's sign bit cleared), so that
         quant_gemv_plain(payload_abs(qa), |x|) bounds |deq(A)|·|x|."""
@@ -1157,6 +1226,7 @@ def main() -> int:
                 "max_err_over_scale_by_width": {str(w): worst[w] for w in sorted(worst)}}
 
     # ---- 11. quant_gemv against its plain version ----
+    section("11. quant_gemv against its plain version")
     for m, k, block in QUANT_CHECK_SHAPES:
         for name in ("bfloat16", "float16", "float32", "float64"):
             dtype = torch_dtype(name)
@@ -1217,6 +1287,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 12. the quantizer on the card against the CPU ----
+    section("12. the quantizer on the card against the CPU")
     for name in ("float32", "bfloat16"):
         dtype = torch_dtype(name)
         spread = torch.empty((1000, 1), device=dev).uniform_(-8, 8, generator=gen).exp()
@@ -1234,6 +1305,7 @@ def main() -> int:
                   "format": fmt, "block": on_card.block, "bitwise_equal_cpu": True})
 
     # ---- 13. strategies at full width from quantized storage ----
+    section("13. strategies at full width from quantized storage")
     quant_launches, quant_routes = {}, {}
     held = {}
     for strategy, n, fmt, shards in QUANT_MAIN_CONFIGS:
@@ -1324,6 +1396,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 14. serve from a quantized resident ----
+    section("14. serve from a quantized resident")
     with tempfile.TemporaryDirectory() as tmp:
         for label, strategy, n, name, fmt, shards, n_requests in QUANT_SERVE_CONFIGS:
             dtype = torch_dtype(name)
@@ -1373,6 +1446,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     # ---- 15. quant_gemv: time, bound, plain, the native GEMV ----
+    section("15. quant_gemv: time, bound, plain, the native GEMV")
     quant_at = {}
     held = {}
     for n, fmt, w, name in QUANT_TIME_SHAPES:
@@ -1421,6 +1495,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- served solvers: helpers ----
+    section("served solvers: helpers")
     def step_inputs(op, n, acc, kf):
         """Seeded step operands: ap = p·(1 + u), so pᵀap > 0 without
         cancellation; Chebyshev on the interval [1, 100] at step index kf."""
@@ -1574,6 +1649,7 @@ def main() -> int:
     residual_bound = 1.1 * SOLVER_RTOL
 
     # ---- 16. solver_step against its plain version ----
+    section("16. solver_step against its plain version")
     solver_step_cuda.gemv_route_launches.clear()
     for m, k, n, off in SOLVER_CHECK_SHAPES:
         for storage in SOLVER_CHECK_STORAGE:
@@ -1661,6 +1737,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 17. served solvers at 65536² fp32, rowwise, p=1, both tiers ----
+    section("17. served solvers at 65536² fp32, rowwise, p=1, both tiers")
     n = SOLVER_N
     mesh1 = make_mesh(1)
     t0 = time.perf_counter()
@@ -1756,6 +1833,7 @@ def main() -> int:
     del b_dev
 
     # ---- 18. fused cg from an int8c resident at 65536² fp32 ----
+    section("18. fused cg from an int8c resident at 65536² fp32")
     q_engines = {tier: MatvecEngine(a, mesh1, strategy="rowwise", promote=None,
                                     solver_kernel=tier, dtype_storage="int8c")
                  for tier in ("torch", "cuda_fused")}
@@ -1798,6 +1876,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 19. fused cg, colwise 32768² fp32 on 4 logical shards ----
+    section("19. fused cg, colwise 32768² fp32 on 4 logical shards")
     n = SOLVER_COLWISE_N
     a = solver_operand(n, "float32", args.seed, device=dev)
     b = seeded_rhs(n)
@@ -1839,6 +1918,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 20. run_serve_solver: 20 cg solves at 65536² fp32, both tiers ----
+    section("20. run_serve_solver: 20 cg solves at 65536² fp32, both tiers")
     with tempfile.TemporaryDirectory() as tmp:
         for tier in ("torch", "cuda_fused"):
             snapshot = Path(tmp) / f"solver_{tier}.json"
@@ -1872,6 +1952,7 @@ def main() -> int:
     quant_launches.update(solver_paths["quant_gemv"])
 
     # ---- 21. ring_gemv against its plain version ----
+    section("21. ring_gemv against its plain version")
     def ring_mesh(kind: str, p: int = 4):
         return make_1d_mesh(p, devices=[dev] * p) if kind == "1d" else make_mesh(
             p, devices=[dev] * p)
@@ -1935,6 +2016,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 22. every combine through benchmark_strategy, 65536² bf16, 4 shards ----
+    section("22. every combine through benchmark_strategy, 65536² bf16, 4 shards")
     ring_launches = {}
     ref_y = None
     for strategy, combine, stages, kind in RING_MAIN_CONFIGS:
@@ -2000,6 +2082,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 23. run_serve through pallas_ring and overlap@4 ----
+    section("23. run_serve through pallas_ring and overlap@4")
     with tempfile.TemporaryDirectory() as tmp:
         mesh = ring_mesh("1d")
         p = mesh.size
@@ -2076,6 +2159,7 @@ def main() -> int:
                   "replay_max_rel_err_by_width": rel, "rtol": 2 ** -7})
 
     # ---- 24. flash_attention against its plain version ----
+    section("24. flash_attention against its plain version")
     def flash_operands(h, sq, sk, d, kdt, q_off, k_off):
         """Pre-scaled standard normal q (fp32), k and v in ``kdt``, and
         global positions starting at the offsets."""
@@ -2216,6 +2300,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     # ---- 25. ring and Ulysses attention at full width, 2x2 logical mesh ----
+    section("25. ring and Ulysses attention at full width, 2x2 logical mesh")
     att_mesh = make_mesh(4, devices=[dev] * 4)
     flash_launches, flash_routes = {}, {}
 
@@ -2418,6 +2503,7 @@ def main() -> int:
                            "max_abs_diff": (o_flash - o_xla).abs().max().item()}})
 
     # ---- 26. a gradient step through the flash ring on the card ----
+    section("26. a gradient step through the flash ring on the card")
     leaves = att_inputs(ATT_GRAD_S, torch.float32)
     grads = {}
     for kernel in ("xla", "flash"):
@@ -2476,6 +2562,7 @@ def main() -> int:
     del leaves
 
     # ---- 27. the attention study, 2x2 logical mesh ----
+    section("27. the attention study, 2x2 logical mesh")
     reset_flash()
     rows = run_attention_study(att_mesh, ATT_STUDY_SEQS, heads=ATT_H, d_head=ATT_D,
                                dtype="bfloat16", causal=False, n_reps=4,
@@ -2497,6 +2584,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 28. graphs: every kernel route captured and replayed ----
+    section("28. graphs: every kernel route captured and replayed")
     # Each route's call captured as a CUDA graph (one eager launch first),
     # replayed, and held bitwise equal to the eager launch on the same
     # inputs; the wrapper's count grows by one a replay, none for the
@@ -2566,7 +2654,378 @@ def main() -> int:
           "flash_small_head_vs_plain": flash_graph})
     torch.cuda.empty_cache()
 
-    # ---- 29. the kernels line ----
+    # ---- 29. reshard: every pair at 65536² bf16 on 4 logical shards ----
+    section("29. reshard: every pair at 65536² bf16 on 4 logical shards")
+    from matvec_mpi_multiplier_torch.models.base import shard_operand
+    from matvec_mpi_multiplier_torch.ops.quantize import dequantize
+    from matvec_mpi_multiplier_torch.parallel.reshard import (
+        RESHARD_STRATEGIES,
+        build_reshard,
+        copy_bytes,
+        reshard_program,
+    )
+
+    rs_mesh = make_mesh(4, devices=[dev] * 4)
+    n = RESHARD_N
+    a = uniform((n, n), torch.bfloat16)
+    payload = a.numel() * a.element_size()
+    reshard_at = {}
+    for src in RESHARD_STRATEGIES:
+        for dst in RESHARD_STRATEGIES:
+            if src == dst:
+                continue
+            steps = reshard_program(src, dst, *rs_mesh.grid)
+            src_st = shard(a, get_strategy(src).specs(rs_mesh)[0], rs_mesh)
+            migrate = build_reshard(rs_mesh, src, dst)
+            times, peaks = [], []
+            for _ in range(3):
+                out = None
+                torch.cuda.synchronize(dev)
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = migrate(src_st)
+                end.record()
+                torch.cuda.synchronize(dev)
+                times.append(start.elapsed_time(end))
+                peaks.append(torch.cuda.max_memory_allocated(dev) - before)
+                if len(times) < 3:
+                    del out
+            moved = copy_bytes(rs_mesh, src, dst, src_st)
+            ref = shard(a, get_strategy(dst).specs(rs_mesh)[0], rs_mesh)
+            check(all(torch.equal(o, r) for o, r in zip(out.shards, ref.shards)),
+                  f"reshard {src}->{dst}: a shard differs from shard() in {dst}")
+            a2a = sum(1 for s in steps if s[0] == "a2a")
+            # A ppermute among shards of one card reorders them: no bytes.
+            check(moved == a2a * payload,
+                  f"reshard {src}->{dst}: {moved} bytes copied, expected {a2a} x {payload}")
+            bound_ms = 2 * moved / (probe_gbps * 1e9) * 1e3
+            reshard_at[f"{src}->{dst}"] = {
+                "steps": [list(s) for s in steps], "ms": min(times),
+                "samples_ms": times, "bytes_moved": moved, "bound_ms": bound_ms,
+                "share_of_bound": bound_ms / min(times),
+                "peak_bytes_beyond_resident": max(peaks)}
+            emit({"phase": "reshard", "pair": f"{src}->{dst}", "shape": [n, n],
+                  "dtype": "bfloat16", "mesh": list(rs_mesh.grid), "shards_on_cuda0": 4,
+                  "bitwise_vs_shard": True, **reshard_at[f"{src}->{dst}"]})
+            del src_st, out, ref
+            torch.cuda.empty_cache()
+    del a
+    torch.cuda.empty_cache()
+
+    # ---- 30. engine reshard: traffic, rowwise -> blockwise -> rowwise ----
+    section("30. engine reshard: traffic, rowwise -> blockwise -> rowwise")
+    rs_widths = [w for w in DEFAULT_WIDTH_MIX if w <= SERVE_MAX_BUCKET]
+    rs_pool = _request_pool(n, rs_widths, torch.bfloat16, seed=args.seed + 1)
+    rs_sequence = rs_widths + [int(w) for w in np.random.default_rng(args.seed + 2).choice(
+        rs_widths, size=RESHARD_REQUESTS - len(rs_widths))]
+
+    def rs_engine(strategy):
+        a = resident_matrix(n, n, torch.bfloat16, dev, args.seed + 30)
+        return MatvecEngine(a, rs_mesh, strategy=strategy, kernel="cuda",
+                            max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE)
+
+    def traffic(engine) -> list:
+        return [engine.submit(rs_pool[w]).result() for w in rs_sequence]
+
+    rs_want = {}
+    for strategy in ("rowwise", "blockwise"):
+        fresh = rs_engine(strategy)
+        rs_want[strategy] = traffic(fresh)
+        del fresh
+        torch.cuda.empty_cache()
+    panel = n * n * 2 // 4
+    gemv_cuda.launches = 0
+    gemv_cuda.route_launches.clear()
+    reset_gemm()
+    eng = rs_engine("rowwise")  # the caller keeps no reference to A
+    eng.warmup(widths=rs_widths)
+    check(all(torch.equal(g, w) for g, w in zip(traffic(eng), rs_want["rowwise"])),
+          "engine reshard: rowwise traffic differs from a fresh rowwise engine")
+    rs_steps = []
+    for dst in ("blockwise", "rowwise"):
+        src = eng.strategy.name
+        torch.cuda.synchronize(dev)
+        mem_before = torch.cuda.memory_allocated(dev)
+        # The fence on the card: dispatches queued on the old layout just
+        # before the commit must give the old layout's answers.
+        queued = [eng.submit(rs_pool[SERVE_MAX_BUCKET]), eng.submit(rs_pool[1])]
+        pending = not all(f.done() for f in queued)
+        t0 = time.perf_counter()
+        res = eng.reshard(dst, warm_widths=rs_widths)
+        reshard_s = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        mem_after = torch.cuda.memory_allocated(dev)
+        want_src = rs_want[src]
+        for fut, w in zip(queued, (SERVE_MAX_BUCKET, 1)):
+            got = fut.result()
+            check(torch.equal(got, want_src[rs_sequence.index(w)]),
+                  f"engine reshard {src}->{dst}: a dispatch queued before the "
+                  f"commit (width {w}) is wrong")
+        check(mem_after <= mem_before + panel,
+              f"engine reshard {src}->{dst}: {mem_after - mem_before} bytes more "
+              f"allocated after the commit (one panel is {panel})")
+        compiles = eng.stats.compiles
+        results = traffic(eng)
+        check(eng.stats.compiles == compiles,
+              f"engine reshard {src}->{dst}: {eng.stats.compiles - compiles} steady builds")
+        check(all(torch.equal(g, w) for g, w in zip(results, rs_want[dst])),
+              f"engine reshard {src}->{dst}: traffic differs from a fresh {dst} engine")
+        step = {"pair": f"{src}->{dst}", "summary": res, "reshard_s": reshard_s,
+                "queued_in_flight_at_commit": pending,
+                "memory_before": mem_before, "memory_after": mem_after, "panel": panel,
+                "compiles_steady": 0, "dropped_total": eng.stats.dropped}
+        rs_steps.append(step)
+    torch.cuda.synchronize(dev)
+    rs_launched = {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches}
+    check(rs_launched["gemv"] > 0 and rs_launched["gemm"] > 0,
+          f"engine reshard launched {rs_launched}")
+    for kernel_name, count in rs_launched.items():
+        launches_by_path[kernel_name]["engine_reshard"] = count
+    gemv_routes["engine_reshard"] = dict(gemv_cuda.route_launches)
+    gemm_routes["engine_reshard"] = dict(gemm_cuda.route_launches)
+    emit({"phase": "engine_reshard", "shape": [n, n], "dtype": "bfloat16",
+          "mesh": list(rs_mesh.grid), "requests_per_layout": len(rs_sequence),
+          "steps": rs_steps, "bitwise_vs_fresh": True, "launches": rs_launched})
+    del eng, rs_want
+    torch.cuda.empty_cache()
+
+    # ---- 31. quantized reshard: int8c, retain_host ----
+    section("31. quantized reshard: int8c, retain_host")
+    quant_gemv_cuda.launches = 0
+    a = uniform((n, n), torch.float32)
+    qeng = MatvecEngine(a, rs_mesh, strategy="rowwise", kernel="cuda",
+                        dtype_storage="int8c", promote=None, retain_host=True)
+    qa_dst = quantize_matrix(a, "int8c", contraction_shards=4)
+    x = uniform((n,), torch.float32)
+    del a
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res_same = qeng.reshard("colwise")
+    same_s = time.perf_counter() - t0
+    check(res_same["migrated"] and not res_same["requantized"]
+          and res_same["bytes_moved"] == qeng.resident_bytes,
+          f"int8c reshard rowwise->colwise: {res_same}")
+    ref_st = shard_operand(qa_dst, get_strategy("colwise").specs(rs_mesh)[0], rs_mesh)
+    check(all(torch.equal(u, v) for s_e, s_r in zip(qeng._a.shards, ref_st.shards)
+              for u, v in zip(s_e.leaves, s_r.leaves) if u is not None),
+          "int8c reshard: the moved payload is not the colwise quantization")
+    y = qeng.submit(x).result()
+    spec_x = get_strategy("colwise").specs(rs_mesh)[1]
+    y_ref = get_strategy("colwise").build(rs_mesh, kernel="cuda", dtype_storage="int8c")(
+        ref_st, shard(x, spec_x, rs_mesh)).cpu()
+    check(torch.equal(y, y_ref), "int8c reshard: result differs from the colwise payload's")
+    del qeng, qa_dst, ref_st, x
+    torch.cuda.empty_cache()
+    a = uniform((n, RESHARD_NEW_BLOCK_K), torch.float32)
+    x = uniform((RESHARD_NEW_BLOCK_K,), torch.float32)
+    qeng = MatvecEngine(a, rs_mesh, strategy="rowwise", kernel="cuda",
+                        dtype_storage="int8c", promote=None, retain_host=True)
+    block_before = qeng.storage_block
+    res_new = qeng.reshard("colwise")
+    check(res_new["requantized"] and qeng.storage_block < block_before,
+          f"int8c reshard at k={RESHARD_NEW_BLOCK_K}: {res_new}, block "
+          f"{block_before} -> {qeng.storage_block}")
+    qa_cpu = quantize_matrix(a.cpu(), "int8c", contraction_shards=4)
+    oracle = dequantize(qa_cpu).double() @ x.cpu().double()
+    y = qeng.submit(x).result().double()
+    rtol, atol = QUANT_ORACLE_TOL
+    err = ((y - oracle).abs() - rtol * oracle.abs()).max().item()
+    check(err <= atol, f"int8c requantized reshard: {err} beyond rtol {rtol} atol {atol}")
+    torch.cuda.synchronize(dev)
+    quant_launches["engine_reshard_int8c"] = quant_gemv_cuda.launches
+    check(quant_gemv_cuda.launches > 0, "int8c reshard: the block-scaled GEMV never ran")
+    emit({"phase": "quant_reshard", "format": "int8c", "mesh": list(rs_mesh.grid),
+          "same_block": {"shape": [n, n], "dtype": "float32", "summary": res_same,
+                         "seconds": same_s, "payload_bitwise": True, "result_bitwise": True},
+          "new_block": {"shape": [n, RESHARD_NEW_BLOCK_K], "summary": res_new,
+                        "block": [block_before, qeng.storage_block],
+                        "oracle_excess": err, "rtol": rtol, "atol": atol},
+          "launches": quant_gemv_cuda.launches})
+    del qeng, a, x
+    torch.cuda.empty_cache()
+
+    # ---- 32. tune: fill a cache, read it back, measure nothing again ----
+    section("32. tune: fill a cache, read it back, measure nothing again")
+    from matvec_mpi_multiplier_torch import tuning
+    from matvec_mpi_multiplier_torch.ops.gemm_kernels import resolve_gemm
+    from matvec_mpi_multiplier_torch.ops.gemv import resolve_gemv
+    from matvec_mpi_multiplier_torch.tuning import search
+
+    tune_dir = Path(tempfile.mkdtemp(prefix="tuning_"))
+    os.environ[tuning.CACHE_ENV] = str(tune_dir / "tuning_cache.json")
+    tuning.reset_cache()
+    tune_mesh = make_mesh(4, devices=[dev] * 4)
+    serve_local = TUNE_SERVE_N // 2
+    tune_log = []
+
+    def tune_pass(cache) -> dict:
+        out = {}
+        log = tune_log.append
+        for m in TUNE_GEMV_ROWS:
+            for name in ("bfloat16", "float32"):
+                out[f"gemv {m}x{TUNE_GEMV_K} {name}"] = search.tune_gemv(
+                    m, TUNE_GEMV_K, name, cache, log=log)
+        out[f"gemv {serve_local}x{serve_local} float32"] = search.tune_gemv(
+            serve_local, serve_local, "float32", cache, log=log)
+        for b in TUNE_GEMM_BUCKETS:
+            out[f"gemm {serve_local}x{serve_local}x{b} float32"] = search.tune_gemm(
+                serve_local, serve_local, b, "float32", cache, log=log)
+        ov = search.tune_overlap("blockwise", tune_mesh, TUNE_SERVE_N, TUNE_SERVE_N,
+                                 "float32", cache, log=log)
+        out["overlap blockwise 2x2"] = ov
+        out["combine blockwise 2x2"] = search.tune_combine(
+            "blockwise", tune_mesh, TUNE_SERVE_N, TUNE_SERVE_N, "float32", cache,
+            stages=(ov or {}).get("stages"), log=log)
+        out["promotion blockwise 2x2"] = search.tune_promotion(
+            "blockwise", tune_mesh, TUNE_SERVE_N, TUNE_SERVE_N, "float32", cache, log=log)
+        out[f"solver_kernel cg rowwise {TUNE_SOLVER_N}"] = search.tune_solver_kernel(
+            "cg", "rowwise", make_mesh(1), TUNE_SOLVER_N, TUNE_SOLVER_N, "float32",
+            cache, log=log)
+        cache.save()
+        return out
+
+    for wrapper in (gemv_cuda, gemm_cuda, solver_step_cuda):
+        wrapper.launches = 0
+    gemv_cuda.route_launches.clear()
+    reset_gemm()
+    cache = tuning.TuningCache.load()
+    t0 = time.perf_counter()
+    decisions = tune_pass(cache)
+    tune_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    tune_launched = {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches,
+                     "solver_step": solver_step_cuda.launches}
+    check(all(v > 0 for v in tune_launched.values()), f"tune pass launched {tune_launched}")
+    for kernel_name in ("gemv", "gemm"):
+        launches_by_path[kernel_name]["tune"] = tune_launched[kernel_name]
+    solver_paths["solver_step"]["tune"] = tune_launched["solver_step"]
+    gemv_routes["tune"] = dict(gemv_cuda.route_launches)
+    gemm_routes["tune"] = dict(gemm_cuda.route_launches)
+    for axis, decision in decisions.items():
+        check(decision is not None, f"tune: {axis} recorded no decision")
+        emit({"phase": "tune", "axis": axis, "decision": decision})
+    fingerprint = tuning.platform_fingerprint()
+    check(fingerprint.startswith("torch-cuda:") and "H100" in fingerprint,
+          f"tune: fingerprint {fingerprint}")
+    check(all(key.startswith(fingerprint + "|") for key in cache.entries),
+          "tune: an entry under another fingerprint")
+    # A second pass on the filled cache measures nothing.
+    before = search.candidates_measured()
+    again = tune_pass(tuning.TuningCache.load())
+    check(search.candidates_measured() == before and again == decisions,
+          "tune: the second pass measured again")
+    # The JAX package's entries for the same keys never apply.
+    gemv_cell = f"gemv {TUNE_GEMV_ROWS[0]}x{TUNE_GEMV_K} bfloat16"
+    shared = tuning.TuningCache.load()
+    jax_keys = [tuning.gemv_key(TUNE_GEMV_ROWS[0], TUNE_GEMV_K, "bfloat16",
+                                fingerprint=JAX_FINGERPRINT),
+                tuning.promote_key("blockwise", TUNE_SERVE_N, TUNE_SERVE_N, 4, "float32",
+                                   fingerprint=JAX_FINGERPRINT)]
+    shared.record(jax_keys[0], {"kernel": "xla"})
+    shared.record(jax_keys[1], {"b_star": 32})
+    shared.save()
+    tuning.reset_cache()
+    check(tuning.lookup_gemv(TUNE_GEMV_ROWS[0], TUNE_GEMV_K, "bfloat16") == decisions[gemv_cell],
+          "tune: a JAX entry applied")
+    check(all(tuning.TuningCache.load().lookup(k) is not None for k in jax_keys),
+          "tune: a save lost the JAX package's entries")
+
+    # An engine with every "auto" dispatches the winners, bitwise what an
+    # engine with them named dispatches.
+    promo = decisions["promotion blockwise 2x2"]
+    comb = decisions["combine blockwise 2x2"]["combine"]
+    stages = (decisions["overlap blockwise 2x2"] or {}).get("stages")
+    gemv_win = decisions[f"gemv {serve_local}x{serve_local} float32"]
+    gemm_win = {b: decisions[f"gemm {serve_local}x{serve_local}x{b} float32"]
+                for b in TUNE_GEMM_BUCKETS}
+
+    class NamedWinners:
+        """The recorded winners named: the GEMV's, and each tuned bucket's
+        GEMM (the cuda tier's default plan at the others)."""
+
+        __name__ = "named_winners"
+
+        def __call__(self, a, x):
+            if x.dim() == 1:
+                return resolve_gemv(gemv_win)(a, x)
+            return resolve_gemm(gemm_win.get(x.shape[1]))(a, x)
+
+    serve_a = resident_matrix(TUNE_SERVE_N, TUNE_SERVE_N, torch.float32, dev, args.seed)
+    auto_pool = _request_pool(TUNE_SERVE_N, rs_widths, torch.float32, seed=args.seed + 3)
+    runs = {}
+    for label, kwargs in (
+        ("auto", dict(kernel="auto", combine="auto", promote="auto",
+                      dtype_storage="auto")),
+        ("named", dict(kernel=NamedWinners(), combine=comb, promote=promo["b_star"],
+                       stages=stages)),
+    ):
+        gemv_cuda.launches = 0
+        gemv_cuda.route_launches.clear()
+        reset_gemm()
+        engine = MatvecEngine(serve_a, tune_mesh, strategy="blockwise",
+                              max_bucket=SERVE_MAX_BUCKET, **kwargs)
+        outs = [engine.submit(auto_pool[w]).result() for w in rs_sequence]
+        torch.cuda.synchronize(dev)
+        runs[label] = {
+            "outs": outs, "b_star": engine.b_star, "stages": engine.stages,
+            "storage": [engine.storage, engine.storage_reason],
+            "keys": sorted(k._replace(kernel="").label() for k in engine._cache.keys()),
+            "gemv_routes": dict(gemv_cuda.route_launches),
+            "gemm_routes": dict(gemm_cuda.route_launches),
+            "launches": {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches}}
+        del engine
+        torch.cuda.empty_cache()
+    auto, named = runs["auto"], runs["named"]
+    check(auto["b_star"] == promo["b_star"] and auto["stages"] == named["stages"],
+          f"tune: the auto engine read b*={auto['b_star']}, S={auto['stages']}")
+    check(auto["keys"] == named["keys"] and any(
+        key.startswith(f"matvec:blockwise::{comb}") for key in auto["keys"]),
+          f"tune: the auto engine's keys {auto['keys']} are not the winners' {named['keys']}")
+    check(auto["gemv_routes"] == named["gemv_routes"]
+          and auto["gemm_routes"] == named["gemm_routes"],
+          f"tune: routes {auto['gemv_routes']} {auto['gemm_routes']} against "
+          f"{named['gemv_routes']} {named['gemm_routes']}")
+    check(all(torch.equal(u, v) for u, v in zip(auto["outs"], named["outs"])),
+          "tune: the auto engine differs from the named winners")
+    for kernel_name in ("gemv", "gemm"):
+        launches_by_path[kernel_name]["tune_auto_engine"] = auto["launches"][kernel_name]
+    del serve_a, auto_pool
+    torch.cuda.empty_cache()
+    solver_win = decisions[f"solver_kernel cg rowwise {TUNE_SOLVER_N}"]["solver_kernel"]
+    s_a = solver_operand(TUNE_SOLVER_N, "float32", args.seed, device=dev)
+    s_b = np.random.default_rng(args.seed).standard_normal(TUNE_SOLVER_N).astype(np.float32)
+    xs = {}
+    solver_step_cuda.launches = 0
+    for label, tier in (("auto", "auto"), ("named", solver_win)):
+        engine = MatvecEngine(s_a, make_mesh(1), strategy="rowwise", solver_kernel=tier,
+                              promote=None)
+        if label == "auto":
+            check(engine._resolve_solver_kernel("cg") == solver_win,
+                  f"tune: solver_kernel='auto' took {engine._resolve_solver_kernel('cg')}")
+        xs[label] = engine.submit(op="cg", rhs=s_b, rtol=SOLVER_RTOL).result().x
+        del engine
+    check(torch.equal(xs["auto"], xs["named"]), "tune: the auto solver differs")
+    solver_paths["solver_step"]["tune_auto_engine"] = solver_step_cuda.launches
+    del s_a
+    torch.cuda.empty_cache()
+    emit({"phase": "tune_check", "tune_seconds": tune_s, "entries": len(cache),
+          "fingerprint": fingerprint, "second_pass_measured": 0,
+          "jax_entries_applied": 0, "auto_engine": {
+              k: v for k, v in auto.items() if k not in ("outs", "keys")},
+          "auto_keys": auto["keys"],
+          "solver_kernel": solver_win, "launches": tune_launched,
+          "log_tail": tune_log[-40:]})
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    del os.environ[tuning.CACHE_ENV]
+    tuning.reset_cache()
+
+    # ---- 33. the kernels line ----
+    section("33. the kernels line")
+    emit({"phase": "phase_seconds", "sections": clock["seconds"],
+          "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
     gemm_head = gemm_at["{0}x{1}x{2}_{3}".format(*GEMM_TIME_SHAPES[GEMM_HEAD])]
     quant_head = quant_at["{0}x{0}_{1}_n{2}".format(*QUANT_TIME_SHAPES[QUANT_HEAD])]
@@ -2699,7 +3158,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 30. result ----
+    # ---- 34. result ----
+    section("34. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

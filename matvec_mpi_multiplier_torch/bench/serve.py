@@ -670,7 +670,9 @@ def _run_solver_config(args, name: str, mesh: Mesh, n: int) -> bool:
 
 
 # The flags that select the JAX package's load, chaos, multi-tenant and
-# reshard modes, with their defaults: any other value raises.
+# reshard modes, with their defaults: any other value raises. --reshard (the
+# scheduler's drift mode) waits for the global scheduler (ROADMAP.md, queue
+# A 5); the engine's own reshard() is ported.
 _LATER_FLAGS = {
     "arrival": "closed", "concurrency": None,
     "coalesce": None, "fault_spec": None, "poison_rate": 0.0,
@@ -686,6 +688,44 @@ def _check_ported(args: argparse.Namespace) -> None:
         raise not_ported("--dtype-storage speculate (speculative serving)")
 
 
+def tune_serve(
+    strategies, sizes, meshes, dtype: str, *, max_bucket: int,
+    kernel: str = "cuda", measure: str = "auto", min_gain: float | None = None,
+    prune_margin: float | None = None, seed: int = 0, log=print,
+) -> None:
+    """The ``--tune`` pre-pass: fill every tuning axis a serve config reads
+    at engine construction — the kernels, stages and combine of the matvec
+    and the GEMM path (the GEMM at the widest bucket), the storage format,
+    the solver tier and the promotion crossover over the bucket ladder —
+    then drop the dispatch singleton so the engines read the fresh
+    decisions."""
+    from ..engine.buckets import bucket_ladder
+    from ..tuning import TuningCache, reset_cache
+    from ..tuning.search import TUNE_MIN_GAIN, tune_config, tune_promotion
+
+    if min_gain is None:
+        min_gain = TUNE_MIN_GAIN
+    # kernel='auto' would read the cache being filled: race on the default.
+    kernel = "cuda" if kernel == "auto" else kernel
+    cache = TuningCache.load()
+    log(f"serve tuning pre-pass -> {cache.path}")
+    buckets = tuple(b for b in bucket_ladder(max_bucket) if b >= 2)
+    for m, k in sizes:
+        for mesh in meshes:
+            for name in strategies:
+                common = dict(kernel=kernel, min_gain=min_gain,
+                              prune_margin=prune_margin, seed=seed, log=log)
+                tune_config(name, mesh, m, k, dtype, cache, op="matvec",
+                            measure=measure, **common)
+                tune_config(name, mesh, m, k, dtype, cache, op="gemm",
+                            n_rhs=max_bucket, measure=measure, **common)
+                tune_promotion(name, mesh, m, k, dtype, cache, buckets=buckets,
+                               **common)
+            cache.save()
+    cache.save()
+    reset_cache()
+
+
 def run_serve_sweep(args: argparse.Namespace) -> int:
     """The ``--op serve`` body shared by this module's CLI and
     ``bench.sweep``: the sequential protocol for every (size, strategy,
@@ -699,6 +739,9 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
     )
 
     _check_ported(args)
+    # Solver mode: --op selects a served solver; the namespace attribute is
+    # solver_op because bench.sweep forwards its own args.op ("serve").
+    solver_op = getattr(args, "solver_op", "matvec") or "matvec"
     devices = platform_devices(args.platform, args.host_devices)
     strategies = resolve_strategies(args.strategy)
     counts = args.devices or device_counts_available(len(devices))
@@ -707,15 +750,20 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
         else [(s, s) for s in SQUARE_SIZES]
     )
     meshes = {n: make_mesh(n, devices=devices) for n in counts}
+    if getattr(args, "tune", False) and solver_op == "matvec":
+        tune_serve(
+            strategies, sizes, [meshes[n] for n in counts], args.dtype,
+            max_bucket=args.max_bucket, kernel=args.kernel,
+            measure=getattr(args, "measure", "auto") or "auto",
+            min_gain=getattr(args, "min_gain", None),
+            prune_margin=getattr(args, "prune_margin", None), seed=args.seed,
+        )
     promote = args.promote
     if promote == "never":
         promote = None
     elif promote not in (None, "auto"):
         promote = int(promote)
     metrics_out = getattr(args, "metrics_out", None)
-    # Solver mode: --op selects a served solver; the namespace attribute is
-    # solver_op because bench.sweep forwards its own args.op ("serve").
-    solver_op = getattr(args, "solver_op", "matvec") or "matvec"
     n_done = 0
     for m, k in sizes:
         for name in strategies:
@@ -781,13 +829,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kernel", default="cuda")
     p.add_argument(
         "--combine", default=None,
-        help="combine schedule (or 'auto': no tuning cache yet, the "
-        "static default)",
+        help="combine schedule (or 'auto': the tuning cache's, the static "
+        "default on a miss)",
     )
     p.add_argument(
         "--stages", type=int, default=None,
         help="with --combine overlap: pin the staged schedule's stage "
-        "count S (default: 2, the tuning cache's miss; clamped per shape)",
+        "count S (default: the tuning cache's, 2 on a miss; clamped per "
+        "shape)",
     )
     p.add_argument("--n-requests", type=int, default=200,
                    help="steady-phase request count")
@@ -795,8 +844,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="widest batch bucket (power-of-two ladder below it)")
     p.add_argument(
         "--promote", default="auto",
-        help="GEMV->GEMM crossover b*: 'auto' (the static default until "
-        "the tuning slice), an int, or 'never'",
+        help="GEMV->GEMM crossover b*: 'auto' (the tuning cache's, 4 on a "
+        "miss), an int, or 'never'",
     )
     p.add_argument("--metrics-out", default=None, metavar="FILE",
                    help="write the metrics snapshot after each config")
@@ -804,8 +853,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--dtype-storage", dest="dtype_storage", default=None,
         choices=["native", "int8", "int8c", "fp8", "auto", "speculate"],
         help="resident-A storage format (ops/quantize.py): quantize A once "
-        "at residency and serve from the low-bit payload; 'auto' has no "
-        "tuning cache yet and serves native; 'speculate' is not ported. CSV "
+        "at residency and serve from the low-bit payload; 'auto' takes the "
+        "tuning cache's format (native on a miss); 'speculate' is not "
+        "ported. CSV "
         "rows record the resolved format + resident bytes",
     )
     p.add_argument(
@@ -820,7 +870,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--solver-kernel", default="torch", choices=list(SOLVER_KERNELS),
         help="with --op cg|chebyshev: the iteration tier — the unfused "
         "PyTorch loop, the fused CUDA step (ops/cuda_solver.py), or 'auto' "
-        "(no tuning cache yet: the unfused tier)",
+        "(the tuning cache's tier, the unfused one on a miss)",
     )
     p.add_argument(
         "--rtol", type=float, default=1e-6,
@@ -855,6 +905,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--concurrency", nargs="+", type=int, default=None)
     p.add_argument("--poison-rate", type=float, default=0.0)
     p.add_argument("--tenants", type=int, default=None)
+    p.add_argument(
+        "--tune", action="store_true",
+        help="pre-pass: measure the kernels, stages, combines (matvec and "
+        "gemm), storage, solver tier and promotion crossover of every "
+        "config and keep them in the tuning cache",
+    )
+    p.add_argument("--min-gain", type=float, default=None,
+                   help="with --tune: hysteresis margin (default 0.05)")
+    p.add_argument("--prune-margin", type=float, default=None,
+                   dest="prune_margin",
+                   help="with --tune: cost-model pruning (no cost model yet: "
+                   "every candidate is measured)")
+    p.add_argument("--measure", choices=["auto", "loop", "chain", "sync"],
+                   default="auto", help="with --tune: the races' timing method")
     p.add_argument("--data-root", default=None)
     p.add_argument("--no-csv", action="store_true")
     p.add_argument(

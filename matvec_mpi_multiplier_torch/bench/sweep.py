@@ -27,6 +27,8 @@ delegates to ``bench/serve.py``. ``--dtype-storage int8|int8c|fp8`` times
 the strategies against a quantized A (rows labelled ``<strategy>_<format>``).
 ``--combine`` names the combine schedule (strategies without it are
 skipped) and ``--stages`` pins the staged ``overlap`` schedules' S.
+``--tune`` fills the tuning cache for the grid first (``tuning/``), so that
+``--kernel auto`` and ``--combine auto`` read measured decisions.
 """
 
 from __future__ import annotations
@@ -106,8 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --op serve: widest batch bucket")
     p.add_argument(
         "--promote", default="auto",
-        help="with --op serve: GEMV->GEMM crossover b* — 'auto' (the static "
-        "default), an int, or 'never'",
+        help="with --op serve: GEMV->GEMM crossover b* — 'auto' (the tuning "
+        "cache's, the static 4 on a miss), an int, or 'never'",
     )
     p.add_argument(
         "--n-rhs", type=int, default=None,
@@ -158,7 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
             "gather", "overlap", "overlap_ring", "pallas_ring",
         ],
         help="combine-schedule override: a concrete schedule name, or "
-        "'auto' (no tuning cache yet: the static default) — see "
+        "'auto' (the tuning cache's winner per shape, the static default on "
+        "a miss; fill it with --tune or the tuning CLI) — see "
         "MatvecStrategy.build. 'overlap' is the staged pipeline (stage "
         "count from --stages); 'pallas_ring' the fused ring kernel (1-D "
         "meshes, matvec only). Strategies without the schedule are skipped",
@@ -168,8 +171,18 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=None,
         help="with --combine overlap: pin the pipeline's stage count S "
-        "(default: 2, the tuning cache's miss); clamped down to the "
+        "(default: the tuning cache's, 2 on a miss); clamped down to the "
         "largest valid divisor of the per-device chunk",
+    )
+    p.add_argument(
+        "--tune", action="store_true",
+        help="pre-pass: measure every tuning axis of the grid and keep the "
+        "winners in the tuning cache (tuning/) before sweeping",
+    )
+    p.add_argument(
+        "--min-gain", type=float, default=None,
+        help="with --tune: hysteresis margin — a non-default candidate must "
+        "beat the static default by this fraction (default 0.05)",
     )
     p.add_argument(
         "--measure", choices=list(MEASURE_METHODS), default="auto",
@@ -280,6 +293,23 @@ def run_sweep(args: argparse.Namespace) -> int:
         sizes = [(s, s) for s in SQUARE_SIZES] + list(ASYMMETRIC_SIZES)
     modes = list(TIMING_MODES) if args.mode == "both" else [args.mode]
     meshes = {n: make_mesh(n, devices=devices) for n in counts}
+    if args.tune:
+        from ..tuning import TuningCache, reset_cache
+        from ..tuning.search import TUNE_MIN_GAIN, tune_sweep
+
+        cache = TuningCache.load()
+        print(f"tuning pre-pass -> {cache.path}")
+        tune_sweep(
+            strategies, sizes, [meshes[n] for n in counts], args.dtype, cache,
+            op=args.op, n_rhs=args.n_rhs, seed=args.seed,
+            # The sweep's own kernel and protocol; kernel='auto' would read
+            # the very cache being filled, so the races run on the default.
+            kernel="cuda" if args.kernel == "auto" else args.kernel,
+            measure=args.measure,
+            min_gain=args.min_gain if args.min_gain is not None else TUNE_MIN_GAIN,
+        )
+        cache.save()
+        reset_cache()  # the sweep's auto lookups read the fresh decisions
 
     n_ok = n_skip = 0
     # Sizes outermost: each operand pair is generated once and shared.

@@ -91,7 +91,9 @@
 
 #include <climits>
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
+#include <vector>
 
 #include "hopper.cuh"
 
@@ -759,35 +761,52 @@ struct Launch {
 };
 
 cudaError_t persistent_grid(Launch* l, int64_t tiles) {
-  // Each (kernel, bytes, device) is opted in and its resident blocks per SM
-  // counted once: the serving engine calls a few plans over and over.
+  // Each (kernel, bytes, device) has its resident blocks per SM counted
+  // once: the serving engine calls a few plans over and over. The opt-in is
+  // the kernel's, for the whole process, and one kernel may run with
+  // several stage counts (the tuner races them) from any thread: it only
+  // ever rises, to the largest size launched, so no launch lowers it under
+  // another's. One table for every thread, under a lock.
   struct Seen { const void* fn; int smem, dev, per_sm; };
-  thread_local Seen seen[32] = {};
-  thread_local int next = 0;
+  struct OptIn { const void* fn; int dev, smem; };
+  static std::mutex lock;
+  static std::vector<Seen> seen;
+  static std::vector<OptIn> opted;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const Seen* hit = nullptr;
-  for (const Seen& e : seen) {
-    if (e.fn == l->fn && e.smem == l->smem && e.dev == dev) hit = &e;
-  }
-  if (hit == nullptr) {
-    err = cudaFuncSetAttribute(l->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               l->smem);
-    if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l->fn, l->threads,
-                                                        l->smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    seen[next] = {l->fn, l->smem, dev, per_sm};
-    hit = &seen[next];
-    next = (next + 1) % 32;
+  int per_sm = 0;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (const Seen& e : seen) {
+      if (e.fn == l->fn && e.smem == l->smem && e.dev == dev) per_sm = e.per_sm;
+    }
+    if (per_sm == 0) {
+      OptIn* mine = nullptr;
+      for (OptIn& e : opted) {
+        if (e.fn == l->fn && e.dev == dev) mine = &e;
+      }
+      if (mine == nullptr || mine->smem < l->smem) {
+        err = cudaFuncSetAttribute(l->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   l->smem);
+        if (err != cudaSuccess) return err;
+        if (mine == nullptr) {
+          opted.push_back({l->fn, dev, l->smem});
+        } else {
+          mine->smem = l->smem;
+        }
+      }
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l->fn, l->threads,
+                                                          l->smem);
+      if (err != cudaSuccess) return err;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      seen.push_back({l->fn, l->smem, dev, per_sm});
+    }
   }
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int64_t resident = static_cast<int64_t>(hit->per_sm) * sms;
+  const int64_t resident = static_cast<int64_t>(per_sm) * sms;
   l->grid = dim3(static_cast<unsigned>(tiles < resident ? tiles : resident));
   return cudaSuccess;
 }

@@ -366,6 +366,14 @@ EncodeTiled encode_tiled() {
                ? reinterpret_cast<EncodeTiled>(p)
                : nullptr;
   }();
+  // cuTensorMapEncodeTiled needs a context current on the calling thread, and
+  // a thread may reach it before any runtime call that binds one (its launch
+  // plan came from a table another thread filled): cudaSetDevice binds the
+  // device's primary context.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) {
+    return nullptr;
+  }
   return fn;
 }
 

@@ -1041,7 +1041,11 @@ cudaError_t launch_tc(const TcArgs& a, cudaStream_t stream) {
   if (err == cudaSuccess) err = encode_x_map(&map_x, a.xs, a.k, a.n * P, NT);
   const void* fn = reinterpret_cast<const void*>(quant_tc_kernel<F, kBf16, P, NT, MS>);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // The opt-in is the kernel's, for the whole process, and its ring size
+    // varies with the block: opted in at the most a CTA may use, so that no
+    // launch, on any thread, lowers it under another's.
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit);
   }
   if (err != cudaSuccess) return err;
   const float* s1 = static_cast<const float*>(a.s);
@@ -1088,8 +1092,9 @@ cudaError_t launch_vec(const TcArgs& a, cudaStream_t stream) {
     err = encode_payload_map(&map_q2, kLevels == 2 ? a.q2 : a.q, a.m, a.k, BM);
   }
   const void* fn = reinterpret_cast<const void*>(quant_vec_kernel<F, T, MS>);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {  // at the most a CTA may use, as launch_tc's
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit);
   }
   if (err != cudaSuccess) return err;
   const T* x = static_cast<const T*>(a.x);

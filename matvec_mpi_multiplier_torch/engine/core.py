@@ -70,18 +70,28 @@ rowwise and blockwise), resolved once at construction; the staged schedules'
 stage count S is pinned then too and baked into the executable keys
 (``overlap@S``).
 
-Left for later slices (ROADMAP.md, queue A items 2, 4, 5, 6 and 9): the
+**Tuning.** The ``"auto"`` values of ``promote``, ``combine``, ``stages``,
+``dtype_storage`` and ``solver_kernel`` read the measured tuning cache
+(``tuning/``) for this strategy, global shape, mesh size and dtype, once at
+construction (the solver tier per op, at each submit), and take the static
+default on a miss; ``kernel="auto"`` reads it per local shape
+(``ops/gemv.py``).
+
+**Reshard.** :meth:`MatvecEngine.reshard` migrates the resident operand to
+another of rowwise, colwise and blockwise in place
+(``parallel/reshard.py``), re-resolves the configuration against the
+destination and drops every program built over the old layout.
+
+Left for later slices (ROADMAP.md, queue A items 4, 5, 6 and 9): the
 tracer and timeline spans, the resilience ladder (and with it the native
 safe tier of quantized storage), fault injection and the integrity gate,
-residency/tenancy/reshard hooks, speculative submits and lowering
-fingerprints; their arguments raise ``ConfigError``. The tuned ``"auto"`` values of
-``promote``, ``combine``, ``stages``, ``dtype_storage`` and
-``solver_kernel`` wait for the tuning cache: each takes the JAX package's
-cache-miss choice.
+residency and tenancy hooks, speculative submits and lowering
+fingerprints; their arguments raise ``ConfigError``.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from typing import Callable, Sequence
@@ -90,12 +100,19 @@ import numpy as np
 import torch
 
 from ..models import get_strategy
-from ..models.base import MatvecStrategy, not_ported, shard_operand
+from ..models.base import (
+    STORAGE_INCOMPATIBLE_COMBINES,
+    MatvecStrategy,
+    not_ported,
+    shard_operand,
+)
 from ..obs.registry import MetricsRegistry
 from ..ops import gemm_kernel_name_for, get_gemm_kernel, get_kernel
 from ..ops.graphs import capture, single_cuda_device
 from ..ops.quantize import (
     NATIVE,
+    default_block,
+    fp8_supported,
     get_storage_kernel,
     normalize_storage,
     quantize_matrix,
@@ -120,25 +137,23 @@ from .buckets import (
 )
 from .executables import ExecKey, ExecStats, ExecutableCache
 
-# Static promotion default: one GEMM dispatch replaces 4+ GEMV dispatches.
-# At b=4 the block reads A once instead of 4 times, so even bandwidth-bound
-# shapes win. promote="auto" takes it: the tuned crossover waits for the
-# tuning slice, so every lookup is the JAX package's cache miss.
+# Static promotion default on a tuning-cache miss: one GEMM dispatch replaces
+# 4+ GEMV dispatches. At b=4 the block reads A once instead of 4 times, so
+# even bandwidth-bound shapes win.
 DEFAULT_PROMOTE_B = 4
 
 # Iteration cap when a solver submit leaves ``maxiter`` unset.
 DEFAULT_SOLVER_MAXITER = 1000
 
 # The solver iteration tiers: the unfused PyTorch loop, the fused CUDA step,
-# and "auto" (no tuning cache yet: the unfused tier, the JAX package's
-# cache-miss choice).
+# and "auto" (the tuning cache's winner; the unfused tier on a miss).
 SOLVER_KERNELS = ("torch", "cuda_fused", "auto")
 
 # The JAX package's other constructor arguments, not ported yet.
 _LATER_ARGS = frozenset({
     "trace_jsonl",
     "trace_capacity", "resilience", "fault_plan", "integrity_gate",
-    "retain_host", "defer_placement", "label_prefix", "exec_cache",
+    "defer_placement", "label_prefix", "exec_cache",
     "residency_listener", "timeline",
 })
 
@@ -378,12 +393,14 @@ class EngineStats(ExecStats):
     outstanding-dispatch count at snapshot time; ``drains`` counts blocking
     waits the backpressure high-water mark forced; ``deadline_failures``
     counts requests failed (never dispatched) because their ``deadline_ms``
-    elapsed in the gate."""
+    elapsed in the gate; ``dropped`` counts programs :meth:`MatvecEngine.reshard`
+    dropped with the old layout (the builds that replace them count in
+    ``compiles``)."""
 
     def __init__(
         self, compiles: int, hits: int, requests: int, dispatches: int,
         cols: int, in_flight: int = 0, drains: int = 0,
-        deadline_failures: int = 0, dispatch: str = "eager",
+        deadline_failures: int = 0, dispatch: str = "eager", dropped: int = 0,
     ):
         super().__init__(compiles=compiles, hits=hits)
         self.dispatch = dispatch
@@ -393,6 +410,7 @@ class EngineStats(ExecStats):
         self.in_flight = in_flight
         self.drains = drains
         self.deadline_failures = deadline_failures
+        self.dropped = dropped
 
 
 def _engine_dtype(dtype) -> torch.dtype | None:
@@ -422,21 +440,23 @@ class MatvecEngine:
     combine : combine schedule name (``models``: colwise's ``psum``,
         ``psum_scatter``, ``ring``, ``ring_overlap``, ``a2a``, ``overlap``,
         ``overlap_ring``, ``pallas_ring``; the ``gather``/``ring``/
-        ``overlap`` gathers of rowwise and blockwise), ``"auto"`` (no tuning
-        cache yet: the static default, the JAX package's miss), or None for
-        the static default. Resolved once here for both paths: a schedule
+        ``overlap`` gathers of rowwise and blockwise), ``"auto"`` (the tuning
+        cache's schedule for each path, ``op="matvec"`` and ``op="gemm"``;
+        the static default on a miss), or None for the static default.
+        Resolved once here for both paths: a schedule
         the batched path has no face for (``pallas_ring``, the gather
         family) leaves promoted blocks on the strategy's default.
     stages : stage count of the staged ``overlap`` schedules — an int
-        (clamped down the shape's stage ladder), or None/``"auto"`` (no
-        tuning cache yet: ``DEFAULT_OVERLAP_STAGES``). Resolved once here
-        and baked into the executable keys (``overlap@S``); ignored by every
-        other schedule.
+        (clamped down the shape's stage ladder), or None/``"auto"`` (the
+        tuning cache's stage count, ``DEFAULT_OVERLAP_STAGES`` on a miss).
+        Resolved once here and baked into the executable keys
+        (``overlap@S``); ignored by every other schedule.
     dtype : operand dtype (default: ``a``'s).
     max_bucket : widest bucket in the ladder; wider requests split.
     promote : the GEMV→GEMM crossover ``b*``: an int, None (never promote),
-        or ``"auto"`` — which has no tuning cache to read yet and takes the
-        JAX package's cache-miss default, :data:`DEFAULT_PROMOTE_B`.
+        or ``"auto"`` — the tuning cache's measured crossover (its
+        ``b_star``; a recorded null means promotion never won and is
+        honored), :data:`DEFAULT_PROMOTE_B` on a miss.
     donate : a request already on the mesh's first card is handed to the
         engine, which reads its buffer where it lies (eager dispatch places
         it by views, captured dispatch copies it into the key's static
@@ -453,10 +473,10 @@ class MatvecEngine:
         ``"int8"``, ``"int8c"`` or ``"fp8"`` (quantized once here, on A's
         device, with the strategy's contraction shards; ``kernel`` then names
         a quantized-storage tier). The engine keeps no reference to the
-        native A: the port has no native safe tier yet (the resilience
-        ladder), so holding A would double the card's footprint for nothing.
-        ``"auto"`` has no tuning cache to read yet and takes the JAX
-        package's cold-cache path: native, ``storage_reason="auto_miss"``.
+        native A on the card: the port has no native safe tier yet (the
+        resilience ladder). ``"auto"`` takes the tuning cache's format
+        (``storage_reason="tuned"``), native on a miss (``"auto_miss"``) or
+        where the recorded format cannot serve here (``"auto_degraded"``).
         ``"speculate"`` is not ported.
     solver_kernel : the iteration tier of solver submits: ``"torch"`` (the
         unfused loop: the strategy's matvec plus PyTorch vector ops, the JAX
@@ -464,8 +484,12 @@ class MatvecEngine:
         and iteration, ``ops/cuda_solver.py``, the JAX package's
         ``"pallas_fused"``; cg and chebyshev on rowwise or colwise only —
         the strategy/combine half is checked here, the op half at submit)
-        or ``"auto"``, which has no tuning cache yet and takes the unfused
-        tier, as the JAX package does on a miss.
+        or ``"auto"``: per op, the tuning cache's tier where the fused tier
+        serves the op, the unfused tier on a miss.
+    retain_host : keep A on the host (a reference when A is a host tensor
+        already, else a copy), so that :meth:`reshard` can requantize a
+        quantized resident whose block size the destination changes. A
+        native resident keeps no host copy: its reshard never requantizes.
 
     The JAX package's other arguments (``resilience``, ``trace_jsonl``,
     ...) raise ``ConfigError``.
@@ -489,6 +513,7 @@ class MatvecEngine:
         metrics: MetricsRegistry | None = None,
         dtype_storage: str | None = None,
         solver_kernel: str = "torch",
+        retain_host: bool = False,
         **later,
     ):
         for name in later:
@@ -531,15 +556,20 @@ class MatvecEngine:
             )
         self.storage = self._resolve_storage(dtype_storage)
         # The REQUESTED combine, for the fused solver tier, which owns its
-        # combine spelling.
+        # combine spelling; the requested stages and promotion, which a
+        # reshard resolves again against the destination.
         self._requested_combine = combine
-        self._matvec_combine, self._gemm_combine = self._resolve_combine(combine)
-        self.stages = self._resolve_stages(stages)
+        self._requested_stages = stages
+        self._requested_promote = promote
+        self._matvec_combine, self._gemm_combine = self._resolve_combine(
+            combine, self.strategy)
+        self.stages = self._resolve_stages(
+            stages, self.strategy, (self._matvec_combine, self._gemm_combine))
         self.kernel = kernel
         self.gather_output = gather_output
         self.max_bucket = max_bucket
         bucket_ladder(max_bucket)  # validates
-        self.b_star = self._resolve_promotion(promote)
+        self.b_star = self._resolve_promotion(promote, self.strategy)
         # Unknown kernel names fail here, not requests deep.
         if self.storage != NATIVE:
             get_storage_kernel(kernel)  # one kernel serves both ranks
@@ -551,6 +581,11 @@ class MatvecEngine:
             raise ConfigError(f"max_in_flight must be >= 1, got {max_in_flight}")
         self.max_in_flight = max_in_flight
         self.donate = donate
+        # reshard() migrations run one at a time; the commit swaps the
+        # layout under _swap_lock, which every dispatch holds while it
+        # enqueues, so a dispatch sees the old layout or the new one whole.
+        self._reshard_lock = threading.Lock()
+        self._swap_lock = threading.RLock()
         self._graph_device = single_cuda_device(mesh.devices)
         self._outstanding: deque = deque()
         self._cuda_devices = [d for d in mesh.distinct_devices() if d.type == "cuda"]
@@ -590,6 +625,16 @@ class MatvecEngine:
         # Solver metric handles, created on the FIRST solver submit so a
         # pure-matvec engine's snapshot has no solver_* entries.
         self._solver_metrics = None
+        self._c_reshards = self.metrics.counter(
+            "engine_reshards_total", "reshard() migrations committed"
+        )
+        self._c_reshard_bytes = self.metrics.counter(
+            "engine_reshard_bytes_total", "bytes reshard() migrations copied"
+        )
+        self._c_dropped = self.metrics.counter(
+            "engine_executables_dropped_total",
+            "programs of an old layout dropped by reshard()",
+        )
         self._cache = ExecutableCache(
             compile_counter=self.metrics.counter(
                 "engine_compiles_total", "executable builds"
@@ -598,6 +643,9 @@ class MatvecEngine:
                 "engine_hits_total", "executable-cache hits"
             ),
         )
+        # The host copy a requantizing reshard reads (a host tensor is kept
+        # by reference). A native resident never requantizes: it keeps none.
+        self._a_host = a.cpu() if retain_host and self.storage != NATIVE else None
         # Resident for the engine's life: at p=1 on A's own device the shard
         # IS a (or its payload: no copy). A quantized engine drops A here.
         if self.storage != NATIVE:
@@ -612,11 +660,12 @@ class MatvecEngine:
             self.resident_bytes = a.numel() * a.element_size()
         self._a = shard_operand(a, spec_a, mesh)
         del a
-        self.metrics.gauge(
+        self._g_resident = self.metrics.gauge(
             "engine_resident_bytes",
             "device bytes of the resident A operand (payload + scales for "
             "quantized storage)",
-        ).set(self.resident_bytes)
+        )
+        self._g_resident.set(self.resident_bytes)
         # Info metric: the label set carries the fact, the value is always 1.
         self.metrics.gauge(
             f'engine_storage_format{{format="{self.storage}",'
@@ -636,9 +685,23 @@ class MatvecEngine:
         if dtype_storage == "speculate":
             raise not_ported("dtype_storage='speculate' (speculative serving)")
         if dtype_storage == "auto":
-            # No tuning cache yet: every lookup is the JAX package's miss.
-            self.storage_reason = "auto_miss"
-            return NATIVE
+            from ..tuning import lookup_storage
+
+            decision = lookup_storage(
+                strategy=self.strategy.name, m=self.m, k=self.k,
+                p=self.mesh.size, dtype=dtype_name(self.dtype),
+            )
+            self.storage_reason = "tuned" if decision else "auto_miss"
+            fmt = (decision or {}).get("storage") or NATIVE
+            try:
+                fmt = normalize_storage(fmt)
+            except ConfigError:
+                fmt = None  # a format this build does not know (or speculate)
+            if fmt is None or (fmt == "fp8" and not fp8_supported()) or (
+                    fmt != NATIVE and not self.strategy.storage_combine_ok(None)):
+                self.storage_reason = "auto_degraded"
+                return NATIVE
+            return fmt
         fmt = normalize_storage(dtype_storage)
         if fmt != NATIVE and not self.strategy.storage_combine_ok(None):
             raise ConfigError(
@@ -648,47 +711,68 @@ class MatvecEngine:
             )
         return fmt
 
-    def _resolve_combine(self, combine: str | None) -> tuple[str | None, str | None]:
-        """Pin the combine schedule of both paths at construction. An
-        explicit name binds the matvec path always, and the batched path
-        when the strategy has a batched face for it (``pallas_ring`` and the
-        gather family leave it on the strategy's default). ``"auto"`` has no
-        tuning cache to read yet: both paths take the default (None)."""
-        if combine not in (None, "auto") and not self.strategy.supports_combine(combine):
+    def _resolve_combine(self, combine: str | None,
+                         strategy) -> tuple[str | None, str | None]:
+        """Pin the combine schedule of both paths for ``strategy`` (the
+        engine's, or a reshard's destination). An explicit name binds the
+        matvec path always, and the batched path when the strategy has a
+        batched face for it (``pallas_ring`` and the gather family leave it
+        on the strategy's default). ``"auto"`` reads the tuning cache once,
+        here (``op="matvec"``, ``op="gemm"``): a recorded schedule the
+        strategy offers on that path (and, under quantized storage, one
+        that does not tile A), else the default (None)."""
+        if combine not in (None, "auto") and not strategy.supports_combine(combine):
             # Fail at construction, not requests deep.
             raise ConfigError(
-                f"strategy {self.strategy.name!r} has no combine schedule "
+                f"strategy {strategy.name!r} has no combine schedule "
                 f"{combine!r}"
             )
         if (self.storage != NATIVE and combine not in (None, "auto")
-                and not self.strategy.storage_combine_ok(combine)):
+                and not strategy.storage_combine_ok(combine)):
             raise ConfigError(
                 f"combine {combine!r} tiles A inside its schedule body and "
                 f"cannot compose with quantized dtype_storage={self.storage!r}"
             )
-        if combine in (None, "auto"):
+        if combine == "auto":
+            from ..tuning import lookup_combine
+
+            common = dict(strategy=strategy.name, m=self.m, k=self.k,
+                          p=self.mesh.size, dtype=dtype_name(self.dtype))
+            mv = lookup_combine(op="matvec", **common)
+            gm = lookup_combine(op="gemm", **common)
+            if mv not in strategy.combine_candidates(self.mesh):
+                mv = None
+            if gm not in strategy.combine_candidates_batched(self.mesh):
+                gm = None
+            if self.storage != NATIVE:
+                mv = None if mv in STORAGE_INCOMPATIBLE_COMBINES else mv
+                gm = None if gm in STORAGE_INCOMPATIBLE_COMBINES else gm
+            return mv, gm
+        if combine is None:
             return None, None
-        batched_ok = combine in self.strategy.combine_candidates_batched(self.mesh)
+        batched_ok = combine in strategy.combine_candidates_batched(self.mesh)
         return combine, (combine if batched_ok else None)
 
-    def _effective_combine(self, combine: str | None) -> str | None:
+    def _effective_combine(self, combine: str | None, strategy=None) -> str | None:
         """The schedule a path runs: the resolved name, or the strategy
         instance's own binding (colwise_overlap & co.) when none was given."""
-        return combine if combine is not None else self.strategy.combine
+        strategy = self.strategy if strategy is None else strategy
+        return combine if combine is not None else strategy.combine
 
-    def _is_overlap(self, combine: str | None) -> bool:
-        return self._effective_combine(combine).startswith("overlap")
+    def _is_overlap(self, combine: str | None, strategy=None) -> bool:
+        return self._effective_combine(combine, strategy).startswith("overlap")
 
-    def _resolve_stages(self, stages: int | str | None) -> int | None:
-        """Pin the overlap stage count S at construction (None when no path
-        runs an overlap schedule): the explicit int clamped to the shape's
-        ladder, or the cache-miss default."""
-        if not (self._is_overlap(self._matvec_combine)
-                or self._is_overlap(self._gemm_combine)):
+    def _resolve_stages(self, stages: int | str | None, strategy,
+                        combines: tuple[str | None, str | None]) -> int | None:
+        """Pin the overlap stage count S for ``strategy`` running
+        ``combines`` (None when no path runs an overlap schedule): the
+        explicit int clamped to the shape's ladder, or the tuning cache's
+        (the static default on a miss)."""
+        if not any(self._is_overlap(c, strategy) for c in combines):
             return None
-        return self.strategy.resolve_stages(
+        return strategy.resolve_stages(
             self.m, self.k, self.mesh, stages,
-            self.strategy.overlap_chunk_devices(self.mesh), self.dtype,
+            strategy.overlap_chunk_devices(self.mesh), self.dtype,
         )
 
     def _combine_label(self, combine: str | None) -> str | None:
@@ -699,14 +783,23 @@ class MatvecEngine:
             return f"{self._effective_combine(combine)}@{self.stages}"
         return combine
 
-    def _resolve_promotion(self, promote: str | int | None) -> int | None:
-        """The crossover ``b*``: blocks of ``b >= b_star`` columns take the
-        single-GEMM path; below it, per-column GEMV dispatches. None
-        disables promotion entirely."""
+    def _resolve_promotion(self, promote: str | int | None, strategy) -> int | None:
+        """The crossover ``b*`` for ``strategy``: blocks of ``b >= b_star``
+        columns take the single-GEMM path; below it, per-column GEMV
+        dispatches. None disables promotion entirely."""
         if promote is None:
             return None
         if promote == "auto":
-            return DEFAULT_PROMOTE_B  # no tuning cache yet: the miss default
+            from ..tuning import lookup_promotion
+
+            decision = lookup_promotion(
+                strategy=strategy.name, m=self.m, k=self.k,
+                p=self.mesh.size, dtype=dtype_name(self.dtype),
+            )
+            if decision is None:
+                return DEFAULT_PROMOTE_B  # cache miss: the static default
+            # A measured "promotion never won" is None, honored as such.
+            return decision.get("b_star")
         b_star = int(promote)
         if b_star < 1:
             raise ConfigError(f"promote must be >= 1, got {promote}")
@@ -896,21 +989,8 @@ class MatvecEngine:
         if expired():
             return fail()
         try:
-            if x.dim() == 1:
-                self._c_cols.inc()
-                parts = [self._dispatch_matvec(x)]
-            else:
-                b = x.shape[1]
-                self._c_cols.inc(b)
-                parts = []
-                if self.b_star is not None and b >= self.b_star:
-                    offset = 0
-                    for width in split_widths(b, self.max_bucket):
-                        parts.append(self._dispatch_block(x[:, offset:offset + width]))
-                        offset += width
-                else:
-                    parts = [self._dispatch_matvec(x[:, j].contiguous())
-                             for j in range(b)]
+            with self._swap_lock:
+                parts = self._dispatch_request(x)
         except BaseException:
             self._c_dispatch_failures.inc()
             self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
@@ -919,6 +999,22 @@ class MatvecEngine:
                            materialize_hist=self._h_materialize)
         self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
         return fut
+
+    def _dispatch_request(self, x: torch.Tensor) -> list:
+        """Enqueue one request's dispatches: one GEMV program per column
+        below ``b*``, bucket-padded GEMM blocks from it."""
+        if x.dim() == 1:
+            self._c_cols.inc()
+            return [self._dispatch_matvec(x)]
+        b = x.shape[1]
+        self._c_cols.inc(b)
+        if self.b_star is None or b < self.b_star:
+            return [self._dispatch_matvec(x[:, j].contiguous()) for j in range(b)]
+        parts, offset = [], 0
+        for width in split_widths(b, self.max_bucket):
+            parts.append(self._dispatch_block(x[:, offset:offset + width]))
+            offset += width
+        return parts
 
     # ---- served solvers ----
 
@@ -955,13 +1051,27 @@ class MatvecEngine:
     def _resolve_solver_kernel(self, op: str) -> str:
         """The iteration tier one solve of ``op`` runs: "cuda_fused" or
         "torch". An explicit "cuda_fused" re-raises the fused tier's typed
-        errors for an op it does not serve; "auto" has no tuning cache to
-        read yet and stays on the unfused tier (the JAX package's miss)."""
+        errors for an op it does not serve; "auto" takes the tuning cache's
+        tier for this op, strategy, shape, mesh size and storage where the
+        fused tier serves the op, and the unfused tier on a miss."""
         if self.solver_kernel == "cuda_fused":
             from ..ops.cuda_solver import check_fused_solver
 
             check_fused_solver(op, self.strategy.name, self._requested_combine, self.mesh)
             return "cuda_fused"
+        if self.solver_kernel == "auto":
+            from ..ops.cuda_solver import fused_solver_supported
+            from ..tuning import lookup_solver_kernel
+
+            if fused_solver_supported(op, self.strategy.name,
+                                      self._requested_combine, self.mesh):
+                decision = lookup_solver_kernel(
+                    op=op, strategy=self.strategy.name, m=self.m, k=self.k,
+                    p=self.mesh.size, dtype=dtype_name(self.dtype),
+                    storage=self.storage,
+                )
+                if (decision or {}).get("solver_kernel") == "cuda_fused":
+                    return "cuda_fused"
         return "torch"
 
     def _solver_key(self, op: str, bucket: int) -> ExecKey:
@@ -1070,11 +1180,12 @@ class MatvecEngine:
             return fail()
         try:
             self._c_cols.inc()
-            key = self._solver_key(op, bucket)
-            fn = self._cache.get(key, lambda: self._build_solver(key, restart, steps))
-            self._c_dispatches.inc()
-            res = fn(self._a, rhs.to(self.mesh.devices[0]), rtol, maxiter, lo, hi)
-            dispatch = self._track(_Dispatch(self._cuda_devices))
+            with self._swap_lock:
+                key = self._solver_key(op, bucket)
+                fn = self._cache.get(key, lambda: self._build_solver(key, restart, steps))
+                self._c_dispatches.inc()
+                res = fn(self._a, rhs.to(self.mesh.devices[0]), rtol, maxiter, lo, hi)
+                dispatch = self._track(_Dispatch(self._cuda_devices))
         except BaseException:
             self._c_dispatch_failures.inc()
             self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
@@ -1103,6 +1214,10 @@ class MatvecEngine:
         widths take the per-column path and build no GEMM bucket). On one
         CUDA device each build captures its program's graph. Returns the
         number of fresh builds."""
+        with self._swap_lock:
+            return self._warmup(widths)
+
+    def _warmup(self, widths: Sequence[int] | None) -> int:
         before = self._cache.stats.compiles
         self._cache.get(self._matvec_key(), self._build_matvec)
         if self.b_star is not None:
@@ -1120,6 +1235,143 @@ class MatvecEngine:
                                 lambda bucket=bucket: self._build_gemm(bucket))
         return self._cache.stats.compiles - before
 
+    # ---- online reshard ----
+
+    def reshard(self, strategy, *, warm_widths: Sequence[int] | None = None) -> dict:
+        """Migrate the resident operand to another strategy in place: the
+        payload, and a quantized resident's payload and scales, move between
+        layouts by the ``all_to_all``/``ppermute`` program of
+        ``parallel/reshard.py``, and the configuration (combine, stages,
+        ``b*``) resolves against the destination as a fresh construction's
+        would. The migrated resident is bitwise what a fresh engine in the
+        destination layout holds, shard for shard.
+
+        A quantized resident's scales move with the payload when the block
+        size (a function of k and the contraction shards) is the same in
+        both layouts; where the destination changes it, A is quantized
+        again from the host copy ``retain_host=True`` keeps (without one,
+        ``ConfigError``).
+
+        **The fence.** The destination's configuration is resolved and the
+        migration built while the old layout still serves (a failure there
+        leaves the engine as it was); the commit swaps the layout under
+        ``_swap_lock``, which
+        every dispatch holds while it enqueues, so a dispatch runs on the
+        old layout or the new one, whole. The commit drops every program of
+        the executable cache (each closes over the old shards: a captured
+        graph holds their addresses, a solver's device-loop state its
+        operand), counted in ``engine_executables_dropped_total``; builds
+        after it count as compiles. The old shards and programs are
+        released only after an event recorded at the commit has completed,
+        so no dispatch queued on the old layout reads freed memory.
+
+        Returns ``{src, dst, migrated, aborted, requantized, bytes_moved}``:
+        ``bytes_moved`` is what the program copied (``copy_bytes``: 0 for a
+        requantization, or where every step is a reordering of shards on
+        one card). ``aborted`` is always False: eviction during a migration
+        comes with residency management (ROADMAP.md, queue A 5).
+        ``warm_widths`` forwards to :meth:`warmup` after the commit, so the
+        destination's programs are built off the request path.
+        """
+        from ..parallel.reshard import (
+            RESHARD_STRATEGIES,
+            build_reshard,
+            copy_bytes,
+            validate_reshard,
+        )
+
+        dst = get_strategy(strategy) if isinstance(strategy, str) else strategy
+        with self._reshard_lock:
+            src = self.strategy
+            result = dict(src=src.name, dst=dst.name, migrated=False,
+                          aborted=False, requantized=False, bytes_moved=0)
+            if dst.name == src.name:
+                return result
+            for name in (src.name, dst.name):
+                if name not in RESHARD_STRATEGIES:
+                    raise ConfigError(
+                        f"online reshard covers {RESHARD_STRATEGIES}; "
+                        f"asked for {src.name!r} -> {dst.name!r}"
+                    )
+            mesh = self.mesh
+            dst.validate(self.m, self.k, mesh)
+            validate_reshard((self.m, self.k), mesh)
+            if self.storage != NATIVE and not dst.storage_combine_ok(None):
+                raise ConfigError(
+                    f"strategy {dst.name!r} binds an A-tiling combine and "
+                    f"cannot host the quantized resident (storage="
+                    f"{self.storage!r})"
+                )
+            # An explicit combine with no spelling in the destination falls
+            # back to the static default: a reshard never fails over a name.
+            req = self._requested_combine
+            if req not in (None, "auto") and (
+                not dst.supports_combine(req)
+                or (self.storage != NATIVE and not dst.storage_combine_ok(req))
+            ):
+                req = None
+            # The destination's configuration, planned before anything is
+            # committed: a resolver that raises leaves the engine as it was.
+            combines = self._resolve_combine(req, dst)
+            stages = self._resolve_stages(self._requested_stages, dst, combines)
+            b_star = self._resolve_promotion(self._requested_promote, dst)
+
+            # ---- the migration, while the old layout still serves ----
+            dst_shards = dst.contraction_shards(mesh)
+            requant = None
+            if self.storage != NATIVE:
+                new_block = default_block(self.k, dst_shards)
+                try:
+                    if new_block != self.storage_block:
+                        raise ConfigError("block→shard mapping changed")
+                    validate_reshard((self.m, self.k // new_block), mesh,
+                                     what="scales")
+                except ConfigError:
+                    if self._a_host is None:
+                        raise ConfigError(
+                            "reshard needs the host A to recompute per-block "
+                            "scales, and this engine retains none (construct "
+                            "it with retain_host=True)"
+                        ) from None
+                    requant = quantize_matrix(self._a_host, self.storage,
+                                              contraction_shards=dst_shards)
+            src_a = self._a
+            if requant is not None:
+                new_a = shard_operand(requant, dst.specs(mesh)[0], mesh)
+                bytes_moved = 0
+            else:
+                new_a = build_reshard(mesh, src.name, dst.name)(src_a)
+                bytes_moved = copy_bytes(mesh, src.name, dst.name, src_a)
+            del src_a
+
+            # ---- the commit: the only window a dispatch waits on ----
+            with self._swap_lock:
+                old = (self._a, self._cache.clear())
+                self._a = new_a
+                del new_a
+                self.strategy = dst
+                _, self._spec_x, _ = dst.specs(mesh)
+                _, self._spec_b, _ = dst.batched_specs(mesh)
+                if requant is not None:
+                    self.storage_block = requant.block
+                    self.resident_bytes = requant.nbytes
+                    self._g_resident.set(self.resident_bytes)
+                self._matvec_combine, self._gemm_combine = combines
+                self.stages = stages
+                self.b_star = b_star
+                fence = _Dispatch(self._cuda_devices)
+            self._c_dropped.inc(len(old[1]))
+            self._c_reshards.inc()
+            self._c_reshard_bytes.inc(bytes_moved)
+            result.update(migrated=True, requantized=requant is not None,
+                          bytes_moved=int(bytes_moved))
+            # Release the old layout once the work queued on it is done.
+            fence.synchronize()
+            del old
+        if warm_widths is not None:
+            self.warmup(widths=warm_widths)
+        return result
+
     @property
     def stats(self) -> EngineStats:
         s = self._cache.stats
@@ -1134,6 +1386,7 @@ class MatvecEngine:
             in_flight=in_flight, drains=self._c_drains.value,
             deadline_failures=self._c_deadline_failures.value,
             dispatch="eager" if self._graph_device is None else "graph",
+            dropped=self._c_dropped.value,
         )
 
     def close(self) -> None:

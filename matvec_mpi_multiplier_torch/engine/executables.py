@@ -85,6 +85,15 @@ class ExecutableCache:
         self._compiles.inc()
         return exe
 
+    def clear(self) -> list:
+        """Drop every built program (the engine's reshard: programs close
+        over the old layout's shards) and return them, so the caller decides
+        when their buffers may go. The compile counter keeps counting
+        builds: a key built again counts again."""
+        dropped = list(self._executables.values())
+        self._executables.clear()
+        return dropped
+
     def keys(self) -> list[ExecKey]:
         """The ExecKeys built so far (insertion order)."""
         return list(self._executables)

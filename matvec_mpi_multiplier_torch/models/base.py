@@ -17,9 +17,10 @@ object that knows
 ``build(combine=...)`` picks the combine schedule by name: colwise rebinds
 itself to one of its in-body reductions (:meth:`with_combine`), and the
 sharded-output strategies choose how y is gathered (``"gather"``, the
-neighbor ``"ring"``, the staged ``"overlap"``). ``combine="auto"`` and
-``stages=None`` are the JAX package's tuning-cache miss: the port has no
-tuning cache yet.
+neighbor ``"ring"``, the staged ``"overlap"``). ``combine="auto"`` reads
+the tuning cache (``tuning/``) per operand shape at call time, and
+``stages=None`` per overlap program; each takes the static default on a
+miss.
 
 :meth:`build` returns ``matvec(a, x) -> y`` closed over the mesh. It takes
 placed operands, or plain tensors, which it places itself, and runs
@@ -56,9 +57,9 @@ from ..utils.errors import ConfigError, ShardingError
 
 Body = Callable[[Sequence[torch.Tensor], Sequence[torch.Tensor]], list]
 
-# Static stage count of the staged `overlap` schedules when none is pinned:
-# the JAX package's tuning-cache-miss default (S=1 is the degenerate
-# un-pipelined schedule; deeper ladders are the tuner's call).
+# Static stage count of the staged `overlap` schedules when none is pinned
+# and the tuning cache has no decision (S=1 is the degenerate un-pipelined
+# schedule; deeper ladders are the tuner's call).
 DEFAULT_OVERLAP_STAGES = 2
 
 # Combine schedules that tile/slice A inside their own bodies (the staged
@@ -234,9 +235,8 @@ class MatvecStrategy(abc.ABC):
         return None
 
     def default_combine(self, mesh: Mesh) -> str:
-        """The static default ``combine="auto"`` takes: the port has no
-        tuning cache yet, so every lookup is the JAX package's miss. Valid
-        wherever ``self.validate`` is."""
+        """The static default ``combine="auto"`` falls back to on a
+        tuning-cache miss. Valid wherever ``self.validate`` is."""
         return "gather"
 
     def supports_combine(self, combine: str | None) -> bool:
@@ -270,15 +270,54 @@ class MatvecStrategy(abc.ABC):
     def _resolve_combine(self, combine: str | None, storage: str,
                          mesh: Mesh) -> str | None:
         """The schedule a build runs: the argument, else the instance's own
-        ``combine="auto"`` request; ``"auto"`` is a tuning-cache miss and
-        takes :meth:`default_combine`. None keeps the instance's binding."""
+        ``combine="auto"`` request (``"auto"`` then builds
+        :meth:`_build_auto_combine`). None keeps the instance's binding."""
         if combine is None:
             combine = self.requested_combine
         if storage != NATIVE:
             self._check_storage_combine(combine)
-        if combine == "auto":
-            combine = self.default_combine(mesh)
         return combine
+
+    def _build_auto_combine(self, mesh: Mesh, *, batched: bool, dtype_storage: str,
+                            **build_kwargs) -> Callable:
+        """``combine="auto"``: at each call, the tuning cache's schedule for
+        the operand's GLOBAL shape (``tuning.lookup_combine``, under
+        ``op="gemm"`` for the batched face), among the schedules this
+        strategy offers and the shape admits; the static default on a miss.
+        Each chosen schedule is built once. A quantized build never takes a
+        schedule that tiles A (:data:`STORAGE_INCOMPATIBLE_COMBINES`), so a
+        native-storage decision cannot break it."""
+        from ..tuning import lookup_combine
+        from ..utils.convert import dtype_name
+
+        candidates = (self.combine_candidates_batched(mesh) if batched
+                      else self.combine_candidates(mesh))
+        if dtype_storage != NATIVE:
+            candidates = tuple(c for c in candidates
+                               if c not in STORAGE_INCOMPATIBLE_COMBINES)
+        built: dict[str, Callable] = {}
+
+        def choose(m: int, k: int, dtype) -> str:
+            choice = lookup_combine(op="gemm" if batched else "matvec",
+                                    strategy=self.name, m=m, k=k, p=mesh.size,
+                                    dtype=dtype_name(dtype))
+            if choice in candidates:
+                try:
+                    (self.with_combine(choice) or self).validate(m, k, mesh)
+                    return choice
+                except ShardingError:
+                    pass  # a schedule this shape does not divide into
+            return self.default_combine(mesh)
+
+        def run(a, x):
+            choice = choose(a.shape[0], a.shape[1], a.dtype)
+            if choice not in built:
+                built[choice] = self._build_combine(
+                    mesh, choice, batched=batched, dtype_storage=dtype_storage,
+                    **build_kwargs)
+            return built[choice](a, x)
+
+        return run
 
     def _build_combine(
         self, mesh: Mesh, combine: str, *, batched: bool, kernel,
@@ -352,17 +391,16 @@ class MatvecStrategy(abc.ABC):
     ) -> int:
         """The concrete stage count S one overlap program uses.
 
-        ``stages=None``/``"auto"`` would consult the tuning cache; the port
-        has none yet, so it is the JAX package's miss:
-        :data:`DEFAULT_OVERLAP_STAGES`. The result is clamped DOWN to the
+        ``stages=None``/``"auto"`` reads the tuning cache's stage count for
+        this strategy, GLOBAL shape, mesh size and dtype
+        (``tuning.lookup_overlap``), :data:`DEFAULT_OVERLAP_STAGES` on a
+        miss. The result is clamped DOWN to the
         largest entry of the shape's valid stage ladder
         (``parallel.ring.stage_ladder``: S must divide the ``m /
         chunk_devices`` per-device chunk), so a requested S degrades to a
         coarser pipeline on a shape it doesn't divide and never crashes a
-        shape ``validate`` accepts. ``k`` and ``dtype`` key the tuned
-        lookup in the JAX package and are unused here.
+        shape ``validate`` accepts.
         """
-        del k, dtype
         ladder = stage_ladder(m, chunk_devices)
         if not ladder:
             raise ShardingError(
@@ -370,7 +408,12 @@ class MatvecStrategy(abc.ABC):
                 f"{chunk_devices} (got {m})"
             )
         if stages in (None, "auto"):
-            stages = DEFAULT_OVERLAP_STAGES
+            from ..tuning import lookup_overlap
+            from ..utils.convert import dtype_name
+
+            decision = lookup_overlap(strategy=self.name, m=m, k=k, p=mesh.size,
+                                      dtype=dtype_name(dtype))
+            stages = (decision or {}).get("stages") or DEFAULT_OVERLAP_STAGES
         stages = int(stages)
         if stages < 1:
             raise ValueError(f"stages must be >= 1, got {stages}")
@@ -438,13 +481,13 @@ class MatvecStrategy(abc.ABC):
         and ``"overlap_ring"``, the fused ``"pallas_ring"``), for the
         sharded-output strategies a gather schedule (``"gather"``,
         ``"ring"``, the staged ``"overlap"`` gather). ``combine="auto"``
-        would consult the tuning cache; the port has none yet, so it is the
-        JAX package's cache miss: the strategy's static default.
+        reads the tuning cache per operand shape at call time and takes the
+        strategy's static default on a miss (:meth:`_build_auto_combine`).
 
         ``stages`` pins the ``overlap`` schedules' stage count S (ignored by
-        every other schedule): None/``"auto"`` is the cache miss,
-        ``DEFAULT_OVERLAP_STAGES``; an int is clamped down to the largest
-        valid ladder entry for the shape (:meth:`resolve_stages`).
+        every other schedule): None/``"auto"`` reads the tuning cache
+        (``DEFAULT_OVERLAP_STAGES`` on a miss); an int is clamped down to
+        the largest valid ladder entry for the shape (:meth:`resolve_stages`).
 
         ``dtype_storage`` selects the storage format of ``A``: None or
         ``"native"`` is the plain tensor path; ``"int8"``/``"int8c"``/
@@ -457,6 +500,11 @@ class MatvecStrategy(abc.ABC):
         """
         storage = normalize_storage(dtype_storage)
         combine = self._resolve_combine(combine, storage, mesh)
+        if combine == "auto":
+            return self._build_auto_combine(
+                mesh, batched=False, dtype_storage=storage, kernel=kernel,
+                gather_output=gather_output, stages=stages,
+            )
         if combine is not None:
             return self._build_combine(
                 mesh, combine, batched=False, kernel=kernel,
@@ -507,6 +555,11 @@ class MatvecStrategy(abc.ABC):
         """
         storage = normalize_storage(dtype_storage)
         combine = self._resolve_combine(combine, storage, mesh)
+        if combine == "auto":
+            return self._build_auto_combine(
+                mesh, batched=True, dtype_storage=storage, kernel=kernel,
+                gather_output=gather_output, stages=stages,
+            )
         if combine is not None:
             return self._build_combine(
                 mesh, combine, batched=True, kernel=kernel,

@@ -32,8 +32,8 @@ overlaps: each schedule costs what its program does, extra launches
 included. The registry names ``colwise_ring`` / ``colwise_ring_overlap`` /
 ``colwise_a2a`` / ``colwise_overlap`` are thin bindings of these schedules;
 ``ColwiseStrategy(combine=...)`` is the single implementation, and
-``combine="auto"`` is the JAX package's tuning-cache miss (the static
-default for the output form).
+``combine="auto"`` reads the tuning cache per operand shape (the static
+default for the output form on a miss).
 
 Constraint preserved: ``n_cols % p == 0`` (``src/multiplier_colwise.c:151-154``,
 message fixed per quirk Q2). The scatter-family schedules additionally
@@ -255,7 +255,8 @@ class ColwiseAllToAllStrategy(ColwiseStrategy):
 class ColwiseOverlapStrategy(ColwiseStrategy):
     """Colwise with the combine bound to the staged pipeline
     (``combine="overlap"``). Output is always row-sharded. ``stages`` pins
-    S; the default is the cache miss, ``DEFAULT_OVERLAP_STAGES``."""
+    S; the default is the tuning cache's (``DEFAULT_OVERLAP_STAGES`` on a
+    miss)."""
 
     name = "colwise_overlap"
 

@@ -96,8 +96,9 @@ def build_gemm(
     kernel) or ``"torch"``. ``combine`` selects the combine schedule by
     name, as ``MatvecStrategy.build`` does for matvec: for the colwise
     family ``"psum"``, ``"psum_scatter"``, ``"ring"``, ``"ring_overlap"``,
-    ``"a2a"``, ``"overlap"`` or ``"overlap_ring"``; ``"auto"`` is the
-    tuning-cache miss (the static default); the rank-1-only
+    ``"a2a"``, ``"overlap"`` or ``"overlap_ring"``; ``"auto"`` reads the
+    tuning cache under ``op="gemm"`` (the static default on a miss); the
+    rank-1-only
     ``"pallas_ring"`` is rejected. ``stages`` pins the overlap stage count.
     The other arguments follow ``MatvecStrategy.build_batched``: the
     registry names ``colwise_ring`` & co. are the matvec registry's

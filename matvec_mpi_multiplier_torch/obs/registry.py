@@ -10,8 +10,10 @@ the engine's :class:`~..engine.EngineStats` and the serve bench read:
   cumulative buckets and a bounded window of raw observations;
   ``percentile`` is ``np.percentile`` over the window.
 
-The rate estimator, the EWMA gauge, the Prometheus text and the default
-process registry wait for the observability slice (ROADMAP.md).
+The default process registry (:func:`get_registry`) holds the events of
+subsystems with no instance of their own: the tuner's per-candidate
+measurements. The rate estimator, the EWMA gauge and the Prometheus text
+wait for the observability slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -129,7 +131,8 @@ class Histogram:
 
 class MetricsRegistry:
     """Named metrics, get-or-create. One registry per engine (isolated
-    counters per serving instance)."""
+    counters per serving instance), plus the process default
+    (:func:`get_registry`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -177,3 +180,17 @@ class MetricsRegistry:
             "gauges": {n: g.value for n, g in sorted(gauges.items())},
             "histograms": {n: h.summary() for n, h in sorted(histograms.items())},
         }
+
+
+_default: MetricsRegistry | None = None
+_default_lock = threading.Lock()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process's default registry, made on first use: where the
+    tuner's per-candidate measurement events land."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = MetricsRegistry()
+        return _default

@@ -84,33 +84,83 @@ def default_gemm_tiles(m: int, n: int, k: int, dtype: torch.dtype,
     path of a route computes each element with the same instructions in
     the same order. The k-block depth is the dtype's (64, 32, 16) and there
     is no split-K."""
+    return gemm_tiles(m, n, k, dtype, aligned, b_aligned)
+
+
+def gemm_route(dtype: torch.dtype, k: int, aligned: bool = True) -> str:
+    """The route :func:`default_gemm_tiles` takes, from A alone."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"gemm takes bf16/fp16/fp32/fp64, got {dtype}")
-    bn = _tile_width(n)
-    face = "bytes" if n <= TILE_WIDTHS[-1] else "operations"
     if dtype in (torch.bfloat16, torch.float16):
-        if k % 8 == 0 and aligned:
-            # The operation face takes 256-row tiles: 3/4 of the L2 bytes
-            # per flop of 128 x 128.
-            bm = 128 if face == "bytes" else 256
-            direct = face == "operations" and n % 8 == 0 and b_aligned
-            stage = (bm + bn) * 64 * 2
-            stages = min(WGMMA_MAX_STAGES,
-                         (SMEM_LIMIT - 1024 - 16 * WGMMA_MAX_STAGES) // stage)
-            return GemmPlan("wgmma_tma", bm, bn, 64, stages, face,
-                            "tma" if direct else "transposed",
-                            1024 + stages * stage + 16 * stages, 1 if direct else 2)
-        return GemmPlan("mma_sync", 128, bn, 64, 1, face, "registers",
-                        (128 + bn) * 72 * 2, 1)
-    if dtype == torch.float32:
+        return "wgmma_tma" if k % 8 == 0 and aligned else "mma_sync"
+    return "ffma" if dtype == torch.float32 else "dfma"
+
+
+def gemm_tiles(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool = True,
+               b_aligned: bool = True, bn: int | None = None,
+               stages: int | None = None) -> GemmPlan:
+    """The plan of :func:`gemm_route`'s route with tiles ``bn`` columns wide
+    (default: the smallest width that covers n) and a ring of ``stages``
+    (default: the most that fit), the tuner's tile ladder
+    (:func:`gemm_tile_ladder`). Raises ``ValueError`` for what the route
+    cannot take."""
+    del m
+    route = gemm_route(dtype, k, aligned)
+    face = "bytes" if n <= TILE_WIDTHS[-1] else "operations"
+    bn = _tile_width(n) if bn is None else bn
+    if bn not in TILE_WIDTHS:
+        raise ValueError(f"gemm tiles are {TILE_WIDTHS} columns wide, got {bn}")
+    if route == "wgmma_tma":
+        # The operation face takes 256-row tiles: 3/4 of the L2 bytes per
+        # flop of 128 x 128.
+        bm = 128 if face == "bytes" or bn != 128 else 256
+        direct = face == "operations" and bm == 256 and n % 8 == 0 and b_aligned
+        stage = (bm + bn) * 64 * 2
+        top = min(WGMMA_MAX_STAGES, (SMEM_LIMIT - 1024 - 16 * WGMMA_MAX_STAGES) // stage)
+        stages = top if stages is None else stages
+        if not 2 <= stages <= top:
+            raise ValueError(f"wgmma_tma takes 2..{top} stages at bn={bn}, got {stages}")
+        return GemmPlan("wgmma_tma", bm, bn, 64, stages, face,
+                        "tma" if direct else "transposed",
+                        1024 + stages * stage + 16 * stages, 1 if direct else 2)
+    if route == "ffma":
         # Tiles up to 32 wide take at most half the shared memory, so two
         # blocks share an SM (1 KB of each SM's is reserved per block).
         stage = (128 + bn) * 32 * 4
         budget = SMEM_LIMIT if bn >= 64 else SMEM_LIMIT // 2 - 1024
-        stages = min(FFMA_MAX_STAGES, (budget - 1024 - 8 * FFMA_MAX_STAGES) // stage)
+        top = min(FFMA_MAX_STAGES, (budget - 1024 - 8 * FFMA_MAX_STAGES) // stage)
+        stages = top if stages is None else stages
+        if not 2 <= stages <= top:
+            raise ValueError(f"ffma takes 2..{top} stages at bn={bn}, got {stages}")
         return GemmPlan("ffma", 128, bn, 32, stages, face, "cp.async",
                         1024 + stages * stage + 8 * stages, 1)
+    if stages not in (None, 1):
+        raise ValueError(f"{route} has no shared-memory ring, got stages={stages}")
+    if route == "mma_sync":
+        return GemmPlan("mma_sync", 128, bn, 64, 1, face, "registers",
+                        (128 + bn) * 72 * 2, 1)
     return GemmPlan("dfma", 64, bn, 16, 1, face, "registers", (64 * 17 + 16 * bn) * 8, 1)
+
+
+def gemm_tile_ladder(m: int, n: int, k: int, dtype: torch.dtype,
+                     aligned: bool = True, b_aligned: bool = True) -> list[GemmPlan]:
+    """The plans the tuner races for one shape, the static default first:
+    the default tile's neighbours in :data:`TILE_WIDTHS` (on the byte face,
+    where one tile spans n), each with the most stages that fit, and the
+    default tile with half its stages where the route has a ring. Every
+    plan computes each element the same way, so the choice never changes C."""
+    default = default_gemm_tiles(m, n, k, dtype, aligned, b_aligned)
+    plans = [default]
+    widths = TILE_WIDTHS.index(default.bn)
+    if default.face == "bytes":
+        for i in (widths - 1, widths + 1):
+            if 0 <= i < len(TILE_WIDTHS):
+                plans.append(gemm_tiles(m, n, k, dtype, aligned, b_aligned,
+                                        bn=TILE_WIDTHS[i]))
+    if default.stages >= 4:
+        plans.append(gemm_tiles(m, n, k, dtype, aligned, b_aligned,
+                                bn=default.bn, stages=default.stages // 2))
+    return list(dict.fromkeys(plans))
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -143,8 +193,10 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("gemm needs contiguous A and B (row-major)")
 
 
-def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``C = A @ B`` by the CUDA kernel (plain version for CPU tensors)."""
+def _gemm(a: torch.Tensor, b: torch.Tensor, plan_of) -> torch.Tensor:
+    """``C = A @ B`` by the kernel on the plan ``plan_of(m, n, k, dtype,
+    aligned, b_aligned)`` returns (the plain version for CPU tensors),
+    counted in ``gemm_cuda.launches``."""
     _check(a, b)
     if a.device.type == "cpu":
         return gemm_plain(a, b)
@@ -159,8 +211,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return c
     if k == 0:
         return c.zero_()
-    plan = default_gemm_tiles(m, n, k, a.dtype, aligned=a.data_ptr() % 16 == 0,
-                              b_aligned=b.data_ptr() % 16 == 0)
+    plan = plan_of(m, n, k, a.dtype, a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
     # The pre-pass's scratch: B transposed, so both operands are K-major.
     bt = (torch.empty((n, k), dtype=a.dtype, device=a.device)
           if plan.b_load == "transposed" else None)
@@ -180,6 +231,35 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     gemm_cuda.launches += 1
     gemm_cuda.route_launches[plan.route] += 1
     return c
+
+
+def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``C = A @ B`` by the CUDA kernel (plain version for CPU tensors)."""
+    return _gemm(a, b, default_gemm_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_with_tiles(route: str, bn: int, stages: int):
+    """A GEMM on tiles ``bn`` wide with a ring of ``stages`` in place of
+    :func:`default_gemm_tiles`'s: the tuner's candidates and the ``auto``
+    tier's winners (``ops/gemm_kernels.py``), each recorded for one local
+    shape. A call whose A does not take ``route`` (the route depends on A's
+    dtype, k and alignment), or whose face cannot take the tiles, raises
+    ``ValueError``: the plan never quietly becomes another. Launches count
+    in ``gemm_cuda.launches``."""
+    def plan_of(m, n, k, dtype, aligned, b_aligned):
+        taken = gemm_route(dtype, k, aligned)
+        if taken != route:
+            raise ValueError(f"tiles recorded for the {route} route, but an "
+                             f"({m}, {k}) {dtype} A takes {taken}")
+        return gemm_tiles(m, n, k, dtype, aligned, b_aligned, bn=bn, stages=stages)
+
+    def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return _gemm(a, b, plan_of)
+
+    gemm.__name__ = f"cuda[{route}:{bn}s{stages}]"
+    gemm.plan_of = plan_of
+    return gemm
 
 
 def launch_info(plan: GemmPlan, m: int, n: int, dtype: torch.dtype) -> dict:

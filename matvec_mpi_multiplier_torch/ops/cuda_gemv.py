@@ -217,9 +217,10 @@ def _launch(a: torch.Tensor, x: torch.Tensor, plan: GemvPlan,
     return y
 
 
-def gemv_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x`` by the CUDA kernel on the route :func:`gemv_plan`
-    picks (plain version for CPU tensors)."""
+def _gemv(a: torch.Tensor, x: torch.Tensor, plan_of) -> torch.Tensor:
+    """``y = A @ x`` by the kernel on the plan ``plan_of(m, k, dtype, sms)``
+    returns (the plain version for CPU tensors), counted in
+    ``gemv_cuda.launches``."""
     _check(a, x)
     if a.device.type == "cpu":
         return gemv_plain(a, x)
@@ -229,11 +230,53 @@ def gemv_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     m, k = a.shape
     if m == 0:
         return torch.empty(0, dtype=acc_dtype(a.dtype), device=a.device)
-    plan = gemv_plan(m, k, a.dtype, x.dtype, sm_count(a.device))
+    plan = plan_of(m, k, a.dtype, sm_count(a.device))
     y = _launch(a, x, plan, predicate_ptr(a.device))
     gemv_cuda.launches += 1
     gemv_cuda.route_launches[plan.route] += 1
     return y
+
+
+def gemv_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` by the CUDA kernel on the route :func:`gemv_plan`
+    picks (plain version for CPU tensors)."""
+    return _gemv(a, x, lambda m, k, dtype, sms: gemv_plan(m, k, dtype, dtype, sms))
+
+
+# The splits a forced ``split`` route may take: one or two blocks an SM.
+SPLIT_BLOCKS_PER_SM = (1, BLOCKS_PER_SM)
+
+
+def route_label(route: str, blocks_per_sm: int = BLOCKS_PER_SM) -> str:
+    """The name of a forced route, as the tuner's candidates spell it."""
+    return "cuda[rows]" if route == "rows" else f"cuda[split@{blocks_per_sm}]"
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_route(route: str, blocks_per_sm: int = BLOCKS_PER_SM):
+    """A GEMV on ``route`` (split: on ``blocks_per_sm`` blocks an SM) in
+    place of :func:`gemv_plan`'s: the measured tuner's candidates and the
+    ``auto`` tier's winners (``ops/gemv.py``). Every route and grid gives
+    bitwise the same y, so the choice never changes a result. Launches
+    count in ``gemv_cuda.launches`` and ``gemv_cuda.route_launches``."""
+    if route not in ROUTE_CODES:
+        raise ValueError(f"gemv routes are {tuple(ROUTE_CODES)}, got {route!r}")
+    if route == "split" and blocks_per_sm not in SPLIT_BLOCKS_PER_SM:
+        raise ValueError(
+            f"split takes {SPLIT_BLOCKS_PER_SM} blocks an SM, got {blocks_per_sm}")
+
+    def plan_of(m, k, dtype, sms):
+        plan = _layout(route, m, k, dtype, sms, blocks_per_sm)
+        if plan.grid > GRID_LIMIT:
+            raise ValueError(f"an ({m}, {k}) A needs {plan.grid} blocks on "
+                             f"{route}, over the grid's limit")
+        return plan
+
+    def gemv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return _gemv(a, x, plan_of)
+
+    gemv.__name__ = route_label(route, blocks_per_sm)
+    return gemv
 
 
 gemv_cuda.launches = 0  # type: ignore[attr-defined]

@@ -7,12 +7,14 @@ side. Tiers:
 * ``torch`` — ``torch.matmul`` on operands widened to the accumulator (the
   ``xla`` tier's counterpart: ``preferred_element_type``);
 * ``cuda`` — the hand-written kernel (``ops/cuda_gemm.py``; ``pallas``'s),
-  registered when ``ops`` is imported.
+  registered when ``ops`` is imported;
+* ``auto`` — the measured choice (``gemm_auto``): the tuning cache's winner
+  for the local shape, ``torch`` or ``cuda`` on given tiles, and the
+  ``cuda`` tier's own plan on a miss.
 
 All kernels share the signature ``matmul(a, b) -> c`` with ``a: (m, k)``,
 ``b: (k, n)``, ``c: (m, n)`` and the GEMV tier's accumulator contract: they
 return the *accumulator* dtype (fp32 for bf16/fp16/fp32, fp64 for fp64).
-The tuned ``auto`` tier waits for the tuning slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,7 +36,37 @@ def gemm_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(acc), b.to(acc))
 
 
-_GEMM_KERNELS: dict[str, GemmKernel] = {"torch": gemm_torch}
+def gemm_auto(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Measured selection for the GEMM (the JAX package's ``matmul_auto``):
+    the tuning cache's decision for this LOCAL (m, k, n, dtype)
+    (:func:`resolve_gemm`), the ``cuda`` tier's default plan on a miss or an
+    unregistered winner."""
+    from ..tuning import lookup_gemm
+    from ..utils.convert import dtype_name
+
+    decision = lookup_gemm(a.shape[0], a.shape[1], b.shape[1], dtype_name(a.dtype))
+    return resolve_gemm(decision)(a, b)
+
+
+def resolve_gemm(decision: dict | None) -> GemmKernel:
+    """The kernel a recorded GEMM decision names: ``{"kernel": "cuda",
+    "route": r, "bn": w, "stages": s}`` the CUDA kernel on those tiles
+    (``cuda_gemm.gemm_with_tiles``), ``{"kernel": name}`` a registered
+    tier; None or an unknown name the ``cuda`` tier."""
+    default = _GEMM_KERNELS["cuda"]
+    if decision is None:
+        return default
+    name = decision.get("kernel")
+    if name == "cuda" and decision.get("bn") is not None:
+        from .cuda_gemm import gemm_with_tiles
+
+        return gemm_with_tiles(decision["route"], int(decision["bn"]),
+                               int(decision["stages"]))
+    fn = _GEMM_KERNELS.get(name)
+    return default if fn is None or fn is gemm_auto else fn
+
+
+_GEMM_KERNELS: dict[str, GemmKernel] = {"torch": gemm_torch, "auto": gemm_auto}
 
 
 def register_gemm_kernel(name: str, fn: GemmKernel) -> None:

@@ -8,7 +8,10 @@ The port's counterpart of the JAX package's ``ops/gemv.py``. Tiers:
   counterpart);
 * ``torch_colwise`` — explicit scale-then-sum (``xla_colwise``'s);
 * ``cuda`` — the hand-written kernel (``ops/cuda_gemv.py``; ``pallas``'s),
-  registered when ``ops`` is imported and the default of every strategy.
+  registered when ``ops`` is imported and the default of every strategy;
+* ``auto`` — the measured choice (``gemv_auto``): the tuning cache's winner
+  for the local shape, ``torch`` or ``cuda`` on a given route, and the
+  ``cuda`` tier's own plan on a miss.
 
 All kernels share the signature ``gemv(a, x) -> y`` with ``a: (m, k)``,
 ``x: (k,)``, ``y: (m,)``, and return their *accumulator* dtype — fp32 for
@@ -60,9 +63,43 @@ def gemv_colwise_torch(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (a.to(acc) * x.to(acc)[None, :]).sum(1)
 
 
+def gemv_auto(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Measured selection (the JAX package's ``gemv_auto``): the tuning
+    cache's decision for this LOCAL (m, k, dtype) on this platform
+    (``tuning/``), which names a tier and, for ``cuda``, the route
+    (:func:`resolve_gemv`). A miss, or a winner that is not registered,
+    takes the static default, the ``cuda`` tier on ``gemv_plan``'s route,
+    so ``kernel="auto"`` is never less informed than ``kernel="cuda"``."""
+    from ..tuning import lookup_gemv
+    from ..utils.convert import dtype_name
+
+    decision = lookup_gemv(a.shape[0], a.shape[1], dtype_name(a.dtype))
+    return resolve_gemv(decision)(a, x)
+
+
+def resolve_gemv(decision: dict | None) -> GemvKernel:
+    """The kernel a recorded GEMV decision names: ``{"kernel": "cuda",
+    "route": r, "blocks_per_sm": b}`` the CUDA kernel forced onto that
+    route (``cuda_gemv.gemv_route``, which raises ``ValueError`` for a route
+    or grid the kernel lacks), ``{"kernel": name}`` a registered tier; None
+    or an unknown name the ``cuda`` tier."""
+    default = _KERNELS["cuda"]
+    if decision is None:
+        return default
+    name = decision.get("kernel")
+    if name == "cuda" and decision.get("route") is not None:
+        from .cuda_gemv import BLOCKS_PER_SM, gemv_route
+
+        return gemv_route(decision["route"],
+                          decision.get("blocks_per_sm", BLOCKS_PER_SM))
+    fn = _KERNELS.get(name)
+    return default if fn is None or fn is gemv_auto else fn
+
+
 _KERNELS: dict[str, GemvKernel] = {
     "torch": gemv_torch,
     "torch_colwise": gemv_colwise_torch,
+    "auto": gemv_auto,
 }
 
 

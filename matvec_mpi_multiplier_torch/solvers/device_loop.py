@@ -32,6 +32,8 @@ for operation, so both give the same iterate bitwise.
 
 from __future__ import annotations
 
+import inspect
+import weakref
 from typing import Callable
 
 import torch
@@ -73,11 +75,18 @@ class ChunkedLoop:
 
     def __init__(self, iteration: Callable[[], None], go: torch.Tensor,
                  k: torch.Tensor, device: torch.device | None):
-        self.iteration = iteration
+        # A state that owns its loop passes its own bound method: held
+        # weakly, so that state and loop make no reference cycle, and the
+        # operand the state keeps goes as soon as the state does.
+        self._iteration = (weakref.WeakMethod(iteration) if inspect.ismethod(iteration)
+                           else lambda: iteration)
         self.go, self.k = go, k
         self.device = device
         self.chunk = DEFAULT_CHUNK
         self.graph = None
+
+    def iteration(self) -> None:
+        self._iteration()()
 
     def _chunk(self) -> None:
         for _ in range(self.chunk):

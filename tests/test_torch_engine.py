@@ -298,11 +298,12 @@ def test_request_validation(rng):
 
 
 # stages= and combine= (ring, auto) are ported: their cases are in
-# tests/test_torch_overlap.py::test_engine_combine_and_stages_arguments.
+# tests/test_torch_overlap.py::test_engine_combine_and_stages_arguments;
+# retain_host= is ported with reshard (tests/test_torch_reshard.py).
 @pytest.mark.parametrize("kwargs", [
     {"dtype_storage": "speculate"}, {"resilience": object()},
     {"fault_plan": object()}, {"integrity_gate": True}, {"trace_jsonl": "t.jsonl"},
-    {"retain_host": True}, {"label_prefix": "tenant-1/"}, {"exec_cache": object()},
+    {"defer_placement": True}, {"label_prefix": "tenant-1/"}, {"exec_cache": object()},
 ])
 def test_later_slice_arguments_raise(rng, kwargs):
     a, _ = make_operands(rng)

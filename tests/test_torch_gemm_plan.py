@@ -24,6 +24,8 @@ from matvec_mpi_multiplier_torch.ops.cuda_gemm import (
     default_gemm_tiles,
     gemm_cuda,
     gemm_plain,
+    gemm_tile_ladder,
+    gemm_with_tiles,
 )
 
 DTYPES = [torch.bfloat16, torch.float16, torch.float32, torch.float64]
@@ -203,3 +205,75 @@ def test_gemm_routes_on_card(card):
         gemm_cuda(torch.ones((m, k), dtype=dtype, device=card),
                   torch.ones((k, n), dtype=dtype, device=card))
         assert gemm_cuda.route_launches[route] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tile_ladder_bitwise_on_card(card, dtype):
+    """Every plan of the tuner's tile ladder gives C bitwise the default
+    plan's, whatever order they run in: a kernel launched with fewer stages
+    between two launches with more keeps its shared-memory opt-in."""
+    m, k, n = 4096, 4096, 16
+    gen = torch.Generator(device=card).manual_seed(7)
+    a = (torch.rand((m, k), generator=gen, device=card) * 10).to(dtype)
+    b = (torch.rand((k, n), generator=gen, device=card) * 10).to(dtype)
+    want = gemm_cuda(a, b)
+    ladder = gemm_tile_ladder(m, n, k, dtype)
+    for plan in ladder + ladder[::-1]:
+        c = gemm_with_tiles(plan.route, plan.bn, plan.stages)(a, b)
+        assert torch.equal(c, want), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_ladder_from_two_threads_on_card(card, dtype):
+    """Launches from threads other than the one that planned a kernel
+    first. The shared-memory opt-in belongs to the kernel, for the whole
+    process: one thread's launch with fewer stages, after another thread
+    opted the kernel in for more, does not lower it under the other's next
+    launch. And a thread whose plan was already in the table, so that it
+    made no runtime call before encoding its TMA maps, still has a context
+    to encode them in."""
+    import threading
+
+    m, k, n = 4096, 4096, 16
+    gen = torch.Generator(device=card).manual_seed(8)
+    a = (torch.rand((m, k), generator=gen, device=card) * 10).to(dtype)
+    b = (torch.rand((k, n), generator=gen, device=card) * 10).to(dtype)
+    want = gemm_cuda(a, b)
+    ladder = gemm_tile_ladder(m, n, k, dtype)
+    big, small = ladder[0], ladder[-1]  # the default plan, then half its stages
+    assert (small.route, small.bn) == (big.route, big.bn) and small.stages < big.stages
+    results, errors = [], []
+    turn = [threading.Event() for _ in range(3)]
+
+    def launch(plan):
+        c = gemm_with_tiles(plan.route, plan.bn, plan.stages)(a, b)
+        torch.cuda.synchronize(card)
+        results.append((plan, c))
+
+    def run(steps):
+        try:
+            for wait, plan, done in steps:
+                if wait is not None:
+                    assert turn[wait].wait(60)
+                launch(plan)
+                turn[done].set()
+        except Exception as e:  # noqa: BLE001 - reported by the assert below
+            errors.append(e)
+            for event in turn:
+                event.set()
+
+    # Thread one launches the large ring, thread two then the small one,
+    # then thread one the large ring again.
+    one = threading.Thread(target=run, args=([(None, big, 0), (1, big, 2)],))
+    two = threading.Thread(target=run, args=([(0, small, 1)],))
+    one.start()
+    two.start()
+    one.join()
+    two.join()
+    assert not errors, errors
+    assert [plan for plan, _ in results] == [big, small, big]
+    for plan, c in results:
+        assert torch.equal(c, want), plan
+

@@ -123,7 +123,7 @@ def test_accumulator_contract(kernel):
 
 
 def test_registry():
-    assert available_kernels() == ["cuda", "torch", "torch_colwise"]
+    assert available_kernels() == ["auto", "cuda", "torch", "torch_colwise"]
     assert get_kernel("cuda") is gemv_cuda
     assert get_kernel(gemv_torch) is gemv_torch
     with pytest.raises(KeyError, match="unknown gemv kernel"):
