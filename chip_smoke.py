@@ -84,7 +84,21 @@ kernels' launch counts set to 0 just before it and read just after:
   cg's iteration tier at 16384² fp32), keyed by the card's fingerprint; a
   second pass measures nothing, an entry under a JAX fingerprint never
   applies, and an engine with every ``"auto"`` dispatches the winners,
-  bitwise what an engine with them named dispatches.
+  bitwise what an engine with them named dispatches;
+* load serving through the arrival-window scheduler
+  (``bench.serve.run_serve_load``): blockwise 65536² bf16 at p = 1, 200
+  single-column requests, closed loop at 1, 8 and 32 clients and open-loop
+  poisson and burst arrivals, each with coalescing off and on (the GEMV for
+  flushes below b*, the GEMM for buckets 4-32), and the int8c resident at
+  65536² fp32 (every dispatch through the block-scaled GEMV): no steady
+  build, no failure or bisection on clean traffic, every request traced;
+  then the scheduler's own checks on the card: 8 coalesced requests bitwise
+  equal to each alone through the same bucket and a batch below b* to solo
+  vectors (``sched_exact``), a poisoned request isolated by bisection with
+  its batchmates bitwise the unfaulted batch's, a NaN request refused by the
+  integrity gate alone and an outage declared systemic (``sched_bisect``),
+  and 32 client threads waiting on results while the flusher captures
+  programs not captured yet (``sched_capture``).
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -348,6 +362,34 @@ TUNE_GEMV_K = 60000
 TUNE_SERVE_N = 32768
 TUNE_GEMM_BUCKETS = (16, 32)
 TUNE_SOLVER_N = 16384
+# Load serving through the arrival-window scheduler (bench/serve.py
+# run_serve_load): blockwise 65536² bf16 at p = 1, LOAD_REQUESTS single-column
+# requests (the JAX load bench's width mix), closed loop at each client count
+# with coalescing off and on, then open-loop poisson and burst arrivals (burst
+# LOAD_BURST) at LOAD_OPEN_RATE_SHARE of the req/s the uncoalesced
+# LOAD_RATE_CLIENTS-client run sustained; and the int8c resident at 65536² fp32
+# (LOAD_QUANT_CLIENTS clients). promote and flush_width are SERVE_PROMOTE.
+LOAD_N = 65536
+LOAD_REQUESTS = 200
+LOAD_CONCURRENCY = (1, 8, 32)
+LOAD_RATE_CLIENTS = 8
+LOAD_OPEN_RATE_SHARE = 0.8
+LOAD_BURST = 8
+LOAD_QUANT_CLIENTS = 8
+# The scheduler's checks: 8 coalesced vectors at 65536² bf16 (bucket 8)
+# against each alone through the same bucket, 3 below b* against solo
+# vectors; bisection and the integrity gate at 4096² fp32; 32 client threads
+# of 8 requests each (widths 1-3) at 4096² fp32 against programs not captured
+# yet.
+SCHED_EXACT_WIDTH = 8
+SCHED_SUB_WIDTH = 3
+SCHED_BISECT_N = 4096
+SCHED_POISON = 1e30
+SCHED_CAPTURE_N = 4096
+SCHED_CAPTURE_CLIENTS = 32
+SCHED_CAPTURE_REQUESTS = 8
+SCHED_CAPTURE_RTOL = 1e-5  # fp32 sums at k = 4096 against fp64 (PERF.md §2)
+
 # An entry as the JAX package would write it for one of the same keys: its
 # fingerprint is never the port's, so it must never apply.
 JAX_FINGERPRINT = "gpu:NVIDIA_H100_80GB_HBM3:jax-0.4.35"
@@ -392,6 +434,7 @@ def main() -> int:
         gershgorin_interval,
         resident_matrix,
         run_serve,
+        run_serve_load,
         run_serve_solver,
         solver_operand,
     )
@@ -405,7 +448,20 @@ def main() -> int:
     from matvec_mpi_multiplier_torch.solvers import build_solver
     from matvec_mpi_multiplier_torch.solvers.ops import _build_solver, placed_operand
     from matvec_mpi_multiplier_torch.solvers.device_loop import DEFAULT_CHUNK
-    from matvec_mpi_multiplier_torch.engine import MatvecEngine, bucket_for
+    from matvec_mpi_multiplier_torch.engine import (
+        ArrivalWindowScheduler,
+        MatvecEngine,
+        bucket_for,
+        bucket_ladder,
+        pad_columns,
+    )
+    from matvec_mpi_multiplier_torch.engine import scheduler as scheduler_mod
+    from matvec_mpi_multiplier_torch.resilience import (
+        DeviceFaultError,
+        FaultPlan,
+        FaultSpec,
+        ResultIntegrityError,
+    )
     from matvec_mpi_multiplier_torch.models.gemm import build_gemm
     from matvec_mpi_multiplier_torch.parallel.mesh import (
         ShardedTensor,
@@ -3022,8 +3078,344 @@ def main() -> int:
     del os.environ[tuning.CACHE_ENV]
     tuning.reset_cache()
 
-    # ---- 33. the kernels line ----
-    section("33. the kernels line")
+    # ---- 33. load serving through the arrival-window scheduler ----
+    section("33. load serving through the arrival-window scheduler")
+    load_launches = {"gemv": {}, "gemm": {}, "quant_gemv": {}}
+    load_routes = {"gemv": Counter(), "gemm": Counter()}
+
+    def reset_launches() -> None:
+        for fn in (gemv_cuda, gemm_cuda, quant_gemv_cuda):
+            fn.launches = 0
+            fn.route_launches.clear()
+
+    def load_run(phase: str, dtype_name_: str, storage=None, **kw) -> dict:
+        """One run_serve_load at 65536² with the kernels' counts set to 0
+        just before it; checks and returns its JSON line."""
+        reset_launches()
+        with tempfile.TemporaryDirectory() as tmp:
+            snap, trace = Path(tmp) / "metrics.json", Path(tmp) / "trace.jsonl"
+            t0 = time.perf_counter()
+            res = run_serve_load(
+                "blockwise", make_mesh(1), LOAD_N, LOAD_N, dtype=dtype_name_,
+                kernel="cuda", dtype_storage=storage, n_requests=LOAD_REQUESTS,
+                max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE,
+                flush_width=SERVE_PROMOTE, seed=args.seed, metrics_out=str(snap),
+                trace_jsonl=str(trace), **kw)
+            torch.cuda.synchronize(dev)
+            run_s = time.perf_counter() - t0
+            snapshot = json.loads(snap.read_text())
+            traces = [json.loads(line) for line in trace.read_text().splitlines()]
+        records = len(traces)
+        # Where an engine request's host time goes, by span (the tracer's
+        # perf_counter spans; a flush is one engine request when coalesced).
+        span_ms = {}
+        stack = [sp for rec in traces for sp in rec["spans"]]
+        while stack:
+            sp = stack.pop()
+            span_ms.setdefault(sp["name"], []).append(sp["dur_ms"])
+            stack.extend(sp.get("children", ()))
+        span_p50_ms = {name: statistics.median(v) for name, v in sorted(span_ms.items())}
+        torch.cuda.empty_cache()
+        counters, hists = snapshot["counters"], snapshot["histograms"]
+        flushes = counters.get("sched_batches_total")
+        dispatches = counters["engine_dispatches_total"]
+        captures = counters["engine_compiles_total"]
+        launched = {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches,
+                    "quant_gemv": quant_gemv_cuda.launches}
+        routes = {"gemv": dict(gemv_cuda.route_launches),
+                  "gemm": dict(gemm_cuda.route_launches),
+                  "quant_gemv": dict(quant_gemv_cuda.route_launches)}
+        label = (f"{phase} {kw.get('arrival', 'closed')} c={kw.get('concurrency')} "
+                 f"coalesce={kw.get('coalesce')}")
+        # Each dispatch (a replay) and each capture's eager run calls one
+        # kernel at p = 1; every engine request is traced.
+        check(sum(launched.values()) == dispatches + captures,
+              f"{label}: launches {launched}, {dispatches} dispatches, {captures} captures")
+        check(res.compiles_steady == 0, f"{label}: {res.compiles_steady} steady builds")
+        check(hists["serve_e2e_latency_ms"]["count"] == LOAD_REQUESTS,
+              f"{label}: {hists['serve_e2e_latency_ms']['count']} requests served")
+        check(records == counters["engine_requests_total"],
+              f"{label}: {records} trace records for {counters['engine_requests_total']} requests")
+        failures = {n: counters.get(n, 0) for n in (
+            "sched_bisect_splits_total", "sched_isolated_failures_total",
+            "sched_batch_failures_total", "engine_dispatch_failures_total",
+            "engine_deadline_failures_total", "sched_deadline_failures_total")}
+        check(not any(failures.values()), f"{label}: failures on clean traffic {failures}")
+        # Warmup: every program captured (one eager run each), one request
+        # of each width, and one block of each bucket from b* up.
+        ladder_submits = sum(1 for b in bucket_ladder(SERVE_MAX_BUCKET) if b >= SERVE_PROMOTE)
+        if storage is None:
+            check(launched["quant_gemv"] == 0, f"{label}: quant launches {launched}")
+            steady = {"gemv": launched["gemv"] - 2,
+                      "gemm": launched["gemm"] - (captures - 1) - ladder_submits}
+            check(set(routes["gemv"]) <= {"rows"}
+                  and set(routes["gemm"]) <= {"wgmma_tma"},
+                  f"{label}: routes {routes}")
+        else:
+            check(launched["gemv"] == launched["gemm"] == 0
+                  and set(routes["quant_gemv"]) == {"wgmma_split"},
+                  f"{label}: launches {launched}, routes {routes}")
+            steady = {"quant_gemv": launched["quant_gemv"] - captures - 1 - ladder_submits}
+        for name, n in launched.items():
+            if n:
+                load_launches[name][label.replace(" ", "_")] = n
+        for name in load_routes:
+            load_routes[name].update(routes[name])
+        line = {"phase": phase, "strategy": "blockwise", "shape": [LOAD_N, LOAD_N],
+                "dtype": dtype_name_, "storage": res.dtype_storage,
+                "arrival": res.arrival, "concurrency": res.concurrency,
+                "coalesce": bool(res.coalesce),
+                "rate_req_s": res.rate_req_s if res.arrival != "closed" else None,
+                "burst": kw.get("burst"), "n_requests": res.n_requests,
+                "b_star": res.b_star, "max_bucket": SERVE_MAX_BUCKET,
+                "flush_width": SERVE_PROMOTE, "req_per_s": res.rps,
+                "cols_per_s": res.cols_per_s, "wall_s": res.wall_s,
+                "p50_request_ms": res.p50_dispatch_ms,
+                "p99_request_ms": res.p99_dispatch_ms,
+                # Every engine submit of the run (warmup's few included).
+                "p50_dispatch_ms": hists["engine_submit_latency_ms"]["p50"],
+                "p99_dispatch_ms": hists["engine_submit_latency_ms"]["p99"],
+                "mean_batch_width": res.mean_batch_width,
+                "coalesce_ratio": res.coalesce_ratio,
+                # The steady phase's flushes (the warmup submits to the
+                # engine directly) and its wall time per flush.
+                "flushes": flushes,
+                "ms_per_flush": res.wall_s * 1e3 / flushes if flushes else None,
+                "engine_requests": counters["engine_requests_total"],
+                "engine_dispatches": dispatches, "captures": captures,
+                "compiles_warmup": res.compiles_warmup,
+                "compiles_steady": res.compiles_steady,
+                "launches": launched, "steady_launches": steady,
+                "route_launches": routes, "trace_records": records,
+                "host_span_p50_ms": span_p50_ms,
+                "resident_bytes": res.resident_bytes, **failures, "run_s": run_s}
+        emit(line)
+        return line
+
+    load_lines = {}
+    for clients in LOAD_CONCURRENCY:
+        for coalesce in (False, True):
+            line = load_run("load_serve", "bfloat16", concurrency=clients, coalesce=coalesce)
+            load_lines[("closed", clients, coalesce)] = line
+            if coalesce and clients >= LOAD_RATE_CLIENTS:
+                check(line["steady_launches"]["gemm"] > 0,
+                      f"load_serve c={clients}: the coalesced run launched no gemm")
+            if not coalesce:
+                check(line["steady_launches"] == {"gemv": LOAD_REQUESTS, "gemm": 0},
+                      f"load_serve c={clients} uncoalesced: {line['steady_launches']}")
+    open_rate = LOAD_OPEN_RATE_SHARE * load_lines[("closed", LOAD_RATE_CLIENTS, False)][
+        "req_per_s"]
+    for arrival in ("poisson", "burst"):
+        for coalesce in (False, True):
+            line = load_run("load_serve", "bfloat16", arrival=arrival, rate=open_rate,
+                            burst=LOAD_BURST, concurrency=LOAD_RATE_CLIENTS,
+                            coalesce=coalesce)
+            load_lines[(arrival, LOAD_RATE_CLIENTS, coalesce)] = line
+            if coalesce and arrival == "burst":
+                check(line["steady_launches"]["gemm"] > 0,
+                      "load_serve burst: the coalesced run launched no gemm")
+
+    # ---- 34. load serving from an int8c resident ----
+    section("34. load serving from an int8c resident")
+    for coalesce in (False, True):
+        load_run("load_serve_quant", "float32", storage="int8c",
+                 concurrency=LOAD_QUANT_CLIENTS, coalesce=coalesce)
+
+    # ---- 35. the scheduler's exactness on the card ----
+    section("35. the scheduler's exactness on the card")
+    reset_launches()
+    ex_a = resident_matrix(LOAD_N, LOAD_N, torch.bfloat16, dev, args.seed)
+    ex_engine = MatvecEngine(ex_a, make_mesh(1), strategy="blockwise", kernel="cuda",
+                             max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE)
+    ex_rng = np.random.default_rng(args.seed + 11)
+    ex_cols = [torch.from_numpy(ex_rng.uniform(0, 10, LOAD_N)).to(torch.bfloat16)
+               for _ in range(SCHED_EXACT_WIDTH)]
+    with ArrivalWindowScheduler(ex_engine, window_ms=60_000.0,
+                                flush_width=SERVE_MAX_BUCKET) as ex_sched:
+        futs = [ex_sched.submit(c) for c in ex_cols]
+        check(ex_sched.flush() == SCHED_EXACT_WIDTH, "sched_exact: the flush")
+        coalesced = [f.result() for f in futs]
+        check(all(f.coalesced and f.batch_width == SCHED_EXACT_WIDTH for f in futs),
+              "sched_exact: the batch")
+        bucket = bucket_for(SCHED_EXACT_WIDTH, SERVE_MAX_BUCKET)
+        alone = [ex_engine.submit(pad_columns(c[:, None], bucket)).result()[:, 0]
+                 for c in ex_cols]
+        bitwise = [torch.equal(y, z) for y, z in zip(coalesced, alone)]
+        sub = ex_cols[:SCHED_SUB_WIDTH]
+        sub_futs = [ex_sched.submit(c) for c in sub]
+        ex_sched.flush()
+        sub_bitwise = [torch.equal(f.result(), ex_engine.submit(c).result())
+                       for f, c in zip(sub_futs, sub)]
+    check(all(bitwise), f"sched_exact: coalesced vs alone through bucket {bucket}: {bitwise}")
+    check(all(sub_bitwise), f"sched_exact: below b* vs solo vectors: {sub_bitwise}")
+    ref = gemm_plain(ex_a, torch.stack(ex_cols, dim=1).to(dev)).to(torch.bfloat16).cpu().float()
+    got = torch.stack(coalesced, dim=1).float()
+    ex_rel = ((got - ref).abs() / ref.abs()).max().item()
+    check(ex_rel <= 2 ** -7, f"sched_exact: rel err {ex_rel} against the plain GEMM")
+    exact_launches = {"gemv": gemv_cuda.launches, "gemm": gemm_cuda.launches}
+    emit({"phase": "sched_exact", "shape": [LOAD_N, LOAD_N], "dtype": "bfloat16",
+          "width": SCHED_EXACT_WIDTH, "bucket": bucket, "bitwise_vs_alone": all(bitwise),
+          "sub_promotion_width": SCHED_SUB_WIDTH, "sub_bitwise_vs_solo": all(sub_bitwise),
+          "max_rel_err_vs_plain": ex_rel, "rtol": 2 ** -7, "launches": exact_launches,
+          "engine_dispatches": ex_engine.stats.dispatches})
+    del ex_engine, ex_a, ex_sched
+    torch.cuda.empty_cache()
+
+    # ---- 36. the scheduler's bisection and integrity gate on the card ----
+    section("36. the scheduler's bisection and integrity gate on the card")
+    bi_a = uniform((SCHED_BISECT_N, SCHED_BISECT_N), torch.float32)
+    bi_rng = np.random.default_rng(args.seed + 12)
+    bi_cols = [torch.from_numpy(bi_rng.uniform(0, 10, SCHED_BISECT_N)).float()
+               for _ in range(8)]
+
+    def bisect_engine(plan=None, gate=False):
+        return MatvecEngine(bi_a, make_mesh(1), strategy="blockwise", kernel="cuda",
+                            max_bucket=8, promote=1, fault_plan=plan, integrity_gate=gate)
+
+    def serve8(engine, cols):
+        with ArrivalWindowScheduler(engine, window_ms=60_000.0, flush_width=8) as sched:
+            futs = [sched.submit(c) for c in cols]  # the 8th flushes inline
+            out = []
+            for f in futs:
+                try:
+                    out.append(f.result())
+                except Exception as e:
+                    out.append(e)
+        return out, engine.metrics.snapshot()["counters"]
+
+    clean, _ = serve8(bisect_engine(), bi_cols)
+    poisoned = [c.clone() for c in bi_cols]
+    poisoned[5][0] = SCHED_POISON
+    plan = FaultPlan([FaultSpec(site="dispatch", kind="device_error", poison=SCHED_POISON)])
+    faulted, counters = serve8(bisect_engine(plan), poisoned)
+    failed = [i for i, y in enumerate(faulted) if isinstance(y, Exception)]
+    check(failed == [5] and isinstance(faulted[5], DeviceFaultError),
+          f"sched_bisect: failed {failed}")
+    check(all(torch.equal(faulted[i], clean[i]) for i in range(8) if i != 5),
+          "sched_bisect: a batchmate differs from the unfaulted batch")
+    bisect_counts = {n: counters[n] for n in (
+        "sched_bisect_splits_total", "sched_isolated_failures_total",
+        "sched_batch_failures_total")}
+    check(bisect_counts == {"sched_bisect_splits_total": 3,
+                            "sched_isolated_failures_total": 1,
+                            "sched_batch_failures_total": 0},
+          f"sched_bisect: counts {bisect_counts}")
+    nan_cols = [c.clone() for c in bi_cols]
+    nan_cols[2][17] = float("nan")
+    gated, gate_counters = serve8(bisect_engine(gate=True), nan_cols)
+    gate_failed = [i for i, y in enumerate(gated) if isinstance(y, Exception)]
+    check(gate_failed == [2] and isinstance(gated[2], ResultIntegrityError),
+          f"sched_bisect: the integrity gate failed {gate_failed}")
+    check(all(torch.equal(gated[i], clean[i]) for i in range(8) if i != 2),
+          "sched_bisect: a batchmate of the NaN request differs")
+    down = FaultPlan([FaultSpec(site="dispatch", kind="device_error")])
+    systemic, sys_counters = serve8(bisect_engine(down), bi_cols)
+    check(all(isinstance(y, DeviceFaultError) for y in systemic)
+          and down.total_injected == scheduler_mod.SYSTEMIC_FAILURE_THRESHOLD
+          and sys_counters["sched_batch_failures_total"] == 8
+          and sys_counters["sched_isolated_failures_total"] == 0,
+          f"sched_bisect: systemic {down.summary()}, {sys_counters}")
+    emit({"phase": "sched_bisect", "shape": [SCHED_BISECT_N, SCHED_BISECT_N],
+          "dtype": "float32", "batch": 8, "poisoned": 5, "failed": failed,
+          "batchmates_bitwise": True, **bisect_counts,
+          "integrity_gate_failed": gate_failed,
+          "integrity_failures": gate_counters["engine_integrity_failures_total"],
+          "systemic_dispatches": down.total_injected,
+          "systemic_threshold": scheduler_mod.SYSTEMIC_FAILURE_THRESHOLD,
+          "systemic_batch_failures": sys_counters["sched_batch_failures_total"]})
+    del bi_a
+    torch.cuda.empty_cache()
+
+    # ---- 37. captures while client threads wait on results ----
+    section("37. captures while client threads wait on results")
+    import threading
+
+    cap_a = uniform((SCHED_CAPTURE_N, SCHED_CAPTURE_N), torch.float32)
+    cap_a64 = cap_a.double()
+    cap_engine = MatvecEngine(cap_a, make_mesh(1), strategy="blockwise", kernel="cuda",
+                              max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE)
+    capture_log = []
+    waiting = Counter()
+    waiting_lock = threading.Lock()
+    program = cap_engine._program
+    result = scheduler_mod.CoalescedFuture.result
+
+    def logged_program(*a, **kw):  # who captures, and how many clients wait meanwhile
+        capture_log.append({"thread": threading.current_thread().name,
+                            "clients_in_result": waiting["n"]})
+        return program(*a, **kw)
+
+    def counted_result(self, timeout=None):
+        with waiting_lock:
+            waiting["n"] += 1
+        try:
+            return result(self, timeout)
+        finally:
+            with waiting_lock:
+                waiting["n"] -= 1
+
+    cap_engine._program = logged_program
+    scheduler_mod.CoalescedFuture.result = counted_result
+    cap_rng = np.random.default_rng(args.seed + 13)
+    cap_blocks = [[torch.from_numpy(cap_rng.uniform(0, 10, (SCHED_CAPTURE_N, int(w)))).float()
+                   for w in cap_rng.integers(1, 4, SCHED_CAPTURE_REQUESTS)]
+                  for _ in range(SCHED_CAPTURE_CLIENTS)]
+    cap_errors, cap_out = [], []
+    start = threading.Barrier(SCHED_CAPTURE_CLIENTS)
+    try:
+        with ArrivalWindowScheduler(cap_engine) as cap_sched:
+            def client(blocks):
+                try:
+                    start.wait()
+                    for x in blocks:
+                        y = cap_sched.submit(x[:, 0] if x.shape[1] == 1 else x).result(
+                            timeout=120)
+                        cap_out.append((x, y))
+                except Exception as e:
+                    cap_errors.append(repr(e))
+
+            threads = [threading.Thread(target=client, args=(b,), name=f"client-{i}")
+                       for i, b in enumerate(cap_blocks)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            check(not any(t.is_alive() for t in threads), "sched_capture: a client hung")
+            cap_stats = cap_sched.stats
+    finally:
+        scheduler_mod.CoalescedFuture.result = result
+    check(not cap_errors, f"sched_capture: {cap_errors[:3]}")
+    cap_rel = []
+    for x, y in cap_out:  # against torch.matmul in fp64, after the clients
+        want = (cap_a64 @ x.double().to(dev)).cpu()
+        want = want[:, 0] if x.shape[1] == 1 else want
+        cap_rel.append(((y.double() - want).abs() / want.abs()).max().item())
+    check(len(cap_rel) == SCHED_CAPTURE_CLIENTS * SCHED_CAPTURE_REQUESTS
+          and max(cap_rel) <= SCHED_CAPTURE_RTOL,
+          f"sched_capture: {len(cap_rel)} results, max rel err {max(cap_rel, default=None)}")
+    flusher_captures = [c for c in capture_log if c["thread"] == "matvec-sched-flusher"]
+    emit({"phase": "sched_capture", "shape": [SCHED_CAPTURE_N, SCHED_CAPTURE_N],
+          "dtype": "float32", "clients": SCHED_CAPTURE_CLIENTS,
+          "requests": len(cap_rel), "capture_error_mode": "thread_local",
+          "captures": len(capture_log), "captures_by_flusher": len(flusher_captures),
+          "captures_while_clients_waited": sum(c["clients_in_result"] > 0
+                                               for c in capture_log),
+          "capture_log": capture_log, "max_rel_err_vs_fp64": max(cap_rel),
+          "rtol": SCHED_CAPTURE_RTOL, "batches": cap_stats.batches,
+          "mean_batch_width": cap_stats.mean_batch_width,
+          "coalesce_ratio": cap_stats.coalesce_ratio, "errors": cap_errors})
+    del cap_engine, cap_a, cap_a64
+    torch.cuda.empty_cache()
+
+    launches_by_path["gemv"]["load_serve"] = sum(load_launches["gemv"].values())
+    launches_by_path["gemm"]["load_serve"] = sum(load_launches["gemm"].values())
+    quant_launches["load_serve_quant"] = sum(load_launches["quant_gemv"].values())
+    quant_routes["load_serve_quant"] = {"wgmma_split": quant_launches["load_serve_quant"]}
+    gemv_routes["load_serve"] = dict(load_routes["gemv"])
+    gemm_routes["load_serve"] = dict(load_routes["gemm"])
+
+    # ---- 38. the kernels line ----
+    section("38. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -3158,8 +3550,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 34. result ----
-    section("34. result")
+    # ---- 39. result ----
+    section("39. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,6 @@
 """Two checkouts of the port on one card: the GEMM and the serve cells.
 
-    python3 matvec_mpi_multiplier_torch/bench/compare_checkouts.py [--quant|--gemv|--graphs] ROOT [ROOT ...]
+    python3 matvec_mpi_multiplier_torch/bench/compare_checkouts.py [--quant|--gemv|--graphs|--load] ROOT [ROOT ...]
 
 Runs each ROOT (a checkout, or an unpacked ``git archive``) in a process of
 its own, in the order given (``parent change change parent`` is the fair
@@ -19,7 +19,12 @@ events, 50 launches) and the fused cg step at 65536² fp32 (20 launches).
 With ``--graphs`` it runs what a checkout's dispatch and loop choices move:
 ``run_serve`` at the serve cells, chebyshev at 65536² fp32 through the
 engine on both solver tiers (ms per iteration) and ``run_serve_solver``'s
-20 cg solves on both tiers (solves/s).
+20 cg solves on both tiers (solves/s). With ``--load`` it runs
+``run_serve_load`` at ``chip_smoke.py``'s load cell (blockwise 65536² bf16,
+200 requests, closed loop at 8 and 32 clients, coalescing off and on):
+req/s, p50/p99 request ms, mean batch width, and the steady flushes with
+the wall time per flush (a checkout whose serve bench has no load mode
+cannot run it).
 Each ROOT builds its own kernels. Needs a CUDA card; numbers from two runs compare
 only when they come from one command on one card.
 """
@@ -55,7 +60,10 @@ QUANT_WIDTHS = (1, 4, 32)
 # chip_smoke.py's KERNEL_SHAPES and its fused step's width.
 GEMV_SQUARE = [(16384, "float32"), (32768, "bfloat16"), (65536, "bfloat16")]
 GEMV_STEP_N = 65536
-MODES = ("--quant", "--gemv", "--graphs")
+MODES = ("--quant", "--gemv", "--graphs", "--load")
+# chip_smoke.py's load cell: LOAD_N, LOAD_REQUESTS, the closed loops'
+# client counts, and b* = flush width.
+LOAD_N, LOAD_REQUESTS, LOAD_CLIENTS, LOAD_PROMOTE = 65536, 200, (8, 32), 4
 # chip_smoke.py's served solvers: chebyshev's rtol, cap and width.
 SOLVER_N, CHEBYSHEV_RTOL, CHEBYSHEV_MAXITER = 65536, 1e-4, 3000
 
@@ -93,6 +101,8 @@ def measure(root: Path, mode: str | None = None) -> dict:
         return measure_quant(root, dev, uniform, event_ms)
     if mode == "--gemv":
         return measure_gemv(root, dev, uniform, event_ms)
+    if mode == "--load":
+        return measure_load(root, dev, make_mesh)
     out = {"root": str(root), "gemm_ms": {}, "serve": {}}
     if mode == "--graphs":
         out = {"root": str(root), "serve": serve_cells(dev, make_mesh, make_1d_mesh, run_serve)}
@@ -137,6 +147,37 @@ def serve_cells(dev, make_mesh, make_1d_mesh, run_serve) -> dict:
         out[label] = {"req_per_s": res.rps, "p50_dispatch_ms": res.p50_dispatch_ms,
                       "p99_dispatch_ms": res.p99_dispatch_ms,
                       "promo_speedup": res.promo_speedup}
+    return out
+
+
+def measure_load(root: Path, dev, make_mesh) -> dict:
+    """``run_serve_load`` at the load cell, coalescing off and on, for the
+    port under ``root``."""
+    import tempfile
+
+    import torch
+
+    from matvec_mpi_multiplier_torch.bench.serve import run_serve_load
+
+    out = {"root": str(root), "load": {}}
+    for clients in LOAD_CLIENTS:
+        for coalesce in (False, True):
+            with tempfile.TemporaryDirectory() as tmp:
+                snap = Path(tmp) / "metrics.json"
+                res = run_serve_load(
+                    "blockwise", make_mesh(1), LOAD_N, LOAD_N, dtype="bfloat16",
+                    kernel="cuda", n_requests=LOAD_REQUESTS, max_bucket=32,
+                    promote=LOAD_PROMOTE, flush_width=LOAD_PROMOTE, seed=0,
+                    concurrency=clients, coalesce=coalesce, metrics_out=str(snap))
+                counters = json.loads(snap.read_text())["counters"]
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            flushes = counters.get("sched_batches_total")
+            out["load"][f"c{clients}_{'on' if coalesce else 'off'}"] = {
+                "req_per_s": res.rps, "p50_request_ms": res.p50_dispatch_ms,
+                "p99_request_ms": res.p99_dispatch_ms,
+                "mean_batch_width": res.mean_batch_width, "flushes": flushes,
+                "ms_per_flush": res.wall_s * 1e3 / flushes if flushes else None}
     return out
 
 

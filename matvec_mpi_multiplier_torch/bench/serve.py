@@ -16,12 +16,22 @@ right-hand-side blocks against a resident sharded ``A`` and reports:
   ``b*`` single-column dispatches, through the same warm engine under the
   same wall-clock protocol.
 
+**Load mode** (:func:`run_serve_load`) drives the *continuous-batching*
+face instead: a closed-loop ``--concurrency`` axis (N clients, each
+submit→materialize→repeat) or an open-loop arrival process (``--arrival
+poisson|burst --rate``), optionally through the arrival-window scheduler
+(``engine/scheduler.py``, ``--coalesce on|off|both``). Load rows report
+requests/sec under offered load, **end-to-end** p50/p99 latency (submit
+entry to materialized result, in the latency columns), the mean batch width
+and the coalesce ratio (NaN uncoalesced). ``--coalesce both`` measures each
+config uncoalesced, then coalesced, on the same seeded trace.
+
 Rows land in ``data/out/serve_<strategy>.csv`` under the JAX package's
 header, byte for byte. ``--dtype-storage int8|int8c|fp8`` serves from a
 quantized resident (the row records the resolved format and the engine's
-resident bytes). Columns of modes the port does not have yet (load, chaos,
-speculative) carry the JAX package's defaults; those modes' flags raise
-``ConfigError``.
+resident bytes). Columns of modes the port does not have yet (chaos,
+speculative) carry the JAX package's defaults; their flags (``--fault-spec``,
+``--poison-rate``, ``--tenants``, ``--reshard``) raise ``ConfigError``.
 
 ``--op cg|gmres|power|lanczos|chebyshev`` serves ANSWERS instead
 (:func:`run_serve_solver`): each request is one solve against the seeded SPD
@@ -37,6 +47,8 @@ Usage::
         --host-devices 8 --sizes 64 --n-requests 20
     python -m matvec_mpi_multiplier_torch.bench.serve --op cg \\
         --strategy rowwise --sizes 65536 --solver-kernel cuda_fused --rtol 1e-5
+    python -m matvec_mpi_multiplier_torch.bench.serve --strategy blockwise \\
+        --sizes 65536 --dtype bfloat16 --concurrency 1 8 32 --coalesce both
 
     # or through the sweep CLI:
     python -m matvec_mpi_multiplier_torch.bench.sweep --op serve ...
@@ -49,7 +61,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import queue
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Sequence
@@ -58,18 +72,30 @@ import numpy as np
 import torch
 
 from ..engine.core import DEFAULT_SOLVER_MAXITER, SOLVER_KERNELS, MatvecEngine
+from ..engine.scheduler import DEFAULT_MAX_WINDOW_MS, ArrivalWindowScheduler
 from ..models import available_strategies
 from ..models.base import not_ported
 from ..obs.registry import MetricsRegistry
+from ..obs.sink import JsonlSink
+from ..obs.timeline import reset_hub
 from ..parallel.mesh import Mesh
 from ..solvers import SOLVER_OPS
 from ..utils.convert import dtype_name, from_numpy, torch_dtype
-from ..utils.errors import ConfigError, MatvecError, SolverDivergedError
+from ..utils.errors import (
+    ConfigError,
+    DeadlineExceededError,
+    MatvecError,
+    SolverDivergedError,
+)
 
 # Default request-width mix: single vectors through full buckets, with
 # off-bucket widths (3, 6, 12, 24) so the pad/unpad path is always
 # exercised. Clipped to --max-bucket.
 DEFAULT_WIDTH_MIX = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+
+# Load-mode width mix: single-column traffic, the workload coalescing exists
+# for (every lone dispatch reads all of A for one output column).
+LOAD_WIDTH_MIX = (1,)
 
 SERVE_CSV_HEADER = (
     "n_rows, n_cols, n_devices, strategy, dtype, kernel, combine, "
@@ -208,11 +234,13 @@ def _request_pool(
     """One seeded host block per distinct width — generated once so the
     timed loop measures dispatch, not the RNG. Drawn in float64 with numpy
     and cast by torch, so every dtype (bf16 included) works without numpy
-    knowing it."""
+    knowing it. The widths are drawn in the JAX package's order (a set's
+    iteration order), so one seed gives both packages the same payloads and
+    the same width sequence."""
     rng = np.random.default_rng(seed)
     return {
         w: torch.from_numpy(rng.uniform(0, 10, (k, w))).to(dtype)
-        for w in sorted(set(widths))
+        for w in set(widths)
     }
 
 
@@ -349,6 +377,289 @@ def run_serve(
         promo_b=promo_b,
         promo_gemm_s=promo_gemm,
         promo_seq_s=promo_seq,
+        dtype_storage=engine.storage,
+        resident_bytes=engine.resident_bytes,
+    )
+
+
+# ------------------------------------------------------------------ load
+
+
+def _arrival_gaps(arrival: str, n: int, rate: float, burst: int, rng) -> list[float]:
+    """Inter-arrival gaps (seconds) for the open-loop processes: Poisson
+    (exponential gaps at ``rate`` req/s) or bursty (groups of ``burst``
+    simultaneous arrivals, one group per ``burst/rate`` seconds — the same
+    offered rate, coalescable at once). The JAX package's draws, gap for
+    gap."""
+    if rate <= 0:
+        raise MatvecError(f"open-loop arrival needs rate > 0, got {rate}")
+    if arrival == "poisson":
+        return list(rng.exponential(1.0 / rate, size=n))
+    if arrival == "burst":
+        if burst < 1:
+            raise MatvecError(f"burst size must be >= 1, got {burst}")
+        return [(burst / rate) if i % burst == 0 else 0.0 for i in range(n)]
+    raise MatvecError(f"unknown arrival process {arrival!r}")
+
+
+def _closed_loop(submit, blocks: Sequence[torch.Tensor], concurrency: int, hist) -> float:
+    """Closed-loop load: ``concurrency`` client threads, each
+    submit→materialize→repeat over its slice of the request trace. Returns
+    the steady phase's wall seconds; each request's END-TO-END latency lands
+    in ``hist``. A deadline failure is counted by the gates and the client
+    moves on; any other failure aborts the run."""
+    barrier = threading.Barrier(concurrency + 1)
+    errors: list[BaseException] = []
+
+    def client(tid: int) -> None:
+        try:
+            barrier.wait()
+            for i in range(tid, len(blocks), concurrency):
+                t0 = time.perf_counter()
+                try:
+                    submit(blocks[i]).result()
+                except DeadlineExceededError:
+                    continue  # tallied by the gates' deadline counters
+                hist.observe((time.perf_counter() - t0) * 1e3)
+        except BaseException as e:  # surface on the calling thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,), daemon=True)
+               for t in range(concurrency)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    start = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - start
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def _open_loop(submit, blocks: Sequence[torch.Tensor], gaps: Sequence[float], hist,
+               flush=None) -> float:
+    """Open-loop load: requests arrive on the precomputed gap schedule
+    whatever completes (one thread paces arrivals; a drainer thread
+    materializes in order and records arrival→result latency). Returns wall
+    seconds from the first arrival to the last result."""
+    results: queue.Queue = queue.Queue()
+    errors: list[BaseException] = []
+
+    def drainer() -> None:
+        while True:
+            item = results.get()
+            if item is None:
+                return
+            t_arrival, fut = item
+            try:
+                fut.result()
+            except DeadlineExceededError:
+                continue  # tallied by the gates' deadline counters
+            except BaseException as e:
+                errors.append(e)
+                continue
+            hist.observe((time.perf_counter() - t_arrival) * 1e3)
+
+    drain_thread = threading.Thread(target=drainer, daemon=True)
+    drain_thread.start()
+    start = time.perf_counter()
+    next_at = start
+    try:
+        for x, gap in zip(blocks, gaps):
+            next_at += gap
+            while True:
+                now = time.perf_counter()
+                if now >= next_at:
+                    break
+                time.sleep(min(next_at - now, 5e-4))
+            results.put((time.perf_counter(), submit(x)))
+        if flush is not None:
+            flush()  # fence the open window so the drain is prompt
+    finally:
+        results.put(None)
+        drain_thread.join()
+    wall = time.perf_counter() - start
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def run_serve_load(
+    strategy_name: str,
+    mesh: Mesh,
+    m: int,
+    k: int,
+    *,
+    dtype: str = "float32",
+    kernel: str = "cuda",
+    combine: str | None = None,
+    stages: int | None = None,
+    dtype_storage: str | None = None,
+    n_requests: int = 200,
+    max_bucket: int = 32,
+    widths: Sequence[int] | None = None,
+    promote: str | int | None = "auto",
+    donate: bool = True,
+    concurrency: int = 8,
+    coalesce: bool = True,
+    arrival: str = "closed",
+    rate: float = 500.0,
+    burst: int = 8,
+    window_ms: str | float = "auto",
+    max_window_ms: float = DEFAULT_MAX_WINDOW_MS,
+    flush_width: str | int = "auto",
+    deadline_ms: float | None = None,
+    max_in_flight: int | None = None,
+    seed: int = 0,
+    metrics_out: str | None = None,
+    trace_jsonl: str | None = None,
+    events_jsonl: str | None = None,
+    integrity_gate: bool = False,
+    slo_out: str | None = None,
+    flight_dir: str | None = None,
+    fault_spec: str | None = None,
+    poison_rate: float = 0.0,
+    resilience: bool | None = None,
+) -> ServeResult:
+    """Run the load protocol for one (strategy, shape, mesh, traffic)
+    config: concurrent (closed-loop) or open-loop traffic, coalesced through
+    the arrival-window scheduler or not. The request trace (widths, payloads
+    and gaps, seeded as the JAX package seeds them) is the same for a
+    coalesced and an uncoalesced run of one config.
+
+    A is made on the mesh's first device (:func:`resident_matrix`, the
+    serve protocol's A). Warmup builds (and on one card captures) the
+    whole bucket ladder and runs every program once, so that no steady
+    request pays a build: ``compiles_steady`` must be 0. ``deadline_ms``
+    gives every request that deadline (the scheduler bypasses the window
+    for one it cannot hold); ``max_in_flight`` is the engine's backpressure
+    mark; ``integrity_gate`` arms the NaN/Inf gate (per request slice when
+    coalesced). ``trace_jsonl`` streams one span tree per request and
+    ``events_jsonl`` the event timeline (the process hub's sink, replaced
+    for the run). ``slo_out``, ``flight_dir``, ``fault_spec``,
+    ``poison_rate`` and ``resilience`` (the JAX package's chaos and SLO
+    overlays) are not ported and raise ``ConfigError`` when set."""
+    for name, value, default in (
+        ("slo_out", slo_out, None), ("flight_dir", flight_dir, None),
+        ("fault_spec", fault_spec, None), ("poison_rate", poison_rate, 0.0),
+        ("resilience", resilience, None),
+    ):
+        if value != default:
+            raise not_ported(f"run_serve_load({name}=...)")
+    if arrival not in ("closed", "poisson", "burst"):
+        raise ConfigError(f"unknown arrival process {arrival!r}")
+    if widths is None:
+        widths = [w for w in LOAD_WIDTH_MIX if w <= max_bucket]
+    registry = MetricsRegistry()
+    # Arm the event sink BEFORE the engine exists, so warmup and the
+    # scheduler's decisions land on the same hub.
+    hub = reset_hub(sink=JsonlSink(events_jsonl)) if events_jsonl is not None else None
+    engine = MatvecEngine(
+        resident_matrix(m, k, torch_dtype(dtype), mesh.devices[0], seed),
+        mesh, strategy=strategy_name, kernel=kernel, combine=combine,
+        stages=stages, dtype_storage=dtype_storage, max_bucket=max_bucket,
+        promote=promote, donate=donate, max_in_flight=max_in_flight,
+        metrics=registry, trace_jsonl=trace_jsonl, integrity_gate=integrity_gate,
+    )
+    latency_hist = registry.histogram(
+        "serve_e2e_latency_ms",
+        "steady-phase submit-entry to materialized-result host time",
+        window=max(n_requests, 1),
+    )
+    pool = _request_pool(k, widths, engine.dtype, seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    sequence = [int(w) for w in rng.choice(list(pool), size=n_requests)]
+    blocks = [pool[w] if pool[w].shape[1] > 1 else pool[w][:, 0] for w in sequence]
+
+    scheduler = (
+        ArrivalWindowScheduler(engine, window_ms=window_ms,
+                               max_window_ms=max_window_ms, flush_width=flush_width)
+        if coalesce else None
+    )
+    if scheduler is not None:
+        def submit(x):
+            return scheduler.submit(x, deadline_ms=deadline_ms)
+    else:
+        def submit(x):
+            return engine.submit(x, deadline_ms=deadline_ms)
+    try:
+        # ---- warmup: the whole ladder — coalesced widths are emergent, so
+        # every bucket a flush could land on is built (captured) and run
+        # once ----
+        from ..engine.buckets import bucket_ladder
+
+        engine.warmup()
+        _drain([engine.submit(pool[w]) for w in sorted(set(sequence))])
+        if engine.b_star is not None:
+            warm_rng = np.random.default_rng(seed + 9)
+            _drain([
+                engine.submit(torch.from_numpy(warm_rng.uniform(0, 10, (k, b)))
+                              .to(engine.dtype))
+                for b in bucket_ladder(max_bucket) if b >= engine.b_star
+            ])
+        warm_stats = engine.stats
+        compiles_warmup = warm_stats.compiles
+
+        # ---- steady phase under load ----
+        if arrival == "closed":
+            wall = _closed_loop(submit, blocks, concurrency, latency_hist)
+        else:
+            gaps = _arrival_gaps(arrival, n_requests, rate, burst,
+                                 np.random.default_rng(seed + 3))
+            wall = _open_loop(submit, blocks, gaps, latency_hist,
+                              flush=scheduler.flush if scheduler is not None else None)
+        steady_stats = engine.stats
+        if scheduler is not None:
+            sched_stats = scheduler.stats
+            mean_batch_width = sched_stats.mean_batch_width
+            coalesce_ratio = sched_stats.coalesce_ratio
+        else:
+            mean_batch_width = coalesce_ratio = float("nan")
+    finally:
+        if scheduler is not None:
+            scheduler.close()
+        if trace_jsonl is not None and not engine.flush_traces():
+            print(f"WARNING: trace sink could not confirm {trace_jsonl} — the "
+                  "file is missing or incomplete", file=sys.stderr)
+        engine.close()
+        if hub is not None:
+            if not hub.flush():
+                print(f"WARNING: event sink could not confirm {events_jsonl} — "
+                      "the file is missing or incomplete", file=sys.stderr)
+            hub.close()
+    if metrics_out is not None:
+        path = Path(metrics_out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(registry.snapshot(), indent=2) + "\n")
+    return ServeResult(
+        n_rows=m,
+        n_cols=k,
+        n_devices=mesh.size,
+        strategy=strategy_name,
+        dtype=dtype_name(engine.dtype),
+        kernel=kernel if isinstance(kernel, str) else "custom",
+        combine=combine or "default",
+        b_star=engine.b_star,
+        max_bucket=max_bucket,
+        n_requests=n_requests,
+        total_cols=int(sum(sequence)),
+        wall_s=wall,
+        p50_dispatch_ms=latency_hist.percentile(50),
+        p99_dispatch_ms=latency_hist.percentile(99),
+        compiles_warmup=compiles_warmup,
+        compiles_steady=steady_stats.compiles - compiles_warmup,
+        hits_steady=steady_stats.hits - warm_stats.hits,
+        promo_b=0,
+        promo_gemm_s=float("nan"),
+        promo_seq_s=float("nan"),
+        arrival=arrival,
+        rate_req_s=rate if arrival != "closed" else float("nan"),
+        concurrency=concurrency,
+        coalesce=int(coalesce),
+        mean_batch_width=mean_batch_width,
+        coalesce_ratio=coalesce_ratio,
         dtype_storage=engine.storage,
         resident_bytes=engine.resident_bytes,
     )
@@ -669,14 +980,66 @@ def _run_solver_config(args, name: str, mesh: Mesh, n: int) -> bool:
     return True
 
 
-# The flags that select the JAX package's load, chaos, multi-tenant and
-# reshard modes, with their defaults: any other value raises. --reshard (the
-# scheduler's drift mode) waits for the global scheduler (ROADMAP.md, queue
-# A 5); the engine's own reshard() is ported.
+def _run_load_configs(args, name: str, mesh: Mesh, m: int, k: int, promote,
+                      concurrency: Sequence[int], coalesce_arg: str | None) -> int:
+    """The load-mode configs of :func:`run_serve_sweep` for one (strategy,
+    shape, mesh): every client count of ``--concurrency``, each uncoalesced
+    then coalesced under ``--coalesce both`` (so ``--metrics-out`` keeps the
+    coalesced run's snapshot). Writes the rows, prints the summaries, and
+    returns the number of configs measured."""
+    coalesce_modes = {None: (True,), "on": (True,), "off": (False,),
+                      "both": (False, True)}[coalesce_arg]
+    window_ms = getattr(args, "window_ms", "auto")
+    if window_ms not in (None, "auto"):
+        window_ms = float(window_ms)
+    flush_width = getattr(args, "flush_width", "auto")
+    if flush_width not in (None, "auto"):
+        flush_width = int(flush_width)
+    n_done = 0
+    for n_clients in concurrency:
+        for coalesce in coalesce_modes:
+            try:
+                result = run_serve_load(
+                    name, mesh, m, k, dtype=args.dtype, kernel=args.kernel,
+                    combine=getattr(args, "combine", None),
+                    stages=getattr(args, "stages", None),
+                    dtype_storage=getattr(args, "dtype_storage", None),
+                    n_requests=args.n_requests, max_bucket=args.max_bucket,
+                    promote=promote, concurrency=n_clients, coalesce=coalesce,
+                    arrival=args.arrival, rate=args.rate, burst=args.burst,
+                    window_ms=window_ms, max_window_ms=args.max_window_ms,
+                    flush_width=flush_width, deadline_ms=args.deadline_ms,
+                    max_in_flight=args.max_in_flight, seed=args.seed,
+                    metrics_out=getattr(args, "metrics_out", None),
+                    trace_jsonl=args.trace_jsonl, events_jsonl=args.events_jsonl,
+                    integrity_gate=args.integrity_gate,
+                )
+            except MatvecError as e:
+                print(f"skip {name} {m}x{k} p={mesh.size} c={n_clients}: {e}")
+                continue
+            path = None if args.no_csv else append_serve_result(result, args.data_root)
+            print(
+                f"serve-load {name} {m}x{k} p={mesh.size} {result.arrival} "
+                f"c={n_clients} coalesce={'on' if coalesce else 'off'} "
+                f"{result.rps:.1f} req/s p50={result.p50_dispatch_ms:.3f}ms "
+                f"p99={result.p99_dispatch_ms:.3f}ms "
+                f"width={result.mean_batch_width:.2f} "
+                f"ratio={result.coalesce_ratio:.2f} "
+                f"compiles={result.compiles_warmup}+{result.compiles_steady}"
+            )
+            if path is not None:
+                print(f"CSV: {path}")
+            n_done += 1
+    return n_done
+
+
+# The flags that select the JAX package's chaos, multi-tenant and reshard
+# modes, with their defaults: any other value raises. Chaos serving waits
+# for the recovery policy (ROADMAP.md, queue A 4b); --tenants and --reshard
+# (the scheduler's drift mode) for the registry and the global scheduler
+# (A 5). The engine's own reshard() is ported.
 _LATER_FLAGS = {
-    "arrival": "closed", "concurrency": None,
-    "coalesce": None, "fault_spec": None, "poison_rate": 0.0,
-    "tenants": None, "reshard": "off",
+    "fault_spec": None, "poison_rate": 0.0, "tenants": None, "reshard": "off",
 }
 
 
@@ -764,12 +1127,25 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
     elif promote not in (None, "auto"):
         promote = int(promote)
     metrics_out = getattr(args, "metrics_out", None)
+    # Load mode engages when the traffic shape asks for it: an open-loop
+    # arrival process, offered concurrency or an explicit --coalesce. The
+    # bare invocation stays on the sequential protocol (promotion check
+    # included).
+    arrival = getattr(args, "arrival", "closed") or "closed"
+    concurrency = getattr(args, "concurrency", None) or [1]
+    coalesce_arg = getattr(args, "coalesce", None)
+    load_mode = (arrival != "closed" or any(c > 1 for c in concurrency)
+                 or coalesce_arg is not None)
     n_done = 0
     for m, k in sizes:
         for name in strategies:
             for n_dev in counts:
                 if solver_op != "matvec":
                     n_done += _run_solver_config(args, name, meshes[n_dev], m)
+                    continue
+                if load_mode:
+                    n_done += _run_load_configs(args, name, meshes[n_dev], m, k,
+                                                promote, concurrency, coalesce_arg)
                     continue
                 try:
                     result = run_serve(
@@ -817,7 +1193,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m matvec_mpi_multiplier_torch.bench.serve",
         description="Serve-throughput benchmark: mixed-width request "
         "stream against a resident sharded A through the serving engine "
-        "(engine/), sequential protocol.",
+        "(engine/): the sequential protocol, or load mode (closed- and "
+        "open-loop traffic, optionally coalesced by the arrival-window "
+        "scheduler).",
     )
     p.add_argument(
         "--strategy", nargs="+", default=["all"],
@@ -898,11 +1276,67 @@ def build_parser() -> argparse.ArgumentParser:
         help="with --op lanczos: Krylov steps (part of the executable's "
         "bucket key)",
     )
+    p.add_argument(
+        "--arrival", choices=["closed", "poisson", "burst"], default="closed",
+        help="traffic shape: closed-loop clients (--concurrency) or an "
+        "open-loop arrival process at --rate req/s (load mode)",
+    )
+    p.add_argument("--rate", type=float, default=500.0,
+                   help="with --arrival poisson|burst: offered request rate (req/s)")
+    p.add_argument("--burst", type=int, default=8,
+                   help="with --arrival burst: simultaneous arrivals per burst")
+    p.add_argument(
+        "--concurrency", nargs="+", type=int, default=None,
+        help="closed-loop client counts to sweep (any value above 1 engages "
+        "load mode)",
+    )
+    p.add_argument(
+        "--coalesce", choices=["on", "off", "both"], default=None,
+        help="serve through the arrival-window scheduler (engine/scheduler.py); "
+        "'both' measures each config uncoalesced, then coalesced, on the same "
+        "trace. Any value engages load mode",
+    )
+    p.add_argument(
+        "--window-ms", default="auto",
+        help="coalescing window: 'auto' (adaptive from the arrival-rate "
+        "estimator) or a fixed window in ms",
+    )
+    p.add_argument("--max-window-ms", type=float, default=DEFAULT_MAX_WINDOW_MS,
+                   help="adaptive coalescing window cap (ms)")
+    p.add_argument(
+        "--flush-width", default="auto",
+        help="batch width that flushes the window at the first lull: 'auto' "
+        "(the tuned promotion point b*) or an int",
+    )
+    p.add_argument(
+        "--deadline-ms", type=float, default=None,
+        help="(load mode) every request's deadline: it fails typed rather than "
+        "dispatch late, and one the window cannot hold bypasses it",
+    )
+    p.add_argument(
+        "--max-in-flight", type=int, default=None,
+        help="(load mode) the engine's backpressure mark: outstanding "
+        "dispatches before a submit drains the oldest",
+    )
+    p.add_argument(
+        "--integrity-gate", action="store_true",
+        help="(load mode) refuse NaN/Inf results at materialization "
+        "(engine_integrity_failures_total; per request slice when coalesced)",
+    )
+    p.add_argument(
+        "--trace-jsonl", default=None, metavar="FILE",
+        help="(load mode) stream one request span tree per request "
+        "(submit->gate->bucket_pad->exec_lookup->dispatch->materialize) to FILE",
+    )
+    p.add_argument(
+        "--events-jsonl", default=None, metavar="FILE",
+        help="(load mode) stream the correlated event timeline (submits, "
+        "coalesces, bypasses, failures, with request_id/cause_id) to FILE",
+    )
     # The JAX package's other modes, kept as flags so that asking for one
     # says it is not ported rather than that the flag is unknown.
-    for flag in ("--arrival", "--coalesce", "--fault-spec", "--reshard"):
+    for flag in ("--fault-spec", "--reshard"):
         p.add_argument(flag, default=_LATER_FLAGS[flag[2:].replace("-", "_")])
-    p.add_argument("--concurrency", nargs="+", type=int, default=None)
     p.add_argument("--poison-rate", type=float, default=0.0)
     p.add_argument("--tenants", type=int, default=None)
     p.add_argument(

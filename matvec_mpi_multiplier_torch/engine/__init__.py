@@ -1,11 +1,14 @@
 """Serving engine: batched multi-RHS dispatch against a resident sharded A.
 
-The port's counterpart of the JAX package's ``engine/``, its plain native
-path and its served solvers: ``core.py`` (the engine, its futures,
-promotion, backpressure, deadlines and ``submit(op=...)`` solves), ``buckets.py`` (the shape ladder) and ``executables.py`` (the
-per-key program cache). Benchmarked by ``bench/serve.py`` (``--op serve``).
-The scheduler, registry and global scheduler wait for later slices
-(ROADMAP.md).
+The port's counterpart of the JAX package's ``engine/``: ``core.py`` (the
+engine, its futures, promotion, backpressure, deadlines, ``submit(op=...)``
+solves, the request tracer, the fault sites and the integrity gate),
+``scheduler.py`` (the arrival-window scheduler: continuous batching with
+QoS tiers, deadline bypass and batch bisection), ``buckets.py`` (the shape
+ladder) and ``executables.py`` (the per-key program cache). Benchmarked by
+``bench/serve.py`` (``--op serve``; ``--arrival``/``--concurrency``/
+``--coalesce`` for load). The registry and the global scheduler wait for a
+later slice (ROADMAP.md, queue A 5).
 
 The re-exports resolve lazily (PEP 562), like the package's own.
 """
@@ -29,6 +32,12 @@ _EXPORTS = {
     "bucket_for": ".buckets",
     "split_widths": ".buckets",
     "pad_columns": ".buckets",
+    "ArrivalWindowScheduler": ".scheduler",
+    "CoalescedFuture": ".scheduler",
+    "SchedulerStats": ".scheduler",
+    "QOS_TIERS": ".scheduler",
+    "DEFAULT_MAX_WINDOW_MS": ".scheduler",
+    "SYSTEMIC_FAILURE_THRESHOLD": ".scheduler",
 }
 
 __all__ = list(_EXPORTS)

@@ -82,11 +82,23 @@ another of rowwise, colwise and blockwise in place
 (``parallel/reshard.py``), re-resolves the configuration against the
 destination and drops every program built over the old layout.
 
-Left for later slices (ROADMAP.md, queue A items 4, 5, 6 and 9): the
-tracer and timeline spans, the resilience ladder (and with it the native
-safe tier of quantized storage), fault injection and the integrity gate,
-residency and tenancy hooks, speculative submits and lowering
-fingerprints; their arguments raise ``ConfigError``.
+**Observability and faults.** Every request opens a span tree in
+``engine.tracer`` (``obs/tracing.py``: submit → gate → bucket_pad →
+exec_lookup → dispatch → materialize, host ``perf_counter`` spans, an
+optional JSONL sink) under a process-unique correlation id, and emits
+``submit`` / ``deadline_failed`` / ``dispatch_failed`` / ``integrity_refused``
+on the event timeline (``obs/timeline.py``). A ``fault_plan``
+(``resilience/faults.py``) is consulted at the build site of a key's first
+program and at every dispatch; the optional ``integrity_gate`` refuses a
+non-finite result on the host copy ``result()`` makes anyway. None of these
+adds a host sync to ``submit``. A failed dispatch raises to the caller: the
+engine runs no dispatch again, on the plain version or on the CPU.
+
+Left for later slices (ROADMAP.md, queue A items 4b, 5, 6 and 9): the
+resilience policy (retries, breakers, the degradation ladders, and with them
+the native safe tier of quantized storage), ``health()``, residency and
+tenancy hooks, speculative submits and lowering fingerprints; their
+arguments raise ``ConfigError``.
 """
 
 from __future__ import annotations
@@ -107,6 +119,9 @@ from ..models.base import (
     shard_operand,
 )
 from ..obs.registry import MetricsRegistry
+from ..obs.sink import JsonlSink
+from ..obs.timeline import TimelineHub, bind_request, bound_request_id, get_hub, next_request_id
+from ..obs.tracing import ActiveTrace, RequestTracer
 from ..ops import gemm_kernel_name_for, get_gemm_kernel, get_kernel
 from ..ops.graphs import capture, single_cuda_device
 from ..ops.quantize import (
@@ -118,6 +133,12 @@ from ..ops.quantize import (
     quantize_matrix,
 )
 from ..parallel.mesh import Mesh, ShardedTensor, shard, unshard
+from ..resilience.faults import (
+    FaultPlan,
+    ResultIntegrityError,
+    out_of_memory_as_exhausted,
+    refuse_nonfinite,
+)
 from ..utils.convert import dtype_name, from_numpy, torch_dtype
 from ..solvers import (
     DEFAULT_RESTART,
@@ -149,12 +170,18 @@ DEFAULT_SOLVER_MAXITER = 1000
 # and "auto" (the tuning cache's winner; the unfused tier on a miss).
 SOLVER_KERNELS = ("torch", "cuda_fused", "auto")
 
-# The JAX package's other constructor arguments, not ported yet.
+# Finished-request records the tracer's in-memory ring keeps
+# (``engine.tracer.traces()``).
+TRACE_CAPACITY = 256
+
+# The JAX package's other constructor arguments, not ported yet: the
+# recovery policy (ROADMAP.md, queue A 4b), the registry's residency hooks
+# (A 5), and the trace ring's size and a private timeline hub, which no
+# caller of the port sets (the ring holds TRACE_CAPACITY records; events go
+# to the process hub, ``obs.get_hub()``, which ``obs.reset_hub()`` replaces).
 _LATER_ARGS = frozenset({
-    "trace_jsonl",
-    "trace_capacity", "resilience", "fault_plan", "integrity_gate",
-    "defer_placement", "label_prefix", "exec_cache",
-    "residency_listener", "timeline",
+    "resilience", "defer_placement", "label_prefix", "exec_cache",
+    "residency_listener", "trace_capacity", "timeline",
 })
 
 
@@ -225,32 +252,66 @@ class _CapturedProgram:
             return out.clone()
 
 
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host, in pageable memory. A CUDA tensor is copied into a
+    page-locked staging block on the current stream and waited for by an
+    event: a pageable ``.cpu()`` copy blocks inside the CUDA runtime while it
+    waits for the card, and every other client's submit queues behind it (a
+    closed loop of 8 clients on one card ran its submits in series that
+    way). The staged values are then copied out on the host, so a caller
+    never holds page-locked memory and the staging block goes back to
+    PyTorch's pinned-memory cache."""
+    if t.device.type != "cuda":
+        return t.cpu()
+    staging = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with torch.cuda.device(t.device):
+        staging.copy_(t, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+    copied.synchronize()
+    return torch.empty(t.shape, dtype=t.dtype).copy_(staging)
+
+
 class MatvecFuture:
     """Async handle to one request's result.
 
     Holds the dispatches' outputs (padded, when the GEMM path ran) plus the
     real column counts; ``result()`` copies them to the host and slices the
-    pad columns away — the "masked-result unpad".
+    pad columns away — the "masked-result unpad". Several parts (a block
+    below ``b*``, or a block wider than the widest bucket) are joined on
+    their card first, so a request is one device-to-host copy.
     """
 
     def __init__(
         self, parts: Sequence[tuple], vector: bool, materialize_hist=None,
+        trace: ActiveTrace | None = None, integrity_counter=None,
+        timeline: TimelineHub | None = None,
     ):
-        # parts: (output, width, dispatch) — width None marks a rank-1
-        # single column, an int a rank-2 block whose first `width` columns
-        # are real; output is a tensor, or a ShardedTensor when the engine
-        # keeps the strategy's native output layout (gather_output=False).
+        # parts: (output, width, dispatch, corrupt) — width None marks a
+        # rank-1 single column, an int a rank-2 block whose first `width`
+        # columns are real; output is a tensor, or a ShardedTensor when the
+        # engine keeps the strategy's native output layout
+        # (gather_output=False). corrupt marks a part an injected "nan"
+        # fault poisons at materialization (resilience/faults.py).
         self._parts = list(parts)
         self._vector = vector
         self._error: Exception | None = None
         self._materialize_hist = materialize_hist
         self.retired = False
+        # Request-lifecycle trace: opened by submit, completed here (the
+        # materialize span and the finish run on whichever thread
+        # materializes; obs/tracing.py).
+        self._trace = trace
+        # Non-None enables the NaN/Inf integrity gate: result() refuses a
+        # non-finite block (ResultIntegrityError), counting here.
+        self._integrity_counter = integrity_counter
+        self._timeline = timeline
 
     @classmethod
-    def failed(cls, error: Exception) -> "MatvecFuture":
+    def failed(cls, error: Exception, trace: ActiveTrace | None = None) -> "MatvecFuture":
         """A future that was never dispatched (deadline exceeded):
         ``result()`` raises ``error``, ``done()`` is immediately True."""
-        fut = cls([], vector=True)
+        fut = cls([], vector=True, trace=trace)
         fut._error = error
         return fut
 
@@ -261,32 +322,92 @@ class MatvecFuture:
 
     def done(self) -> bool:
         """True when every part's device work has completed (never blocks)."""
-        return all(d.query() for *_, d in self._parts)
+        return all(p[2].query() for p in self._parts)
 
     def exception(self) -> Exception | None:
         """The failure this future carries, or None for a dispatched one."""
         return self._error
 
+    def _host_value(self) -> torch.Tensor:
+        """The request's columns on the host: one copy of the joined parts,
+        with an injected corruption planted in element [0] / [0, 0] of each
+        corrupt part (one real column, what the integrity gate catches)."""
+        outs = [(unshard(out) if isinstance(out, ShardedTensor) else out, width, corrupt)
+                for out, width, _, corrupt in self._parts]
+        if self._vector:
+            out, _, corrupt = outs[0]
+            host = _host_copy(out)
+            if corrupt and host.is_floating_point():
+                host = host.clone()
+                host[0] = float("nan")
+            return host
+        if len(outs) == 1:
+            out, width, corrupt = outs[0]
+            host = _host_copy(out)  # the padded block whole: no gather kernel
+            value = host[:, None] if width is None else host[:, :width]
+            corrupt_at = [0] if corrupt else []
+        else:
+            dev = outs[0][0].device
+            cols = [(out[:, None] if width is None else out[:, :width]).to(dev)
+                    for out, width, _ in outs]
+            value = _host_copy(torch.cat(cols, dim=1))
+            offsets = np.cumsum([0] + [c.shape[1] for c in cols[:-1]])
+            corrupt_at = [int(o) for o, (_, _, c) in zip(offsets, outs) if c]
+        if corrupt_at and value.is_floating_point():
+            value = value.clone()
+            for col in corrupt_at:
+                value[0, col] = float("nan")
+        return value
+
+    def _gate(self, out: torch.Tensor) -> torch.Tensor:
+        """The optional NaN/Inf integrity gate, on the host copy: a corrupt
+        result raises instead of being served. The refusal is cached like
+        any other failure — a second result() raises it again without
+        counting again."""
+        if self._integrity_counter is not None:
+            err = refuse_nonfinite(out, self._integrity_counter,
+                                   "the materialized result block")
+            if err is not None:
+                self._error = err
+                if self._timeline is not None:
+                    self._timeline.emit(
+                        "integrity_refused",
+                        request_id=(self._trace.request_id
+                                    if self._trace is not None else None),
+                    )
+                raise err
+        return out
+
     def result(self) -> torch.Tensor:
         """Materialize on the host: ``(m,)`` for a vector request, ``(m, b)``
         for a block request (pad columns sliced away), as a CPU tensor. A
-        failed future raises its error instead."""
-        self.retired = True
+        failed future raises its error instead. Records the ``materialize``
+        span and finishes the request's trace (a second call materializes
+        again but never emits again)."""
         if self._error is not None:
+            self.retired = True
             raise self._error
+        trace = self._trace
         t0 = time.perf_counter()
-        hosts = [
-            ((unshard(out) if isinstance(out, ShardedTensor) else out).cpu(), width)
-            for out, width, _ in self._parts
-        ]
-        if self._vector:
-            value = hosts[0][0]
-        else:
-            cols = [h[:, None] if w is None else h[:, :w] for h, w in hosts]
-            value = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
-        if self._materialize_hist is not None:
-            self._materialize_hist.observe((time.perf_counter() - t0) * 1e3)
-        return value
+        span = trace.span("materialize") if trace is not None else None
+        status = "ok"
+        try:
+            return self._gate(self._host_value())
+        except ResultIntegrityError:
+            status = "integrity_failed"
+            raise
+        except BaseException:
+            # A device error surfacing at the copy must not be recorded as
+            # a fast successful request.
+            status = "materialize_error"
+            raise
+        finally:
+            self.retired = True
+            if span is not None:
+                span.__exit__(None, None, None)
+                trace.finish(status=status)
+            if self._materialize_hist is not None and status == "ok":
+                self._materialize_hist.observe((time.perf_counter() - t0) * 1e3)
 
 
 class SolverFuture:
@@ -294,16 +415,20 @@ class SolverFuture:
 
     Mirrors :class:`MatvecFuture`'s face — ``done()`` / ``exception()`` /
     ``result()`` / ``retired``. The contract differs: ``result()`` either
-    returns a CONVERGED answer or raises :class:`SolverDivergedError` — when
-    the loop hit its iteration cap still above tolerance, or when the
-    answer is non-finite. An unconverged or corrupt ``x`` is never
-    returned: a solver's whole point is the answer."""
+    returns a CONVERGED answer or raises — :class:`SolverDivergedError` when
+    the loop hit its iteration cap still above tolerance, and
+    :class:`ResultIntegrityError` (under the integrity gate) or
+    :class:`SolverDivergedError` when the answer is non-finite. An
+    unconverged or corrupt ``x`` is never returned: a solver's whole point
+    is the answer."""
 
     def __init__(
         self, res: SolverResult | None, op: str, rtol: float, cap: int,
         dispatch: _Dispatch | None = None, materialize_hist=None,
         iter_hist=None, divergence_counter=None, residual_gauge=None,
         iter_time_hist=None, submit_t0: float | None = None,
+        trace: ActiveTrace | None = None, corrupt: bool = False,
+        integrity_counter=None, timeline: TimelineHub | None = None,
     ):
         self._res = res
         self.op = op
@@ -318,14 +443,29 @@ class SolverFuture:
         self._residual_gauge = residual_gauge
         self._iter_time_hist = iter_time_hist
         self._submit_t0 = submit_t0
+        self._trace = trace
+        self._corrupt = bool(corrupt)
+        self._integrity_counter = integrity_counter
+        self._timeline = timeline
 
     @classmethod
-    def failed(cls, error: Exception) -> "SolverFuture":
+    def failed(cls, error: Exception, trace: ActiveTrace | None = None) -> "SolverFuture":
         """A solve that was never dispatched (deadline exceeded):
         ``result()`` raises ``error``, ``done()`` is immediately True."""
-        fut = cls(None, op="", rtol=0.0, cap=0)
+        fut = cls(None, op="", rtol=0.0, cap=0, trace=trace)
         fut._error = error
         return fut
+
+    def _emit_failure(self, kind: str, **fields) -> None:
+        """One typed-failure event on the timeline, correlated to this
+        solve."""
+        if self._timeline is not None:
+            self._timeline.emit(
+                kind,
+                request_id=(self._trace.request_id
+                            if self._trace is not None else None),
+                op=self.op, **fields,
+            )
 
     def done(self) -> bool:
         """True when the solve's device work has completed (never blocks)."""
@@ -339,50 +479,84 @@ class SolverFuture:
         ``x`` is a CPU tensor and whose telemetry fields are Python scalars.
         Raises :class:`SolverDivergedError` if the loop exited on its cap
         (the partial iterate is withheld — retry with a larger ``maxiter``
-        or a looser ``rtol``) or the answer is non-finite."""
-        self.retired = True
+        or a looser ``rtol``) or the answer is non-finite
+        (:class:`ResultIntegrityError` under the integrity gate). Finishes
+        the request trace with ``status=ok|diverged|integrity_failed``."""
         if self._error is not None:
+            self.retired = True
             raise self._error
+        trace = self._trace
         t0 = time.perf_counter()
-        res = self._res
-        x = res.x.cpu()
-        n_iters = int(res.n_iters)
-        # One copy for the three device scalars.
-        rnorm, value, converged = torch.stack((
-            res.residual_norm.double(), res.value.double(), res.converged.double(),
-        )).tolist()
-        if self._iter_hist is not None:
-            self._iter_hist.observe(n_iters)
-        if self._residual_gauge is not None:
-            self._residual_gauge.set(rnorm)
-        if self._iter_time_hist is not None and self._submit_t0 is not None:
-            # Total solve wall time per iteration (submit entry to here,
-            # device wait included).
-            self._iter_time_hist.observe(
-                (time.perf_counter() - self._submit_t0) * 1e3 / max(n_iters, 1))
-        if not bool(torch.isfinite(x).all()) or not np.isfinite(rnorm):
-            self._error = SolverDivergedError(
-                f"{self.op} solve produced a non-finite result "
-                f"(residual_norm={rnorm}); the answer is withheld — check "
-                "the operand for NaN/Inf"
-            )
-            raise self._error
-        if not converged:
-            if self._divergence_counter is not None:
-                self._divergence_counter.inc()
-            self._error = SolverDivergedError(
-                f"{self.op} solve exhausted its iteration cap "
-                f"({self._cap}) at residual_norm={rnorm:.6e} without "
-                f"meeting rtol={self._rtol:g}; the partial iterate is "
-                "withheld (converged or typed failure, never a silently "
-                "wrong x) — retry with a larger maxiter, a looser rtol, or "
-                "a better-suited op"
-            )
-            raise self._error
-        if self._materialize_hist is not None:
-            self._materialize_hist.observe((time.perf_counter() - t0) * 1e3)
-        return SolverResult(x=x, value=value, n_iters=n_iters,
-                            residual_norm=rnorm, converged=True)
+        span = trace.span("materialize") if trace is not None else None
+        status = "ok"
+        try:
+            res = self._res
+            x = res.x.cpu()
+            if self._corrupt and x.is_floating_point():
+                # Injected silent corruption (resilience/faults.py): the
+                # poison lands here so the refusal below catches it.
+                x = x.clone()
+                x[0] = float("nan")
+            n_iters = int(res.n_iters)
+            # One copy for the three device scalars.
+            rnorm, value, converged = torch.stack((
+                res.residual_norm.double(), res.value.double(),
+                res.converged.double(),
+            )).tolist()
+            if self._iter_hist is not None:
+                self._iter_hist.observe(n_iters)
+            if self._residual_gauge is not None:
+                self._residual_gauge.set(rnorm)
+            if self._iter_time_hist is not None and self._submit_t0 is not None:
+                # Total solve wall time per iteration (submit entry to here,
+                # device wait included).
+                self._iter_time_hist.observe(
+                    (time.perf_counter() - self._submit_t0) * 1e3 / max(n_iters, 1))
+            if not bool(torch.isfinite(x).all()) or not np.isfinite(rnorm):
+                status = "integrity_failed"
+                self._emit_failure("integrity_refused")
+                if self._integrity_counter is not None:
+                    err = refuse_nonfinite(
+                        x, self._integrity_counter,
+                        f"the materialized {self.op} solution")
+                    if err is not None:
+                        self._error = err
+                        raise err
+                self._error = SolverDivergedError(
+                    f"{self.op} solve produced a non-finite result "
+                    f"(residual_norm={rnorm}); the answer is withheld — check "
+                    "the operand for NaN/Inf"
+                )
+                raise self._error
+            if not converged:
+                status = "diverged"
+                if self._divergence_counter is not None:
+                    self._divergence_counter.inc()
+                self._emit_failure("solver_diverged", n_iters=n_iters,
+                                   residual_norm=rnorm)
+                self._error = SolverDivergedError(
+                    f"{self.op} solve exhausted its iteration cap "
+                    f"({self._cap}) at residual_norm={rnorm:.6e} without "
+                    f"meeting rtol={self._rtol:g}; the partial iterate is "
+                    "withheld (converged or typed failure, never a silently "
+                    "wrong x) — retry with a larger maxiter, a looser rtol, or "
+                    "a better-suited op"
+                )
+                raise self._error
+            return SolverResult(x=x, value=value, n_iters=n_iters,
+                                residual_norm=rnorm, converged=True)
+        except (SolverDivergedError, ResultIntegrityError):
+            raise
+        except BaseException:
+            status = "materialize_error"
+            raise
+        finally:
+            self.retired = True
+            if span is not None:
+                span.__exit__(None, None, None)
+                trace.finish(status=status)
+            if self._materialize_hist is not None and status == "ok":
+                self._materialize_hist.observe((time.perf_counter() - t0) * 1e3)
 
 
 class EngineStats(ExecStats):
@@ -490,9 +664,21 @@ class MatvecEngine:
         already, else a copy), so that :meth:`reshard` can requantize a
         quantized resident whose block size the destination changes. A
         native resident keeps no host copy: its reshard never requantizes.
+    trace_jsonl : path for the request-trace JSONL sink (``obs/sink.py``);
+        every finished request's span tree is appended there by the sink's
+        thread. :meth:`flush_traces` fences the file; :meth:`close`
+        releases it.
+    fault_plan : a seeded :class:`~..resilience.FaultPlan` consulted at the
+        build site (a key's first build and capture) and the dispatch site
+        (``resilience/faults.py``). Failures are reported to the caller: no
+        dispatch is run again, on the plain version or on the CPU.
+    integrity_gate : check every materialized result for NaN/Inf and raise
+        :class:`~..resilience.ResultIntegrityError` instead of serving it
+        (counted in ``engine_integrity_failures_total``). The check runs on
+        the host copy ``result()`` makes anyway. Off by default.
 
-    The JAX package's other arguments (``resilience``, ``trace_jsonl``,
-    ...) raise ``ConfigError``.
+    The JAX package's other arguments (``resilience``, ``exec_cache``, ...)
+    raise ``ConfigError``.
     """
 
     def __init__(
@@ -514,6 +700,9 @@ class MatvecEngine:
         dtype_storage: str | None = None,
         solver_kernel: str = "torch",
         retain_host: bool = False,
+        trace_jsonl: str | None = None,
+        fault_plan: FaultPlan | None = None,
+        integrity_gate: bool = False,
         **later,
     ):
         for name in later:
@@ -588,6 +777,9 @@ class MatvecEngine:
         self._swap_lock = threading.RLock()
         self._graph_device = single_cuda_device(mesh.devices)
         self._outstanding: deque = deque()
+        # Guards the outstanding window: the scheduler's flusher and its
+        # clients' bypasses submit from several threads at once.
+        self._outstanding_lock = threading.Lock()
         self._cuda_devices = [d for d in mesh.distinct_devices() if d.type == "cuda"]
         spec_a, self._spec_x, _ = self.strategy.specs(mesh)
         _, self._spec_b, _ = self.strategy.batched_specs(mesh)
@@ -643,6 +835,27 @@ class MatvecEngine:
                 "engine_hits_total", "executable-cache hits"
             ),
         )
+        self.tracer = RequestTracer(
+            capacity=TRACE_CAPACITY,
+            sink=JsonlSink(trace_jsonl) if trace_jsonl is not None else None,
+        )
+        # Correlated event timeline (obs/timeline.py), the process hub:
+        # always on — an emission is a dict and a deque.append, no host sync.
+        self._timeline = get_hub()
+        self._fault_plan = fault_plan
+        self.integrity_gate = bool(integrity_gate)
+        # Counters exist only where the machinery is configured, so a plain
+        # engine's snapshot stays as it was.
+        self._c_faults = (
+            self.metrics.counter(
+                "resil_faults_injected_total",
+                "faults the FaultPlan injected (all kinds)",
+            )
+            if fault_plan is not None else None
+        )
+        self._c_integrity = None
+        if self.integrity_gate:
+            self._integrity_counter()
         # The host copy a requantizing reshard reads (a host tensor is kept
         # by reference). A native resident never requantizes: it keeps none.
         self._a_host = a.cpu() if retain_host and self.storage != NATIVE else None
@@ -851,45 +1064,112 @@ class MatvecEngine:
     def _reclaim(self) -> None:
         """Drop completed dispatches from the outstanding window (a
         non-blocking sweep: ``query`` never waits)."""
-        while self._outstanding and self._outstanding[0].query():
-            self._outstanding.popleft()
+        with self._outstanding_lock:
+            while self._outstanding and self._outstanding[0].query():
+                self._outstanding.popleft()
 
     def _admit(self) -> None:
         """The backpressure gate: at the high-water mark, even after
         reclaiming completed work, wait for the OLDEST dispatch (drain-
-        oldest keeps the stream ordered and the device queue bounded)."""
+        oldest keeps the stream ordered and the device queue bounded). The
+        wait runs outside the window's lock, so concurrent submitters each
+        drain their own oldest dispatch."""
         if self.max_in_flight is None:
             return
         self._reclaim()
-        while len(self._outstanding) >= self.max_in_flight:
-            self._outstanding.popleft().synchronize()
+        while True:
+            with self._outstanding_lock:
+                if len(self._outstanding) < self.max_in_flight:
+                    return
+                oldest = self._outstanding.popleft()
+            oldest.synchronize()
             self._c_drains.inc()
             self._reclaim()
 
     def _track(self, dispatch: _Dispatch) -> _Dispatch:
         if self.max_in_flight is not None:
-            self._outstanding.append(dispatch)
+            with self._outstanding_lock:
+                self._outstanding.append(dispatch)
         return dispatch
 
-    def _run(self, key: ExecKey, build, rhs: torch.Tensor) -> tuple:
-        program = self._cache.get(key, build)
+    def _check_faults(self, site: str, key: ExecKey, block=None) -> bool:
+        """Consult the fault plan at one site. Error kinds raise here;
+        latency stalls here; returns True for a "nan" corruption (the
+        caller marks the result part). False = healthy or no plan."""
+        plan = self._fault_plan
+        if plan is None:
+            return False
+        action = plan.check(site, key.label(), block=block)
+        if action is None:
+            return False
+        self._c_faults.inc()
+        if action.error is not None:
+            raise action.error
+        if action.latency_ms > 0:
+            time.sleep(action.latency_ms / 1e3)  # an injected straggler
+            return False
+        return action.corrupt
+
+    def _run(self, key: ExecKey, build, rhs: torch.Tensor, trace: ActiveTrace,
+             call: Callable | None = None, **span_attrs) -> tuple:
+        """One program's dispatch (the caller holds ``_swap_lock``): the
+        build site's fault check for a key not built yet, the lookup (build
+        and capture on a miss) under its ``exec_lookup`` span, the dispatch
+        site's fault check on the host payload, then ``call(program)``
+        (default ``program(rhs)``) under its ``dispatch`` span. A
+        ``torch.cuda.OutOfMemoryError`` in the build or the dispatch raises
+        ``ResourceExhaustedError``."""
+        if self._fault_plan is not None and key not in self._cache:
+            self._check_faults("compile", key)
+        with trace.span("exec_lookup") as span:
+            before = self._cache.stats.compiles
+            with out_of_memory_as_exhausted(f"the build of {key.label()}"):
+                program = self._cache.get(key, build)
+            span.attrs = {"outcome": "compile" if self._cache.stats.compiles > before
+                          else "hit"}
+        corrupt = self._check_faults("dispatch", key, block=rhs)
         self._c_dispatches.inc()
-        out = program(rhs)
-        return out, self._track(_Dispatch(self._cuda_devices))
+        with trace.span("dispatch", **span_attrs), \
+                out_of_memory_as_exhausted(f"the dispatch of {key.label()}"):
+            out = program(rhs) if call is None else call(program)
+        return out, self._track(_Dispatch(self._cuda_devices)), corrupt
 
-    def _dispatch_matvec(self, col: torch.Tensor) -> tuple:
-        """One column -> one result part ``(output, None, dispatch)``."""
-        out, dispatch = self._run(self._matvec_key(), self._build_matvec, col)
-        return out, None, dispatch
+    def _dispatch_matvec(self, col: torch.Tensor, trace: ActiveTrace) -> tuple:
+        """One column -> one result part ``(output, None, dispatch, corrupt)``."""
+        out, dispatch, corrupt = self._run(self._matvec_key(), self._build_matvec,
+                                           col, trace, op="matvec")
+        return out, None, dispatch, corrupt
 
-    def _dispatch_block(self, chunk: torch.Tensor) -> tuple:
+    def _dispatch_block(self, chunk: torch.Tensor, trace: ActiveTrace) -> tuple:
         """One <= max_bucket-wide chunk -> one bucket-padded GEMM part."""
         width = chunk.shape[1]
         bucket = bucket_for(width, self.max_bucket)
-        padded = pad_columns(chunk, bucket)
-        out, dispatch = self._run(self._gemm_key(bucket),
-                                  lambda: self._build_gemm(bucket), padded)
-        return out, width, dispatch
+        with trace.span("bucket_pad", width=width, bucket=bucket):
+            padded = pad_columns(chunk, bucket)
+        out, dispatch, corrupt = self._run(
+            self._gemm_key(bucket), lambda: self._build_gemm(bucket), padded,
+            trace, op="gemm", bucket=bucket)
+        return out, width, dispatch, corrupt
+
+    def _start_trace(self, **attrs) -> ActiveTrace:
+        """Open a request's trace under its correlation id: the one bound
+        by a caller above (the scheduler's), else a fresh one from the
+        process counter the scheduler also draws from."""
+        if bound_request_id() is None:
+            with bind_request(next_request_id()):
+                return self.tracer.start(**attrs)
+        return self.tracer.start(**attrs)
+
+    def _integrity_counter(self):
+        """The integrity-failure counter, made on first use (a
+        ``submit(integrity=True)`` on an engine without the gate counts
+        too)."""
+        if self._c_integrity is None:
+            self._c_integrity = self.metrics.counter(
+                "engine_integrity_failures_total",
+                "materializations the NaN/Inf integrity gate refused",
+            )
+        return self._c_integrity
 
     def submit(
         self,
@@ -919,6 +1199,17 @@ class MatvecEngine:
         up to one drain. A request that made it to dispatch always
         completes.
 
+        ``integrity``: per-request override of the engine's NaN/Inf
+        integrity gate (None = the engine default). The batching scheduler
+        passes False and gates each coalesced request's own slice instead,
+        so one corrupt column cannot fail its batchmates.
+
+        A dispatch that fails (an injected fault, a device error, or
+        ``ResourceExhaustedError`` for a ``torch.cuda.OutOfMemoryError``)
+        raises out of this call after finishing the request's trace with
+        ``status=dispatch_failed``, emitting ``dispatch_failed`` on the
+        timeline and counting ``engine_dispatch_failures_total``.
+
         ``op`` (default ``"matvec"``) selects a SERVED SOLVER instead of a
         multiply: ``"cg"``/``"gmres"``/``"chebyshev"`` solve ``A x = b``
         against the resident A, ``"power"``/``"lanczos"`` estimate its
@@ -931,8 +1222,7 @@ class MatvecEngine:
         chebyshev's required spectral interval. Solver submits return a
         :class:`SolverFuture` once the host-stepped loop has been enqueued to
         its end (module docstring). ``rtol`` on a plain matvec (speculative
-        serving) and ``integrity`` (the integrity gate) are not ported yet
-        and raise ``ConfigError``.
+        serving) is not ported yet and raises ``ConfigError``.
         """
         t0 = time.monotonic()
         t0_perf = time.perf_counter()
@@ -946,8 +1236,6 @@ class MatvecEngine:
             raise ConfigError("submit() needs a request vector or block")
         if op == "matvec" and rtol is not None:
             raise not_ported("submit(rtol=...) (speculative serving)")
-        if integrity is not None:
-            raise not_ported("submit(integrity=...) (the integrity gate)")
         x = _as_tensor(x)
         if not self.donate and x.device.type != "cpu":
             x = x.clone()  # the caller keeps its buffer
@@ -971,48 +1259,67 @@ class MatvecEngine:
             )
         elif x.shape[1] == 0:
             raise ConfigError("empty request (b=0)")
+        cols = 1 if x.dim() == 1 else int(x.shape[1])
+        shape = "vector" if x.dim() == 1 else "block"
+        trace = self._start_trace(cols=cols, kind=shape)
+        self._timeline.emit("submit", request_id=trace.request_id, cols=cols,
+                            shape=shape)
 
         def expired() -> bool:
             return deadline_ms is not None and (time.monotonic() - t0) * 1e3 > deadline_ms
 
         def fail() -> MatvecFuture:
             self._c_deadline_failures.inc()
+            trace.finish(status="deadline_failed")
+            self._timeline.emit("deadline_failed", request_id=trace.request_id,
+                                deadline_ms=deadline_ms)
             self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
             return MatvecFuture.failed(DeadlineExceededError(
                 f"request deadline of {deadline_ms} ms elapsed in the "
                 "backpressure gate before dispatch"
-            ))
+            ), trace=trace)
 
-        if deadline_ms is not None and deadline_ms <= 0:
-            return fail()  # stale on arrival: skip even the drain
-        self._admit()  # may block draining the oldest dispatch
-        if expired():
-            return fail()
-        try:
-            with self._swap_lock:
-                parts = self._dispatch_request(x)
-        except BaseException:
-            self._c_dispatch_failures.inc()
+        gate = self.integrity_gate if integrity is None else bool(integrity)
+        integrity_counter = self._integrity_counter() if gate else None
+        # The binding correlates everything emitted from inside the
+        # dispatch with this request.
+        with bind_request(trace.request_id), trace.span("submit"):
+            if deadline_ms is not None and deadline_ms <= 0:
+                return fail()  # stale on arrival: skip even the drain
+            with trace.span("gate", max_in_flight=self.max_in_flight):
+                self._admit()  # may block draining the oldest dispatch
+            if expired():
+                return fail()
+            try:
+                with self._swap_lock:
+                    parts = self._dispatch_request(x, trace)
+            except BaseException as exc:
+                self._c_dispatch_failures.inc()
+                trace.finish(status="dispatch_failed")
+                self._timeline.emit("dispatch_failed", request_id=trace.request_id,
+                                    error=type(exc).__name__)
+                self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
+                raise
+            fut = MatvecFuture(parts, vector=x.dim() == 1,
+                               materialize_hist=self._h_materialize, trace=trace,
+                               integrity_counter=integrity_counter,
+                               timeline=self._timeline)
             self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
-            raise
-        fut = MatvecFuture(parts, vector=x.dim() == 1,
-                           materialize_hist=self._h_materialize)
-        self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
-        return fut
+            return fut
 
-    def _dispatch_request(self, x: torch.Tensor) -> list:
+    def _dispatch_request(self, x: torch.Tensor, trace: ActiveTrace) -> list:
         """Enqueue one request's dispatches: one GEMV program per column
         below ``b*``, bucket-padded GEMM blocks from it."""
         if x.dim() == 1:
             self._c_cols.inc()
-            return [self._dispatch_matvec(x)]
+            return [self._dispatch_matvec(x, trace)]
         b = x.shape[1]
         self._c_cols.inc(b)
         if self.b_star is None or b < self.b_star:
-            return [self._dispatch_matvec(x[:, j].contiguous()) for j in range(b)]
+            return [self._dispatch_matvec(x[:, j].contiguous(), trace) for j in range(b)]
         parts, offset = [], 0
         for width in split_widths(b, self.max_bucket):
-            parts.append(self._dispatch_block(x[:, offset:offset + width]))
+            parts.append(self._dispatch_block(x[:, offset:offset + width], trace))
             offset += width
         return parts
 
@@ -1161,44 +1468,58 @@ class MatvecEngine:
         c_requests, iter_hist, c_div, g_resid, iter_time_hist = (
             self._solver_metric_handles())
         c_requests.inc()
+        trace = self._start_trace(cols=1, kind=op)
+        self._timeline.emit("submit", request_id=trace.request_id, cols=1, op=op)
 
         def expired() -> bool:
             return deadline_ms is not None and (time.monotonic() - t0) * 1e3 > deadline_ms
 
         def fail() -> SolverFuture:
             self._c_deadline_failures.inc()
+            trace.finish(status="deadline_failed")
+            self._timeline.emit("deadline_failed", request_id=trace.request_id,
+                                deadline_ms=deadline_ms)
             self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
             return SolverFuture.failed(DeadlineExceededError(
                 f"request deadline of {deadline_ms} ms elapsed in the "
                 "backpressure gate before dispatch"
-            ))
+            ), trace=trace)
 
-        if deadline_ms is not None and deadline_ms <= 0:
-            return fail()
-        self._admit()
-        if expired():
-            return fail()
-        try:
-            self._c_cols.inc()
-            with self._swap_lock:
-                key = self._solver_key(op, bucket)
-                fn = self._cache.get(key, lambda: self._build_solver(key, restart, steps))
-                self._c_dispatches.inc()
-                res = fn(self._a, rhs.to(self.mesh.devices[0]), rtol, maxiter, lo, hi)
-                dispatch = self._track(_Dispatch(self._cuda_devices))
-        except BaseException:
-            self._c_dispatch_failures.inc()
+        with bind_request(trace.request_id), trace.span("submit"):
+            if deadline_ms is not None and deadline_ms <= 0:
+                return fail()
+            with trace.span("gate", max_in_flight=self.max_in_flight):
+                self._admit()
+            if expired():
+                return fail()
+            try:
+                self._c_cols.inc()
+                with self._swap_lock:
+                    key = self._solver_key(op, bucket)
+                    res, dispatch, corrupt = self._run(
+                        key, lambda: self._build_solver(key, restart, steps), rhs,
+                        trace, op=op, bucket=bucket,
+                        call=lambda fn: fn(self._a, rhs.to(self.mesh.devices[0]),
+                                           rtol, maxiter, lo, hi))
+            except BaseException as exc:
+                self._c_dispatch_failures.inc()
+                trace.finish(status="dispatch_failed")
+                self._timeline.emit("dispatch_failed", request_id=trace.request_id,
+                                    error=type(exc).__name__)
+                self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
+                raise
+            fut = SolverFuture(
+                res, op=op, rtol=rtol, cap=steps if op == "lanczos" else maxiter,
+                dispatch=dispatch, materialize_hist=self._h_materialize,
+                iter_hist=iter_hist, divergence_counter=c_div,
+                residual_gauge=g_resid, iter_time_hist=iter_time_hist,
+                submit_t0=t0_perf, trace=trace, corrupt=corrupt,
+                integrity_counter=(self._integrity_counter()
+                                   if self.integrity_gate else None),
+                timeline=self._timeline,
+            )
             self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
-            raise
-        fut = SolverFuture(
-            res, op=op, rtol=rtol, cap=steps if op == "lanczos" else maxiter,
-            dispatch=dispatch, materialize_hist=self._h_materialize,
-            iter_hist=iter_hist, divergence_counter=c_div,
-            residual_gauge=g_resid, iter_time_hist=iter_time_hist,
-            submit_t0=t0_perf,
-        )
-        self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
-        return fut
+            return fut
 
     def __call__(self, x) -> torch.Tensor:
         """Synchronous convenience: ``submit(x).result()``."""
@@ -1389,13 +1710,28 @@ class MatvecEngine:
             dropped=self._c_dropped.value,
         )
 
+    def flush_traces(self, timeout: float = 5.0) -> bool:
+        """Fence the JSONL trace sink: every request finished before this
+        call is on disk when it returns True (trivially so without
+        ``trace_jsonl``). False means the sink could not confirm (a dead
+        writer thread, an unwritable path, or the timeout). Caller and test
+        code only — never the dispatch path."""
+        return self.tracer.flush(timeout=timeout)
+
     def close(self) -> None:
-        """Drop the outstanding-dispatch references (the device work itself
-        cannot be cancelled). Idempotent."""
+        """Release the trace sink (writer thread and file) after draining
+        it, and drop the outstanding-dispatch references (the device work
+        itself cannot be cancelled). Idempotent; the sink is released even
+        when the drain cannot confirm."""
         if self._closed:
             return
         self._closed = True
-        self._outstanding.clear()
+        with self._outstanding_lock:
+            self._outstanding.clear()
+        try:
+            self.flush_traces()
+        finally:
+            self.tracer.close()
 
     @property
     def n_executables(self) -> int:

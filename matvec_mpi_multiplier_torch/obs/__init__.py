@@ -1,0 +1,67 @@
+"""Telemetry: metrics registry, request tracing, the event timeline, named
+trace spans.
+
+The port's counterpart of the JAX package's ``obs/``:
+
+* **metrics registry** (``registry.py``) — counters, gauges, latency
+  histograms with exact windowed percentiles, and the arrival-rate
+  estimator the batching scheduler sizes its window from;
+  ``EngineStats`` is a view over the engine's registry;
+* **request-lifecycle tracer** (``tracing.py``) — one span tree per engine
+  request (submit → gate → bucket/pad → program lookup → dispatch →
+  materialize) into a ring buffer, with an optional JSONL sink
+  (``sink.py``, the one module that writes files);
+* **correlated event timeline** (``timeline.py``) — one stream of engine
+  and scheduler events correlated by ``request_id``/``cause_id`` through a
+  thread-local binding (``bind_request``);
+* **named trace spans** (``annotations.py``) — NVTX ranges around each
+  strategy's local GEMV and combine.
+
+The SLO monitor, the flight recorder and the obs CLI are not ported yet
+(ROADMAP.md, queue A 4b).
+"""
+
+from .annotations import annotations, annotations_enabled, named_span
+from .registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    RateEstimator,
+    get_registry,
+)
+from .sink import JsonlSink
+from .timeline import (
+    FAILURE_KINDS,
+    TimelineHub,
+    bind_request,
+    bound_request_id,
+    get_hub,
+    next_request_id,
+    related_events,
+    reset_hub,
+)
+from .tracing import RequestTracer, Span
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "RateEstimator",
+    "get_registry",
+    "RequestTracer",
+    "Span",
+    "JsonlSink",
+    "FAILURE_KINDS",
+    "TimelineHub",
+    "bind_request",
+    "bound_request_id",
+    "get_hub",
+    "next_request_id",
+    "related_events",
+    "reset_hub",
+    "named_span",
+    "annotations",
+    "annotations_enabled",
+]

@@ -10,15 +10,23 @@ the engine's :class:`~..engine.EngineStats` and the serve bench read:
   cumulative buckets and a bounded window of raw observations;
   ``percentile`` is ``np.percentile`` over the window.
 
+Plus :class:`RateEstimator`, the windowed EWMA arrival rate (req/s) the
+batching scheduler (``engine/scheduler.py``) sizes its coalescing window
+from; it exports as a gauge in snapshots. Its callers pass ``now=`` (the
+scheduler, on its own clock); without it the estimator reads
+``time.monotonic``.
+
 The default process registry (:func:`get_registry`) holds the events of
 subsystems with no instance of their own: the tuner's per-candidate
-measurements. The rate estimator, the EWMA gauge and the Prometheus text
-wait for the observability slice (ROADMAP.md).
+measurements. The EWMA gauge and the Prometheus text wait for the slices
+that read them (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import math
 import threading
+import time
 from collections import deque
 from typing import Iterable
 
@@ -103,6 +111,16 @@ class Histogram:
             self._counts[np.searchsorted(self.buckets, v, side="left")] += 1
             self._window.append(v)
 
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
     def percentile(self, q: float) -> float:
         """``np.percentile`` over the retained window (NaN when empty)."""
         with self._lock:
@@ -129,6 +147,71 @@ class Histogram:
                 "buckets": cumulative}
 
 
+class RateEstimator:
+    """Windowed EWMA arrival-rate estimator: events in, req/s out.
+
+    ``observe()`` records one (or ``n`` simultaneous) arrivals;
+    ``rate_per_s()`` reports an exponentially weighted moving average of the
+    instantaneous arrival rate with time constant ``tau_s``. Arrivals that
+    share one clock reading accumulate and enter the average as
+    ``count / gap`` at the next distinct timestamp (a thread stampede reads
+    as a high rate, not a division by zero), and ``rate_per_s`` discounts
+    the average by the time since the last arrival (``exp(-idle/tau)``), so
+    a stream that stops reads as a falling rate.
+    """
+
+    def __init__(
+        self,
+        name: str,
+        help: str = "",
+        tau_s: float = 1.0,
+    ):
+        if tau_s <= 0:
+            raise ValueError(f"rate estimator {name!r} needs tau_s > 0")
+        self.name = name
+        self.help = help
+        self.tau_s = float(tau_s)
+        self._clock = time.monotonic
+        self._lock = threading.Lock()
+        self._rate = 0.0
+        self._last: float | None = None
+        self._burst = 0  # arrivals at the last timestamp, not yet averaged
+        self._count = 0
+
+    def observe(self, n: int = 1, now: float | None = None) -> None:
+        if now is None:
+            now = self._clock()
+        with self._lock:
+            self._count += n
+            if self._last is None:
+                self._last = now
+                self._burst = n
+                return
+            dt = now - self._last
+            if dt <= 0:  # same (or regressed) clock reading: accumulate
+                self._burst += n
+                return
+            w = math.exp(-dt / self.tau_s)
+            self._rate = w * self._rate + (1.0 - w) * (self._burst / dt)
+            self._last = now
+            self._burst = n
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def rate_per_s(self, now: float | None = None) -> float:
+        """The EWMA arrival rate, discounted for idle time since the last
+        arrival (0.0 before any event)."""
+        if now is None:
+            now = self._clock()
+        with self._lock:
+            if self._last is None:
+                return 0.0
+            return self._rate * math.exp(-max(0.0, now - self._last) / self.tau_s)
+
+
 class MetricsRegistry:
     """Named metrics, get-or-create. One registry per engine (isolated
     counters per serving instance), plus the process default
@@ -139,6 +222,7 @@ class MetricsRegistry:
         self._counters: dict[str, Counter] = {}
         self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
+        self._rates: dict[str, RateEstimator] = {}
 
     def counter(self, name: str, help: str = "") -> Counter:
         with self._lock:
@@ -169,15 +253,31 @@ class MetricsRegistry:
                 )
             return h
 
+    def rate_estimator(
+        self,
+        name: str,
+        help: str = "",
+        tau_s: float = 1.0,
+    ) -> RateEstimator:
+        with self._lock:
+            r = self._rates.get(name)
+            if r is None:
+                r = self._rates[name] = RateEstimator(name, help, tau_s=tau_s)
+            return r
+
     def snapshot(self) -> dict:
-        """JSON-able view of every metric (atomic per metric)."""
+        """JSON-able view of every metric (atomic per metric). Rate
+        estimators export as gauges, sampled at snapshot time."""
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
             histograms = dict(self._histograms)
+            rates = dict(self._rates)
+        gauge_values = {n: g.value for n, g in gauges.items()}
+        gauge_values.update({n: r.rate_per_s() for n, r in rates.items()})
         return {
             "counters": {n: c.value for n, c in sorted(counters.items())},
-            "gauges": {n: g.value for n, g in sorted(gauges.items())},
+            "gauges": dict(sorted(gauge_values.items())),
             "histograms": {n: h.summary() for n, h in sorted(histograms.items())},
         }
 

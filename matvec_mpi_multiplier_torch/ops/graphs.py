@@ -143,7 +143,14 @@ def capture(program: Callable[[], object], device, *, warm: bool = True):
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            # Thread-local capture: CUDA calls that other threads make
+            # meanwhile (a client copying its result to the host, an event
+            # query) neither end the capture nor fail, as they would under
+            # the default "global" mode. The scheduler's flusher captures a
+            # bucket's first program while its clients wait on results
+            # (engine/scheduler.py). PyTorch captures on a non-blocking
+            # stream, so their legacy-stream work takes no dependency on it.
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outputs = program()
         finally:
             if collecting:

@@ -49,6 +49,16 @@ class DeadlineExceededError(MatvecError):
     can be retried."""
 
 
+class AdmissionRejectedError(MatvecError):
+    """A scheduler's admission refused a request before any dispatch.
+
+    A rejection is a *scheduling* outcome, distinct from a fault: no device
+    work ran, and the request can be retried. Availability accounting keeps
+    the two apart (``resilience.is_rejection``; rejected ≠ failed). The JAX
+    package raises it from its global scheduler's predicted-time admission,
+    which the port has not ported yet (ROADMAP.md, queue A 5)."""
+
+
 class SolverDivergedError(MatvecError):
     """A served iterative solve hit its iteration cap without meeting its
     tolerance.

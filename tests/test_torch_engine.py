@@ -299,11 +299,15 @@ def test_request_validation(rng):
 
 # stages= and combine= (ring, auto) are ported: their cases are in
 # tests/test_torch_overlap.py::test_engine_combine_and_stages_arguments;
-# retain_host= is ported with reshard (tests/test_torch_reshard.py).
+# retain_host= is ported with reshard (tests/test_torch_reshard.py);
+# fault_plan=, integrity_gate= and trace_jsonl= with the scheduler
+# (tests/test_torch_faults.py, tests/test_torch_obs_trace.py). Any value of
+# a later argument raises, None and False included.
 @pytest.mark.parametrize("kwargs", [
     {"dtype_storage": "speculate"}, {"resilience": object()},
-    {"fault_plan": object()}, {"integrity_gate": True}, {"trace_jsonl": "t.jsonl"},
+    {"residency_listener": object()}, {"resilience": None}, {"defer_placement": False},
     {"defer_placement": True}, {"label_prefix": "tenant-1/"}, {"exec_cache": object()},
+    {"trace_capacity": 64}, {"timeline": None},
 ])
 def test_later_slice_arguments_raise(rng, kwargs):
     a, _ = make_operands(rng)
@@ -314,10 +318,12 @@ def test_later_slice_arguments_raise(rng, kwargs):
 def test_later_slice_submits_raise(rng):
     a, X = make_operands(rng)
     eng = engine(a)
-    for kwargs in ({"rtol": 1e-3}, {"integrity": True}):
-        with pytest.raises(ConfigError, match="ROADMAP.md"):
-            eng.submit(X[:, 0], **kwargs)
+    with pytest.raises(ConfigError, match="ROADMAP.md"):
+        eng.submit(X[:, 0], rtol=1e-3)
     assert eng.stats.dispatches == 0
+    # submit(integrity=) is ported: a finite result passes the gate.
+    np.testing.assert_allclose(eng.submit(X[:, 0], integrity=True).result().numpy(),
+                               a @ X[:, 0], rtol=1e-5)
     with pytest.raises(TypeError, match="unexpected keyword"):
         engine(a, bogus=1)
     # The strategy's own combine builds on both paths.

@@ -394,10 +394,10 @@ def test_commit_waits_for_a_dispatch_in_progress():
     entered, release = threading.Event(), threading.Event()
     dispatch = eng._dispatch_request
 
-    def held(request):
+    def held(request, *args):  # args: the request's trace
         entered.set()
         assert release.wait(timeout=60)
-        return dispatch(request)
+        return dispatch(request, *args)
 
     eng._dispatch_request = held
     out = {}

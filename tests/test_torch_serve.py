@@ -157,9 +157,13 @@ def test_sweep_op_serve_delegates(tmp_path):
     assert rows[0]["b_star"] == -1 and rows[0]["kernel"] == "cuda"
 
 
+# Load mode (--arrival, --concurrency, --coalesce) is ported
+# (tests/test_torch_serve_load.py); with a chaos, tenant or reshard flag it
+# still raises.
 @pytest.mark.parametrize("argv", [
-    ["--arrival", "burst"], ["--arrival", "poisson"], ["--concurrency", "4"],
-    ["--coalesce", "on"], ["--fault-spec", "dispatch:device_error:p=0.1"],
+    ["--arrival", "burst", "--fault-spec", "dispatch:device_error:p=0.1"],
+    ["--arrival", "poisson", "--poison-rate", "0.1"], ["--concurrency", "4", "--tenants", "2"],
+    ["--coalesce", "on", "--reshard", "auto"], ["--fault-spec", "dispatch:device_error:p=0.1"],
     ["--poison-rate", "0.1"], ["--tenants", "2"], ["--reshard", "auto"],
 ])
 def test_unported_serve_modes_raise(argv):
