@@ -98,7 +98,29 @@ kernels' launch counts set to 0 just before it and read just after:
   its batchmates bitwise the unfaulted batch's, a NaN request refused by the
   integrity gate alone and an outage declared systemic (``sched_bisect``),
   and 32 client threads waiting on results while the flusher captures
-  programs not captured yet (``sched_capture``).
+  programs not captured yet (``sched_capture``);
+* the recovery policy (``resilience/policy.py`` and the engine's ladders):
+  a plain and a resilient engine on the serve cell's 200 requests at
+  65536² bf16, bitwise the same results and launches by route, the policy
+  off and on timed in one call, five passes each, and the ladder walk's host
+  microseconds a dispatch (``resilient_clean``); a GEMV and a GEMM that
+  really fail (plans the kernels refuse) raising to the caller under the
+  policy, with no retry, downgrade or breaker fed (``resilient_real_error``);
+  ``run_serve_load`` under chaos (transient device errors, 2% poisoned
+  requests) at 8 and 32 coalescing clients: exactly the poisoned requests
+  fail, every other one within 2^-7 of the fp32 product, retries and no
+  breaker opened, and the obs CLI renders the SLO file and a flight bundle
+  (``chaos_serve``); 64 distinct columns, each a scale of its own, through
+  a resilient engine behind the scheduler, with poisoned batchmates,
+  transient errors and a batch on the GEMV floor, each served column held
+  against the plain GEMM of its own column (``chaos_columns``); a
+  compile fault on the cuda GEMM keys opening the breaker, the torch tier
+  serving, the half-open probe returning to ``wgmma_tma``, a halved bucket
+  and the per-column GEMV floor (``degrade``); the native safe tier of an
+  int8c 65536² fp32 resident placed once, timed, with the device memory
+  after it (``quant_ladder``); and cg at 65536² fp32 served by the torch
+  tier when the fused key fails to build, a ``nan`` fault refused
+  (``solver_ladder``).
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -389,6 +411,27 @@ SCHED_CAPTURE_N = 4096
 SCHED_CAPTURE_CLIENTS = 32
 SCHED_CAPTURE_REQUESTS = 8
 SCHED_CAPTURE_RTOL = 1e-5  # fp32 sums at k = 4096 against fp64 (PERF.md §2)
+# The recovery policy at 65536² bf16: the serve cell's 200-request width mix
+# through a plain and a resilient engine; chaos load serving at 8 and 32
+# clients (transient device errors at p = 0.05, 2% of the requests
+# poisoned); a compile fault on the cuda GEMM keys that opens a breaker
+# after three failures and recovers after the cooldown.
+RESIL_REQUESTS = 200
+CHAOS_CLIENTS = (8, 32)
+CHAOS_FAULT_SPEC = "dispatch:device_error:p=0.05"
+CHAOS_POISON_RATE = 0.02
+DEGRADE_WIDTH = 8
+DEGRADE_FAULTS = 3
+DEGRADE_RESET_S = 1.0
+# Policy off and on: passes of each after the first pair.
+RESIL_PASSES = 4
+# 64 distinct columns (column j scaled by 2^(j/8), so any two results differ
+# by more than the 2^-7 the check allows) in batches of 8: batch 0 on the
+# GEMV floor (both GEMM levels fail once), four batches with a poisoned
+# column, transient device errors at p = 0.1 throughout.
+CHAOS_COLUMNS = 64
+CHAOS_COLUMN_BATCH = 8
+CHAOS_COLUMN_POISONED = (13, 29, 45, 61)
 
 # An entry as the JAX package would write it for one of the same keys: its
 # fingerprint is never the port's, so it must never apply.
@@ -3407,6 +3450,522 @@ def main() -> int:
     del cap_engine, cap_a, cap_a64
     torch.cuda.empty_cache()
 
+    # ---- 38. a resilient engine on clean traffic ----
+    section("38. a resilient engine on clean traffic")
+    from matvec_mpi_multiplier_torch.bench.serve import POISON_SIGNATURE
+    from matvec_mpi_multiplier_torch.resilience import ResiliencePolicy, parse_fault_spec
+    from matvec_mpi_multiplier_torch.utils.errors import SolverDivergedError
+
+    res_a = resident_matrix(LOAD_N, LOAD_N, torch.bfloat16, dev, args.seed)
+    res_widths = [w for w in DEFAULT_WIDTH_MIX if w <= SERVE_MAX_BUCKET]
+    res_pool = _request_pool(LOAD_N, res_widths, torch.bfloat16, seed=args.seed + 1)
+    res_seq = [int(w) for w in np.random.default_rng(args.seed + 2).choice(
+        list(res_pool), size=RESIL_REQUESTS)]
+    resil_launches = {"gemv": {}, "gemm": {}, "quant_gemv": {}}
+    resil_routes = {"gemv": Counter(), "gemm": Counter()}
+
+    def routed(label: str, fn):
+        """fn() with the GEMV, GEMM and block-scaled GEMV counts set to 0
+        just before it; returns its value and the launches by route."""
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        launched = {"gemv": dict(gemv_cuda.route_launches),
+                    "gemm": dict(gemm_cuda.route_launches),
+                    "quant_gemv": dict(quant_gemv_cuda.route_launches)}
+        for name, wrapper in (("gemv", gemv_cuda), ("gemm", gemm_cuda),
+                              ("quant_gemv", quant_gemv_cuda)):
+            if wrapper.launches:
+                resil_launches[name][label] = (resil_launches[name].get(label, 0)
+                                               + wrapper.launches)
+        for name in resil_routes:
+            resil_routes[name].update(launched[name])
+        return out, launched
+
+    def res_engine(policy=None, plan=None, a=None, **kw):
+        kw.setdefault("promote", SERVE_PROMOTE)
+        kw.setdefault("max_bucket", SERVE_MAX_BUCKET)
+        return MatvecEngine(res_a if a is None else a, make_mesh(1), strategy="blockwise",
+                            kernel="cuda", resilience=policy, fault_plan=plan, **kw)
+
+    def stream(engine) -> tuple[list, float]:
+        """The serve cell's 200 requests, submitted in order and
+        materialized after: the results and req/s."""
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        futs = [engine.submit(res_pool[w]) for w in res_seq]
+        outs = [f.result() for f in futs]
+        return outs, RESIL_REQUESTS / (time.perf_counter() - t0)
+
+    plain_engine, resil_engine = res_engine(), res_engine(ResiliencePolicy())
+    runs = {}
+    for label, engine in (("plain", plain_engine), ("resilient", resil_engine)):
+        (_, (outs, rps)), launched = routed(f"resilient_clean_{label}", lambda: (
+            engine.warmup(widths=res_widths), stream(engine)))
+        runs[label] = {"outs": outs, "launches": launched, "req_per_s": [rps]}
+    check(all(torch.equal(y, z) for y, z in zip(runs["plain"]["outs"],
+                                                 runs["resilient"]["outs"])),
+          "resilient_clean: a result differs from the plain engine's")
+    check(runs["plain"]["launches"] == runs["resilient"]["launches"],
+          f"resilient_clean: launches {runs['plain']['launches']} against "
+          f"{runs['resilient']['launches']}")
+    check(set(runs["plain"]["launches"]["gemv"]) == {"rows"}
+          and set(runs["plain"]["launches"]["gemm"]) == {"wgmma_tma"},
+          f"resilient_clean: routes {runs['plain']['launches']}")
+    # Policy off and on within one call: after the first pair, RESIL_PASSES
+    # more of each in the order on, off, off, on, on, off, ...
+    for label in ("resilient", "plain", "plain", "resilient") * (RESIL_PASSES // 2):
+        engine = resil_engine if label == "resilient" else plain_engine
+        runs[label]["req_per_s"].append(stream(engine)[1])
+    health = resil_engine.health()
+    check(set(health) == {"resilience", "cost_model", "slo", "integrity_gate", "storage",
+                          "breakers", "degraded", "fault_injection", "counters"}
+          and health["resilience"] and "native_fallback_resident" in health["storage"],
+          f"resilient_clean: health() keys {sorted(health)}")
+    clean_counts = {k: health["counters"][k] for k in ("retries", "downgrades",
+                                                       "breaker_opens", "dispatch_failures")}
+    check(not any(clean_counts.values()) and health["degraded"] == {}
+          and all(b["state"] == "closed" for b in health["breakers"].values()),
+          f"resilient_clean: {clean_counts}, degraded {health['degraded']}")
+    submit_p50 = {label: engine.metrics.snapshot()["histograms"]["engine_submit_latency_ms"][
+        "p50"] for label, engine in (("plain", plain_engine), ("resilient", resil_engine))}
+
+    # The policy's host cost a dispatch: the ladder walk (made from the
+    # current layout, a breaker lookup, allow, record_success) around an
+    # attempt that does nothing, against the key and the attempt alone.
+    def host_us(fn, n=20000) -> float:
+        for _ in range(1000):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def noop(key, build):
+        return None
+
+    ladder_us = {
+        "walk_matvec": host_us(lambda: resil_engine._walk_ladder(
+            resil_engine._matvec_levels(), noop)),
+        "direct_matvec": host_us(lambda: noop(resil_engine._matvec_key(),
+                                              resil_engine._build_matvec)),
+        "walk_gemm": host_us(lambda: resil_engine._walk_ladder(
+            resil_engine._gemm_levels(8), noop)),
+        "direct_gemm": host_us(lambda: noop(resil_engine._gemm_key(8), None)),
+    }
+    ladder_us["cost_matvec"] = ladder_us["walk_matvec"] - ladder_us["direct_matvec"]
+    ladder_us["cost_gemm"] = ladder_us["walk_gemm"] - ladder_us["direct_gemm"]
+    emit({"phase": "resilient_clean", "strategy": "blockwise", "shape": [LOAD_N, LOAD_N],
+          "dtype": "bfloat16", "requests": RESIL_REQUESTS, "widths": res_widths,
+          "bitwise_vs_plain": True, "launches_by_route": runs["plain"]["launches"],
+          "launches_equal": True, **clean_counts,
+          "breakers": len(health["breakers"]), "health_keys": sorted(health),
+          "req_per_s_off": runs["plain"]["req_per_s"],
+          "req_per_s_on": runs["resilient"]["req_per_s"],
+          "req_per_s_off_mean": statistics.mean(runs["plain"]["req_per_s"]),
+          "req_per_s_on_mean": statistics.mean(runs["resilient"]["req_per_s"]),
+          "ladder_host_us": ladder_us, "submit_p50_ms": submit_p50, "slo_status": {
+              n: t["status"] for n, t in health["slo"]["targets"].items()}})
+
+    # A kernel that really fails reaches the caller under the policy: plans
+    # the kernels refuse before they launch anything (cudaErrorInvalidValue,
+    # a GEMV with no warps, a GEMM ring deeper than it was built for). The
+    # ladder routes around injected faults only.
+    import matvec_mpi_multiplier_torch.ops.cuda_gemm as cuda_gemm_mod
+    import matvec_mpi_multiplier_torch.ops.cuda_gemv as cuda_gemv_mod
+
+    gemv_plan_of, gemm_plan_of = cuda_gemv_mod.gemv_plan, cuda_gemm_mod.default_gemm_tiles
+    real_engine = res_engine(ResiliencePolicy())
+    real_reqs = {"matvec": res_pool[1], "gemm": res_pool[DEGRADE_WIDTH]}
+    real_errors = {}
+    cuda_gemv_mod.gemv_plan = lambda *a: gemv_plan_of(*a)._replace(warps=0)
+    cuda_gemm_mod.default_gemm_tiles = lambda *a: gemm_plan_of(*a)._replace(stages=99)
+    try:
+        for op, req in real_reqs.items():
+            try:
+                real_engine.submit(req).result()
+            except RuntimeError as e:
+                real_errors[op] = str(e)
+    finally:
+        cuda_gemv_mod.gemv_plan, cuda_gemm_mod.default_gemm_tiles = gemv_plan_of, gemm_plan_of
+    real_h = real_engine.health()
+    real_counts = {k: real_h["counters"][k] for k in ("retries", "downgrades",
+                                                      "breaker_opens", "dispatch_failures")}
+    check(set(real_errors) == {"matvec", "gemm"}
+          and all("(cudaError 1)" in e for e in real_errors.values()),
+          f"resilient_real_error: {real_errors}")
+    check(real_counts == {"retries": 0, "downgrades": 0, "breaker_opens": 0,
+                          "dispatch_failures": 2} and real_h["degraded"] == {}
+          and all(b["failures_total"] == 0 for b in real_h["breakers"].values())
+          and not any(k.kernel == "torch" for k in real_engine._cache.keys()),
+          f"resilient_real_error: {real_counts}, {real_h['degraded']}, "
+          f"{real_engine._cache.keys()}")
+    # The same engine then serves both through the kernels, bitwise the plain
+    # engine's results.
+    real_served = {op: torch.equal(real_engine.submit(req).result(),
+                                   plain_engine.submit(req).result())
+                   for op, req in real_reqs.items()}
+    check(all(real_served.values()), f"resilient_real_error: served {real_served}")
+    emit({"phase": "resilient_real_error", "shape": [LOAD_N, LOAD_N], "dtype": "bfloat16",
+          "errors": real_errors, **real_counts, "degraded": real_h["degraded"],
+          "torch_tier_built": False, "then_bitwise_vs_plain": real_served})
+    for engine in (plain_engine, resil_engine, real_engine):
+        engine.close()
+    del plain_engine, resil_engine, real_engine, engine, runs
+
+    # ---- 39. chaos load serving ----
+    section("39. chaos load serving")
+    chaos_x = _request_pool(LOAD_N, (1,), torch.bfloat16, seed=args.seed + 1)[1][:, 0]
+    chaos_ref = gemm_plain(res_a, chaos_x.to(dev)[:, None])[:, 0].float().cpu()
+    n_poisoned = max(1, round(CHAOS_POISON_RATE * LOAD_REQUESTS))
+    recorded = []
+    sched_submit = ArrivalWindowScheduler.submit
+
+    def recording_submit(self, x, *a, **kw):  # every steady request and its future
+        fut = sched_submit(self, x, *a, **kw)
+        recorded.append((x, fut))
+        return fut
+
+    chaos_lines, chaos_retries = [], 0
+    obs_dir = Path(tempfile.mkdtemp(prefix="chaos_"))
+    ArrivalWindowScheduler.submit = recording_submit
+    try:
+        for clients in CHAOS_CLIENTS:
+            recorded.clear()
+            run_dir = obs_dir / f"c{clients}"
+            snap = run_dir / "metrics.json"
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            res, launched = routed(f"chaos_serve_c{clients}", lambda: run_serve_load(
+                "blockwise", make_mesh(1), LOAD_N, LOAD_N, dtype="bfloat16", kernel="cuda",
+                n_requests=LOAD_REQUESTS, max_bucket=SERVE_MAX_BUCKET, promote=SERVE_PROMOTE,
+                flush_width=SERVE_PROMOTE, concurrency=clients, coalesce=True, seed=args.seed,
+                fault_spec=CHAOS_FAULT_SPEC, fault_seed=args.seed,
+                poison_rate=CHAOS_POISON_RATE, slo_out=str(run_dir / "slo.json"),
+                flight_dir=str(run_dir / "flight"), metrics_out=str(snap)))
+            run_s = time.perf_counter() - t0
+            counters = json.loads(snap.read_text())["counters"]
+            # Each steady request's fate: a poisoned one must fail with the
+            # injected payload fault, every other one be served.
+            fates, rel = Counter(), 0.0
+            for x, fut in recorded:
+                poisoned = float(x.reshape(-1)[0]) >= POISON_SIGNATURE / 2
+                err = fut.exception()
+                if err is None:
+                    y = fut.result(timeout=60).float()
+                    rel = max(rel, ((y - chaos_ref).abs() / chaos_ref.abs()).max().item())
+                fates[f"{'poisoned' if poisoned else 'clean'}:"
+                      f"{'served' if err is None else type(err).__name__}"] += 1
+            cli, bundles = {}, sorted((run_dir / "flight").iterdir())
+            for cmd, path in (("slo", run_dir / "slo.json"), ("dump", bundles[:1])):
+                if cmd == "dump" and not path:
+                    continue
+                proc = subprocess.run(
+                    [sys.executable, "-m", "matvec_mpi_multiplier_torch.obs", cmd,
+                     str(path if cmd == "slo" else path[0])],
+                    cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                    text=True, timeout=300)
+                cli[cmd] = {"rc": proc.returncode, "head": proc.stdout.splitlines()[:8],
+                            "stderr": proc.stderr[-400:]}
+            slo = json.loads((run_dir / "slo.json").read_text())
+            line = {"phase": "chaos_serve", "strategy": "blockwise", "shape": [LOAD_N, LOAD_N],
+                    "dtype": "bfloat16", "concurrency": clients, "coalesce": True,
+                    "fault_spec": CHAOS_FAULT_SPEC, "poison_rate": CHAOS_POISON_RATE,
+                    "n_requests": res.n_requests, "poisoned": n_poisoned,
+                    "failed_requests": res.failed_requests, "success_rate": res.success_rate,
+                    "served_max_rel_err_vs_fp32": rel, "rtol": 2 ** -7,
+                    "retries": res.retries, "downgrades": res.downgrades,
+                    "req_per_s": res.rps, "p50_request_ms": res.p50_dispatch_ms,
+                    "p99_request_ms": res.p99_dispatch_ms,
+                    "mean_batch_width": res.mean_batch_width,
+                    "compiles_steady": res.compiles_steady, "launches_by_route": launched,
+                    **{k: counters.get(k, 0) for k in (
+                        "resil_faults_injected_total", "resil_breaker_opens_total",
+                        "sched_bisect_splits_total", "sched_isolated_failures_total",
+                        "sched_batch_failures_total")},
+                    "slo_status": {n: t["status"] for n, t in slo["targets"].items()},
+                    "flight_bundles": [b.name for b in bundles], "obs_cli": cli,
+                    "fates": dict(fates),
+                    # The torch tier's captured programs hold no copy of A.
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                    "run_s": run_s}
+            emit(line)
+            chaos_lines.append(line)
+            check(fates == {"clean:served": LOAD_REQUESTS - n_poisoned,
+                            "poisoned:DeviceFaultError": n_poisoned} and rel <= 2 ** -7,
+                  f"chaos c={clients}: fates {dict(fates)}, rel err {rel}")
+            check(res.failed_requests == n_poisoned,
+                  f"chaos c={clients}: {res.failed_requests} failed, {n_poisoned} poisoned")
+            check(counters.get("resil_breaker_opens_total", 0) == 0,
+                  f"chaos c={clients}: a breaker opened {counters}")
+            check(bool(bundles) and all(c["rc"] == 0 for c in cli.values()),
+                  f"chaos c={clients}: bundles {bundles}, obs CLI {cli}")
+            chaos_retries += res.retries
+    finally:
+        ArrivalWindowScheduler.submit = sched_submit
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    check(chaos_retries > 0, "chaos: no retry in either run")
+    del recorded, x, fut, err, y  # the futures and their results
+
+    # Distinct columns through a resilient engine behind the scheduler: a
+    # result handed a batchmate's column would miss its own reference.
+    col_rng = np.random.default_rng(args.seed + 16)
+    col_xs = [(torch.from_numpy(col_rng.uniform(0, 10, LOAD_N)) * 2 ** (j / 8)).to(
+        torch.bfloat16) for j in range(CHAOS_COLUMNS)]
+    col_ref = gemm_plain(res_a, torch.stack(col_xs, dim=1).to(dev)).to(
+        torch.bfloat16).float().cpu()
+    for j in CHAOS_COLUMN_POISONED:
+        col_xs[j][0] = POISON_SIGNATURE
+    col_plan = FaultPlan([
+        FaultSpec(site="dispatch", kind="device_error", key="gemm:*", times=2,
+                  retryable=False),  # batch 0's two GEMM levels: the GEMV floor
+        FaultSpec(site="dispatch", kind="device_error", poison=POISON_SIGNATURE),
+        FaultSpec(site="dispatch", kind="device_error", p=0.1),
+    ], seed=args.seed)
+    col_engine = res_engine(ResiliencePolicy(), col_plan)
+    col_engine.warmup(widths=[1, CHAOS_COLUMN_BATCH])
+
+    def serve_columns() -> dict:
+        out = {}
+        with ArrivalWindowScheduler(col_engine, window_ms=60_000.0,
+                                    flush_width=CHAOS_COLUMN_BATCH) as col_sched:
+            futs = [col_sched.submit(c) for c in col_xs]  # every 8th flushes inline
+            col_sched.flush()
+            for j, f in enumerate(futs):
+                try:
+                    out[j] = f.result(timeout=120).float()
+                except DeviceFaultError as e:
+                    out[j] = e
+        return out
+
+    col_out, col_launches = routed("chaos_columns", serve_columns)
+    col_failed = sorted(j for j, y in col_out.items() if isinstance(y, Exception))
+    own_rel, other_rel = 0.0, float("inf")
+    for j, y in col_out.items():
+        if isinstance(y, Exception):
+            continue
+        rel = ((y[None, :] - col_ref.T).abs() / col_ref.T.abs()).amax(dim=1)
+        own_rel = max(own_rel, rel[j].item())
+        other_rel = min(other_rel, torch.cat([rel[:j], rel[j + 1:]]).min().item())
+    col_counters = col_engine.metrics.snapshot()["counters"]
+    col_counts = {n: col_counters.get(n, 0) for n in (
+        "resil_retries_total", "resil_downgrades_total", "resil_breaker_opens_total",
+        "sched_bisect_splits_total", "sched_isolated_failures_total",
+        "sched_batch_failures_total")}
+    col_specs = [s["injected"] for s in col_plan.summary()["specs"]]
+    check(col_failed == list(CHAOS_COLUMN_POISONED)
+          and all(isinstance(col_out[j], DeviceFaultError) for j in col_failed),
+          f"chaos_columns: failed {col_failed}")
+    check(own_rel <= 2 ** -7 < other_rel,
+          f"chaos_columns: rel err {own_rel} to its own column, {other_rel} to another")
+    check(col_specs[0] == 2 and sum(col_launches["gemv"].values()) >= CHAOS_COLUMN_BATCH
+          and col_counts["sched_isolated_failures_total"] == len(CHAOS_COLUMN_POISONED),
+          f"chaos_columns: floor {col_specs}, {col_launches}, {col_counts}")
+    emit({"phase": "chaos_columns", "shape": [LOAD_N, LOAD_N], "dtype": "bfloat16",
+          "columns": CHAOS_COLUMNS, "batch": CHAOS_COLUMN_BATCH,
+          "poisoned": list(CHAOS_COLUMN_POISONED), "failed": col_failed,
+          "max_rel_err_own_column": own_rel, "min_rel_err_other_column": other_rel,
+          "rtol": 2 ** -7, "injected_by_spec": col_specs, "launches_by_route": col_launches,
+          **col_counts})
+    col_engine.close()
+    del col_out, col_engine
+    torch.cuda.empty_cache()
+
+    # ---- 40. degrade and recover ----
+    section("40. degrade and recover")
+    deg_rng = np.random.default_rng(args.seed + 14)
+
+    def deg_block(width):
+        return torch.from_numpy(deg_rng.uniform(0, 10, (LOAD_N, width))).to(torch.bfloat16)
+
+    def rel_to_plain(y, x) -> float:
+        ref = gemm_plain(res_a, x.to(dev)).float().cpu()
+        return ((y.float() - ref).abs() / ref.abs()).max().item()
+
+    policy = ResiliencePolicy(breaker_reset_s=DEGRADE_RESET_S)
+    deg = res_engine(policy, parse_fault_spec(
+        f"compile:compile_error:key=gemm:*:cuda:*,times={DEGRADE_FAULTS}"))
+    pref_key = f"gemm:blockwise:cuda:default:{DEGRADE_WIDTH}:bfloat16"
+    safe_key = f"gemm:blockwise:torch:default:{DEGRADE_WIDTH}:bfloat16"
+    steps, deg_rel = [], 0.0
+    for i in range(DEGRADE_FAULTS + 1):  # three failures open it; one more skips it
+        x = deg_block(DEGRADE_WIDTH)
+        y, launched = routed("degrade", lambda: deg.submit(x).result())
+        deg_rel = max(deg_rel, rel_to_plain(y, x))
+        h = deg.health()
+        steps.append({"request": i, "state": h["breakers"][pref_key]["state"],
+                      "degraded": h["degraded"], "gemm_routes": launched["gemm"]})
+        check(launched["gemm"] == {} and h["degraded"] == {pref_key: safe_key},
+              f"degrade: request {i} left the torch tier {launched}, {h['degraded']}")
+    check(steps[DEGRADE_FAULTS - 1]["state"] == "open"
+          and h["counters"]["breaker_opens"] == 1
+          and h["fault_injection"]["specs"][0]["injected"] == DEGRADE_FAULTS,
+          f"degrade: breaker {steps}, {h['fault_injection']}")
+    time.sleep(DEGRADE_RESET_S * 1.1)
+    x = deg_block(DEGRADE_WIDTH)
+    y, launched = routed("degrade", lambda: deg.submit(x).result())
+    deg_rel = max(deg_rel, rel_to_plain(y, x))
+    h = deg.health()
+    check(h["breakers"][pref_key]["state"] == "closed" and h["degraded"] == {}
+          and h["counters"]["recoveries"] == 1
+          and set(launched["gemm"]) == {"wgmma_tma"},
+          f"degrade: the probe {h['breakers'][pref_key]}, {h['degraded']}, {launched}")
+    recovered = {"state": h["breakers"][pref_key]["state"], "gemm_routes": launched["gemm"]}
+    check(deg_rel <= 2 ** -7, f"degrade: rel err {deg_rel}")
+    deg.close()
+    # Resource exhaustion at bucket 16 halves the block into two of bucket 8.
+    shrink = res_engine(ResiliencePolicy(), parse_fault_spec(
+        "dispatch:resource_exhausted:key=gemm:*:16:*,times=1"))
+    x = deg_block(16)
+    y, shrink_launched = routed("degrade", lambda: shrink.submit(x).result())
+    shrink_rel = rel_to_plain(y, x)
+    gemm_buckets = sorted({k.bucket for k in shrink._cache.keys() if k.op == "gemm"})
+    check(shrink_rel <= 2 ** -7 and gemm_buckets == [8, 16]
+          and shrink.health()["counters"]["downgrades"] == 1,
+          f"degrade: halving, buckets {gemm_buckets}, rel {shrink_rel}")
+    shrink.close()
+    # Every GEMM level failing: per-column GEMVs on the `rows` route, bitwise
+    # the engine's own vector results.
+    floor = res_engine(ResiliencePolicy(), parse_fault_spec(
+        "dispatch:device_error:key=gemm:*,retryable=0"))
+    x = deg_block(SERVE_PROMOTE)
+    y, floor_launched = routed("degrade", lambda: floor.submit(x).result())
+    solo = torch.stack([floor.submit(x[:, j].contiguous()).result()
+                        for j in range(SERVE_PROMOTE)], dim=1)
+    floor_h = floor.health()
+    # (The GEMM programs were built and captured before they failed: the
+    # capture's warm run is their only launch.)
+    check(torch.equal(y, solo) and set(floor_launched["gemv"]) == {"rows"}
+          and floor_h["counters"]["downgrades"] == 1
+          and floor_h["counters"]["dispatch_failures"] == 0,
+          f"degrade: GEMV floor {floor_launched}, {floor_h['counters']}")
+    emit({"phase": "degrade", "shape": [LOAD_N, LOAD_N], "dtype": "bfloat16",
+          "width": DEGRADE_WIDTH, "compile_faults": DEGRADE_FAULTS,
+          "breaker_reset_s": DEGRADE_RESET_S, "steps": steps, "probe": recovered,
+          "max_rel_err_vs_plain": deg_rel, "rtol": 2 ** -7,
+          "halving": {"buckets": gemm_buckets, "launches": shrink_launched,
+                      "rel_err": shrink_rel},
+          "gemv_floor": {"launches": floor_launched, "bitwise_vs_vectors": True}})
+    floor.close()
+    del deg, shrink, floor, res_a
+    torch.cuda.empty_cache()
+
+    # ---- 41. the quantized ladder ----
+    section("41. the quantized ladder")
+    # What the sections before still hold, and what only the cycle
+    # collector would free (0 when every engine was freed on its last
+    # reference).
+    import gc
+
+    torch.cuda.synchronize(dev)
+    held_before_gc = torch.cuda.memory_allocated(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_after_gc = torch.cuda.memory_allocated(dev)
+    q_a = resident_matrix(LOAD_N, LOAD_N, torch.float32, dev, args.seed)
+    q_rng = np.random.default_rng(args.seed + 15)
+    q_x = torch.from_numpy(q_rng.uniform(0, 10, LOAD_N)).float()
+    q_blk = torch.from_numpy(q_rng.uniform(0, 10, (LOAD_N, SERVE_PROMOTE))).float()
+    q_ref_x = gemv_cuda(q_a, q_x.to(dev)).cpu()
+    q_ref_blk = gemm_cuda(q_a, q_blk.to(dev)).cpu()
+    t0 = time.perf_counter()
+    q_engine = res_engine(ResiliencePolicy(), parse_fault_spec(
+        "dispatch:device_error:key=*:int8c,retryable=0"), a=q_a, dtype_storage="int8c",
+        max_bucket=8)
+    q_build_s = time.perf_counter() - t0
+    del q_a
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    y_x, q_launched = routed("quant_ladder", lambda: q_engine.submit(q_x).result())
+    place_s = time.perf_counter() - t0
+    mem_after = torch.cuda.memory_allocated(dev)
+    placed = q_engine._a_native
+    y_blk, blk_launched = routed("quant_ladder", lambda: q_engine.submit(q_blk).result())
+    q_rel = max(((y_x - q_ref_x).abs() / q_ref_x.abs()).max().item(),
+                ((y_blk - q_ref_blk).abs() / q_ref_blk.abs()).max().item())
+    q_h = q_engine.health()
+    check(placed is not None and q_engine._a_native is placed
+          and q_h["storage"]["native_fallback_resident"]
+          and q_h["storage"]["device_resident_bytes"]
+          == q_h["storage"]["resident_bytes"] + LOAD_N * LOAD_N * 4,
+          f"quant_ladder: native tier {q_h['storage']}")
+    check(q_rel <= 1e-4, f"quant_ladder: rel err {q_rel} against the native GEMV")
+    # The quantized programs were built and captured before their dispatch
+    # failed: the capture's warm run is their one launch each; the torch
+    # tier served both requests.
+    check(sum(q_launched["quant_gemv"].values()) == 1
+          and sum(blk_launched["quant_gemv"].values()) == 1
+          and not q_launched["gemv"] and not blk_launched["gemm"],
+          f"quant_ladder: launches {q_launched}, {blk_launched}")
+    emit({"phase": "quant_ladder", "shape": [LOAD_N, LOAD_N], "dtype": "float32",
+          "storage": "int8c", "engine_build_s": q_build_s,
+          "native_place_and_first_dispatch_s": place_s,
+          "device_memory_before_bytes": mem_before, "device_memory_after_bytes": mem_after,
+          "native_bytes": LOAD_N * LOAD_N * 4, "storage_health": q_h["storage"],
+          "degraded": q_h["degraded"], "max_rel_err_vs_native_gemv": q_rel, "rtol": 1e-4,
+          "native_placed_once": True, "launches": {"vector": q_launched,
+                                                   "block": blk_launched},
+          "held_at_start_bytes": held_before_gc,
+          "freed_by_cycle_collector_bytes": held_before_gc - held_after_gc})
+    q_engine.close()
+    del q_engine, placed
+    torch.cuda.empty_cache()
+
+    # ---- 42. the solver ladder ----
+    section("42. the solver ladder")
+    s_a = solver_operand(SOLVER_N, "float32", args.seed, device=dev)
+    s_b = seeded_rhs(SOLVER_N)
+
+    def solver_engine(plan):
+        return MatvecEngine(s_a, make_mesh(1), strategy="rowwise", promote=None,
+                            solver_kernel="cuda_fused", resilience=ResiliencePolicy(),
+                            fault_plan=parse_fault_spec(plan))
+
+    s_engine = solver_engine("compile:compile_error:key=cg:*:cuda_fused:*")
+    (res, ms), counts = drive("solver_ladder", lambda: timed_solve(
+        s_engine, op="cg", rhs=s_b, rtol=SOLVER_RTOL))
+    s_rel = rel_residual(s_a, s_b, res.x)
+    s_h = s_engine.health()
+    # The torch tier runs gemv_torch: no hand-written kernel launches.
+    check(res.converged and s_rel <= residual_bound and counts["solver_step"] == 0
+          and counts["gemv"] == 0
+          and list(s_h["degraded"].values()) == [
+              f"cg:rowwise:torch:default:{s_engine._cache.keys()[0].bucket}:float32"],
+          f"solver_ladder: {s_rel}, {counts}, {s_h['degraded']}")
+    nan_engine = solver_engine("dispatch:nan:times=1")
+    refused = None
+    try:
+        drive("solver_chaos", lambda: nan_engine.submit(op="cg", rhs=s_b,
+                                                        rtol=SOLVER_RTOL).result())
+    except SolverDivergedError as e:
+        refused = str(e)
+    (res2, _), counts2 = drive("solver_chaos", lambda: timed_solve(
+        nan_engine, op="cg", rhs=s_b, rtol=SOLVER_RTOL))
+    s_rel2 = rel_residual(s_a, s_b, res2.x)
+    check(refused is not None and "non-finite" in refused and res2.converged
+          and s_rel2 <= residual_bound and counts2["solver_step"] > 0,
+          f"solver_chaos: refused {refused!r}, then {s_rel2}, {counts2}")
+    emit({"phase": "solver_ladder", "op": "cg", "shape": [SOLVER_N, SOLVER_N],
+          "dtype": "float32", "fault": "compile:compile_error:key=cg:*:cuda_fused:*",
+          "degraded": s_h["degraded"], "n_iters": res.n_iters, "solve_ms": ms,
+          "rel_residual_fp64": s_rel, "rtol": SOLVER_RTOL, "launches": counts,
+          "nan_refused": refused, "next_solve_rel_residual": s_rel2,
+          "next_solve_launches": counts2})
+    s_engine.close()
+    nan_engine.close()
+    del s_engine, nan_engine, s_a
+    torch.cuda.empty_cache()
+
+    launches_by_path["gemv"].update(
+        {p: n for p, n in resil_launches["gemv"].items()})
+    launches_by_path["gemm"].update(
+        {p: n for p, n in resil_launches["gemm"].items()})
+    quant_launches.update(resil_launches["quant_gemv"])
+    gemv_routes["resilience"] = dict(resil_routes["gemv"])
+    gemm_routes["resilience"] = dict(resil_routes["gemm"])
+
     launches_by_path["gemv"]["load_serve"] = sum(load_launches["gemv"].values())
     launches_by_path["gemm"]["load_serve"] = sum(load_launches["gemm"].values())
     quant_launches["load_serve_quant"] = sum(load_launches["quant_gemv"].values())
@@ -3414,8 +3973,8 @@ def main() -> int:
     gemv_routes["load_serve"] = dict(load_routes["gemv"])
     gemm_routes["load_serve"] = dict(load_routes["gemm"])
 
-    # ---- 38. the kernels line ----
-    section("38. the kernels line")
+    # ---- 43. the kernels line ----
+    section("43. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -3550,8 +4109,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 39. result ----
-    section("39. result")
+    # ---- 44. result ----
+    section("44. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -26,12 +26,24 @@ entry to materialized result, in the latency columns), the mean batch width
 and the coalesce ratio (NaN uncoalesced). ``--coalesce both`` measures each
 config uncoalesced, then coalesced, on the same seeded trace.
 
+**Chaos mode** (the load protocol under seeded faults): ``--fault-spec``
+arms a :class:`~..resilience.FaultPlan` (``--fault-seed`` seeds it and the
+retry jitter), ``--poison-rate`` plants :data:`POISON_SIGNATURE` in row 0 of
+a seeded share of the requests with a persistent poison fault keyed on it,
+and the engine serves under a :class:`~..resilience.ResiliencePolicy`
+(``--breaker-reset-s`` is its breakers' cooldown). Rows then carry the
+availability columns (``success_rate``, ``failed_requests``, ``retries``,
+``downgrades``); the plan is disarmed through warmup. ``--slo-out`` writes
+the run's SLO burn-rate evaluation and ``--flight-dir`` arms a flight
+recorder that dumps a bundle on each typed failure (render both with
+``python -m matvec_mpi_multiplier_torch.obs slo|dump``).
+
 Rows land in ``data/out/serve_<strategy>.csv`` under the JAX package's
 header, byte for byte. ``--dtype-storage int8|int8c|fp8`` serves from a
 quantized resident (the row records the resolved format and the engine's
-resident bytes). Columns of modes the port does not have yet (chaos,
-speculative) carry the JAX package's defaults; their flags (``--fault-spec``,
-``--poison-rate``, ``--tenants``, ``--reshard``) raise ``ConfigError``.
+resident bytes). Columns of modes the port does not have yet (speculative)
+carry the JAX package's defaults; the multi-tenant and drift flags
+(``--tenants``, ``--poison-tenant``, ``--reshard``) raise ``ConfigError``.
 
 ``--op cg|gmres|power|lanczos|chebyshev`` serves ANSWERS instead
 (:func:`run_serve_solver`): each request is one solve against the seeded SPD
@@ -49,6 +61,10 @@ Usage::
         --strategy rowwise --sizes 65536 --solver-kernel cuda_fused --rtol 1e-5
     python -m matvec_mpi_multiplier_torch.bench.serve --strategy blockwise \\
         --sizes 65536 --dtype bfloat16 --concurrency 1 8 32 --coalesce both
+    python -m matvec_mpi_multiplier_torch.bench.serve --strategy blockwise \\
+        --sizes 65536 --dtype bfloat16 --concurrency 8 \\
+        --fault-spec 'dispatch:device_error:p=0.05' --poison-rate 0.02 \\
+        --slo-out slo.json --flight-dir flight/
 
     # or through the sweep CLI:
     python -m matvec_mpi_multiplier_torch.bench.sweep --op serve ...
@@ -75,10 +91,19 @@ from ..engine.core import DEFAULT_SOLVER_MAXITER, SOLVER_KERNELS, MatvecEngine
 from ..engine.scheduler import DEFAULT_MAX_WINDOW_MS, ArrivalWindowScheduler
 from ..models import available_strategies
 from ..models.base import not_ported
+from ..obs.flight import FlightRecorder
 from ..obs.registry import MetricsRegistry
-from ..obs.sink import JsonlSink
-from ..obs.timeline import reset_hub
+from ..obs.sink import JsonlSink, dump_json
+from ..obs.slo import DEFAULT_TARGETS, SloMonitor
+from ..obs.timeline import get_hub, reset_hub
 from ..parallel.mesh import Mesh
+from ..resilience import (
+    FaultPlan,
+    FaultSpec,
+    ResiliencePolicy,
+    RetryPolicy,
+    parse_fault_spec,
+)
 from ..solvers import SOLVER_OPS
 from ..utils.convert import dtype_name, from_numpy, torch_dtype
 from ..utils.errors import (
@@ -87,6 +112,12 @@ from ..utils.errors import (
     MatvecError,
     SolverDivergedError,
 )
+
+# The payload signature --poison-rate plants in row 0 of a poisoned request
+# (and the matching FaultSpec(poison=...) keys on): far outside the
+# uniform [0, 10) request distribution, exactly representable in every
+# served float dtype.
+POISON_SIGNATURE = 1e30
 
 # Default request-width mix: single vectors through full buckets, with
 # off-bucket widths (3, 6, 12, 24) so the pad/unpad path is always
@@ -135,14 +166,19 @@ class ServeResult:
     promo_b: int
     promo_gemm_s: float
     promo_seq_s: float
-    # Columns of the JAX package's other protocols, at its defaults for a
-    # sequential, fault-free, native run.
+    # Load-mode columns (run_serve_load): the traffic shape offered and the
+    # batching achieved; the sequential protocol's rows carry the defaults.
+    # In load rows the latency columns above are end to end.
     arrival: str = "closed"
     rate_req_s: float = float("nan")
     concurrency: int = 1
     coalesce: int = 0
     mean_batch_width: float = float("nan")
     coalesce_ratio: float = float("nan")
+    # Availability columns (chaos mode): failed_requests counts fault
+    # failures — requests whose result() raised something other than a
+    # deadline (those stay in the *_deadline_failures counters);
+    # retries/downgrades are the recovery policy's tallies.
     failed_requests: int = 0
     retries: int = 0
     downgrades: int = 0
@@ -402,12 +438,16 @@ def _arrival_gaps(arrival: str, n: int, rate: float, burst: int, rng) -> list[fl
     raise MatvecError(f"unknown arrival process {arrival!r}")
 
 
-def _closed_loop(submit, blocks: Sequence[torch.Tensor], concurrency: int, hist) -> float:
+def _closed_loop(submit, blocks: Sequence[torch.Tensor], concurrency: int, hist,
+                 fail_counter=None) -> float:
     """Closed-loop load: ``concurrency`` client threads, each
     submit→materialize→repeat over its slice of the request trace. Returns
     the steady phase's wall seconds; each request's END-TO-END latency lands
     in ``hist``. A deadline failure is counted by the gates and the client
-    moves on; any other failure aborts the run."""
+    moves on. With ``fail_counter`` (chaos mode) a request failing with a
+    framework fault (an injected error, an integrity refusal) is counted and
+    the client moves on; any other failure aborts the run (a bench bug must
+    not read as downtime)."""
     barrier = threading.Barrier(concurrency + 1)
     errors: list[BaseException] = []
 
@@ -417,9 +457,16 @@ def _closed_loop(submit, blocks: Sequence[torch.Tensor], concurrency: int, hist)
             for i in range(tid, len(blocks), concurrency):
                 t0 = time.perf_counter()
                 try:
+                    # An uncoalesced poisoned dispatch raises from submit()
+                    # itself; a coalesced one from result().
                     submit(blocks[i]).result()
                 except DeadlineExceededError:
                     continue  # tallied by the gates' deadline counters
+                except MatvecError:
+                    if fail_counter is None:
+                        raise
+                    fail_counter.inc()
+                    continue
                 hist.observe((time.perf_counter() - t0) * 1e3)
         except BaseException as e:  # surface on the calling thread
             errors.append(e)
@@ -439,11 +486,13 @@ def _closed_loop(submit, blocks: Sequence[torch.Tensor], concurrency: int, hist)
 
 
 def _open_loop(submit, blocks: Sequence[torch.Tensor], gaps: Sequence[float], hist,
-               flush=None) -> float:
+               flush=None, fail_counter=None) -> float:
     """Open-loop load: requests arrive on the precomputed gap schedule
     whatever completes (one thread paces arrivals; a drainer thread
     materializes in order and records arrival→result latency). Returns wall
-    seconds from the first arrival to the last result."""
+    seconds from the first arrival to the last result. ``fail_counter`` as
+    in :func:`_closed_loop`: chaos-mode fault failures are counted,
+    tolerated and kept out of the latency histogram."""
     results: queue.Queue = queue.Queue()
     errors: list[BaseException] = []
 
@@ -457,6 +506,12 @@ def _open_loop(submit, blocks: Sequence[torch.Tensor], gaps: Sequence[float], hi
                 fut.result()
             except DeadlineExceededError:
                 continue  # tallied by the gates' deadline counters
+            except MatvecError as e:
+                if fail_counter is None:
+                    errors.append(e)
+                else:
+                    fail_counter.inc()
+                continue
             except BaseException as e:
                 errors.append(e)
                 continue
@@ -474,7 +529,16 @@ def _open_loop(submit, blocks: Sequence[torch.Tensor], gaps: Sequence[float], hi
                 if now >= next_at:
                     break
                 time.sleep(min(next_at - now, 5e-4))
-            results.put((time.perf_counter(), submit(x)))
+            try:
+                results.put((time.perf_counter(), submit(x)))
+            except MatvecError as e:
+                # An uncoalesced poisoned dispatch raises at submit() on the
+                # pacing thread: chaos mode counts it and keeps the arrival
+                # schedule.
+                if fail_counter is None:
+                    errors.append(e)
+                else:
+                    fail_counter.inc()
         if flush is not None:
             flush()  # fence the open window so the drain is prompt
     finally:
@@ -520,8 +584,10 @@ def run_serve_load(
     slo_out: str | None = None,
     flight_dir: str | None = None,
     fault_spec: str | None = None,
+    fault_seed: int = 0,
     poison_rate: float = 0.0,
     resilience: bool | None = None,
+    breaker_reset_s: float = 30.0,
 ) -> ServeResult:
     """Run the load protocol for one (strategy, shape, mesh, traffic)
     config: concurrent (closed-loop) or open-loop traffic, coalesced through
@@ -538,40 +604,86 @@ def run_serve_load(
     mark; ``integrity_gate`` arms the NaN/Inf gate (per request slice when
     coalesced). ``trace_jsonl`` streams one span tree per request and
     ``events_jsonl`` the event timeline (the process hub's sink, replaced
-    for the run). ``slo_out``, ``flight_dir``, ``fault_spec``,
-    ``poison_rate`` and ``resilience`` (the JAX package's chaos and SLO
-    overlays) are not ported and raise ``ConfigError`` when set."""
-    for name, value, default in (
-        ("slo_out", slo_out, None), ("flight_dir", flight_dir, None),
-        ("fault_spec", fault_spec, None), ("poison_rate", poison_rate, 0.0),
-        ("resilience", resilience, None),
-    ):
-        if value != default:
-            raise not_ported(f"run_serve_load({name}=...)")
+    for the run).
+
+    Chaos mode (module docstring): ``fault_spec`` arms a seeded FaultPlan
+    (``fault_seed``); ``poison_rate`` marks a seeded share of the requests
+    with :data:`POISON_SIGNATURE` and appends a persistent poison fault
+    spec; ``resilience`` (default: on whenever faults are armed) serves
+    under the engine's retry/breaker/ladder policy with ``breaker_reset_s``
+    cooldowns. ``slo_out`` arms a burn-rate monitor over the run's
+    registry (sampled around the steady phase) and writes its evaluation
+    JSON; ``flight_dir`` arms a flight recorder that dumps post-mortem
+    bundles there on typed failures."""
     if arrival not in ("closed", "poisson", "burst"):
         raise ConfigError(f"unknown arrival process {arrival!r}")
+    if not (0.0 <= poison_rate <= 1.0):
+        raise ConfigError(f"poison_rate must be in [0, 1], got {poison_rate}")
     if widths is None:
         widths = [w for w in LOAD_WIDTH_MIX if w <= max_bucket]
     registry = MetricsRegistry()
-    # Arm the event sink BEFORE the engine exists, so warmup and the
-    # scheduler's decisions land on the same hub.
+    # Arm the observability overlays BEFORE the engine exists, so warmup and
+    # the scheduler's decisions land on the same hub.
     hub = reset_hub(sink=JsonlSink(events_jsonl)) if events_jsonl is not None else None
+    slo_monitor = SloMonitor(registry, DEFAULT_TARGETS) if slo_out is not None else None
+    recorder = (
+        FlightRecorder(hub if hub is not None else get_hub(), registry,
+                       slo=slo_monitor, dump_dir=flight_dir)
+        if flight_dir is not None else None
+    )
+    chaos = fault_spec is not None or poison_rate > 0
+    plan = None
+    if chaos:
+        specs = (parse_fault_spec(fault_spec, seed=fault_seed).specs
+                 if fault_spec is not None else ())
+        if poison_rate > 0:
+            specs = specs + (FaultSpec(site="dispatch", kind="device_error",
+                                       poison=POISON_SIGNATURE),)
+        plan = FaultPlan(specs, seed=fault_seed)
+    if resilience is None:
+        resilience = chaos
+    policy = (ResiliencePolicy(retry=RetryPolicy(seed=fault_seed),
+                               breaker_reset_s=breaker_reset_s)
+              if resilience else None)
     engine = MatvecEngine(
         resident_matrix(m, k, torch_dtype(dtype), mesh.devices[0], seed),
         mesh, strategy=strategy_name, kernel=kernel, combine=combine,
         stages=stages, dtype_storage=dtype_storage, max_bucket=max_bucket,
         promote=promote, donate=donate, max_in_flight=max_in_flight,
         metrics=registry, trace_jsonl=trace_jsonl, integrity_gate=integrity_gate,
+        fault_plan=plan, resilience=policy,
     )
     latency_hist = registry.histogram(
         "serve_e2e_latency_ms",
         "steady-phase submit-entry to materialized-result host time",
         window=max(n_requests, 1),
     )
+    fail_counter = req_counter = None
+    if chaos:
+        fail_counter = registry.counter(
+            "serve_failed_requests_total",
+            "steady-phase requests whose result() raised a fault "
+            "(deadline failures counted separately)",
+        )
+        # The availability denominator: the steady phase's offered requests
+        # (engine_requests_total also counts warmup's submits).
+        req_counter = registry.counter(
+            "serve_requests_total",
+            "steady-phase offered requests (the availability denominator)",
+        )
     pool = _request_pool(k, widths, engine.dtype, seed=seed + 1)
     rng = np.random.default_rng(seed + 2)
     sequence = [int(w) for w in rng.choice(list(pool), size=n_requests)]
     blocks = [pool[w] if pool[w].shape[1] > 1 else pool[w][:, 0] for w in sequence]
+    if poison_rate > 0:
+        # The seeded poison set: copies (the pool's blocks are shared) with
+        # the signature in row 0, where the poison fault spec looks.
+        poison_rng = np.random.default_rng(seed + 4)
+        n_poisoned = max(1, int(round(poison_rate * n_requests)))
+        for i in poison_rng.choice(n_requests, size=n_poisoned, replace=False):
+            block = blocks[i].clone()
+            block[0] = POISON_SIGNATURE
+            blocks[i] = block
 
     scheduler = (
         ArrivalWindowScheduler(engine, window_ms=window_ms,
@@ -587,9 +699,13 @@ def run_serve_load(
     try:
         # ---- warmup: the whole ladder — coalesced widths are emergent, so
         # every bucket a flush could land on is built (captured) and run
-        # once ----
+        # once. Chaos spares warmup: the plan is disarmed here and armed
+        # for the steady phase, so fault ordinals start at a deterministic
+        # point ----
         from ..engine.buckets import bucket_ladder
 
+        if plan is not None:
+            plan.disarm()
         engine.warmup()
         _drain([engine.submit(pool[w]) for w in sorted(set(sequence))])
         if engine.b_star is not None:
@@ -601,15 +717,27 @@ def run_serve_load(
             ])
         warm_stats = engine.stats
         compiles_warmup = warm_stats.compiles
+        if plan is not None:
+            plan.arm()
+        if slo_monitor is not None:
+            # The window's baseline, sampled before the offered-request
+            # counter moves so the steady window sees the whole delta.
+            slo_monitor.sample()
+        if recorder is not None:
+            recorder.snapshot_metrics()
+        if req_counter is not None:
+            req_counter.inc(n_requests)
 
         # ---- steady phase under load ----
         if arrival == "closed":
-            wall = _closed_loop(submit, blocks, concurrency, latency_hist)
+            wall = _closed_loop(submit, blocks, concurrency, latency_hist,
+                                fail_counter=fail_counter)
         else:
             gaps = _arrival_gaps(arrival, n_requests, rate, burst,
                                  np.random.default_rng(seed + 3))
             wall = _open_loop(submit, blocks, gaps, latency_hist,
-                              flush=scheduler.flush if scheduler is not None else None)
+                              flush=scheduler.flush if scheduler is not None else None,
+                              fail_counter=fail_counter)
         steady_stats = engine.stats
         if scheduler is not None:
             sched_stats = scheduler.stats
@@ -624,12 +752,31 @@ def run_serve_load(
             print(f"WARNING: trace sink could not confirm {trace_jsonl} — the "
                   "file is missing or incomplete", file=sys.stderr)
         engine.close()
+        if recorder is not None:
+            recorder.close()  # pending dumps drain first
         if hub is not None:
             if not hub.flush():
                 print(f"WARNING: event sink could not confirm {events_jsonl} — "
                       "the file is missing or incomplete", file=sys.stderr)
             hub.close()
+    if plan is not None:
+        for spec in plan.summary()["specs"]:
+            if spec["site"] == "compile" and spec["matched"] == 0:
+                # Warmup builds every preferred key while the plan is
+                # disarmed: a compile spec aimed at one never fires.
+                print(f"WARNING: compile fault spec (key={spec['key']!r}) matched "
+                      "0 events — warmup builds the preferred configs; compile "
+                      "faults fire only for programs first built in the steady "
+                      "phase (fallback tiers, halved buckets)", file=sys.stderr)
+    if slo_monitor is not None:
+        slo_monitor.sample()  # the post-steady observation
+        dump_json(slo_out, slo_monitor.evaluate())
+    if recorder is not None:
+        recorder.snapshot_metrics()
+    snap_counters = registry.snapshot()["counters"]
     if metrics_out is not None:
+        if policy is not None or plan is not None:
+            engine.health()  # refresh the breaker gauge before exporting
         path = Path(metrics_out)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(registry.snapshot(), indent=2) + "\n")
@@ -660,6 +807,9 @@ def run_serve_load(
         coalesce=int(coalesce),
         mean_batch_width=mean_batch_width,
         coalesce_ratio=coalesce_ratio,
+        failed_requests=snap_counters.get("serve_failed_requests_total", 0),
+        retries=snap_counters.get("resil_retries_total", 0),
+        downgrades=snap_counters.get("resil_downgrades_total", 0),
         dtype_storage=engine.storage,
         resident_bytes=engine.resident_bytes,
     )
@@ -995,6 +1145,8 @@ def _run_load_configs(args, name: str, mesh: Mesh, m: int, k: int, promote,
     flush_width = getattr(args, "flush_width", "auto")
     if flush_width not in (None, "auto"):
         flush_width = int(flush_width)
+    fault_spec = getattr(args, "fault_spec", None)
+    poison_rate = getattr(args, "poison_rate", 0.0) or 0.0
     n_done = 0
     for n_clients in concurrency:
         for coalesce in coalesce_modes:
@@ -1013,11 +1165,21 @@ def _run_load_configs(args, name: str, mesh: Mesh, m: int, k: int, promote,
                     metrics_out=getattr(args, "metrics_out", None),
                     trace_jsonl=args.trace_jsonl, events_jsonl=args.events_jsonl,
                     integrity_gate=args.integrity_gate,
+                    slo_out=getattr(args, "slo_out", None),
+                    flight_dir=getattr(args, "flight_dir", None),
+                    fault_spec=fault_spec, fault_seed=getattr(args, "fault_seed", 0),
+                    poison_rate=poison_rate,
+                    breaker_reset_s=getattr(args, "breaker_reset_s", 30.0),
                 )
             except MatvecError as e:
                 print(f"skip {name} {m}x{k} p={mesh.size} c={n_clients}: {e}")
                 continue
             path = None if args.no_csv else append_serve_result(result, args.data_root)
+            chaos_suffix = (
+                f" ok={result.success_rate:.3f} failed={result.failed_requests} "
+                f"retries={result.retries} downgrades={result.downgrades}"
+                if fault_spec is not None or poison_rate > 0 else ""
+            )
             print(
                 f"serve-load {name} {m}x{k} p={mesh.size} {result.arrival} "
                 f"c={n_clients} coalesce={'on' if coalesce else 'off'} "
@@ -1026,6 +1188,7 @@ def _run_load_configs(args, name: str, mesh: Mesh, m: int, k: int, promote,
                 f"width={result.mean_batch_width:.2f} "
                 f"ratio={result.coalesce_ratio:.2f} "
                 f"compiles={result.compiles_warmup}+{result.compiles_steady}"
+                + chaos_suffix
             )
             if path is not None:
                 print(f"CSV: {path}")
@@ -1033,13 +1196,13 @@ def _run_load_configs(args, name: str, mesh: Mesh, m: int, k: int, promote,
     return n_done
 
 
-# The flags that select the JAX package's chaos, multi-tenant and reshard
-# modes, with their defaults: any other value raises. Chaos serving waits
-# for the recovery policy (ROADMAP.md, queue A 4b); --tenants and --reshard
-# (the scheduler's drift mode) for the registry and the global scheduler
-# (A 5). The engine's own reshard() is ported.
+# The flags that select the JAX package's multi-tenant and reshard modes,
+# with their defaults: any other value raises. --tenants, --poison-tenant
+# (the isolation overlay's per-tenant poison) and --reshard (the
+# scheduler's drift mode) wait for the registry and the global scheduler
+# (ROADMAP.md, queue A 5). The engine's own reshard() is ported.
 _LATER_FLAGS = {
-    "fault_spec": None, "poison_rate": 0.0, "tenants": None, "reshard": "off",
+    "tenants": None, "poison_tenant": None, "reshard": "off",
 }
 
 
@@ -1134,8 +1297,12 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
     arrival = getattr(args, "arrival", "closed") or "closed"
     concurrency = getattr(args, "concurrency", None) or [1]
     coalesce_arg = getattr(args, "coalesce", None)
+    # Chaos is a load-protocol feature: the loops there tolerate
+    # per-request failures.
     load_mode = (arrival != "closed" or any(c > 1 for c in concurrency)
-                 or coalesce_arg is not None)
+                 or coalesce_arg is not None
+                 or getattr(args, "fault_spec", None) is not None
+                 or (getattr(args, "poison_rate", 0.0) or 0.0) > 0)
     n_done = 0
     for m, k in sizes:
         for name in strategies:
@@ -1333,11 +1500,46 @@ def build_parser() -> argparse.ArgumentParser:
         help="(load mode) stream the correlated event timeline (submits, "
         "coalesces, bypasses, failures, with request_id/cause_id) to FILE",
     )
+    p.add_argument(
+        "--fault-spec", default=None, metavar="SPEC",
+        help="chaos mode: a seeded fault-injection plan, e.g. "
+        "'dispatch:device_error:p=0.05;dispatch:nan:times=2' (grammar: "
+        "resilience/faults.py); engages load mode and, by default, the "
+        "retry/breaker recovery policy. Compile-site specs fire only for "
+        "programs first built in the steady phase (fallback tiers, halved "
+        "buckets): warmup builds the preferred ones",
+    )
+    p.add_argument(
+        "--fault-seed", type=int, default=0,
+        help="seed of the fault plan's draws and the retry policy's jitter",
+    )
+    p.add_argument(
+        "--poison-rate", type=float, default=0.0,
+        help="chaos mode: share of the requests (a seeded choice) marked "
+        "with the poison signature; each fails its dispatch, exercising the "
+        "scheduler's batch bisection",
+    )
+    p.add_argument(
+        "--breaker-reset-s", type=float, default=30.0,
+        help="chaos mode: the circuit breakers' open -> half-open cooldown",
+    )
+    p.add_argument(
+        "--slo-out", default=None, metavar="FILE",
+        help="(load mode) evaluate the declared SLOs (obs/slo.py "
+        "DEFAULT_TARGETS) over the run and write the burn-rate evaluation "
+        "JSON; render with `python -m matvec_mpi_multiplier_torch.obs slo FILE`",
+    )
+    p.add_argument(
+        "--flight-dir", default=None, metavar="DIR",
+        help="(load mode) arm the flight recorder: dump a post-mortem bundle "
+        "(last events, metric snapshots, SLO state) into DIR on each typed "
+        "failure; render with `python -m matvec_mpi_multiplier_torch.obs dump "
+        "BUNDLE`",
+    )
     # The JAX package's other modes, kept as flags so that asking for one
     # says it is not ported rather than that the flag is unknown.
-    for flag in ("--fault-spec", "--reshard"):
+    for flag in ("--reshard", "--poison-tenant"):
         p.add_argument(flag, default=_LATER_FLAGS[flag[2:].replace("-", "_")])
-    p.add_argument("--poison-rate", type=float, default=0.0)
     p.add_argument("--tenants", type=int, default=None)
     p.add_argument(
         "--tune", action="store_true",

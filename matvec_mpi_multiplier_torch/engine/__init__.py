@@ -2,7 +2,9 @@
 
 The port's counterpart of the JAX package's ``engine/``: ``core.py`` (the
 engine, its futures, promotion, backpressure, deadlines, ``submit(op=...)``
-solves, the request tracer, the fault sites and the integrity gate),
+solves, the request tracer, the fault sites, the integrity gate, and under
+a ``resilience`` policy the retries, circuit breakers, degradation ladders
+and ``health()``),
 ``scheduler.py`` (the arrival-window scheduler: continuous batching with
 QoS tiers, deadline bypass and batch bisection), ``buckets.py`` (the shape
 ladder) and ``executables.py`` (the per-key program cache). Benchmarked by

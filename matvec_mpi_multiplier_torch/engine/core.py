@@ -91,18 +91,41 @@ on the event timeline (``obs/timeline.py``). A ``fault_plan``
 (``resilience/faults.py``) is consulted at the build site of a key's first
 program and at every dispatch; the optional ``integrity_gate`` refuses a
 non-finite result on the host copy ``result()`` makes anyway. None of these
-adds a host sync to ``submit``. A failed dispatch raises to the caller: the
-engine runs no dispatch again, on the plain version or on the CPU.
+adds a host sync to ``submit``. Without a recovery policy a failed dispatch
+raises to the caller: the engine runs no dispatch again.
 
-Left for later slices (ROADMAP.md, queue A items 4b, 5, 6 and 9): the
-resilience policy (retries, breakers, the degradation ladders, and with them
-the native safe tier of quantized storage), ``health()``, residency and
+**Recovery** (``resilience/``): with a :class:`~..resilience.ResiliencePolicy`
+the engine stops treating a build or dispatch exception as the request's
+fate. Each dispatch walks a **degradation ladder** of config levels — the
+preferred (strategy × kernel × combine@S × storage) program first, then the
+safe ``torch`` tier (the library matmul in the accumulator dtype,
+``ops/gemv.py::matmul_acc``, and the unfused solver loop; the default
+combine, no stages, ``NATIVE`` storage: the JAX package's plain-XLA tier),
+and for block requests the per-column GEMV floor — with a
+per-ExecKey **circuit breaker** gating each level (repeated failure of a
+config opens its breaker, so later requests skip straight to the fallback;
+after the cooldown one request probes the preferred config and a success
+restores it). Retryable faults get bounded backoff retries within a level;
+resource exhaustion on a block dispatch halves the bucket instead. Under
+quantized storage the safe tier's native A is placed from the host copy the
+engine keeps, on the first degraded dispatch only. Every reroute is counted
+(``resil_*`` metrics), emitted on the timeline (``retry``, ``degrade``,
+``breaker_open``, ``breaker_close``) and visible in :meth:`MatvecEngine.health`.
+The ladder routes around the faults a ``fault_plan`` injects, and around
+nothing else: resource exhaustion (injected, or a real out-of-memory error)
+halves a block request's bucket, down to the GEMV floor, and any other real
+error — a kernel's failed build or launch, a CUDA error — reaches the caller
+at once, with no retry elsewhere and no breaker fed. A device fault that
+surfaces later, when ``result()`` copies, is that request's failure.
+
+Left for later slices (ROADMAP.md, queue A items 5, 6 and 9): residency and
 tenancy hooks, speculative submits and lowering fingerprints; their
 arguments raise ``ConfigError``.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
@@ -120,9 +143,11 @@ from ..models.base import (
 )
 from ..obs.registry import MetricsRegistry
 from ..obs.sink import JsonlSink
+from ..obs.slo import ENGINE_TARGETS, SloMonitor
 from ..obs.timeline import TimelineHub, bind_request, bound_request_id, get_hub, next_request_id
 from ..obs.tracing import ActiveTrace, RequestTracer
 from ..ops import gemm_kernel_name_for, get_gemm_kernel, get_kernel
+from ..ops.gemv import gemv_acc, matmul_acc
 from ..ops.graphs import capture, single_cuda_device
 from ..ops.quantize import (
     NATIVE,
@@ -136,8 +161,16 @@ from ..parallel.mesh import Mesh, ShardedTensor, shard, unshard
 from ..resilience.faults import (
     FaultPlan,
     ResultIntegrityError,
+    is_injected,
+    is_payload_fault,
     out_of_memory_as_exhausted,
     refuse_nonfinite,
+)
+from ..resilience.policy import (
+    BREAKER_CLOSED,
+    CircuitBreaker,
+    ResiliencePolicy,
+    classify_failure,
 )
 from ..utils.convert import dtype_name, from_numpy, torch_dtype
 from ..solvers import (
@@ -174,13 +207,20 @@ SOLVER_KERNELS = ("torch", "cuda_fused", "auto")
 # (``engine.tracer.traces()``).
 TRACE_CAPACITY = 256
 
+# The degradation floor's tier: the plain PyTorch one, the counterpart of
+# the JAX package's "xla" (its matvec and GEMM programs run
+# ops/gemv.py::matmul_acc, which holds no widened copy of a 16-bit A; its
+# solvers the unfused loop). The hand-written kernels are exactly the
+# configs a breaker may be routing around.
+SAFE_KERNEL = "torch"
+
 # The JAX package's other constructor arguments, not ported yet: the
-# recovery policy (ROADMAP.md, queue A 4b), the registry's residency hooks
-# (A 5), and the trace ring's size and a private timeline hub, which no
-# caller of the port sets (the ring holds TRACE_CAPACITY records; events go
-# to the process hub, ``obs.get_hub()``, which ``obs.reset_hub()`` replaces).
+# registry's residency hooks (ROADMAP.md, queue A 5), and the trace ring's
+# size and a private timeline hub, which no caller of the port sets (the
+# ring holds TRACE_CAPACITY records; events go to the process hub,
+# ``obs.get_hub()``, which ``obs.reset_hub()`` replaces).
 _LATER_ARGS = frozenset({
-    "resilience", "defer_placement", "label_prefix", "exec_cache",
+    "defer_placement", "label_prefix", "exec_cache",
     "residency_listener", "trace_capacity", "timeline",
 })
 
@@ -219,6 +259,9 @@ class _EagerProgram:
     def __call__(self, rhs: torch.Tensor):
         return self.fn(self.a, shard(rhs, self.spec, self.mesh))
 
+    def release(self) -> None:
+        self.a = None
+
 
 class _CapturedProgram:
     """One key's program captured as a CUDA graph on the mesh's one CUDA
@@ -250,6 +293,9 @@ class _CapturedProgram:
                 return ShardedTensor(tuple(s.clone() for s in out.shards), out.shape,
                                      out.spec, out.mesh)
             return out.clone()
+
+    def release(self) -> None:
+        self.graph = self.static_in = self.static_out = None
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -647,8 +693,9 @@ class MatvecEngine:
         ``"int8"``, ``"int8c"`` or ``"fp8"`` (quantized once here, on A's
         device, with the strategy's contraction shards; ``kernel`` then names
         a quantized-storage tier). The engine keeps no reference to the
-        native A on the card: the port has no native safe tier yet (the
-        resilience ladder). ``"auto"`` takes the tuning cache's format
+        native A on the card; under a ``resilience`` policy it keeps A on
+        the host, and the ladder's native safe tier places it on the first
+        degraded dispatch. ``"auto"`` takes the tuning cache's format
         (``storage_reason="tuned"``), native on a miss (``"auto_miss"``) or
         where the recorded format cannot serve here (``"auto_degraded"``).
         ``"speculate"`` is not ported.
@@ -664,21 +711,28 @@ class MatvecEngine:
         already, else a copy), so that :meth:`reshard` can requantize a
         quantized resident whose block size the destination changes. A
         native resident keeps no host copy: its reshard never requantizes.
+        A quantized engine under a ``resilience`` policy keeps one either
+        way (the native safe tier's source).
     trace_jsonl : path for the request-trace JSONL sink (``obs/sink.py``);
         every finished request's span tree is appended there by the sink's
         thread. :meth:`flush_traces` fences the file; :meth:`close`
         releases it.
     fault_plan : a seeded :class:`~..resilience.FaultPlan` consulted at the
         build site (a key's first build and capture) and the dispatch site
-        (``resilience/faults.py``). Failures are reported to the caller: no
-        dispatch is run again, on the plain version or on the CPU.
+        (``resilience/faults.py``). Works with or without ``resilience``:
+        without it, injected faults reach the caller and no dispatch is run
+        again.
+    resilience : a :class:`~..resilience.ResiliencePolicy` enabling the
+        retry + circuit-breaker + degradation-ladder dispatch path (module
+        docstring). None (default): dispatch exceptions propagate, and the
+        scheduler's batch bisection still isolates them.
     integrity_gate : check every materialized result for NaN/Inf and raise
         :class:`~..resilience.ResultIntegrityError` instead of serving it
         (counted in ``engine_integrity_failures_total``). The check runs on
         the host copy ``result()`` makes anyway. Off by default.
 
-    The JAX package's other arguments (``resilience``, ``exec_cache``, ...)
-    raise ``ConfigError``.
+    The JAX package's other arguments (``exec_cache``, ``defer_placement``,
+    ...) raise ``ConfigError``.
     """
 
     def __init__(
@@ -703,6 +757,7 @@ class MatvecEngine:
         trace_jsonl: str | None = None,
         fault_plan: FaultPlan | None = None,
         integrity_gate: bool = False,
+        resilience: ResiliencePolicy | None = None,
         **later,
     ):
         for name in later:
@@ -844,21 +899,65 @@ class MatvecEngine:
         self._timeline = get_hub()
         self._fault_plan = fault_plan
         self.integrity_gate = bool(integrity_gate)
+        # engine.health()["slo"]'s burn-rate monitor, made on the first
+        # health() call so a plain engine's snapshot carries no slo_* names.
+        self._slo_monitor = None
+        # ---- recovery state (module docstring) ----
+        self._resilience = resilience
+        self._breakers: dict[ExecKey, CircuitBreaker] = {}
+        self._breakers_lock = threading.Lock()
+        self._degraded: dict[str, str] = {}  # preferred label -> serving label
+        self._retry_serials = itertools.count()
         # Counters exist only where the machinery is configured, so a plain
         # engine's snapshot stays as it was.
-        self._c_faults = (
-            self.metrics.counter(
+        if resilience is not None or fault_plan is not None:
+            self._c_faults = self.metrics.counter(
                 "resil_faults_injected_total",
                 "faults the FaultPlan injected (all kinds)",
             )
-            if fault_plan is not None else None
-        )
+            self._c_retries = self.metrics.counter(
+                "resil_retries_total",
+                "dispatch retries after a retryable fault",
+            )
+            self._c_downgrades = self.metrics.counter(
+                "resil_downgrades_total",
+                "dispatches served by a degradation-ladder fallback "
+                "(safe combine, shrunken bucket, or GEMV floor)",
+            )
+            self._c_breaker_opens = self.metrics.counter(
+                "resil_breaker_opens_total",
+                "circuit-breaker closed/half-open -> open transitions",
+            )
+            self._c_recoveries = self.metrics.counter(
+                "resil_recoveries_total",
+                "circuit-breaker half-open -> closed recoveries "
+                "(preferred config restored)",
+            )
+            self._g_breakers_open = self.metrics.gauge(
+                "resil_breakers_open",
+                "breakers not in the closed state at last health() call",
+            )
+        else:
+            self._c_faults = self._c_retries = self._c_downgrades = None
+            self._c_breaker_opens = self._c_recoveries = None
+            self._g_breakers_open = None
         self._c_integrity = None
         if self.integrity_gate:
             self._integrity_counter()
-        # The host copy a requantizing reshard reads (a host tensor is kept
-        # by reference). A native resident never requantizes: it keeps none.
-        self._a_host = a.cpu() if retain_host and self.storage != NATIVE else None
+        # The host copy a requantizing reshard and the ladder's native safe
+        # tier read (a host tensor is kept by reference). A native resident
+        # never requantizes and is its own safe tier: it keeps none.
+        self._a_host = (
+            a.cpu() if (retain_host or resilience is not None) and self.storage != NATIVE
+            else None
+        )
+        # The native safe tier of a quantized resident: placed on the first
+        # degraded dispatch (_a_for), dropped by reshard. _layout_epoch
+        # counts committed layouts, so a placement made against an old one
+        # is never installed.
+        self._a_native: ShardedTensor | None = None
+        self._layout_epoch = 0
+        self._residency_lock = threading.Lock()
         # Resident for the engine's life: at p=1 on A's own device the shard
         # IS a (or its payload: no copy). A quantized engine drops A here.
         if self.storage != NATIVE:
@@ -876,7 +975,7 @@ class MatvecEngine:
         self._g_resident = self.metrics.gauge(
             "engine_resident_bytes",
             "device bytes of the resident A operand (payload + scales for "
-            "quantized storage)",
+            "quantized storage, plus the native safe tier once placed)",
         )
         self._g_resident.set(self.resident_bytes)
         # Info metric: the label set carries the fact, the value is always 1.
@@ -1037,12 +1136,14 @@ class MatvecEngine:
             dtype_name(self.dtype), self.storage,
         )
 
-    def _program(self, fn: Callable, spec, shape: tuple):
-        """The dispatchable program of one key: captured on the mesh's one
-        CUDA device, else eager."""
+    def _program(self, fn: Callable, spec, shape: tuple, storage: str | None = None):
+        """The dispatchable program of one key, over the resident A of its
+        storage format (``_a_for``): captured on the mesh's one CUDA
+        device, else eager."""
+        a = self._a_for(self.storage if storage is None else storage)
         if self._graph_device is None:
-            return _EagerProgram(fn, self._a, spec, self.mesh)
-        return _CapturedProgram(fn, self._a, spec, self.mesh, shape, self.dtype,
+            return _EagerProgram(fn, a, spec, self.mesh)
+        return _CapturedProgram(fn, a, spec, self.mesh, shape, self.dtype,
                                 self._graph_device)
 
     def _build_matvec(self):
@@ -1058,6 +1159,111 @@ class MatvecEngine:
             combine=self._gemm_combine, stages=self.stages,
             dtype_storage=self.storage,
         ), self._spec_b, (self.k, bucket))
+
+    # ---- degradation ladders (module docstring) ----
+    #
+    # A ladder is an ordered list of (ExecKey, builder) config levels for
+    # one logical dispatch: the preferred config first, the safe tier
+    # (SAFE_KERNEL, the default combine, no stages, NATIVE storage) last.
+    # A safe level whose key equals the preferred one is dropped, so an
+    # engine already running the safe config has a one-level ladder. As in
+    # the JAX package, a strategy instance that binds its own combine
+    # (colwise_overlap) keeps that binding under combine=None. Ladders are
+    # made per dispatch from the current layout, so a reshard leaves none
+    # stale: the whole walk costs 4–7 µs a dispatch on an H100 host
+    # (chip_smoke.py, resilient_clean's ladder_host_us). The JAX package
+    # memoizes them, but a memo of builders bound to the engine would keep
+    # an engine that is dropped without close() in a reference cycle.
+
+    def _build_safe_matvec(self):
+        return self._program(self.strategy.build(
+            self.mesh, kernel=gemv_acc, gather_output=self.gather_output,
+            dtype_storage=NATIVE,
+        ), self._spec_x, (self.k,), NATIVE)
+
+    def _build_safe_gemm(self, bucket: int):
+        return self._program(self.strategy.build_batched(
+            self.mesh, kernel=matmul_acc, gather_output=self.gather_output,
+            dtype_storage=NATIVE,
+        ), self._spec_b, (self.k, bucket), NATIVE)
+
+    def _safe_key(self, op: str, bucket: int) -> ExecKey:
+        return ExecKey(op, self.strategy.name, SAFE_KERNEL, None, bucket,
+                       dtype_name(self.dtype), NATIVE)
+
+    @staticmethod
+    def _ladder(preferred: tuple, safe: tuple) -> list:
+        return [preferred] if safe[0] == preferred[0] else [preferred, safe]
+
+    def _matvec_levels(self) -> list[tuple[ExecKey, Callable]]:
+        return self._ladder((self._matvec_key(), self._build_matvec),
+                            (self._safe_key("matvec", 1), self._build_safe_matvec))
+
+    def _gemm_levels(self, bucket: int) -> list[tuple[ExecKey, Callable]]:
+        return self._ladder(
+            (self._gemm_key(bucket), lambda: self._build_gemm(bucket)),
+            (self._safe_key("gemm", bucket), lambda: self._build_safe_gemm(bucket)))
+
+    def _solver_levels(self, op: str, bucket: int, restart: int,
+                       steps: int) -> list[tuple[ExecKey, Callable]]:
+        """The solver's ladder: the engine's preferred tier, combine and
+        storage first (the fused step under ``cuda_fused``), then the same
+        NATIVE-storage torch-tier floor every other dispatch falls back to
+        — a breaker opening on a solver config degrades the solve, never
+        refuses it."""
+        preferred = self._solver_key(op, bucket)
+        safe = self._safe_key(op, bucket)
+        return self._ladder(
+            (preferred, lambda: self._build_solver(preferred, restart, steps)),
+            (safe, lambda: self._build_solver(safe, restart, steps)))
+
+    # ---- residency ----
+
+    @property
+    def resident(self) -> bool:
+        """True while the resident A is placed: until :meth:`close` (the
+        registry's releasable residency comes with ROADMAP.md queue A 5)."""
+        return self._a is not None
+
+    @property
+    def device_resident_bytes(self) -> int:
+        """Device bytes this engine's A residencies hold: the resident
+        operand, plus the native safe tier once the ladder has placed it."""
+        if self._a is None:
+            return 0  # closed
+        total = self.resident_bytes
+        native = self._a_native
+        if native is not None:
+            total += sum(t.numel() * t.element_size() for t in native.shards)
+        return total
+
+    def _a_for(self, storage: str):
+        """The resident A of one storage format. The native safe tier of a
+        quantized resident is placed from the host copy on the first
+        degraded dispatch (the build of a safe-level program) and kept: the
+        device memory is spent only once a breaker routes around the
+        quantized config. It goes through the engine's own placement
+        (``shard_operand`` by the strategy's A spec), counts in
+        ``engine_resident_bytes`` and ``device_resident_bytes``, and is not
+        installed over a layout a reshard committed meanwhile."""
+        if storage == self.storage:
+            return self._a
+        native = self._a_native
+        if native is not None:
+            return native
+        while True:
+            epoch = self._layout_epoch
+            placed = shard_operand(self._a_host, self.strategy.specs(self.mesh)[0],
+                                   self.mesh)
+            with self._residency_lock:
+                if self._layout_epoch != epoch:
+                    continue  # resharded mid-placement: place again
+                if self._a_native is None:
+                    self._a_native = placed
+                native = self._a_native
+            break
+        self._g_resident.set(self.device_resident_bytes)
+        return native
 
     # ---- dispatch ----
 
@@ -1112,13 +1318,16 @@ class MatvecEngine:
 
     def _run(self, key: ExecKey, build, rhs: torch.Tensor, trace: ActiveTrace,
              call: Callable | None = None, **span_attrs) -> tuple:
-        """One program's dispatch (the caller holds ``_swap_lock``): the
-        build site's fault check for a key not built yet, the lookup (build
-        and capture on a miss) under its ``exec_lookup`` span, the dispatch
-        site's fault check on the host payload, then ``call(program)``
-        (default ``program(rhs)``) under its ``dispatch`` span. A
+        """One program's dispatch at one config level (the caller holds
+        ``_swap_lock``): the build site's fault check for a key not built
+        yet (before any capture begins), the lookup (build and capture on a
+        miss; a build that raises leaves nothing in the cache, so a retry
+        builds again) under its ``exec_lookup`` span, the dispatch site's
+        fault check on the host payload, then ``call(program)`` (default
+        ``program(rhs)``) under its ``dispatch`` span. A
         ``torch.cuda.OutOfMemoryError`` in the build or the dispatch raises
-        ``ResourceExhaustedError``."""
+        ``ResourceExhaustedError``. Every fault check runs before the
+        payload is staged, so a retry stages it once."""
         if self._fault_plan is not None and key not in self._cache:
             self._check_faults("compile", key)
         with trace.span("exec_lookup") as span:
@@ -1136,20 +1345,149 @@ class MatvecEngine:
 
     def _dispatch_matvec(self, col: torch.Tensor, trace: ActiveTrace) -> tuple:
         """One column -> one result part ``(output, None, dispatch, corrupt)``."""
-        out, dispatch, corrupt = self._run(self._matvec_key(), self._build_matvec,
-                                           col, trace, op="matvec")
+        if self._resilience is None:
+            out, dispatch, corrupt = self._run(self._matvec_key(), self._build_matvec,
+                                               col, trace, op="matvec")
+        else:
+            out, dispatch, corrupt = self._walk_ladder(
+                self._matvec_levels(),
+                lambda key, build: self._run(key, build, col, trace, op="matvec"))
         return out, None, dispatch, corrupt
 
-    def _dispatch_block(self, chunk: torch.Tensor, trace: ActiveTrace) -> tuple:
-        """One <= max_bucket-wide chunk -> one bucket-padded GEMM part."""
+    def _dispatch_block(self, chunk: torch.Tensor, trace: ActiveTrace) -> list:
+        """One <= max_bucket-wide chunk -> its result parts: one
+        bucket-padded GEMM part, or under a recovery policy several (halved
+        buckets on resource exhaustion, or the per-column GEMV floor when
+        every GEMM level failed).
+
+        Payload faults walk the same ladder and floor: a fault scoped to
+        the GEMM keys is served by the GEMV floor, so the walk cannot stop
+        at ``is_payload_fault`` alone (the error does not say which keys its
+        spec matches); an unscoped poison still fails the chunk, loudly. A
+        real error other than exhaustion raises (``_walk_ladder``)."""
         width = chunk.shape[1]
         bucket = bucket_for(width, self.max_bucket)
         with trace.span("bucket_pad", width=width, bucket=bucket):
             padded = pad_columns(chunk, bucket)
-        out, dispatch, corrupt = self._run(
-            self._gemm_key(bucket), lambda: self._build_gemm(bucket), padded,
-            trace, op="gemm", bucket=bucket)
-        return out, width, dispatch, corrupt
+        if self._resilience is None:
+            out, dispatch, corrupt = self._run(
+                self._gemm_key(bucket), lambda: self._build_gemm(bucket), padded,
+                trace, op="gemm", bucket=bucket)
+            return [(out, width, dispatch, corrupt)]
+        try:
+            out, dispatch, corrupt = self._walk_ladder(
+                self._gemm_levels(bucket),
+                lambda key, build: self._run(key, build, padded, trace, op="gemm",
+                                             bucket=bucket))
+            return [(out, width, dispatch, corrupt)]
+        except Exception as exc:
+            _, exhausted = classify_failure(exc)
+            if not (exhausted or is_injected(exc)):
+                raise
+            self._c_downgrades.inc()
+            if exhausted and width > 1:
+                # Too big at this width: halve it, each half entering the
+                # ladder at its own bucket.
+                mid = (width + 1) // 2
+                return (self._dispatch_block(chunk[:, :mid], trace)
+                        + self._dispatch_block(chunk[:, mid:], trace))
+            # The GEMV floor: the promotion itself degrades, the chunk
+            # served column by column through the matvec ladder.
+            return [self._dispatch_matvec(chunk[:, j].contiguous(), trace)
+                    for j in range(width)]
+
+    # ---- resilient dispatch: retries, breakers, the ladder ----
+
+    def _breaker_for(self, key: ExecKey) -> CircuitBreaker:
+        br = self._breakers.get(key)
+        if br is None:
+            with self._breakers_lock:
+                br = self._breakers.get(key)
+                if br is None:
+                    # The transition callbacks stay lock-free: one counter
+                    # inc and one timeline append. The event carries
+                    # cause_id: a state transition is a consequence of the
+                    # request whose dispatch tripped it. They hold the
+                    # counters and the hub, not the engine (no cycle).
+                    label = key.label()
+                    opens, recoveries = self._c_breaker_opens, self._c_recoveries
+                    timeline = self._timeline
+
+                    def opened():
+                        opens.inc()
+                        timeline.emit("breaker_open", cause_id=bound_request_id(), key=label)
+
+                    def recovered():
+                        recoveries.inc()
+                        timeline.emit("breaker_close", cause_id=bound_request_id(), key=label)
+
+                    br = self._resilience.make_breaker(on_open=opened, on_close=recovered)
+                    self._breakers[key] = br
+        return br
+
+    def _attempt_with_retry(self, key: ExecKey, build, attempt: Callable):
+        """One ladder level, with bounded backoff retries for retryable
+        faults. Non-retryable ones — build failures, resource exhaustion,
+        poisoned payloads, CUDA errors — raise on the first attempt, to the
+        ladder (an injected fault), the bucket halving (exhaustion) or the
+        caller (a real error). The backoff sleeps on
+        the dispatch thread under the swap fence, so a retry sees the
+        layout its first attempt saw (bounded by ``max_backoff_ms``)."""
+        retry = self._resilience.retry
+        serial = next(self._retry_serials)
+        n = 1
+        while True:
+            try:
+                return attempt(key, build)
+            except Exception as exc:
+                retryable, _ = classify_failure(exc)
+                if not retryable or n >= retry.max_attempts:
+                    raise
+                self._c_retries.inc()
+                # Correlated by the request id submit() bound.
+                self._timeline.emit("retry", key=key.label(), attempt=n,
+                                    fault=type(exc).__name__)
+                self._resilience.sleep(retry.delay_s(serial, n))
+                n += 1
+
+    def _walk_ladder(self, levels: list, attempt: Callable):
+        """Serve one dispatch from the first ladder level whose breaker
+        admits it and whose attempt succeeds. The floor level is always
+        attempted when reached — an open breaker degrades a request, never
+        refuses it. Only an injected fault moves the walk down a level:
+        resource exhaustion propagates at once (the fix is a smaller
+        program: the caller's halving), and a real error — a hand-written
+        kernel's failed build or launch, a real out-of-memory error —
+        leaves the ladder without feeding the breaker, so no later request
+        skips the kernel for it either. Payload faults are the request's
+        fault, not the config's: they never feed the breaker."""
+        preferred_label = levels[0][0].label()
+        for i, (key, build) in enumerate(levels):
+            breaker = self._breaker_for(key)
+            if not breaker.allow() and i < len(levels) - 1:
+                continue
+            try:
+                out = self._attempt_with_retry(key, build, attempt)
+            except Exception as exc:
+                injected = is_injected(exc)
+                if injected and not is_payload_fault(exc):
+                    breaker.record_failure()
+                else:
+                    breaker.record_inconclusive()
+                if not injected or classify_failure(exc)[1] or i == len(levels) - 1:
+                    raise  # a real error, the caller's halving, or the floor's
+                continue
+            breaker.record_success()
+            with self._breakers_lock:  # health() copies _degraded under it
+                if i == 0:
+                    self._degraded.pop(preferred_label, None)
+                else:
+                    self._degraded[preferred_label] = key.label()
+            if i > 0:
+                self._c_downgrades.inc()
+                self._timeline.emit("degrade", preferred=preferred_label,
+                                    served=key.label(), level=i)
+            return out
 
     def _start_trace(self, **attrs) -> ActiveTrace:
         """Open a request's trace under its correlation id: the one bound
@@ -1224,6 +1562,7 @@ class MatvecEngine:
         its end (module docstring). ``rtol`` on a plain matvec (speculative
         serving) is not ported yet and raises ``ConfigError``.
         """
+        self._check_open()
         t0 = time.monotonic()
         t0_perf = time.perf_counter()
         if rhs is not None:
@@ -1319,7 +1658,7 @@ class MatvecEngine:
             return [self._dispatch_matvec(x[:, j].contiguous(), trace) for j in range(b)]
         parts, offset = [], 0
         for width in split_widths(b, self.max_bucket):
-            parts.append(self._dispatch_block(x[:, offset:offset + width], trace))
+            parts.extend(self._dispatch_block(x[:, offset:offset + width], trace))
             offset += width
         return parts
 
@@ -1402,13 +1741,19 @@ class MatvecEngine:
         )
 
     def _build_solver(self, key: ExecKey, restart: int, steps: int) -> Callable:
-        fused = key.kernel == "cuda_fused"
+        """The solver loop of ``key``: the fused tier (its own combine
+        spelling, no stages), the safe tier (SAFE_KERNEL, the default
+        combine, NATIVE storage) or the engine's kernel and combine."""
+        if key.kernel == "cuda_fused":
+            kernel, combine, stages = "cuda_fused", self._requested_combine, None
+        elif key == self._safe_key(key.op, key.bucket):
+            kernel, combine, stages = SAFE_KERNEL, None, None
+        else:
+            kernel, combine, stages = self.kernel, self._matvec_combine, self.stages
         return build_solver(
-            key.op, self.strategy, self.mesh, dtype=self.dtype,
-            kernel="cuda_fused" if fused else self.kernel,
-            combine=self._requested_combine if fused else self._matvec_combine,
-            stages=None if fused else self.stages,
-            dtype_storage=self.storage, restart=restart, steps=steps,
+            key.op, self.strategy, self.mesh, dtype=self.dtype, kernel=kernel,
+            combine=combine, stages=stages, dtype_storage=key.storage,
+            restart=restart, steps=steps,
         )
 
     def _submit_solver(
@@ -1495,12 +1840,20 @@ class MatvecEngine:
             try:
                 self._c_cols.inc()
                 with self._swap_lock:
-                    key = self._solver_key(op, bucket)
-                    res, dispatch, corrupt = self._run(
-                        key, lambda: self._build_solver(key, restart, steps), rhs,
-                        trace, op=op, bucket=bucket,
-                        call=lambda fn: fn(self._a, rhs.to(self.mesh.devices[0]),
-                                           rtol, maxiter, lo, hi))
+                    def attempt(key, build):
+                        return self._run(
+                            key, build, rhs, trace, op=op, bucket=bucket,
+                            call=lambda fn: fn(self._a_for(key.storage),
+                                               rhs.to(self.mesh.devices[0]),
+                                               rtol, maxiter, lo, hi))
+
+                    if self._resilience is None:
+                        key = self._solver_key(op, bucket)
+                        res, dispatch, corrupt = attempt(
+                            key, lambda: self._build_solver(key, restart, steps))
+                    else:
+                        res, dispatch, corrupt = self._walk_ladder(
+                            self._solver_levels(op, bucket, restart, steps), attempt)
             except BaseException as exc:
                 self._c_dispatch_failures.inc()
                 trace.finish(status="dispatch_failed")
@@ -1535,6 +1888,7 @@ class MatvecEngine:
         widths take the per-column path and build no GEMM bucket). On one
         CUDA device each build captures its program's graph. Returns the
         number of fresh builds."""
+        self._check_open()
         with self._swap_lock:
             return self._warmup(widths)
 
@@ -1594,6 +1948,7 @@ class MatvecEngine:
         ``warm_widths`` forwards to :meth:`warmup` after the commit, so the
         destination's programs are built off the request path.
         """
+        self._check_open()
         from ..parallel.reshard import (
             RESHARD_STRATEGIES,
             build_reshard,
@@ -1667,7 +2022,12 @@ class MatvecEngine:
 
             # ---- the commit: the only window a dispatch waits on ----
             with self._swap_lock:
-                old = (self._a, self._cache.clear())
+                with self._residency_lock:
+                    # The native safe tier is placed by the old layout: drop
+                    # it (a degraded dispatch places it again).
+                    old = (self._a, self._cache.clear(), self._a_native)
+                    self._a_native = None
+                    self._layout_epoch += 1
                 self._a = new_a
                 del new_a
                 self.strategy = dst
@@ -1676,7 +2036,7 @@ class MatvecEngine:
                 if requant is not None:
                     self.storage_block = requant.block
                     self.resident_bytes = requant.nbytes
-                    self._g_resident.set(self.resident_bytes)
+                self._g_resident.set(self.device_resident_bytes)
                 self._matvec_combine, self._gemm_combine = combines
                 self.stages = stages
                 self.b_star = b_star
@@ -1692,6 +2052,75 @@ class MatvecEngine:
         if warm_widths is not None:
             self.warmup(widths=warm_widths)
         return result
+
+    def health(self) -> dict:
+        """Point-in-time recovery snapshot, with the JAX package's keys:
+        breaker states per ExecKey, the configs serving degraded (preferred
+        label → the fallback label dispatching), fault-injection tallies,
+        the recovery counters, the storage section (with
+        ``native_fallback_resident``), the tuning cost model's divergence
+        signal and the engine-local SLO burn-rate evaluation (``"slo"``:
+        each call is one sample, so a polled endpoint accumulates burn
+        history). Refreshes the ``resil_breakers_open`` gauge, so a metrics
+        snapshot taken after it agrees. Host bookkeeping only: a health
+        endpoint may poll it."""
+        from ..tuning.cost_model import divergence_health
+
+        with self._breakers_lock:
+            items = list(self._breakers.items())
+            # _walk_ladder mutates _degraded under the same lock.
+            degraded = dict(self._degraded)
+        breakers = {key.label(): br.snapshot() for key, br in items}
+        if self._g_breakers_open is not None:
+            self._g_breakers_open.set(
+                sum(1 for snap in breakers.values() if snap["state"] != BREAKER_CLOSED))
+
+        def val(counter) -> int:
+            return counter.value if counter is not None else 0
+
+        if self._slo_monitor is None:
+            self._slo_monitor = SloMonitor(self.metrics, ENGINE_TARGETS)
+        self._slo_monitor.sample()
+        return {
+            "resilience": self._resilience is not None,
+            # The tuner's signal, read off the process default registry.
+            "cost_model": divergence_health(),
+            "slo": self._slo_monitor.evaluate(),
+            "integrity_gate": self.integrity_gate,
+            "storage": {
+                "format": self.storage,
+                "reason": self.storage_reason,
+                "resident": self.resident,
+                "resident_bytes": self.resident_bytes,
+                "device_resident_bytes": self.device_resident_bytes,
+                "block": self.storage_block,
+                # True once the native safe tier is placed: the card then
+                # holds both residencies.
+                "native_fallback_resident": self._a_native is not None,
+                # Speculative serving comes with ROADMAP.md queue A 6.
+                "speculative": False,
+                "escalation_rate": 0.0,
+            },
+            "breakers": breakers,
+            "degraded": degraded,
+            "fault_injection": (self._fault_plan.summary()
+                                if self._fault_plan is not None else None),
+            "counters": {
+                "retries": val(self._c_retries),
+                "downgrades": val(self._c_downgrades),
+                "breaker_opens": val(self._c_breaker_opens),
+                "recoveries": val(self._c_recoveries),
+                "faults_injected": val(self._c_faults),
+                "dispatch_failures": self._c_dispatch_failures.value,
+                "deadline_failures": self._c_deadline_failures.value,
+                "integrity_failures": val(self._c_integrity),
+                # What the JAX package's engine_storage_fallbacks_total holds
+                # without speculative serving: the construction's degrade.
+                "storage_fallbacks": int(self.storage_reason == "auto_degraded"),
+                "speculative_dispatches": 0,
+                "escalations": 0,
+            },
+        }
 
     @property
     def stats(self) -> EngineStats:
@@ -1720,9 +2149,16 @@ class MatvecEngine:
 
     def close(self) -> None:
         """Release the trace sink (writer thread and file) after draining
-        it, and drop the outstanding-dispatch references (the device work
-        itself cannot be cancelled). Idempotent; the sink is released even
-        when the drain cannot confirm."""
+        it, drop the outstanding-dispatch references (the device work
+        itself cannot be cancelled), and release the engine's memory once
+        the work already queued has run: the resident A, the native safe
+        tier, the host copy and every built program (a captured one's
+        graph and buffers). Device memory so never waits on the last
+        reference to the engine: a failed request's error, which holds the
+        frames it passed, may outlive it. Futures already returned keep
+        their results; a later ``submit``, ``warmup`` or ``reshard``
+        raises ``ConfigError``. Idempotent; the sink is released even when
+        the drain cannot confirm."""
         if self._closed:
             return
         self._closed = True
@@ -1732,6 +2168,16 @@ class MatvecEngine:
             self.flush_traces()
         finally:
             self.tracer.close()
+            with self._swap_lock, self._residency_lock:
+                _Dispatch(self._cuda_devices).synchronize()
+                for program in self._cache.clear():
+                    if isinstance(program, (_EagerProgram, _CapturedProgram)):
+                        program.release()
+                self._a = self._a_native = self._a_host = None
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise ConfigError("this engine is closed: its resident A is released")
 
     @property
     def n_executables(self) -> int:

@@ -14,14 +14,20 @@ The port's counterpart of the JAX package's ``obs/``:
 * **correlated event timeline** (``timeline.py``) — one stream of engine
   and scheduler events correlated by ``request_id``/``cause_id`` through a
   thread-local binding (``bind_request``);
+* **SLO burn rates** (``slo.py``) — declared targets over the registry's
+  counters, gauges and histograms, evaluated with multi-window burn-rate
+  alerts (``engine.health()["slo"]``, the serve bench's ``--slo-out``);
+* **flight recorder** (``flight.py``) — a bounded ring over the event
+  timeline that dumps a post-mortem bundle on typed failures;
 * **named trace spans** (``annotations.py``) — NVTX ranges around each
   strategy's local GEMV and combine.
 
-The SLO monitor, the flight recorder and the obs CLI are not ported yet
-(ROADMAP.md, queue A 4b).
+``python -m matvec_mpi_multiplier_torch.obs`` renders their files
+(``__main__.py``: ``metrics``, ``trace``, ``timeline``, ``slo``, ``dump``).
 """
 
 from .annotations import annotations, annotations_enabled, named_span
+from .flight import FlightRecorder
 from .registry import (
     Counter,
     Gauge,
@@ -29,8 +35,11 @@ from .registry import (
     MetricsRegistry,
     RateEstimator,
     get_registry,
+    label,
+    prometheus_text,
 )
 from .sink import JsonlSink
+from .slo import DEFAULT_TARGETS, ENGINE_TARGETS, SloMonitor, SloTarget
 from .timeline import (
     FAILURE_KINDS,
     TimelineHub,
@@ -50,6 +59,13 @@ __all__ = [
     "MetricsRegistry",
     "RateEstimator",
     "get_registry",
+    "label",
+    "prometheus_text",
+    "SloTarget",
+    "SloMonitor",
+    "DEFAULT_TARGETS",
+    "ENGINE_TARGETS",
+    "FlightRecorder",
     "RequestTracer",
     "Span",
     "JsonlSink",

@@ -18,8 +18,11 @@ scheduler, on its own clock); without it the estimator reads
 
 The default process registry (:func:`get_registry`) holds the events of
 subsystems with no instance of their own: the tuner's per-candidate
-measurements. The EWMA gauge and the Prometheus text wait for the slices
-that read them (ROADMAP.md).
+measurements. :func:`prometheus_text` is the one Prometheus text serializer
+(a live registry's :meth:`MetricsRegistry.to_prometheus` and the obs CLI's
+``metrics --prometheus`` over a snapshot file); :func:`label` builds a
+labeled metric name with its values escaped. The EWMA gauge waits for the
+slice that reads it (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -280,6 +283,59 @@ class MetricsRegistry:
             "gauges": dict(sorted(gauge_values.items())),
             "histograms": {n: h.summary() for n, h in sorted(histograms.items())},
         }
+
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition of the registry (counters, gauges,
+        histograms with cumulative ``le`` buckets)."""
+        return prometheus_text(self.snapshot())
+
+
+def label(name: str, **labels: object) -> str:
+    """A labeled metric name, ``name{k="v",...}``, with the label values
+    escaped per the Prometheus text exposition rules (backslash, double
+    quote, newline). The registry stores a labeled metric under its full
+    name, so the escaping happens here. Keyword order is kept and the
+    separator is a bare comma, the JAX package's grammar."""
+    if not labels:
+        return name
+    parts = ",".join(
+        f'{k}="{escape_label_value(str(v))}"' for k, v in labels.items()
+    )
+    return f"{name}{{{parts}}}"
+
+
+def escape_label_value(v: str) -> str:
+    """Prometheus label-value escaping: ``\\`` → ``\\\\``, ``"`` →
+    ``\\"``, newline → ``\\n``."""
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def prometheus_text(snapshot: dict) -> str:
+    """Prometheus text exposition of a :meth:`MetricsRegistry.snapshot`
+    dict — the one serializer, shared by live registries and the obs CLI
+    (which renders snapshots read back from ``--metrics-out`` files)."""
+    lines: list[str] = []
+    for name, value in snapshot.get("counters", {}).items():
+        lines.append(f"# TYPE {name} counter")
+        lines.append(f"{name} {value}")
+    for name, value in snapshot.get("gauges", {}).items():
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {_fmt(value)}")
+    for name, summ in snapshot.get("histograms", {}).items():
+        lines.append(f"# TYPE {name} histogram")
+        for le, cum in summ.get("buckets", []):
+            le_s = "+Inf" if le == "+Inf" else _fmt(le)
+            lines.append(f'{name}_bucket{{le="{le_s}"}} {cum}')
+        lines.append(f"{name}_sum {_fmt(summ.get('sum', 0))}")
+        lines.append(f"{name}_count {summ.get('count', 0)}")
+    return "\n".join(lines) + "\n"
+
+
+def _fmt(v: float) -> str:
+    if isinstance(v, float) and (math.isinf(v) or math.isnan(v)):
+        return str(v)
+    return repr(float(v)) if isinstance(v, float) else str(v)
 
 
 _default: MetricsRegistry | None = None

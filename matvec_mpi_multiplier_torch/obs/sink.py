@@ -8,7 +8,8 @@ daemon thread draining a ``SimpleQueue`` into an append-mode JSONL file.
 ``flush()`` queues an in-band marker (an ``Event``) behind every pending
 record, so a caller can wait for the file to be complete: the serve bench
 flushes before reporting the trace path, and the tests flush before reading
-the file back.
+the file back. :func:`dump_json` is the synchronous face the flight
+recorder's writer thread and the CLIs use.
 """
 
 from __future__ import annotations
@@ -70,3 +71,15 @@ class JsonlSink:
     def close(self, timeout: float = 5.0) -> None:
         self._q.put(_CLOSE)
         self._thread.join(timeout)
+
+
+def dump_json(path: str | os.PathLike, payload: dict) -> Path:
+    """Write ``payload`` as one indented JSON document (the flight
+    recorder's writer thread and the serve bench's SLO file): the file I/O
+    of obs stays in this module."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)
+        f.write("\n")
+    return path

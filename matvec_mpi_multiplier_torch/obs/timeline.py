@@ -12,9 +12,10 @@ own story; this module is the shared key plus the shared stream:
   span tree and the event stream share the key.
 
 * **The hub.** :class:`TimelineHub` is a bounded in-memory ring plus an
-  optional JSONL sink. Emission is safe on the dispatch path: one dict, one ``deque.append`` and, with a
-  sink, one ``SimpleQueue.put`` — no locks, no file handles, no host sync
-  (``sink.py`` owns the file I/O).
+  optional JSONL sink plus zero or more in-process subscribers (the flight
+  recorder, ``flight.py``). Emission is safe on the dispatch path: one
+  dict, one ``deque.append`` and, with a sink, one ``SimpleQueue.put`` —
+  no locks, no file handles, no host sync (``sink.py`` owns the file I/O).
 
 * **The contract.** Every event carries ``request_id`` (the request it
   belongs to) or ``cause_id`` (the request that triggered a background
@@ -23,7 +24,8 @@ own story; this module is the shared key plus the shared stream:
   (:func:`related_events`).
 
 Event vocabulary (open; the kinds the port emits today): ``submit``,
-``bypass``, ``coalesce``, ``deadline_failed``, ``dispatch_failed``,
+``bypass``, ``coalesce``, ``retry``, ``degrade``, ``breaker_open``,
+``breaker_close``, ``deadline_failed``, ``dispatch_failed``,
 ``integrity_refused``, ``solver_diverged``, ``batch_failure``,
 ``isolated_failure``, ``bisect``.
 """
@@ -35,7 +37,7 @@ import itertools
 import threading
 import time
 from collections import deque
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable
 
 __all__ = [
     "FAILURE_KINDS",
@@ -48,7 +50,7 @@ __all__ = [
     "reset_hub",
 ]
 
-# The typed-failure kinds (the JAX package's flight recorder dumps on these).
+# The typed-failure kinds: the flight recorder (``flight.py``) dumps on these.
 FAILURE_KINDS = frozenset({
     "breaker_open",
     "solver_diverged",
@@ -100,18 +102,28 @@ HUB_CAPACITY = 4096
 
 
 class TimelineHub:
-    """The unified event stream: bounded ring + optional JSONL sink.
+    """The unified event stream: bounded ring + optional JSONL sink +
+    in-process subscribers.
 
     ``emit`` is called from dispatch paths, so it stays bookkeeping
-    only: no locks of its own, no I/O, no host sync. (The JAX package's
-    in-process subscribers serve its flight recorder, which is not ported
-    yet: ROADMAP.md, queue A 4b.)"""
+    only: no locks of its own, no I/O, no host sync. Subscribers are called
+    on the emitting thread, often the dispatch path, so they share that
+    contract: O(1) work and no I/O (the flight recorder's subscriber is one
+    ``deque.append`` plus, on a failure kind, one ``SimpleQueue.put``)."""
 
     def __init__(self, *, sink=None):
         self._events: deque[dict] = deque(maxlen=HUB_CAPACITY)
         self._sink = sink
         self._count = itertools.count()
         self._emitted = 0
+        # Copy-on-write subscriber tuple: emit iterates a snapshot, so
+        # subscribing never races an emission in progress.
+        self._subscribers: tuple[Callable[[dict], None], ...] = ()
+
+    def subscribe(self, fn: Callable[[dict], None]) -> None:
+        """Call ``fn(event)`` on every later emission, on the emitting
+        thread (O(1) work and no I/O: see the class docstring)."""
+        self._subscribers = self._subscribers + (fn,)
 
     def emit(
         self,
@@ -142,6 +154,8 @@ class TimelineHub:
         sink = self._sink
         if sink is not None:
             sink.put(event)
+        for fn in self._subscribers:
+            fn(event)
         return event
 
     def events(self) -> list[dict]:

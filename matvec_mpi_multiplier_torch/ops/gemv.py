@@ -56,6 +56,27 @@ def gemv_torch(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(acc), x.to(acc)[:, None])[:, 0]
 
 
+def matmul_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the accumulator dtype without a widened copy of A: the
+    library call of the engine's degradation floor (``engine/core.py``),
+    registered as no tier. On the card a 16-bit A is read as it is and
+    cuBLAS writes fp32 (``out_dtype``); the ``torch`` tier's widening would
+    hold an fp32 copy of A, 17 GB for a 65536² bf16 A, for the life of
+    every captured floor program. Elsewhere the operands are widened.
+    ``b`` must have A's dtype (the engine's requests do)."""
+    if b.dtype != a.dtype:
+        raise ValueError(f"matmul_acc takes b in A's dtype {a.dtype}, got {b.dtype}")
+    acc = acc_dtype(a.dtype)
+    if a.is_cuda and a.dtype != acc:
+        return torch.mm(a, b, out_dtype=acc)
+    return torch.matmul(a.to(acc), b.to(acc))
+
+
+def gemv_acc(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`matmul_acc` against ``x`` as a (k, 1) column."""
+    return matmul_acc(a, x[:, None])[:, 0]
+
+
 def gemv_colwise_torch(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Colwise-style local kernel: scale column ``j`` by ``x_j``, then sum
     each row (``multiply_colwise``, ``src/multiplier_colwise.c:107-122``)."""

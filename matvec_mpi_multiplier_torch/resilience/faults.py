@@ -153,6 +153,13 @@ def is_rejection(exc: BaseException) -> bool:
     return isinstance(exc, AdmissionRejectedError)
 
 
+def is_injected(exc: BaseException) -> bool:
+    """True when a :class:`FaultPlan` raised ``exc``: the only failures the
+    engine's degradation ladder routes around (a real error reaches the
+    caller, ``engine/core.py``)."""
+    return isinstance(exc, FaultError) and exc.injected
+
+
 def is_payload_fault(exc: BaseException) -> bool:
     """True when a failure is scoped to the request's PAYLOAD, not the
     config or the device: a poisoned injected fault, or an

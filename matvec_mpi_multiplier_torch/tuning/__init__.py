@@ -17,10 +17,11 @@ the solver iteration tier — is a measured decision:
   the static default on any miss, so ``auto`` is always safe to ask for.
 
 Fill it with ``python -m matvec_mpi_multiplier_torch.tuning`` or the
-sweep's and serve bench's ``--tune``. The cost model (the JAX package's
-``tuning/cost_model.py``) is not ported yet: :func:`lookup_calibration`
-misses, and the search measures every candidate, as the JAX package does on
-an uncalibrated cache.
+sweep's and serve bench's ``--tune``. Of the JAX package's cost model
+(``tuning/cost_model.py``) the port has only the divergence signal
+``engine.health()`` reports (``cost_model.py``); the model itself waits for
+ROADMAP.md queue A 5: :func:`lookup_calibration` misses, and the search
+measures every candidate, as the JAX package does on an uncalibrated cache.
 """
 
 from __future__ import annotations

@@ -301,11 +301,12 @@ def test_request_validation(rng):
 # tests/test_torch_overlap.py::test_engine_combine_and_stages_arguments;
 # retain_host= is ported with reshard (tests/test_torch_reshard.py);
 # fault_plan=, integrity_gate= and trace_jsonl= with the scheduler
-# (tests/test_torch_faults.py, tests/test_torch_obs_trace.py). Any value of
-# a later argument raises, None and False included.
+# (tests/test_torch_faults.py, tests/test_torch_obs_trace.py); resilience=
+# with the recovery policy (tests/test_torch_resilience.py). Any value of a
+# later argument raises, None and False included.
 @pytest.mark.parametrize("kwargs", [
-    {"dtype_storage": "speculate"}, {"resilience": object()},
-    {"residency_listener": object()}, {"resilience": None}, {"defer_placement": False},
+    {"dtype_storage": "speculate"}, {"label_prefix": ""},
+    {"residency_listener": object()}, {"exec_cache": None}, {"defer_placement": False},
     {"defer_placement": True}, {"label_prefix": "tenant-1/"}, {"exec_cache": object()},
     {"trace_capacity": 64}, {"timeline": None},
 ])

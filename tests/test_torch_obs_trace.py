@@ -273,12 +273,15 @@ def test_events_jsonl_sink_equals_ring(tmp_path, monkeypatch):
     monkeypatch.setattr(obs.timeline, "HUB_CAPACITY", 4)  # a constant in the port
     hub = obs.TimelineHub(sink=obs.JsonlSink(path))
     jhub = jobs.TimelineHub(capacity=4, sink=jobs.JsonlSink(tmp_path / "jax.jsonl"))
+    # Literal ids far above either process counter's, so that none equals
+    # the id bound above (a fresh counter hands out 1, 2, ...).
+    big = 10 ** 9
     for h in (hub, jhub):
         with h_bind(h) as rid:
             h.emit("submit", cols=1)
             h.emit("dispatch_failed", error="X")
-        h.emit("bisect", cause_id=7, members=[1, 2], split_at=1)
-        h.emit("coalesce", request_id=9, members=[3], width=1)
+        h.emit("bisect", cause_id=big + 7, members=[big + 1, big + 2], split_at=1)
+        h.emit("coalesce", request_id=big + 9, members=[big + 3], width=1)
         h.emit("flush")
         assert rid is not None
     assert hub.flush() and jhub.flush()

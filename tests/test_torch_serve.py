@@ -157,14 +157,16 @@ def test_sweep_op_serve_delegates(tmp_path):
     assert rows[0]["b_star"] == -1 and rows[0]["kernel"] == "cuda"
 
 
-# Load mode (--arrival, --concurrency, --coalesce) is ported
-# (tests/test_torch_serve_load.py); with a chaos, tenant or reshard flag it
-# still raises.
+# Load mode (--arrival, --concurrency, --coalesce) and its chaos flags are
+# ported (tests/test_torch_serve_load.py); with a tenant, per-tenant poison
+# or reshard flag it still raises, chaos flags or not.
 @pytest.mark.parametrize("argv", [
-    ["--arrival", "burst", "--fault-spec", "dispatch:device_error:p=0.1"],
-    ["--arrival", "poisson", "--poison-rate", "0.1"], ["--concurrency", "4", "--tenants", "2"],
-    ["--coalesce", "on", "--reshard", "auto"], ["--fault-spec", "dispatch:device_error:p=0.1"],
-    ["--poison-rate", "0.1"], ["--tenants", "2"], ["--reshard", "auto"],
+    ["--arrival", "burst", "--poison-tenant", "t1"],
+    ["--arrival", "poisson", "--poison-rate", "0.1", "--poison-tenant", "t0"],
+    ["--concurrency", "4", "--tenants", "2"],
+    ["--coalesce", "on", "--reshard", "auto"],
+    ["--fault-spec", "dispatch:device_error:p=0.1", "--tenants", "2"],
+    ["--poison-tenant", "t0"], ["--tenants", "2"], ["--reshard", "auto"],
 ])
 def test_unported_serve_modes_raise(argv):
     with pytest.raises(ConfigError, match="ROADMAP.md"):

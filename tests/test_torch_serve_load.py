@@ -177,24 +177,29 @@ def test_closed_loop_adaptive_window(tmp_path):
     assert 1.0 <= res.mean_batch_width <= 8.0 and 0 <= res.coalesce_ratio <= 1
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"slo_out": "slo.json"}, {"flight_dir": "flight"}, {"fault_spec": "dispatch:nan"},
-    {"poison_rate": 0.1}, {"resilience": True}, {"resilience": False},
+# The chaos and SLO overlays are ported (the chaos cases below); what stays
+# refused is speculative storage (ROADMAP.md), and malformed overlay inputs
+# fail up front, as in the JAX package, before any engine is built.
+@pytest.mark.parametrize("kwargs, match", [
+    ({"dtype_storage": "speculate"}, "ROADMAP.md"),
+    ({"poison_rate": -0.1}, "poison_rate"), ({"poison_rate": 1.5}, "poison_rate"),
+    ({"fault_spec": "dispatch:explode"}, "explode"),
+    ({"fault_spec": "teleport:device_error"}, "teleport"),
+    ({"arrival": "uniform"}, "uniform"),
 ])
-def test_unported_load_overlays_raise(kwargs):
-    with pytest.raises(ConfigError, match="ROADMAP.md"):
+def test_unported_load_overlays_raise(kwargs, match):
+    with pytest.raises(ConfigError, match=match):
         run_serve_load("rowwise", port_mesh(), 64, 64, n_requests=4, **kwargs)
 
 
 def test_run_serve_load_signature_covers_the_jax_one():
-    """Every parameter of the JAX run_serve_load is the port's but the
-    chaos seeds (their modes wait: ROADMAP.md, queue A 4b); the port adds
-    the engine's deadline and backpressure."""
+    """Every parameter of the JAX run_serve_load is the port's; the port
+    adds the engine's deadline and backpressure."""
     import inspect
 
     ours = set(inspect.signature(run_serve_load).parameters)
     theirs = set(inspect.signature(jax_serve.run_serve_load).parameters)
-    assert theirs - ours == {"fault_seed", "breaker_reset_s"}
+    assert theirs - ours == set()
     assert ours - theirs == {"deadline_ms", "max_in_flight"}
 
 
@@ -233,11 +238,10 @@ def test_open_loop_cli_and_sequential_default(capsys):
 
 
 @pytest.mark.parametrize("flag, value", [
-    (flag, "1" if flag != "fault_spec" else "dispatch:nan")
-    for flag in serve._LATER_FLAGS
-])
+    (flag, "1") for flag in serve._LATER_FLAGS
+] + [("dtype_storage", "speculate")])
 def test_every_later_flag_is_refused(flag, value):
-    assert set(serve._LATER_FLAGS) == {"fault_spec", "poison_rate", "tenants", "reshard"}
+    assert set(serve._LATER_FLAGS) == {"tenants", "poison_tenant", "reshard"}
     argv = ["--sizes", "64", "--no-csv", "--concurrency", "4",
             f"--{flag.replace('_', '-')}", value, *CPU_ARGS]
     with pytest.raises(ConfigError, match="ROADMAP.md"):
@@ -247,3 +251,170 @@ def test_every_later_flag_is_refused(flag, value):
 def test_serve_result_fields_unchanged():
     assert [f.name for f in dataclasses.fields(serve.ServeResult)] == [
         f.name for f in dataclasses.fields(jax_serve.ServeResult)]
+
+
+# ------------------------------------------------------------- chaos mode
+
+
+def test_poison_signature_and_serve_counters_equal_jax():
+    assert serve.POISON_SIGNATURE == jax_serve.POISON_SIGNATURE
+
+
+@pytest.mark.parametrize("coalesce, concurrency, n_poisoned", [
+    (True, 4, 4), (False, 2, 2),
+])
+def test_chaos_poison_counts_failures_exactly(tmp_path, coalesce, concurrency, n_poisoned):
+    """A seeded poison set fails exactly the poisoned requests (bisection
+    isolates them when coalesced; submit() raises them when not), as the
+    JAX package's run of the same config does; the availability columns,
+    the counters and the CSV row carry it, and the obs panel's availability
+    is the CSV's success rate."""
+    from matvec_mpi_multiplier_torch.obs.__main__ import render_metrics
+
+    n = 40 if coalesce else 20
+    common = dict(n_requests=n, max_bucket=8, promote=1, concurrency=concurrency,
+                  coalesce=coalesce, seed=0, poison_rate=0.1, fault_seed=3)
+    port = run_serve_load("rowwise", port_mesh(), 64, 64,
+                          metrics_out=str(tmp_path / "m.json"), **common)
+    ref = jax_serve.run_serve_load("rowwise", jax_make_mesh(8), 64, 64, kernel="pallas",
+                                   metrics_out=str(tmp_path / "jm.json"), **common)
+    assert port.failed_requests == ref.failed_requests == n_poisoned
+    assert port.success_rate == ref.success_rate == pytest.approx(1 - n_poisoned / n)
+    snap = json.loads((tmp_path / "m.json").read_text())
+    jsnap = json.loads((tmp_path / "jm.json").read_text())
+    c, jc = snap["counters"], jsnap["counters"]
+    for name in ("serve_failed_requests_total", "serve_requests_total",
+                 "resil_breaker_opens_total"):
+        assert c[name] == jc[name], name
+    if coalesce:
+        assert c["sched_isolated_failures_total"] == jc["sched_isolated_failures_total"] == n_poisoned
+    assert c["serve_requests_total"] == n
+    if not coalesce:  # the engine counts warmup's submits too
+        assert c["engine_requests_total"] > n
+    assert c["resil_faults_injected_total"] >= n_poisoned and "resil_retries_total" in c
+    assert f"availability      {port.success_rate:.4f}" in render_metrics(snap)
+    path = serve.append_serve_result(port, tmp_path)
+    row = read_csv(path)[0]
+    assert row["failed_requests"] == n_poisoned and 0.0 < row["success_rate"] < 1.0
+    assert row["retries"] == port.retries and row["downgrades"] == port.downgrades
+
+
+def test_chaos_uncoalesced_open_loop_counts_submit_failures():
+    res = run_serve_load("rowwise", port_mesh(), 64, 64, n_requests=20, max_bucket=8,
+                         promote=1, coalesce=False, arrival="poisson", rate=2000.0, seed=0,
+                         poison_rate=0.1, fault_seed=3)
+    ref = jax_serve.run_serve_load("rowwise", jax_make_mesh(8), 64, 64, n_requests=20,
+                                   max_bucket=8, promote=1, coalesce=False, arrival="poisson",
+                                   rate=2000.0, seed=0, poison_rate=0.1, fault_seed=3)
+    assert res.failed_requests == ref.failed_requests == 2
+    assert res.success_rate == pytest.approx(0.9)
+
+
+def test_chaos_transient_faults_fully_recover_as_jax():
+    """Retryable transient faults cost retries, not availability. One
+    client: the fault ordinals are sequential, and seed 19 at p = 0.2 draws
+    no run of 3 fires (the JAX package's case), so the counts are its."""
+    common = dict(n_requests=30, max_bucket=8, promote=1, concurrency=1, coalesce=True,
+                  seed=0, fault_spec="dispatch:device_error:p=0.2", fault_seed=19)
+    port = run_serve_load("rowwise", port_mesh(), 64, 64, **common)
+    ref = jax_serve.run_serve_load("rowwise", jax_make_mesh(8), 64, 64, kernel="pallas",
+                                   **common)
+    assert port.failed_requests == ref.failed_requests == 0
+    assert port.success_rate == 1.0
+    assert (port.retries, port.downgrades) == (ref.retries, ref.downgrades)
+    assert port.retries > 0
+
+
+def test_chaos_writes_slo_and_flight_files(tmp_path):
+    """slo_out holds the run's burn-rate evaluation (its alert gauges in the
+    snapshot agree) and flight_dir a bundle per typed failure, up to the
+    recorder's cap; resilience=False serves the same plan without the
+    policy."""
+    res = run_serve_load("rowwise", port_mesh(), 64, 64, n_requests=40, max_bucket=8,
+                         promote=1, concurrency=4, seed=0, poison_rate=0.1, fault_seed=3,
+                         slo_out=str(tmp_path / "slo.json"),
+                         flight_dir=str(tmp_path / "flight"),
+                         metrics_out=str(tmp_path / "m.json"),
+                         events_jsonl=str(tmp_path / "events.jsonl"))
+    evaluation = json.loads((tmp_path / "slo.json").read_text())
+    gauges = json.loads((tmp_path / "m.json").read_text())["gauges"]
+    level = {"no_data": -1.0, "ok": 0.0, "ticket": 1.0, "page": 2.0}
+    for name, target in evaluation["targets"].items():
+        assert gauges[f"slo_{name}_alert"] == level[target["status"]]
+    assert evaluation["targets"]["availability"]["status"] == "page"  # 10 % failed
+    dumps = sorted((tmp_path / "flight").iterdir())
+    assert 1 <= len(dumps) <= 4
+    for path in dumps:
+        bundle = json.loads(path.read_text())
+        assert bundle["trigger"]["kind"] in obs_failure_kinds()
+        assert "slo" in bundle and bundle["events"]
+    events = [json.loads(ln) for ln in (tmp_path / "events.jsonl").read_text().splitlines()]
+    assert all("request_id" in e or "cause_id" in e for e in events)
+    assert res.failed_requests == 4
+    plain = run_serve_load("rowwise", port_mesh(), 64, 64, n_requests=40, max_bucket=8,
+                           promote=1, concurrency=4, seed=0, poison_rate=0.1, fault_seed=3,
+                           resilience=False)
+    assert plain.failed_requests == 4 and (plain.retries, plain.downgrades) == (0, 0)
+
+
+def obs_failure_kinds():
+    from matvec_mpi_multiplier_torch.obs import FAILURE_KINDS
+
+    return FAILURE_KINDS
+
+
+def test_chaos_cli_flags(tmp_path, capsys):
+    """The six chaos flags through the CLI: load mode engages, the row and
+    the summary carry the availability columns, and the obs CLI renders the
+    SLO file and a bundle."""
+    from matvec_mpi_multiplier_torch.obs.__main__ import main as obs_main
+
+    argv = ["--strategy", "rowwise", "--sizes", "64", "--n-requests", "20",
+            "--max-bucket", "8", "--promote", "1", "--fault-spec",
+            "dispatch:device_error:p=0.1", "--fault-seed", "19", "--poison-rate", "0.1",
+            "--breaker-reset-s", "1.5", "--slo-out", str(tmp_path / "slo.json"),
+            "--flight-dir", str(tmp_path / "flight"), "--data-root", str(tmp_path),
+            *CPU_ARGS]
+    assert serve.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "serve-load rowwise 64x64 p=8 closed c=1 coalesce=on" in out
+    assert " ok=0.900 failed=2 retries=" in out
+    rows = read_csv(serve_csv_path("rowwise", tmp_path))
+    assert len(rows) == 1 and rows[0]["failed_requests"] == 2
+    assert obs_main(["slo", str(tmp_path / "slo.json")]) == 0
+    bundle = sorted((tmp_path / "flight").iterdir())[0]
+    assert obs_main(["dump", str(bundle)]) == 0
+    assert "flight bundle:" in capsys.readouterr().out
+    args = serve.build_parser().parse_args(argv)
+    assert (args.fault_seed, args.breaker_reset_s) == (19, 1.5)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"coalesce": True}, {"coalesce": False}, {"arrival": "poisson", "rate": 2000.0},
+])
+def test_chaos_run_frees_its_engine(monkeypatch, kwargs):
+    """The run closes its engine, so its resident A is freed once the run
+    returns, although failed requests' errors (whose tracebacks hold the
+    frames they passed) may still refer to the engine: device memory never
+    waits for the cycle collector."""
+    import gc
+    import weakref
+
+    from matvec_mpi_multiplier_torch.engine import core
+
+    made, init = [], core.MatvecEngine.__init__
+
+    def tracked(self, *args, **kw):
+        init(self, *args, **kw)
+        made.extend(weakref.ref(t) for t in (self._a, *self._a.shards))
+
+    monkeypatch.setattr(core.MatvecEngine, "__init__", tracked)
+    gc.disable()
+    try:
+        res = run_serve_load("rowwise", port_mesh(), 64, 64, n_requests=40, max_bucket=8,
+                             promote=1, concurrency=4, seed=0, poison_rate=0.1,
+                             fault_seed=3, **kwargs)
+        assert res.failed_requests == 4
+        assert len(made) == 9 and [r() for r in made] == [None] * 9
+    finally:
+        gc.enable()
