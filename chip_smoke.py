@@ -120,7 +120,21 @@ kernels' launch counts set to 0 just before it and read just after:
   int8c 65536² fp32 resident placed once, timed, with the device memory
   after it (``quant_ladder``); and cg at 65536² fp32 served by the torch
   tier when the fused key fails to build, a ``nan`` fault refused
-  (``solver_ladder``).
+  (``solver_ladder``);
+* multi-tenant residency (``engine/registry.py``), blockwise p = 1 at
+  65536² bf16: three tenants under a budget of two payloads, every
+  re-admitted result bitwise the tenant's first, each eviction freeing its
+  payload's bytes at once, the ledger the sum of the tenants'
+  ``device_resident_bytes``, every swap-in timed beside a pinned
+  host-to-card copy probe (``multitenant``); ``run_serve_multitenant`` with
+  4 tenants, Zipf 1.1, a budget of 2 payloads, the hottest pinned and 120
+  requests, every result within 2^-7 of the fp32 product and the hit rate
+  the LRU floor (``multitenant_trace``); faults on one tenant and a quota
+  on another leaving the rest at availability 1.0
+  (``multitenant_isolation``); two int8c 32768² fp32 tenants under a
+  budget of one, charged payload and scales, re-admitted bitwise
+  (``multitenant_quant``). The section keeps up to 4 tenants' host
+  payloads (34.4 GB); the env line prints the host's ``MemTotal``.
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -432,6 +446,29 @@ RESIL_PASSES = 4
 CHAOS_COLUMNS = 64
 CHAOS_COLUMN_BATCH = 8
 CHAOS_COLUMN_POISONED = (13, 29, 45, 61)
+# Multi-tenant residency, blockwise p = 1 at 65536² bf16 (8.59 GB a tenant):
+# the eviction smoke's tenants and their request order under a budget of
+# MT_SMOKE_BUDGET payloads; the trace (run_serve_multitenant) at
+# MT_TRACE_TENANTS tenants, Zipf MT_ZIPF_A, a budget of MT_TRACE_BUDGET
+# payloads, MT_PIN_HOT pinned and MT_TRACE_REQUESTS vector requests; the
+# isolation run's faults on tenant-1 and quota on tenant-2 over
+# MT_CHAOS_REQUESTS requests; the int8c tenants at MT_QUANT_N² fp32 under a
+# budget of one. The pinned copy probe moves MT_PROBE_BYTES.
+MT_N = 65536
+MT_SMOKE_TENANTS = 3
+MT_SMOKE_BUDGET = 2
+MT_SMOKE_ORDER = (0, 1, 2, 0, 1, 2, 0)
+MT_TRACE_TENANTS = 4
+MT_ZIPF_A = 1.1
+MT_TRACE_BUDGET = "2x"
+MT_PIN_HOT = 1
+MT_TRACE_REQUESTS = 120
+MT_CHAOS_REQUESTS = 40
+MT_CHAOS_FAULT = "dispatch:device_error:key=tenant-1/*"
+MT_CHAOS_QUOTA = "tenant-2=1"
+MT_QUANT_N = 32768
+MT_QUANT_ORDER = (0, 1, 0, 1)
+MT_PROBE_BYTES = 1 << 31
 
 # An entry as the JAX package would write it for one of the same keys: its
 # fingerprint is never the port's, so it must never apply.
@@ -478,6 +515,7 @@ def main() -> int:
         resident_matrix,
         run_serve,
         run_serve_load,
+        run_serve_multitenant,
         run_serve_solver,
         solver_operand,
     )
@@ -493,6 +531,7 @@ def main() -> int:
     from matvec_mpi_multiplier_torch.solvers.device_loop import DEFAULT_CHUNK
     from matvec_mpi_multiplier_torch.engine import (
         ArrivalWindowScheduler,
+        MatrixRegistry,
         MatvecEngine,
         bucket_for,
         bucket_ladder,
@@ -557,6 +596,7 @@ def main() -> int:
         INT8_EPS,
         INT8C_EPS,
         QuantizedMatrix,
+        default_block,
         quantize_matrix,
     )
     from matvec_mpi_multiplier_torch.utils.constants import (
@@ -710,11 +750,17 @@ def main() -> int:
         [nvcc, "--version"], capture_output=True, text=True, check=True,
         timeout=60,
     ).stdout.strip().splitlines()[-1]
+    # Host memory: the multi-tenant section keeps up to 4 tenants' host
+    # payloads (34.4 GB).
+    meminfo = dict(line.split(":", 1) for line in
+                   Path("/proc/meminfo").read_text().splitlines() if ":" in line)
+    mem_total = meminfo.get("MemTotal", "unknown").strip()
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "capability": list(torch.cuda.get_device_capability(dev)),
           "device": torch.cuda.get_device_name(dev), "nvcc": nvcc_version,
-          "nvidia_smi": smi, "allow_tf32": False})
+          "nvidia_smi": smi, "allow_tf32": False, "host_mem_total": mem_total})
     print(smi, flush=True)
+    print(f"host MemTotal: {mem_total}", flush=True)
 
     # ---- 2. build, from the sources, with no prior build directory ----
     section("2. build, from the sources, with no prior build directory")
@@ -3973,8 +4019,268 @@ def main() -> int:
     gemv_routes["load_serve"] = dict(load_routes["gemv"])
     gemm_routes["load_serve"] = dict(load_routes["gemm"])
 
-    # ---- 43. the kernels line ----
-    section("43. the kernels line")
+    # ---- 43. multi-tenant residency ----
+    section("43. multi-tenant residency")
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt_mesh = make_mesh(1)
+    mt_payload = MT_N * MT_N * 2
+    mt_routes = {"gemv": Counter(), "gemm": Counter(), "quant_gemv": Counter()}
+    mt_counts = Counter()
+
+    def mt_routed(name: str, fn):
+        """fn() with the launch counts set to 0 just before it and read just
+        after; the launches go to the kernels line's multitenant paths."""
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        for kernel, wrapper in (("gemv", gemv_cuda), ("gemm", gemm_cuda),
+                                ("quant_gemv", quant_gemv_cuda)):
+            mt_routes[kernel].update(wrapper.route_launches)
+            mt_counts[(kernel, name)] += wrapper.launches
+        return out
+
+    # The pinned host-to-card copy probe, in this run: what a swap-in from
+    # page-locked memory could reach.
+    probe_host = torch.empty(MT_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    probe_dev = torch.empty(MT_PROBE_BYTES, dtype=torch.uint8, device=dev)
+    pinned_ms = event_ms(lambda: probe_dev.copy_(probe_host, non_blocking=True), reps=3)
+    pinned_gbps = MT_PROBE_BYTES / (pinned_ms * 1e-3) / 1e9
+    del probe_host, probe_dev
+    torch.cuda.empty_cache()
+
+    # Every placement a registry makes goes through ensure_resident: time
+    # each one that places, from an idle stream to the copy's end.
+    swap_s: list[float] = []
+    ensure_resident = MatvecEngine.ensure_resident
+
+    def timed_ensure_resident(self):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        placed = ensure_resident(self)
+        torch.cuda.synchronize(dev)
+        if placed:
+            swap_s.append(time.perf_counter() - t0)
+        return placed
+
+    MatvecEngine.ensure_resident = timed_ensure_resident
+
+    def swap_stats(seconds: list[float], nbytes: int) -> dict:
+        return {"swap_ins_timed": len(seconds), "swap_in_s": seconds,
+                "swap_in_median_s": statistics.median(seconds),
+                "swap_in_gbps_median": nbytes / statistics.median(seconds) / 1e9,
+                "pinned_probe_gbps": pinned_gbps,
+                "share_of_pinned_probe": nbytes / statistics.median(seconds) / 1e9
+                / pinned_gbps}
+
+    try:
+        # (a) The eviction smoke: three tenants under a budget of two.
+        mt_x = torch.from_numpy(
+            np.random.default_rng(args.seed + 16).uniform(0, 10, MT_N)).to(torch.bfloat16)
+        freed: list[dict] = []
+        mt_allocated = [0]
+
+        def on_evict(victim, caused_by, score, restore_bytes):
+            torch.cuda.synchronize(dev)
+            freed.append({"victim": victim, "caused_by": caused_by,
+                          "freed_bytes": mt_allocated[0] - torch.cuda.memory_allocated(dev)})
+
+        reg = MatrixRegistry(mt_mesh, hbm_budget=MT_SMOKE_BUDGET * mt_payload,
+                             eviction_listener=on_evict, strategy="blockwise",
+                             kernel="cuda", promote=None)
+        mt_rel = {}
+        t0 = time.perf_counter()
+        for i in range(MT_SMOKE_TENANTS):
+            a = resident_matrix(MT_N, MT_N, torch.bfloat16, dev, args.seed + 20 + i)
+            ref = gemv_plain(a, mt_x.to(dev))
+            bound = gemv_plain(a, mt_x.to(dev).abs())
+            reg.register(f"t{i}", a)
+            del a
+            mt_rel[f"t{i}"] = (ref.cpu(), bound.cpu())
+        register_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        first, served, ledger_ok = {}, [], True
+        swaps_before = len(swap_s)
+        for tid in (f"t{i}" for i in MT_SMOKE_ORDER):
+            torch.cuda.synchronize(dev)
+            mt_allocated[0] = torch.cuda.memory_allocated(dev)
+            y = mt_routed("multitenant", lambda: reg.submit(tid, mt_x).result())
+            if tid not in first:
+                ref, bound = mt_rel[tid]
+                err = ((y.float() - ref).abs() / bound).max().item()
+                check(err <= 2 ** -7, f"multitenant: {tid}'s result {err} from the fp32 product")
+                first[tid] = y
+            else:
+                check(torch.equal(y, first[tid]),
+                      f"multitenant: {tid}'s re-admitted result is not bitwise its first")
+            gauges = reg.metrics.snapshot()["gauges"]
+            engines = [reg._entry(f"t{i}").engine for i in range(MT_SMOKE_TENANTS)]
+            ledger_ok &= (gauges["registry_hbm_charged_bytes"]
+                          == sum(e.device_resident_bytes for e in engines))
+            served.append(tid)
+        check(ledger_ok, "multitenant: registry_hbm_charged_bytes is not the sum of "
+              "the tenants' device_resident_bytes")
+        check(len(first) == MT_SMOKE_TENANTS
+              and not any(torch.equal(first[s], first[t]) for s in first for t in first
+                          if s < t),
+              "multitenant: two tenants served the same result")
+        check(len(freed) == len(MT_SMOKE_ORDER) - MT_SMOKE_BUDGET
+              and all(f["freed_bytes"] >= mt_payload for f in freed),
+              f"multitenant: evictions {freed} did not each free {mt_payload} bytes")
+        check(set(mt_routes["gemv"]) == {"rows"} and not mt_routes["quant_gemv"],
+              f"multitenant: GEMV routes {dict(mt_routes['gemv'])}")
+        health = reg.health()
+        smoke_swaps = swap_s[swaps_before:]
+        emit({"phase": "multitenant", "shape": [MT_N, MT_N], "dtype": "bfloat16",
+              "strategy": "blockwise", "tenants": MT_SMOKE_TENANTS,
+              "budget_payloads": MT_SMOKE_BUDGET, "order": served,
+              "register_s": register_s, "evictions": freed,
+              "payload_bytes": mt_payload, "readmissions_bitwise": True,
+              "ledger_equals_device_resident_bytes": True, "hbm": health["hbm"],
+              "gemv_routes": dict(mt_routes["gemv"]),
+              "launches": mt_counts[("gemv", "multitenant")],
+              **swap_stats(smoke_swaps, mt_payload)})
+        reg.close()
+        del reg, first, mt_rel, y
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) The trace, through the bench's entry point.
+        trace_results = []
+        swaps_before = len(swap_s)
+        metrics_path = Path(tempfile.mkdtemp()) / "multitenant_metrics.json"
+        trace = mt_routed("multitenant_trace", lambda: run_serve_multitenant(
+            "blockwise", mt_mesh, MT_N, MT_N, dtype="bfloat16", kernel="cuda",
+            n_tenants=MT_TRACE_TENANTS, zipf_a=MT_ZIPF_A, hbm_budget=MT_TRACE_BUDGET,
+            pin_hot=MT_PIN_HOT, n_requests=MT_TRACE_REQUESTS, seed=args.seed,
+            metrics_out=str(metrics_path),
+            on_result=lambda tid, x, y: trace_results.append((tid, x, y))))
+        trace_swaps = swap_s[swaps_before:]
+        counters = json.loads(metrics_path.read_text())["counters"]
+        shutil.rmtree(metrics_path.parent, ignore_errors=True)
+        all_row = trace.rows[-1]
+        check(len(trace_results) == MT_TRACE_REQUESTS and all_row.failed_requests == 0,
+              f"multitenant_trace: {len(trace_results)} served, {all_row}")
+        check(trace.hit_rate == trace.lru_floor,
+              f"multitenant_trace: hit rate {trace.hit_rate} != LRU floor {trace.lru_floor}")
+        trace_err = 0.0
+        for i in range(MT_TRACE_TENANTS):
+            tid = f"tenant-{i}"
+            mine = [(x, y) for t, x, y in trace_results if t == tid]
+            if not mine:
+                continue
+            a = resident_matrix(MT_N, MT_N, torch.bfloat16, dev, args.seed + i)
+            refs = {}
+            for x, y in mine:
+                key = x.view(torch.int16).numpy().tobytes()
+                if key not in refs:
+                    xd = x.to(dev)
+                    refs[key] = (gemv_plain(a, xd).cpu(), gemv_plain(a, xd.abs()).cpu())
+                ref, bound = refs[key]
+                trace_err = max(trace_err, ((y.float() - ref).abs() / bound).max().item())
+            del a
+        check(trace_err <= 2 ** -7, f"multitenant_trace: {trace_err} from the fp32 product")
+        check(set(mt_routes["gemv"]) == {"rows"},
+              f"multitenant_trace: GEMV routes {dict(mt_routes['gemv'])}")
+        emit({"phase": "multitenant_trace", "shape": [MT_N, MT_N], "dtype": "bfloat16",
+              "strategy": "blockwise", "tenants": MT_TRACE_TENANTS, "zipf_a": MT_ZIPF_A,
+              "hbm_budget": trace.hbm_budget, "budget_tenants": trace.budget_tenants,
+              "pin_hot": MT_PIN_HOT, "requests": MT_TRACE_REQUESTS,
+              "hit_rate": trace.hit_rate, "lru_floor": trace.lru_floor,
+              "evictions": all_row.evictions,
+              "swap_ins": counters.get("registry_swap_ins_total", 0),
+              "wall_s": trace.wall_s, "req_per_s": trace.rps,
+              "max_err_vs_fp32_product": trace_err, "tolerance": 2 ** -7,
+              "per_tenant": {r.tenant: {"requests": r.requests, "hits": r.hits,
+                                        "evictions": r.evictions}
+                             for r in trace.rows[:-1]},
+              "launches": mt_counts[("gemv", "multitenant_trace")],
+              **swap_stats(trace_swaps, mt_payload)})
+        del trace_results
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) Isolation: faults on tenant-1, a quota on tenant-2.
+        iso = mt_routed("multitenant_isolation", lambda: run_serve_multitenant(
+            "blockwise", mt_mesh, MT_N, MT_N, dtype="bfloat16", kernel="cuda",
+            n_tenants=MT_TRACE_TENANTS, zipf_a=MT_ZIPF_A, hbm_budget=MT_TRACE_BUDGET,
+            n_requests=MT_CHAOS_REQUESTS, seed=args.seed, fault_spec=MT_CHAOS_FAULT,
+            tenant_quota=MT_CHAOS_QUOTA))
+        by_tenant = {r.tenant: r for r in iso.rows}
+        check(by_tenant["tenant-1"].availability == 0.0
+              and by_tenant["tenant-2"].quota_rejections > 0
+              and all(by_tenant[t].availability == 1.0 for t in ("tenant-0", "tenant-3")),
+              f"multitenant_isolation: {iso.rows}")
+        emit({"phase": "multitenant_isolation", "shape": [MT_N, MT_N], "dtype": "bfloat16",
+              "fault_spec": MT_CHAOS_FAULT, "tenant_quota": MT_CHAOS_QUOTA,
+              "requests": MT_CHAOS_REQUESTS, "wall_s": iso.wall_s,
+              "per_tenant": {r.tenant: {"requests": r.requests,
+                                        "availability": r.availability,
+                                        "failed": r.failed_requests,
+                                        "quota_rejections": r.quota_rejections,
+                                        "evictions": r.evictions}
+                             for r in iso.rows},
+              "launches": mt_counts[("gemv", "multitenant_isolation")]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) Quantized tenants: two int8c residents under a budget of one.
+        q_block = default_block(MT_QUANT_N, 1)
+        q_bytes = 2 * MT_QUANT_N * MT_QUANT_N + 2 * MT_QUANT_N * (MT_QUANT_N // q_block) * 4
+        q_x = torch.from_numpy(
+            np.random.default_rng(args.seed + 17).uniform(0, 10, MT_QUANT_N)).float()
+        qreg = MatrixRegistry(mt_mesh, hbm_budget=q_bytes, strategy="blockwise",
+                              kernel="cuda", promote=None, dtype_storage="int8c")
+        for i in range(2):
+            qreg.register(f"q{i}", resident_matrix(MT_QUANT_N, MT_QUANT_N, torch.float32,
+                                                   dev, args.seed + 30 + i))
+        torch.cuda.empty_cache()
+        q_first, q_charged = {}, []
+        swaps_before = len(swap_s)
+        for tid in (f"q{i}" for i in MT_QUANT_ORDER):
+            y = mt_routed("multitenant_quant", lambda: qreg.submit(tid, q_x).result())
+            engine = qreg._entry(tid).engine
+            q_charged.append(qreg.tenant_stats(tid)["resident_bytes"])
+            if tid not in q_first:
+                plain = quant_gemv_plain(engine_payload(engine), q_x.to(dev)).cpu()
+                rel = ((y - plain).abs() / plain.abs()).max().item()
+                check(rel <= 1e-4, f"multitenant_quant: {tid} {rel} from its plain version")
+                q_first[tid] = y
+            else:
+                check(torch.equal(y, q_first[tid]),
+                      f"multitenant_quant: {tid}'s re-admitted result is not bitwise its first")
+        check(all(c == q_bytes for c in q_charged),
+              f"multitenant_quant: charged {q_charged}, payload and scales {q_bytes}")
+        check(set(mt_routes["quant_gemv"]) == {"wgmma_split"},
+              f"multitenant_quant: routes {dict(mt_routes['quant_gemv'])}")
+        q_health = qreg.health()
+        emit({"phase": "multitenant_quant", "shape": [MT_QUANT_N, MT_QUANT_N],
+              "dtype": "float32", "storage": "int8c", "block": q_block,
+              "budget_bytes": q_bytes, "charged_bytes": q_charged,
+              "payload_and_scales_bytes": q_bytes, "readmissions_bitwise": True,
+              "evictions": sum(s["evictions"] for s in q_health["tenants"].values()),
+              "quant_routes": dict(mt_routes["quant_gemv"]),
+              "launches": mt_counts[("quant_gemv", "multitenant_quant")],
+              **swap_stats(swap_s[swaps_before:], q_bytes)})
+        qreg.close()
+        del qreg, q_first, y
+    finally:
+        MatvecEngine.ensure_resident = ensure_resident
+    gc.collect()
+    torch.cuda.empty_cache()
+    for (kernel, name), n in mt_counts.items():
+        if n:
+            if kernel == "quant_gemv":
+                quant_launches[name] = n
+            else:
+                launches_by_path[kernel][name] = n
+    gemv_routes["multitenant"] = dict(mt_routes["gemv"])
+    quant_routes["multitenant_quant"] = dict(mt_routes["quant_gemv"])
+
+    # ---- 44. the kernels line ----
+    section("44. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -4109,8 +4415,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 44. result ----
-    section("44. result")
+    # ---- 45. result ----
+    section("45. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -29,6 +29,9 @@ _EXPORTS = {
     "make_1d_mesh": (".parallel.mesh", "make_1d_mesh"),
     "build_ring_attention": (".parallel.attention", "build_ring_attention"),
     "build_ulysses_attention": (".parallel.attention", "build_ulysses_attention"),
+    "MatrixRegistry": (".engine", "MatrixRegistry"),
+    "TenantHandle": (".engine", "TenantHandle"),
+    "TenantQuota": (".engine", "TenantQuota"),
     "io": (".utils.io", None),
     "MatvecError": (".utils.errors", "MatvecError"),
     "ShardingError": (".utils.errors", "ShardingError"),

@@ -42,8 +42,24 @@ Rows land in ``data/out/serve_<strategy>.csv`` under the JAX package's
 header, byte for byte. ``--dtype-storage int8|int8c|fp8`` serves from a
 quantized resident (the row records the resolved format and the engine's
 resident bytes). Columns of modes the port does not have yet (speculative)
-carry the JAX package's defaults; the multi-tenant and drift flags
-(``--tenants``, ``--poison-tenant``, ``--reshard``) raise ``ConfigError``.
+carry the JAX package's defaults.
+
+**Multi-tenant trace mode** (:func:`run_serve_multitenant`, ``--tenants
+N``): N seeded tenant matrices registered in a
+:class:`~..engine.MatrixRegistry` against ``--hbm-budget`` (bytes, or a
+payload multiple like ``2x``), driven by a Zipf(``--zipf-a``)
+tenant-popularity trace of ``--n-requests`` vector requests, with
+``--pin-hot K`` warm-pinned tenants and ``--tenant-quota`` admission
+quotas. The chaos overlay applies per tenant: ``--fault-spec`` patterns may
+target one tenant (``key=tenant-1/*``) and ``--poison-tenant`` confines
+``--poison-rate`` to one tenant's requests. ``--deadline-ms`` paces the
+trace at ``--rate`` req/s with deadlines anchored at each request's
+scheduled arrival, and ``--max-in-flight`` arms each tenant engine's
+backpressure gate. One row per tenant plus an ``ALL`` row land in
+``serve_tenants_<strategy>.csv`` under the JAX package's header. The global
+scheduler's flags (``--global-sched``, ``--demand-weight``,
+``--decision-jsonl``) and the drift mode (``--reshard``) wait for ROADMAP.md
+queue A 2 and raise ``ConfigError``.
 
 ``--op cg|gmres|power|lanczos|chebyshev`` serves ANSWERS instead
 (:func:`run_serve_solver`): each request is one solve against the seeded SPD
@@ -65,6 +81,9 @@ Usage::
         --sizes 65536 --dtype bfloat16 --concurrency 8 \\
         --fault-spec 'dispatch:device_error:p=0.05' --poison-rate 0.02 \\
         --slo-out slo.json --flight-dir flight/
+    python -m matvec_mpi_multiplier_torch.bench.serve --strategy blockwise \\
+        --sizes 65536 --dtype bfloat16 --devices 1 --tenants 4 --zipf-a 1.1 \\
+        --hbm-budget 2x --pin-hot 1 --n-requests 120
 
     # or through the sweep CLI:
     python -m matvec_mpi_multiplier_torch.bench.sweep --op serve ...
@@ -88,6 +107,7 @@ import numpy as np
 import torch
 
 from ..engine.core import DEFAULT_SOLVER_MAXITER, SOLVER_KERNELS, MatvecEngine
+from ..engine.registry import MatrixRegistry, TenantQuota
 from ..engine.scheduler import DEFAULT_MAX_WINDOW_MS, ArrivalWindowScheduler
 from ..models import available_strategies
 from ..models.base import not_ported
@@ -1090,6 +1110,522 @@ def run_serve_solver(
     )
 
 
+# ---- multi-tenant trace mode (engine/registry.py) ----
+
+MULTITENANT_CSV_HEADER = (
+    "n_rows, n_cols, n_devices, strategy, dtype, n_tenants, zipf_a, "
+    "hbm_budget, budget_tenants, n_requests, wall_s, rps, hit_rate, "
+    "lru_floor, global_sched, deadline_ms, deadline_expires, on_time, "
+    "p50_e2e_ms, p99_e2e_ms, tenant, requests, hits, tenant_hit_rate, "
+    "evictions, evictions_caused, quota_rejections, failed_requests, "
+    "rejected, availability, resident_bytes, pinned"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantRow:
+    """Per-tenant outcome of one multi-tenant trace (one CSV row)."""
+
+    tenant: str
+    requests: int
+    hits: int
+    evictions: int
+    evictions_caused: int
+    quota_rejections: int
+    failed_requests: int
+    resident_bytes: int
+    pinned: int
+    # Requests a scheduler's admission refused (typed, pre-dispatch). The
+    # global scheduler that refuses them waits for ROADMAP.md queue A 2,
+    # so the port's rows carry 0.
+    rejected: int = 0
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / self.requests if self.requests else float("nan")
+
+    @property
+    def availability(self) -> float:
+        """Share of this tenant's offered requests that neither faulted nor
+        expired (quota rejections, deadline expires and fault failures all
+        count against it — the tenant-visible downtime)."""
+        if self.requests == 0:
+            return float("nan")
+        return (self.requests - self.failed_requests) / self.requests
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiTenantResult:
+    """One multi-tenant trace: run-level fields plus the per-tenant rows
+    (``rows`` ends with the aggregate ``ALL`` row)."""
+
+    n_rows: int
+    n_cols: int
+    n_devices: int
+    strategy: str
+    dtype: str
+    n_tenants: int
+    zipf_a: float
+    hbm_budget: int           # 0 = unlimited
+    budget_tenants: int       # payloads that fit (a sub-payload budget is 0)
+    n_requests: int
+    wall_s: float
+    hit_rate: float           # registry-wide: hits / submits
+    lru_floor: float          # plain-LRU replay of the same trace
+    rows: tuple[TenantRow, ...]
+    # The deadline overlay's columns: deadline_expires counts requests that
+    # expired in an engine's gate; p50/p99 are end to end (scheduled arrival
+    # to materialized result) over served requests, NaN without deadlines.
+    # global_sched is always False here (ROADMAP.md queue A 2).
+    global_sched: bool = False
+    deadline_ms: float = float("nan")
+    deadline_expires: int = 0
+    p50_e2e_ms: float = float("nan")
+    p99_e2e_ms: float = float("nan")
+    # Served requests whose end-to-end latency landed inside the deadline.
+    on_time: int = 0
+
+    @property
+    def rps(self) -> float:
+        return self.n_requests / self.wall_s if self.wall_s > 0 else float("nan")
+
+
+def multitenant_csv_path(strategy: str, root=None):
+    from .metrics import out_dir
+
+    return out_dir(root) / f"serve_tenants_{strategy}.csv"
+
+
+def append_multitenant_result(result: MultiTenantResult, root=None):
+    from ..parallel.distributed import is_main_process
+    from .metrics import _append_row
+
+    path = multitenant_csv_path(result.strategy, root)
+    if not is_main_process():
+        return path
+    prefix = (
+        f"{result.n_rows}, {result.n_cols}, {result.n_devices}, "
+        f"{result.strategy}, {result.dtype}, {result.n_tenants}, "
+        f"{result.zipf_a:.3f}, {result.hbm_budget}, "
+        f"{result.budget_tenants}, {result.n_requests}, "
+        f"{result.wall_s:.6f}, {result.rps:.2f}, {result.hit_rate:.4f}, "
+        f"{result.lru_floor:.4f}, {int(result.global_sched)}, "
+        f"{result.deadline_ms:.3f}, {result.deadline_expires}, "
+        f"{result.on_time}, "
+        f"{result.p50_e2e_ms:.4f}, {result.p99_e2e_ms:.4f}"
+    )
+    for row in result.rows:
+        _append_row(
+            path, MULTITENANT_CSV_HEADER,
+            f"{prefix}, {row.tenant}, {row.requests}, {row.hits}, "
+            f"{row.hit_rate:.4f}, {row.evictions}, {row.evictions_caused}, "
+            f"{row.quota_rejections}, {row.failed_requests}, "
+            f"{row.rejected}, {row.availability:.4f}, "
+            f"{row.resident_bytes}, {row.pinned}",
+        )
+    return path
+
+
+def parse_hbm_budget(text: str | None, payload_bytes: int) -> int | None:
+    """``--hbm-budget`` grammar: plain bytes (``2097152``), or a payload
+    multiple (``2.5x`` = room for 2.5 tenants of this run's shape). None/0
+    = unlimited."""
+    if text is None:
+        return None
+    text = str(text).strip()
+    if text.endswith(("x", "X")):
+        budget = int(float(text[:-1]) * payload_bytes)
+    else:
+        budget = int(float(text))
+    if budget < 0:
+        raise ConfigError(f"hbm budget must be >= 0, got {text!r}")
+    return budget or None
+
+
+def parse_tenant_quota(text: str | None) -> dict[str, int] | int | None:
+    """``--tenant-quota`` grammar: a bare int (every tenant's
+    ``max_in_flight``) or ``tenant-0=4,tenant-3=8`` (named tenants only —
+    the chaos overlay's quota pressure on one tenant)."""
+    if text is None:
+        return None
+    text = text.strip()
+    if "=" not in text:
+        return int(text)
+    quotas: dict[str, int] = {}
+    for item in text.split(","):
+        if "=" not in item:
+            raise ConfigError(
+                f"tenant quota item {item!r} must be tenant=max_in_flight"
+            )
+        tid, value = (part.strip() for part in item.split("=", 1))
+        quotas[tid] = int(value)
+    return quotas
+
+
+def _zipf_probs(n_tenants: int, zipf_a: float) -> np.ndarray:
+    """Bounded Zipf over tenant ranks: ``p(i) ∝ (i+1)^-a`` — rank 0 is the
+    hottest tenant."""
+    ranks = np.arange(1, n_tenants + 1, dtype=np.float64)
+    probs = ranks ** -float(zipf_a)
+    return probs / probs.sum()
+
+
+def lru_hit_floor(
+    tenant_seq: Sequence[int], capacity: int | None,
+    pinned: Sequence[int] = (),
+) -> float:
+    """Replay the tenant sequence through plain LRU with ``capacity``
+    resident slots (None = unlimited; 0 = a real budget too small for one
+    payload — every unpinned access misses) and a pre-admitted pinned set
+    (pins take slots and always hit) — the hit-rate floor the registry's
+    cost-aware policy must meet on the same trace. For homogeneous tenants
+    the registry's score reduces to exactly LRU, so measured == floor
+    there."""
+    if not len(tenant_seq):
+        return float("nan")
+    pinned_set = set(pinned)
+    slots = None if capacity is None else max(0, capacity - len(pinned_set))
+    resident: list[int] = []  # LRU order: least recent first
+    hits = 0
+    for t in tenant_seq:
+        if t in pinned_set:
+            hits += 1
+            continue
+        if t in resident:
+            hits += 1
+            resident.remove(t)
+        elif slots is not None and slots == 0:
+            continue  # every slot pinned: a perpetual (counted) overshoot
+        elif slots is not None and len(resident) >= slots:
+            resident.pop(0)
+        resident.append(t)
+    return hits / len(tenant_seq)
+
+
+def run_serve_multitenant(
+    strategy_name: str,
+    mesh: Mesh,
+    m: int,
+    k: int,
+    *,
+    dtype: str = "float32",
+    kernel: str = "cuda",
+    combine: str | None = None,
+    stages: int | None = None,
+    dtype_storage: str | None = None,
+    n_tenants: int = 8,
+    zipf_a: float = 1.1,
+    hbm_budget: str | int | None = None,
+    pin_hot: int = 0,
+    tenant_quota: str | int | dict | None = None,
+    n_requests: int = 200,
+    max_bucket: int = 32,
+    promote: str | int | None = None,
+    donate: bool = True,
+    seed: int = 0,
+    metrics_out: str | None = None,
+    fault_spec: str | None = None,
+    fault_seed: int = 0,
+    poison_rate: float = 0.0,
+    poison_tenant: str | None = None,
+    integrity_gate: bool = False,
+    resilience: bool | None = None,
+    breaker_reset_s: float = 30.0,
+    deadline_ms: float | None = None,
+    rate: float | None = None,
+    max_in_flight: int | None = None,
+    on_result=None,
+    global_sched: bool = False,
+    demand_weight: float = 0.0,
+    decision_jsonl: str | None = None,
+    reshard: str = "off",
+) -> MultiTenantResult:
+    """Run the multi-tenant trace protocol for one (strategy, shape, mesh)
+    config: ``n_tenants`` seeded matrices (:func:`resident_matrix` on the
+    mesh's first device, seeds ``seed + i``) registered against
+    ``hbm_budget``, driven by a Zipf(``zipf_a``) tenant-popularity trace of
+    ``n_requests`` vector requests (the JAX package's trace, draw for
+    draw). Submits are issued in trace order and materialized at the end —
+    outstanding futures are what the ``max_in_flight`` quotas meter, and
+    eviction under work already queued is what releasable residency must
+    survive. ``on_result(tenant_id, x, y)`` is called for every served
+    request after the timed phase, with the host request and result.
+
+    Chaos overlay: ``fault_spec`` patterns may target one tenant
+    (``key=tenant-0/*``), ``tenant_quota`` may throttle one tenant, and
+    ``poison_rate``/``poison_tenant`` plant the poison signature on a
+    seeded share of one tenant's requests (every tenant's when
+    ``poison_tenant`` is None).
+
+    With ``deadline_ms`` the trace becomes an SLO overlay: arrivals are
+    paced at ``rate`` req/s (a burst when None), each request's deadline is
+    anchored at its SCHEDULED arrival, results are drained concurrently,
+    and the result carries end-to-end p50/p99 over served requests.
+    ``max_in_flight`` arms the engines' backpressure gate.
+
+    ``global_sched``, ``demand_weight``, ``decision_jsonl`` and
+    ``reshard="auto"`` belong to the global scheduler (ROADMAP.md queue A
+    2) and raise ``ConfigError``."""
+    if global_sched:
+        raise not_ported("global_sched=True (the global scheduler, ROADMAP.md queue A 2)")
+    if demand_weight:
+        raise not_ported("demand_weight (the global scheduler, ROADMAP.md queue A 2)")
+    if decision_jsonl is not None:
+        raise not_ported("decision_jsonl (the global scheduler, ROADMAP.md queue A 2)")
+    if reshard != "off":
+        raise not_ported(f"reshard={reshard!r} (the global scheduler, ROADMAP.md queue A 2)")
+    if n_tenants < 1:
+        raise ConfigError(f"n_tenants must be >= 1, got {n_tenants}")
+    if not (0 <= pin_hot <= n_tenants):
+        raise ConfigError(f"pin_hot must be in [0, {n_tenants}], got {pin_hot}")
+    if not (0.0 <= poison_rate <= 1.0):
+        raise ConfigError(f"poison_rate must be in [0, 1], got {poison_rate}")
+    tenant_ids = [f"tenant-{i}" for i in range(n_tenants)]
+    if poison_tenant is not None and poison_tenant not in tenant_ids:
+        raise ConfigError(
+            f"poison_tenant {poison_tenant!r} is not one of the "
+            f"{n_tenants} registered tenants"
+        )
+    registry_metrics = MetricsRegistry()
+    chaos = fault_spec is not None or poison_rate > 0
+    specs = (parse_fault_spec(fault_spec, seed=fault_seed).specs
+             if fault_spec is not None else ())
+    if poison_rate > 0:
+        # Poison faults stay payload-scoped (they never open breakers); the
+        # key narrows the blast radius to the targeted tenant's labels.
+        specs = specs + (FaultSpec(
+            site="dispatch", kind="device_error", poison=POISON_SIGNATURE,
+            key=f"{poison_tenant}/*" if poison_tenant else "*",
+        ),)
+    plan = FaultPlan(specs, seed=fault_seed) if specs else None
+    if resilience is None:
+        resilience = chaos
+    policy = (ResiliencePolicy(retry=RetryPolicy(seed=fault_seed),
+                               breaker_reset_s=breaker_reset_s)
+              if resilience else None)
+    tdtype = torch_dtype(dtype)
+    # Budget multiples are in NATIVE payloads; quantized tenants' real
+    # payload bytes land in the accountant either way.
+    native_payload = m * k * torch.empty((), dtype=tdtype).element_size()
+    budget = parse_hbm_budget(hbm_budget, native_payload)
+    quotas = (parse_tenant_quota(tenant_quota) if isinstance(tenant_quota, str)
+              else tenant_quota)
+
+    registry = MatrixRegistry(
+        mesh, hbm_budget=budget, metrics=registry_metrics, fault_plan=plan,
+        resilience=policy, integrity_gate=integrity_gate,
+        strategy=strategy_name, kernel=kernel, combine=combine, stages=stages,
+        dtype_storage=dtype_storage, dtype=tdtype, max_bucket=max_bucket,
+        promote=promote, donate=donate, max_in_flight=max_in_flight,
+    )
+    payload_bytes = 0
+    served: list[tuple[str, object, object]] = []
+    try:
+        for i, tid in enumerate(tenant_ids):
+            q = quotas.get(tid) if isinstance(quotas, dict) else quotas
+            registry.register(
+                tid, resident_matrix(m, k, tdtype, mesh.devices[0], seed + i),
+                quota=TenantQuota(max_in_flight=q) if q else None,
+            )
+            if i == 0:
+                payload_bytes = registry.tenant_stats(tid)["payload_bytes"]
+
+        # ---- warmup: the shared functions once (no placement), spared
+        # from the chaos plan ----
+        if plan is not None:
+            plan.disarm()
+        registry.warmup(widths=[1])
+        if plan is not None:
+            plan.arm()
+        for i in range(pin_hot):
+            registry.pin(tenant_ids[i])
+
+        # ---- the Zipf trace (the JAX package's draws) ----
+        rng = np.random.default_rng(seed + 2)
+        tenant_seq = rng.choice(n_tenants, size=n_requests,
+                                p=_zipf_probs(n_tenants, zipf_a))
+        xpool = [torch.from_numpy(rng.standard_normal(k)).to(tdtype) for _ in range(4)]
+        poison_idx: set[int] = set()
+        if poison_rate > 0:
+            target = [j for j, t in enumerate(tenant_seq)
+                      if poison_tenant is None or tenant_ids[t] == poison_tenant]
+            if target:
+                prng = np.random.default_rng(seed + 4)
+                n_poison = min(len(target), max(1, round(poison_rate * len(target))))
+                poison_idx = {int(j) for j in
+                              prng.choice(target, size=n_poison, replace=False)}
+        failed = [0] * n_tenants
+        e2e_hist = registry_metrics.histogram(
+            "serve_e2e_latency_ms",
+            "scheduled-arrival to materialized-result host time over served "
+            "requests (deadline overlay)",
+            window=max(n_requests, 1),
+        )
+        on_time = [0]
+
+        def request(j: int):
+            x = xpool[j % len(xpool)]
+            if j in poison_idx:
+                x = x.clone()
+                x[0] = POISON_SIGNATURE
+            return x
+
+        def consume(t: int, x, fut, arrival: float | None) -> None:
+            try:
+                y = fut.result()
+            except MatvecError:
+                failed[t] += 1
+                return
+            if arrival is not None:
+                lat_ms = (time.perf_counter() - arrival) * 1e3
+                e2e_hist.observe(lat_ms)
+                if deadline_ms is not None and lat_ms <= deadline_ms:
+                    on_time[0] += 1  # SLO goodput, not just served
+            if on_result is not None:
+                served.append((tenant_ids[t], x, y))
+
+        start = time.perf_counter()
+        if deadline_ms is None:
+            # Submit in trace order, materialize once.
+            futures = []
+            for j, t in enumerate(tenant_seq):
+                x = request(j)
+                try:
+                    futures.append((int(t), x, registry.submit(tenant_ids[t], x)))
+                except MatvecError:
+                    # Uncoalesced dispatch faults surface at submit; the
+                    # trace goes on — availability is the measurement.
+                    failed[t] += 1
+            for t, x, fut in futures:
+                consume(t, x, fut, None)
+        else:
+            # Paced arrivals, deadlines anchored at the SCHEDULED arrival
+            # (loop lag consumes deadline budget), results drained
+            # concurrently so end-to-end latency is per request.
+            gap_s = (1.0 / rate) if rate else 0.0
+            results: queue.Queue = queue.Queue()
+
+            def drainer() -> None:
+                while (item := results.get()) is not None:
+                    consume(*item)
+
+            drain_thread = threading.Thread(target=drainer, daemon=True)
+            drain_thread.start()
+            try:
+                for j, t in enumerate(tenant_seq):
+                    x = request(j)
+                    arrival = start + j * gap_s
+                    while (now := time.perf_counter()) < arrival:
+                        time.sleep(min(arrival - now, 5e-4))
+                    remaining = (arrival + deadline_ms / 1e3 - time.perf_counter()) * 1e3
+                    try:
+                        fut = registry.submit(tenant_ids[t], x, deadline_ms=remaining)
+                    except MatvecError:
+                        failed[t] += 1
+                        continue
+                    results.put((int(t), x, fut, arrival))
+            finally:
+                results.put(None)
+                drain_thread.join()
+        wall = time.perf_counter() - start
+
+        health = registry.health()
+        if metrics_out is not None:
+            dump_json(metrics_out, registry_metrics.snapshot())
+    finally:
+        registry.close()
+    if on_result is not None:
+        for tid, x, y in served:
+            on_result(tid, x, y)
+
+    # capacity 0 with a budget set is a REAL (sub-payload) budget, not
+    # unlimited: the floor and the summary line keep the two apart.
+    capacity = (budget // payload_bytes) if budget else 0
+    floor = lru_hit_floor(tenant_seq, capacity if budget else None,
+                          pinned=range(pin_hot))
+    offered = np.bincount(tenant_seq, minlength=n_tenants)
+    rows = []
+    for i, tid in enumerate(tenant_ids):
+        stat = health["tenants"][tid]
+        rows.append(TenantRow(
+            tenant=tid, requests=int(offered[i]), hits=stat["hits"],
+            evictions=stat["evictions"], evictions_caused=stat["evictions_caused"],
+            quota_rejections=stat["quota_rejections"], failed_requests=failed[i],
+            resident_bytes=stat["resident_bytes"], pinned=int(stat["pinned"]),
+        ))
+    rows.append(TenantRow(
+        tenant="ALL", requests=n_requests, hits=sum(r.hits for r in rows),
+        evictions=sum(r.evictions for r in rows),
+        evictions_caused=sum(r.evictions_caused for r in rows),
+        quota_rejections=sum(r.quota_rejections for r in rows),
+        failed_requests=sum(r.failed_requests for r in rows),
+        resident_bytes=health["hbm"]["charged_bytes"], pinned=pin_hot,
+    ))
+    counters = registry_metrics.snapshot()["counters"]
+    return MultiTenantResult(
+        n_rows=m, n_cols=k, n_devices=mesh.size, strategy=strategy_name,
+        dtype=dtype, n_tenants=n_tenants, zipf_a=float(zipf_a),
+        hbm_budget=budget or 0, budget_tenants=capacity, n_requests=n_requests,
+        wall_s=wall,
+        hit_rate=rows[-1].hits / n_requests if n_requests else float("nan"),
+        lru_floor=floor, rows=tuple(rows),
+        deadline_ms=float(deadline_ms) if deadline_ms is not None else float("nan"),
+        # Engine-gate deadline failures; warmup submits carry no deadlines.
+        deadline_expires=counters.get("engine_deadline_failures_total", 0),
+        on_time=on_time[0],
+        p50_e2e_ms=e2e_hist.percentile(50), p99_e2e_ms=e2e_hist.percentile(99),
+    )
+
+
+def _run_tenants_config(args, name: str, mesh: Mesh, m: int, k: int, promote) -> bool:
+    """One ``--tenants`` config of the CLI: run the trace, append its rows,
+    print its summary. False when the config cannot run here."""
+    try:
+        result = run_serve_multitenant(
+            name, mesh, m, k, dtype=args.dtype, kernel=args.kernel,
+            combine=getattr(args, "combine", None),
+            stages=getattr(args, "stages", None),
+            dtype_storage=getattr(args, "dtype_storage", None),
+            n_tenants=args.tenants, zipf_a=args.zipf_a,
+            hbm_budget=args.hbm_budget, pin_hot=args.pin_hot,
+            tenant_quota=args.tenant_quota, n_requests=args.n_requests,
+            max_bucket=args.max_bucket, promote=promote, seed=args.seed,
+            metrics_out=getattr(args, "metrics_out", None),
+            fault_spec=getattr(args, "fault_spec", None),
+            fault_seed=getattr(args, "fault_seed", 0),
+            poison_rate=getattr(args, "poison_rate", 0.0) or 0.0,
+            poison_tenant=args.poison_tenant,
+            integrity_gate=getattr(args, "integrity_gate", False),
+            breaker_reset_s=getattr(args, "breaker_reset_s", 30.0),
+            deadline_ms=getattr(args, "deadline_ms", None),
+            rate=(getattr(args, "rate", None)
+                  if getattr(args, "deadline_ms", None) is not None else None),
+            max_in_flight=getattr(args, "max_in_flight", None),
+        )
+    except MatvecError as e:
+        print(f"skip {name} {m}x{k} p={mesh.size}: {e}")
+        return False
+    path = None if args.no_csv else append_multitenant_result(result, args.data_root)
+    all_row = result.rows[-1]
+    deadline_suffix = ""
+    if getattr(args, "deadline_ms", None) is not None:
+        deadline_suffix = (f" deadline={result.deadline_ms:.1f}ms "
+                           f"expires={result.deadline_expires} "
+                           f"p99={result.p99_e2e_ms:.2f}ms")
+    print(
+        f"serve-tenants {name} {m}x{k} p={mesh.size} "
+        f"tenants={result.n_tenants} zipf_a={result.zipf_a} "
+        f"budget={result.budget_tenants if result.hbm_budget else 'inf'} "
+        f"{result.rps:.1f} req/s hit={result.hit_rate:.3f} "
+        f"(lru floor {result.lru_floor:.3f}) evictions={all_row.evictions} "
+        f"quota_rej={all_row.quota_rejections} ok={all_row.availability:.3f}"
+        + deadline_suffix
+    )
+    if path is not None:
+        print(f"CSV: {path}")
+    return True
+
+
 def _run_solver_config(args, name: str, mesh: Mesh, n: int) -> bool:
     """One ``--op <solver>`` config of :func:`run_serve_sweep`: run, write
     the row, print the summary. False when the config was skipped."""
@@ -1196,22 +1732,26 @@ def _run_load_configs(args, name: str, mesh: Mesh, m: int, k: int, promote,
     return n_done
 
 
-# The flags that select the JAX package's multi-tenant and reshard modes,
-# with their defaults: any other value raises. --tenants, --poison-tenant
-# (the isolation overlay's per-tenant poison) and --reshard (the
-# scheduler's drift mode) wait for the registry and the global scheduler
-# (ROADMAP.md, queue A 5). The engine's own reshard() is ported.
+# The flags of the JAX package's global scheduler, with their defaults: any
+# other value raises. The scheduler, its demand-weighted eviction, its
+# decision log and the drift mode (--reshard) wait for ROADMAP.md queue A 2;
+# the engine's own reshard() and MatrixRegistry.reshard are ported.
 _LATER_FLAGS = {
-    "tenants": None, "poison_tenant": None, "reshard": "off",
+    "global_sched": None, "demand_weight": None, "decision_jsonl": None,
+    "reshard": "off",
 }
 
 
 def _check_ported(args: argparse.Namespace) -> None:
     for flag, default in _LATER_FLAGS.items():
         if getattr(args, flag, default) != default:
-            raise not_ported(f"--{flag.replace('_', '-')} (serve mode)")
+            raise not_ported(f"--{flag.replace('_', '-')} (the global scheduler, "
+                             "ROADMAP.md queue A 2)")
     if getattr(args, "dtype_storage", None) == "speculate":
         raise not_ported("--dtype-storage speculate (speculative serving)")
+    if getattr(args, "poison_tenant", None) is not None and not getattr(args, "tenants", None):
+        raise ConfigError("--poison-tenant names a tenant of --tenants mode; "
+                          "pass --tenants N")
 
 
 def tune_serve(
@@ -1309,6 +1849,12 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
             for n_dev in counts:
                 if solver_op != "matvec":
                     n_done += _run_solver_config(args, name, meshes[n_dev], m)
+                    continue
+                if getattr(args, "tenants", None):
+                    # Multi-tenant trace mode takes precedence over the
+                    # load and sequential protocols.
+                    n_done += _run_tenants_config(args, name, meshes[n_dev], m, k,
+                                                  promote)
                     continue
                 if load_mode:
                     n_done += _run_load_configs(args, name, meshes[n_dev], m, k,
@@ -1536,11 +2082,46 @@ def build_parser() -> argparse.ArgumentParser:
         "failure; render with `python -m matvec_mpi_multiplier_torch.obs dump "
         "BUNDLE`",
     )
-    # The JAX package's other modes, kept as flags so that asking for one
+    p.add_argument(
+        "--tenants", type=int, default=None,
+        help="multi-tenant trace mode (engine/registry.py): register N seeded "
+        "tenant matrices in a matrix registry and drive a Zipf-popularity "
+        "trace against --hbm-budget; one CSV row per tenant plus an ALL row "
+        "in serve_tenants_<strategy>.csv. Takes precedence over the load and "
+        "sequential protocols",
+    )
+    p.add_argument(
+        "--zipf-a", type=float, default=1.1,
+        help="with --tenants: Zipf popularity exponent (p(rank) ∝ rank^-a; "
+        "higher = more skew toward hot tenants)",
+    )
+    p.add_argument(
+        "--hbm-budget", default=None, metavar="BYTES|Nx",
+        help="with --tenants: resident-payload budget — plain bytes, or a "
+        "payload multiple like '2.5x' (room for 2.5 tenants of this shape). "
+        "Omit for unlimited (accounting still runs)",
+    )
+    p.add_argument(
+        "--pin-hot", type=int, default=0,
+        help="with --tenants: warm-pin the K most popular tenants "
+        "(eviction-exempt) before the trace",
+    )
+    p.add_argument(
+        "--tenant-quota", default=None, metavar="N|tenant-i=N,...",
+        help="with --tenants: max_in_flight admission quota — a bare int for "
+        "every tenant, or 'tenant-0=4' to throttle named tenants only",
+    )
+    p.add_argument(
+        "--poison-tenant", default=None, metavar="TENANT",
+        help="with --tenants and --poison-rate: plant the poison signature "
+        "only in this tenant's requests",
+    )
+    # The JAX package's global-scheduler flags, kept so that asking for one
     # says it is not ported rather than that the flag is unknown.
-    for flag in ("--reshard", "--poison-tenant"):
-        p.add_argument(flag, default=_LATER_FLAGS[flag[2:].replace("-", "_")])
-    p.add_argument("--tenants", type=int, default=None)
+    p.add_argument("--global-sched", default=None, dest="global_sched")
+    p.add_argument("--demand-weight", default=None, dest="demand_weight")
+    p.add_argument("--decision-jsonl", default=None, dest="decision_jsonl")
+    p.add_argument("--reshard", default="off")
     p.add_argument(
         "--tune", action="store_true",
         help="pre-pass: measure the kernels, stages, combines (matvec and "

@@ -9,8 +9,11 @@ and ``health()``),
 QoS tiers, deadline bypass and batch bisection), ``buckets.py`` (the shape
 ladder) and ``executables.py`` (the per-key program cache). Benchmarked by
 ``bench/serve.py`` (``--op serve``; ``--arrival``/``--concurrency``/
-``--coalesce`` for load). The registry and the global scheduler wait for a
-later slice (ROADMAP.md, queue A 5).
+``--coalesce`` for load) — and ``registry.py`` (the multi-tenant matrix
+registry: many tenants' ``A`` under one device-memory budget, with
+eviction, re-admission, pinning, quotas and tenant-scoped faults; the serve
+bench's ``--tenants``). The global scheduler waits for a later slice
+(ROADMAP.md, queue A 2).
 
 The re-exports resolve lazily (PEP 562), like the package's own.
 """
@@ -40,6 +43,9 @@ _EXPORTS = {
     "QOS_TIERS": ".scheduler",
     "DEFAULT_MAX_WINDOW_MS": ".scheduler",
     "SYSTEMIC_FAILURE_THRESHOLD": ".scheduler",
+    "MatrixRegistry": ".registry",
+    "TenantHandle": ".registry",
+    "TenantQuota": ".registry",
 }
 
 __all__ = list(_EXPORTS)

@@ -118,9 +118,30 @@ error — a kernel's failed build or launch, a CUDA error — reaches the caller
 at once, with no retry elsewhere and no breaker fed. A device fault that
 surfaces later, when ``result()`` copies, is that request's failure.
 
-Left for later slices (ROADMAP.md, queue A items 5, 6 and 9): residency and
-tenancy hooks, speculative submits and lowering fingerprints; their
-arguments raise ``ConfigError``.
+**Releasable residency** (the hooks ``engine/registry.py`` drives): with
+``retain_host=True`` the engine keeps its own host payload (A, or a
+quantized resident's payload and scales), so :meth:`MatvecEngine.
+release_residency` really frees the card's copy and
+:meth:`MatvecEngine.ensure_resident` places it again, bitwise. A release
+drops the resident operands and every program built over them: a captured
+graph holds A's device address, not a reference to A, so no program
+outlives the A it was captured against. The dropped programs are kept until
+the work already queued on them has run; the operands go at once, which
+PyTorch's caching allocator makes safe because it hands a freed block only
+to work later on the same stream, and the engine places and dispatches on
+the current stream only. A dispatch after a release places A again before
+any program is looked up (the dispatch path's self-heal), so the program
+that runs is always one built against the current A. Every change of the
+engine's device footprint reports ``(delta_bytes, reason)`` to the
+optional ``residency_listener`` (``"resident"``, ``"released"``,
+``"native_fallback"``, ``"reshard"``), never while an engine lock is held.
+``label_prefix`` makes the fault sites' labels tenant-scoped, and
+``exec_cache`` shares the strategy's built functions, which hold no A,
+between engines of equal :meth:`MatvecEngine.exec_signature`; the programs
+over A (and their captures) stay each engine's own.
+
+Left for later slices (ROADMAP.md, queue A items 3 and 6): speculative
+submits and lowering fingerprints; their arguments raise ``ConfigError``.
 """
 
 from __future__ import annotations
@@ -151,6 +172,7 @@ from ..ops.gemv import gemv_acc, matmul_acc
 from ..ops.graphs import capture, single_cuda_device
 from ..ops.quantize import (
     NATIVE,
+    QuantizedMatrix,
     default_block,
     fp8_supported,
     get_storage_kernel,
@@ -181,7 +203,12 @@ from ..solvers import (
     build_solver,
     solver_bucket,
 )
-from ..utils.errors import ConfigError, DeadlineExceededError, SolverDivergedError
+from ..utils.errors import (
+    ConfigError,
+    DeadlineExceededError,
+    ResidencyError,
+    SolverDivergedError,
+)
 from .buckets import (
     DEFAULT_MAX_BUCKET,
     bucket_for,
@@ -214,15 +241,11 @@ TRACE_CAPACITY = 256
 # configs a breaker may be routing around.
 SAFE_KERNEL = "torch"
 
-# The JAX package's other constructor arguments, not ported yet: the
-# registry's residency hooks (ROADMAP.md, queue A 5), and the trace ring's
-# size and a private timeline hub, which no caller of the port sets (the
-# ring holds TRACE_CAPACITY records; events go to the process hub,
+# The JAX package's other constructor arguments, not ported: the trace
+# ring's size and a private timeline hub, which no caller of the port sets
+# (the ring holds TRACE_CAPACITY records; events go to the process hub,
 # ``obs.get_hub()``, which ``obs.reset_hub()`` replaces).
-_LATER_ARGS = frozenset({
-    "defer_placement", "label_prefix", "exec_cache",
-    "residency_listener", "trace_capacity", "timeline",
-})
+_LATER_ARGS = frozenset({"trace_capacity", "timeline"})
 
 
 class _Dispatch:
@@ -296,6 +319,19 @@ class _CapturedProgram:
 
     def release(self) -> None:
         self.graph = self.static_in = self.static_out = None
+
+
+def _placed_bytes(st: ShardedTensor | None) -> int:
+    """Bytes of the distinct tensors one placed operand holds (a quantized
+    resident's payload and scale leaves included)."""
+    if st is None:
+        return 0
+    tensors = {}
+    for shard_ in st.shards:
+        for t in (shard_.leaves if isinstance(shard_, QuantizedMatrix) else (shard_,)):
+            if t is not None:
+                tensors[id(t)] = t.numel() * t.element_size()
+    return sum(tensors.values())
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -707,12 +743,15 @@ class MatvecEngine:
         the strategy/combine half is checked here, the op half at submit)
         or ``"auto"``: per op, the tuning cache's tier where the fused tier
         serves the op, the unfused tier on a miss.
-    retain_host : keep A on the host (a reference when A is a host tensor
-        already, else a copy), so that :meth:`reshard` can requantize a
-        quantized resident whose block size the destination changes. A
-        native resident keeps no host copy: its reshard never requantizes.
-        A quantized engine under a ``resilience`` policy keeps one either
-        way (the native safe tier's source).
+    retain_host : keep the host payload for the engine's life — A (a
+        reference when A is a host tensor already, else a copy) and, under
+        quantized storage, the quantized payload and scales too — so the
+        residency is releasable (:meth:`release_residency`) and restorable
+        (:meth:`ensure_resident`), bitwise, and :meth:`reshard` can
+        requantize a quantized resident whose block size the destination
+        changes. Off by default: a plain engine places A once and keeps no
+        host copy, except a quantized engine under a ``resilience`` policy,
+        which keeps A (the native safe tier's source).
     trace_jsonl : path for the request-trace JSONL sink (``obs/sink.py``);
         every finished request's span tree is appended there by the sink's
         thread. :meth:`flush_traces` fences the file; :meth:`close`
@@ -730,9 +769,28 @@ class MatvecEngine:
         :class:`~..resilience.ResultIntegrityError` instead of serving it
         (counted in ``engine_integrity_failures_total``). The check runs on
         the host copy ``result()`` makes anyway. Off by default.
+    defer_placement : place nothing at construction: the first
+        :meth:`ensure_resident`, or the first dispatch, places A. Needs
+        ``retain_host=True``; registry tenants start evicted, so
+        registering many tenants spends host memory, not the card's.
+    label_prefix : prefix every fault-site label with this string
+        (``"tenant-7/"``), so a :class:`~..resilience.FaultSpec` ``key`` can
+        target one tenant; un-prefixed patterns keep matching through the
+        base label (``FaultPlan.check``).
+    exec_cache : an :class:`ExecutableCache` of the strategy's built
+        functions to share with other engines of equal
+        :meth:`exec_signature` (default: a private one). The functions hold
+        no A; the programs over A, and their CUDA graphs, stay this
+        engine's own.
+    residency_listener : ``callable(delta_bytes, reason)`` called after
+        every change of :attr:`device_resident_bytes` — ``"resident"`` (the
+        payload placed), ``"released"``, ``"native_fallback"`` (the
+        ladder's native safe tier placed) or ``"reshard"`` — once per
+        change, and never while an engine lock is held. The registry's
+        device-memory ledger charges through it.
 
-    The JAX package's other arguments (``exec_cache``, ``defer_placement``,
-    ...) raise ``ConfigError``.
+    The JAX package's ``trace_capacity`` and ``timeline`` raise
+    ``ConfigError``.
     """
 
     def __init__(
@@ -758,6 +816,10 @@ class MatvecEngine:
         fault_plan: FaultPlan | None = None,
         integrity_gate: bool = False,
         resilience: ResiliencePolicy | None = None,
+        defer_placement: bool = False,
+        label_prefix: str = "",
+        exec_cache: ExecutableCache | None = None,
+        residency_listener: Callable[[int, str], None] | None = None,
         **later,
     ):
         for name in later:
@@ -825,6 +887,14 @@ class MatvecEngine:
             raise ConfigError(f"max_in_flight must be >= 1, got {max_in_flight}")
         self.max_in_flight = max_in_flight
         self.donate = donate
+        self.retain_host = bool(retain_host)
+        if defer_placement and not self.retain_host:
+            raise ConfigError(
+                "defer_placement needs retain_host=True — a deferred "
+                "engine has only the host payload to place from"
+            )
+        self._label_prefix = str(label_prefix)
+        self._residency_listener = residency_listener
         # reshard() migrations run one at a time; the commit swaps the
         # layout under _swap_lock, which every dispatch holds while it
         # enqueues, so a dispatch sees the old layout or the new one whole.
@@ -890,6 +960,10 @@ class MatvecEngine:
                 "engine_hits_total", "executable-cache hits"
             ),
         )
+        # The strategy's built functions, which hold no A: shared by engines
+        # of one exec_signature() (exec_cache=). _cache holds this engine's
+        # programs over its own A.
+        self._fns = exec_cache if exec_cache is not None else ExecutableCache()
         self.tracer = RequestTracer(
             capacity=TRACE_CAPACITY,
             sink=JsonlSink(trace_jsonl) if trace_jsonl is not None else None,
@@ -944,22 +1018,26 @@ class MatvecEngine:
         self._c_integrity = None
         if self.integrity_gate:
             self._integrity_counter()
-        # The host copy a requantizing reshard and the ladder's native safe
-        # tier read (a host tensor is kept by reference). A native resident
-        # never requantizes and is its own safe tier: it keeps none.
+        # The host A (a host tensor is kept by reference): the swap-in
+        # source of a releasable native resident, what a requantizing
+        # reshard quantizes, and the ladder's native safe tier under
+        # quantized storage.
         self._a_host = (
-            a.cpu() if (retain_host or resilience is not None) and self.storage != NATIVE
+            a.cpu() if self.retain_host or (resilience is not None and self.storage != NATIVE)
             else None
         )
         # The native safe tier of a quantized resident: placed on the first
-        # degraded dispatch (_a_for), dropped by reshard. _layout_epoch
-        # counts committed layouts, so a placement made against an old one
-        # is never installed.
+        # degraded dispatch (_a_for), dropped by reshard and release.
+        # _layout_epoch counts committed layouts, so a placement made
+        # against an old one is never installed.
         self._a_native: ShardedTensor | None = None
         self._layout_epoch = 0
         self._residency_lock = threading.Lock()
-        # Resident for the engine's life: at p=1 on A's own device the shard
-        # IS a (or its payload: no copy). A quantized engine drops A here.
+        # Residency changes not yet reported to the listener, and the
+        # programs a release dropped, each batch with the fence after which
+        # the work queued on them has run.
+        self._notes: list[tuple[int, str]] = []
+        self._retired: deque = deque()
         if self.storage != NATIVE:
             a = quantize_matrix(
                 a, self.storage,
@@ -970,14 +1048,21 @@ class MatvecEngine:
         else:
             self.storage_block = None
             self.resident_bytes = a.numel() * a.element_size()
-        self._a = shard_operand(a, spec_a, mesh)
+        # The quantized payload and scales on the host: a re-admission
+        # places these bytes again instead of quantizing A again.
+        self._qa_host = a.to("cpu") if self.retain_host and self.storage != NATIVE else None
+        # At p=1 on A's own device the shard IS a (or its payload: no
+        # copy). A quantized engine drops A here.
+        self._a = None if defer_placement else shard_operand(a, spec_a, mesh)
         del a
         self._g_resident = self.metrics.gauge(
             "engine_resident_bytes",
             "device bytes of the resident A operand (payload + scales for "
             "quantized storage, plus the native safe tier once placed)",
         )
-        self._g_resident.set(self.resident_bytes)
+        self._g_resident.set(self.device_resident_bytes)
+        if self._a is not None:
+            self._notes.append((self.device_resident_bytes, "resident"))
         # Info metric: the label set carries the fact, the value is always 1.
         self.metrics.gauge(
             f'engine_storage_format{{format="{self.storage}",'
@@ -985,6 +1070,7 @@ class MatvecEngine:
             "resident-A storage format (info metric; value is always 1)",
         ).set(1)
         self._closed = False
+        self._fire_residency_notes()
 
     # ---- configuration ----
 
@@ -1146,19 +1232,25 @@ class MatvecEngine:
         return _CapturedProgram(fn, a, spec, self.mesh, shape, self.dtype,
                                 self._graph_device)
 
-    def _build_matvec(self):
-        return self._program(self.strategy.build(
+    def _matvec_fn(self) -> Callable:
+        return self._fns.get(self._matvec_key(), lambda: self.strategy.build(
             self.mesh, kernel=self.kernel, gather_output=self.gather_output,
             combine=self._matvec_combine, stages=self.stages,
             dtype_storage=self.storage,
-        ), self._spec_x, (self.k,))
+        ))
 
-    def _build_gemm(self, bucket: int):
-        return self._program(self.strategy.build_batched(
+    def _gemm_fn(self, bucket: int) -> Callable:
+        return self._fns.get(self._gemm_key(bucket), lambda: self.strategy.build_batched(
             self.mesh, kernel=self.kernel, gather_output=self.gather_output,
             combine=self._gemm_combine, stages=self.stages,
             dtype_storage=self.storage,
-        ), self._spec_b, (self.k, bucket))
+        ))
+
+    def _build_matvec(self):
+        return self._program(self._matvec_fn(), self._spec_x, (self.k,))
+
+    def _build_gemm(self, bucket: int):
+        return self._program(self._gemm_fn(bucket), self._spec_b, (self.k, bucket))
 
     # ---- degradation ladders (module docstring) ----
     #
@@ -1217,34 +1309,156 @@ class MatvecEngine:
             (preferred, lambda: self._build_solver(preferred, restart, steps)),
             (safe, lambda: self._build_solver(safe, restart, steps)))
 
-    # ---- residency ----
+    # ---- residency (engine/registry.py drives it) ----
 
     @property
     def resident(self) -> bool:
-        """True while the resident A is placed: until :meth:`close` (the
-        registry's releasable residency comes with ROADMAP.md queue A 5)."""
+        """True while the payload A operand is placed on the mesh: False
+        after :meth:`release_residency` (until the next placement) and after
+        :meth:`close`."""
         return self._a is not None
 
     @property
     def device_resident_bytes(self) -> int:
-        """Device bytes this engine's A residencies hold: the resident
-        operand, plus the native safe tier once the ladder has placed it."""
-        if self._a is None:
-            return 0  # closed
-        total = self.resident_bytes
-        native = self._a_native
-        if native is not None:
-            total += sum(t.numel() * t.element_size() for t in native.shards)
-        return total
+        """Device bytes this engine's A residencies hold, read off the
+        placed tensors: the resident operand while placed (0 once released
+        or closed), plus the native safe tier once the ladder has placed
+        it."""
+        return _placed_bytes(self._a) + _placed_bytes(self._a_native)
+
+    def exec_signature(self) -> tuple:
+        """Identity of this engine's space of built functions. A strategy's
+        function depends on the mesh, the shapes and the configuration,
+        never on A's values, so engines of equal signatures may share one
+        function cache (``exec_cache=``). The programs over A, and their
+        CUDA graphs, are never shared: each engine builds and captures its
+        own."""
+        return (
+            self.mesh, self.strategy.name,
+            # The kernel object for callables: two callables that share a
+            # __name__ must not share functions.
+            self.kernel,
+            self._combine_label(self._matvec_combine),
+            self._combine_label(self._gemm_combine),
+            self.stages, self.m, self.k, dtype_name(self.dtype), self.storage,
+            self.storage_block, self.gather_output, self.max_bucket, self.donate,
+        )
+
+    def _fire_residency_notes(self) -> None:
+        """Report the queued footprint changes: the gauge, then the
+        listener, which may take the registry's lock. Called only where no
+        engine lock is held, so a listener never waits on a dispatch."""
+        if not self._notes:
+            return
+        with self._residency_lock:
+            notes, self._notes = self._notes, []
+        self._g_resident.set(self.device_resident_bytes)
+        if self._residency_listener is not None:
+            for delta, reason in notes:
+                if delta:
+                    self._residency_listener(delta, reason)
+
+    def _retire(self, programs: list) -> None:
+        """Keep dropped programs until the work queued on them has run: an
+        eager program lets go of its A at once; a captured graph, which
+        holds A's address and not A, is freed after a fence event."""
+        for program in programs:
+            if isinstance(program, _EagerProgram):
+                program.release()
+        if self._cuda_devices and programs:
+            fence = _Dispatch(self._cuda_devices)
+            with self._residency_lock:
+                self._retired.append((fence, programs))
+
+    def _sweep_retired(self, wait: bool = False) -> None:
+        """Free the retired programs whose fence has completed (all of
+        them, waiting, with ``wait``). Never called under
+        ``_residency_lock``."""
+        done = []
+        with self._residency_lock:
+            while self._retired and (wait or self._retired[0][0].query()):
+                done.append(self._retired.popleft())
+        for fence, programs in done:
+            fence.synchronize()
+            for program in programs:
+                if isinstance(program, _CapturedProgram):
+                    program.release()
+
+    def ensure_resident(self) -> bool:
+        """Place the payload A operand if it is not placed; True when this
+        call placed it. The payload is the retained host copy, so a
+        re-admission is bitwise the first placement. Race-safe: two
+        concurrent callers may both copy, but one installs its copy and
+        the listener hears of it once. Raises :class:`ResidencyError` when
+        the engine keeps no host payload (``retain_host=False``)."""
+        self._check_open()
+        try:
+            return self._place()
+        finally:
+            self._fire_residency_notes()
+
+    def _place(self) -> bool:
+        """:meth:`ensure_resident` without reporting (a dispatch under
+        ``_swap_lock`` reports after it). The copy runs outside
+        ``_residency_lock``; a reshard committed meanwhile makes it place
+        again in the new layout."""
+        if self._a is not None:
+            return False
+        self._sweep_retired()
+        while True:
+            epoch = self._layout_epoch
+            payload = self._qa_host if self.storage != NATIVE else self._a_host
+            if payload is None:
+                raise ResidencyError(
+                    "resident A was released and the engine retains no host "
+                    "payload (construct with retain_host=True for releasable "
+                    "residency)"
+                )
+            placed = shard_operand(payload, self.strategy.specs(self.mesh)[0], self.mesh)
+            with self._residency_lock:
+                if self._layout_epoch != epoch:
+                    continue  # resharded mid-placement: place again
+                if self._a is not None:
+                    return False  # lost a concurrent placement
+                self._a = placed
+                self._notes.append((_placed_bytes(placed), "resident"))
+            return True
+
+    def release_residency(self) -> int:
+        """Drop the device residency, the payload and any placed native
+        safe tier, with every program built over them; keep the host
+        payload for a later :meth:`ensure_resident`. Returns the device
+        bytes released. Waits only for a dispatch being enqueued on this
+        engine (``_swap_lock``), never for the card: the operands are freed
+        at once (the caching allocator reuses their blocks only for later
+        work on the same stream), the captured programs once the work
+        queued on them has run."""
+        if not self.retain_host:
+            raise ResidencyError(
+                "release_residency needs retain_host=True — without the "
+                "host payload the engine could never serve again"
+            )
+        with self._swap_lock:
+            self._sweep_retired()
+            with self._residency_lock:
+                released = self.device_resident_bytes
+                programs = self._cache.clear()
+                self._a = self._a_native = None
+                self._notes.append((-released, "released"))
+            self._retire(programs)
+        self._fire_residency_notes()
+        return released
 
     def _a_for(self, storage: str):
-        """The resident A of one storage format. The native safe tier of a
-        quantized resident is placed from the host copy on the first
-        degraded dispatch (the build of a safe-level program) and kept: the
-        device memory is spent only once a breaker routes around the
-        quantized config. It goes through the engine's own placement
+        """The resident A of one storage format (the dispatch region has
+        placed the payload already). The native safe tier of a quantized
+        resident is placed from the host copy on the first degraded
+        dispatch (the build of a safe-level program) and kept: the device
+        memory is spent only once a breaker routes around the quantized
+        config. It goes through the engine's own placement
         (``shard_operand`` by the strategy's A spec), counts in
-        ``engine_resident_bytes`` and ``device_resident_bytes``, and is not
+        ``engine_resident_bytes`` and ``device_resident_bytes``, is
+        reported to the listener as ``"native_fallback"``, and is not
         installed over a layout a reshard committed meanwhile."""
         if storage == self.storage:
             return self._a
@@ -1260,9 +1474,9 @@ class MatvecEngine:
                     continue  # resharded mid-placement: place again
                 if self._a_native is None:
                     self._a_native = placed
+                    self._notes.append((_placed_bytes(placed), "native_fallback"))
                 native = self._a_native
             break
-        self._g_resident.set(self.device_resident_bytes)
         return native
 
     # ---- dispatch ----
@@ -1301,11 +1515,16 @@ class MatvecEngine:
     def _check_faults(self, site: str, key: ExecKey, block=None) -> bool:
         """Consult the fault plan at one site. Error kinds raise here;
         latency stalls here; returns True for a "nan" corruption (the
-        caller marks the result part). False = healthy or no plan."""
+        caller marks the result part). False = healthy or no plan. A
+        tenant-scoped engine presents its prefixed label
+        (``tenant-7/op:...``), and un-prefixed patterns still match the
+        base label (``FaultPlan.check``)."""
         plan = self._fault_plan
         if plan is None:
             return False
-        action = plan.check(site, key.label(), block=block)
+        label = key.label()
+        action = plan.check(site, self._label_prefix + label, block=block,
+                            base_label=label if self._label_prefix else None)
         if action is None:
             return False
         self._c_faults.inc()
@@ -1631,6 +1850,9 @@ class MatvecEngine:
                 return fail()
             try:
                 with self._swap_lock:
+                    # The self-heal: a released A is placed again before any
+                    # program is looked up.
+                    self._place()
                     parts = self._dispatch_request(x, trace)
             except BaseException as exc:
                 self._c_dispatch_failures.inc()
@@ -1639,6 +1861,8 @@ class MatvecEngine:
                                     error=type(exc).__name__)
                 self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
                 raise
+            finally:
+                self._fire_residency_notes()
             fut = MatvecFuture(parts, vector=x.dim() == 1,
                                materialize_hist=self._h_materialize, trace=trace,
                                integrity_counter=integrity_counter,
@@ -1840,6 +2064,8 @@ class MatvecEngine:
             try:
                 self._c_cols.inc()
                 with self._swap_lock:
+                    self._place()
+
                     def attempt(key, build):
                         return self._run(
                             key, build, rhs, trace, op=op, bucket=bucket,
@@ -1861,6 +2087,8 @@ class MatvecEngine:
                                     error=type(exc).__name__)
                 self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
                 raise
+            finally:
+                self._fire_residency_notes()
             fut = SolverFuture(
                 res, op=op, rtol=rtol, cap=steps if op == "lanczos" else maxiter,
                 dispatch=dispatch, materialize_hist=self._h_materialize,
@@ -1887,14 +2115,26 @@ class MatvecEngine:
         columns would dispatch to under :meth:`submit`'s routing (sub-``b*``
         widths take the per-column path and build no GEMM bucket). On one
         CUDA device each build captures its program's graph. Returns the
-        number of fresh builds."""
+        number of fresh builds. An engine whose A is not placed (deferred,
+        or released) places nothing here: it builds the strategy's
+        functions only, which hold no A, and returns how many it built; its
+        programs are built at the first dispatch after a placement."""
         self._check_open()
         with self._swap_lock:
-            return self._warmup(widths)
+            if self._a is None:
+                before = self._fns.stats.compiles
+                self._warmup(widths, self._matvec_fn, self._gemm_fn)
+                return self._fns.stats.compiles - before
+            before = self._cache.stats.compiles
+            self._warmup(widths, lambda: self._cache.get(self._matvec_key(),
+                                                         self._build_matvec),
+                         lambda bucket: self._cache.get(
+                             self._gemm_key(bucket), lambda: self._build_gemm(bucket)))
+            return self._cache.stats.compiles - before
 
-    def _warmup(self, widths: Sequence[int] | None) -> int:
-        before = self._cache.stats.compiles
-        self._cache.get(self._matvec_key(), self._build_matvec)
+    def _warmup(self, widths: Sequence[int] | None, matvec: Callable,
+                gemm: Callable) -> None:
+        matvec()
         if self.b_star is not None:
             if widths is None:
                 buckets = set(bucket_ladder(self.max_bucket))
@@ -1906,9 +2146,7 @@ class MatvecEngine:
                     for chunk in split_widths(w, self.max_bucket):
                         buckets.add(bucket_for(chunk, self.max_bucket))
             for bucket in sorted(buckets):
-                self._cache.get(self._gemm_key(bucket),
-                                lambda bucket=bucket: self._build_gemm(bucket))
-        return self._cache.stats.compiles - before
+                gemm(bucket)
 
     # ---- online reshard ----
 
@@ -1940,13 +2178,21 @@ class MatvecEngine:
         released only after an event recorded at the commit has completed,
         so no dispatch queued on the old layout reads freed memory.
 
+        A released engine reshards its configuration only: the next
+        placement is in the destination layout. A release that lands
+        during a migration aborts the migrated copy at the commit (the
+        configuration still moves), so the device never holds two
+        footprints; the next dispatch places A again in the destination
+        layout.
+
         Returns ``{src, dst, migrated, aborted, requantized, bytes_moved}``:
         ``bytes_moved`` is what the program copied (``copy_bytes``: 0 for a
-        requantization, or where every step is a reordering of shards on
-        one card). ``aborted`` is always False: eviction during a migration
-        comes with residency management (ROADMAP.md, queue A 5).
-        ``warm_widths`` forwards to :meth:`warmup` after the commit, so the
-        destination's programs are built off the request path.
+        requantization, an abort, a released engine, or where every step
+        is a reordering of shards on one card); ``migrated`` is True where
+        a placed resident moved, ``aborted`` where a release during the
+        migration dropped the copy. ``warm_widths`` forwards to
+        :meth:`warmup` after the commit, so the destination's programs are
+        built off the request path.
         """
         self._check_open()
         from ..parallel.reshard import (
@@ -2011,44 +2257,59 @@ class MatvecEngine:
                         ) from None
                     requant = quantize_matrix(self._a_host, self.storage,
                                               contraction_shards=dst_shards)
-            src_a = self._a
-            if requant is not None:
+            with self._residency_lock:
+                src_a = self._a
+            resident = src_a is not None
+            new_a, bytes_moved = None, 0
+            if resident and requant is not None:
                 new_a = shard_operand(requant, dst.specs(mesh)[0], mesh)
-                bytes_moved = 0
-            else:
+            elif resident:
                 new_a = build_reshard(mesh, src.name, dst.name)(src_a)
                 bytes_moved = copy_bytes(mesh, src.name, dst.name, src_a)
-            del src_a
 
             # ---- the commit: the only window a dispatch waits on ----
             with self._swap_lock:
                 with self._residency_lock:
+                    before = self.device_resident_bytes
+                    # Released (or placed again) during the migration: drop
+                    # the copy and move the configuration only — never two
+                    # footprints. A placement made meanwhile is in the old
+                    # layout, so it goes too.
+                    aborted = resident and self._a is not src_a
+                    if aborted:
+                        new_a, bytes_moved = None, 0
                     # The native safe tier is placed by the old layout: drop
                     # it (a degraded dispatch places it again).
                     old = (self._a, self._cache.clear(), self._a_native)
-                    self._a_native = None
+                    self._a, self._a_native = new_a, None
+                    # The layout changes with the epoch, under this lock, so
+                    # a placement that read the old epoch places again.
                     self._layout_epoch += 1
-                self._a = new_a
-                del new_a
-                self.strategy = dst
-                _, self._spec_x, _ = dst.specs(mesh)
-                _, self._spec_b, _ = dst.batched_specs(mesh)
-                if requant is not None:
-                    self.storage_block = requant.block
-                    self.resident_bytes = requant.nbytes
-                self._g_resident.set(self.device_resident_bytes)
-                self._matvec_combine, self._gemm_combine = combines
-                self.stages = stages
-                self.b_star = b_star
+                    self.strategy = dst
+                    _, self._spec_x, _ = dst.specs(mesh)
+                    _, self._spec_b, _ = dst.batched_specs(mesh)
+                    if requant is not None:
+                        self.storage_block = requant.block
+                        self.resident_bytes = requant.nbytes
+                        if self.retain_host:
+                            self._qa_host = requant.to("cpu")
+                    self._matvec_combine, self._gemm_combine = combines
+                    self.stages = stages
+                    self.b_star = b_star
+                    delta = self.device_resident_bytes - before
+                    self._notes.append((delta, "reshard"))
                 fence = _Dispatch(self._cuda_devices)
+            del src_a, new_a
             self._c_dropped.inc(len(old[1]))
             self._c_reshards.inc()
             self._c_reshard_bytes.inc(bytes_moved)
-            result.update(migrated=True, requantized=requant is not None,
+            result.update(migrated=resident and not aborted, aborted=aborted,
+                          requantized=requant is not None,
                           bytes_moved=int(bytes_moved))
             # Release the old layout once the work queued on it is done.
             fence.synchronize()
             del old
+        self._fire_residency_notes()
         if warm_widths is not None:
             self.warmup(widths=warm_widths)
         return result
@@ -2168,12 +2429,14 @@ class MatvecEngine:
             self.flush_traces()
         finally:
             self.tracer.close()
-            with self._swap_lock, self._residency_lock:
+            with self._swap_lock:
                 _Dispatch(self._cuda_devices).synchronize()
-                for program in self._cache.clear():
-                    if isinstance(program, (_EagerProgram, _CapturedProgram)):
-                        program.release()
-                self._a = self._a_native = self._a_host = None
+                self._sweep_retired(wait=True)
+                with self._residency_lock:
+                    for program in self._cache.clear():
+                        if isinstance(program, (_EagerProgram, _CapturedProgram)):
+                            program.release()
+                    self._a = self._a_native = self._a_host = self._qa_host = None
 
     def _check_open(self) -> None:
         if self._closed:

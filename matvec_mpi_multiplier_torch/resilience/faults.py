@@ -315,18 +315,29 @@ class FaultPlan:
 
     def check(
         self, site: str, key_label: str, block=None,
+        base_label: str | None = None,
     ) -> FaultAction | None:
         """One fault-site event: None (no fault) or the action to apply.
         ``block`` is the request payload (a tensor or array; row 0 is the
         signature row of poison-scoped specs, read only where the payload
-        is on the host)."""
+        is on the host). ``base_label`` is the un-prefixed ExecKey label a
+        TENANT-scoped engine also answers to: the multi-tenant registry
+        prefixes ``key_label`` with ``"<tenant>/"`` so a spec can target
+        one tenant (``key="tenant-7/*"``), while a spec written against the
+        classic label grammar (``key="*psum*"``, ``key="gemm:*"``) keeps
+        matching every tenant via the base label — scoping is additive,
+        never a silent pattern break."""
         with self._lock:
             if not self._armed:
                 return None
             for i, spec in enumerate(self.specs):
                 if spec.site != site:
                     continue
-                if spec.key != "*" and not fnmatchcase(key_label, spec.key):
+                if spec.key != "*" and not (
+                    fnmatchcase(key_label, spec.key)
+                    or (base_label is not None
+                        and fnmatchcase(base_label, spec.key))
+                ):
                     continue
                 if spec.poison is not None and not _poisoned(block, spec.poison):
                     continue

@@ -56,7 +56,19 @@ class AdmissionRejectedError(MatvecError):
     work ran, and the request can be retried. Availability accounting keeps
     the two apart (``resilience.is_rejection``; rejected ≠ failed). The JAX
     package raises it from its global scheduler's predicted-time admission,
-    which the port has not ported yet (ROADMAP.md, queue A 5)."""
+    which the port has not ported yet (ROADMAP.md, queue A 2)."""
+
+
+class TenantQuotaError(MatvecError):
+    """A tenant's admission quota refused a request before dispatch.
+
+    Raised by ``MatvecFuture.result()`` when the matrix registry's
+    per-tenant admission gate (``engine/registry.py``) found the tenant
+    at its ``max_in_flight`` quota: the request was never dispatched (no
+    device work, no eviction pressure on other tenants) and can be
+    retried once the tenant's outstanding work drains. Quota refusal is
+    the isolation mechanism — one tenant's burst must fail ITS requests,
+    not evict or degrade its neighbors'."""
 
 
 class SolverDivergedError(MatvecError):
@@ -70,6 +82,16 @@ class SolverDivergedError(MatvecError):
     contract is converged-or-typed-failure. Retry with a larger
     ``maxiter``, a looser ``rtol``, another op, or (for chebyshev) a
     corrected spectral interval."""
+
+
+class ResidencyError(MatvecError):
+    """A dispatch needed the resident ``A`` operand while it was evicted
+    and the engine holds no host copy to restore it from.
+
+    Registry-managed engines (``retain_host=True``) never raise this —
+    they re-place the retained host payload transparently; it marks a
+    caller evicting a plain engine's residency without having opted into
+    host retention."""
 
 
 class TimingError(MatvecError):

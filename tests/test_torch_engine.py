@@ -302,13 +302,12 @@ def test_request_validation(rng):
 # retain_host= is ported with reshard (tests/test_torch_reshard.py);
 # fault_plan=, integrity_gate= and trace_jsonl= with the scheduler
 # (tests/test_torch_faults.py, tests/test_torch_obs_trace.py); resilience=
-# with the recovery policy (tests/test_torch_resilience.py). Any value of a
-# later argument raises, None and False included.
+# with the recovery policy (tests/test_torch_resilience.py);
+# defer_placement=, label_prefix=, exec_cache= and residency_listener= with
+# the registry (tests/test_torch_registry.py). Any value of an argument
+# still refused raises, None included.
 @pytest.mark.parametrize("kwargs", [
-    {"dtype_storage": "speculate"}, {"label_prefix": ""},
-    {"residency_listener": object()}, {"exec_cache": None}, {"defer_placement": False},
-    {"defer_placement": True}, {"label_prefix": "tenant-1/"}, {"exec_cache": object()},
-    {"trace_capacity": 64}, {"timeline": None},
+    {"dtype_storage": "speculate"}, {"trace_capacity": 64}, {"timeline": None},
 ])
 def test_later_slice_arguments_raise(rng, kwargs):
     a, _ = make_operands(rng)

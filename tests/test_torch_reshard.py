@@ -302,7 +302,7 @@ def test_retain_host_is_needed_only_to_requantize():
     assert eng.strategy.name == "rowwise"  # nothing changed
     same = MatvecEngine(operands(8)[0], mesh, strategy="rowwise", dtype_storage="int8c")
     assert same.reshard("colwise")["migrated"]
-    native = MatvecEngine(a, mesh, strategy="rowwise", retain_host=True)
+    native = MatvecEngine(a, mesh, strategy="rowwise")
     assert native._a_host is None  # a native resident never requantizes
     assert native.reshard("blockwise")["migrated"]
 

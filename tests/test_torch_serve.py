@@ -157,16 +157,18 @@ def test_sweep_op_serve_delegates(tmp_path):
     assert rows[0]["b_star"] == -1 and rows[0]["kernel"] == "cuda"
 
 
-# Load mode (--arrival, --concurrency, --coalesce) and its chaos flags are
-# ported (tests/test_torch_serve_load.py); with a tenant, per-tenant poison
-# or reshard flag it still raises, chaos flags or not.
+# Load mode (--arrival, --concurrency, --coalesce), its chaos flags and the
+# multi-tenant mode (--tenants, --poison-tenant) are ported
+# (tests/test_torch_serve_load.py, tests/test_torch_serve_multitenant.py);
+# with a global-scheduler or drift flag it still raises, in every mode.
 @pytest.mark.parametrize("argv", [
-    ["--arrival", "burst", "--poison-tenant", "t1"],
-    ["--arrival", "poisson", "--poison-rate", "0.1", "--poison-tenant", "t0"],
-    ["--concurrency", "4", "--tenants", "2"],
+    ["--tenants", "2", "--global-sched", "on"],
+    ["--tenants", "2", "--demand-weight", "2.0"],
+    ["--concurrency", "4", "--decision-jsonl", "decisions.jsonl"],
     ["--coalesce", "on", "--reshard", "auto"],
-    ["--fault-spec", "dispatch:device_error:p=0.1", "--tenants", "2"],
-    ["--poison-tenant", "t0"], ["--tenants", "2"], ["--reshard", "auto"],
+    ["--fault-spec", "dispatch:device_error:p=0.1", "--tenants", "2", "--reshard", "auto"],
+    ["--global-sched", "both"], ["--tenants", "2", "--decision-jsonl", "d.jsonl"],
+    ["--reshard", "auto"],
 ])
 def test_unported_serve_modes_raise(argv):
     with pytest.raises(ConfigError, match="ROADMAP.md"):

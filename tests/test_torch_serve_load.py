@@ -241,7 +241,8 @@ def test_open_loop_cli_and_sequential_default(capsys):
     (flag, "1") for flag in serve._LATER_FLAGS
 ] + [("dtype_storage", "speculate")])
 def test_every_later_flag_is_refused(flag, value):
-    assert set(serve._LATER_FLAGS) == {"tenants", "poison_tenant", "reshard"}
+    assert set(serve._LATER_FLAGS) == {"global_sched", "demand_weight", "decision_jsonl",
+                                       "reshard"}
     argv = ["--sizes", "64", "--no-csv", "--concurrency", "4",
             f"--{flag.replace('_', '-')}", value, *CPU_ARGS]
     with pytest.raises(ConfigError, match="ROADMAP.md"):
