@@ -134,7 +134,22 @@ kernels' launch counts set to 0 just before it and read just after:
   (``multitenant_isolation``); two int8c 32768² fp32 tenants under a
   budget of one, charged payload and scales, re-admitted bitwise
   (``multitenant_quant``). The section keeps up to 4 tenants' host
-  payloads (34.4 GB); the env line prints the host's ``MemTotal``.
+  payloads (34.4 GB); the env line prints the host's ``MemTotal``;
+* the calibrated cost model and the global scheduler
+  (``tuning/cost_model.py``, ``engine/global_scheduler.py``): bf16
+  calibration at p = 1 and on the 2x2 logical mesh, every constant positive
+  and finite and ``mem_bps`` 0.5-1.05 of the run's copy probe
+  (``cost_model_calibration``); predicted against measured for blockwise
+  65536² at p = 1 (within 0.5-2x), the GEMM at b = 32 and the three
+  strategies at 32768² on the 2x2 mesh, each pair into the divergence signal
+  (``cost_model_predictions``); a tune pass with ``prune_margin`` 0.5 against
+  an exhaustive one, the same winners from fewer measurements
+  (``cost_model_pruning``); the scheduler's A/B on a seeded 3-tenant trace at
+  65536² bf16 with deadlines, results bitwise between the arms, rejections
+  typed, no expiry with it on, two tenants of one payload sharing a flush
+  bitwise, interleaving on and off (``gsched_ab``); a reshard drift on the
+  2x2 mesh whose migration is in the decision trace and whose result is
+  bitwise a fresh engine's (``reshard_drift``).
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -470,6 +485,34 @@ MT_QUANT_N = 32768
 MT_QUANT_ORDER = (0, 1, 0, 1)
 MT_PROBE_BYTES = 1 << 31
 
+# The cost model and the global scheduler (section 44): calibration on p = 1
+# and on the 2x2 logical mesh (bf16, the main path's dtype); predictions of
+# blockwise CM["main_n"]² at p = 1, the three strategies at CM["mesh_n"]² on
+# the 2x2 mesh and the GEMM bucket at b = CM["gemm_b"]; a tune pass with
+# prune_margin 0.5 against an exhaustive one at CM["tune_n"]² (hysteresis
+# 0.25 in both, so noise cannot unseat a default); the global scheduler's A/B
+# at CM["gs_n"]² (CM["gs_tenants"] tenants, budget CM["gs_budget"], Zipf
+# 1.1, CM["gs_requests"] requests paced at CM["gs_rate"] req/s with
+# CM["gs_deadline_ms"] ms deadlines) and two tenants of one payload sharing
+# a flush; one reshard drift at CM["drift_n"]² on the 2x2 mesh.
+CM = {
+    "main_n": 65536, "mesh_n": 32768, "gemm_b": 32, "tune_n": 16384,
+    "gs_n": 65536, "gs_tenants": 3, "gs_budget": "2x", "gs_requests": 24,
+    "gs_rate": 2.0, "gs_deadline_ms": 1000.0, "drift_n": 16384,
+    "drift_requests": 60, "drift_rollover": 6, "drift_skip": 24,
+    "drift_width": 8, "drift_pre_rate": 6.0, "n_reps": 10,
+    # The calibration's reps: the minimum of 10 sync reps of the 256 MB GEMV
+    # probe read between 111 and 166 µs from one call to the next (the host's
+    # share of a fenced call), 50 keep the minimum at the probe's own time.
+    "cal_reps": 50,
+    # Interleaving, measured: three tenants at il_n² bf16 under a budget of
+    # two, demand moving from tenant 0 to tenant 1 and back after one
+    # request of tenant 2, closed loop, the scheduler's interleave always
+    # considered (threshold 0) against never (infinite threshold). At
+    # 32768² a payload hashes in under 2 s (65536²: 6.5-7.9 s, six times).
+    "il_order": (0, 0, 0, 0, 1, 1, 1, 1, 2, 1, 1, 0, 0, 0), "il_n": 32768,
+}
+
 # An entry as the JAX package would write it for one of the same keys: its
 # fingerprint is never the port's, so it must never apply.
 JAX_FINGERPRINT = "gpu:NVIDIA_H100_80GB_HBM3:jax-0.4.35"
@@ -482,6 +525,414 @@ def emit(obj: dict) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cost_model_section(dev, seed: int, cm: dict) -> dict:
+    """Section 44: the calibrated cost model and the global scheduler on
+    ``dev`` at the sizes of ``cm``. Emits one JSON line per part and returns
+    the kernels' launches by path ({kernel: {path: n}}), each path driven
+    with the counts set to 0 just before it and read just after. Runs at a
+    small size on a CPU device too (the wrappers' plain versions)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from matvec_mpi_multiplier_torch import get_strategy, make_mesh, tuning
+    from matvec_mpi_multiplier_torch.bench.serve import (
+        resident_matrix,
+        run_reshard_drift,
+        run_serve_multitenant,
+    )
+    from matvec_mpi_multiplier_torch.bench.timing import benchmark_gemm, benchmark_strategy
+    from matvec_mpi_multiplier_torch.engine import MatrixRegistry, MatvecEngine
+    from matvec_mpi_multiplier_torch.engine import global_scheduler as gs_mod
+    from matvec_mpi_multiplier_torch.obs.registry import get_registry
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_quant import quant_gemv_cuda
+    from matvec_mpi_multiplier_torch.tuning import cost_model as cmod
+    from matvec_mpi_multiplier_torch.tuning import search
+    from matvec_mpi_multiplier_torch.tuning.cache import TuningCache, calibration_key
+
+    on_card = dev.type == "cuda"
+    bf16 = torch.bfloat16
+    launches: dict = {"gemv": {}, "gemm": {}, "quant_gemv": {}}
+    wrappers = (("gemv", gemv_cuda), ("gemm", gemm_cuda), ("quant_gemv", quant_gemv_cuda))
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def routed(name: str, fn):
+        """fn() with the launch counts set to 0 just before it and read just
+        after, under the path ``name``."""
+        for _, w in wrappers:
+            w.launches = 0
+            w.route_launches.clear()
+        out = fn()
+        sync()
+        for kernel, w in wrappers:
+            if w.launches:
+                launches[kernel][name] = launches[kernel].get(name, 0) + w.launches
+        return out
+
+    def finite_positive(cal) -> bool:
+        values = [cal.flops, cal.mem_bps, *cal.alpha_s.values(), *cal.beta_bps.values()]
+        return all(np.isfinite(v) and v > 0 for v in values)
+
+    def cal_line(cal) -> dict:
+        return {"p": cal.p, "level": cal.level, "flops": cal.flops,
+                "mem_bps": cal.mem_bps, "alpha_s": cal.alpha_s,
+                "beta_bps": cal.beta_bps, "probes": cal.probes}
+
+    tune_dir = Path(tempfile.mkdtemp(prefix="cost_model_"))
+    os.environ[tuning.CACHE_ENV] = str(tune_dir / "tuning_cache.json")
+    tuning.reset_cache()
+    swap_s: list[float] = []
+    ensure_resident = MatvecEngine.ensure_resident
+
+    def timed_ensure_resident(self):
+        sync()
+        t0 = time.perf_counter()
+        placed = ensure_resident(self)
+        sync()
+        if placed:
+            swap_s.append(time.perf_counter() - t0)
+        return placed
+
+    try:
+        # (a) Calibration, beside this run's device-copy probe.
+        probe = torch.empty(1 << 30 if on_card else 1 << 20, dtype=torch.int16, device=dev)
+        probe_dst = torch.empty_like(probe)
+        probe_dst.copy_(probe)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            probe_dst.copy_(probe)
+        sync()
+        copy_bps = 2 * probe.numel() * 2 / ((time.perf_counter() - t0) / 10)
+        del probe, probe_dst
+        mesh1 = make_mesh(1, devices=[dev])
+        mesh4 = make_mesh(4, devices=[dev] * 4)
+        # Clocks up before the probes: the card idles through the host-bound
+        # sections before this one, and the first probe read up to 0.2 below
+        # the second without this (uncounted launches of the probe's shape).
+        warm = resident_matrix(*cmod.CUDA_PROBES["gemv"], bf16, dev, seed + 39)
+        for _ in range(4000 if on_card else 1):
+            gemv_cuda(warm, warm[0])
+        sync()
+        del warm
+        cal_log: list[str] = []
+        cals = {}
+        for name, mesh in (("p1", mesh1), ("2x2", mesh4)):
+            cals[name] = routed("calibration", lambda mesh=mesh: cmod.calibrate(
+                mesh, dtype="bfloat16", level="full", n_reps=cm["cal_reps"],
+                log=cal_log.append))
+        for name, cal in cals.items():
+            check(finite_positive(cal), f"calibration {name}: {cal}")
+            share = cal.mem_bps / copy_bps
+            check(not on_card or 0.5 <= share <= 1.05,
+                  f"calibration {name}: mem_bps {cal.mem_bps} is {share} of the "
+                  f"copy probe's {copy_bps} (the GEMV probe read the L2, or nothing)")
+        cache = TuningCache.load()
+        for cal in cals.values():
+            cache.record(calibration_key(cal.p), cal.to_record())
+        cache.save()
+        tuning.reset_cache()
+        model1, model4 = cmod.CostModel(cals["p1"]), cmod.CostModel(cals["2x2"])
+        emit({"phase": "cost_model_calibration", "copy_probe_bps": copy_bps,
+              "mem_bps_over_copy": {n: c.mem_bps / copy_bps for n, c in cals.items()},
+              "calibrations": {n: cal_line(c) for n, c in cals.items()},
+              "log": cal_log})
+
+        # (b) Predicted against measured, each pair into the divergence signal.
+        pairs = {}
+
+        def measured_s(result) -> float:
+            return float(min(result.times_s))
+
+        n = cm["main_n"]
+        a = resident_matrix(n, n, bf16, dev, seed + 40)
+        x = resident_matrix(1, n, bf16, dev, seed + 41)[0]
+        blk = get_strategy("blockwise")
+        res = routed("predictions", lambda: benchmark_strategy(
+            blk, mesh1, a, x, n_reps=cm["n_reps"], measure="sync", kernel="cuda"))
+        pred = model1.predict("blockwise", blk.default_combine(mesh1), m=n, k=n, p=1,
+                              dtype="bfloat16")
+        pairs[f"blockwise_{n}_p1"] = (pred.total_s, measured_s(res))
+        b = resident_matrix(n, cm["gemm_b"], bf16, dev, seed + 42)
+        res = routed("predictions", lambda: benchmark_gemm(
+            "blockwise", mesh1, a, b, n_reps=cm["n_reps"], measure="sync", kernel="cuda"))
+        pred = model1.predict("blockwise", blk.default_combine(mesh1), m=n, k=n, p=1,
+                              dtype="bfloat16", b=cm["gemm_b"])
+        pairs[f"gemm_blockwise_{n}_b{cm['gemm_b']}_p1"] = (pred.total_s, measured_s(res))
+        del a, b, x
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        n = cm["mesh_n"]
+        a = resident_matrix(n, n, bf16, dev, seed + 43)
+        x = resident_matrix(1, n, bf16, dev, seed + 44)[0]
+        for name in ("rowwise", "colwise", "blockwise"):
+            strat = get_strategy(name)
+            res = routed("predictions", lambda strat=strat: benchmark_strategy(
+                strat, mesh4, a, x, n_reps=cm["n_reps"], measure="sync", kernel="cuda"))
+            pred = model4.predict(name, strat.default_combine(mesh4), m=n, k=n, p=4,
+                                  dtype="bfloat16", r=2)
+            pairs[f"{name}_{n}_2x2"] = (pred.total_s, measured_s(res))
+        del a, x
+        gc.collect()
+        for predicted, measured in pairs.values():
+            cmod.record_prediction(predicted, measured)
+        ratios = {k: p_ / m_ for k, (p_, m_) in pairs.items()}
+        main_ratio = ratios[f"blockwise_{cm['main_n']}_p1"]
+        check(not on_card or 0.5 <= main_ratio <= 2.0,
+              f"cost model: the p = 1 GEMV predicted/measured {main_ratio}")
+        emit({"phase": "cost_model_predictions",
+              "predicted_s": {k: v[0] for k, v in pairs.items()},
+              "measured_s": {k: v[1] for k, v in pairs.items()},
+              "predicted_over_measured": ratios, "measure": "sync, min of reps",
+              "divergence_health": cmod.divergence_health()})
+
+        # (c) Pruning against exhaustive tuning on the same shapes.
+        n = cm["tune_n"]
+        prune_logs: list[str] = []
+
+        def tune_pass(cache, prune_margin) -> tuple[dict, int, int]:
+            before = search.candidates_measured()
+            pruned_before = get_registry().snapshot()["counters"].get(cmod.PRUNED_COUNTER, 0)
+            kw = dict(measure="sync", n_reps=cm["n_reps"], samples=2, min_gain=0.25,
+                      prune_margin=prune_margin, log=prune_logs.append)
+            out = {}
+            for name in ("rowwise", "colwise", "blockwise"):
+                out[f"combine/{name}"] = search.tune_combine(
+                    name, mesh4, n, n, "bfloat16", cache, **kw)["combine"]
+                out[f"overlap/{name}"] = search.tune_overlap(
+                    name, mesh4, n, n, "bfloat16", cache, **kw)["stages"]
+            out["storage/rowwise"] = search.tune_storage(
+                "rowwise", mesh4, n, n, "bfloat16", cache, **kw)["storage"]
+            pruned = get_registry().snapshot()["counters"].get(cmod.PRUNED_COUNTER, 0)
+            return out, search.candidates_measured() - before, pruned - pruned_before
+
+        caches = {}
+        for arm in ("exhaustive", "pruned"):
+            caches[arm] = TuningCache(tune_dir / f"{arm}.json")
+            caches[arm].record(calibration_key(4), cals["2x2"].to_record())
+        exhaustive, n_exh, pruned_exh = routed("tune_exhaustive", lambda: tune_pass(
+            caches["exhaustive"], None))
+        pruned, n_pruned, n_skipped = routed("tune_pruned", lambda: tune_pass(
+            caches["pruned"], 0.5))
+        check(pruned == exhaustive, f"pruning changed a decision: {pruned} vs {exhaustive}")
+        check(n_pruned < n_exh and n_skipped > 0 and pruned_exh == 0,
+              f"pruning measured {n_pruned} of {n_exh} candidates, skipped {n_skipped}")
+        check(sum(": pruned (" in line for line in prune_logs) == n_skipped,
+              "every pruned candidate logs one line")
+        emit({"phase": "cost_model_pruning", "shape": [n, n], "dtype": "bfloat16",
+              "mesh": "2x2 logical", "decisions": pruned,
+              "measured_exhaustive": n_exh, "measured_pruned": n_pruned,
+              "tuning_pruned_candidates_total": n_skipped,
+              "pruned_log": [ln for ln in prune_logs if ": pruned (" in ln]})
+
+        # (d) The global scheduler's A/B on one seeded trace.
+        MatvecEngine.ensure_resident = timed_ensure_resident
+        n = cm["gs_n"]
+        served = {"off": {}, "on": {}}
+        runs = {}
+        jsonl = tune_dir / "decisions.jsonl"
+        for arm in ("off", "on"):
+            metrics = tune_dir / f"metrics_{arm}.json"
+            swaps_before = len(swap_s)
+
+            def on_result(tid, x, y, arm=arm):
+                served[arm].setdefault(
+                    (tid, x.view(torch.int16).numpy().tobytes()), []).append(y)
+
+            runs[arm] = routed(f"gsched_{arm}", lambda arm=arm, metrics=metrics:
+                               run_serve_multitenant(
+                "blockwise", mesh1, n, n, dtype="bfloat16", kernel="cuda",
+                n_tenants=cm["gs_tenants"], zipf_a=1.1, hbm_budget=cm["gs_budget"],
+                n_requests=cm["gs_requests"], seed=seed, deadline_ms=cm["gs_deadline_ms"],
+                rate=cm["gs_rate"], max_in_flight=2, global_sched=arm == "on",
+                demand_weight=2.0 if arm == "on" else 0.0,
+                decision_jsonl=str(jsonl) if arm == "on" else None,
+                metrics_out=str(metrics), on_result=on_result))
+            runs[arm] = (runs[arm], json.loads(metrics.read_text())["counters"],
+                         swap_s[swaps_before:])
+        on, on_counters, on_swaps = runs["on"]
+        off, off_counters, off_swaps = runs["off"]
+        same = all(torch.equal(y, ys[0]) for arm in served.values()
+                   for ys in arm.values() for y in ys)
+        same &= all(torch.equal(ys[0], served["off"][key][0])
+                    for key, ys in served["on"].items() if key in served["off"])
+        check(same, "gsched: a result differs between the greedy and scheduled runs")
+        all_on = on.rows[-1]
+        check(on.deadline_expires == 0 and all_on.failed_requests == 0,
+              f"gsched on: {on.deadline_expires} expires, {all_on.failed_requests} failed")
+        check(sum(len(v) for v in served["on"].values())
+              == cm["gs_requests"] - all_on.rejected,
+              "gsched on: every request served or rejected (AdmissionRejectedError)")
+        lines = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+        check(lines and all("predicted_s" in d and "reason" in d for d in lines),
+              "gsched: a decision line without predicted_s or reason")
+        # The model the scheduler read (the largest calibrated mesh's).
+        restore_pred = cmod.any_model_from_cache(TuningCache.load()).restore_s(n * n * 2)
+
+        def arm_line(res, counters, swaps) -> dict:
+            row = res.rows[-1]
+            return {"on_time": res.on_time, "on_time_share": res.on_time / cm["gs_requests"],
+                    "p50_e2e_ms": res.p50_e2e_ms, "p99_e2e_ms": res.p99_e2e_ms,
+                    "rejected": row.rejected, "failed": row.failed_requests,
+                    "deadline_expires": res.deadline_expires, "hits": row.hits,
+                    "evictions": row.evictions, "wall_s": res.wall_s,
+                    "interleaves": counters.get("gsched_interleaves_total", 0),
+                    "swap_ins_timed": len(swaps),
+                    "swap_in_median_s": statistics.median(swaps) if swaps else None}
+
+        # Two tenants of one payload share a flush, each column bitwise its
+        # solo result.
+        def coalesce() -> dict:
+            reg = MatrixRegistry(mesh1, strategy="blockwise", kernel="cuda", promote=None)
+            a = resident_matrix(n, n, bf16, dev, seed + 45)
+            reg.register("a0", a)
+            reg.register("a1", a)
+            del a
+            t0 = time.perf_counter()
+            reg.coalesce_group("a0")
+            hash_s = time.perf_counter() - t0
+            sched = gs_mod.GlobalScheduler(reg, cost_model=model1)
+            xs = [resident_matrix(1, n, bf16, dev, seed + 46 + i)[0].cpu() for i in range(2)]
+            solo = [reg._entry(f"a{i}").engine.submit(xs[i]).result() for i in range(2)]
+            futs = [sched.submit(f"a{i}", xs[i]) for i in range(2)]
+            flushed = sched.flush()
+            ys = [f.result() for f in futs]
+            flushes = [d for d in sched.decisions() if d["decision"] == "flush"]
+            shared = reg.metrics.counter("sched_cross_tenant_coalesced_total").value
+            sched.close()
+            reg.close()
+            check(flushed == 2 and len(flushes) == 1 and shared == 2
+                  and all(torch.equal(y, s_) for y, s_ in zip(ys, solo)),
+                  f"gsched coalesce: {flushed} flushed, {flushes}, shared {shared}")
+            return {"flush": {k: flushes[0][k] for k in ("tenant", "predicted_s", "reason",
+                                                        "n_requests", "width")},
+                    "columns_bitwise_solo": True, "payload_hash_s": hash_s}
+
+        swaps_before = len(swap_s)
+        shared_flush = routed("gsched_coalesce", coalesce)
+
+        # What interleaving costs or saves: the same closed-loop demand shift
+        # with the interleave always considered and never.
+        def interleave_arm(threshold: float) -> dict:
+            n = cm["il_n"]
+            reg = MatrixRegistry(mesh1, hbm_budget=2 * n * n * 2, strategy="blockwise",
+                                 kernel="cuda", promote=None)
+            for i in range(3):
+                reg.register(f"i{i}", resident_matrix(n, n, bf16, dev, seed + 50 + i))
+            sched = gs_mod.GlobalScheduler(reg, cost_model=model1,
+                                           interleave_threshold_s=threshold)
+            # The coalesce groups hash each host payload on first use (seconds
+            # at this size): hashed here, so the demand estimates in the loop
+            # see only the trace's own gaps.
+            for i in range(3):
+                reg.coalesce_group(f"i{i}")
+            x = resident_matrix(1, n, bf16, dev, seed + 53)[0].cpu()
+            lat, ys = [], []
+            t0 = time.perf_counter()
+            for i in cm["il_order"]:
+                t1 = time.perf_counter()
+                ys.append(sched.submit(f"i{i}", x).result())
+                lat.append(time.perf_counter() - t1)
+            wall = time.perf_counter() - t0
+            counters = reg.metrics.snapshot()["counters"]
+            order = [(d["decision"], d["tenant"]) for d in sched.decisions()
+                     if d["decision"] in ("interleave", "evict")]
+            sched.close()
+            reg.close()
+            return {"wall_s": wall, "latency_s": lat, "ys": ys, "decisions": order,
+                    "interleaves": counters.get("gsched_interleaves_total", 0),
+                    "swap_ins": counters.get("registry_swap_ins_total", 0),
+                    "evictions": counters.get("registry_evictions_total", 0)}
+
+        arms = {"on": routed("gsched_interleave", lambda: interleave_arm(0.0)),
+                "off": routed("gsched_interleave", lambda: interleave_arm(float("inf")))}
+        same_il = all(torch.equal(a, b) for a, b in zip(arms["on"].pop("ys"),
+                                                        arms["off"].pop("ys")))
+        emit({"phase": "gsched_ab", "shape": [n, n], "dtype": "bfloat16",
+              "tenants": cm["gs_tenants"], "budget": cm["gs_budget"], "zipf_a": 1.1,
+              "requests": cm["gs_requests"], "rate": cm["gs_rate"],
+              "deadline_ms": cm["gs_deadline_ms"], "off": arm_line(*runs["off"]),
+              "on": arm_line(*runs["on"]), "results_bitwise_off_on": True,
+              "rejections_typed": True, "decision_lines": len(lines),
+              "decisions": dict(Counter(d["decision"] for d in lines)),
+              "restore_predicted_s": restore_pred,
+              "swap_in_measured_median_s": statistics.median(off_swaps + on_swaps)
+              if off_swaps + on_swaps else None,
+              "coalesce": shared_flush,
+              "interleave": {"order": list(cm["il_order"]), "shape": [cm["il_n"]] * 2,
+                             "threshold_on_s": 0.0,
+                             "results_bitwise": same_il, **arms}})
+        check(arms["on"]["interleaves"] >= 1 and arms["off"]["interleaves"] == 0 and same_il,
+              f"interleave: {arms['on']['interleaves']} on, {arms['off']['interleaves']} "
+              "off, or a result differs")
+        MatvecEngine.ensure_resident = ensure_resident
+
+        # (e) A reshard drift on the 2x2 logical mesh.
+        n, width = cm["drift_n"], cm["drift_width"]
+        steady = {s: model4.predict(s, get_strategy(s).default_combine(mesh4), m=n, k=n,
+                                    p=4, dtype="bfloat16", b=width, r=2).total_s
+                  for s in ("rowwise", "colwise", "blockwise")}
+        worst = max(steady, key=steady.get)
+        captured: list = []
+        submit = gs_mod.GlobalScheduler.submit
+
+        def capturing_submit(self, tenant_id, x=None, **kw):
+            fut = submit(self, tenant_id, x, **kw)
+            captured.append((tenant_id, x, fut))
+            return fut
+
+        gs_mod.GlobalScheduler.submit = capturing_submit
+        drift_jsonl = tune_dir / "drift.jsonl"
+        try:
+            drift = routed("reshard_drift", lambda: run_reshard_drift(
+                worst, mesh4, n, n, dtype="bfloat16", kernel="cuda", n_tenants=2,
+                n_requests=cm["drift_requests"], rollover=cm["drift_rollover"],
+                steady_skip=cm["drift_skip"], width_steady=width,
+                pre_rate=cm["drift_pre_rate"], seed=seed, reshard="auto",
+                decision_jsonl=str(drift_jsonl)))
+        finally:
+            gs_mod.GlobalScheduler.submit = submit
+        migrations = [json.loads(ln) for ln in drift_jsonl.read_text().splitlines()
+                      if json.loads(ln)["decision"] == "reshard"]
+        check(drift["reshards"] >= 1 and len(migrations) == drift["reshards"]
+              and all("crossover" in d["reason"] for d in migrations),
+              f"drift: {drift['reshards']} reshards, decision lines {migrations}")
+        moved = [t for t, s_ in drift["final_strategies"].items() if s_ != worst]
+        tid, x_last, fut = [c for c in captured if c[0] == moved[0]][-1]
+        y_last = fut.result()
+        fresh = MatvecEngine(resident_matrix(n, n, bf16, dev, seed + int(tid.split("-")[1])),
+                             mesh4, strategy=drift["final_strategies"][tid], kernel="cuda",
+                             max_bucket=width)
+        y_fresh = routed("reshard_drift_fresh", lambda: fresh.submit(x_last).result())
+        fresh.close()
+        check(torch.equal(y_last, y_fresh),
+              f"drift: {tid}'s result after the migration is not a fresh engine's")
+        emit({"phase": "reshard_drift", "shape": [n, n], "dtype": "bfloat16",
+              "mesh": "2x2 logical", "registered": worst,
+              "predicted_steady_s": steady, **{k: drift[k] for k in (
+                  "reshards", "reshard_bytes", "last_reshard_at", "final_strategies",
+                  "p50_pre_ms", "p99_pre_ms", "p50_steady_ms", "p99_steady_ms",
+                  "compiles_steady", "wall_s")},
+              "migrations": [{k: d[k] for k in ("tenant", "src", "dst", "predicted_s",
+                                                "old_s", "new_s", "migrate_s",
+                                                "horizon_requests", "reason")}
+                             for d in migrations],
+              "bitwise_fresh_engine": True})
+    finally:
+        MatvecEngine.ensure_resident = ensure_resident
+        shutil.rmtree(tune_dir, ignore_errors=True)
+        del os.environ[tuning.CACHE_ENV]
+        tuning.reset_cache()
+    return launches
 
 
 def main() -> int:
@@ -4279,8 +4730,17 @@ def main() -> int:
     gemv_routes["multitenant"] = dict(mt_routes["gemv"])
     quant_routes["multitenant_quant"] = dict(mt_routes["quant_gemv"])
 
-    # ---- 44. the kernels line ----
-    section("44. the kernels line")
+    # ---- 44. the cost model and the global scheduler ----
+    section("44. the cost model and the global scheduler")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, paths in cost_model_section(dev, args.seed, CM).items():
+        target = quant_launches if kernel == "quant_gemv" else launches_by_path[kernel]
+        for name, n in paths.items():
+            target[name] = n
+
+    # ---- 45. the kernels line ----
+    section("45. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -4415,8 +4875,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 45. result ----
-    section("45. result")
+    # ---- 46. result ----
+    section("46. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

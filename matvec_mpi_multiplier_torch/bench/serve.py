@@ -56,10 +56,13 @@ target one tenant (``key=tenant-1/*``) and ``--poison-tenant`` confines
 trace at ``--rate`` req/s with deadlines anchored at each request's
 scheduled arrival, and ``--max-in-flight`` arms each tenant engine's
 backpressure gate. One row per tenant plus an ``ALL`` row land in
-``serve_tenants_<strategy>.csv`` under the JAX package's header. The global
-scheduler's flags (``--global-sched``, ``--demand-weight``,
-``--decision-jsonl``) and the drift mode (``--reshard``) wait for ROADMAP.md
-queue A 2 and raise ``ConfigError``.
+``serve_tenants_<strategy>.csv`` under the JAX package's header.
+``--global-sched on|off|both`` routes the trace through the cost-model-driven
+global scheduler (``both``: greedy first, then scheduled, on the same seeded
+trace; rejected requests in the ``rejected`` column), with
+``--demand-weight``, ``--decision-jsonl`` and ``--reshard auto`` (its
+crossover trigger). :func:`run_reshard_drift` is the drifting-shape A/B of
+that trigger.
 
 ``--op cg|gmres|power|lanczos|chebyshev`` serves ANSWERS instead
 (:func:`run_serve_solver`): each request is one solve against the seeded SPD
@@ -84,6 +87,10 @@ Usage::
     python -m matvec_mpi_multiplier_torch.bench.serve --strategy blockwise \\
         --sizes 65536 --dtype bfloat16 --devices 1 --tenants 4 --zipf-a 1.1 \\
         --hbm-budget 2x --pin-hot 1 --n-requests 120
+    python -m matvec_mpi_multiplier_torch.bench.serve --strategy blockwise \\
+        --sizes 65536 --dtype bfloat16 --devices 1 --tenants 3 --zipf-a 1.1 \\
+        --hbm-budget 2x --deadline-ms 50 --rate 200 --global-sched both \\
+        --decision-jsonl decisions.jsonl
 
     # or through the sweep CLI:
     python -m matvec_mpi_multiplier_torch.bench.sweep --op serve ...
@@ -127,6 +134,7 @@ from ..resilience import (
 from ..solvers import SOLVER_OPS
 from ..utils.convert import dtype_name, from_numpy, torch_dtype
 from ..utils.errors import (
+    AdmissionRejectedError,
     ConfigError,
     DeadlineExceededError,
     MatvecError,
@@ -1135,9 +1143,10 @@ class TenantRow:
     failed_requests: int
     resident_bytes: int
     pinned: int
-    # Requests a scheduler's admission refused (typed, pre-dispatch). The
-    # global scheduler that refuses them waits for ROADMAP.md queue A 2,
-    # so the port's rows carry 0.
+    # Requests the global scheduler's predicted-time admission refused
+    # (typed AdmissionRejectedError, pre-dispatch). Rejected ≠ failed: a
+    # rejection used no device time and is retryable, so it has its own
+    # column and does not count against availability.
     rejected: int = 0
 
     @property
@@ -1148,10 +1157,21 @@ class TenantRow:
     def availability(self) -> float:
         """Share of this tenant's offered requests that neither faulted nor
         expired (quota rejections, deadline expires and fault failures all
-        count against it — the tenant-visible downtime)."""
+        count against it — the tenant-visible downtime). Admission
+        rejections do not: they are typed, pre-dispatch scheduling
+        outcomes (the ``rejected`` column)."""
         if self.requests == 0:
             return float("nan")
         return (self.requests - self.failed_requests) / self.requests
+
+    @property
+    def served_rate(self) -> float:
+        """Share of offered requests that returned a result (failures and
+        rejections both subtracted): a scheduler cannot buy availability by
+        rejecting everything without this collapsing."""
+        if self.requests == 0:
+            return float("nan")
+        return (self.requests - self.failed_requests - self.rejected) / self.requests
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1176,7 +1196,7 @@ class MultiTenantResult:
     # The deadline overlay's columns: deadline_expires counts requests that
     # expired in an engine's gate; p50/p99 are end to end (scheduled arrival
     # to materialized result) over served requests, NaN without deadlines.
-    # global_sched is always False here (ROADMAP.md queue A 2).
+    # global_sched: the run went through the global scheduler.
     global_sched: bool = False
     deadline_ms: float = float("nan")
     deadline_expires: int = 0
@@ -1363,17 +1383,19 @@ def run_serve_multitenant(
     and the result carries end-to-end p50/p99 over served requests.
     ``max_in_flight`` arms the engines' backpressure gate.
 
-    ``global_sched``, ``demand_weight``, ``decision_jsonl`` and
-    ``reshard="auto"`` belong to the global scheduler (ROADMAP.md queue A
-    2) and raise ``ConfigError``."""
-    if global_sched:
-        raise not_ported("global_sched=True (the global scheduler, ROADMAP.md queue A 2)")
-    if demand_weight:
-        raise not_ported("demand_weight (the global scheduler, ROADMAP.md queue A 2)")
-    if decision_jsonl is not None:
-        raise not_ported("decision_jsonl (the global scheduler, ROADMAP.md queue A 2)")
-    if reshard != "off":
-        raise not_ported(f"reshard={reshard!r} (the global scheduler, ROADMAP.md queue A 2)")
+    Global-scheduler A/B (``global_sched``): every submit goes through a
+    :class:`~..engine.GlobalScheduler` over the same registry
+    (``cost_model="auto"``: the tuning cache's calibration, greedy without
+    one) — predicted-time admission, cross-tenant interleaving and
+    coalescing, demand-aware eviction (``demand_weight``) — against the
+    greedy baseline on the same seeded trace. A request the admission
+    refuses counts in ``rejected``, not in ``failed_requests``. The
+    ``hits`` column counts dispatches, so in the deadline-free protocol a
+    coalesced flush of b requests is one hit. ``reshard="auto"`` arms the
+    scheduler's crossover trigger (:func:`run_reshard_drift` is its
+    dedicated A/B); ``decision_jsonl`` mirrors every decision to a file."""
+    if reshard not in ("auto", "off"):
+        raise ConfigError(f"reshard must be 'auto' or 'off', got {reshard!r}")
     if n_tenants < 1:
         raise ConfigError(f"n_tenants must be >= 1, got {n_tenants}")
     if not (0 <= pin_hot <= n_tenants):
@@ -1412,7 +1434,8 @@ def run_serve_multitenant(
               else tenant_quota)
 
     registry = MatrixRegistry(
-        mesh, hbm_budget=budget, metrics=registry_metrics, fault_plan=plan,
+        mesh, hbm_budget=budget, demand_weight=demand_weight,
+        metrics=registry_metrics, fault_plan=plan,
         resilience=policy, integrity_gate=integrity_gate,
         strategy=strategy_name, kernel=kernel, combine=combine, stages=stages,
         dtype_storage=dtype_storage, dtype=tdtype, max_bucket=max_bucket,
@@ -1454,7 +1477,15 @@ def run_serve_multitenant(
                 n_poison = min(len(target), max(1, round(poison_rate * len(target))))
                 poison_idx = {int(j) for j in
                               prng.choice(target, size=n_poison, replace=False)}
+        gs = None
+        if global_sched:
+            from ..engine.global_scheduler import GlobalScheduler
+
+            gs = GlobalScheduler(registry, cost_model="auto",
+                                 decision_jsonl=decision_jsonl, reshard=reshard)
+        submit = gs.submit if gs is not None else registry.submit
         failed = [0] * n_tenants
+        rejected = [0] * n_tenants
         e2e_hist = registry_metrics.histogram(
             "serve_e2e_latency_ms",
             "scheduled-arrival to materialized-result host time over served "
@@ -1473,6 +1504,9 @@ def run_serve_multitenant(
         def consume(t: int, x, fut, arrival: float | None) -> None:
             try:
                 y = fut.result()
+            except AdmissionRejectedError:
+                rejected[t] += 1  # typed, pre-dispatch: rejected != failed
+                return
             except MatvecError:
                 failed[t] += 1
                 return
@@ -1491,11 +1525,13 @@ def run_serve_multitenant(
             for j, t in enumerate(tenant_seq):
                 x = request(j)
                 try:
-                    futures.append((int(t), x, registry.submit(tenant_ids[t], x)))
+                    futures.append((int(t), x, submit(tenant_ids[t], x)))
                 except MatvecError:
                     # Uncoalesced dispatch faults surface at submit; the
                     # trace goes on — availability is the measurement.
                     failed[t] += 1
+            if gs is not None:
+                gs.flush()  # close the open coalescing batch before the drain
             for t, x, fut in futures:
                 consume(t, x, fut, None)
         else:
@@ -1519,7 +1555,7 @@ def run_serve_multitenant(
                         time.sleep(min(arrival - now, 5e-4))
                     remaining = (arrival + deadline_ms / 1e3 - time.perf_counter()) * 1e3
                     try:
-                        fut = registry.submit(tenant_ids[t], x, deadline_ms=remaining)
+                        fut = submit(tenant_ids[t], x, deadline_ms=remaining)
                     except MatvecError:
                         failed[t] += 1
                         continue
@@ -1528,6 +1564,8 @@ def run_serve_multitenant(
                 results.put(None)
                 drain_thread.join()
         wall = time.perf_counter() - start
+        if gs is not None:
+            gs.close()
 
         health = registry.health()
         if metrics_out is not None:
@@ -1551,7 +1589,8 @@ def run_serve_multitenant(
             tenant=tid, requests=int(offered[i]), hits=stat["hits"],
             evictions=stat["evictions"], evictions_caused=stat["evictions_caused"],
             quota_rejections=stat["quota_rejections"], failed_requests=failed[i],
-            resident_bytes=stat["resident_bytes"], pinned=int(stat["pinned"]),
+            rejected=rejected[i], resident_bytes=stat["resident_bytes"],
+            pinned=int(stat["pinned"]),
         ))
     rows.append(TenantRow(
         tenant="ALL", requests=n_requests, hits=sum(r.hits for r in rows),
@@ -1559,6 +1598,7 @@ def run_serve_multitenant(
         evictions_caused=sum(r.evictions_caused for r in rows),
         quota_rejections=sum(r.quota_rejections for r in rows),
         failed_requests=sum(r.failed_requests for r in rows),
+        rejected=sum(r.rejected for r in rows),
         resident_bytes=health["hbm"]["charged_bytes"], pinned=pin_hot,
     ))
     counters = registry_metrics.snapshot()["counters"]
@@ -1568,7 +1608,7 @@ def run_serve_multitenant(
         hbm_budget=budget or 0, budget_tenants=capacity, n_requests=n_requests,
         wall_s=wall,
         hit_rate=rows[-1].hits / n_requests if n_requests else float("nan"),
-        lru_floor=floor, rows=tuple(rows),
+        lru_floor=floor, rows=tuple(rows), global_sched=global_sched,
         deadline_ms=float(deadline_ms) if deadline_ms is not None else float("nan"),
         # Engine-gate deadline failures; warmup submits carry no deadlines.
         deadline_expires=counters.get("engine_deadline_failures_total", 0),
@@ -1577,9 +1617,203 @@ def run_serve_multitenant(
     )
 
 
+# ---- the drifting-shape online-resharding A/B ----
+
+RESHARD_AB_CSV_HEADER = (
+    "m, k, p, strategy, dtype, reshard, n_tenants, zipf_a, n_requests, "
+    "rollover, steady_skip, width_steady, wall_s, p50_pre_ms, "
+    "p99_pre_ms, p50_steady_ms, p99_steady_ms, reshards, reshard_bytes, "
+    "compiles_total, compiles_steady, last_reshard_at, final_strategies"
+)
+
+
+def reshard_csv_path(root=None):
+    from .metrics import out_dir
+
+    return out_dir(root) / "reshard_ab.csv"
+
+
+def append_reshard_result(result: dict, root=None):
+    from ..parallel.distributed import is_main_process
+    from .metrics import _append_row
+
+    path = reshard_csv_path(root)
+    if not is_main_process():
+        return path
+    r = result
+    finals = "|".join(f"{tid}:{s}" for tid, s in sorted(r["final_strategies"].items()))
+    _append_row(
+        path, RESHARD_AB_CSV_HEADER,
+        f"{r['m']}, {r['k']}, {r['p']}, {r['strategy']}, {r['dtype']}, "
+        f"{r['reshard']}, {r['n_tenants']}, {r['zipf_a']:.3f}, "
+        f"{r['n_requests']}, {r['rollover']}, {r['steady_skip']}, "
+        f"{r['width_steady']}, {r['wall_s']:.6f}, "
+        f"{r['p50_pre_ms']:.4f}, {r['p99_pre_ms']:.4f}, "
+        f"{r['p50_steady_ms']:.4f}, {r['p99_steady_ms']:.4f}, "
+        f"{r['reshards']}, {r['reshard_bytes']}, {r['compiles_total']}, "
+        f"{r['compiles_steady']}, {r['last_reshard_at']}, {finals}",
+    )
+    return path
+
+
+def run_reshard_drift(
+    strategy_name: str,
+    mesh: Mesh,
+    m: int,
+    k: int,
+    *,
+    dtype: str = "float32",
+    kernel: str = "cuda",
+    n_tenants: int = 3,
+    zipf_a: float = 1.1,
+    n_requests: int = 200,
+    rollover: int = 24,
+    width_steady: int = 8,
+    pre_rate: float = 6.0,
+    steady_skip: int = 48,
+    seed: int = 0,
+    reshard: str = "off",
+    reshard_cooldown_s: float = 30.0,
+    reshard_horizon_s: float = 0.5,
+    rate_tau_s: float = 0.1,
+    metrics_out: str | None = None,
+    decision_jsonl: str | None = None,
+) -> dict:
+    """The ``reshard="auto"|"off"`` A/B protocol: a Zipf fleet registered in
+    ``strategy_name`` (seeded :func:`resident_matrix` tenants, seeds
+    ``seed + i``) serves, through a :class:`~..engine.GlobalScheduler`, a
+    trace whose shape drifts at the ``rollover`` index — width-1 vector
+    requests trickling at ``pre_rate`` req/s before it, closed-loop
+    ``width_steady``-column blocks after it. Registered in a layout the cost
+    model scores poorly for the steady shape, the fleet lands on the wrong
+    side of the crossover when the shape drifts; with ``reshard="auto"`` the
+    scheduler migrates each tenant on the card once its demand amortizes the
+    collectives, with ``"off"`` the fleet stays in its registered layout —
+    the same seeded trace, so the steady percentiles compare directly.
+
+    Every request is closed-loop (submit then materialize), so its latency
+    is service time. The steady window opens ``steady_skip`` requests after
+    the rollover, wide enough that the one-time migration (and its
+    ``warm_widths`` builds) lands inside the skip; ``compiles_steady`` counts
+    the program builds inside the window. ``last_reshard_at`` is the request
+    index of the last migration (-1 when none). At ``pre_rate`` below ``1 /
+    reshard_horizon_s`` the amortization damper holds the trigger off before
+    the drift."""
+    if reshard not in ("auto", "off"):
+        raise ConfigError(f"reshard must be 'auto' or 'off', got {reshard!r}")
+    if not (0 < rollover < n_requests):
+        raise ConfigError(f"rollover must be in (0, {n_requests}), got {rollover}")
+    if rollover + steady_skip >= n_requests:
+        raise ConfigError(
+            f"steady window is empty: rollover={rollover} + "
+            f"steady_skip={steady_skip} >= n_requests={n_requests}"
+        )
+    from ..engine.global_scheduler import GlobalScheduler
+
+    tdtype = torch_dtype(dtype)
+    registry_metrics = MetricsRegistry()
+    registry = MatrixRegistry(
+        mesh, metrics=registry_metrics, rate_tau_s=rate_tau_s,
+        strategy=strategy_name, kernel=kernel, dtype=tdtype,
+        max_bucket=max(width_steady, 1),
+    )
+    tenant_ids = [f"tenant-{i}" for i in range(n_tenants)]
+    gs = None
+    try:
+        for i, tid in enumerate(tenant_ids):
+            registry.register(
+                tid, resident_matrix(m, k, tdtype, mesh.devices[0], seed + i))
+        # Both trace widths in the registered layout, so the frozen arm's
+        # wide builds land here, not in its steady window.
+        registry.warmup(widths=[1, width_steady])
+        gs = GlobalScheduler(
+            registry, cost_model="auto", decision_jsonl=decision_jsonl,
+            reshard=reshard, reshard_cooldown_s=reshard_cooldown_s,
+            reshard_horizon_s=reshard_horizon_s,
+        )
+        rng = np.random.default_rng(seed + 2)
+        tenant_seq = rng.choice(n_tenants, size=n_requests,
+                                p=_zipf_probs(n_tenants, zipf_a))
+        xpool = [torch.from_numpy(rng.standard_normal(k)).to(tdtype) for _ in range(4)]
+        xbpool = [torch.from_numpy(rng.standard_normal((k, width_steady))).to(tdtype)
+                  for _ in range(4)]
+        compiles_warm = registry_metrics.snapshot()["counters"].get(
+            "engine_compiles_total", 0)
+        compiles_at_window = None
+        lat_ms = np.zeros(n_requests)
+        reshards_seen = 0
+        last_reshard_at = -1
+        gap_s = (1.0 / pre_rate) if pre_rate else 0.0
+        start = time.perf_counter()
+        for j, t in enumerate(tenant_seq):
+            if j < rollover:
+                # The pre-drift trickle: paced arrivals hold the demand
+                # estimate below the amortization threshold.
+                arrival = start + j * gap_s
+                while (now := time.perf_counter()) < arrival:
+                    time.sleep(min(arrival - now, 5e-4))
+                x = xpool[j % len(xpool)]
+            else:
+                x = xbpool[j % len(xbpool)]
+            if j == rollover + steady_skip:
+                compiles_at_window = registry_metrics.snapshot()["counters"].get(
+                    "engine_compiles_total", 0)
+            t0 = time.perf_counter()
+            gs.submit(tenant_ids[t], x).result()  # closed loop: e2e is service time
+            lat_ms[j] = (time.perf_counter() - t0) * 1e3
+            n_resh = registry_metrics.snapshot()["counters"].get(
+                "registry_reshards_total", 0)
+            if n_resh > reshards_seen:
+                reshards_seen = n_resh
+                last_reshard_at = j
+        wall = time.perf_counter() - start
+        counters = registry_metrics.snapshot()["counters"]
+        compiles_total = counters.get("engine_compiles_total", 0) - compiles_warm
+        if compiles_at_window is None:  # degenerate: window at trace end
+            compiles_at_window = counters.get("engine_compiles_total", 0)
+        health = registry.health()
+        finals = {tid: health["tenants"][tid]["strategy"] for tid in tenant_ids}
+        if metrics_out is not None:
+            dump_json(metrics_out, registry_metrics.snapshot())
+    finally:
+        if gs is not None:
+            gs.close()
+        registry.close()
+
+    pre = lat_ms[:rollover]
+    steady = lat_ms[rollover + steady_skip:]
+    return {
+        "m": m, "k": k, "p": mesh.size, "strategy": strategy_name,
+        "dtype": dtype, "reshard": reshard, "n_tenants": n_tenants,
+        "zipf_a": float(zipf_a), "n_requests": n_requests,
+        "rollover": rollover, "steady_skip": steady_skip,
+        "width_steady": width_steady, "wall_s": wall,
+        "p50_pre_ms": float(np.percentile(pre, 50)),
+        "p99_pre_ms": float(np.percentile(pre, 99)),
+        "p50_steady_ms": float(np.percentile(steady, 50)),
+        "p99_steady_ms": float(np.percentile(steady, 99)),
+        "reshards": counters.get("registry_reshards_total", 0),
+        "reshard_bytes": counters.get("reshard_bytes_total", 0),
+        "compiles_total": compiles_total,
+        "compiles_steady": counters.get("engine_compiles_total", 0) - compiles_at_window,
+        "last_reshard_at": last_reshard_at,
+        "final_strategies": finals,
+    }
+
+
 def _run_tenants_config(args, name: str, mesh: Mesh, m: int, k: int, promote) -> bool:
-    """One ``--tenants`` config of the CLI: run the trace, append its rows,
-    print its summary. False when the config cannot run here."""
+    """One ``--tenants`` config of the CLI: run the trace (``--global-sched
+    both``: the greedy baseline, then the scheduled run on the same seeded
+    trace), append its rows, print its summary. False when the config
+    cannot run here."""
+    modes = {None: (False,), "off": (False,), "on": (True,),
+             "both": (False, True)}[getattr(args, "global_sched", None)]
+    return all([_run_tenants_mode(args, name, mesh, m, k, promote, on)
+                for on in modes])
+
+
+def _run_tenants_mode(args, name: str, mesh: Mesh, m: int, k: int, promote,
+                      gsched_on: bool) -> bool:
     try:
         result = run_serve_multitenant(
             name, mesh, m, k, dtype=args.dtype, kernel=args.kernel,
@@ -1601,6 +1835,10 @@ def _run_tenants_config(args, name: str, mesh: Mesh, m: int, k: int, promote) ->
             rate=(getattr(args, "rate", None)
                   if getattr(args, "deadline_ms", None) is not None else None),
             max_in_flight=getattr(args, "max_in_flight", None),
+            global_sched=gsched_on,
+            demand_weight=(getattr(args, "demand_weight", 0.0) or 0.0) if gsched_on else 0.0,
+            decision_jsonl=getattr(args, "decision_jsonl", None) if gsched_on else None,
+            reshard=getattr(args, "reshard", "off") if gsched_on else "off",
         )
     except MatvecError as e:
         print(f"skip {name} {m}x{k} p={mesh.size}: {e}")
@@ -1611,11 +1849,13 @@ def _run_tenants_config(args, name: str, mesh: Mesh, m: int, k: int, promote) ->
     if getattr(args, "deadline_ms", None) is not None:
         deadline_suffix = (f" deadline={result.deadline_ms:.1f}ms "
                            f"expires={result.deadline_expires} "
+                           f"rejected={all_row.rejected} "
                            f"p99={result.p99_e2e_ms:.2f}ms")
     print(
         f"serve-tenants {name} {m}x{k} p={mesh.size} "
         f"tenants={result.n_tenants} zipf_a={result.zipf_a} "
         f"budget={result.budget_tenants if result.hbm_budget else 'inf'} "
+        f"gsched={'on' if gsched_on else 'off'} "
         f"{result.rps:.1f} req/s hit={result.hit_rate:.3f} "
         f"(lru floor {result.lru_floor:.3f}) evictions={all_row.evictions} "
         f"quota_rej={all_row.quota_rejections} ok={all_row.availability:.3f}"
@@ -1732,23 +1972,17 @@ def _run_load_configs(args, name: str, mesh: Mesh, m: int, k: int, promote,
     return n_done
 
 
-# The flags of the JAX package's global scheduler, with their defaults: any
-# other value raises. The scheduler, its demand-weighted eviction, its
-# decision log and the drift mode (--reshard) wait for ROADMAP.md queue A 2;
-# the engine's own reshard() and MatrixRegistry.reshard are ported.
+# The JAX package's flag values whose machinery the port does not have yet,
+# each with what it waits for: asking for one raises.
 _LATER_FLAGS = {
-    "global_sched": None, "demand_weight": None, "decision_jsonl": None,
-    "reshard": "off",
+    ("dtype_storage", "speculate"): "speculative serving, ROADMAP.md queue A 3",
 }
 
 
 def _check_ported(args: argparse.Namespace) -> None:
-    for flag, default in _LATER_FLAGS.items():
-        if getattr(args, flag, default) != default:
-            raise not_ported(f"--{flag.replace('_', '-')} (the global scheduler, "
-                             "ROADMAP.md queue A 2)")
-    if getattr(args, "dtype_storage", None) == "speculate":
-        raise not_ported("--dtype-storage speculate (speculative serving)")
+    for (flag, value), why in _LATER_FLAGS.items():
+        if getattr(args, flag, None) == value:
+            raise not_ported(f"--{flag.replace('_', '-')} {value} ({why})")
     if getattr(args, "poison_tenant", None) is not None and not getattr(args, "tenants", None):
         raise ConfigError("--poison-tenant names a tenant of --tenants mode; "
                           "pass --tenants N")
@@ -2116,12 +2350,34 @@ def build_parser() -> argparse.ArgumentParser:
         help="with --tenants and --poison-rate: plant the poison signature "
         "only in this tenant's requests",
     )
-    # The JAX package's global-scheduler flags, kept so that asking for one
-    # says it is not ported rather than that the flag is unknown.
-    p.add_argument("--global-sched", default=None, dest="global_sched")
-    p.add_argument("--demand-weight", default=None, dest="demand_weight")
-    p.add_argument("--decision-jsonl", default=None, dest="decision_jsonl")
-    p.add_argument("--reshard", default="off")
+    p.add_argument(
+        "--global-sched", choices=["on", "off", "both"], default=None,
+        dest="global_sched",
+        help="with --tenants: route submits through the cost-model-driven "
+        "global scheduler (engine/global_scheduler.py): predicted-time "
+        "admission, cross-tenant interleaving and coalescing, demand-aware "
+        "eviction. 'both' runs the greedy baseline, then the scheduled run "
+        "on the same seeded trace",
+    )
+    p.add_argument(
+        "--reshard", choices=["auto", "off"], default="off",
+        help="with --tenants --global-sched on: arm the scheduler's online-"
+        "resharding trigger (a tenant migrates on the card when the cost "
+        "model predicts another layout wins by more than the migration "
+        "amortized over its demand horizon); 'off' keeps every tenant in "
+        "its registered layout",
+    )
+    p.add_argument(
+        "--demand-weight", type=float, default=2.0, dest="demand_weight",
+        help="with --global-sched on|both: weight of the predicted-demand "
+        "term in the registry's eviction score (0 = recency+cost)",
+    )
+    p.add_argument(
+        "--decision-jsonl", default=None, metavar="FILE", dest="decision_jsonl",
+        help="with --global-sched: mirror every scheduling decision "
+        "(admit/reject/interleave/evict/flush/reshard, each with "
+        "predicted_s and reason) to FILE",
+    )
     p.add_argument(
         "--tune", action="store_true",
         help="pre-pass: measure the kernels, stages, combines (matvec and "
@@ -2132,8 +2388,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --tune: hysteresis margin (default 0.05)")
     p.add_argument("--prune-margin", type=float, default=None,
                    dest="prune_margin",
-                   help="with --tune: cost-model pruning (no cost model yet: "
-                   "every candidate is measured)")
+                   help="with --tune: cost-model pruning — measure only the "
+                   "candidates predicted within this margin of the predicted "
+                   "winner (a calibrated cache; exhaustive with a log line "
+                   "without one)")
     p.add_argument("--measure", choices=["auto", "loop", "chain", "sync"],
                    default="auto", help="with --tune: the races' timing method")
     p.add_argument("--data-root", default=None)

@@ -12,8 +12,10 @@ ladder) and ``executables.py`` (the per-key program cache). Benchmarked by
 ``--coalesce`` for load) — and ``registry.py`` (the multi-tenant matrix
 registry: many tenants' ``A`` under one device-memory budget, with
 eviction, re-admission, pinning, quotas and tenant-scoped faults; the serve
-bench's ``--tenants``). The global scheduler waits for a later slice
-(ROADMAP.md, queue A 2).
+bench's ``--tenants``) and ``global_scheduler.py`` (the cost-model-driven
+scheduler over a registry: predicted-time admission, cross-tenant
+interleaving and coalescing, demand-aware eviction, the reshard trigger;
+the serve bench's ``--global-sched``).
 
 The re-exports resolve lazily (PEP 562), like the package's own.
 """
@@ -46,6 +48,7 @@ _EXPORTS = {
     "MatrixRegistry": ".registry",
     "TenantHandle": ".registry",
     "TenantQuota": ".registry",
+    "GlobalScheduler": ".global_scheduler",
 }
 
 __all__ = list(_EXPORTS)

@@ -1344,6 +1344,38 @@ class MatvecEngine:
             self.storage_block, self.gather_output, self.max_bucket, self.donate,
         )
 
+    def prediction_config(self, b: int = 1, rtol: float | None = None) -> dict:
+        """The cost model's view of one dispatch through this engine's
+        preferred config (``tuning.cost_model.CostModel.predict`` /
+        ``predict_admission`` keywords): the resolved combine schedule (the
+        strategy's static default when none was pinned) at the bucket a
+        ``b``-column request rides (``b >= b*`` promotes to the padded GEMM
+        bucket; below it the per-column path dispatches ``b`` single-RHS
+        programs, which the caller models as ``b`` sequential ``b=1``
+        predictions). ``rtol`` never selects ``storage="speculate"``: the
+        port has no speculative engines (ROADMAP.md, queue A 3), the JAX
+        package's answer for a non-speculative engine. Degradation-ladder
+        fallbacks are not modeled: admission predicts the healthy path. An
+        advisory snapshot, read without the engine's locks (a racing
+        reshard yields one stale prediction)."""
+        del rtol
+        gemm = self.b_star is not None and b >= self.b_star
+        combine = self._effective_combine(
+            self._gemm_combine if gemm else self._matvec_combine)
+        if combine is None:
+            combine = self.strategy.default_combine(self.mesh)
+        return dict(
+            strategy=self.strategy.name,
+            combine=combine,
+            stages=self.stages,
+            m=self.m,
+            k=self.k,
+            p=self.mesh.size,
+            dtype=dtype_name(self.dtype),
+            b=bucket_for(b, self.max_bucket) if gemm else 1,
+            storage=self.storage,
+        )
+
     def _fire_residency_notes(self) -> None:
         """Report the queued footprint changes: the gauge, then the
         listener, which may take the registry's lock. Called only where no
@@ -2358,7 +2390,7 @@ class MatvecEngine:
                 # True once the native safe tier is placed: the card then
                 # holds both residencies.
                 "native_fallback_resident": self._a_native is not None,
-                # Speculative serving comes with ROADMAP.md queue A 6.
+                # Speculative serving comes with ROADMAP.md queue A 3.
                 "speculative": False,
                 "escalation_rate": 0.0,
             },

@@ -8,7 +8,7 @@ of its program as a CUDA graph (``engine/core.py``), held under an explicit
 key (op × strategy × kernel × combine × bucket × dtype × storage) with
 compile and hit counters the serve bench reports — a flat ``compiles``
 across a warm stream is the zero-recompilation criterion. Lowering
-fingerprints belong to the static-analysis item (ROADMAP.md, queue A 9).
+fingerprints belong to the static-analysis item (ROADMAP.md, queue A 6).
 """
 
 from __future__ import annotations

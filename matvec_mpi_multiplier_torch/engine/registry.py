@@ -308,8 +308,8 @@ class MatrixRegistry:
         times its restore-cost ratio. One sustained request/s of demand on
         a mean-size payload buys ``demand_weight`` recency serials of
         protection. 0 (the default) keeps the recency+cost score exactly;
-        the global scheduler that turns it on waits for a later slice
-        (ROADMAP.md, queue A 2).
+        the serve bench's global-scheduler runs turn it on
+        (``--demand-weight``).
     rate_tau_s : the demand estimators' EWMA time constant. They read the
         registry's ``_clock`` (``time.monotonic``).
     eviction_listener : ``callable(victim_id, caused_by_id, score,
@@ -816,7 +816,7 @@ class MatrixRegistry:
             entry.pinned = False
             entry.g_pinned.set(0)
 
-    # ---- demand terms (the global scheduler's hooks, ROADMAP.md A 2) ----
+    # ---- demand terms (the global scheduler's hooks) ----
 
     def observe_demand(self, tenant_id: str, n: int = 1) -> None:
         """Tick a tenant's demand estimator WITHOUT a submit — for

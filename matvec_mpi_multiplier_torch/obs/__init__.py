@@ -4,8 +4,9 @@ trace spans.
 The port's counterpart of the JAX package's ``obs/``:
 
 * **metrics registry** (``registry.py``) — counters, gauges, latency
-  histograms with exact windowed percentiles, and the arrival-rate
-  estimator the batching scheduler sizes its window from;
+  histograms with exact windowed percentiles, the arrival-rate
+  estimator the batching scheduler sizes its window from, and the
+  time-decayed EWMA gauge of the cost model's divergence;
   ``EngineStats`` is a view over the engine's registry;
 * **request-lifecycle tracer** (``tracing.py``) — one span tree per engine
   request (submit → gate → bucket/pad → program lookup → dispatch →
@@ -30,6 +31,7 @@ from .annotations import annotations, annotations_enabled, named_span
 from .flight import FlightRecorder
 from .registry import (
     Counter,
+    EwmaGauge,
     Gauge,
     Histogram,
     MetricsRegistry,
@@ -54,6 +56,7 @@ from .tracing import RequestTracer, Span
 
 __all__ = [
     "Counter",
+    "EwmaGauge",
     "Gauge",
     "Histogram",
     "MetricsRegistry",

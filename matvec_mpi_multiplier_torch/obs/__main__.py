@@ -4,9 +4,10 @@ a flight-recorder bundle.
 
 The port's copy of the JAX package's ``obs/__main__.py``: the same
 subcommands and the same text, so a capture of either package renders the
-same way. Panels whose vocabulary the port does not emit yet (tenants, the
-global scheduler, the cost model, speculative storage) render nothing for
-the port's snapshots.
+same way. The speculative-storage vocabulary, which the port does not emit
+yet, renders nothing for the port's snapshots; the tenants, global
+scheduler and cost model panels render the registry's, the scheduler's and
+the tuner's metrics.
 
 Usage::
 

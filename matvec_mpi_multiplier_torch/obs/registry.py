@@ -21,8 +21,9 @@ subsystems with no instance of their own: the tuner's per-candidate
 measurements. :func:`prometheus_text` is the one Prometheus text serializer
 (a live registry's :meth:`MetricsRegistry.to_prometheus` and the obs CLI's
 ``metrics --prometheus`` over a snapshot file); :func:`label` builds a
-labeled metric name with its values escaped. The EWMA gauge waits for the
-slice that reads it (ROADMAP.md).
+labeled metric name with its values escaped. :class:`EwmaGauge`, a
+time-decayed average of an observation stream, holds the cost model's
+divergence signal (``tuning/cost_model.py::record_prediction``).
 """
 
 from __future__ import annotations
@@ -215,6 +216,62 @@ class RateEstimator:
             return self._rate * math.exp(-max(0.0, now - self._last) / self.tau_s)
 
 
+class EwmaGauge:
+    """Time-decayed windowed average of an observation stream.
+
+    ``observe(x)`` folds one observation into a pair of decayed accumulators
+    (weighted sum and weight), each discounted by ``exp(-dt/tau_s)`` since
+    the previous observation; ``value`` is their ratio, an exponentially
+    weighted average in which an observation ``age`` seconds old carries
+    weight ``exp(-age/tau_s)``. It is recent rather than lifetime, burst-safe
+    (observations sharing one clock reading all enter with full weight) and
+    idle-stable (silence decays numerator and denominator alike, so the value
+    holds over a quiet period). The cost model's divergence gauge is one.
+    It reads ``_clock`` (``time.monotonic``), which tests set.
+
+    Exported by the registry snapshot as a plain gauge value.
+    """
+
+    def __init__(self, name: str, help: str = "", tau_s: float = 60.0):
+        if tau_s <= 0:
+            raise ValueError(f"ewma gauge {name!r} needs tau_s > 0")
+        self.name = name
+        self.help = help
+        self.tau_s = float(tau_s)
+        self._clock = time.monotonic
+        self._lock = threading.Lock()
+        self._num = 0.0
+        self._den = 0.0
+        self._last: float | None = None
+        self._count = 0
+
+    def observe(self, x: float, now: float | None = None) -> None:
+        if now is None:
+            now = self._clock()
+        with self._lock:
+            if self._last is not None:
+                w = math.exp(-max(0.0, now - self._last) / self.tau_s)
+                self._num *= w
+                self._den *= w
+            self._num += float(x)
+            self._den += 1.0
+            self._last = now
+            self._count += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def value(self) -> float:
+        """The decayed average (0.0 before any observation)."""
+        with self._lock:
+            if self._den <= 0.0:
+                return 0.0
+            return self._num / self._den
+
+
 class MetricsRegistry:
     """Named metrics, get-or-create. One registry per engine (isolated
     counters per serving instance), plus the process default
@@ -226,6 +283,7 @@ class MetricsRegistry:
         self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
         self._rates: dict[str, RateEstimator] = {}
+        self._ewmas: dict[str, EwmaGauge] = {}
 
     def counter(self, name: str, help: str = "") -> Counter:
         with self._lock:
@@ -268,16 +326,26 @@ class MetricsRegistry:
                 r = self._rates[name] = RateEstimator(name, help, tau_s=tau_s)
             return r
 
+    def ewma_gauge(self, name: str, help: str = "", tau_s: float = 60.0) -> EwmaGauge:
+        with self._lock:
+            e = self._ewmas.get(name)
+            if e is None:
+                e = self._ewmas[name] = EwmaGauge(name, help, tau_s=tau_s)
+            return e
+
     def snapshot(self) -> dict:
         """JSON-able view of every metric (atomic per metric). Rate
-        estimators export as gauges, sampled at snapshot time."""
+        estimators and EWMA gauges export as gauges, sampled at snapshot
+        time."""
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
             histograms = dict(self._histograms)
             rates = dict(self._rates)
+            ewmas = dict(self._ewmas)
         gauge_values = {n: g.value for n, g in gauges.items()}
         gauge_values.update({n: r.rate_per_s() for n, r in rates.items()})
+        gauge_values.update({n: e.value for n, e in ewmas.items()})
         return {
             "counters": {n: c.value for n, c in sorted(counters.items())},
             "gauges": dict(sorted(gauge_values.items())),

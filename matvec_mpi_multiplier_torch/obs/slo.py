@@ -35,9 +35,10 @@ and evaluation run from ``health()``, the serve bench or a CLI.
 The port's copy of the JAX package's ``obs/slo.py``. The clock is
 ``time.time``; no caller of the port sets another, so it is not a
 parameter: ``sample(now=)`` and ``evaluate(now=)`` take a time, and tests
-set ``monitor._clock``. Targets whose sources the port does not export yet
-(the speculative tier's escalation rate, the cost model's divergence gauge)
-evaluate as ``no_data``.
+set ``monitor._clock``. The cost model's divergence gauge feeds
+``cost_model_divergence`` once a prediction is recorded; the speculative
+tier's escalation rate, which the port does not export yet, evaluates as
+``no_data``.
 """
 
 from __future__ import annotations

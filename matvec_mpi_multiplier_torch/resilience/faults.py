@@ -1,7 +1,7 @@
 """Fault taxonomy and deterministic, seeded fault injection.
 
 The port's copy of the JAX package's ``resilience/faults.py``, the fault
-half of ``resilience/`` (the recovery policy waits: ROADMAP.md, queue A 4b).
+half of ``resilience/`` (the recovery policy is ``policy.py``).
 
 **Taxonomy.** Every serving-path failure the engine reports is one of:
 

@@ -17,11 +17,11 @@ the solver iteration tier — is a measured decision:
   the static default on any miss, so ``auto`` is always safe to ask for.
 
 Fill it with ``python -m matvec_mpi_multiplier_torch.tuning`` or the
-sweep's and serve bench's ``--tune``. Of the JAX package's cost model
-(``tuning/cost_model.py``) the port has only the divergence signal
-``engine.health()`` reports (``cost_model.py``); the model itself waits for
-ROADMAP.md queue A 5: :func:`lookup_calibration` misses, and the search
-measures every candidate, as the JAX package does on an uncalibrated cache.
+sweep's and serve bench's ``--tune``. The calibrated cost model
+(``cost_model.py``; ``--calibrate`` records its constants) predicts every
+candidate: with ``prune_margin`` the search measures only those predicted
+near the predicted winner, and :func:`lookup_calibration` returns the
+record it prunes with (every candidate is measured on a cache without one).
 """
 
 from __future__ import annotations
@@ -128,8 +128,8 @@ def lookup_overlap(*, strategy: str, m: int, k: int, p: int,
 
 
 def lookup_calibration(*, p: int) -> dict[str, Any] | None:
-    """The cost model's calibration record: always None until the cost
-    model is ported (ROADMAP.md, queue A 5), so every axis measures all of
-    its candidates."""
-    del p
-    return None
+    """The recorded cost-model calibration for a ``p``-device mesh of this
+    platform, or None: the tuner's ``prune_margin`` question
+    (``cost_model.model_from_cache`` wraps it into a ``CostModel``; a miss
+    means every axis measures all of its candidates)."""
+    return get_cache().lookup(calibration_key(p))

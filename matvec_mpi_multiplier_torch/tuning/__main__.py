@@ -18,6 +18,9 @@ file). ``--platform cuda`` (the default) meshes over the CUDA devices and
 fails without one; ``--shards p`` puts p logical shards on the first card.
 A later ``bench.sweep --kernel auto`` or ``--combine auto``, or an engine
 built with ``"auto"``, reads the cache without measuring again.
+``--calibrate full|quick`` runs the cost model's probes on each mesh first
+and records their constants; ``--prune-margin M`` then measures only the
+candidates predicted within M of each axis's predicted winner.
 """
 
 from __future__ import annotations
@@ -63,11 +66,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--prune-margin", type=float, default=None,
-        help="cost-model pruning; the port has no cost model yet, so every "
-        "candidate is measured and the run says so",
+        help="cost-model pruning: measure only candidates predicted within "
+        "this relative margin of the predicted winner (needs a calibration "
+        "record, see --calibrate; without one every candidate is measured)",
     )
     p.add_argument("--calibrate", choices=["full", "quick"], default=None,
-                   help="the cost model's probes (not ported yet)")
+                   help="run the cost model's probes on each mesh first and "
+                   "record the calibrations (cache schema v5)")
     p.add_argument("--cache", default=None, help="cache file path override")
     p.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",
                    help="devices to mesh over: the CUDA devices (default) or "
@@ -79,10 +84,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.calibrate is not None:
-        from ..models.base import not_ported
-
-        raise not_ported("--calibrate (the cost model's probes)")
     if args.cache is not None:
         # Through the env var, so the dispatch singleton (lookup_gemv & co.)
         # reads the same file in this process and its children.
@@ -118,6 +119,14 @@ def main(argv: list[str] | None = None) -> int:
     cache = TuningCache.load(args.cache)
     print(f"tuning cache: {cache.path} ({len(cache)} entries)")
     print(f"platform fingerprint: {platform_fingerprint()}")
+    if args.calibrate is not None:
+        from .cache import calibration_key
+        from .cost_model import calibrate
+
+        for mesh in meshes:
+            cal = calibrate(mesh, level=args.calibrate)
+            cache.record(calibration_key(mesh.size), cal.to_record())
+        cache.save()
     tune_sweep(
         strategies, sizes, meshes, args.dtype, cache, op=args.op,
         n_rhs=args.n_rhs, kernel=args.kernel, measure=args.measure,

@@ -40,8 +40,8 @@ Schema (version 6, the JAX package's)::
 The kernel tiers' names are the port's (``torch``, ``cuda``,
 ``cuda_fused``), the JAX package's are its own (``xla``, ``pallas``,
 ``pallas_fused``); a key's fingerprint says whose an entry is. The
-``calibration`` kind belongs to the cost model, which the port does not
-have yet: it writes none and reads none. Versions 1-5 load as they are
+``calibration`` kind holds the cost model's machine constants
+(``cost_model.py``), in the JAX package's record. Versions 1-5 load as they are
 (their entries are strict subsets of version 6's).
 
 ``gemv``/``gemm`` keys use the LOCAL (per-shard) shape the kernel registry's
@@ -160,8 +160,9 @@ def solver_kernel_key(op: str, strategy: str, m: int, k: int, p: int,
 
 
 def calibration_key(p: int, fingerprint: str | None = None) -> str:
-    """Key for a cost-model calibration record (the JAX package's kind; the
-    port reads and writes none until its cost model lands)."""
+    """Key for a cost-model calibration record (``cost_model.calibrate``;
+    the JAX package's kind and record, so either package reads the
+    other's)."""
     return f"{_fp(fingerprint)}|calibration|p{p}"
 
 

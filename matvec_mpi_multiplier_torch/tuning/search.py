@@ -33,10 +33,16 @@ single calls. A non-default candidate wins only by beating the static
 default by :data:`TUNE_MIN_GAIN` (hysteresis), and an apparent winner is
 measured again beside the default before it is recorded.
 
-The JAX package's cost-model pruning (``prune_margin``) needs its cost
-model, which the port does not have yet (ROADMAP.md, queue A 5): the
-argument is accepted on every axis, and every axis measures all of its
-candidates and says so, the JAX package's uncalibrated path.
+**Cost-model pruning** (``prune_margin=``): when the cache carries a
+calibration record (``cost_model.calibrate``), every axis predicts its
+candidates and measures only those within the margin of the predicted
+winner, plus the hysteresis default seat (never pruned). Every pruned
+candidate is logged and counted (``tuning_pruned_candidates_total``), every
+measured candidate records its prediction into the obs registry
+(``tuning_predicted_vs_measured_ratio``), and an uncalibrated cache falls
+back to measuring everything with a log line. The kernel axes record
+predictions but never prune (the model has no kernel-tier resolution);
+the promotion axis prunes the buckets after ``b*`` is decided.
 """
 
 from __future__ import annotations
@@ -84,10 +90,6 @@ SOLVER_RACE_ITERS = 16
 # un-pipelined schedule, is the hysteresis default.
 OVERLAP_STAGE_LADDER = (1, 2, 4, 8)
 
-# The counter cost-model pruning counts into (no pruning until the cost
-# model is ported: it stays at 0).
-PRUNED_COUNTER = "tuning_pruned_candidates_total"
-
 def _cuda_offered(device: torch.device) -> bool:
     """Whether the CUDA candidates race for operands on ``device``."""
     return device.type == "cuda"
@@ -133,11 +135,14 @@ def _measure_fn(fn: Callable, args: tuple, mesh: Mesh, *, n_reps: int,
     return float(np.median(times))
 
 
-def _record_candidate(axis: str, t: float | None) -> None:
+def _record_candidate(axis: str, t: float | None,
+                      predicted: float | None = None) -> None:
     """Count one measured candidate of ``axis`` in the process registry
     (``tuning_<axis>_candidates_total``; unmeasurable ones also in
     ``tuning_<axis>_unmeasurable_total``) and its time in the
-    ``tuning_candidate_time_ms`` histogram."""
+    ``tuning_candidate_time_ms`` histogram. ``predicted`` (when a
+    calibration exists) records the cost model's prediction against the
+    measurement (``cost_model.record_prediction``)."""
     from ..obs.registry import get_registry
 
     registry = get_registry()
@@ -149,15 +154,22 @@ def _record_candidate(axis: str, t: float | None) -> None:
     else:
         registry.histogram("tuning_candidate_time_ms",
                            "measured candidate times").observe(t * 1e3)
+        if predicted is not None:
+            from .cost_model import record_prediction
+
+            record_prediction(predicted, t)
 
 
 def candidates_measured() -> int:
-    """Candidates measured so far in this process, over every axis."""
+    """Candidates measured so far in this process, over every axis (the
+    pruned-candidate counter shares the suffix and is left out)."""
     from ..obs.registry import get_registry
+    from .cost_model import PRUNED_COUNTER
 
     counters = get_registry().snapshot()["counters"]
     return sum(v for name, v in counters.items()
-               if name.startswith("tuning_") and name.endswith("_candidates_total"))
+               if name.startswith("tuning_") and name.endswith("_candidates_total")
+               and name != PRUNED_COUNTER)
 
 
 def _record_stale(axis: str, key: str, log: Callable[[str], None]) -> None:
@@ -181,13 +193,100 @@ def _lookup(cache: TuningCache, axis: str, key: str, force: bool,
     return existing
 
 
-def _predict_combines(prune_margin: float | None, context: str,
-                      log: Callable[[str], None]) -> None:
-    """The prediction step of every axis: the JAX package's uncalibrated
-    branch (no cost model, so no predictions and no pruning; every
-    candidate is measured, and a pruning request says so)."""
-    if prune_margin is not None:
+def _plan_pruning(context: str, predictions: dict[str, float], *, keep: set[str],
+                  margin: float, log: Callable[[str], None]) -> set[str]:
+    """Predicted-time pre-ranking for one axis: keep the hysteresis seat(s)
+    in ``keep`` and every candidate predicted within ``margin`` of the
+    predicted winner; prune the rest. Every pruned candidate is logged and
+    counted, so a wrong prediction stays attributable. Returns the label
+    set to measure."""
+    from ..obs.registry import get_registry
+    from .cost_model import PRUNED_COUNTER
+
+    best = min(predictions.values())
+    measure: set[str] = set()
+    counter = get_registry().counter(
+        PRUNED_COUNTER, "tuning candidates skipped by cost-model pruning")
+    for label, t in predictions.items():
+        if label in keep or t <= (1.0 + margin) * best:
+            measure.add(label)
+        else:
+            counter.inc()
+            log(f"  {context} {label}: pruned (predicted {t * 1e6:.1f} us "
+                f"vs predicted best {best * 1e6:.1f} us, margin {margin:.2f})")
+    return measure
+
+
+def _measure_plan(candidates: Iterable, predictions: dict[str, float],
+                  measure_set: set[str] | None) -> list:
+    """The candidates one axis races after a pruning plan: all of them when
+    not pruning (``measure_set`` None), else the kept set plus every
+    candidate the model had no prediction for. Prediction keys are the
+    str() of the candidate (the overlap ladder's ints by their labels)."""
+    return [c for c in candidates
+            if measure_set is None or str(c) not in predictions
+            or str(c) in measure_set]
+
+
+def _plan(model, predictions: dict[str, float], *, keep: set[str],
+          prune_margin: float | None, context: str,
+          log: Callable[[str], None]) -> tuple[set[str] | None, list[str]]:
+    """The pruning plan of one axis from its predictions: ``(measure_set,
+    pruned)``, ``measure_set`` None when not pruning or uncalibrated (that
+    case logged)."""
+    if prune_margin is None:
+        return None, []
+    if model is None:
         log(f"  {context}: cost model uncalibrated - measuring all candidates")
+        return None, []
+    if not predictions:
+        return None, []
+    measure_set = _plan_pruning(context, predictions, keep=keep,
+                                margin=prune_margin, log=log)
+    return measure_set, sorted(set(predictions) - measure_set)
+
+
+def _predict_combines(
+    cache: TuningCache, family: str, candidates: Iterable[str], *, m: int,
+    k: int, mesh: Mesh, dtype: str, stages: int | None, keep: set[str],
+    prune_margin: float | None, context: str, log: Callable[[str], None],
+    b: int = 1,
+) -> tuple[dict[str, float], set[str] | None, list[str]]:
+    """Shared prediction and pruning plan of the combine axes: predict every
+    candidate the formula covers, then (with ``prune_margin``) split them
+    into measured and pruned sets. Returns ``(predictions, measure_set,
+    pruned)``; candidates without a prediction are never pruned."""
+    from .cost_model import model_from_cache
+
+    p = mesh.size
+    model = model_from_cache(cache, p)
+    predictions: dict[str, float] = {}
+    if model is not None:
+        r, _c = mesh_grid_shape(mesh)
+        for cand in candidates:
+            s = stages if cand in ("overlap", "overlap_ring") else None
+            try:
+                predictions[cand] = model.predict(
+                    family, cand, m=m, k=k, p=p, dtype=dtype, stages=s,
+                    b=b, r=r,
+                ).total_s
+            except KeyError:
+                continue  # no formula for this schedule: never pruned
+    measure_set, pruned = _plan(model, predictions, keep=keep,
+                                prune_margin=prune_margin, context=context,
+                                log=log)
+    return predictions, measure_set, pruned
+
+
+def _with_predictions(best: dict[str, Any], predictions: dict,
+                      pruned: list[str]) -> dict[str, Any]:
+    """A decision with the predictions and pruned candidates recorded
+    beside it (the JAX package's ``predicted_s`` and ``pruned`` fields)."""
+    if predictions:
+        best["predicted_s"] = predictions
+    if pruned:
+        best["pruned"] = pruned
+    return best
 
 
 def _pick_winner(measured: dict[str, float], default: str,
@@ -205,16 +304,17 @@ def _pick_winner(measured: dict[str, float], default: str,
 
 
 def _race(axis: str, context: str, labels: list[str], run: Callable[[str], float | None],
-          default: str, min_gain: float,
-          log: Callable[[str], None]) -> tuple[str | None, dict[str, float]]:
+          default: str, min_gain: float, log: Callable[[str], None],
+          predictions: dict | None = None) -> tuple[str | None, dict[str, float]]:
     """Measure every label (``run(label)`` -> seconds or None), pick the
     winner with the hysteresis, and where a non-default label wins measure
     it again beside the default (both fully warm, adjacent: free of the
-    first pass's order bias) before deciding."""
+    first pass's order bias) before deciding. ``predictions`` (label ->
+    seconds) pairs each first-pass measurement with its prediction."""
     measured: dict[str, float] = {}
     for label in labels:
         t = run(label)
-        _record_candidate(axis, t)
+        _record_candidate(axis, t, (predictions or {}).get(label))
         if t is None:
             log(f"  {context} {label}: unmeasurable")
             continue
@@ -294,12 +394,17 @@ def tune_gemv(
     """Measure the GEMV candidates for one LOCAL (m, k, dtype) on one device
     and record the winner (``gemv_key``). Returns the decision, cached or
     fresh; None when nothing was measurable. ``prune_margin`` is accepted
-    for uniformity: the kernel axis never prunes."""
+    for uniformity: the kernel axis never prunes (every candidate shares one
+    local prediction), but each measurement records its prediction."""
+    from .cost_model import any_model_from_cache
+
     del prune_margin
     key = gemv_key(m, k, dtype)
     existing = _lookup(cache, "gemv", key, force, log)
     if existing is not None:
         return existing
+    model = any_model_from_cache(cache)
+    predicted = model.predict_local(m, k, dtype).total_s if model is not None else None
     device = _tune_device() if device is None else torch.device(device)
     mesh = make_1d_mesh(1, devices=[device])
     a = _uniform((m, k), dtype, seed, device)
@@ -315,7 +420,7 @@ def tune_gemv(
         "gemv", f"gemv {m}x{k} {dtype}", list(by_label),
         lambda label: _measure_fn(fns[label], (a, x), mesh, n_reps=n_reps,
                                   samples=samples, measure=measure),
-        "cuda", min_gain, log)
+        "cuda", min_gain, log, dict.fromkeys(by_label, predicted))
     if winner is None:
         return None
     best = dict(by_label[winner], time_s=measured[winner], candidates=measured)
@@ -365,12 +470,17 @@ def tune_gemm(
 ) -> dict[str, Any] | None:
     """The GEMM face of :func:`tune_gemv`: measure the tier and tile
     candidates for one LOCAL (m, k, n, dtype) and record the winner
-    (``gemm_key``)."""
+    (``gemm_key``); predictions are recorded, never pruned on."""
+    from .cost_model import any_model_from_cache
+
     del prune_margin
     key = gemm_key(m, k, n, dtype)
     existing = _lookup(cache, "gemm", key, force, log)
     if existing is not None:
         return existing
+    model = any_model_from_cache(cache)
+    predicted = (model.predict_local(m, k, dtype, b=n).total_s
+                 if model is not None else None)
     device = _tune_device() if device is None else torch.device(device)
     mesh = make_1d_mesh(1, devices=[device])
     a = _uniform((m, k), dtype, seed, device)
@@ -384,7 +494,7 @@ def tune_gemm(
         "gemm", f"gemm {m}x{k}x{n} {dtype}", list(by_label),
         lambda label: _measure_fn(fns[label], (a, b), mesh, n_reps=n_reps,
                                   samples=samples, measure=measure),
-        "cuda", min_gain, log)
+        "cuda", min_gain, log, dict.fromkeys(by_label, predicted))
     if winner is None:
         return None
     best = dict(by_label[winner], time_s=measured[winner], candidates=measured)
@@ -428,9 +538,12 @@ def tune_combine(
     family = _family(strategy_name)
     default = strat.default_combine(mesh)
     context = f"combine {strategy_name} {m}x{k} p={p}"
-    _predict_combines(prune_margin, context, log)
+    predictions, measure_set, pruned = _predict_combines(
+        cache, family, candidates, m=m, k=k, mesh=mesh, dtype=dtype,
+        stages=stages, keep={default}, prune_margin=prune_margin,
+        context=context, log=log)
     runnable = []
-    for cand in candidates:
+    for cand in _measure_plan(candidates, predictions, measure_set):
         try:
             (strat.with_combine(cand) or strat).validate(m, k, mesh)
             runnable.append(cand)
@@ -466,10 +579,12 @@ def tune_combine(
         return t
 
     winner, measured = _race("combine", context, runnable, run, default,
-                             min_gain, log)
+                             min_gain, log, predictions)
     if winner is None:
         return None
-    best = {"combine": winner, "time_s": measured[winner], "candidates": measured}
+    best = _with_predictions(
+        {"combine": winner, "time_s": measured[winner], "candidates": measured},
+        predictions, pruned)
     cache.record(key, best)
     return best
 
@@ -502,9 +617,12 @@ def tune_gemm_combine(
     strat = get_strategy(strategy_name)
     default = strat.default_combine(mesh)
     context = f"gemm-combine {strategy_name} {m}x{k}x{n} p={p}"
-    _predict_combines(prune_margin, context, log)
+    predictions, measure_set, pruned = _predict_combines(
+        cache, _family(strategy_name), candidates, m=m, k=k, mesh=mesh,
+        dtype=dtype, stages=stages, keep={default}, prune_margin=prune_margin,
+        context=context, log=log, b=n)
     runnable = []
-    for cand in candidates:
+    for cand in _measure_plan(candidates, predictions, measure_set):
         try:
             (strat.with_combine(cand) or strat).validate(m, k, mesh)
             validate_gemm(strategy_name, m, k, n, mesh)
@@ -534,11 +652,12 @@ def tune_gemm_combine(
             return None
 
     winner, measured = _race("gemm_combine", context, runnable, run, default,
-                             min_gain, log)
+                             min_gain, log, predictions)
     if winner is None:
         return None
-    best = {"combine": winner, "time_s": measured[winner],
-            "candidates": measured, "n_rhs": n}
+    best = _with_predictions(
+        {"combine": winner, "time_s": measured[winner], "candidates": measured,
+         "n_rhs": n}, predictions, pruned)
     cache.record(key, best)
     return best
 
@@ -562,8 +681,11 @@ def tune_promotion(
     differs from a miss). Both sides are timed per call by the looped
     protocol; the host's per-dispatch cost only widens the GEMM's real
     advantage, so the crossover is conservative. With ``prune_margin`` the
-    buckets after the first winner are skipped (they cannot change b*)."""
+    buckets after the first winner are skipped (they cannot change b*): the
+    model itself cannot prune here, since it never predicts one GEMM above
+    ``b`` matvecs. Its per-bucket predictions are recorded all the same."""
     from ..obs.registry import get_registry
+    from .cost_model import PRUNED_COUNTER, model_from_cache
 
     p = mesh.size
     key = promote_key(strategy_name, m, k, p, dtype)
@@ -576,13 +698,28 @@ def tune_promotion(
     except MatvecError:
         return None
     context = f"promote {strategy_name} {m}x{k} p={p} {dtype}"
+    model = model_from_cache(cache, p)
+    comb = combine if combine not in (None, "auto") else strat.default_combine(mesh)
+    pred_seq: float | None = None
+    pred_gemm: dict[int, float] = {}
+    if model is not None:
+        r_, _c = mesh_grid_shape(mesh)
+        try:
+            pred_seq = model.predict(_family(strategy_name), comb, m=m, k=k, p=p,
+                                     dtype=dtype, r=r_).total_s
+            for b in sorted(buckets):
+                pred_gemm[b] = model.predict(_family(strategy_name), comb, m=m,
+                                             k=k, p=p, dtype=dtype, b=b,
+                                             r=r_).total_s
+        except KeyError:
+            pred_seq, pred_gemm = None, {}  # no formula: measure everything
     dev = mesh.devices[0]
     a = _uniform((m, k), dtype, seed, dev)
     a_placed, x_placed = strat.place(a, _uniform((k,), dtype, seed + 1, dev), mesh)
     matvec = strat.build(mesh, kernel=kernel, combine=combine)
     t_seq = _measure_fn(matvec, (a_placed, x_placed), mesh, n_reps=n_reps,
                         samples=samples, measure=measure)
-    _record_candidate("promotion", t_seq)
+    _record_candidate("promotion", t_seq, pred_seq)
     if t_seq is None:
         return None
     log(f"  {context} matvec: {t_seq * 1e6:.1f} us")
@@ -593,7 +730,8 @@ def tune_promotion(
     for i, b in enumerate(sorted(buckets)):
         if prune_margin is not None and b_star is not None:
             get_registry().counter(
-                PRUNED_COUNTER, "tuning candidates skipped by pruning").inc()
+                PRUNED_COUNTER,
+                "tuning candidates skipped by cost-model pruning").inc()
             pruned.append(str(b))
             log(f"  {context} b={b}: pruned (b*={b_star} already decided)")
             continue
@@ -601,7 +739,7 @@ def tune_promotion(
         _, rhs_placed = strat.place_batched(a, rhs, mesh)
         t_gemm = _measure_fn(gemm, (a_placed, rhs_placed), mesh, n_reps=n_reps,
                              samples=samples, measure=measure)
-        _record_candidate("promotion", t_gemm)
+        _record_candidate("promotion", t_gemm, pred_gemm.get(b))
         if t_gemm is None:
             log(f"  {context} b={b}: unmeasurable")
             continue
@@ -614,6 +752,9 @@ def tune_promotion(
     if not gemm_times:
         return None
     best = {"b_star": b_star, "seq_time_s": t_seq, "gemm_times": gemm_times}
+    if pred_seq is not None:
+        best["predicted_s"] = {"seq": pred_seq,
+                               **{str(b): t for b, t in pred_gemm.items()}}
     if pruned:
         best["pruned"] = pruned
     cache.record(key, best)
@@ -656,7 +797,24 @@ def tune_overlap(
     if not ladder:
         return None
     context = f"overlap {strategy_name} {m}x{k} p={p} S="
-    _predict_combines(prune_margin, context, log)
+    # The prediction plan, per-S labels (as _predict_combines).
+    from .cost_model import model_from_cache
+
+    model = model_from_cache(cache, p)
+    predictions: dict[str, float] = {}
+    if model is not None:
+        r_, _c = mesh_grid_shape(mesh)
+        for s in ladder:
+            try:
+                predictions[str(s)] = model.predict(
+                    _family(strategy_name), "overlap", m=m, k=k, p=p,
+                    dtype=dtype, stages=s, r=r_).total_s
+            except KeyError:
+                break  # no staged formula for this family
+    measure_set, pruned = _plan(model, predictions, keep={"1"},
+                                prune_margin=prune_margin,
+                                context=context.removesuffix("="), log=log)
+    ladder = _measure_plan(ladder, predictions, measure_set)
     a = _uniform((m, k), dtype, seed, mesh.devices[0])
     x = _uniform((k,), dtype, seed + 1, mesh.devices[0])
 
@@ -681,7 +839,7 @@ def tune_overlap(
     measured: dict[str, float] = {}
     for label in map(str, ladder):
         t = run(label)
-        _record_candidate("overlap", t)
+        _record_candidate("overlap", t, predictions.get(label))
         if t is None:
             log(f"  {context}{label}: unmeasurable")
             continue
@@ -690,7 +848,9 @@ def tune_overlap(
     winner = _pick_winner(measured, "1", min_gain)
     if winner is None:
         return None
-    best = {"stages": int(winner), "time_s": measured[winner], "candidates": measured}
+    best = _with_predictions(
+        {"stages": int(winner), "time_s": measured[winner], "candidates": measured},
+        predictions, pruned)
     cache.record(key, best)
     return best
 
@@ -702,7 +862,7 @@ def storage_format_candidates(dtype: str) -> list[str]:
     """The formats the storage axis races: ``native`` and the quantized
     ladder (``ops.quantize.STORAGE_FORMATS``), ``fp8`` where this torch has
     it. The JAX package's ``speculate`` (speculative serving) is not a
-    candidate until the port has it (ROADMAP.md, queue A 6)."""
+    candidate until the port has it (ROADMAP.md, queue A 3)."""
     from ..ops.quantize import STORAGE_FORMATS, fp8_supported
 
     del dtype
@@ -722,8 +882,15 @@ def tune_storage(
     keeps the seat within the margin (a lossy format must win outright).
     Each candidate's resident bytes and achieved bandwidth (resident bytes
     over its time) are recorded beside the winner (``storage_key``), which
-    the engine's ``dtype_storage="auto"`` reads."""
+    the engine's ``dtype_storage="auto"`` reads.
+
+    Pruning ranks the formats on the predicted compute term alone (the
+    resident stream, the formats' whole difference; the shared collective
+    cost would drown it); when every challenger is pruned, native keeps the
+    seat unmeasured (``predicted_only``)."""
     from ..ops.quantize import quantize_matrix
+    from ..staticcheck.hlo import dtype_itemsize
+    from .cost_model import model_from_cache
 
     p = mesh.size
     key = storage_key(strategy_name, m, k, p, dtype)
@@ -738,7 +905,38 @@ def tune_storage(
     if not strat.storage_combine_ok(None):
         return None  # bound to a schedule that tiles A: no quantized face
     context = f"storage {strategy_name} {m}x{k} p={p}"
-    _predict_combines(prune_margin, context, log)
+    formats = storage_format_candidates(dtype)
+    predictions: dict[str, float] = {}
+    rank_preds: dict[str, float] = {}
+    model = model_from_cache(cache, p)
+    if model is not None:
+        r_, _c = mesh_grid_shape(mesh)
+        for fmt in formats:
+            try:
+                pred = model.predict(
+                    _family(strategy_name), strat.default_combine(mesh), m=m,
+                    k=k, p=p, dtype=dtype, storage=fmt, r=r_)
+            except KeyError:
+                break  # no formula for the default schedule
+            predictions[fmt] = pred.total_s
+            rank_preds[fmt] = pred.compute_s
+    measure_set, pruned = _plan(model, rank_preds, keep={"native"},
+                                prune_margin=prune_margin, context=context,
+                                log=log)
+    formats = _measure_plan(formats, rank_preds, measure_set)
+    if measure_set is not None and set(formats) == {"native"}:
+        # Every challenger pruned: native keeps the seat by construction, and
+        # measuring it alone would compare it with nothing.
+        log(f"  {context}: all challengers pruned - native keeps the seat, "
+            "measurement skipped")
+        best = {
+            "storage": "native", "time_s": predictions["native"],
+            "predicted_only": True, "candidates": {},
+            "resident_bytes": {"native": m * k * dtype_itemsize(dtype)},
+            "bandwidth_gbps": {}, "predicted_s": predictions, "pruned": pruned,
+        }
+        cache.record(key, best)
+        return best
     dev = mesh.devices[0]
     a = _uniform((m, k), dtype, seed, dev)
     x = _uniform((k,), dtype, seed + 1, dev)
@@ -760,7 +958,7 @@ def tune_storage(
         return programs[fmt]
 
     plan = []
-    for fmt in storage_format_candidates(dtype):
+    for fmt in formats:
         try:
             candidate(fmt)
             plan.append(fmt)
@@ -778,14 +976,14 @@ def tune_storage(
                            measure=measure)
 
     winner, measured = _race("storage", context, plan, run, "native",
-                             min_gain, log)
+                             min_gain, log, predictions)
     if winner is None:
         return None
-    best = {
+    best = _with_predictions({
         "storage": winner, "time_s": measured[winner], "candidates": measured,
         "resident_bytes": {f: resident[f] for f in measured},
         "bandwidth_gbps": {f: resident[f] / t / 1e9 for f, t in measured.items()},
-    }
+    }, predictions, pruned)
     cache.record(key, best)
     return best
 
@@ -815,7 +1013,11 @@ def tune_solver_kernel(
     ``auto`` tier's miss already answers ``torch``), as for an (op,
     strategy) pair the fused tier does not serve."""
     from ..bench.serve import gershgorin_interval, solver_operand
-    from ..ops.cuda_solver import FUSED_SOLVER_OPS, fused_solver_supported
+    from ..ops.cuda_solver import (
+        FUSED_SOLVER_OPS,
+        check_fused_solver,
+        fused_solver_supported,
+    )
     from ..ops.quantize import NATIVE, quantize_matrix
     from ..solvers import build_solver
     from ..solvers.ops import placed_operand
@@ -841,7 +1043,29 @@ def tune_solver_kernel(
     if not _cuda_offered(dev):
         log(f"  {context}: the fused tier is offered on CUDA meshes - nothing to race")
         return None
-    _predict_combines(prune_margin, context, log)
+    # Both tiers share the matvec terms; only the per-iteration launch count
+    # differs (cost_model.SOLVER_KERNEL_LAUNCHES).
+    from .cost_model import model_from_cache
+
+    tiers = ["torch", "cuda_fused"]
+    predictions: dict[str, float] = {}
+    model = model_from_cache(cache, p)
+    if model is not None:
+        r_, _c = mesh_grid_shape(mesh)
+        for tier in tiers:
+            comb = (check_fused_solver(op, strategy_name, None, mesh)
+                    if tier == "cuda_fused" else strat.default_combine(mesh))
+            try:
+                predictions[tier] = model.predict_solver(
+                    op, strategy_name, comb, m=m, k=k, p=p, dtype=dtype,
+                    k_est=SOLVER_RACE_ITERS, storage=storage, r=r_,
+                    kernel=tier).total_s
+            except KeyError:
+                predictions = {}
+                break
+    measure_set, pruned = (
+        _plan(model, predictions, keep={"torch"}, prune_margin=prune_margin,
+              context=context, log=log) if predictions else (None, []))
     a = solver_operand(m, dtype, seed, device=dev)
     p0, p1 = gershgorin_interval(a) if op == "chebyshev" else (0.0, 0.0)
     b = _uniform((m,), dtype, seed + 1, dev)
@@ -850,7 +1074,7 @@ def tune_solver_kernel(
     a_placed = placed_operand(strat, mesh, operand)
     del a, operand
     fns: dict[str, Callable] = {}
-    for tier in ("torch", "cuda_fused"):
+    for tier in _measure_plan(tiers, predictions, measure_set):
         solve = build_solver(
             op, strat, mesh, dtype=torch_dtype(dtype),
             kernel="cuda_fused" if tier == "cuda_fused" else kernel,
@@ -867,14 +1091,14 @@ def tune_solver_kernel(
         "solver_kernel", context, list(fns),
         lambda tier: _measure_fn(fns[tier], (a_placed, b), mesh, n_reps=n_reps,
                                  samples=samples, measure=measure),
-        "torch", min_gain, log)
+        "torch", min_gain, log, predictions)
     if winner is None:
         return None
-    best: dict[str, Any] = {
+    best = _with_predictions({
         "solver_kernel": winner, "time_s": measured[winner],
         "iter_s": measured[winner] / SOLVER_RACE_ITERS,
         "race_iters": SOLVER_RACE_ITERS, "candidates": measured,
-    }
+    }, predictions, pruned)
     cache.record(key, best)
     return best
 

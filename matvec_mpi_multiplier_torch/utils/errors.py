@@ -54,9 +54,9 @@ class AdmissionRejectedError(MatvecError):
 
     A rejection is a *scheduling* outcome, distinct from a fault: no device
     work ran, and the request can be retried. Availability accounting keeps
-    the two apart (``resilience.is_rejection``; rejected ≠ failed). The JAX
-    package raises it from its global scheduler's predicted-time admission,
-    which the port has not ported yet (ROADMAP.md, queue A 2)."""
+    the two apart (``resilience.is_rejection``; rejected ≠ failed). Raised
+    through a failed future by the global scheduler's predicted-time
+    admission (``engine/global_scheduler.py``)."""
 
 
 class TenantQuotaError(MatvecError):

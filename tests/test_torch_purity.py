@@ -68,3 +68,21 @@ def test_package_import_builds_nothing():
         "  if k.startswith(('torch', 'matvec_mpi_multiplier_torch.ops')))))\n"
     )
     assert loaded == []
+
+
+@pytest.mark.parametrize("module", [
+    "matvec_mpi_multiplier_torch.staticcheck.hlo",
+    "matvec_mpi_multiplier_torch.tuning.cost_model",
+    "matvec_mpi_multiplier_torch.engine.global_scheduler",
+])
+def test_cost_model_and_scheduler_modules_are_scanned(module):
+    """The cost model, its census formulas and the global scheduler are the
+    port's own copies: scanned above, and importable without JAX."""
+    assert module in MODULES
+    loaded = _run(
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps(sorted(k for k in sys.modules\n"
+        f"                       if k.split('.')[0] in {FORBIDDEN!r})))\n"
+    )
+    assert loaded == []

@@ -238,15 +238,27 @@ def test_open_loop_cli_and_sequential_default(capsys):
 
 
 @pytest.mark.parametrize("flag, value", [
-    (flag, "1") for flag in serve._LATER_FLAGS
-] + [("dtype_storage", "speculate")])
-def test_every_later_flag_is_refused(flag, value):
-    assert set(serve._LATER_FLAGS) == {"global_sched", "demand_weight", "decision_jsonl",
-                                       "reshard"}
-    argv = ["--sizes", "64", "--no-csv", "--concurrency", "4",
+    ("global_sched", "both"), ("demand_weight", "1.5"), ("decision_jsonl", "d.jsonl"),
+    ("reshard", "auto"), ("dtype_storage", "speculate"),
+])
+def test_every_later_flag_is_refused(flag, value, tmp_path, capsys):
+    """Only speculative storage stays refused; the global scheduler's flags
+    (refused until it was ported) now run a --tenants trace."""
+    assert set(serve._LATER_FLAGS) == {("dtype_storage", "speculate")}
+    if flag == "decision_jsonl":
+        value = str(tmp_path / value)
+    argv = ["--sizes", "64", "--no-csv", "--tenants", "2", "--n-requests", "4",
             f"--{flag.replace('_', '-')}", value, *CPU_ARGS]
-    with pytest.raises(ConfigError, match="ROADMAP.md"):
-        serve.main(argv)
+    if flag == "dtype_storage":
+        with pytest.raises(ConfigError, match="ROADMAP.md"):
+            serve.main(argv)
+        return
+    if flag != "global_sched":
+        argv += ["--global-sched", "on"]
+    assert serve.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "gsched=on" in out
+    assert ("gsched=off" in out) == (flag == "global_sched")
 
 
 def test_serve_result_fields_unchanged():

@@ -153,13 +153,32 @@ def test_deadline_overlay():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"global_sched": True}, {"demand_weight": 2.0}, {"decision_jsonl": "d.jsonl"},
-    {"reshard": "auto"},
+    {"global_sched": True}, {"global_sched": True, "demand_weight": 2.0},
+    {"global_sched": True, "decision_jsonl": "d.jsonl"},
+    {"global_sched": True, "reshard": "auto"},
 ])
-def test_global_scheduler_arguments_are_refused(kwargs):
-    with pytest.raises(ConfigError, match="queue A 2"):
+def test_global_scheduler_arguments_are_refused(kwargs, tmp_path, monkeypatch):
+    """The global scheduler's arguments are taken now (they were refused
+    before it was ported): on an uncalibrated cache the scheduler runs
+    greedy, serves every request, and a decision file gets one line per
+    decision with predicted_s and reason."""
+    import json
+
+    monkeypatch.setenv("MATVEC_TUNING_CACHE", str(tmp_path / "cache.json"))
+    if "decision_jsonl" in kwargs:
+        kwargs = dict(kwargs, decision_jsonl=str(tmp_path / kwargs["decision_jsonl"]))
+    res = serve.run_serve_multitenant("rowwise", port_mesh(), N, N, n_tenants=2,
+                                      n_requests=4, **kwargs)
+    assert res.global_sched and res.rows[-1].rejected == 0
+    assert res.rows[-1].failed_requests == 0 and res.rows[-1].served_rate == 1.0
+    if "decision_jsonl" in kwargs:
+        lines = [json.loads(ln) for ln in
+                 (tmp_path / "d.jsonl").read_text().splitlines()]
+        assert [d["decision"] for d in lines].count("admit") == 4
+        assert all("predicted_s" in d and "reason" in d for d in lines)
+    with pytest.raises(ConfigError, match="reshard"):
         serve.run_serve_multitenant("rowwise", port_mesh(), N, N, n_tenants=2,
-                                    n_requests=4, **kwargs)
+                                    n_requests=4, reshard="sometimes")
 
 
 @pytest.mark.parametrize("kwargs,match", [

@@ -226,10 +226,18 @@ def test_older_versions_load(cache_path, version):
 
 
 def test_broadcast_and_calibration(cache_path):
+    """lookup_calibration misses on an empty cache and returns the record a
+    calibration wrote (the record the JAX package's lookup returns too)."""
     cache = tuning.TuningCache.load(cache_path)
     assert tuning.broadcast_decisions(cache) is cache
-    seed(cache_path, tuning.calibration_key(8), {"flops": 1e10})
-    assert tuning.lookup_calibration(p=8) is None  # no cost model yet
+    assert tuning.lookup_calibration(p=8) is None
+    from matvec_mpi_multiplier_torch.tuning.cost_model import calibrate
+
+    record = calibrate(port_mesh(8), level="quick", n_reps=2, **QUIET).to_record()
+    seed(cache_path, tuning.calibration_key(8), record)
+    tuning.reset_cache()
+    assert tuning.lookup_calibration(p=8) == record
+    assert tuning.lookup_calibration(p=4) is None
 
 
 # ------------------------------------------------------------- search
@@ -433,8 +441,11 @@ def test_tune_sweep_and_cli_fill_then_hit(cache_path, capsys):
     assert main(args) == 0
     assert search.candidates_measured() == before
     assert "saved" in capsys.readouterr().out
-    with pytest.raises(ConfigError, match="not ported"):
-        main(["--calibrate", "quick", "--platform", "cpu"])
+    # --calibrate records the cost model's constants for each mesh first.
+    assert main(args + ["--calibrate", "quick"]) == 0
+    record = tuning.TuningCache.load(cache_path).lookup(tuning.calibration_key(2))
+    assert record["level"] == "quick" and record["p"] == 2
+    assert record["flops"] > 0 and record["mem_bps"] > 0
 
 
 # ------------------------------------------------------- the auto consumers
