@@ -149,7 +149,26 @@ kernels' launch counts set to 0 just before it and read just after:
   typed, no expiry with it on, two tenants of one payload sharing a flush
   bitwise, interleaving on and off (``gsched_ab``); a reshard drift on the
   2x2 mesh whose migration is in the decision trace and whose result is
-  bitwise a fresh engine's (``reshard_drift``).
+  bitwise a fresh engine's (``reshard_drift``);
+* speculative dispatch (``ops/speculative.py``, the engine's two tiers) at
+  65536² fp32, rowwise, p = 1: the armed engine's residency, its int8c
+  quantization, P = U A on the card and the placement timed, P within 1 ulp
+  of fp32 of the host's fp64 product on 64 columns, ``resident_bytes`` native
+  plus the speculative set, the device memory (``spec_residency``); 200
+  requests of widths 1-32 at rtol 1e-3 on uniform [0, 10) data, no
+  escalation, every column within rtol of the fp64 product on the card,
+  every speculative dispatch one block-scaled GEMV on ``wgmma_split`` and no
+  native launch (``spec_accept``); a speculative submit and its result
+  synchronizing as often as an exact one's under
+  ``torch.cuda.set_sync_debug_mode("warn")`` (``spec_syncs``); the JAX
+  test's adversarial operand at full width, every dispatch escalating,
+  answers bitwise the plain engine's, and under a recovery policy the
+  breaker standing the tier down (``spec_escalate``, ``spec_breaker``); the
+  native, accepted and escalated paths and the check alone timed
+  (``spec_times``); ``run_serve`` native against speculate in fp32 and bf16
+  (``spec_serve``); an armed blockwise engine at 32768² on the 2x2 mesh
+  resharded to rowwise, bitwise a fresh armed one (``spec_reshard``); a
+  poisoned candidate refused with the gate off (``spec_poison``).
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -511,6 +530,27 @@ CM = {
     # considered (threshold 0) against never (infinite threshold). At
     # 32768² a payload hashes in under 2 s (65536²: 6.5-7.9 s, six times).
     "il_order": (0, 0, 0, 0, 1, 1, 1, 1, 2, 1, 1, 0, 0, 0), "il_n": 32768,
+}
+
+# Speculative dispatch (section 45): the residency of an armed rowwise engine
+# at SP["n"]² fp32 on one card (P checked on SP["p_cols"] columns against the
+# host's fp64 product); a well-conditioned stream of SP["stream"] requests of
+# widths 1..SP["max_bucket"] (b* SP["promote"]) at rtol SP["rtol"]; the
+# adversarial operand at widths 1 and SP["adv_widths"], then SP[
+# "breaker_requests"] vectors under a recovery policy; the times of native,
+# the accepted path and the check alone at the widths SP["time_widths"], of
+# the escalated path at b = 1 and b = SP["max_bucket"] (SP["time_reps"] calls
+# on CUDA events; at b = 1 and SP["max_bucket"] also SP["e2e_reps"] submits on
+# the host clock); run_serve native against speculate in each of
+# SP["serve_dtypes"] (SP["serve_requests"] requests); an armed blockwise
+# engine at SP["reshard_n"]² on the 2x2 mesh resharded to rowwise; a
+# poisoned candidate at SP["reshard_n"]².
+SP = {
+    "n": 65536, "rtol": 1e-3, "max_bucket": 32, "promote": 4, "p_cols": 64,
+    "stream": 200, "adv_widths": (2, 8, 32), "breaker_requests": 5,
+    "time_reps": 50, "e2e_reps": 20, "time_widths": (1, 4, 8, 16, 32),
+    "serve_requests": 200,
+    "serve_dtypes": ("float32", "bfloat16"), "reshard_n": 32768,
 }
 
 # An entry as the JAX package would write it for one of the same keys: its
@@ -933,6 +973,482 @@ def cost_model_section(dev, seed: int, cm: dict) -> dict:
         del os.environ[tuning.CACHE_ENV]
         tuning.reset_cache()
     return launches
+
+
+def speculative_section(dev, seed: int, sp: dict) -> tuple[dict, dict]:
+    """Section 45: speculative dispatch (``ops/speculative.py``, the engine's
+    two tiers) on ``dev`` at the sizes of ``sp``. Emits one JSON line per
+    part and returns the kernels' launches by path ({kernel: {path: n}},
+    each path driven with the counts set to 0 just before it and read just
+    after) and each path's launches by route ({kernel: {path: {route: n}}}).
+    Runs at a small size on a CPU device too (the wrappers' plain
+    versions)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from matvec_mpi_multiplier_torch import make_mesh
+    from matvec_mpi_multiplier_torch.bench.serve import resident_matrix, run_serve
+    from matvec_mpi_multiplier_torch.engine import MatvecEngine
+    from matvec_mpi_multiplier_torch.engine import buckets
+    from matvec_mpi_multiplier_torch.engine import core as engine_core
+    from matvec_mpi_multiplier_torch.ops import speculative as spec_mod
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_quant import quant_gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.graphs import capture
+    from matvec_mpi_multiplier_torch.parallel.mesh import unshard
+    from matvec_mpi_multiplier_torch.resilience import (
+        FaultPlan, FaultSpec, ResiliencePolicy, ResultIntegrityError,
+    )
+
+    on_card = dev.type == "cuda"
+    f32 = torch.float32
+    n, rtol, bucket_max, promote = sp["n"], sp["rtol"], sp["max_bucket"], sp["promote"]
+    s = spec_mod.probe_count(spec_mod.SPEC_RTOL_FLOOR)
+    launches: dict = {"gemv": {}, "gemm": {}, "quant_gemv": {}}
+    routes: dict = {"gemv": {}, "gemm": {}, "quant_gemv": {}}
+    wrappers = (("gemv", gemv_cuda), ("gemm", gemm_cuda), ("quant_gemv", quant_gemv_cuda))
+    mesh1 = make_mesh(1, devices=[dev])
+    kw = dict(strategy="rowwise", max_bucket=bucket_max, promote=promote)
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def routed(name: str, fn):
+        """fn() with the launch counts set to 0 just before it and read just
+        after, under the path ``name``."""
+        for _, w in wrappers:
+            w.launches = 0
+            w.route_launches.clear()
+        out = fn()
+        sync()
+        for kernel, w in wrappers:
+            if w.launches:
+                launches[kernel][name] = launches[kernel].get(name, 0) + w.launches
+                got = routes[kernel].setdefault(name, {})
+                for route, k in w.route_launches.items():
+                    got[route] = got.get(route, 0) + k
+        return out
+
+    def memory() -> dict:
+        if not on_card:
+            return {}
+        free, total = torch.cuda.mem_get_info(dev)
+        return {"allocated": torch.cuda.memory_allocated(dev),
+                "peak_allocated": torch.cuda.max_memory_allocated(dev),
+                "free": free, "total": total}
+
+    def release(*engines) -> None:
+        for e in engines:
+            e.close()
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def fp64_product(a, xs):
+        """A x in float64 on the card, in row chunks of A."""
+        x64 = xs.to(dev, torch.float64)
+        out = torch.empty((a.shape[0], x64.shape[1]), dtype=torch.float64, device=dev)
+        rows = max(1, (1 << 30) // (a.shape[1] * 8))
+        for i in range(0, a.shape[0], rows):
+            out[i:i + rows] = a[i:i + rows].double() @ x64
+        return out
+
+    def dispatches(width: int) -> int:
+        """The dispatches submit() makes for a request of ``width`` columns."""
+        if width == 1:
+            return 1
+        if width < promote:
+            return width
+        return len(buckets.split_widths(width, bucket_max))
+
+    def dev_ms(fn, reps: int) -> float:
+        """Mean ms of fn() over ``reps`` calls: CUDA events on the card (the
+        device's timeline), the host clock on the CPU."""
+        fn()
+        sync()
+        if on_card:
+            with torch.cuda.device(dev):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn()
+                end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def e2e_ms(fn, reps: int) -> float:
+        """Median host ms of fn() (a submit and its result)."""
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(statistics.median(times))
+
+    def program(engine, key, build):
+        return engine._cache.get(key, build)
+
+    # The check's two products run torch.matmul in fp32: nothing may have
+    # enabled TF32.
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is enabled for fp32 matmul")
+
+    # ---- (a) residency at n² fp32, rowwise, p = 1 ----
+    a = resident_matrix(n, n, f32, dev, seed)
+    sync()
+    mem_before = memory()
+    timed = {"quantize_s": 0.0, "project_s": 0.0, "place_s": 0.0}
+    patched = {name: getattr(engine_core, name) for name in ("quantize_matrix", "project_probes")}
+    place_spec = MatvecEngine._place_spec
+
+    def timer(field, fn):
+        def run(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            timed[field] += time.perf_counter() - t0
+            return out
+        return run
+
+    engine_core.quantize_matrix = timer("quantize_s", patched["quantize_matrix"])
+    engine_core.project_probes = timer("project_s", patched["project_probes"])
+    MatvecEngine._place_spec = timer("place_s", place_spec)
+    try:
+        t0 = time.perf_counter()
+        eng = MatvecEngine(a, mesh1, dtype_storage="speculate", **kw)
+        sync()
+        build_s = time.perf_counter() - t0
+    finally:
+        for name, fn in patched.items():
+            setattr(engine_core, name, fn)
+        MatvecEngine._place_spec = place_spec
+    qa, p_st, u = eng._spec
+    pm = unshard(p_st)
+    rng = np.random.default_rng(seed + 45)
+    cols = np.sort(rng.choice(n, size=min(sp["p_cols"], n), replace=False))
+    cols_t = torch.from_numpy(cols).to(dev)
+    want = u.double().cpu().numpy() @ a[:, cols_t].double().cpu().numpy()
+    got = pm[:, cols_t].cpu().numpy().astype(np.float64)
+    ulps = np.abs(got - want) / np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    check(float(ulps.max()) <= 1.0,
+          f"P on the card is {ulps.max()} ulps of fp32 from the host fp64 product")
+    int8c_bytes = qa.shards[0].nbytes  # p = 1: the one shard is the payload
+    spec_bytes = int8c_bytes + s * (n + n) * 4
+    check(eng.spec_resident_bytes == spec_bytes
+          and eng.resident_bytes == n * n * 4 + spec_bytes
+          and eng.device_resident_bytes == eng.resident_bytes,
+          f"resident bytes {eng.resident_bytes} (device {eng.device_resident_bytes}) "
+          f"!= native {n * n * 4} + speculative set {spec_bytes}")
+    emit({"phase": "spec_residency", "shape": [n, n], "dtype": "float32",
+          "strategy": "rowwise", "p": 1, "probes": s, "build_s": build_s, **timed,
+          "p_cols_checked": int(len(cols)), "p_max_ulps": float(ulps.max()),
+          "resident_bytes": eng.resident_bytes, "native_bytes": n * n * 4,
+          "spec_resident_bytes": eng.spec_resident_bytes, "int8c_bytes": int8c_bytes,
+          "spec_block": eng.spec_storage_block,
+          "device_resident_bytes": eng.device_resident_bytes,
+          "memory_before": mem_before, "memory_after": memory()})
+
+    # ---- (b) a well-conditioned stream, mixed widths ----
+    widths = [int(w) for w in rng.integers(1, bucket_max + 1, size=sp["stream"])]
+    gen = torch.Generator(device=dev).manual_seed(seed + 451)
+    xs = torch.rand((n, sum(widths)), generator=gen, device=dev, dtype=f32) * 10
+    offsets = np.cumsum([0] + widths)
+    reqs = [xs[:, int(o)] if w == 1 else xs[:, int(o):int(o) + w]
+            for o, w in zip(offsets[:-1], widths)]
+    eng.warmup(sorted(set(widths)))
+    for w in sorted(set(widths)):  # every program run once, both tiers
+        r = reqs[widths.index(w)]
+        eng.submit(r).result()
+        eng.submit(r, rtol=rtol).result()
+    before = eng.health()["counters"]
+    compiles = eng.stats.compiles
+
+    def stream():
+        futures = [eng.submit(r, rtol=rtol) for r in reqs]
+        return [f.result() for f in futures]
+
+    t0 = time.perf_counter()
+    ys = routed("spec_accept", stream)
+    stream_s = time.perf_counter() - t0
+    after = eng.health()["counters"]
+    n_spec = after["speculative_dispatches"] - before["speculative_dispatches"]
+    check(n_spec == sum(dispatches(w) for w in widths),
+          f"{n_spec} speculative dispatches for {len(widths)} requests")
+    check(after["escalations"] == before["escalations"],
+          f"{after['escalations'] - before['escalations']} escalations on the "
+          "well-conditioned stream")
+    check(eng.stats.compiles == compiles, "the warmed stream built a program")
+    quant_routes = routes["quant_gemv"].get("spec_accept", {})
+    check(not on_card or (launches["quant_gemv"].get("spec_accept", 0) == n_spec
+                          and quant_routes == {"wgmma_split": n_spec}),
+          f"quant_gemv launches {quant_routes} for {n_spec} speculative dispatches")
+    check(not launches["gemv"].get("spec_accept") and not launches["gemm"].get("spec_accept"),
+          "the accepted stream launched the native GEMV or GEMM")
+    oracle = fp64_product(a, xs).cpu()
+    worst = 0.0
+    for o, w, y in zip(offsets[:-1], widths, ys):
+        ref = oracle[:, int(o):int(o) + w]
+        got_y = (y[:, None] if y.dim() == 1 else y).double()
+        rel = (torch.linalg.vector_norm(got_y - ref, dim=0)
+               / torch.linalg.vector_norm(ref, dim=0)).max().item()
+        worst = max(worst, rel)
+    check(worst <= rtol, f"an accepted column is {worst} from the fp64 product (rtol {rtol})")
+    emit({"phase": "spec_accept", "requests": len(widths), "columns": int(sum(widths)),
+          "widths": "1-%d" % bucket_max, "rtol": rtol, "speculative_dispatches": n_spec,
+          "escalations": 0, "worst_rel_err": worst, "stream_s": stream_s,
+          "quant_routes": quant_routes, "compiles_steady": 0})
+    del ys, oracle
+
+    # ---- (e) syncs: a speculative submit against an exact one ----
+    syncs: dict = {}
+    if on_card:
+        vec, block = reqs[widths.index(1)] if 1 in widths else xs[:, 0], xs[:, :bucket_max]
+        eng.submit(block).result()
+        eng.submit(block, rtol=rtol).result()
+        for label, req, r_ in (("exact_vector", vec, None), ("spec_vector", vec, rtol),
+                               ("exact_block", block, None), ("spec_block", block, rtol)):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    fut = eng.submit(req, rtol=r_)
+                n_submit = len(caught)
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    fut.result()
+                n_result = len(caught)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs[label] = {"submit": n_submit, "result": n_result}
+        for face in ("vector", "block"):
+            check(syncs[f"spec_{face}"] == syncs[f"exact_{face}"],
+                  f"a speculative {face} submit synchronizes {syncs[f'spec_{face}']} "
+                  f"times against {syncs[f'exact_{face}']}")
+        emit({"phase": "spec_syncs", "sync_debug_mode": "warn", "counts": syncs})
+
+    # ---- (d) times of the accepted path, the check and native ----
+    times: dict = {}
+    rtol_t = torch.full((), rtol, dtype=f32, device=dev)
+
+    def accepted_times():
+        for b in sp["time_widths"]:
+            x_dev = xs[:, 0] if b == 1 else xs[:, :b].contiguous()
+            x_host = x_dev.cpu()
+            if b == 1:
+                nat = program(eng, eng._matvec_key(), eng._build_matvec)
+                spec_p = program(eng, eng._spec_matvec_key(), eng._build_spec)
+            else:
+                nat = program(eng, eng._gemm_key(b), lambda: eng._build_gemm(b))
+                spec_p = program(eng, eng._spec_gemm_key(b), lambda: eng._build_spec(b))
+            y = spec_p(x_dev, rtol)[0]
+            y = y if b == 1 else y.contiguous()
+            p0 = p_st.shards[0]
+
+            def check_only():
+                return spec_mod.verdict(p0 @ x_dev, u @ y, y, rtol_t, s)
+
+            if on_card:
+                graph, _ = capture(check_only, dev)
+                check_call = graph.replay
+            else:
+                check_call = check_only
+            reps = sp["time_reps"]
+            times[f"b{b}"] = {
+                "native_ms": dev_ms(lambda: nat(x_dev), reps),
+                "accepted_ms": dev_ms(lambda: spec_p(x_dev, rtol), reps),
+                "check_ms": dev_ms(check_call, reps),
+            }
+            if b in (1, bucket_max):
+                times[f"b{b}"].update(
+                    native_e2e_ms=e2e_ms(lambda: eng.submit(x_host).result(), sp["e2e_reps"]),
+                    accepted_e2e_ms=e2e_ms(lambda: eng.submit(x_host, rtol=rtol).result(),
+                                           sp["e2e_reps"]))
+
+    routed("spec_times", accepted_times)
+    release(eng)
+    del a, xs, reqs, qa, p_st, u, pm
+
+    # ---- (c) the adversarial operand: rows orthogonal to x ----
+    gen = torch.Generator(device=dev).manual_seed(seed + 452)
+    a = torch.randn((n, n), generator=gen, device=dev, dtype=f32)
+    xv = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    rows = max(1, (1 << 30) // (n * 8))
+    for i in range(0, n, rows):
+        blk = a[i:i + rows].double()
+        blk -= torch.outer(blk @ xv, xv) / (xv @ xv)
+        a[i:i + rows] = blk.float()
+    x = xv.float()
+    del xv, blk
+    armed = MatvecEngine(a, mesh1, dtype_storage="speculate", **kw)
+    plain = MatvecEngine(a, mesh1, **kw)
+    adv = [x] + [torch.stack([x * (1 + j / 8) for j in range(w)], 1)
+                 for w in sp["adv_widths"]]
+    armed.warmup([1] + list(sp["adv_widths"]))
+    plain.warmup([1] + list(sp["adv_widths"]))
+    for r in adv:  # both tiers' programs run once
+        plain.submit(r).result()
+    h0 = armed.health()["counters"]
+    got_adv = routed("spec_escalate", lambda: [armed.submit(r, rtol=rtol).result() for r in adv])
+    h = armed.health()
+    n_esc = h["counters"]["escalations"] - h0["escalations"]
+    n_spec = h["counters"]["speculative_dispatches"] - h0["speculative_dispatches"]
+    check(n_spec == sum(dispatches(r.shape[1] if r.dim() == 2 else 1) for r in adv)
+          and n_esc == n_spec, f"{n_esc} escalations of {n_spec} speculative dispatches")
+    check(h["storage"]["escalation_rate"] == 1.0,
+          f"escalation rate {h['storage']['escalation_rate']} on the adversarial operand")
+    want_adv = [plain.submit(r).result() for r in adv]
+    check(all(torch.equal(g, w) for g, w in zip(got_adv, want_adv)),
+          "an escalated answer is not bitwise the plain engine's")
+    emit({"phase": "spec_escalate", "shape": [n, n], "dtype": "float32",
+          "widths": [1] + list(sp["adv_widths"]), "speculative_dispatches": n_spec,
+          "escalations": n_esc, "escalation_rate": h["storage"]["escalation_rate"],
+          "bitwise_plain": True,
+          "launches": {k: v.get("spec_escalate", 0) for k, v in launches.items()}})
+
+    def escalated_times():
+        for b in (1, bucket_max):
+            x_dev = x if b == 1 else torch.stack([x * (1 + j / 8) for j in range(b)], 1)
+            x_host = x_dev.cpu()
+            if b == 1:
+                nat = program(armed, armed._matvec_key(), armed._build_matvec)
+                spec_p = program(armed, armed._spec_matvec_key(), armed._build_spec)
+            else:
+                nat = program(armed, armed._gemm_key(b), lambda: armed._build_gemm(b))
+                spec_p = program(armed, armed._spec_gemm_key(b), lambda: armed._build_spec(b))
+            times[f"b{b}"].update({
+                "escalated_ms": dev_ms(lambda: (spec_p(x_dev, rtol), nat(x_dev)),
+                                       sp["time_reps"]),
+                "escalated_e2e_ms": e2e_ms(lambda: armed.submit(x_host, rtol=rtol).result(),
+                                           sp["e2e_reps"]),
+            })
+
+    routed("spec_times", escalated_times)
+    emit({"phase": "spec_times", "shape": [n, n], "dtype": "float32", "rtol": rtol,
+          "device_ms": "CUDA events around the programs' calls (copy-in, replay, "
+                       "copy-out); e2e: host median of submit().result()",
+          **times})
+
+    # With a recovery policy, misses open the speculative breaker: the tier
+    # stands down to native, and each pass counts as a storage fallback.
+    release(armed)
+    guarded = MatvecEngine(a, mesh1, dtype_storage="speculate",
+                           resilience=ResiliencePolicy(breaker_reset_s=3600.0), **kw)
+    want = want_adv[0]
+    got_g = routed("spec_breaker", lambda: [guarded.submit(x, rtol=rtol).result()
+                                            for _ in range(sp["breaker_requests"])])
+    hg = guarded.health()
+    label = guarded._spec_matvec_key().label()
+    check(all(torch.equal(g, want) for g in got_g), "a guarded answer is not the plain one")
+    check(hg["counters"]["escalations"] == 3 and hg["counters"]["breaker_opens"] == 1
+          and hg["breakers"][label]["state"] == "open"
+          and hg["counters"]["storage_fallbacks"] == sp["breaker_requests"] - 3,
+          f"breaker: {hg['counters']}, {hg['breakers'].get(label)}")
+    emit({"phase": "spec_breaker", "requests": sp["breaker_requests"],
+          "escalations": hg["counters"]["escalations"],
+          "breaker_opens": hg["counters"]["breaker_opens"],
+          "storage_fallbacks": hg["counters"]["storage_fallbacks"],
+          "speculative_dispatches": hg["counters"]["speculative_dispatches"],
+          "breaker": hg["breakers"][label]["state"]})
+    release(guarded, plain)
+    del a, x, adv, got_adv, want_adv, got_g, want
+
+    # ---- (d) the serve bench, speculative against native ----
+    serve_rows = {}
+    for dtype in sp["serve_dtypes"]:
+        for storage, r_ in ((None, None), ("speculate", rtol)):
+            name = f"spec_serve_{dtype}_{storage or 'native'}"
+            res = routed(name, lambda: run_serve(
+                "rowwise", mesh1, n, n, dtype=dtype, n_requests=sp["serve_requests"],
+                max_bucket=bucket_max, promote=promote, seed=seed, promo_reps=3,
+                dtype_storage=storage, rtol=r_))
+            serve_rows[name] = {"req_s": res.rps, "cols_s": res.cols_per_s,
+                                "p50_dispatch_ms": res.p50_dispatch_ms,
+                                "p99_dispatch_ms": res.p99_dispatch_ms,
+                                "compiles_steady": res.compiles_steady,
+                                "resident_bytes": res.resident_bytes,
+                                "speculated": res.speculated,
+                                "escalation_rate": res.escalation_rate,
+                                "spec_bandwidth_ratio": res.spec_bandwidth_ratio}
+            check(res.compiles_steady == 0, f"{name} built a program in its steady phase")
+            if storage is not None:
+                check(res.speculated > 0, f"{name} served nothing speculatively")
+            if storage is not None and dtype == "float32":
+                check(res.escalation_rate == 0.0,
+                      f"{name}: escalation rate {res.escalation_rate}")
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+    emit({"phase": "spec_serve", "shape": [n, n], "requests": sp["serve_requests"],
+          "rtol": rtol, "rows": serve_rows})
+
+    # ---- (f) reshard: an armed blockwise engine on the 2x2 mesh ----
+    n2 = sp["reshard_n"]
+    mesh4 = make_mesh(4, devices=[dev] * 4)
+    a = resident_matrix(n2, n2, f32, dev, seed + 1)
+    gen = torch.Generator(device=dev).manual_seed(seed + 453)
+    xr = torch.rand((n2, bucket_max), generator=gen, device=dev, dtype=f32) * 10
+    moved = MatvecEngine(a, mesh4, dtype_storage="speculate",
+                         **dict(kw, strategy="blockwise"))
+
+    def reshard_path():
+        moved.submit(xr[:, 0], rtol=rtol).result()
+        out = moved.reshard("rowwise", warm_widths=(1, bucket_max))
+        return out, [moved.submit(r, rtol=rtol).result() for r in (xr[:, 0], xr)]
+
+    out, got_r = routed("spec_reshard", reshard_path)
+    fresh = MatvecEngine(a, mesh4, dtype_storage="speculate", **kw)
+    want_r = routed("spec_reshard_fresh",
+                    lambda: [fresh.submit(r, rtol=rtol).result() for r in (xr[:, 0], xr)])
+    same_set = all(torch.equal(la, lb)
+                   for sa, sb in zip(moved._spec[0].shards, fresh._spec[0].shards)
+                   for la, lb in zip(sa.leaves, sb.leaves) if la is not None)
+    check(out["migrated"] and same_set and all(torch.equal(g, w) for g, w in zip(got_r, want_r)),
+          f"the resharded armed engine is not a fresh one ({out})")
+    emit({"phase": "spec_reshard", "shape": [n2, n2], "dtype": "float32",
+          "mesh": "2x2 logical", "src": "blockwise", "dst": "rowwise",
+          "bytes_moved": out["bytes_moved"], "requantized": out["requantized"],
+          "bitwise_fresh_engine": True,
+          "escalations": moved.health()["counters"]["escalations"]})
+    release(moved, fresh)
+
+    # ---- (g) a poisoned candidate, the integrity gate off ----
+    poisoned = MatvecEngine(a, mesh1, dtype_storage="speculate",
+                            fault_plan=FaultPlan([FaultSpec(site="dispatch", kind="nan",
+                                                            times=1)]), **kw)
+
+    def poison_path():
+        fut = poisoned.submit(xr[:, 0], rtol=rtol)
+        try:
+            fut.result()
+            refused = False
+        except ResultIntegrityError:
+            refused = True
+        return refused, poisoned.submit(xr[:, 0], rtol=rtol).result()
+
+    refused, after_y = routed("spec_poison", poison_path)
+    hp = poisoned.health()["counters"]
+    check(not poisoned.integrity_gate and refused and hp["integrity_failures"] == 1
+          and bool(torch.isfinite(after_y).all()) and hp["speculative_dispatches"] == 2,
+          f"the poisoned candidate: refused {refused}, {hp}")
+    emit({"phase": "spec_poison", "shape": [n2, n2], "integrity_gate": False,
+          "refused": refused, "integrity_failures": hp["integrity_failures"],
+          "next_request_finite": True})
+    release(poisoned)
+    del a, xr
+    return launches, routes
 
 
 def main() -> int:
@@ -4739,8 +5255,24 @@ def main() -> int:
         for name, n in paths.items():
             target[name] = n
 
-    # ---- 45. the kernels line ----
-    section("45. the kernels line")
+    # ---- 45. speculative dispatch ----
+    section("45. speculative dispatch")
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_launches, spec_routes = speculative_section(dev, args.seed, SP)
+    for kernel, paths in spec_launches.items():
+        target = quant_launches if kernel == "quant_gemv" else launches_by_path[kernel]
+        for name, n in paths.items():
+            target[name] = n
+    for name, by_route in spec_routes["quant_gemv"].items():
+        quant_routes[name] = by_route
+    for name, by_route in spec_routes["gemv"].items():
+        gemv_routes[name] = by_route
+    for name, by_route in spec_routes["gemm"].items():
+        gemm_routes[name] = by_route
+
+    # ---- 46. the kernels line ----
+    section("46. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -4875,8 +5407,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 46. result ----
-    section("46. result")
+    # ---- 47. result ----
+    section("47. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

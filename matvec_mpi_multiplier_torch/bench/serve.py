@@ -41,8 +41,12 @@ recorder that dumps a bundle on each typed failure (render both with
 Rows land in ``data/out/serve_<strategy>.csv`` under the JAX package's
 header, byte for byte. ``--dtype-storage int8|int8c|fp8`` serves from a
 quantized resident (the row records the resolved format and the engine's
-resident bytes). Columns of modes the port does not have yet (speculative)
-carry the JAX package's defaults.
+resident bytes). ``--dtype-storage speculate --spec-rtol R`` arms the
+speculative tier and sends every steady request with ``rtol=R``: the row's
+``speculated`` counts the requests the int8c tier served,
+``escalation_rate`` is the engine's gauge and ``spec_bandwidth_ratio`` the
+resident bytes a request streams against native, ``(speculative set +
+rate x native) / native``.
 
 **Multi-tenant trace mode** (:func:`run_serve_multitenant`, ``--tenants
 N``): N seeded tenant matrices registered in a
@@ -117,7 +121,6 @@ from ..engine.core import DEFAULT_SOLVER_MAXITER, SOLVER_KERNELS, MatvecEngine
 from ..engine.registry import MatrixRegistry, TenantQuota
 from ..engine.scheduler import DEFAULT_MAX_WINDOW_MS, ArrivalWindowScheduler
 from ..models import available_strategies
-from ..models.base import not_ported
 from ..obs.flight import FlightRecorder
 from ..obs.registry import MetricsRegistry
 from ..obs.sink import JsonlSink, dump_json
@@ -365,6 +368,7 @@ def run_serve(
     promo_reps: int = 20,
     metrics_out: str | None = None,
     dtype_storage: str | None = None,
+    rtol: float | None = None,
 ) -> ServeResult:
     """Run the serve protocol for one (strategy, shape, mesh) config.
 
@@ -374,6 +378,10 @@ def run_serve(
     ``combine`` and ``stages`` go to the engine (``MatvecEngine``).
     ``metrics_out`` writes the run's metrics snapshot (engine counters + the
     steady-phase dispatch-latency histogram, one registry) as JSON.
+    ``rtol`` goes with every steady-phase request: with
+    ``dtype_storage="speculate"`` it routes the stream through the int8c
+    speculative tier (escalating on a failed check); None keeps every
+    request exact.
     """
     if widths is None:
         widths = [w for w in DEFAULT_WIDTH_MIX if w <= max_bucket]
@@ -405,11 +413,13 @@ def run_serve(
     start = time.perf_counter()
     for w in sequence:
         t0 = time.perf_counter()
-        futures.append(engine.submit(pool[int(w)]))
+        futures.append(engine.submit(pool[int(w)], rtol=rtol))
         latency_hist.observe((time.perf_counter() - t0) * 1e3)
     _drain(futures)
     wall = time.perf_counter() - start
     steady_stats = engine.stats
+    # Read after the drain: escalations settle at result().
+    speculated, esc_rate, spec_ratio = speculative_columns(engine, m, k)
 
     promo_b, promo_gemm, promo_seq = measure_promotion(
         engine, pool, n_reps=promo_reps
@@ -443,7 +453,25 @@ def run_serve(
         promo_seq_s=promo_seq,
         dtype_storage=engine.storage,
         resident_bytes=engine.resident_bytes,
+        speculated=speculated,
+        escalation_rate=esc_rate,
+        spec_bandwidth_ratio=spec_ratio,
     )
+
+
+def speculative_columns(engine, m: int, k: int) -> tuple[int, float, float]:
+    """The serve row's speculative columns, the JAX package's formula:
+    requests the int8c tier served, the engine's escalation rate, and the
+    resident bytes a request streams against native, ``(speculative set +
+    rate x native A) / native A``. NaN for the last two on an engine that is
+    not armed."""
+    health = engine.health()
+    speculated = int(health["counters"]["speculative_dispatches"])
+    if not engine.spec_resident_bytes:
+        return speculated, float("nan"), float("nan")
+    rate = float(health["storage"]["escalation_rate"])
+    native = int(m) * int(k) * torch.empty((), dtype=engine.dtype).element_size()
+    return speculated, rate, (engine.spec_resident_bytes + rate * native) / native
 
 
 # ------------------------------------------------------------------ load
@@ -1972,17 +2000,7 @@ def _run_load_configs(args, name: str, mesh: Mesh, m: int, k: int, promote,
     return n_done
 
 
-# The JAX package's flag values whose machinery the port does not have yet,
-# each with what it waits for: asking for one raises.
-_LATER_FLAGS = {
-    ("dtype_storage", "speculate"): "speculative serving, ROADMAP.md queue A 3",
-}
-
-
-def _check_ported(args: argparse.Namespace) -> None:
-    for (flag, value), why in _LATER_FLAGS.items():
-        if getattr(args, flag, None) == value:
-            raise not_ported(f"--{flag.replace('_', '-')} {value} ({why})")
+def _check_flags(args: argparse.Namespace) -> None:
     if getattr(args, "poison_tenant", None) is not None and not getattr(args, "tenants", None):
         raise ConfigError("--poison-tenant names a tenant of --tenants mode; "
                           "pass --tenants N")
@@ -2038,7 +2056,7 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
         resolve_strategies,
     )
 
-    _check_ported(args)
+    _check_flags(args)
     # Solver mode: --op selects a served solver; the namespace attribute is
     # solver_op because bench.sweep forwards its own args.op ("serve").
     solver_op = getattr(args, "solver_op", "matvec") or "matvec"
@@ -2103,6 +2121,7 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
                         max_bucket=args.max_bucket, promote=promote,
                         seed=args.seed, metrics_out=metrics_out,
                         dtype_storage=getattr(args, "dtype_storage", None),
+                        rtol=getattr(args, "spec_rtol", None),
                     )
                 except MatvecError as e:
                     print(f"skip {name} {m}x{k} p={n_dev}: {e}")
@@ -2115,6 +2134,12 @@ def run_serve_sweep(args: argparse.Namespace) -> int:
                     f"resident={result.resident_bytes / 1e6:.2f}MB"
                     if result.dtype_storage != "native" else ""
                 )
+                if result.speculated:
+                    storage_suffix += (
+                        f" spec={result.speculated} "
+                        f"esc_rate={result.escalation_rate:.4f} "
+                        f"bw_ratio={result.spec_bandwidth_ratio:.3f}"
+                    )
                 print(
                     f"serve {name} {m}x{k} p={n_dev} "
                     f"b*={result.b_star} {result.rps:.1f} req/s "
@@ -2179,9 +2204,16 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["native", "int8", "int8c", "fp8", "auto", "speculate"],
         help="resident-A storage format (ops/quantize.py): quantize A once "
         "at residency and serve from the low-bit payload; 'auto' takes the "
-        "tuning cache's format (native on a miss); 'speculate' is not "
-        "ported. CSV "
-        "rows record the resolved format + resident bytes",
+        "tuning cache's format (native on a miss); 'speculate' arms the "
+        "int8c speculative tier beside native (requests opt in with "
+        "--spec-rtol). CSV rows record the resolved format + resident bytes",
+    )
+    p.add_argument(
+        "--spec-rtol", dest="spec_rtol", type=float, default=None,
+        help="per-request relative tolerance of the matvec serve protocol: "
+        "with --dtype-storage speculate every steady request is served from "
+        "the int8c tier behind the check on the card, escalating to native "
+        "only on a miss (ops/speculative.py). Default: exact, native",
     )
     p.add_argument(
         "--op", dest="solver_op", default="matvec",

@@ -140,8 +140,24 @@ optional ``residency_listener`` (``"resident"``, ``"released"``,
 between engines of equal :meth:`MatvecEngine.exec_signature`; the programs
 over A (and their captures) stay each engine's own.
 
-Left for later slices (ROADMAP.md, queue A items 3 and 6): speculative
-submits and lowering fingerprints; their arguments raise ``ConfigError``.
+**Speculative serving** (``ops/speculative.py``): ``dtype_storage=
+"speculate"`` (or a tuned ``speculate`` winner under ``"auto"``) keeps the
+primary residency native, so ``rtol=None`` requests are bitwise those of a
+plain engine, and places beside it a compensated-int8 (``int8c``) copy of A,
+the seeded probes U and their projection P = U A (computed in float64 on
+the card). ``submit(x, rtol=...)`` then serves the int8c candidate and its
+acceptance check as one program (one CUDA graph on one card, ``rtol`` a
+device scalar written before each replay); the verdict stays on the card
+until ``result()`` reads it, and a miss escalates the request through the
+native program on the materializing thread, under the swap fence. A
+tolerance under ``SPEC_RTOL_FLOOR``, or a speculative breaker that an
+escalation storm opened, serves native at submit and counts in
+``engine_storage_fallbacks_total``. An injected fault on a speculative key
+falls back to native the same way; a real error of the candidate's kernel
+or of the check reaches the caller.
+
+Left for a later slice (ROADMAP.md, queue A item 6): lowering
+fingerprints.
 """
 
 from __future__ import annotations
@@ -178,6 +194,15 @@ from ..ops.quantize import (
     get_storage_kernel,
     normalize_storage,
     quantize_matrix,
+)
+from ..ops.speculative import (
+    SPEC_RTOL_FLOOR,
+    build_speculative,
+    eligible as spec_eligible,
+    probe_count,
+    probe_matrix,
+    probe_spec,
+    project_probes,
 )
 from ..parallel.mesh import Mesh, ShardedTensor, shard, unshard
 from ..resilience.faults import (
@@ -217,6 +242,12 @@ from .buckets import (
     split_widths,
 )
 from .executables import ExecKey, ExecStats, ExecutableCache
+
+# The speculative tier's vocabulary: SPECULATE is the storage label its
+# ExecKeys carry (never a resident format: a speculative engine's own storage
+# stays native), SPEC_STORAGE the format its candidate is served from.
+SPECULATE = "speculate"
+SPEC_STORAGE = "int8c"
 
 # Static promotion default on a tuning-cache miss: one GEMM dispatch replaces
 # 4+ GEMV dispatches. At b=4 the block reads A once instead of 4 times, so
@@ -271,15 +302,29 @@ class _Dispatch:
             e.synchronize()
 
 
+def _clone_out(out):
+    """A fresh copy of a program's output: a tensor, a ShardedTensor, or the
+    speculative program's (y, est, accept) tuple of them."""
+    if isinstance(out, tuple):
+        return tuple(_clone_out(o) for o in out)
+    if isinstance(out, ShardedTensor):
+        return ShardedTensor(tuple(s.clone() for s in out.shards), out.shape,
+                             out.spec, out.mesh)
+    return out.clone()
+
+
 class _EagerProgram:
     """One key's program dispatched eagerly: the request is placed by the
     strategy's spec (a host request: a blocking pageable copy) and the
-    program runs."""
+    program runs. A speculative program reads its tolerance from ``rtol``,
+    a device scalar each call writes first."""
 
-    def __init__(self, fn: Callable, a, spec, mesh: Mesh):
-        self.fn, self.a, self.spec, self.mesh = fn, a, spec, mesh
+    def __init__(self, fn: Callable, a, spec, mesh: Mesh, rtol=None):
+        self.fn, self.a, self.spec, self.mesh, self.rtol = fn, a, spec, mesh, rtol
 
-    def __call__(self, rhs: torch.Tensor):
+    def __call__(self, rhs: torch.Tensor, rtol: float | None = None):
+        if rtol is not None:
+            self.rtol.fill_(rtol)
         return self.fn(self.a, shard(rhs, self.spec, self.mesh))
 
     def release(self) -> None:
@@ -295,30 +340,31 @@ class _CapturedProgram:
     keeps the staging block until its copy has run, so the host never waits
     for the card here; a request already on the card device to device),
     replays, and copies the static output into a fresh tensor the future
-    owns."""
+    owns. A speculative program's tolerance is a second static input,
+    ``rtol``, written (a fill on the card, no copy from the host) before the
+    replay."""
 
     def __init__(self, fn: Callable, a, spec, mesh: Mesh, shape: tuple,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device, rtol=None):
         self.device = device
+        self.rtol = rtol
         self.static_in = torch.zeros(shape, dtype=dtype, device=device)
         placed = shard(self.static_in, spec, mesh)  # views: one device
         self.graph, self.static_out = capture(lambda: fn(a, placed), device)
 
-    def __call__(self, rhs: torch.Tensor):
+    def __call__(self, rhs: torch.Tensor, rtol: float | None = None):
         with torch.cuda.device(self.device):
             if rhs.device.type == "cpu":
                 self.static_in.copy_(rhs.pin_memory(), non_blocking=True)
             else:
                 self.static_in.copy_(rhs)
+            if rtol is not None:
+                self.rtol.fill_(rtol)
             self.graph.replay()
-            out = self.static_out
-            if isinstance(out, ShardedTensor):
-                return ShardedTensor(tuple(s.clone() for s in out.shards), out.shape,
-                                     out.spec, out.mesh)
-            return out.clone()
+            return _clone_out(self.static_out)
 
     def release(self) -> None:
-        self.graph = self.static_in = self.static_out = None
+        self.graph = self.static_in = self.static_out = self.rtol = None
 
 
 def _placed_bytes(st: ShardedTensor | None) -> int:
@@ -332,6 +378,15 @@ def _placed_bytes(st: ShardedTensor | None) -> int:
             if t is not None:
                 tensors[id(t)] = t.numel() * t.element_size()
     return sum(tensors.values())
+
+
+def _spec_bytes(spec: tuple | None) -> int:
+    """Bytes of a placed speculative set: the int8c payload and scales, P's
+    shards and U."""
+    if spec is None:
+        return 0
+    qa, p, u = spec
+    return _placed_bytes(qa) + _placed_bytes(p) + u.numel() * u.element_size()
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -369,13 +424,20 @@ class MatvecFuture:
         trace: ActiveTrace | None = None, integrity_counter=None,
         timeline: TimelineHub | None = None,
     ):
-        # parts: (output, width, dispatch, corrupt) — width None marks a
-        # rank-1 single column, an int a rank-2 block whose first `width`
-        # columns are real; output is a tensor, or a ShardedTensor when the
-        # engine keeps the strategy's native output layout
-        # (gather_output=False). corrupt marks a part an injected "nan"
-        # fault poisons at materialization (resilience/faults.py).
+        # parts: (output, width, dispatch, corrupt[, accept, resolve]) —
+        # width None marks a rank-1 single column, an int a rank-2 block
+        # whose first `width` columns are real; output is a tensor, or a
+        # ShardedTensor when the engine keeps the strategy's native output
+        # layout (gather_output=False). corrupt marks a part an injected
+        # "nan" fault poisons at materialization (resilience/faults.py).
+        # accept/resolve mark a speculative part: accept is the check's
+        # device verdict, resolve(accepted) the engine's settlement (the
+        # bookkeeping, and on a miss the native re-dispatch, whose parts
+        # replace the candidate).
         self._parts = list(parts)
+        # Settled once: a second result() reads no verdict and escalates
+        # nothing again.
+        self._settled: list | None = None
         self._vector = vector
         self._error: Exception | None = None
         self._materialize_hist = materialize_hist
@@ -410,12 +472,36 @@ class MatvecFuture:
         """The failure this future carries, or None for a dispatched one."""
         return self._error
 
+    def _settle(self) -> list:
+        """Settle the speculative verdicts once: read every speculative
+        part's accept flag in one copy (the one host read speculation adds,
+        made here because ``result()`` is the engine's sync point), keep an
+        accepted candidate and put the parts of its native re-dispatch in
+        the place of a rejected one. Plain parts pass through."""
+        if self._settled is None:
+            spec = [i for i, part in enumerate(self._parts) if len(part) > 4]
+            verdicts = {}
+            if spec:
+                flags = torch.stack([self._parts[i][4].reshape(()) for i in spec])
+                verdicts = dict(zip(spec, _host_copy(flags).tolist()))
+            settled = []
+            for i, part in enumerate(self._parts):
+                if i not in verdicts:
+                    settled.append(part)
+                elif verdicts[i]:
+                    part[5](True)
+                    settled.append(part[:4])
+                else:
+                    settled.extend(part[5](False))
+            self._settled = settled
+        return self._settled
+
     def _host_value(self) -> torch.Tensor:
         """The request's columns on the host: one copy of the joined parts,
         with an injected corruption planted in element [0] / [0, 0] of each
         corrupt part (one real column, what the integrity gate catches)."""
         outs = [(unshard(out) if isinstance(out, ShardedTensor) else out, width, corrupt)
-                for out, width, _, corrupt in self._parts]
+                for out, width, _, corrupt in self._settle()]
         if self._vector:
             out, _, corrupt = outs[0]
             host = _host_copy(out)
@@ -734,7 +820,11 @@ class MatvecEngine:
         degraded dispatch. ``"auto"`` takes the tuning cache's format
         (``storage_reason="tuned"``), native on a miss (``"auto_miss"``) or
         where the recorded format cannot serve here (``"auto_degraded"``).
-        ``"speculate"`` is not ported.
+        ``"speculate"`` keeps A native and arms the speculative tier beside
+        it (module docstring): the int8c payload of A, the probes U and
+        their projection P, placed and released with A and counted in
+        ``resident_bytes``; ``kernel`` must then name a quantized-storage
+        tier too. A strategy bound to an A-tiling combine refuses it.
     solver_kernel : the iteration tier of solver submits: ``"torch"`` (the
         unfused loop: the strategy's matvec plus PyTorch vector ops, the JAX
         package's ``"xla"`` tier), ``"cuda_fused"`` (one fused step per shard
@@ -877,6 +967,8 @@ class MatvecEngine:
         bucket_ladder(max_bucket)  # validates
         self.b_star = self._resolve_promotion(promote, self.strategy)
         # Unknown kernel names fail here, not requests deep.
+        if self.speculative:
+            get_storage_kernel(kernel)  # the candidate's tier
         if self.storage != NATIVE:
             get_storage_kernel(kernel)  # one kernel serves both ranks
         else:
@@ -1018,6 +1110,43 @@ class MatvecEngine:
         self._c_integrity = None
         if self.integrity_gate:
             self._integrity_counter()
+        # Every pass on the storage tier asked or tuned for: an "auto" winner
+        # degraded at construction, and an armed engine serving an rtol
+        # request native (an open breaker, a tolerance under the floor, an
+        # injected fault on a speculative key). Made only where a storage
+        # was asked for, so a plain engine's snapshot stays as it was.
+        if dtype_storage is not None:
+            self._c_storage_fallbacks = self.metrics.counter(
+                "engine_storage_fallbacks_total",
+                "requests (or the construction itself) served native "
+                "despite a quantized/speculative storage ask",
+            )
+            if self.storage_reason == "auto_degraded":
+                self._c_storage_fallbacks.inc()
+        else:
+            self._c_storage_fallbacks = None
+        if self.speculative:
+            self._c_speculative = self.metrics.counter(
+                "engine_speculative_dispatches_total",
+                "requests served through the speculative int8c tier "
+                "(candidate + fused acceptance check, one program)",
+            )
+            self._c_escalations = self.metrics.counter(
+                "engine_escalations_total",
+                "speculative candidates the on-device check rejected "
+                "(a native re-dispatch served the request)",
+            )
+            # A windowed average (tau 60 s), not a lifetime ratio: the cost
+            # model's escalation rate follows recent traffic.
+            self._g_escalation_rate = self.metrics.ewma_gauge(
+                "engine_escalation_rate",
+                "escalation EWMA over speculative dispatches (tau=60s), "
+                "refreshed at each speculative settlement (the cost "
+                "model's epsilon feed)",
+            )
+        else:
+            self._c_speculative = self._c_escalations = None
+            self._g_escalation_rate = None
         # The host A (a host tensor is kept by reference): the swap-in
         # source of a releasable native resident, what a requantizing
         # reshard quantizes, and the ladder's native safe tier under
@@ -1051,6 +1180,31 @@ class MatvecEngine:
         # The quantized payload and scales on the host: a re-admission
         # places these bytes again instead of quantizing A again.
         self._qa_host = a.to("cpu") if self.retain_host and self.storage != NATIVE else None
+        # The speculative set, built once here from the native A: the int8c
+        # payload the candidate reads, the probes U and P = U A (float64 on
+        # the mesh's first device, stored in the serving dtype). Sized for
+        # the tightest eligible tolerance, so one P and U serve every rtol.
+        self._spec: tuple | None = None
+        self._spec_host: tuple | None = None
+        self._spec_probes = self.spec_storage_block = None
+        self.spec_resident_bytes = 0
+        if self.speculative:
+            self._spec_probes = probe_count(SPEC_RTOL_FLOOR)
+            dev0 = mesh.devices[0]
+            sq = quantize_matrix(a, SPEC_STORAGE,
+                                 contraction_shards=self.strategy.contraction_shards(mesh))
+            u = probe_matrix(self._spec_probes, self.m, self.dtype).to(dev0)
+            pm = project_probes(u, a, self.dtype, device=dev0)
+            self.spec_storage_block = sq.block
+            # P and U, whose size no layout changes.
+            self._spec_aux_bytes = u.numel() * u.element_size() + pm.numel() * pm.element_size()
+            self.spec_resident_bytes = int(sq.nbytes + self._spec_aux_bytes)
+            self.resident_bytes += self.spec_resident_bytes
+            if self.retain_host:
+                self._spec_host = (sq.to("cpu"), pm.cpu(), u.cpu())
+            if not defer_placement:
+                self._spec = self._place_spec(sq, pm, u, self.strategy)
+            del sq, pm, u
         # At p=1 on A's own device the shard IS a (or its payload: no
         # copy). A quantized engine drops A here.
         self._a = None if defer_placement else shard_operand(a, spec_a, mesh)
@@ -1075,13 +1229,24 @@ class MatvecEngine:
     # ---- configuration ----
 
     def _resolve_storage(self, dtype_storage: str | None) -> str:
-        """Pin the resident-A storage format at construction and record why
-        (``storage_reason``: ``"default"``, ``"explicit"`` or
-        ``"auto_miss"``). An explicit format fails loudly when the strategy
-        cannot serve it."""
+        """Pin the resident-A storage format at construction, arm the
+        speculative tier (``"speculate"``, or a tuned ``speculate`` winner
+        under ``"auto"``) and record why (``storage_reason``: ``"default"``,
+        ``"explicit"``, ``"tuned"``, ``"auto_miss"`` or ``"auto_degraded"``).
+        An explicit format fails loudly when the strategy cannot serve it."""
         self.storage_reason = "default" if dtype_storage is None else "explicit"
-        if dtype_storage == "speculate":
-            raise not_ported("dtype_storage='speculate' (speculative serving)")
+        # Armed only here: by an explicit "speculate", or a tuned speculate
+        # winner under "auto". The primary residency stays native.
+        self.speculative = False
+        if dtype_storage == SPECULATE:
+            if not self.strategy.storage_combine_ok(None):
+                raise ConfigError(
+                    f"strategy {self.strategy.name!r} binds an A-tiling "
+                    "combine schedule, which cannot compose with the "
+                    f"speculative int8c resident (dtype_storage={SPECULATE!r})"
+                )
+            self.speculative = True
+            return NATIVE
         if dtype_storage == "auto":
             from ..tuning import lookup_storage
 
@@ -1091,6 +1256,9 @@ class MatvecEngine:
             )
             self.storage_reason = "tuned" if decision else "auto_miss"
             fmt = (decision or {}).get("storage") or NATIVE
+            if fmt == SPECULATE and self.strategy.storage_combine_ok(None):
+                self.speculative = True
+                return NATIVE
             try:
                 fmt = normalize_storage(fmt)
             except ConfigError:
@@ -1225,12 +1393,20 @@ class MatvecEngine:
     def _program(self, fn: Callable, spec, shape: tuple, storage: str | None = None):
         """The dispatchable program of one key, over the resident A of its
         storage format (``_a_for``): captured on the mesh's one CUDA
-        device, else eager."""
-        a = self._a_for(self.storage if storage is None else storage)
+        device, else eager. A speculative program takes the speculative set
+        and a tolerance scalar of its own on the mesh's first device."""
+        storage = self.storage if storage is None else storage
+        a, rtol = self._a_for(storage), None
+        if storage == SPECULATE:
+            rtol = torch.zeros((), dtype=torch.float32, device=self.mesh.devices[0])
+            spec_fn = fn
+
+            def fn(ops, x):
+                return spec_fn(*ops, x, rtol)
         if self._graph_device is None:
-            return _EagerProgram(fn, a, spec, self.mesh)
+            return _EagerProgram(fn, a, spec, self.mesh, rtol)
         return _CapturedProgram(fn, a, spec, self.mesh, shape, self.dtype,
-                                self._graph_device)
+                                self._graph_device, rtol)
 
     def _matvec_fn(self) -> Callable:
         return self._fns.get(self._matvec_key(), lambda: self.strategy.build(
@@ -1251,6 +1427,52 @@ class MatvecEngine:
 
     def _build_gemm(self, bucket: int):
         return self._program(self._gemm_fn(bucket), self._spec_b, (self.k, bucket))
+
+    # ---- the speculative tier: candidate and check in one program, keyed
+    # under storage="speculate", so it never collides with the native
+    # programs the rtol=None path rides ----
+
+    @staticmethod
+    def _spec_combine(combine: str | None) -> str | None:
+        """The combine the speculative (quantized) program runs: the
+        engine's, unless it tiles A inside its body (the filter quantized
+        residency applies), in which case the strategy's default."""
+        return None if combine in STORAGE_INCOMPATIBLE_COMBINES else combine
+
+    def _spec_matvec_key(self) -> ExecKey:
+        return ExecKey("matvec", self.strategy.name, self._kernel_label(),
+                       self._spec_combine(self._matvec_combine), 1,
+                       dtype_name(self.dtype), SPECULATE)
+
+    def _spec_gemm_key(self, bucket: int) -> ExecKey:
+        return ExecKey("gemm", self.strategy.name, self._kernel_label(),
+                       self._spec_combine(self._gemm_combine), bucket,
+                       dtype_name(self.dtype), SPECULATE)
+
+    def _spec_fn(self, bucket: int | None = None) -> Callable:
+        """The strategy's fused speculative function for the vector face, or
+        for a block ``bucket`` (``ops/speculative.py``); it holds no A."""
+        key = self._spec_matvec_key() if bucket is None else self._spec_gemm_key(bucket)
+        return self._fns.get(key, lambda: build_speculative(
+            self.strategy, self.mesh, probes=self._spec_probes, kernel=self.kernel,
+            combine=key.combine, stages=None, storage=SPEC_STORAGE,
+            gather_output=self.gather_output, b=bucket,
+        ))
+
+    def _build_spec(self, bucket: int | None = None):
+        if bucket is None:
+            return self._program(self._spec_fn(), self._spec_x, (self.k,), SPECULATE)
+        return self._program(self._spec_fn(bucket), self._spec_b, (self.k, bucket),
+                             SPECULATE)
+
+    def _place_spec(self, sq: QuantizedMatrix, pm: torch.Tensor, u: torch.Tensor,
+                    strategy) -> tuple:
+        """The speculative set placed for ``strategy``: the int8c payload by
+        A's spec, P by :func:`~..ops.speculative.probe_spec`, U on the mesh's
+        first device."""
+        mesh = self.mesh
+        return (shard_operand(sq, strategy.specs(mesh)[0], mesh),
+                shard(pm, probe_spec(strategy, mesh), mesh), u.to(mesh.devices[0]))
 
     # ---- degradation ladders (module docstring) ----
     #
@@ -1323,8 +1545,10 @@ class MatvecEngine:
         """Device bytes this engine's A residencies hold, read off the
         placed tensors: the resident operand while placed (0 once released
         or closed), plus the native safe tier once the ladder has placed
-        it."""
-        return _placed_bytes(self._a) + _placed_bytes(self._a_native)
+        it. An armed engine's speculative set is placed and released with
+        the payload and counts here too."""
+        return (_placed_bytes(self._a) + _placed_bytes(self._a_native)
+                + _spec_bytes(self._spec))
 
     def exec_signature(self) -> tuple:
         """Identity of this engine's space of built functions. A strategy's
@@ -1342,7 +1566,9 @@ class MatvecEngine:
             self._combine_label(self._gemm_combine),
             self.stages, self.m, self.k, dtype_name(self.dtype), self.storage,
             self.storage_block, self.gather_output, self.max_bucket, self.donate,
-        )
+            # Arming adds the speculative functions; a plain engine's
+            # signature is as it was.
+        ) + ((SPECULATE, self._spec_probes) if self.speculative else ())
 
     def prediction_config(self, b: int = 1, rtol: float | None = None) -> dict:
         """The cost model's view of one dispatch through this engine's
@@ -1352,13 +1578,12 @@ class MatvecEngine:
         ``b``-column request rides (``b >= b*`` promotes to the padded GEMM
         bucket; below it the per-column path dispatches ``b`` single-RHS
         programs, which the caller models as ``b`` sequential ``b=1``
-        predictions). ``rtol`` never selects ``storage="speculate"``: the
-        port has no speculative engines (ROADMAP.md, queue A 3), the JAX
-        package's answer for a non-speculative engine. Degradation-ladder
-        fallbacks are not modeled: admission predicts the healthy path. An
-        advisory snapshot, read without the engine's locks (a racing
-        reshard yields one stale prediction)."""
-        del rtol
+        predictions). A request declaring an eligible ``rtol`` on an armed
+        engine prices as ``storage="speculate"``, the two-tier expected cost
+        ``T_int8c + T_check + ε·T_native`` (``tuning/cost_model.py``).
+        Degradation-ladder fallbacks are not modeled: admission predicts the
+        healthy path. An advisory snapshot, read without the engine's locks
+        (a racing reshard yields one stale prediction)."""
         gemm = self.b_star is not None and b >= self.b_star
         combine = self._effective_combine(
             self._gemm_combine if gemm else self._matvec_combine)
@@ -1373,7 +1598,7 @@ class MatvecEngine:
             p=self.mesh.size,
             dtype=dtype_name(self.dtype),
             b=bucket_for(b, self.max_bucket) if gemm else 1,
-            storage=self.storage,
+            storage=SPECULATE if self.speculative and spec_eligible(rtol) else self.storage,
         )
 
     def _fire_residency_notes(self) -> None:
@@ -1446,19 +1671,24 @@ class MatvecEngine:
                     "payload (construct with retain_host=True for releasable "
                     "residency)"
                 )
-            placed = shard_operand(payload, self.strategy.specs(self.mesh)[0], self.mesh)
+            strategy = self.strategy
+            placed = shard_operand(payload, strategy.specs(self.mesh)[0], self.mesh)
+            # The speculative set rides the payload's residency: placed with
+            # it from the same host copies, bitwise the first placement.
+            spec = self._place_spec(*self._spec_host, strategy) if self.speculative else None
             with self._residency_lock:
                 if self._layout_epoch != epoch:
                     continue  # resharded mid-placement: place again
                 if self._a is not None:
                     return False  # lost a concurrent placement
-                self._a = placed
-                self._notes.append((_placed_bytes(placed), "resident"))
+                self._a, self._spec = placed, spec
+                self._notes.append((_placed_bytes(placed) + _spec_bytes(spec), "resident"))
             return True
 
     def release_residency(self) -> int:
-        """Drop the device residency, the payload and any placed native
-        safe tier, with every program built over them; keep the host
+        """Drop the device residency, the payload, an armed engine's
+        speculative set and any placed native safe tier, with every program
+        built over them (the speculative captures too); keep the host
         payload for a later :meth:`ensure_resident`. Returns the device
         bytes released. Waits only for a dispatch being enqueued on this
         engine (``_swap_lock``), never for the card: the operands are freed
@@ -1475,7 +1705,7 @@ class MatvecEngine:
             with self._residency_lock:
                 released = self.device_resident_bytes
                 programs = self._cache.clear()
-                self._a = self._a_native = None
+                self._a = self._a_native = self._spec = None
                 self._notes.append((-released, "released"))
             self._retire(programs)
         self._fire_residency_notes()
@@ -1492,6 +1722,8 @@ class MatvecEngine:
         ``engine_resident_bytes`` and ``device_resident_bytes``, is
         reported to the listener as ``"native_fallback"``, and is not
         installed over a layout a reshard committed meanwhile."""
+        if storage == SPECULATE:
+            return self._spec
         if storage == self.storage:
             return self._a
         native = self._a_native
@@ -1810,8 +2042,17 @@ class MatvecEngine:
         keyed into the executable's bucket. ``interval=(λ_min, λ_max)`` is
         chebyshev's required spectral interval. Solver submits return a
         :class:`SolverFuture` once the host-stepped loop has been enqueued to
-        its end (module docstring). ``rtol`` on a plain matvec (speculative
-        serving) is not ported yet and raises ``ConfigError``.
+        its end (module docstring).
+
+        ``rtol`` on a matvec request is the speculative contract: the caller
+        declares a relative tolerance, and an armed engine
+        (``dtype_storage="speculate"``) serves the int8c candidate with its
+        acceptance check in one program, the verdict settling at
+        ``result()`` (a miss is a native re-dispatch there, bitwise the
+        plain engine's answer). Such a future always refuses a non-finite
+        result. ``rtol=None`` (the default) is the exact native path; an
+        unarmed engine serves an ``rtol`` request native too, and a
+        non-positive ``rtol`` raises ``ConfigError``.
         """
         self._check_open()
         t0 = time.monotonic()
@@ -1824,8 +2065,6 @@ class MatvecEngine:
             x = rhs
         if x is None:
             raise ConfigError("submit() needs a request vector or block")
-        if op == "matvec" and rtol is not None:
-            raise not_ported("submit(rtol=...) (speculative serving)")
         x = _as_tensor(x)
         if not self.donate and x.device.type != "cpu":
             x = x.clone()  # the caller keeps its buffer
@@ -1849,6 +2088,7 @@ class MatvecEngine:
             )
         elif x.shape[1] == 0:
             raise ConfigError("empty request (b=0)")
+        spec_rtol = self._spec_admit(rtol)
         cols = 1 if x.dim() == 1 else int(x.shape[1])
         shape = "vector" if x.dim() == 1 else "block"
         trace = self._start_trace(cols=cols, kind=shape)
@@ -1870,7 +2110,10 @@ class MatvecEngine:
             ), trace=trace)
 
         gate = self.integrity_gate if integrity is None else bool(integrity)
-        integrity_counter = self._integrity_counter() if gate else None
+        # A speculative answer is refused when non-finite whatever the gate
+        # says: the caller declared a tolerance, so a poisoned candidate
+        # fails typed and is never served within it.
+        integrity_counter = self._integrity_counter() if gate or spec_rtol is not None else None
         # The binding correlates everything emitted from inside the
         # dispatch with this request.
         with bind_request(trace.request_id), trace.span("submit"):
@@ -1885,7 +2128,7 @@ class MatvecEngine:
                     # The self-heal: a released A is placed again before any
                     # program is looked up.
                     self._place()
-                    parts = self._dispatch_request(x, trace)
+                    parts = self._dispatch_request(x, trace, spec_rtol)
             except BaseException as exc:
                 self._c_dispatch_failures.inc()
                 trace.finish(status="dispatch_failed")
@@ -1902,21 +2145,164 @@ class MatvecEngine:
             self._h_submit.observe((time.perf_counter() - t0_perf) * 1e3)
             return fut
 
-    def _dispatch_request(self, x: torch.Tensor, trace: ActiveTrace) -> list:
+    def _dispatch_request(self, x: torch.Tensor, trace: ActiveTrace,
+                          spec_rtol: float | None = None) -> list:
         """Enqueue one request's dispatches: one GEMV program per column
-        below ``b*``, bucket-padded GEMM blocks from it."""
+        below ``b*``, bucket-padded GEMM blocks from it; through the
+        speculative tier when ``spec_rtol`` is set."""
+        def column(col):
+            if spec_rtol is None:
+                return self._dispatch_matvec(col, trace)
+            return self._spec_part_matvec(col, spec_rtol, trace)
+
         if x.dim() == 1:
             self._c_cols.inc()
-            return [self._dispatch_matvec(x, trace)]
+            return [column(x)]
         b = x.shape[1]
         self._c_cols.inc(b)
         if self.b_star is None or b < self.b_star:
-            return [self._dispatch_matvec(x[:, j].contiguous(), trace) for j in range(b)]
+            return [column(x[:, j].contiguous()) for j in range(b)]
         parts, offset = [], 0
         for width in split_widths(b, self.max_bucket):
-            parts.extend(self._dispatch_block(x[:, offset:offset + width], trace))
+            chunk = x[:, offset:offset + width]
+            parts.extend(self._dispatch_block(chunk, trace) if spec_rtol is None
+                         else self._spec_part_block(chunk, spec_rtol, trace))
             offset += width
         return parts
+
+    # ---- speculative dispatch: the int8c candidate first, verified on the
+    # card, escalated to native only on a miss ----
+
+    def _spec_allowed(self) -> bool:
+        """The speculative breaker's admission: misses feed it at
+        settlement, so an escalation storm opens it and the tier stands
+        down to native until its cooldown half-opens it. One breaker, the
+        matvec speculative key's, governs the tier; without a recovery
+        policy the tier is always admitted."""
+        if self._resilience is None:
+            return True
+        return self._breaker_for(self._spec_matvec_key()).allow()
+
+    def _spec_admit(self, rtol: float | None) -> float | None:
+        """The tolerance the speculative tier serves a matvec request at,
+        or None for native: an armed engine, an eligible tolerance and an
+        admitting breaker. A pass on an armed engine counts as a storage
+        fallback. A non-positive tolerance raises, armed or not."""
+        if rtol is None:
+            return None
+        rtol = float(rtol)
+        if not (rtol > 0.0):
+            raise ConfigError(f"rtol must be > 0, got {rtol}")
+        if not self.speculative:
+            return None
+        if not spec_eligible(rtol) or not self._spec_allowed():
+            self._c_storage_fallbacks.inc()
+            return None
+        return rtol
+
+    def _spec_record(self, accepted: bool) -> None:
+        """Settlement bookkeeping, on the host at ``result()``: the
+        escalation counter, the escalation-rate average the cost model
+        reads, and the speculative breaker (a miss is the configuration's
+        failure: the quantization budget does not hold for this traffic)."""
+        if not accepted:
+            self._c_escalations.inc()
+        self._g_escalation_rate.observe(0.0 if accepted else 1.0)
+        if self._resilience is not None:
+            breaker = self._breaker_for(self._spec_matvec_key())
+            (breaker.record_success if accepted else breaker.record_failure)()
+
+    def _spec_fallback(self, exc: Exception) -> None:
+        """An injected fault on a speculative key (the only error that falls
+        back: a real one reaches the caller): fed to the breaker as the
+        ladder feeds one, counted as a storage fallback; the request rides
+        native."""
+        if self._resilience is not None:
+            breaker = self._breaker_for(self._spec_matvec_key())
+            (breaker.record_inconclusive if is_payload_fault(exc)
+             else breaker.record_failure)()
+        self._c_storage_fallbacks.inc()
+
+    def _run_spec(self, key: ExecKey, build, rhs: torch.Tensor, rtol: float,
+                  trace: ActiveTrace, **span_attrs) -> tuple:
+        """One speculative dispatch: candidate and check, one program (one
+        replay on one card) with ``rtol`` written into its scalar first.
+        Nothing here reads the card."""
+        out, dispatch, corrupt = self._run(key, build, rhs, trace,
+                                           call=lambda program: program(rhs, rtol),
+                                           kind="speculate", **span_attrs)
+        self._c_speculative.inc()
+        return out, dispatch, corrupt
+
+    def _escalate(self, trace: ActiveTrace, op: str, dispatch: Callable,
+                  **fields) -> list:
+        """A rejected candidate's native re-dispatch, on the materializing
+        thread: under the swap fence like any dispatch (a reshard may have
+        committed since the candidate was enqueued), after the self-heal
+        placement, in an ``escalate`` span."""
+        self._timeline.emit("escalate", op=op, **fields)
+        try:
+            with self._swap_lock:
+                self._place()
+                with trace.span("escalate", op=op, kind="escalate"):
+                    return dispatch()
+        finally:
+            self._fire_residency_notes()
+
+    def _spec_part_matvec(self, col: torch.Tensor, rtol: float,
+                          trace: ActiveTrace) -> tuple:
+        """One column through the speculative tier -> one part
+        ``(candidate, None, dispatch, corrupt, accept, resolve)``;
+        ``resolve`` settles it at ``result()``."""
+        try:
+            (y, _, accept), dispatch, corrupt = self._run_spec(
+                self._spec_matvec_key(), self._build_spec, col, rtol, trace, op="matvec")
+        except Exception as exc:
+            if not is_injected(exc):
+                raise
+            self._spec_fallback(exc)
+            return self._dispatch_matvec(col, trace)
+
+        def resolve(accepted: bool) -> list:
+            with bind_request(trace.request_id):
+                self._spec_record(accepted)
+                if accepted:
+                    return []
+                return self._escalate(trace, "matvec",
+                                      lambda: [self._dispatch_matvec(col, trace)])
+
+        return (y, None, dispatch, corrupt, accept, resolve)
+
+    def _spec_part_block(self, chunk: torch.Tensor, rtol: float,
+                         trace: ActiveTrace) -> list:
+        """One <= max_bucket-wide chunk through the speculative GEMM face.
+        The check accepts only when every column passes (the zero pad
+        columns pass), so a miss escalates the whole chunk through the
+        native block path."""
+        width = chunk.shape[1]
+        bucket = bucket_for(width, self.max_bucket)
+        with trace.span("bucket_pad", width=width, bucket=bucket):
+            padded = pad_columns(chunk, bucket)
+        try:
+            (y, _, accept), dispatch, corrupt = self._run_spec(
+                self._spec_gemm_key(bucket), lambda: self._build_spec(bucket), padded,
+                rtol, trace, op="gemm", bucket=bucket)
+        except Exception as exc:
+            if not is_injected(exc):
+                raise
+            self._spec_fallback(exc)
+            return self._dispatch_block(chunk, trace)
+
+        def resolve(accepted: bool) -> list:
+            with bind_request(trace.request_id):
+                self._spec_record(accepted)
+                if accepted:
+                    return []
+                return self._escalate(trace, "gemm",
+                                      lambda: self._dispatch_block(chunk, trace),
+                                      width=width)
+
+        return [(y, width, dispatch, corrupt, accept, resolve)]
 
     # ---- served solvers ----
 
@@ -2150,23 +2536,34 @@ class MatvecEngine:
         number of fresh builds. An engine whose A is not placed (deferred,
         or released) places nothing here: it builds the strategy's
         functions only, which hold no A, and returns how many it built; its
-        programs are built at the first dispatch after a placement."""
+        programs are built at the first dispatch after a placement. An armed
+        engine warms both tiers, the speculative programs beside the native
+        ones, so a mixed stream of exact and ``rtol`` requests, escalations
+        included, builds nothing after it."""
         self._check_open()
         with self._swap_lock:
             if self._a is None:
                 before = self._fns.stats.compiles
-                self._warmup(widths, self._matvec_fn, self._gemm_fn)
+                self._warmup(widths, self._matvec_fn, self._gemm_fn, self._spec_fn)
                 return self._fns.stats.compiles - before
             before = self._cache.stats.compiles
+
+            def spec(bucket=None):
+                key = self._spec_matvec_key() if bucket is None else self._spec_gemm_key(bucket)
+                self._cache.get(key, lambda: self._build_spec(bucket))
+
             self._warmup(widths, lambda: self._cache.get(self._matvec_key(),
                                                          self._build_matvec),
                          lambda bucket: self._cache.get(
-                             self._gemm_key(bucket), lambda: self._build_gemm(bucket)))
+                             self._gemm_key(bucket), lambda: self._build_gemm(bucket)),
+                         spec)
             return self._cache.stats.compiles - before
 
     def _warmup(self, widths: Sequence[int] | None, matvec: Callable,
-                gemm: Callable) -> None:
+                gemm: Callable, spec: Callable) -> None:
         matvec()
+        if self.speculative:
+            spec()
         if self.b_star is not None:
             if widths is None:
                 buckets = set(bucket_ladder(self.max_bucket))
@@ -2179,6 +2576,8 @@ class MatvecEngine:
                         buckets.add(bucket_for(chunk, self.max_bucket))
             for bucket in sorted(buckets):
                 gemm(bucket)
+                if self.speculative:
+                    spec(bucket)
 
     # ---- online reshard ----
 
@@ -2250,11 +2649,11 @@ class MatvecEngine:
             mesh = self.mesh
             dst.validate(self.m, self.k, mesh)
             validate_reshard((self.m, self.k), mesh)
-            if self.storage != NATIVE and not dst.storage_combine_ok(None):
+            if (self.storage != NATIVE or self.speculative) and not dst.storage_combine_ok(None):
                 raise ConfigError(
                     f"strategy {dst.name!r} binds an A-tiling combine and "
                     f"cannot host the quantized resident (storage="
-                    f"{self.storage!r})"
+                    f"{SPECULATE if self.speculative else self.storage!r})"
                 )
             # An explicit combine with no spelling in the destination falls
             # back to the static default: a reshard never fails over a name.
@@ -2289,15 +2688,43 @@ class MatvecEngine:
                         ) from None
                     requant = quantize_matrix(self._a_host, self.storage,
                                               contraction_shards=dst_shards)
+            # An armed engine's int8c payload moves like a quantized
+            # resident's (quantized again from the host A where the block
+            # changes); P only changes placement (its values are
+            # layout-free) and U stays on the first device.
+            spec_requant = None
+            if self.speculative:
+                spec_block = default_block(self.k, dst_shards)
+                try:
+                    if spec_block != self.spec_storage_block:
+                        raise ConfigError("block→shard mapping changed")
+                    validate_reshard((self.m, self.k // spec_block), mesh, what="scales")
+                except ConfigError:
+                    if self._a_host is None:
+                        raise ResidencyError(
+                            "reshard needs the host A to recompute the "
+                            "speculative int8c scales, and this engine retains "
+                            "none (construct it with retain_host=True)"
+                        ) from None
+                    spec_requant = quantize_matrix(self._a_host, SPEC_STORAGE,
+                                                   contraction_shards=dst_shards)
             with self._residency_lock:
-                src_a = self._a
+                src_a, src_spec = self._a, self._spec
             resident = src_a is not None
-            new_a, bytes_moved = None, 0
+            new_a, new_spec, bytes_moved = None, None, 0
             if resident and requant is not None:
                 new_a = shard_operand(requant, dst.specs(mesh)[0], mesh)
             elif resident:
                 new_a = build_reshard(mesh, src.name, dst.name)(src_a)
                 bytes_moved = copy_bytes(mesh, src.name, dst.name, src_a)
+            if resident and self.speculative:
+                src_qa, src_p, u = src_spec
+                if spec_requant is not None:
+                    new_qa = shard_operand(spec_requant, dst.specs(mesh)[0], mesh)
+                else:
+                    new_qa = build_reshard(mesh, src.name, dst.name)(src_qa)
+                    bytes_moved += copy_bytes(mesh, src.name, dst.name, src_qa)
+                new_spec = (new_qa, shard(unshard(src_p), probe_spec(dst, mesh), mesh), u)
 
             # ---- the commit: the only window a dispatch waits on ----
             with self._swap_lock:
@@ -2309,11 +2736,11 @@ class MatvecEngine:
                     # layout, so it goes too.
                     aborted = resident and self._a is not src_a
                     if aborted:
-                        new_a, bytes_moved = None, 0
+                        new_a, new_spec, bytes_moved = None, None, 0
                     # The native safe tier is placed by the old layout: drop
                     # it (a degraded dispatch places it again).
-                    old = (self._a, self._cache.clear(), self._a_native)
-                    self._a, self._a_native = new_a, None
+                    old = (self._a, self._cache.clear(), self._a_native, self._spec)
+                    self._a, self._a_native, self._spec = new_a, None, new_spec
                     # The layout changes with the epoch, under this lock, so
                     # a placement that read the old epoch places again.
                     self._layout_epoch += 1
@@ -2325,13 +2752,20 @@ class MatvecEngine:
                         self.resident_bytes = requant.nbytes
                         if self.retain_host:
                             self._qa_host = requant.to("cpu")
+                    if spec_requant is not None:
+                        spec_bytes = int(spec_requant.nbytes + self._spec_aux_bytes)
+                        self.resident_bytes += spec_bytes - self.spec_resident_bytes
+                        self.spec_resident_bytes = spec_bytes
+                        self.spec_storage_block = spec_requant.block
+                        if self._spec_host is not None:
+                            self._spec_host = (spec_requant.to("cpu"), *self._spec_host[1:])
                     self._matvec_combine, self._gemm_combine = combines
                     self.stages = stages
                     self.b_star = b_star
                     delta = self.device_resident_bytes - before
                     self._notes.append((delta, "reshard"))
                 fence = _Dispatch(self._cuda_devices)
-            del src_a, new_a
+            del src_a, new_a, src_spec, new_spec
             self._c_dropped.inc(len(old[1]))
             self._c_reshards.inc()
             self._c_reshard_bytes.inc(bytes_moved)
@@ -2390,9 +2824,9 @@ class MatvecEngine:
                 # True once the native safe tier is placed: the card then
                 # holds both residencies.
                 "native_fallback_resident": self._a_native is not None,
-                # Speculative serving comes with ROADMAP.md queue A 3.
-                "speculative": False,
-                "escalation_rate": 0.0,
+                "speculative": self.speculative,
+                "escalation_rate": (self._g_escalation_rate.value
+                                    if self._g_escalation_rate is not None else 0.0),
             },
             "breakers": breakers,
             "degraded": degraded,
@@ -2407,11 +2841,9 @@ class MatvecEngine:
                 "dispatch_failures": self._c_dispatch_failures.value,
                 "deadline_failures": self._c_deadline_failures.value,
                 "integrity_failures": val(self._c_integrity),
-                # What the JAX package's engine_storage_fallbacks_total holds
-                # without speculative serving: the construction's degrade.
-                "storage_fallbacks": int(self.storage_reason == "auto_degraded"),
-                "speculative_dispatches": 0,
-                "escalations": 0,
+                "storage_fallbacks": val(self._c_storage_fallbacks),
+                "speculative_dispatches": val(self._c_speculative),
+                "escalations": val(self._c_escalations),
             },
         }
 
@@ -2469,6 +2901,7 @@ class MatvecEngine:
                         if isinstance(program, (_EagerProgram, _CapturedProgram)):
                             program.release()
                     self._a = self._a_native = self._a_host = self._qa_host = None
+                    self._spec = self._spec_host = None
 
     def _check_open(self) -> None:
         if self._closed:

@@ -637,8 +637,11 @@ class GlobalScheduler:
         A solver ``op`` (``MatvecEngine.submit(op=...)`` semantics) is
         admitted against :meth:`~..tuning.cost_model.CostModel.predict_solver`
         at ``k_est = maxiter`` and dispatched solo. A matvec declaring
-        ``rtol`` passes it through to the engine (which refuses it: the port
-        has no speculative serving) and bypasses coalescing."""
+        ``rtol`` (the speculative contract, ``MatvecEngine.submit(rtol=)``)
+        passes it through and bypasses coalescing: the fused check carries
+        one tolerance a dispatch, and stacking requests of different budgets
+        would hold every column to the tightest. On an armed tenant the
+        admission prices such a request as ``storage="speculate"``."""
         if qos not in QOS_TIERS:
             raise ConfigError(
                 f"unknown QoS tier {qos!r}; expected one of {QOS_TIERS}"

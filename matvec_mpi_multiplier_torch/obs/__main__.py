@@ -4,10 +4,10 @@ a flight-recorder bundle.
 
 The port's copy of the JAX package's ``obs/__main__.py``: the same
 subcommands and the same text, so a capture of either package renders the
-same way. The speculative-storage vocabulary, which the port does not emit
-yet, renders nothing for the port's snapshots; the tenants, global
-scheduler and cost model panels render the registry's, the scheduler's and
-the tuner's metrics.
+same way. The storage panel renders the speculative tier's dispatches,
+escalations and escalation rate; the tenants, global scheduler and cost
+model panels render the registry's, the scheduler's and the tuner's
+metrics.
 
 Usage::
 

@@ -36,9 +36,9 @@ The port's copy of the JAX package's ``obs/slo.py``. The clock is
 ``time.time``; no caller of the port sets another, so it is not a
 parameter: ``sample(now=)`` and ``evaluate(now=)`` take a time, and tests
 set ``monitor._clock``. The cost model's divergence gauge feeds
-``cost_model_divergence`` once a prediction is recorded; the speculative
-tier's escalation rate, which the port does not export yet, evaluates as
-``no_data``.
+``cost_model_divergence`` once a prediction is recorded, and a
+speculative engine's ``engine_escalation_rate`` the escalation targets (an
+engine that is not armed exports none, and they evaluate as ``no_data``).
 """
 
 from __future__ import annotations

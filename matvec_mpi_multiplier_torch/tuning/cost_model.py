@@ -73,9 +73,8 @@ from .cache import TuningCache, calibration_key
 DIVERGENCE_LOG10 = 1.0
 DIVERGENCE_MIN_SAMPLES = 8
 
-# Prior escalation rate ε of the speculative tier's expected cost; the port
-# has no speculative tier yet (ROADMAP.md, queue A 3), so it only stands
-# ready for refresh_escalation_rate.
+# Prior escalation rate ε of the speculative tier's expected cost, until
+# refresh_escalation_rate reads a measured one off speculative traffic.
 DEFAULT_ESCALATION_RATE = 0.02
 
 # Metric names (the obs `cost model` panel and divergence_health read
@@ -245,8 +244,8 @@ class CostModel:
         """Adopt the measured escalation rate from an obs registry's
         ``engine_escalation_rate`` gauge once
         ``engine_speculative_dispatches_total`` shows speculative traffic
-        (the port serves none yet, so the prior stays). Reads via
-        ``snapshot()``, which creates nothing. Returns the rate in effect."""
+        (the prior stays until then). Reads via ``snapshot()``, which
+        creates nothing. Returns the rate in effect."""
         from ..obs.registry import get_registry
 
         reg = registry if registry is not None else get_registry()
@@ -291,10 +290,9 @@ class CostModel:
         from ..staticcheck import hlo
 
         if storage == "speculate":
-            from ..models.base import not_ported
-
-            raise not_ported(
-                "predict(storage='speculate') (speculative dispatch, queue A 3)"
+            return self._predict_speculative(
+                strategy, combine, m=m, k=k, p=p, dtype=dtype, stages=stages,
+                b=b, r=r,
             )
 
         cal = self.calibration
@@ -340,6 +338,57 @@ class CostModel:
             total_s=total_s, compute_s=compute_s, wire_s=wire_s,
             latency_s=latency_s, flops=flops, a_bytes=a_bytes,
             wire_bytes=wire_bytes,
+        )
+
+    def _predict_speculative(
+        self, strategy: str | None, combine: str | None, *, m: int, k: int,
+        p: int, dtype: str, stages: int | None = None, b: int = 1,
+        r: int | None = None,
+    ) -> Prediction:
+        """Expected cost of one speculative dispatch (``ops/speculative.py``):
+        the int8c candidate, the acceptance check, and the native
+        re-dispatch at the escalation rate ε::
+
+            T_spec = T_int8c + T_check + ε·T_native
+
+        ``T_int8c`` and ``T_native`` are this model at the two storages.
+        ``T_check`` is the sampled projection, ``2·s·(k+m)·b`` operations
+        against the resident ``P (s, k)`` and ``U (s, m)``, plus one
+        collective's latency where the strategy shards its contraction
+        (not rowwise); its payload is ``s`` scalars a column, so only α is
+        charged. ``total_s`` sums the terms (the escalation waits on the
+        check), ``a_bytes`` is the expected resident stream a request."""
+        from ..ops.speculative import SPEC_RTOL_FLOOR, probe_count
+        from ..staticcheck import hlo
+
+        quant = self.predict(strategy, combine, m=m, k=k, p=p, dtype=dtype,
+                             stages=stages, b=b, storage="int8c", r=r)
+        native = self.predict(strategy, combine, m=m, k=k, p=p, dtype=dtype,
+                              stages=stages, b=b, storage="native", r=r)
+        cal = self.calibration
+        itemsize = hlo.dtype_itemsize(dtype)
+        s = probe_count(SPEC_RTOL_FLOOR)
+        check_flops = 2.0 * s * (k + m) * b
+        check_bytes = s * (k + m) * itemsize
+        check_compute_s = max(
+            (check_flops / p) / cal.flops,
+            (check_bytes / p) / cal.mem_bps,
+        )
+        sharded_contraction = (
+            strategy is not None and combine is not None
+            and p > 1 and strategy != "rowwise"
+        )
+        check_latency_s = cal.alpha_s["collective"] if sharded_contraction else 0.0
+        check_s = check_compute_s + check_latency_s
+        eps = self.escalation_rate
+        return Prediction(
+            total_s=quant.total_s + check_s + eps * native.total_s,
+            compute_s=quant.compute_s + check_compute_s + eps * native.compute_s,
+            wire_s=quant.wire_s + eps * native.wire_s,
+            latency_s=quant.latency_s + check_latency_s + eps * native.latency_s,
+            flops=quant.flops + check_flops + eps * native.flops,
+            a_bytes=int(round(quant.a_bytes + check_bytes + eps * native.a_bytes)),
+            wire_bytes=quant.wire_bytes + eps * native.wire_bytes,
         )
 
     def predict_solver(

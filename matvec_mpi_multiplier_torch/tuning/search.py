@@ -859,15 +859,17 @@ def tune_overlap(
 
 
 def storage_format_candidates(dtype: str) -> list[str]:
-    """The formats the storage axis races: ``native`` and the quantized
-    ladder (``ops.quantize.STORAGE_FORMATS``), ``fp8`` where this torch has
-    it. The JAX package's ``speculate`` (speculative serving) is not a
-    candidate until the port has it (ROADMAP.md, queue A 3)."""
+    """The formats the storage axis races: ``native``, the quantized ladder
+    (``ops.quantize.STORAGE_FORMATS``), ``fp8`` where this torch has it, and
+    ``speculate``: the fused int8c candidate and acceptance check
+    (``ops.speculative``), whose race time is the speculative tier's accept
+    path. A recorded ``speculate`` winner paid for the check in the race and
+    still beat native; the escalation tail is the cost model's ε term."""
     from ..ops.quantize import STORAGE_FORMATS, fp8_supported
 
     del dtype
     return ["native"] + [f for f in STORAGE_FORMATS
-                         if f != "fp8" or fp8_supported()]
+                         if f != "fp8" or fp8_supported()] + ["speculate"]
 
 
 def tune_storage(
@@ -946,6 +948,9 @@ def tune_storage(
 
     def candidate(fmt: str) -> tuple:
         if fmt not in programs:
+            if fmt == "speculate":
+                programs[fmt], resident[fmt] = speculative_candidate()
+                return programs[fmt]
             if fmt == "native":
                 fn = strat.build(mesh, kernel=kernel)
                 op, nbytes = a, a.numel() * a.element_size()
@@ -956,6 +961,32 @@ def tune_storage(
             resident[fmt] = int(nbytes)
             programs[fmt] = (fn, strat.place(op, x, mesh))
         return programs[fmt]
+
+    def speculative_candidate() -> tuple:
+        """The fused candidate and check over the int8c resident, P and U,
+        in the race's two-argument face. The check's outputs are folded
+        into the timed output, so every rep runs the whole program."""
+        from ..ops.speculative import (
+            SPEC_RTOL_FLOOR, build_speculative, probe_count, probe_matrix,
+            probe_spec, project_probes,
+        )
+        from ..parallel.mesh import shard
+
+        qa = quantize_matrix(a, "int8c", contraction_shards=shards)
+        s = probe_count(SPEC_RTOL_FLOOR)
+        u = probe_matrix(s, m, a.dtype).to(dev)
+        pm = project_probes(u, a, a.dtype, device=dev)
+        spec_fn = build_speculative(strat, mesh, probes=s, kernel=kernel, storage="int8c")
+
+        def fn(ops, x_placed):
+            y, est, accept = spec_fn(ops[0], ops[1], ops[2], x_placed, ops[3])
+            return torch.cat([y, est.reshape(1).to(y.dtype), accept.reshape(1).to(y.dtype)])
+
+        qa_placed, x_placed = strat.place(qa, x, mesh)
+        ops = (qa_placed, shard(pm, probe_spec(strat, mesh), mesh), u,
+               torch.full((), 1e-3, dtype=torch.float32, device=dev))
+        nbytes = qa.nbytes + u.numel() * u.element_size() + pm.numel() * pm.element_size()
+        return (fn, (ops, x_placed)), int(nbytes)
 
     plan = []
     for fmt in formats:
@@ -1176,8 +1207,9 @@ def tune_config(
     if m == k:
         from ..ops.cuda_solver import FUSED_SOLVER_OPS
 
+        # speculate is a dispatch policy, not a format a solver loop holds.
         formats = {"native"}
-        if st and st.get("storage") not in (None, "native"):
+        if st and st.get("storage") not in (None, "native", "speculate"):
             formats.add(st["storage"])
         for solver_op in FUSED_SOLVER_OPS:
             for fmt in sorted(formats):

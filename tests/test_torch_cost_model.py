@@ -273,6 +273,11 @@ def _jitter(label: str) -> float:
 
 
 def _leaves(operand) -> list[torch.Tensor]:
+    """The tensors of an operand, flattened as the JAX test's
+    ``tree_leaves``: a tuple of operands (the speculative candidate's int8c
+    payload, P, U and tolerance) leaf by leaf."""
+    if isinstance(operand, tuple):
+        return [t for op in operand for t in _leaves(op)]
     shards = operand.shards if isinstance(operand, ShardedTensor) else [operand]
     out = []
     for shard in shards:
@@ -648,10 +653,27 @@ def test_predict_admission_routes_solver_ops():
 
 
 def test_speculative_storage_is_not_ported():
-    model, _ = _models()
-    with pytest.raises(ConfigError, match="queue A 3"):
-        model.predict("rowwise", "gather", m=64, k=64, p=8, dtype="float32",
-                      storage="speculate")
+    """The name is the refusal test's of the slices before speculative
+    serving; ``predict(storage="speculate")`` is now the JAX package's
+    two-tier cost ``T_int8c + T_check + ε·T_native``, bitwise, over a grid
+    of strategies, mesh sizes, dtypes and widths, at the prior ε and at a
+    measured one."""
+    model, jmodel = _models()
+    for eps in (None, 0.375):
+        if eps is not None:
+            model.escalation_rate = jmodel.escalation_rate = eps
+        for strategy, combine in (("rowwise", "gather"), ("colwise", "psum"),
+                                  ("blockwise", "gather"), (None, None)):
+            for p in (1, 4, 8):
+                for dtype in ("float32", "bfloat16"):
+                    for b in (1, 32):
+                        kw = dict(m=4096, k=8192, p=p, dtype=dtype, b=b,
+                                  storage="speculate")
+                        got = model.predict(strategy, combine, **kw)
+                        _same(got, jmodel.predict(strategy, combine, **kw))
+                        native = model.predict(strategy, combine,
+                                               **dict(kw, storage="native"))
+                        assert got.flops > native.flops * model.escalation_rate
 
 
 # ------------------------------------------ every formula equal to JAX's

@@ -304,23 +304,37 @@ def test_request_validation(rng):
 # (tests/test_torch_faults.py, tests/test_torch_obs_trace.py); resilience=
 # with the recovery policy (tests/test_torch_resilience.py);
 # defer_placement=, label_prefix=, exec_cache= and residency_listener= with
-# the registry (tests/test_torch_registry.py). Any value of an argument
-# still refused raises, None included.
+# the registry (tests/test_torch_registry.py); dtype_storage="speculate" and
+# submit(rtol=) with speculative serving (tests/test_torch_speculative.py),
+# its case here now arming the engine. Any value of an argument still
+# refused raises, None included.
 @pytest.mark.parametrize("kwargs", [
     {"dtype_storage": "speculate"}, {"trace_capacity": 64}, {"timeline": None},
 ])
 def test_later_slice_arguments_raise(rng, kwargs):
-    a, _ = make_operands(rng)
+    a, X = make_operands(rng)
+    if kwargs == {"dtype_storage": "speculate"}:
+        eng = engine(a, "colwise", **kwargs)
+        assert eng.speculative and eng.storage == "native"
+        # rtol=None rides native, bitwise a plain engine (fp32: exact).
+        assert torch.equal(eng.submit(X[:, 0]).result(),
+                           engine(a, "colwise").submit(X[:, 0]).result())
+        assert eng.health()["counters"]["speculative_dispatches"] == 0
+        return
     with pytest.raises(ConfigError, match="ROADMAP.md"):
         engine(a, "colwise", **kwargs)
 
 
 def test_later_slice_submits_raise(rng):
+    """The name is the refusal test's; an engine that is not armed now
+    serves ``rtol`` native, bitwise its exact answer."""
     a, X = make_operands(rng)
     eng = engine(a)
-    with pytest.raises(ConfigError, match="ROADMAP.md"):
-        eng.submit(X[:, 0], rtol=1e-3)
-    assert eng.stats.dispatches == 0
+    assert torch.equal(eng.submit(X[:, 0], rtol=1e-3).result(),
+                       eng.submit(X[:, 0]).result())
+    assert eng.stats.dispatches == 2
+    with pytest.raises(ConfigError, match="rtol must be > 0"):
+        eng.submit(X[:, 0], rtol=0.0)
     # submit(integrity=) is ported: a finite result passes the gate.
     np.testing.assert_allclose(eng.submit(X[:, 0], integrity=True).result().numpy(),
                                a @ X[:, 0], rtol=1e-5)

@@ -284,8 +284,14 @@ def test_engine_auto_speculate_and_unknown_storage():
     assert eng.resident_bytes == a.nbytes
     default = MatvecEngine(a, port_mesh(), strategy="rowwise")
     assert (default.storage, default.storage_reason) == ("native", "default")
-    with pytest.raises(ConfigError, match="ROADMAP.md"):
-        MatvecEngine(a, port_mesh(), dtype_storage="speculate")
+    # Speculation arms beside a native primary: A plus the int8c payload,
+    # P (s x k) and U (s x m), s = 33 probes.
+    spec = MatvecEngine(a, port_mesh(), dtype_storage="speculate")
+    assert (spec.storage, spec.storage_reason, spec.speculative) == ("native", "explicit", True)
+    qa = tq.quantize_matrix(from_numpy(a, "cpu"), "int8c", contraction_shards=1)
+    assert spec.spec_resident_bytes == qa.nbytes + 33 * (64 + 64) * 4
+    assert spec.resident_bytes == a.nbytes + spec.spec_resident_bytes
+    assert spec.device_resident_bytes == spec.resident_bytes
     with pytest.raises(ConfigError, match="unknown dtype_storage"):
         MatvecEngine(a, port_mesh(), dtype_storage="int4")
     with pytest.raises(KeyError, match="quantized-storage kernel"):
@@ -344,8 +350,11 @@ def test_serve_cli_storage_flags(capsys, tmp_path):
     rc = serve.main(["--strategy", "rowwise", "--sizes", "64", "--n-requests", "4",
                      "--max-bucket", "4", "--dtype-storage", "auto", "--no-csv", *CPU_ARGS])
     assert rc == 0 and "storage=" not in capsys.readouterr().out
-    with pytest.raises(ConfigError, match="ROADMAP.md"):
-        serve.main(["--sizes", "64", "--no-csv", "--dtype-storage", "speculate", *CPU_ARGS])
+    rc = serve.main(["--strategy", "rowwise", "--sizes", "64", "--n-requests", "4",
+                     "--max-bucket", "4", "--no-csv", "--dtype-storage", "speculate",
+                     "--spec-rtol", "1e-3", *CPU_ARGS])
+    out = capsys.readouterr().out
+    assert rc == 0 and " esc_rate=0.0000 bw_ratio=" in out and " spec=0 " not in out
 
 
 def test_sweep_writes_format_labelled_rows(tmp_path, capsys):

@@ -177,17 +177,24 @@ def test_closed_loop_adaptive_window(tmp_path):
     assert 1.0 <= res.mean_batch_width <= 8.0 and 0 <= res.coalesce_ratio <= 1
 
 
-# The chaos and SLO overlays are ported (the chaos cases below); what stays
-# refused is speculative storage (ROADMAP.md), and malformed overlay inputs
-# fail up front, as in the JAX package, before any engine is built.
+# The chaos and SLO overlays are ported (the chaos cases below), and so is
+# speculative storage: its case (match None) now serves the load protocol
+# from an armed engine, whose exact requests ride native. Malformed overlay
+# inputs fail up front, as in the JAX package, before any engine is built.
 @pytest.mark.parametrize("kwargs, match", [
-    ({"dtype_storage": "speculate"}, "ROADMAP.md"),
+    ({"dtype_storage": "speculate"}, None),
     ({"poison_rate": -0.1}, "poison_rate"), ({"poison_rate": 1.5}, "poison_rate"),
     ({"fault_spec": "dispatch:explode"}, "explode"),
     ({"fault_spec": "teleport:device_error"}, "teleport"),
     ({"arrival": "uniform"}, "uniform"),
 ])
 def test_unported_load_overlays_raise(kwargs, match):
+    if match is None:
+        res = run_serve_load("rowwise", port_mesh(), 64, 64, n_requests=4,
+                             max_bucket=8, concurrency=2, **kwargs)
+        assert res.n_requests == 4 and res.compiles_steady == 0
+        assert res.dtype_storage == "native" and res.failed_requests == 0
+        return
     with pytest.raises(ConfigError, match=match):
         run_serve_load("rowwise", port_mesh(), 64, 64, n_requests=4, **kwargs)
 
@@ -242,17 +249,14 @@ def test_open_loop_cli_and_sequential_default(capsys):
     ("reshard", "auto"), ("dtype_storage", "speculate"),
 ])
 def test_every_later_flag_is_refused(flag, value, tmp_path, capsys):
-    """Only speculative storage stays refused; the global scheduler's flags
-    (refused until it was ported) now run a --tenants trace."""
-    assert set(serve._LATER_FLAGS) == {("dtype_storage", "speculate")}
+    """No flag is refused any more (the name is the refusal test's): the
+    global scheduler's flags run a --tenants trace, and so does
+    ``--dtype-storage speculate``, its tenants armed."""
+    assert not hasattr(serve, "_LATER_FLAGS")
     if flag == "decision_jsonl":
         value = str(tmp_path / value)
     argv = ["--sizes", "64", "--no-csv", "--tenants", "2", "--n-requests", "4",
             f"--{flag.replace('_', '-')}", value, *CPU_ARGS]
-    if flag == "dtype_storage":
-        with pytest.raises(ConfigError, match="ROADMAP.md"):
-            serve.main(argv)
-        return
     if flag != "global_sched":
         argv += ["--global-sched", "on"]
     assert serve.main(argv) == 0

@@ -396,19 +396,25 @@ def test_axis_records_the_jax_decision_structure(devices, cache_path, monkeypatc
 
 
 def test_tune_storage_records_every_format(cache_path):
-    """The storage axis races native and the quantized ladder (no
-    ``speculate`` until speculative serving is ported) and records the JAX
-    package's fields: resident bytes and achieved bandwidth per format."""
-    assert search.storage_format_candidates("float32") == ["native", "int8", "int8c", "fp8"]
-    assert "speculate" in jsearch.storage_format_candidates("float32")
+    """The storage axis races native, the quantized ladder and ``speculate``
+    (the fused int8c candidate and check), the JAX package's candidates in
+    its order, and records its fields: resident bytes and achieved bandwidth
+    per format."""
+    assert search.storage_format_candidates("float32") == [
+        "native", "int8", "int8c", "fp8", "speculate"]
+    assert search.storage_format_candidates("float32") == jsearch.storage_format_candidates(
+        "float32")
     cache = tuning.TuningCache.load(cache_path)
     decision = search.tune_storage("rowwise", port_mesh(2), 64, 256, "float32", cache,
                                    measure="sync", **FAST)
     assert set(decision) == {"storage", "time_s", "candidates", "resident_bytes",
                              "bandwidth_gbps"}
-    assert set(decision["candidates"]) == {"native", "int8", "int8c", "fp8"}
+    assert set(decision["candidates"]) == {"native", "int8", "int8c", "fp8", "speculate"}
     assert decision["resident_bytes"]["native"] == 64 * 256 * 4
     assert decision["resident_bytes"]["int8"] < decision["resident_bytes"]["native"]
+    # The int8c payload plus P (33 x 256) and U (33 x 64), fp32.
+    assert decision["resident_bytes"]["speculate"] == (
+        decision["resident_bytes"]["int8c"] + 33 * (256 + 64) * 4)
     assert search.tune_storage("colwise_overlap", port_mesh(2), 64, 256, "float32",
                                cache, **FAST) is None
 
@@ -595,10 +601,15 @@ def test_storage_auto(cache_path, operands):
     assert (eng.storage, eng.storage_reason) == ("int8", "tuned")
     explicit = MatvecEngine(a, mesh, strategy="rowwise", dtype_storage="int8")
     assert torch.equal(eng.submit(x).result(), explicit.submit(x).result())
-    for foreign in ("speculate", "int3"):
+    # A speculate winner arms the tier beside a native primary.
+    seed(cache_path, key, {"storage": "speculate"})
+    eng = MatvecEngine(a, mesh, strategy="rowwise", dtype_storage="auto")
+    assert (eng.storage, eng.storage_reason, eng.speculative) == ("native", "tuned", True)
+    for foreign in ("int3",):
         seed(cache_path, key, {"storage": foreign})
         eng = MatvecEngine(a, mesh, strategy="rowwise", dtype_storage="auto")
         assert (eng.storage, eng.storage_reason) == ("native", "auto_degraded")
+        assert eng.health()["counters"]["storage_fallbacks"] == 1
     seed(cache_path, tuning.storage_key("colwise_overlap", 64, 64, 8, "float32"),
          {"storage": "int8"})
     eng = MatvecEngine(a, mesh, strategy="colwise_overlap", dtype_storage="auto")
