@@ -168,7 +168,24 @@ kernels' launch counts set to 0 just before it and read just after:
   (``spec_times``); ``run_serve`` native against speculate in fp32 and bf16
   (``spec_serve``); an armed blockwise engine at 32768² on the 2x2 mesh
   resharded to rowwise, bitwise a fresh armed one (``spec_reshard``); a
-  poisoned candidate refused with the gate off (``spec_poison``).
+  poisoned candidate refused with the gate off (``spec_poison``);
+* the precision tiers and the solver models on them (section 46), rowwise
+  at p = 1 on the 65536² fp32 solver operand of section 17: the four GEMV
+  tiers (``compensated``, ``ozaki``, ``ozaki6``, ``ozaki_i8``) through
+  ``strategy.build(kernel=...)`` against the fp64 product, each timed beside
+  ``gemv_cuda`` and the byte bound, with its peak scratch, and its first 256
+  rows bitwise the CPU port's (``precision_tiers``); the cancellation stress
+  case of ``scripts/compensated_study.py`` at 512 x 4096, ozaki at 0 ulps
+  (``precision_stress``); the GEMM tiers at 16384² x 32 beside ``gemm_cuda``
+  and ``torch.matmul`` (``precision_gemm``); ``build_cg`` as a device loop
+  of captured chunks (``precision_cg``); ``build_refined`` at full width
+  with ``[A | b]`` and on a cond-1e5 SPD system at n = 4096 against plain
+  fp32 CG (``precision_refined``); ``build_gmres`` on a nonsymmetric
+  diagonally dominant 65536² operand, ``spectral_norm`` and
+  ``condition_estimate`` (``precision_solvers``); the trainer on the 2x2
+  logical mesh, its first steps against fp64, a checkpoint resumed bitwise
+  (``precision_trainer``); ``bench.solve_cg`` and ``bench.solve`` in
+  processes of their own at 16384 (``precision_clis``).
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -551,6 +568,29 @@ SP = {
     "time_reps": 50, "e2e_reps": 20, "time_widths": (1, 4, 8, 16, 32),
     "serve_requests": 200,
     "serve_dtypes": ("float32", "bfloat16"), "reshard_n": 32768,
+}
+
+# The precision tiers and the solver models (section 46), rowwise on one
+# card: the four GEMV tiers on section 17's operand at PS["n"]² fp32 (each
+# against the fp64 product, the card's first PS["slice_rows"] rows bitwise
+# the CPU port's), timed over PS["reps"] calls after one; the cancellation
+# stress case at PS["stress"]; the GEMM tiers at PS["gemm"] (n, columns) fp32;
+# build_cg at rtol PS["cg_rtol"]; refinement at full width, then the
+# cond-PS["refine_cond"] SPD system at PS["small_n"] (numpy's seeded QR, as
+# tests/conftest.py builds it) against plain fp32 CG at PS["plain_tol"];
+# power iteration at PS["spectral_tol"] on section 17's operand; gmres
+# (restart PS["gmres_restart"]) on a nonsymmetric diagonally dominant operand
+# at PS["n"]²; condition_estimate on a prescribed spectrum (cond PS["cond"])
+# at PS["small_n"]; the trainer at PS["n"]² fp32 on the 2x2 logical mesh for
+# PS["train_steps"] steps at lr PS["train_lr"], its first PS["train_ref_steps"]
+# against fp64; the two CLIs at PS["cli_n"].
+PS = {
+    "n": 65536, "tiers": ("compensated", "ozaki", "ozaki6", "ozaki_i8"),
+    "slice_rows": 256, "reps": 3, "stress": (512, 4096), "gemm": (16384, 32),
+    "gemm_slice_rows": 64, "cg_rtol": 1e-5, "small_n": 4096, "refine_cond": 1e5,
+    "plain_tol": 1e-7, "plain_max_iters": 5000, "gmres_restart": 40,
+    "gmres_rtol": 1e-5, "spectral_tol": 1e-4, "cond": 1e3, "train_steps": 20,
+    "train_lr": 1e-2, "train_ref_steps": 3, "cli_n": 16384, "cli_steps": 20,
 }
 
 # An entry as the JAX package would write it for one of the same keys: its
@@ -1449,6 +1489,522 @@ def speculative_section(dev, seed: int, sp: dict) -> tuple[dict, dict]:
     release(poisoned)
     del a, xr
     return launches, routes
+
+
+def precision_section(dev, seed: int, ps: dict) -> dict:
+    """Section 46: the precision tiers (``ops/compensated.py``,
+    ``ops/ozaki.py``, ``ops/ozaki_gemm.py``) and the solver models on them
+    (``models/cg.py``, ``models/gmres.py``, ``models/spectral.py``,
+    ``models/trainer.py`` with ``utils/checkpoint.py``, the two CLIs) on
+    ``dev`` at the sizes of ``ps``. Emits one JSON line per part and returns
+    the kernels' launches by path ({kernel: {path: n}}, each path driven
+    with the counts set to 0 just before it and read just after). Runs at a
+    small size on a CPU device too (the wrappers' plain versions; the CLIs
+    then take ``--platform cpu``)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from matvec_mpi_multiplier_torch import get_strategy, make_mesh
+    from matvec_mpi_multiplier_torch.bench.serve import solver_operand
+    from matvec_mpi_multiplier_torch.models import trainer
+    from matvec_mpi_multiplier_torch.models.cg import build_cg, build_refined
+    from matvec_mpi_multiplier_torch.models.gmres import build_gmres
+    from matvec_mpi_multiplier_torch.models.spectral import condition_estimate, spectral_norm
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.gemm_kernels import get_gemm_kernel
+    from matvec_mpi_multiplier_torch.ops.gemv import get_kernel
+    from matvec_mpi_multiplier_torch.parallel.mesh import shard, unshard
+    from matvec_mpi_multiplier_torch.utils import checkpoint
+    from matvec_mpi_multiplier_torch.utils.constants import H100_HBM_PEAK_GBPS
+
+    on_card = dev.type == "cuda"
+    f32, f64 = torch.float32, torch.float64
+    n, tiers = ps["n"], ps["tiers"]
+    mesh1 = make_mesh(1, devices=[dev])
+    rowwise = get_strategy("rowwise")
+    launches: dict = {"gemv": {}}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 46)
+    root = Path(__file__).resolve().parent
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def counted(name: str, fn):
+        """fn() with the GEMV's launch count set to 0 just before it and read
+        just after, under the path ``name``; returns (out, launches)."""
+        gemv_cuda.launches = 0
+        gemv_cuda.route_launches.clear()
+        out = fn()
+        sync()
+        got = gemv_cuda.launches
+        if got:
+            launches["gemv"][name] = launches["gemv"].get(name, 0) + got
+        return out, got
+
+    def allocated() -> int:
+        return torch.cuda.memory_allocated(dev) if on_card else 0
+
+    def release() -> None:
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_beyond(before: int) -> int:
+        return torch.cuda.max_memory_allocated(dev) - before if on_card else 0
+
+    def event_ms(fn, reps: int) -> float:
+        """Mean ms of fn() over ``reps`` calls (the caller has warmed it):
+        CUDA events on the card, the host clock on the CPU."""
+        if on_card:
+            with torch.cuda.device(dev):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn()
+                end.record()
+                end.synchronize()
+            return start.elapsed_time(end) / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def seconds(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def rows_per(k: int) -> int:
+        return max(1, (1 << 28) // (k * 8))  # 256 MiB of fp64 per chunk
+
+    def fp64_matvec(a, x):
+        """A x in fp64 on the device, A read in row chunks."""
+        x64 = x.to(dev, f64)
+        out = torch.empty((a.shape[0], *x64.shape[1:]), dtype=f64, device=dev)
+        r = rows_per(a.shape[1])
+        for i in range(0, a.shape[0], r):
+            out[i:i + r] = a[i:i + r].to(f64) @ x64
+        return out
+
+    def fp64_rmatvec(a, v):
+        """Aᵀ v in fp64 on the device, A read in row chunks."""
+        v64 = v.to(dev, f64)
+        out = torch.zeros((a.shape[1],), dtype=f64, device=dev)
+        r = rows_per(a.shape[1])
+        for i in range(0, a.shape[0], r):
+            out += a[i:i + r].to(f64).T @ v64[i:i + r]
+        return out
+
+    def ulps(y, ref):
+        """Each entry's error in fp32 ulps of the fp64 reference (max, and
+        the 99th percentile)."""
+        r32 = ref.to(f32).abs()
+        spacing = (torch.nextafter(r32, torch.full_like(r32, float("inf"))) - r32).to(f64)
+        u = ((y.to(f64) - ref).abs() / spacing).flatten().cpu()
+        return float(u.max()), float(torch.quantile(u, 0.99)) if u.numel() <= 1 << 24 else None
+
+    # (tier) -> (slice bits, slices, block): ozaki slices per (row, 256-block)
+    # into 8-bit addends, ozaki_i8 per row into 7-bit ones.
+    sliced = {"ozaki": (8, 4, 256), "ozaki6": (8, 6, 256), "ozaki_i8": (7, 4, None)}
+
+    def envelope(a, x, ref):
+        """Per-row bounds on |y - fp64| from each tier's documented envelope:
+        every sliced operand keeps its bits down to 2^(E - bits·s) of its
+        block's max (|residual| below that, ops/ozaki.py, ops/ozaki_gemm.py),
+        so |Δy_i| <= Σ_blocks 2^(Ea - bits·s)·||x_b||₁ + 2^(Ex - bits·s)·
+        ||a_ib||₁ + their product's term; the double-float combine adds
+        about 2^-48 of the partial magnitudes (bounded here by 2^-40·Σ|a||x|)
+        and the fp32 output one rounding (2^-24·|y|, doubled)."""
+        m, k = a.shape
+        blk = 256
+        pad = (-k) % blk
+        nb = (k + pad) // blk
+        xa = torch.nn.functional.pad(x.abs().to(f64), (0, pad)).view(nb, blk)
+        x_sum_b, x_exp_b = xa.sum(-1), torch.frexp(xa.amax(-1))[1]
+        x_sum, x_exp = x_sum_b.sum(), torch.frexp(xa.max())[1]
+        out = {t: torch.empty(m, dtype=f64, device=dev) for t in (*sliced, "compensated")}
+        r = rows_per(k + pad)
+        for i in range(0, m, r):
+            ac = torch.nn.functional.pad(a[i:i + r].abs().to(f64), (0, pad)).view(-1, nb, blk)
+            a_sum_b, a_exp_b = ac.sum(-1), torch.frexp(ac.amax(-1))[1]
+            slack = (ac * xa).sum((-1, -2)) * 2.0 ** -40 + ref[i:i + r].abs() * 2.0 ** -23
+            out["compensated"][i:i + r] = slack
+            for tier, (bits, n_sl, per_block) in sliced.items():
+                if per_block:
+                    ea, ex, sa, sx = a_exp_b, x_exp_b, a_sum_b, x_sum_b
+                    cnt = blk
+                else:  # one scale per row of A and per column (x)
+                    ea, ex = a_exp_b.amax(-1, keepdim=True), x_exp
+                    sa, sx, cnt = a_sum_b.sum(-1, keepdim=True), x_sum, k
+                da = torch.ldexp(torch.ones_like(sa), ea - bits * n_sl)
+                dx = torch.ldexp(torch.ones_like(sa), ex - bits * n_sl)
+                out[tier][i:i + r] = (da * sx + dx * sa + da * dx * cnt).sum(-1) + slack
+        return out
+
+    def rel_residual(a, b, x) -> float:
+        """||b - A x|| / ||b|| in fp64."""
+        r = b.to(dev, f64) - fp64_matvec(a, x)
+        return float(r.norm() / b.to(dev, f64).norm())
+
+    def randn(shape):
+        """Standard normal fp32 on the device from the section's generator,
+        drawn in row chunks of 128 MiB."""
+        out = torch.empty(shape, dtype=f32, device=dev)
+        flat = out.view(-1, shape[-1]) if len(shape) > 1 else out.view(1, -1)
+        r = max(1, (1 << 25) // flat.shape[1])
+        for i in range(0, flat.shape[0], r):
+            flat[i:i + r] = torch.randn(flat[i:i + r].shape, generator=gen, device=dev)
+        return out
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is enabled for fp32 matmul")
+    torch.empty(0, device=dev)  # the card's context, before its memory stats
+    release()
+
+    # ---- (a) the four GEMV tiers at n² fp32, rowwise, p = 1 ----
+    t0 = time.perf_counter()
+    a = solver_operand(n, "float32", seed, device=dev)
+    x = randn((n,))
+    sync()
+    operand_s = time.perf_counter() - t0
+    ref = fp64_matvec(a, x)
+    env = envelope(a, x, ref)
+    a_bytes = a.numel() * a.element_size()
+    bound_ms = (a_bytes + 8 * n) / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+    y_plain = gemv_cuda(a, x)
+    gemv_ms = event_ms(lambda: gemv_cuda(a, x), ps["reps"])
+    plain_ulps = ulps(y_plain, ref)
+    del y_plain
+    rows = ps["slice_rows"]
+    a_cpu, x_cpu = a[:rows].cpu(), x.cpu()
+    tier_rows = {}
+    for tier in tiers:
+        fn = rowwise.build(mesh1, kernel=tier)
+        release()
+        before = allocated()
+        (y, first_s) = seconds(lambda: fn(a, x))
+        peak = peak_beyond(before)
+        ms = event_ms(lambda: fn(a, x), ps["reps"])
+        err_max, err_p99 = ulps(y, ref)
+        rel = float((y.to(f64) - ref).abs().max() / ref.abs().max())
+        env_use = float(((y.to(f64) - ref).abs() / env[tier]).max())
+        y_cpu = get_kernel(tier)(a_cpu, x_cpu)
+        bitwise = torch.equal(y[:rows].cpu(), y_cpu)
+        check(bitwise, f"{tier}: the card's first {rows} rows are not bitwise the CPU port's")
+        check(bool(torch.isfinite(y).all()), f"{tier}: non-finite output")
+        # Each entry within its tier's documented envelope (envelope()).
+        # Ulps are reported, not held: this operand's diagonal blocks span
+        # 2^15, past ozaki's exact window of 2^8, ozaki_i8's rows past its
+        # 2^4, and outputs near zero read large ulps of a tiny value.
+        check(env_use <= 1.0, f"{tier}: error {env_use} of its envelope > 1")
+        tier_rows[tier] = {
+            "ms": ms, "first_call_s": first_s, "x_gemv_cuda": ms / gemv_ms,
+            "x_bound": ms / bound_ms, "max_ulps": err_max, "p99_ulps": err_p99,
+            "max_err_rel_scale": rel, "max_share_of_envelope": env_use,
+            "peak_bytes_beyond_operands": peak, "cpu_rows_bitwise": bitwise}
+        del y, fn
+    emit({"phase": "precision_tiers", "shape": [n, n], "dtype": "float32",
+          "strategy": "rowwise", "mesh": [1, 1], "operand": "solver_operand",
+          "operand_s": operand_s, "reps": ps["reps"], "gemv_cuda_ms": gemv_ms,
+          "gemv_cuda_max_ulps": plain_ulps[0], "bound_ms": bound_ms, "bound_by": "bytes",
+          "slice_rows": rows, "tiers": tier_rows})
+    del a_cpu, x_cpu, ref, env
+
+    # ---- (b) the cancellation stress case, all four tiers and plain fp32 ----
+    m_s, k_s = ps["stress"]
+    big = torch.rand((m_s, k_s // 2), generator=gen, device=dev) * 9e6 + 1e6
+    small = torch.rand((m_s, k_s // 2), generator=gen, device=dev) * 2 - 1
+    a_s = torch.empty((m_s, k_s), dtype=f32, device=dev)
+    a_s[:, 0::2] = big + small
+    a_s[:, 1::2] = -big
+    del big, small
+    ones = torch.ones(k_s, dtype=f32, device=dev)
+    ref_s = fp64_matvec(a_s, ones)
+    check(torch.equal(ref_s.to(f32).to(f64), ref_s), "the stress oracle is not exact in fp32")
+    stress = {"plain_fp32": ulps(gemv_cuda(a_s, ones), ref_s)[0]}
+    for tier in tiers:
+        stress[tier] = ulps(get_kernel(tier)(a_s, ones), ref_s)[0]
+    check(stress["ozaki"] == 0.0 and stress["ozaki6"] == 0.0,
+          f"stress case: ozaki tiers {stress} ulps from fp64, not 0")
+    check(stress["compensated"] <= 1.0, f"stress case: compensated {stress['compensated']} ulps")
+    check(stress["plain_fp32"] > 1e3, f"stress case: plain fp32 only {stress['plain_fp32']} ulps")
+    emit({"phase": "precision_stress", "shape": [m_s, k_s], "max_ulps": stress})
+    del a_s, ones, ref_s
+
+    # ---- (c) the GEMM tiers against fp64 torch.matmul ----
+    n_g, b_g = ps["gemm"]
+    a_g, bm = randn((n_g, n_g)), randn((n_g, b_g))
+    ref_g = a_g.to(f64) @ bm.to(f64)
+    gemm = {"gemm_cuda_ms": None, "torch_matmul_ms": None}
+    gemm_cuda(a_g, bm)
+    gemm["gemm_cuda_ms"] = event_ms(lambda: gemm_cuda(a_g, bm), ps["reps"])
+    torch.matmul(a_g, bm)
+    gemm["torch_matmul_ms"] = event_ms(lambda: torch.matmul(a_g, bm), ps["reps"])
+    g_rows = ps["gemm_slice_rows"]
+    for tier in ("ozaki", "ozaki6"):
+        fn = get_gemm_kernel(tier)
+        release()
+        before = allocated()
+        c = fn(a_g, bm)
+        sync()
+        peak = peak_beyond(before)
+        ms = event_ms(lambda: fn(a_g, bm), ps["reps"])
+        err_max, err_p99 = ulps(c, ref_g)
+        rel = float((c.to(f64) - ref_g).abs().max() / ref_g.abs().max())
+        bitwise = torch.equal(c[:g_rows].cpu(), fn(a_g[:g_rows].cpu(), bm.cpu()))
+        check(bitwise, f"gemm {tier}: the card's first {g_rows} rows are not the CPU port's")
+        check(rel < 1e-7, f"gemm {tier}: error {rel} of the output's scale >= 1e-7")
+        if tier == "ozaki6":
+            # tests/test_ozaki_gemm.py's bar: the output's rounding limit.
+            check(err_p99 <= 1.0 and err_max <= 64.0,
+                  f"gemm ozaki6: {err_p99} ulps at the 99th percentile, {err_max} max")
+        gemm[tier] = {"ms": ms, "max_ulps": err_max, "p99_ulps": err_p99,
+                      "max_err_rel_scale": rel, "peak_bytes_beyond_operands": peak,
+                      "cpu_rows_bitwise": bitwise, "x_gemm_cuda": ms / gemm["gemm_cuda_ms"]}
+        del c
+    emit({"phase": "precision_gemm", "shape": [n_g, n_g, b_g], "dtype": "float32", **gemm})
+    del a_g, bm, ref_g
+    release()
+
+    # ---- (d) build_cg on section 17's operand ----
+    b = randn((n,))
+    cg = build_cg(rowwise, mesh1, kernel="cuda", tol=ps["cg_rtol"])
+    check(cg.loop_device == (dev if on_card else None),
+          f"build_cg's loop device {cg.loop_device}")
+    counted("precision_cg", lambda: cg(a, b))  # first launches, capture
+    syncs = None
+    if on_card:
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ((res, solve_s), n_launch) = counted("precision_cg", lambda: seconds(lambda: cg(a, b)))
+        syncs = len(caught) if on_card else None
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(0)
+    iters = int(res.n_iters)
+    rel = rel_residual(a, b, res.x)
+    check(bool(res.converged) and rel <= 1.1 * ps["cg_rtol"],
+          f"build_cg: converged {bool(res.converged)}, residual {rel}")
+    # (The wrapper counts kernel launches: none for CPU tensors.)
+    check(n_launch >= iters or not on_card,
+          f"build_cg: {n_launch} GEMV launches for {iters} iterations")
+    emit({"phase": "precision_cg", "shape": [n, n], "kernel": "cuda", "rtol": ps["cg_rtol"],
+          "loop": "device" if cg.loop_device is not None else "eager chunks",
+          "n_iters": iters, "solve_s": solve_s, "ms_per_iter": solve_s * 1e3 / max(1, iters),
+          "syncs_a_solve": syncs, "gemv_launches": n_launch, "rel_residual_fp64": rel})
+    del cg, res
+
+    # ---- (e) refinement at full width, then the cond-1e5 system ----
+    x_true = randn((n,))
+    b = fp64_matvec(a, x_true).to(f32)
+    plain_cg = build_cg(rowwise, mesh1, tol=ps["plain_tol"])
+    (plain, plain_s), _ = counted("precision_refined", lambda: seconds(lambda: plain_cg(a, b)))
+    del plain_cg
+    refined_fn = build_refined(rowwise, mesh1)
+    release()
+    before = allocated()
+    (ref_res, ref_s), _ = counted("precision_refined", lambda: seconds(lambda: refined_fn(a, b)))
+    ref_peak = peak_beyond(before)
+    b_norm = float(b.to(f64).norm())
+    full = {
+        "trips": int(ref_res.n_iters), "converged": bool(ref_res.converged), "seconds": ref_s,
+        "reported_rel_residual": float(ref_res.residual_norm) / b_norm,
+        "rel_residual_fp64": rel_residual(a, b, ref_res.x),
+        "forward_err": float((ref_res.x.to(f64) - x_true.to(f64)).abs().max()
+                             / x_true.abs().max()),
+        "peak_bytes_beyond_operands": ref_peak, "a_aug_bytes": n * (n + 1) * 4,
+        "plain_cg": {"n_iters": int(plain.n_iters), "seconds": plain_s,
+                     "rel_residual_fp64": rel_residual(a, b, plain.x),
+                     "forward_err": float((plain.x.to(f64) - x_true.to(f64)).abs().max()
+                                          / x_true.abs().max())}}
+    check(full["converged"] and full["reported_rel_residual"] <= 5e-7,
+          f"refinement at full width: {full}")
+    del refined_fn, ref_res, plain
+    # The cond-1e5 SPD system at small_n, built with numpy (tests/conftest.py's
+    # spd_with_spectrum: a seeded QR), against the fp64 solve.
+    small_n = ps["small_n"]
+    t0 = time.perf_counter()
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((small_n, small_n)))
+    a_ill = (q * np.logspace(0, np.log10(ps["refine_cond"]), small_n)) @ q.T
+    xt_ill = np.random.default_rng(seed + 1).standard_normal(small_n)
+    a32 = a_ill.astype(np.float32)
+    b32 = (a_ill @ xt_ill).astype(np.float32)
+    xs = np.linalg.solve(a32.astype(np.float64), b32.astype(np.float64))
+    numpy_s = time.perf_counter() - t0
+    a32_d, b32_d = torch.from_numpy(a32).to(dev), torch.from_numpy(b32).to(dev)
+
+    def fwd(xv) -> float:
+        return float(np.max(np.abs(xv.cpu().double().numpy() - xs)) / np.max(np.abs(xs)))
+
+    (plain, plain_s), _ = counted("precision_refined", lambda: seconds(lambda: build_cg(
+        rowwise, mesh1, tol=ps["plain_tol"], max_iters=ps["plain_max_iters"])(a32_d, b32_d)))
+    (ill, ill_s), _ = counted("precision_refined", lambda: seconds(lambda: build_refined(
+        rowwise, mesh1, max_iters=ps["plain_max_iters"])(a32_d, b32_d)))
+    ill_row = {"n": small_n, "cond": ps["refine_cond"], "numpy_build_s": numpy_s,
+               "trips": int(ill.n_iters), "seconds": ill_s, "forward_err": fwd(ill.x),
+               "plain_cg_forward_err": fwd(plain.x), "plain_cg_n_iters": int(plain.n_iters),
+               "plain_cg_seconds": plain_s}
+    check(bool(ill.converged) and ill_row["forward_err"] < 1e-5
+          and ill_row["forward_err"] * 50 < ill_row["plain_cg_forward_err"],
+          f"refinement at cond {ps['refine_cond']}: {ill_row}")
+    emit({"phase": "precision_refined", "shape": [n, n], "residual_kernel": "ozaki",
+          "inner": "cg", "full_width": full, "ill_conditioned": ill_row})
+    del plain, ill, a32_d, b32_d
+
+    # ---- (f) spectral_norm on section 17's operand ----
+    (lam, lam_s), n_power = counted("precision_spectral", lambda: seconds(
+        lambda: spectral_norm(rowwise, mesh1, a, seed=seed, tol=ps["spectral_tol"])))
+    diag = a.diagonal()
+    upper = float((a.abs().sum(1)).max())  # Gershgorin's bound, diagonal positive
+    # A Rayleigh quotient lies in the spectrum's hull, inside [1, upper]. The
+    # estimator stops when the quotient's relative step falls under tol (the
+    # JAX package's rule), so on this operand, a cluster near n/3 and one
+    # isolated top eigenvalue at least max(diag), it may stop on the cluster
+    # before the top eigenvector grows: reported, as the estimate it is.
+    check(1.0 <= lam <= upper * (1 + 1e-6), f"spectral_norm {lam} outside [1, {upper}]")
+    spectral = {"lambda_estimate": lam, "iterations": n_power, "seconds": lam_s,
+                "lambda_max_lower_bound": float(diag.max()), "gershgorin_upper": upper}
+    del a, b, x, x_true, diag
+    release()
+
+    # gmres (restart 40) on a nonsymmetric, diagonally dominant operand:
+    # uniform(-1, 1) off the diagonal, each diagonal entry its row's
+    # absolute sum plus one.
+    a_ns = torch.empty((n, n), dtype=f32, device=dev)
+    r = max(1, (1 << 25) // n)
+    for i in range(0, n, r):
+        blk = a_ns[i:i + r]
+        blk.copy_(torch.rand(blk.shape, generator=gen, device=dev) * 2 - 1)
+        idx = torch.arange(i, i + blk.shape[0], device=dev)
+        blk[torch.arange(blk.shape[0], device=dev), idx] = 0.0
+        blk[torch.arange(blk.shape[0], device=dev), idx] = blk.abs().sum(1) + 1.0
+    b_ns = randn((n,))
+    gm = build_gmres(rowwise, mesh1, restart=ps["gmres_restart"], tol=ps["gmres_rtol"])
+    counted("precision_gmres", lambda: gm(a_ns, b_ns))  # first launches
+    (res, gm_s), gm_launch = counted("precision_gmres", lambda: seconds(lambda: gm(a_ns, b_ns)))
+    gm_rel = rel_residual(a_ns, b_ns, res.x)
+    check(bool(res.converged) and gm_rel <= 2 * ps["gmres_rtol"],
+          f"gmres: converged {bool(res.converged)}, fp64 residual {gm_rel}")
+    gmres_row = {"restart": ps["gmres_restart"], "rtol": ps["gmres_rtol"],
+                 "cycles": int(res.n_iters), "seconds": gm_s, "gemv_launches": gm_launch,
+                 "reported_rel_residual": float(res.residual_norm) / float(b_ns.norm()),
+                 "rel_residual_fp64": gm_rel, "loop": "host-stepped, one read a cycle"}
+    del a_ns, b_ns, gm, res
+    release()
+
+    # condition_estimate on a prescribed spectrum at small_n, fp64 (the JAX
+    # test's construction and bar: within 10% of the condition number).
+    a_c = torch.from_numpy((q * np.logspace(0, np.log10(ps["cond"]), small_n)) @ q.T).to(dev)
+    del q, a_ill
+    (est, est_s), est_launch = counted("precision_condition", lambda: seconds(
+        lambda: condition_estimate(rowwise, mesh1, a_c, tol=1e-6, cg_tol=1e-10)))
+    check(abs(est - ps["cond"]) <= 0.1 * ps["cond"],
+          f"condition_estimate {est} not within 10% of {ps['cond']}")
+    emit({"phase": "precision_solvers", "gmres": {"shape": [n, n], **gmres_row},
+          "spectral_norm": {"shape": [n, n], "operand": "solver_operand", "tol":
+                            ps["spectral_tol"], "loop": "host-stepped, one read an iteration",
+                            **spectral},
+          "condition_estimate": {"n": small_n, "dtype": "float64", "cond": ps["cond"],
+                                 "estimate": est, "seconds": est_s,
+                                 "gemv_launches": est_launch}})
+    del a_c
+    release()
+
+    # ---- (g) the trainer at n² fp32 on the 2x2 logical mesh ----
+    mesh22 = make_mesh(4, devices=[dev] * 4)
+    sh = trainer.shardings(mesh22)
+    a_t = randn((n, n))
+    xt_t = randn((n,))
+    b_t = fp64_matvec(a_t, xt_t).to(f32)
+    a_p, b_p = shard(a_t, sh["a"], mesh22), shard(b_t, sh["b"], mesh22)
+    lr = ps["train_lr"]
+    state = trainer.init_state(mesh22, n, learning_rate=lr)
+    step = trainer.build_train_step(mesh22)
+    # The fp64 reference of the first steps: x <- x - lr·2·Aᵀ(A x - b)/m.
+    x64 = torch.zeros(n, dtype=f64, device=dev)
+    ref_steps = []
+    losses = []
+    for _ in range(ps["train_ref_steps"]):
+        state, loss = step(state, a_p, b_p)
+        r64 = fp64_matvec(a_t, x64) - b_t.to(f64)
+        loss64 = float((r64 * r64).mean())
+        x64 = x64 - lr * (fp64_rmatvec(a_t, r64) * (2.0 / n))
+        xp = unshard(state.x).to(f64)
+        ref_steps.append({"loss": float(loss), "loss_fp64": loss64,
+                          "loss_rel": abs(float(loss) - loss64) / loss64,
+                          "x_rel": float((xp - x64).norm() / x64.norm())})
+        losses.append(loss)
+    del x64, r64, xp
+    timed_steps = ps["train_steps"] - ps["train_ref_steps"]
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        state, loss = step(state, a_p, b_p)
+        losses.append(loss)  # read after the timed steps
+    sync()
+    steps_s = timed_steps / (time.perf_counter() - t0)
+    losses = [float(v) for v in losses]
+    # fp32's bound on a length-k contraction: k·u (u = 2^-24), per step.
+    bound = n * 2.0 ** -24
+    check(all(s["loss_rel"] <= bound and s["x_rel"] <= bound for s in ref_steps),
+          f"trainer: first steps against fp64 {ref_steps}, bound {bound}")
+    check(losses[-1] < losses[0] and all(np.isfinite(losses)), f"trainer losses {losses}")
+    check(state.x.spec == ("cols",), f"trainer: x's spec {state.x.spec}")
+    del a_t, xt_t
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save_state(state, Path(tmp) / f"step_{int(state.step)}")
+        like = trainer.init_state(mesh22, n, learning_rate=lr)
+        restored = checkpoint.restore_state(checkpoint.latest_step_dir(tmp), like)
+        resumed, _ = step(restored, a_p, b_p)
+        direct, _ = step(state, a_p, b_p)
+        resume_bitwise = torch.equal(unshard(resumed.x), unshard(direct.x))
+        ckpt_bytes = (path / checkpoint.STATE_FILE).stat().st_size
+    check(resume_bitwise and int(resumed.step) == int(direct.step),
+          "trainer: the resumed step is not bitwise the direct one")
+    emit({"phase": "precision_trainer", "shape": [n, n], "dtype": "float32",
+          "mesh": list(mesh22.grid), "lr": lr, "steps": ps["train_steps"],
+          "steps_per_s": steps_s, "loss_first": losses[0], "loss_last": losses[-1],
+          "reference_steps": ref_steps, "fp32_bound": bound, "checkpoint_bytes": ckpt_bytes,
+          "resume_bitwise": resume_bitwise})
+    del a_p, b_p, state, restored, resumed, direct, like
+    release()
+
+    # ---- (h) the two CLIs, each in a process of its own ----
+    platform = [] if on_card else ["--platform", "cpu"]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv, line in (
+                ("solve_cg", ["--size", str(ps["cli_n"]), "--strategy", "rowwise"],
+                 "converged=True"),
+                ("solve", ["--size", str(ps["cli_n"]), str(ps["cli_n"]), "--steps",
+                           str(ps["cli_steps"]), "--ckpt-dir", tmp, "--ckpt-every",
+                           str(ps["cli_steps"] // 2)], f"done: steps={ps['cli_steps']}")):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"matvec_mpi_multiplier_torch.bench.{name}",
+                 *argv, *platform], capture_output=True, text=True, cwd=root, env=env,
+                timeout=600)
+            out = proc.stdout.strip().splitlines()
+            cli[name] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                         "last_line": out[-1] if out else None}
+            check(proc.returncode == 0 and line in proc.stdout,
+                  f"{name}: rc {proc.returncode}, stdout {proc.stdout[-500:]!r}, "
+                  f"stderr {proc.stderr[-500:]!r}")
+    emit({"phase": "precision_clis", "size": ps["cli_n"], "runs": cli})
+    return launches
 
 
 def main() -> int:
@@ -5271,8 +5827,16 @@ def main() -> int:
     for name, by_route in spec_routes["gemm"].items():
         gemm_routes[name] = by_route
 
-    # ---- 46. the kernels line ----
-    section("46. the kernels line")
+    # ---- 46. precision tiers and the solver models ----
+    section("46. precision tiers and the solver models")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, paths in precision_section(dev, args.seed, PS).items():
+        for name, n in paths.items():
+            launches_by_path[kernel][name] = n
+
+    # ---- 47. the kernels line ----
+    section("47. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -5407,8 +5971,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 47. result ----
-    section("47. result")
+    # ---- 48. result ----
+    section("48. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

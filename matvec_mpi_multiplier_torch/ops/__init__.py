@@ -1,6 +1,7 @@
 """Compute kernels. Importing the package registers every GEMV, GEMM and
-quantized-storage tier; the CUDA kernels themselves are built only when a
-CUDA tensor first reaches one."""
+quantized-storage tier, the accuracy tiers (``compensated``, ``ozaki``,
+``ozaki6``, ``ozaki_i8``) included; the CUDA kernels themselves are built
+only when a CUDA tensor first reaches one."""
 
 from .gemv import available_kernels, get_kernel, register_kernel
 from .gemm_kernels import (
@@ -11,6 +12,7 @@ from .gemm_kernels import (
 )
 from .quantize import get_storage_kernel, register_storage_kernel
 from . import cuda_gemm, cuda_gemv, cuda_quant  # noqa: F401  (register "cuda")
+from . import compensated, ozaki, ozaki_gemm  # noqa: F401  (the accuracy tiers)
 
 __all__ = [
     "available_kernels", "get_kernel", "register_kernel",

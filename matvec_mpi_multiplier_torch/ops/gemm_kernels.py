@@ -10,7 +10,9 @@ side. Tiers:
   registered when ``ops`` is imported;
 * ``auto`` — the measured choice (``gemm_auto``): the tuning cache's winner
   for the local shape, ``torch`` or ``cuda`` on given tiles, and the
-  ``cuda`` tier's own plan on a miss.
+  ``cuda`` tier's own plan on a miss;
+* ``ozaki`` / ``ozaki6`` — the int8 split-matrix accuracy tiers
+  (``ops/ozaki_gemm.py``), registered when ``ops`` is imported.
 
 All kernels share the signature ``matmul(a, b) -> c`` with ``a: (m, k)``,
 ``b: (k, n)``, ``c: (m, n)`` and the GEMV tier's accumulator contract: they
@@ -82,10 +84,18 @@ _GEMV_NAME_ALIASES = {"torch_colwise": "torch"}
 
 def gemm_kernel_name_for(name: str) -> str:
     """The GEMM registry name implementing a (possibly GEMV-tier) kernel
-    name for a rank-2 right-hand side. Every GEMV tier of the port has a
-    GEMM face, so only the alias above maps; any other name passes through
-    and an unknown one raises ``KeyError`` in :func:`get_gemm_kernel`."""
-    return _GEMV_NAME_ALIASES.get(name, name)
+    name for a rank-2 right-hand side. A registered GEMV tier with no GEMM
+    face (``compensated``, ``ozaki_i8``) promotes to the library tier
+    ``torch``, as the JAX package's go to ``xla``: a batched promotion is
+    never less available than the matvec path it replaces. A name unknown
+    to both registries passes through, so :func:`get_gemm_kernel` raises
+    its ``KeyError``."""
+    name = _GEMV_NAME_ALIASES.get(name, name)
+    if name in _GEMM_KERNELS:
+        return name
+    from .gemv import available_kernels
+
+    return "torch" if name in available_kernels() else name
 
 
 def get_gemm_kernel(name: str | Callable) -> GemmKernel:

@@ -11,7 +11,11 @@ The port's counterpart of the JAX package's ``ops/gemv.py``. Tiers:
   registered when ``ops`` is imported and the default of every strategy;
 * ``auto`` — the measured choice (``gemv_auto``): the tuning cache's winner
   for the local shape, ``torch`` or ``cuda`` on a given route, and the
-  ``cuda`` tier's own plan on a miss.
+  ``cuda`` tier's own plan on a miss;
+* ``compensated``, ``ozaki``, ``ozaki6``, ``ozaki_i8`` — the accuracy tiers
+  (fp64-grade accumulation on fp32 data: ``ops/compensated.py``,
+  ``ops/ozaki.py``, ``ops/ozaki_gemm.py``), registered when ``ops`` is
+  imported; no tuner race offers them.
 
 All kernels share the signature ``gemv(a, x) -> y`` with ``a: (m, k)``,
 ``x: (k,)``, ``y: (m,)``, and return their *accumulator* dtype — fp32 for

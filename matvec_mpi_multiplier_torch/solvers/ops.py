@@ -151,6 +151,37 @@ def _lstsq(h: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return vh.T @ (s_inv * (u.T @ rhs))
 
 
+def gmres_cycle(mv: Callable, b_acc: torch.Tensor, x: torch.Tensor,
+                r: torch.Tensor, rnorm: torch.Tensor, m: int):
+    """One GMRES(m) cycle from iterate ``x`` with residual ``r``: CGS2
+    Arnoldi over a fixed-shape basis (rows > j of V are zero, so projecting
+    on all of it masks itself), the small Hessenberg least-squares solve,
+    and the TRUE residual of the new iterate (one matvec). Returns ``(x,
+    r, ||r||)``; the served gmres and ``models/gmres.py`` both run it."""
+    acc, dev0, n = b_acc.dtype, b_acc.device, b_acc.shape[0]
+    safe = rnorm > 0  # b = 0 never gets here, but guard the division
+    V = torch.zeros((m + 1, n), dtype=acc, device=dev0)
+    V[0] = torch.where(safe, r / torch.where(safe, rnorm, 1.0), 0.0)
+    H = torch.zeros((m + 1, m), dtype=acc, device=dev0)
+    for j in range(m):
+        w = mv(V[j])
+        h1 = V @ w
+        w = w - h1 @ V
+        h2 = V @ w
+        w = w - h2 @ V
+        h = h1 + h2
+        wnorm = residual_norm(w)
+        ok = wnorm > 0  # 0 = lucky breakdown
+        V[j + 1] = torch.where(ok, w / torch.where(ok, wnorm, 1.0), 0.0)
+        h[j + 1] = wnorm
+        H[:, j] = h
+    e1 = torch.zeros((m + 1,), dtype=acc, device=dev0)
+    e1[0] = rnorm
+    x_new = x + _lstsq(H, e1) @ V[:m]
+    r_new = b_acc - mv(x_new)
+    return x_new, r_new, residual_norm(r_new)
+
+
 def build_solver(
     op: str,
     strategy: MatvecStrategy,
@@ -329,34 +360,8 @@ def _build_solver(
 
         def solver(a, b, rtol, maxiter, p0, p1):
             b_acc, rtol_acc, mv = _prologue(a, b, rtol)
-            n = b_acc.shape[0]
             b_norm = residual_norm(b_acc)
             threshold = convergence_threshold(rtol_acc, b_norm)
-
-            def cycle(x, r, rnorm):
-                # One GMRES(m) cycle: CGS2 Arnoldi over a fixed-shape basis,
-                # then the small Hessenberg least-squares solve.
-                safe = rnorm > 0
-                V = torch.zeros((m + 1, n), dtype=acc, device=dev0)
-                V[0] = torch.where(safe, r / torch.where(safe, rnorm, 1.0), 0.0)
-                H = torch.zeros((m + 1, m), dtype=acc, device=dev0)
-                for j in range(m):
-                    w = mv(V[j])
-                    h1 = V @ w
-                    w = w - h1 @ V
-                    h2 = V @ w
-                    w = w - h2 @ V
-                    h = h1 + h2
-                    wnorm = residual_norm(w)
-                    ok = wnorm > 0  # 0 = lucky breakdown
-                    V[j + 1] = torch.where(ok, w / torch.where(ok, wnorm, 1.0), 0.0)
-                    h[j + 1] = wnorm
-                    H[:, j] = h
-                e1 = torch.zeros((m + 1,), dtype=acc, device=dev0)
-                e1[0] = rnorm
-                x_new = x + _lstsq(H, e1) @ V[:m]
-                r_new = b_acc - mv(x_new)
-                return x_new, r_new, residual_norm(r_new)
 
             x = x_best = torch.zeros_like(b_acc)
             r, rnorm, rn_best = b_acc, b_norm, b_norm
@@ -364,7 +369,7 @@ def _build_solver(
             # maxiter caps restart CYCLES; the worst-case matvec count is
             # maxiter * (restart + 2).
             while bool(keep_iterating(rnorm, threshold, k, maxiter)):
-                x, r, rnorm = cycle(x, r, rnorm)
+                x, r, rnorm = gmres_cycle(mv, b_acc, x, r, rnorm, m)
                 better = rnorm < rn_best
                 x_best = torch.where(better, x, x_best)
                 rn_best = torch.where(better, rnorm, rn_best)

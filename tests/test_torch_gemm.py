@@ -110,7 +110,7 @@ def test_ring_names_are_not_ported(devices, name):
 
 
 def test_gemm_kernel_registry():
-    assert available_gemm_kernels() == ["auto", "cuda", "torch"]
+    assert available_gemm_kernels() == ["auto", "cuda", "ozaki", "ozaki6", "torch"]
     assert get_gemm_kernel("cuda") is gemm_cuda
     assert get_gemm_kernel(gemm_torch) is gemm_torch
     # The one alias, as the JAX package maps xla_colwise -> xla.

@@ -123,7 +123,8 @@ def test_accumulator_contract(kernel):
 
 
 def test_registry():
-    assert available_kernels() == ["auto", "cuda", "torch", "torch_colwise"]
+    assert available_kernels() == ["auto", "compensated", "cuda", "ozaki", "ozaki6",
+                                   "ozaki_i8", "torch", "torch_colwise"]
     assert get_kernel("cuda") is gemv_cuda
     assert get_kernel(gemv_torch) is gemv_torch
     with pytest.raises(KeyError, match="unknown gemv kernel"):

@@ -16,7 +16,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "matvec_mpi_multiplier_torch"
-FORBIDDEN = ("jax", "jaxlib", "matvec_mpi_multiplier_tpu", "triton")
+FORBIDDEN = ("jax", "jaxlib", "matvec_mpi_multiplier_tpu", "triton", "optax", "orbax")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
