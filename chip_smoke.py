@@ -185,7 +185,23 @@ kernels' launch counts set to 0 just before it and read just after:
   ``condition_estimate`` (``precision_solvers``); the trainer on the 2x2
   logical mesh, its first steps against fp64, a checkpoint resumed bitwise
   (``precision_trainer``); ``bench.solve_cg`` and ``bench.solve`` in
-  processes of their own at 16384 (``precision_clis``).
+  processes of their own at 16384 (``precision_clis``);
+* the paper's benchmark path (section 47): ``entry.entry()`` on the card
+  against numpy's fp64 product and ``entry.dryrun_multichip(4)`` on 4
+  logical shards (``bench_entry``); the sweep CLI in-process over the
+  asymmetric cells, fp32, the three strategies at p = 1, under ``loop``
+  with ``--label-suffix card --metrics-out``, the same command with
+  ``--skip-measured`` timing nothing, a ``--keep-going`` run whose first
+  config fails (exit 5), then ``--mode reference --measure sync``
+  (``bench_sweep``); blockwise 65536² bf16 p = 1 inside
+  ``bench.profiling.trace`` with spans on and ``sync`` reps, the Chrome
+  trace holding ``blockwise/local_gemv``, ``blockwise/combine/psum`` and
+  the GEMV kernel once a call, and ``loop``/``chain`` ms with spans off and
+  on (``bench_profile``); ``measure_link`` on the card beside section 43's
+  pinned probe and ``bench.hostlink_study``'s derived rows over the
+  literal ones (``bench_hostlink``); ``analysis.stats_visualization`` at a
+  3350 GB/s peak and ``analysis.results_table`` over the sweep's CSVs
+  (``bench_analysis``).
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -204,8 +220,8 @@ check raises, and the script exits non-zero. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and ``nvcc``; without a card it exits non-zero and
-prints no result. Writes no CSV (``benchmark_*`` and ``run_serve`` write
-none) and imports nothing of the JAX package.
+prints no result. Writes CSVs, traces and figures into temporary
+directories only, and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -591,6 +607,22 @@ PS = {
     "plain_tol": 1e-7, "plain_max_iters": 5000, "gmres_restart": 40,
     "gmres_rtol": 1e-5, "spectral_tol": 1e-4, "cond": 1e3, "train_steps": 20,
     "train_lr": 1e-2, "train_ref_steps": 3, "cli_n": 16384, "cli_steps": 20,
+}
+
+# Section 47, the benchmark path: the dryrun on BP["dryrun_shards"] logical
+# shards; the sweep CLI over BP["sweep_sizes"] (BP["sweep_cells"] sizes, the
+# three strategies at p = 1, fp32) under loop at BP["sweep_reps"] reps, then
+# the reference mode at BP["ref_reps"]; --keep-going over
+# BP["keep_going_sizes"] with the first config failing; the profile capture
+# at BP["profile_n"]² bf16, blockwise p = 1, BP["profile_reps"] sync reps, and
+# the spans' cost at BP["span_reps"]; the host link over the default ladder
+# up to BP["link_max_mb"] MB.
+BP = {
+    "dryrun_shards": 4, "sweep_sizes": ["--sweep", "asymmetric"], "sweep_cells": 10,
+    "sweep_reps": 30, "ref_reps": 3, "keep_going_sizes": (2048, 4096),
+    "profile_n": 65536, "profile_reps": 5, "span_reps": 50,
+    "link_max_mb": 256,
+    "table_shape": "asym", "l2_cell": "120×60000",
 }
 
 # An entry as the JAX package would write it for one of the same keys: its
@@ -2004,6 +2036,260 @@ def precision_section(dev, seed: int, ps: dict) -> dict:
                   f"{name}: rc {proc.returncode}, stdout {proc.stdout[-500:]!r}, "
                   f"stderr {proc.stderr[-500:]!r}")
     emit({"phase": "precision_clis", "size": ps["cli_n"], "runs": cli})
+    return launches
+
+
+def benchmark_path_section(dev, seed: int, bp: dict, pinned_gbps: float | None = None) -> dict:
+    """Section 47: the paper's benchmark path end to end on ``dev`` at the
+    sizes of ``bp``: the flagship entry and the dryrun (``entry.py``); the
+    sweep CLI in-process (``bench/sweep.py``: ``--label-suffix``,
+    ``--metrics-out``, ``--skip-measured``, ``--keep-going``, ``--mode
+    reference``); a ``torch.profiler`` capture with named spans
+    (``bench/profiling.py``) and the spans' cost; the host link
+    (``bench/hostlink.py``, ``bench/hostlink_study.py``) beside section 43's
+    pinned probe, derived reference rows against the literal ones; the
+    analysis CLIs over the sweep's CSVs (``analysis/``). Emits one JSON line
+    per part and returns the kernels' launches by path ({kernel: {path:
+    n}}, each path driven with the counts set to 0 just before it and read
+    just after). Runs at a small size on a CPU device too."""
+    import contextlib
+    import gc
+    import io as stdio
+
+    import numpy as np
+    import torch
+
+    from matvec_mpi_multiplier_torch import get_strategy, make_mesh
+    from matvec_mpi_multiplier_torch.analysis import results_table, stats_visualization
+    from matvec_mpi_multiplier_torch.bench import hostlink_study
+    from matvec_mpi_multiplier_torch.bench import sweep as sweep_mod
+    from matvec_mpi_multiplier_torch.bench.hostlink import DEFAULT_LADDER_BYTES, measure_link
+    from matvec_mpi_multiplier_torch.bench.metrics import extended_csv_path, read_csv
+    from matvec_mpi_multiplier_torch.bench.profiling import annotations, trace
+    from matvec_mpi_multiplier_torch.bench.timing import benchmark_strategy
+    from matvec_mpi_multiplier_torch.entry import dryrun_multichip, entry
+    from matvec_mpi_multiplier_torch.ops.cuda_attention import flash_partial_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.utils.constants import H100_HBM_PEAK_GBPS
+
+    on_card = dev.type == "cuda"
+    wrappers = {"gemv": gemv_cuda, "gemm": gemm_cuda, "flash_attention": flash_partial_cuda}
+    launches: dict = {k: {} for k in wrappers}
+    platform = (["--platform", "cuda"] if on_card
+                else ["--platform", "cpu", "--host-devices", "1"])
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def counted(name: str, fn):
+        """fn() with every count set to 0 just before it and read just after,
+        under the path ``name``; returns (out, {kernel: launches})."""
+        for w in wrappers.values():
+            w.launches = 0
+            w.route_launches.clear()
+        out = fn()
+        sync()
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k, n in got.items():
+            if n:
+                launches[k][name] = launches[k].get(name, 0) + n
+        return out, got
+
+    def cli(main, argv) -> tuple[int, str]:
+        """An in-process CLI run: its exit code and its standard output."""
+        buf = stdio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        return rc, buf.getvalue()
+
+    def timed_configs(out: str) -> int:
+        last = [ln for ln in out.splitlines() if "configs timed" in ln][-1]
+        return int(last.split()[0])
+
+    with tempfile.TemporaryDirectory(prefix="bench_path_") as tmp:
+        tmp = Path(tmp)
+        # ---- (a) the entry and the dryrun ----
+        t0 = time.perf_counter()
+
+        def run_entry():
+            fn, (a, x) = entry(device=dev)
+            return fn(a, x), a, x
+
+        (y, a, x), got = counted("bench_entry", run_entry)
+        exact = a.double().cpu().numpy() @ x.double().cpu().numpy()
+        rel = float(np.max(np.abs(y.double().cpu().numpy() - exact) / np.abs(exact)))
+        check(tuple(y.shape) == (512,) and y.dtype == torch.bfloat16 and rel <= 2 ** -7,
+              f"entry: shape {tuple(y.shape)}, {y.dtype}, rel err {rel} > 2^-7")
+        check(not on_card or got["gemv"] == 1, f"entry: {got['gemv']} GEMV launches, not 1")
+        summary, got = counted("bench_dryrun",
+                               lambda: dryrun_multichip(bp["dryrun_shards"], device=dev))
+        check(not on_card or all(got[k] > 0 for k in wrappers),
+              f"dryrun: launches {got}: a face missed its kernel")
+        emit({"phase": "bench_entry", "device": str(dev), "entry_max_rel_err": rel,
+              "entry_tol": 2 ** -7, "dryrun": summary, "dryrun_launches": got,
+              "seconds": time.perf_counter() - t0})
+
+        # ---- (b) the sweep CLI, in-process ----
+        t0 = time.perf_counter()
+        root = tmp / "data"
+        common = ["--strategy", "rowwise", "colwise", "blockwise", "--devices", "1",
+                  "--dtype", "float32", "--data-root", str(root), *platform,
+                  *bp["sweep_sizes"]]
+        metrics = tmp / "metrics.json"
+        (rc, out), got = counted("bench_sweep", lambda: cli(sweep_mod.main, common + [
+            "--measure", "loop", "--n-reps", str(bp["sweep_reps"]), "--label-suffix",
+            "card", "--metrics-out", str(metrics)]))
+        n_timed = timed_configs(out)
+        n_cells = 3 * bp["sweep_cells"]
+        check(rc == 0 and n_timed == n_cells,
+              f"sweep: rc {rc}, {n_timed} configs timed of {n_cells}: {out[-800:]}")
+        check("counters" in json.loads(metrics.read_text()), "sweep: --metrics-out wrote no snapshot")
+        sweep_launches = got["gemv"]
+        (rc, out), got = counted("bench_sweep_skip", lambda: cli(sweep_mod.main, common + [
+            "--measure", "loop", "--n-reps", str(bp["sweep_reps"]), "--label-suffix",
+            "card", "--skip-measured"]))
+        skip_timed = timed_configs(out)
+        check(rc == 0 and skip_timed == 0 and got["gemv"] == 0,
+              f"--skip-measured: rc {rc}, {skip_timed} timed, {got['gemv']} launches")
+        calls = []
+        real = sweep_mod.benchmark_strategy
+
+        def fails_once(*args, **kw):
+            calls.append(1)
+            if len(calls) == 1:
+                raise RuntimeError("an injected config failure")
+            return real(*args, **kw)
+
+        sweep_mod.benchmark_strategy = fails_once
+        try:
+            with contextlib.redirect_stderr(stdio.StringIO()) as err:
+                (rc, out), got = counted("bench_sweep_keep_going", lambda: cli(
+                    sweep_mod.main, ["--strategy", "rowwise", "--devices", "1",
+                                     "--sizes", *map(str, bp["keep_going_sizes"]),
+                                     "--measure", "sync", "--n-reps", "3", "--no-csv",
+                                     "--keep-going", *platform]))
+        finally:
+            sweep_mod.benchmark_strategy = real
+        keep_going = {"rc": rc, "timed": timed_configs(out),
+                      "failed_line": err.getvalue().strip().splitlines()[0]}
+        check(rc == 5 and keep_going["timed"] == len(bp["keep_going_sizes"]) - 1,
+              f"--keep-going: {keep_going}")
+        (rc, out), got = counted("bench_sweep_reference", lambda: cli(sweep_mod.main, common + [
+            "--mode", "reference", "--measure", "sync", "--n-reps", str(bp["ref_reps"]),
+            "--label-suffix", "card"]))
+        check(rc == 0 and timed_configs(out) == n_cells, f"reference sweep: rc {rc}: {out[-800:]}")
+        rows = read_csv(extended_csv_path(root))
+        loop_ms = {(r["strategy"], r["n_rows"], r["n_cols"]): r["time"] * 1e3
+                   for r in rows if r["mode"] == "amortized"}
+        emit({"phase": "bench_sweep", "cells": n_cells, "timed": n_timed,
+              "gemv_launches": sweep_launches, "skip_measured_timed": skip_timed,
+              "keep_going": keep_going, "reference_timed": n_cells,
+              "loop_ms": {f"{s} {m}x{n}": v for (s, m, n), v in sorted(loop_ms.items())},
+              "seconds": time.perf_counter() - t0})
+
+        # ---- (c) the profile capture at the north-star shape ----
+        t0 = time.perf_counter()
+        n = bp["profile_n"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 47)
+        a = torch.empty((n, n), dtype=torch.bfloat16, device=dev)
+        rows_at = max(1, (1 << 28) // n)
+        for i in range(0, n, rows_at):
+            k = min(rows_at, n - i)
+            a[i:i + k] = torch.rand((k, n), generator=gen, device=dev) * 10
+        x = (torch.rand((n,), generator=gen, device=dev) * 10).to(torch.bfloat16)
+        mesh1 = make_mesh(1, devices=[dev])
+        strat = get_strategy("blockwise")
+        prof_dir = tmp / "profile"
+
+        def profiled():
+            with trace(prof_dir), annotations(True):
+                return benchmark_strategy(strat, mesh1, a, x, n_reps=bp["profile_reps"],
+                                          mode="amortized", measure="sync", kernel="cuda")
+
+        res, got = counted("bench_profile", profiled)
+        (path,) = sorted(prof_dir.glob("*.json"))
+        events = json.loads(path.read_text())["traceEvents"]
+        names = ("blockwise/local_gemv", "blockwise/combine/psum")
+        # A span is a host event; the profiler also draws it on the device's
+        # row (gpu_user_annotation) around the kernels it launched.
+        span_counts = Counter(e["name"] for e in events
+                              if e.get("name") in names and e.get("cat") == "user_annotation")
+        device_spans = Counter(e["name"] for e in events if e.get("name") in names
+                               and e.get("cat") == "gpu_user_annotation")
+        kernels = Counter(e["name"] for e in events
+                          if e.get("cat") == "kernel" and "gemv" in e.get("name", "").lower())
+        calls_made = bp["profile_reps"] + 1  # the warm-up and the reps
+        check(span_counts["blockwise/local_gemv"] == calls_made
+              and span_counts["blockwise/combine/psum"] == calls_made,
+              f"profile: spans {dict(span_counts)}, {calls_made} calls")
+        check(not on_card or sum(kernels.values()) == got["gemv"] == calls_made,
+              f"profile: GEMV kernels in the trace {dict(kernels)}, launches {got['gemv']}")
+        cost = {}
+        for measure in ("loop", "chain"):
+            for enabled in (False, True):
+                with annotations(enabled):
+                    r = benchmark_strategy(strat, mesh1, a, x, n_reps=bp["span_reps"],
+                                           mode="amortized", measure=measure, kernel="cuda")
+                cost[f"{measure}_{'on' if enabled else 'off'}_ms"] = r.mean_time_s * 1e3
+        emit({"phase": "bench_profile", "shape": f"{n}x{n}", "dtype": "bfloat16",
+              "trace_bytes": path.stat().st_size, "spans": dict(span_counts),
+              "device_row_spans": dict(device_spans),
+              "gemv_kernels": dict(kernels), "sync_ms": res.mean_time_s * 1e3,
+              "span_cost": cost, "seconds": time.perf_counter() - t0})
+        del a, x
+        gc.collect()
+
+        # ---- (d) the host link, and derived rows against literal ones ----
+        t0 = time.perf_counter()
+        link = measure_link([b for b in DEFAULT_LADDER_BYTES if b <= bp["link_max_mb"] << 20],
+                            device=dev)
+        rc, out = cli(hostlink_study.main, ["--data-root", str(root), *platform[:2],
+                                            "--max-mb", str(bp["link_max_mb"])])
+        check(rc == 0 and "reference-mode rows derived" in out, f"hostlink_study: {out}")
+        rows = read_csv(extended_csv_path(root))
+        literal = {(r["strategy"], r["n_rows"]): r["time"] for r in rows
+                   if r["mode"] == "reference"}
+        derived = {(r["strategy"], r["n_rows"]): r["time"] for r in rows
+                   if r["mode"] == "reference_derived"}
+        check(set(literal) == set(derived) and len(literal) == n_cells,
+              f"hostlink: {len(literal)} literal, {len(derived)} derived rows")
+        ratio = {f"{s} {m}": derived[(s, m)] / literal[(s, m)] for s, m in sorted(literal)}
+        # The JAX package's bound (tests/test_hostlink.py): within a factor of 5.
+        check(all(0.2 < v < 5 for v in ratio.values()), f"derived/literal {ratio}")
+        emit({"phase": "bench_hostlink", "alpha_ms": link.alpha_s * 1e3,
+              "gbps": link.gbps, "samples": [list(s) for s in link.samples],
+              "pinned_probe_gbps": pinned_gbps,
+              "study_line": out.strip().splitlines()[0],
+              "derived_over_literal": ratio, "seconds": time.perf_counter() - t0})
+
+        # ---- (e) the analysis ----
+        t0 = time.perf_counter()
+        rc, table = cli(stats_visualization.main, [
+            "--data-out", str(root / "out"), "--fig-dir", str(tmp / "figures"),
+            "--itemsize", "4", "--hbm-peak", str(H100_HBM_PEAK_GBPS), "--cards", "1"])
+        check(rc == 0 and all(f"## {s}_card\n" in table
+                              for s in ("rowwise", "colwise", "blockwise")),
+              f"stats_visualization: rc {rc}: {table[-800:]}")
+        if bp["l2_cell"]:
+            # The 120-row fp32 cell (28.8 MB) sits in the L2 of the card.
+            line = next(ln for ln in table.splitlines()
+                        if ln.startswith(f"| rowwise_card | {bp['l2_cell']} | 1 |"))
+            check(line.endswith("(L2) |"), f"analysis: {line} is not marked (L2)")
+        print(table, flush=True)
+        rc, results = cli(results_table.main, ["--data-root", str(root), "--shape",
+                                               bp["table_shape"]])
+        check(rc == 0 and results.count("\n") == bp["sweep_cells"] + 2,
+              f"results_table: rc {rc}: {results}")
+        print(results, flush=True)
+        figures = sorted(p.name for p in (tmp / "figures").glob("*.png"))
+        no_mpl = "matplotlib is not installed" in table
+        check(no_mpl or figures, "analysis: matplotlib is installed and no figure was written")
+        emit({"phase": "bench_analysis", "hbm_peak_gbps": H100_HBM_PEAK_GBPS,
+              "table_lines": table.count("\n"), "figures": figures,
+              "matplotlib": not no_mpl, "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -5835,8 +6121,17 @@ def main() -> int:
         for name, n in paths.items():
             launches_by_path[kernel][name] = n
 
-    # ---- 47. the kernels line ----
-    section("47. the kernels line")
+    # ---- 47. the benchmark path ----
+    section("47. the benchmark path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, paths in benchmark_path_section(dev, args.seed, BP, pinned_gbps).items():
+        target = flash_launches if kernel == "flash_attention" else launches_by_path[kernel]
+        for name, n in paths.items():
+            target[name] = n
+
+    # ---- 48. the kernels line ----
+    section("48. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -5971,8 +6266,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 48. result ----
-    section("48. result")
+    # ---- 49. result ----
+    section("49. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -85,3 +85,29 @@ def append_result(result: TimingResult, root: str | os.PathLike | None = None) -
     )
     _append_row(extended_csv_path(root), CSV_HEADER_EXTENDED, ext_row)
     return path
+
+
+def read_csv(path: str | os.PathLike) -> list[dict]:
+    """Parse a reference-schema or extended CSV into row dicts (numbers
+    converted). Reads both the spaced header the reference's code writes
+    (``src/multiplier_rowwise.c:86``, what this module emits) and the
+    unspaced one of the CSVs the reference committed (quirk Q10)."""
+    path = Path(path)
+    lines = [ln.strip() for ln in path.read_text().splitlines() if ln.strip()]
+    if not lines:
+        return []
+    keys = [k.strip() for k in lines[0].split(",")]
+    rows = []
+    for ln in lines[1:]:
+        vals = [v.strip() for v in ln.split(",")]
+        row: dict = {}
+        for k, v in zip(keys, vals):
+            try:
+                row[k] = int(v)
+            except ValueError:
+                try:
+                    row[k] = float(v)
+                except ValueError:
+                    row[k] = v
+        rows.append(row)
+    return rows

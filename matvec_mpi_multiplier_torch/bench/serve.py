@@ -2047,7 +2047,18 @@ def tune_serve(
 def run_serve_sweep(args: argparse.Namespace) -> int:
     """The ``--op serve`` body shared by this module's CLI and
     ``bench.sweep``: the sequential protocol for every (size, strategy,
-    device count)."""
+    device count). ``--annotate`` scopes the named-span override to this
+    run (an in-process caller must not find the process-wide flag flipped
+    afterwards)."""
+    from ..obs.annotations import annotations
+
+    if getattr(args, "annotate", False):
+        with annotations(True):  # named spans in every program run below
+            return _run_serve_sweep(args)
+    return _run_serve_sweep(args)
+
+
+def _run_serve_sweep(args: argparse.Namespace) -> int:
     from ..parallel.mesh import make_mesh
     from .sweep import (
         SQUARE_SIZES,
@@ -2347,6 +2358,13 @@ def build_parser() -> argparse.ArgumentParser:
         "(last events, metric snapshots, SLO state) into DIR on each typed "
         "failure; render with `python -m matvec_mpi_multiplier_torch.obs dump "
         "BUNDLE`",
+    )
+    p.add_argument(
+        "--annotate", action="store_true",
+        help="enable named spans (each strategy's local GEMV and combine, the "
+        "overlap stages' stage{i}/compute|combine) in every program this run "
+        "runs; pair with a torch.profiler capture (bench/profiling.py). A "
+        "captured program's spans are recorded at its capture only",
     )
     p.add_argument(
         "--tenants", type=int, default=None,

@@ -29,13 +29,23 @@ the strategies against a quantized A (rows labelled ``<strategy>_<format>``).
 skipped) and ``--stages`` pins the staged ``overlap`` schedules' S.
 ``--tune`` fills the tuning cache for the grid first (``tuning/``), so that
 ``--kernel auto`` and ``--combine auto`` read measured decisions.
+
+A long capture: ``--label-suffix`` files kernel-variant rows under their own
+label, ``--skip-measured`` resumes a sweep that died (configs already in the
+extended CSV are skipped), ``--keep-going`` records a failing config and goes
+on (exit 5 when a config failed, 3 when only unmeasurable ones remain),
+``--profile-dir`` captures a ``torch.profiler`` trace of the whole sweep
+(``bench/profiling.py``) and ``--annotate`` names each strategy's phases in
+it; ``--metrics-out`` writes the process metrics registry after the run.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
+from pathlib import Path
 
 import torch
 
@@ -44,8 +54,9 @@ from ..models.gemm import available_gemm_strategies, validate_gemm
 from ..ops import available_gemm_kernels, available_kernels
 from ..parallel.mesh import make_mesh
 from ..utils import io
-from ..utils.errors import ConfigError, MatvecError
-from .metrics import append_result, csv_path
+from ..utils.errors import ConfigError, MatvecError, TimingError
+from .metrics import append_result, csv_path, extended_csv_path, read_csv
+from .profiling import annotate, annotations, trace
 from .timing import (
     MEASURE_METHODS,
     TIMING_MODES,
@@ -214,6 +225,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--no-csv", action="store_true", help="print results without writing CSVs"
     )
+    p.add_argument(
+        "--label-suffix", default=None, metavar="SUFFIX",
+        help="append _SUFFIX to the strategy name in CSV rows (e.g. "
+        "--kernel torch --label-suffix torch lands rows in rowwise_torch.csv): "
+        "the reference schema has no kernel column, and unlabelled variant "
+        "rows would blend into the per-strategy SpeedUp/Efficiency averaging",
+    )
+    p.add_argument(
+        "--skip-measured", action="store_true",
+        help="skip any config whose row already exists in the extended CSV "
+        "(same strategy label, shape, device count, dtype, mode, measure and "
+        "n_rhs), so a capture that died mid-sweep resumes where it stopped; "
+        "needs an explicit --measure",
+    )
+    p.add_argument(
+        "--keep-going", action="store_true",
+        help="on a runtime error in one config, record it and go on with the "
+        "next; exit code 5 = some config failed but the sweep completed "
+        "(retry-worthy; with --skip-measured a retry redoes only the "
+        "failures), 3 = completed with only unmeasurable (TimingError) "
+        "configs skipped. Crashes exit 1 and usage errors 2",
+    )
+    p.add_argument(
+        "--profile-dir", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the whole sweep into DIR "
+        "(Chrome-trace JSON: host ops and, with --platform cuda, the card's "
+        "kernels; bench/profiling.py)",
+    )
+    p.add_argument(
+        "--annotate", action="store_true",
+        help="enable named spans (each strategy's local GEMV and combine, "
+        "the overlap stages' stage{i}/compute|combine) in every program this "
+        "sweep runs; pair with --profile-dir so the trace reads by phase",
+    )
+    p.add_argument(
+        "--metrics-out", default=None, metavar="FILE",
+        help="write an obs metrics snapshot after the run: with --op serve "
+        "the engine's counters and latency histograms per config; otherwise "
+        "the process registry (e.g. the --tune pre-pass's measurements). "
+        "Render with `python -m matvec_mpi_multiplier_torch.obs metrics FILE`",
+    )
+    p.add_argument(
+        "--trace-jsonl", default=None, metavar="FILE",
+        help="with --op serve: stream one request span tree per request to "
+        "FILE; summarize with `python -m matvec_mpi_multiplier_torch.obs "
+        "trace FILE`",
+    )
     return p
 
 
@@ -236,11 +294,17 @@ def operands(n_rows: int, n_cols: int, args):
     )
 
 
-def csv_label(name: str, op: str, storage: str | None = None) -> str:
-    """The strategy label as CSV rows record it: ``gemm_<name>`` for GEMM
-    rows, then ``_<format>`` for quantized storage."""
+def csv_label(name: str, op: str, label_suffix: str | None = None,
+              storage: str | None = None) -> str:
+    """The strategy label exactly as CSV rows record it: ``gemm_<name>`` for
+    GEMM rows, then ``_<format>`` for quantized storage, then
+    ``_<label_suffix>``. The one source for the CSV-path printout and the
+    ``--skip-measured`` matching: were they to drift apart, a resumed sweep
+    would re-run (and duplicate) every config."""
     label = f"gemm_{name}" if op == "gemm" else name
-    return label if storage in (None, "native") else f"{label}_{storage}"
+    if storage not in (None, "native"):
+        label = f"{label}_{storage}"
+    return f"{label}_{label_suffix}" if label_suffix else label
 
 
 def run_sweep(args: argparse.Namespace) -> int:
@@ -250,6 +314,15 @@ def run_sweep(args: argparse.Namespace) -> int:
         from .serve import run_serve_sweep
 
         return run_serve_sweep(args)
+    if args.annotate:
+        # Scoped to this run: an in-process caller must not find the
+        # process-wide flag flipped afterwards.
+        with annotations(True):
+            return _run_sweep(args)
+    return _run_sweep(args)
+
+
+def _run_sweep(args: argparse.Namespace) -> int:
     storage = getattr(args, "dtype_storage", None)
     if storage == "auto":
         raise SystemExit(
@@ -263,6 +336,23 @@ def run_sweep(args: argparse.Namespace) -> int:
             "--use-files is matvec-only (the reference's vector-file "
             "convention has no rank-2 right-hand side); gemm operands are "
             "generated in memory"
+        )
+    if args.skip_measured and args.measure == "auto":
+        raise SystemExit(
+            "--skip-measured needs an explicit --measure: existing rows are "
+            "matched by their measure column, and 'auto' resolves per "
+            "config AFTER the skip decision would have to be made"
+        )
+    if args.skip_measured and args.no_csv:
+        raise SystemExit(
+            "--skip-measured with --no-csv would re-skip forever (new "
+            "results are never written back) — drop one of the two"
+        )
+    if args.trace_jsonl is not None:
+        raise SystemExit(
+            "--trace-jsonl is request-lifecycle tracing — serve-mode only "
+            "(--op serve); matvec/gemm sweeps have no request stream to "
+            "trace (use --profile-dir for a device trace)"
         )
     kernels = available_gemm_kernels() if gemm else available_kernels()
     if args.kernel not in kernels:
@@ -311,8 +401,68 @@ def run_sweep(args: argparse.Namespace) -> int:
         cache.save()
         reset_cache()  # the sweep's auto lookups read the fresh decisions
 
-    n_ok = n_skip = 0
-    # Sizes outermost: each operand pair is generated once and shared.
+    # [timed, skipped, unmeasurable, failed]; the last two fill only under
+    # --keep-going. Unmeasurable (TimingError) is kept apart from failures
+    # because a retry of a failed config may succeed, while a retry of an
+    # unmeasurable one meets the same noise floor again.
+    counters = [0, 0, 0, 0]
+    # The trace stops (and writes its file) on any exit, an exception
+    # mid-sweep included.
+    with trace(args.profile_dir or "", enabled=args.profile_dir is not None,
+               cuda=args.platform == "cuda"):
+        _sweep_loop(args, strategies, counts, sizes, modes, meshes, counters)
+    n_ok, n_skip, n_unmeasurable, n_failed = counters
+    if not args.no_csv:
+        for name in strategies:
+            label = csv_label(name, args.op, args.label_suffix, storage)
+            for mode in modes:
+                print(f"CSV: {csv_path(label, args.data_root, mode=mode)}")
+    if args.profile_dir is not None:
+        print(f"trace: {args.profile_dir}")
+    if args.metrics_out is not None:
+        from ..obs.registry import get_registry
+
+        out = Path(args.metrics_out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(get_registry().snapshot(), indent=2) + "\n")
+        print(f"metrics: {out}")
+    print(f"{n_ok} configs timed, {n_skip} skipped, "
+          f"{n_unmeasurable} unmeasurable, {n_failed} failed")
+    if n_failed:
+        # 5, not 1: a completed sweep with recorded config failures is the
+        # retry-worthy class; a crash exits 1 through the interpreter.
+        return 5
+    # 3, not 2: argparse's usage errors exit 2.
+    return 3 if n_unmeasurable else 0
+
+
+def _measured_keys(args) -> set[tuple]:
+    """Identity keys of the rows already in the extended CSV, for
+    ``--skip-measured``: strategy label as written, shape, device count,
+    dtype, mode, measure, n_rhs. A row missing a key column (an old schema,
+    a last line cut by a crash) is dropped and simply measured again."""
+    path = extended_csv_path(args.data_root)
+    if not path.exists():
+        return set()
+    keys = set()
+    for row in read_csv(path):
+        try:
+            keys.add((
+                str(row["strategy"]), int(row["n_rows"]), int(row["n_cols"]),
+                int(row["n_devices"]), str(row["dtype"]), str(row["mode"]),
+                str(row["measure"]), int(row.get("n_rhs", 1)),
+            ))
+        except (KeyError, TypeError, ValueError):
+            continue
+    return keys
+
+
+def _sweep_loop(args, strategies, counts, sizes, modes, meshes, counters) -> None:
+    gemm = args.op == "gemm"
+    storage = getattr(args, "dtype_storage", None)
+    measured = _measured_keys(args) if args.skip_measured else set()
+    # Sizes outermost: each operand pair is generated once, shared, and only
+    # when one of its configs runs.
     for n_rows, n_cols in sizes:
         n_rhs = (args.n_rhs or n_cols) if gemm else 1
         a = x = None
@@ -326,8 +476,9 @@ def run_sweep(args: argparse.Namespace) -> int:
                 # has no such schedule. A skip, not a crash.
                 print(f"skip {name} {n_rows}x{n_cols}: no combine schedule "
                       f"{args.combine!r} for this strategy")
-                n_skip += 1
+                counters[1] += 1
                 continue
+            label = csv_label(name, args.op, args.label_suffix, storage)
             # The strategy the schedule binds validates the shape (the
             # scatter family's rows, pallas_ring's 1-D mesh).
             bound = None if args.combine in (None, "auto") else strat.with_combine(args.combine)
@@ -339,14 +490,20 @@ def run_sweep(args: argparse.Namespace) -> int:
                     (bound or strat).validate(n_rows, n_cols, mesh)
                 except MatvecError as e:
                     print(f"skip {name} {n_rows}x{n_cols} p={n_dev}: {e}")
-                    n_skip += 1
+                    counters[1] += 1
                     continue
-                if a is None and gemm:
-                    a = io.generate_matrix(n_rows, n_cols, seed=args.seed)
-                    x = io.generate_matrix(n_cols, n_rhs, seed=args.seed + 1)
-                elif a is None:
-                    a, x = operands(n_rows, n_cols, args)
                 for mode in modes:
+                    if (label, n_rows, n_cols, n_dev, args.dtype, mode,
+                            args.measure, n_rhs) in measured:
+                        print(f"skip {label} {n_rows}x{n_cols} p={n_dev} "
+                              f"[{mode}]: already measured (--skip-measured)")
+                        counters[1] += 1
+                        continue
+                    if a is None and gemm:
+                        a = io.generate_matrix(n_rows, n_cols, seed=args.seed)
+                        x = io.generate_matrix(n_cols, n_rhs, seed=args.seed + 1)
+                    elif a is None:
+                        a, x = operands(n_rows, n_cols, args)
                     kwargs = dict(
                         dtype=args.dtype, n_reps=args.n_reps, mode=mode,
                         measure=args.measure, kernel=args.kernel,
@@ -359,12 +516,34 @@ def run_sweep(args: argparse.Namespace) -> int:
                         kwargs["combine"] = args.combine
                     if args.stages is not None:
                         kwargs["stages"] = args.stages
-                    if gemm:
-                        result = benchmark_gemm(name, mesh, a, x, **kwargs)
-                    else:
-                        result = benchmark_strategy(strat, mesh, a, x, **kwargs)
-                    result = dataclasses.replace(
-                        result, strategy=csv_label(name, args.op, storage))
+                    region = f"{args.op}_{name}_{n_rows}x{n_cols}_p{n_dev}_{mode}"
+                    try:
+                        with annotate(region):
+                            if gemm:
+                                result = benchmark_gemm(name, mesh, a, x, **kwargs)
+                            else:
+                                result = benchmark_strategy(strat, mesh, a, x, **kwargs)
+                    except TimingError as e:
+                        # The noise beat the signal: not a config bug, so
+                        # skippable under --keep-going.
+                        if not args.keep_going:
+                            raise
+                        print(f"UNMEASURABLE {region}: {e}", file=sys.stderr)
+                        counters[2] += 1
+                        continue
+                    except MatvecError:
+                        raise  # config bugs fail loudly, flag or not
+                    except Exception as e:
+                        if not args.keep_going:
+                            raise
+                        # A runtime failure in one config: later configs may
+                        # well succeed, and a flushed partial sweep beats an
+                        # empty one.
+                        print(f"FAILED {region}: {type(e).__name__}: {e}",
+                              file=sys.stderr)
+                        counters[3] += 1
+                        continue
+                    result = dataclasses.replace(result, strategy=label)
                     if not args.no_csv:
                         append_result(result, args.data_root)
                     print(
@@ -372,14 +551,7 @@ def run_sweep(args: argparse.Namespace) -> int:
                         f"mean={result.mean_time_s:.6f}s "
                         f"{result.gflops:.2f} GFLOP/s {result.gbps:.2f} GB/s"
                     )
-                    n_ok += 1
-    if not args.no_csv:
-        for name in strategies:
-            label = csv_label(name, args.op, storage)
-            for mode in modes:
-                print(f"CSV: {csv_path(label, args.data_root, mode=mode)}")
-    print(f"{n_ok} configs timed, {n_skip} skipped")
-    return 0
+                    counters[0] += 1
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -20,14 +20,19 @@ The port's counterpart of the JAX package's ``obs/``:
   alerts (``engine.health()["slo"]``, the serve bench's ``--slo-out``);
 * **flight recorder** (``flight.py``) — a bounded ring over the event
   timeline that dumps a post-mortem bundle on typed failures;
-* **named trace spans** (``annotations.py``) — NVTX ranges around each
-  strategy's local GEMV and combine.
+* **named trace spans** (``annotations.py``) — ``record_function`` (and
+  NVTX) ranges around each strategy's local GEMV and combine.
 
 ``python -m matvec_mpi_multiplier_torch.obs`` renders their files
 (``__main__.py``: ``metrics``, ``trace``, ``timeline``, ``slo``, ``dump``).
 """
 
-from .annotations import annotations, annotations_enabled, named_span
+from .annotations import (
+    annotations,
+    annotations_enabled,
+    named_span,
+    set_annotations,
+)
 from .flight import FlightRecorder
 from .registry import (
     Counter,
@@ -39,6 +44,7 @@ from .registry import (
     get_registry,
     label,
     prometheus_text,
+    reset_registry,
 )
 from .sink import JsonlSink
 from .slo import DEFAULT_TARGETS, ENGINE_TARGETS, SloMonitor, SloTarget
@@ -62,6 +68,7 @@ __all__ = [
     "MetricsRegistry",
     "RateEstimator",
     "get_registry",
+    "reset_registry",
     "label",
     "prometheus_text",
     "SloTarget",
@@ -83,4 +90,5 @@ __all__ = [
     "named_span",
     "annotations",
     "annotations_enabled",
+    "set_annotations",
 ]

@@ -1,16 +1,20 @@
 """Named trace spans: make profiler captures read by phase.
 
 The port's counterpart of the JAX package's ``obs/annotations.py``.
-:func:`named_span` wraps a region in an NVTX range when CUDA is present (so
-it shows in ``torch.profiler`` and Nsight timelines beside the kernels it
-launches) and in ``torch.profiler.record_function`` otherwise. Span names
-are the JAX package's (``blockwise/local_gemv``, ``blockwise/combine/psum``,
-…), so a capture of either package reads the same.
+:func:`named_span` wraps a region in ``torch.profiler.record_function`` (so
+it shows in a ``torch.profiler`` trace, ``bench/profiling.py::trace``, on
+the host row above the kernels it launches) and, where CUDA is present, in
+an NVTX range too (Nsight timelines). Span names are the JAX package's
+(``blockwise/local_gemv``, ``blockwise/combine/psum``, …), so a capture of
+either package reads the same.
 
 PyTorch runs eagerly, so unlike the JAX package's trace-time spans these
-cost a little on every call while on. They are off by default;
-``MATVEC_ANNOTATE=1`` in the environment or the :func:`annotations` context
-manager turns them on.
+are entered on every call while on. Under a CUDA graph replay (the ``loop``
+measure, the engine's captured programs) no Python runs: a span is
+recorded once, at the capture, and the replays show only the graph's
+kernels. Off by default; ``--annotate`` on the serve/sweep CLIs,
+``MATVEC_ANNOTATE=1`` in the environment, :func:`set_annotations` or the
+:func:`annotations` context manager turn them on.
 """
 
 from __future__ import annotations
@@ -30,9 +34,15 @@ def annotations_enabled() -> bool:
     return os.environ.get("MATVEC_ANNOTATE", "0") == "1"
 
 
+def set_annotations(enabled: bool | None) -> None:
+    """Force annotations on or off (None restores the environment default)."""
+    global _override
+    _override = enabled
+
+
 @contextlib.contextmanager
 def annotations(enabled: bool):
-    """Force annotations on or off inside the block (tests, captures)."""
+    """Scoped :func:`set_annotations` (tests, captures)."""
     global _override
     saved = _override
     _override = enabled
@@ -49,9 +59,9 @@ def named_span(name: str):
     if not annotations_enabled():
         yield
         return
-    if torch.cuda.is_available():
-        with torch.cuda.nvtx.range(name):
-            yield
-    else:
-        with torch.profiler.record_function(name):
+    with torch.profiler.record_function(name):
+        if torch.cuda.is_available():
+            with torch.cuda.nvtx.range(name):
+                yield
+        else:
             yield

@@ -418,3 +418,11 @@ def get_registry() -> MetricsRegistry:
         if _default is None:
             _default = MetricsRegistry()
         return _default
+
+
+def reset_registry() -> None:
+    """Drop the process default registry, so the next :func:`get_registry`
+    makes a fresh one (tests)."""
+    global _default
+    with _default_lock:
+        _default = None
