@@ -201,7 +201,21 @@ kernels' launch counts set to 0 just before it and read just after:
   pinned probe and ``bench.hostlink_study``'s derived rows over the
   literal ones (``bench_hostlink``); ``analysis.stats_visualization`` at a
   3350 GB/s peak and ``analysis.results_table`` over the sweep's CSVs
-  (``bench_analysis``).
+  (``bench_analysis``);
+* the runtime remainder (section 48): the native C++ tier built with
+  ``g++`` from the port's ``native/*.cc``, ``gemv_cuda`` against its
+  ``gemv_ctypes`` oracle at 120 and 1200 x 60000 and 10200² fp64 and
+  ``gemm_cuda`` against ``gemm_ctypes`` at 1024³ fp64, both times of each
+  (``runtime_native``); the native text loader on a 2400² ``%.4f`` file,
+  bitwise numpy's, both times (``runtime_loader``); ``--kernel native
+  --platform cuda`` refused before any cell (``runtime_sweep_native``); two
+  processes on the card joined by gloo (this script again,
+  ``--runtime-worker``), one shard each, rowwise, colwise and blockwise
+  (2x1 and 1x2) at 65536² bf16 through the build and
+  ``benchmark_strategy(measure="sync")``, every y bitwise one process's on
+  the same grid, the same max time on both sides, one CSV row, the times
+  beside one process's and the exchange's share (``runtime_multiprocess``;
+  the GEMV launches under the ``multiprocess`` path).
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -623,6 +637,23 @@ BP = {
     "profile_n": 65536, "profile_reps": 5, "span_reps": 50,
     "link_max_mb": 256,
     "table_shape": "asym", "l2_cell": "120×60000",
+}
+
+# Section 48, the runtime remainder. The native tier: gemv_cuda against the
+# C++ oracle (gemv_ctypes) at the reference's fp64 cells RT["gemv_shapes"],
+# gemm_cuda against gemm_ctypes at RT["gemm_shape"] fp64, both at
+# RT["oracle_rtol"] elementwise (uniform [0, 10) operands: sums of positive
+# terms in another order); the native text loader against numpy on an
+# RT["loader_n"]² %.4f file. Two processes on the card (gloo, host-staged)
+# at RT["n"]² bf16: every config of RT["mp_configs"] (strategy, grid), one
+# shard per process, through build and benchmark_strategy(measure="sync",
+# RT["mp_reps"] reps), against one process with the same 2 logical shards.
+RT = {
+    "gemv_shapes": ((120, 60000), (1200, 60000), (10200, 10200)),
+    "gemm_shape": (1024, 1024, 1024), "oracle_rtol": 1e-12, "loader_n": 2400,
+    "n": 65536, "mp_reps": 20, "mp_timeout_s": 240,
+    "mp_configs": (("rowwise", (1, 2)), ("colwise", (1, 2)), ("blockwise", (2, 1)),
+                   ("blockwise", (1, 2))),
 }
 
 # An entry as the JAX package would write it for one of the same keys: its
@@ -2293,10 +2324,396 @@ def benchmark_path_section(dev, seed: int, bp: dict, pinned_gbps: float | None =
     return launches
 
 
+def runtime_operand(n: int, seed: int, dev):
+    """Section 48's seeded n² bf16 A and its x, uniform [0, 10), made on
+    ``dev`` in row chunks: every process of its world makes the same."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 48)
+    a = torch.empty((n, n), dtype=torch.bfloat16, device=dev)
+    rows = max(1, (1 << 28) // n)
+    for i in range(0, n, rows):
+        k = min(rows, n - i)
+        a[i:i + k] = torch.rand((k, n), generator=gen, device=dev) * 10
+    x = (torch.rand((n,), generator=gen, device=dev) * 10).to(torch.bfloat16)
+    return a, x
+
+
+def runtime_worker(seed: int, rank: str, port: str, out_dir: str, device: str,
+                   n: str) -> int:
+    """One process of section 48's world of two (``--runtime-worker``): joins
+    the gloo world, runs every config of ``world.json`` in ``out_dir`` with
+    one shard of the mesh, and writes each y there. Prints one JSON line:
+    the launches, the two-process times, the exchange's host time a matvec,
+    and the cross-process max of a local time."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+
+    from matvec_mpi_multiplier_torch import get_strategy, make_mesh
+    from matvec_mpi_multiplier_torch.bench import metrics
+    from matvec_mpi_multiplier_torch.bench.timing import (
+        TimingResult,
+        _max_across_processes,
+        benchmark_strategy,
+    )
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.parallel import distributed
+    from matvec_mpi_multiplier_torch.parallel import mesh as mesh_mod
+
+    rank, n, out = int(rank), int(n), Path(out_dir)
+    world = json.loads((out / "world.json").read_text())
+    dev = torch.device(device)
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank)
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # The exchange's host time, synchronized at entry so the kernel before
+    # it is not counted in it.
+    exchange = {"s": 0.0, "calls": 0}
+    real_exchange = mesh_mod._exchange
+
+    def timed_exchange(*args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        got = real_exchange(*args, **kw)
+        exchange["s"] += time.perf_counter() - t0
+        exchange["calls"] += 1
+        return got
+
+    mesh_mod._exchange = timed_exchange
+    a, x = runtime_operand(n, seed, dev)
+    record = {"rank": rank, "backend": distributed.backend(),
+              "process_count": distributed.process_count(),
+              "device_count": distributed.device_count(), "configs": {}}
+    reps = world["reps"]
+    first = None
+    for name, grid in world["configs"]:
+        label = f"{name}_{grid[0]}x{grid[1]}"
+        mesh = make_mesh(2, shape=tuple(grid), devices=[dev])
+        strat = get_strategy(name)
+        gemv_cuda.launches = 0
+        fn = strat.build(mesh, kernel="cuda")
+        y = fn(a, x)
+        sync()
+        torch.save(y.cpu(), out / f"y_{label}_{rank}.pt")
+        a_placed, x_placed = strat.place(a, x, mesh)
+        t0 = time.perf_counter()
+        fn(a_placed, x_placed)
+        sync()
+        local_s = time.perf_counter() - t0
+        exchange.update(s=0.0, calls=0)
+        res = benchmark_strategy(strat, mesh, a, x, n_reps=reps, mode="amortized",
+                                 measure="sync", kernel="cuda")
+        sync()
+        calls = reps + 1  # the warm-up and the reps
+        first = first or res
+        record["configs"][label] = {
+            "launches": gemv_cuda.launches, "ms": res.mean_time_s * 1e3,
+            "times_s": list(res.times_s), "exchanges": exchange["calls"],
+            "exchange_ms": exchange["s"] / calls * 1e3,
+            "local_s": local_s, "max_s": _max_across_processes(local_s),
+            "placed_shards": [f for f in range(mesh.size) if mesh.is_local(f)],
+        }
+        del a_placed, x_placed, fn, y
+    csv_root = out / "csv"
+    metrics.append_result(TimingResult(
+        n_rows=first.n_rows, n_cols=first.n_cols, n_devices=first.n_devices,
+        strategy=first.strategy, dtype=first.dtype, mode=first.mode,
+        measure=first.measure, mean_time_s=first.mean_time_s,
+        times_s=first.times_s, n_reps=first.n_reps), csv_root)
+    distributed.shutdown()
+    print(json.dumps(record), flush=True)
+    return 0
+
+
+def runtime_section(dev, seed: int, rt: dict) -> dict:
+    """Section 48: the runtime remainder on ``dev`` at the sizes of ``rt``.
+
+    * The native tier (``utils/native_lib.py``): the library built with
+      ``g++`` from the port's ``native/*.cc``; ``gemv_cuda`` against the C++
+      oracle ``gemv_ctypes`` at the reference's fp64 cells and ``gemm_cuda``
+      against ``gemm_ctypes`` (each with both times); the native text loader
+      against numpy on a ``%.4f`` file, bitwise, with the loader that ran
+      read from ``io.LOADS``; ``--kernel native --platform cuda`` refused
+      before any cell, and a card tensor refused by the native tier.
+    * Two processes on ``dev`` joined by gloo (``parallel/distributed.py``),
+      one shard each (this script again, ``--runtime-worker``): rowwise,
+      colwise and blockwise at ``rt["n"]``² bf16 through the strategy's
+      build and ``benchmark_strategy(measure="sync")``, each y bitwise the
+      one-process y on the same grid, the cross-process max the larger
+      local time on both sides, exactly one CSV row, the two-process time
+      beside the one-process time and the exchange's share.
+
+    Emits one JSON line per part and returns the kernels' launches by path
+    ({kernel: {path: n}}): the one-process run under
+    ``runtime_one_process``, the two processes' under ``multiprocess``.
+    Runs at a small size on a CPU device too."""
+    import gc
+    import socket
+
+    import numpy as np
+    import torch
+
+    from matvec_mpi_multiplier_torch import get_strategy, make_mesh
+    from matvec_mpi_multiplier_torch.bench import sweep as sweep_mod
+    from matvec_mpi_multiplier_torch.bench.metrics import read_csv
+    from matvec_mpi_multiplier_torch.bench.timing import benchmark_strategy
+    from matvec_mpi_multiplier_torch.ops import native_gemm, native_gemv
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.utils import io as port_io
+    from matvec_mpi_multiplier_torch.utils import native_lib
+    from matvec_mpi_multiplier_torch.utils.errors import ConfigError
+
+    on_card = dev.type == "cuda"
+    launches: dict = {"gemv": {}}
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def card_ms(fn, reps: int) -> float:
+        fn()
+        sync()
+        if not on_card:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t0) / reps * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / reps
+
+    def host_ms(fn, reps: int = 3):
+        out = fn()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return out, best * 1e3
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 480)
+
+    def uniform(shape, dtype):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 10
+
+    # ---- (a) the native library, built from the port's sources ----
+    t0 = time.perf_counter()
+    for stale in (native_lib.lib_path(), native_lib._stamp_path()):
+        stale.unlink(missing_ok=True)
+    native_lib._lib = None
+    built = native_lib.ensure_built()
+    build_s = time.perf_counter() - t0
+    lib = native_lib.lib_path().resolve()
+    package = native_lib.PACKAGE_DIR.resolve()
+    check(built and native_lib.LIB_ENV not in os.environ
+          and lib.is_relative_to(package / "build"),
+          f"native build: built {built}, library {lib}")
+    check([s.resolve() for s in native_lib.sources()]
+          == sorted((package / "native").glob("*.cc")),
+          f"native build: sources {native_lib.sources()}")
+    cxx = native_lib._compiler()
+    compiler = subprocess.run([*cxx, "--version"], capture_output=True, text=True,
+                              check=True, timeout=60).stdout.splitlines()[0]
+    # The first processor's identity in /proc/cpuinfo (x86 names a "model
+    # name"; Arm an implementer and a part), without its feature lists.
+    first_cpu = Path("/proc/cpuinfo").read_text().split("\n\n")[0].splitlines()
+    cpu_model = {k.strip(): v.strip() for k, v in (ln.split(":", 1) for ln in first_cpu
+                                                   if ":" in ln)
+                 if k.strip() not in ("flags", "bugs", "Features", "power management")}
+    cpu_model["machine"] = os.uname().machine
+    check(native_gemv.register_if_available() and native_gemm.register_if_available(),
+          "native: the tiers did not register after the build")
+    t0 = time.perf_counter()
+    gemv_at = {}
+    for m, k in rt["gemv_shapes"]:
+        a = uniform((m, k), torch.float64)
+        x = uniform((k,), torch.float64)
+        a_h, x_h = a.cpu().numpy(), x.cpu().numpy()
+        y_ref, oracle_ms = host_ms(lambda: native_gemv.gemv_ctypes(a_h, x_h))
+        y = gemv_cuda(a, x).cpu().numpy()
+        rel = float(np.max(np.abs(y - y_ref) / np.abs(y_ref)))
+        check(rel <= rt["oracle_rtol"],
+              f"gemv_cuda against gemv_ctypes at {m}x{k} fp64: rel err {rel}")
+        gemv_at[f"{m}x{k}"] = {"max_rel_err": rel, "oracle_host_ms": oracle_ms,
+                               "ms": card_ms(lambda: gemv_cuda(a, x), 20)}
+        del a, x
+    m, k, n_rhs = rt["gemm_shape"]
+    a, b = uniform((m, k), torch.float64), uniform((k, n_rhs), torch.float64)
+    a_h, b_h = a.cpu().numpy(), b.cpu().numpy()
+    c_ref, gemm_oracle_ms = host_ms(lambda: native_gemm.gemm_ctypes(a_h, b_h), 1)
+    c = gemm_cuda(a, b).cpu().numpy()
+    gemm_rel = float(np.max(np.abs(c - c_ref) / np.abs(c_ref)))
+    check(gemm_rel <= rt["oracle_rtol"],
+          f"gemm_cuda against gemm_ctypes at {m}x{k}x{n_rhs} fp64: rel err {gemm_rel}")
+    gemm_at = {"max_rel_err": gemm_rel, "oracle_host_ms": gemm_oracle_ms,
+               "ms": card_ms(lambda: gemm_cuda(a, b), 10)}
+    if on_card:
+        try:
+            native_gemv.gemv_native(a, b[:, 0])
+            check(False, "native: a card tensor was not refused")
+        except ConfigError:
+            pass
+    del a, b
+    emit({"phase": "runtime_native", "library": str(lib.relative_to(package.parent)),
+          "build_s": build_s, "compiler": compiler, "cxxflags": list(native_lib.CXXFLAGS),
+          "host_cpu": cpu_model, "host_cores": os.cpu_count(),
+          "oracle_rtol": rt["oracle_rtol"], "gemv": gemv_at,
+          f"gemm_{m}x{k}x{n_rhs}": gemm_at, "seconds": time.perf_counter() - t0})
+
+    # ---- (b) the native text loader against numpy ----
+    t0 = time.perf_counter()
+    size = rt["loader_n"]
+    with tempfile.TemporaryDirectory(prefix="runtime_io_") as tmp:
+        ref = port_io.generate_matrix(size, size, seed=seed + 48)
+        w0 = time.perf_counter()
+        path = port_io.save_matrix(ref, tmp)
+        write_s = time.perf_counter() - w0
+        before = dict(port_io.LOADS)
+        w0 = time.perf_counter()
+        via_native = port_io.load_matrix(size, size, tmp)
+        native_s = time.perf_counter() - w0
+        check(port_io.LOADS["native"] == before.get("native", 0) + 1
+              and port_io.LOADS["numpy"] == before.get("numpy", 0),
+              f"loader: the native loader did not run ({dict(port_io.LOADS)})")
+        os.environ["MATVEC_NATIVE_IO"] = "0"
+        try:
+            w0 = time.perf_counter()
+            via_numpy = port_io.load_matrix(size, size, tmp)
+            numpy_s = time.perf_counter() - w0
+        finally:
+            del os.environ["MATVEC_NATIVE_IO"]
+        check(np.array_equal(via_native, via_numpy), "loader: native and numpy differ")
+        check(np.allclose(via_native, ref, rtol=0, atol=5e-5), "loader: values off the file's")
+        file_bytes = path.stat().st_size
+    emit({"phase": "runtime_loader", "shape": [size, size], "file_bytes": file_bytes,
+          "write_s": write_s, "native_s": native_s, "numpy_s": numpy_s,
+          "numpy_over_native": numpy_s / native_s, "bitwise_equal": True,
+          "loads": dict(port_io.LOADS), "seconds": time.perf_counter() - t0})
+
+    # ---- (c) --kernel native is refused on the card before any cell ----
+    refusal = None
+    try:
+        sweep_mod.main(["--kernel", "native", "--platform", "cuda", "--sizes", "64",
+                        "--no-csv"])
+    except ConfigError as e:
+        refusal = str(e)
+    check(refusal is not None and "--platform cpu only" in refusal,
+          f"--kernel native --platform cuda: {refusal}")
+    emit({"phase": "runtime_sweep_native", "refused": refusal})
+
+    # ---- (d) two processes on the card against one ----
+    t0 = time.perf_counter()
+    n, reps = rt["n"], rt["mp_reps"]
+    configs = [(name, list(grid)) for name, grid in rt["mp_configs"]]
+    one = {}
+    a, x = runtime_operand(n, seed, dev)
+    rows = slice(0, 256)
+    exact = a[rows].double() @ x.double()
+    for name, grid in configs:
+        label = f"{name}_{grid[0]}x{grid[1]}"
+        strat = get_strategy(name)
+        mesh1 = make_mesh(2, shape=tuple(grid), devices=[dev] * 2)
+        gemv_cuda.launches = 0
+        y1 = strat.build(mesh1, kernel="cuda")(a, x)
+        res1 = benchmark_strategy(strat, mesh1, a, x, n_reps=reps, mode="amortized",
+                                  measure="sync", kernel="cuda")
+        sync()
+        launches["gemv"]["runtime_one_process"] = (
+            launches["gemv"].get("runtime_one_process", 0) + gemv_cuda.launches)
+        rel = float(((y1[rows].double() - exact).abs() / exact.abs()).max())
+        check(tuple(y1.shape) == (n,) and bool(torch.isfinite(y1).all()) and rel <= 2 ** -7,
+              f"one process {label}: shape {tuple(y1.shape)}, rel err {rel}")
+        one[label] = {"y": y1.cpu(), "ms": res1.mean_time_s * 1e3, "rel_err": rel}
+    del a, x, y1, exact
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="runtime_world_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "world.json").write_text(json.dumps({"reps": reps, "configs": configs}))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+             "--runtime-worker", str(rank), str(port), str(tmp), str(dev), str(n)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for rank in range(2)]
+        records = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=rt["mp_timeout_s"])
+                check(p.returncode == 0,
+                      f"runtime worker exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+                records.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        by_config = {}
+        total = 0
+        for name, grid in configs:
+            label = f"{name}_{grid[0]}x{grid[1]}"
+            got = [r["configs"][label] for r in records]
+            for rank, g in enumerate(got):
+                y2 = torch.load(tmp / f"y_{label}_{rank}.pt")
+                check(torch.equal(y2, one[label]["y"]),
+                      f"two processes {label}: rank {rank}'s y is not the one-process y")
+                # The build's call, the local timing, the warm-up, the reps.
+                check(not on_card or g["launches"] == reps + 3,
+                      f"two processes {label}: rank {rank} launched {g['launches']} "
+                      f"GEMVs, not {reps + 3}")
+            locals_ = [g["local_s"] for g in got]
+            check(all(g["max_s"] == max(locals_) for g in got),
+                  f"two processes {label}: max across processes {[g['max_s'] for g in got]} "
+                  f"of locals {locals_}")
+            check(got[0]["times_s"] == got[1]["times_s"],
+                  f"two processes {label}: the ranks report different times")
+            total += sum(g["launches"] for g in got)
+            by_config[label] = {
+                "one_process_ms": one[label]["ms"], "two_process_ms": got[0]["ms"],
+                "exchange_ms_by_rank": [g["exchange_ms"] for g in got],
+                "exchange_share_by_rank": [g["exchange_ms"] / g["ms"] for g in got],
+                "exchanges_by_rank": [g["exchanges"] for g in got],
+                "launches_by_rank": [g["launches"] for g in got],
+                "local_s_by_rank": locals_, "max_s": got[0]["max_s"],
+                "bitwise_one_process": True, "one_process_rel_err": one[label]["rel_err"],
+            }
+        csv_rows = read_csv(tmp / "csv" / "out" / "rowwise.csv")
+        check(len(csv_rows) == 1, f"two processes: {len(csv_rows)} CSV rows, not 1")
+    launches["gemv"]["multiprocess"] = total
+    check(not on_card or total > 0, "two processes: no GEMV launched")
+    emit({"phase": "runtime_multiprocess", "shape": [n, n], "dtype": "bfloat16",
+          "backend": records[0]["backend"], "process_count": records[0]["process_count"],
+          "device_count": records[0]["device_count"], "device": str(dev),
+          "measure": "sync", "reps": reps, "configs": by_config,
+          "csv_rows": len(csv_rows), "gemv_launches": total,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     parser.add_argument("--seed", type=int, default=0)
+    # Section 48 starts this script again as each process of its world.
+    parser.add_argument("--runtime-worker", nargs=5, default=None,
+                        metavar=("RANK", "PORT", "OUT_DIR", "DEVICE", "N"),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.runtime_worker is not None:
+        return runtime_worker(args.seed, *args.runtime_worker)
 
     import torch
 
@@ -6130,8 +6547,16 @@ def main() -> int:
         for name, n in paths.items():
             target[name] = n
 
-    # ---- 48. the kernels line ----
-    section("48. the kernels line")
+    # ---- 48. the runtime remainder ----
+    section("48. the runtime remainder")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, paths in runtime_section(dev, args.seed, RT).items():
+        for name, n in paths.items():
+            launches_by_path[kernel][name] = n
+
+    # ---- 49. the kernels line ----
+    section("49. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -6266,8 +6691,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 49. result ----
-    section("49. result")
+    # ---- 50. result ----
+    section("50. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

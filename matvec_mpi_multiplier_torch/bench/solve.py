@@ -57,6 +57,9 @@ def main(argv=None) -> int:
     from ..utils import checkpoint
     from .sweep import platform_devices
 
+    # The MPI_Init analog: joins a launcher's world (torchrun, SLURM, Open
+    # MPI), a no-op in a world of one.
+    distributed.initialize()
     host = args.host_devices
     if args.platform == "cpu" and host is None:
         host = args.devices

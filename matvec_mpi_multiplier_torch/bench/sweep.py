@@ -354,6 +354,19 @@ def _run_sweep(args: argparse.Namespace) -> int:
             "(--op serve); matvec/gemm sweeps have no request stream to "
             "trace (use --profile-dir for a device trace)"
         )
+    if args.kernel == "native":
+        # The host C++ tier takes CPU tensors only; on the card it would
+        # raise in the first cell, so refuse before any cell runs.
+        if args.platform != "cpu":
+            raise ConfigError(
+                "--kernel native is the host C++ tier and runs with "
+                "--platform cpu only; use --kernel cuda on the card"
+            )
+        # It registers only once its library exists: build it on demand.
+        from ..ops import native_gemm, native_gemv
+
+        native_gemv.register_if_available(build=True)
+        native_gemm.register_if_available(build=True)
     kernels = available_gemm_kernels() if gemm else available_kernels()
     if args.kernel not in kernels:
         raise SystemExit(

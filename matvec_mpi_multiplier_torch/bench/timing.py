@@ -8,8 +8,11 @@ Reference analog: the inline loop in each ``main``
 The port's counterpart of the JAX package's ``bench/timing.py``.
 
 The fence is ``torch.cuda.synchronize`` on every distinct CUDA device of the
-mesh (nothing on a CPU mesh, where PyTorch runs synchronously). Max across
-ranks is the identity: the port's mesh is one process.
+mesh this process computes on (nothing on a CPU mesh, where PyTorch runs
+synchronously). Max across ranks is an all-gather of every process's time
+(:func:`_max_across_processes`), the identity in a world of one; every time a
+control decision reads is reduced first, so all processes run the same
+number of programs.
 
 Two timing modes:
 
@@ -29,11 +32,12 @@ for reference):
   reps are replays of CUDA graphs captured once per (function, operands):
   a graph of 64 reps, one of 8 and one of 1, so a run of k reps is
   ``k // 64 + (k % 64) // 8 + k % 8`` replays, timed with CUDA events (the
-  host enqueues a run faster than the card executes it). On the CPU, and on
-  a mesh over more than one CUDA device, the same reps run eagerly through
-  the same body. For kernels under a millisecond a host-paced chain times
-  the dispatch, not the kernel: this is the JAX package's reason for the
-  loop, and the port's.
+  host enqueues a run faster than the card executes it). On the CPU, on
+  a mesh over more than one CUDA device, and on a mesh over several
+  processes (a graph cannot capture a gloo exchange; a line on stderr says
+  so), the same reps run eagerly through the same body. For kernels under
+  a millisecond a host-paced chain times the dispatch, not the kernel: this
+  is the JAX package's reason for the loop, and the port's.
 * ``chain`` — N1 and N2 back-to-back calls, each chain timed with CUDA
   events on the card (``perf_counter`` on the CPU); the per-matvec time is
   the slope ``(T(N2) - T(N1)) / (N2 - N1)``, the median of the samples.
@@ -43,6 +47,7 @@ for reference):
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Callable
 
@@ -100,8 +105,20 @@ class TimingResult:
 
 def _max_across_processes(value: float) -> float:
     """The MPI_Reduce(MPI_MAX) analog (src/multiplier_rowwise.c:147): the
-    identity, since the port's single-controller mesh is one process."""
-    return value
+    largest of every process's ``value``, on every process (an all-gather,
+    as the JAX package's ``process_allgather``). A world of one returns
+    ``value``."""
+    from ..parallel.distributed import process_count
+
+    world = process_count()
+    if world == 1:
+        return value
+    import torch.distributed as dist
+
+    mine = torch.tensor([value], dtype=torch.float64)
+    every = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(every, mine)
+    return float(torch.cat(every).max())
 
 
 def _cuda_devices(mesh: Mesh) -> list[torch.device]:
@@ -130,16 +147,17 @@ def _carry_of(rhs):
     the tensors a bump must update: a tensor is cloned; a placed
     ShardedTensor is gathered into one buffer and cut again, so on a
     one-device mesh its shards are views of that buffer (one update),
-    elsewhere each distinct shard is updated."""
+    elsewhere each distinct shard this process holds is updated."""
     if not isinstance(rhs, ShardedTensor):
         carry = rhs.clone()
         return carry, [carry]
     buf = unshard(rhs).clone()
     carry = shard(buf, rhs.spec, rhs.mesh)
+    local = [s for f, s in enumerate(carry.shards) if rhs.mesh.is_local(f)]
     root = buf.untyped_storage().data_ptr()
-    if all(s.untyped_storage().data_ptr() == root for s in carry.shards):
+    if all(s.untyped_storage().data_ptr() == root for s in local):
         return carry, [buf]
-    distinct = {s.data_ptr(): s for s in carry.shards}
+    distinct = {s.data_ptr(): s for s in local}
     return carry, list(distinct.values())
 
 
@@ -262,6 +280,13 @@ def _loop_runner(fn: Callable, a, rhs, mesh: Mesh) -> Callable[[int], float]:
     fences (host clock)."""
     cuda = _cuda_devices(mesh)
     device = single_cuda_device(mesh.devices)
+    if mesh.spans_processes:
+        # A captured graph would hold the exchanges' host copies and none
+        # of their gloo messages.
+        if device is not None:
+            print("measure=loop over several processes: eager reps (a CUDA "
+                  "graph cannot capture a gloo exchange)", file=sys.stderr)
+        device = None
     if device is not None:
         loop = _DeviceLoop(fn, a, rhs, device)
 

@@ -922,6 +922,16 @@ class MatvecEngine:
             from ..parallel.mesh import make_mesh
 
             mesh = make_mesh()
+        if mesh.spans_processes:
+            # The engine captures CUDA graphs and serves from threads; the
+            # processes' exchanges would need the same requests in the same
+            # order on every rank. The multi-process world runs the
+            # strategies and the benchmark protocol.
+            raise ConfigError(
+                "MatvecEngine serves from one process: a mesh over several "
+                "processes runs through strategy.build and the benchmark "
+                "protocol (bench/timing.py)"
+            )
         self.mesh = mesh
         self.strategy = (
             get_strategy(strategy) if isinstance(strategy, str) else strategy

@@ -44,6 +44,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..ops import gemm_kernel_name_for, get_gemm_kernel, get_kernel
+from ..ops.gemv import acc_dtype
 from ..ops.quantize import (
     NATIVE,
     QuantizedMatrix,
@@ -85,6 +86,32 @@ def shard_operand(a, spec: tuple, mesh: Mesh) -> ShardedTensor:
         for f in range(mesh.size)
     )
     return ShardedTensor(shards, a.shape, tuple(spec), mesh)
+
+
+def local_kernel(mesh: Mesh, kern: Callable) -> Callable:
+    """``kern`` for a body's per-shard calls. Over several processes
+    another process's block is a placeholder (``parallel/mesh.py``), and its
+    output is the placeholder of the kernel's result: ``(m, *rhs.shape[1:])``
+    in the accumulator dtype. A world of one gets ``kern`` itself."""
+    if not mesh.spans_processes:
+        return kern
+
+    def run(a, b):
+        if a.device.type == "meta":
+            return torch.empty((a.shape[0], *b.shape[1:]),
+                               dtype=acc_dtype(a.dtype), device="meta")
+        return kern(a, b)
+
+    return run
+
+
+def _check_processes(mesh: Mesh, storage: str) -> None:
+    if mesh.spans_processes and storage != NATIVE:
+        raise ConfigError(
+            f"{storage} storage is not served on a mesh over several "
+            "processes: its payload leaves have no cross-process placement; "
+            "use native storage"
+        )
 
 
 def storage_of(a) -> str:
@@ -431,7 +458,7 @@ class MatvecStrategy(abc.ABC):
         columns) issued before the next stage's compute
         (``parallel.ring.staged_overlap_gather``). Returns the full y on the
         mesh's first device, as ``gather_output=True`` does."""
-        kern = get_kernel(kernel)
+        kern = local_kernel(mesh, get_kernel(kernel))
         y_axes = self.specs(mesh)[2][0]
         reduce_axes = self.overlap_reduce_axes(mesh)
         chunk_devices = self.overlap_chunk_devices(mesh)
@@ -447,7 +474,7 @@ class MatvecStrategy(abc.ABC):
                 ys = staged_overlap_gather(
                     a.shards, x.shards, mesh, y_axes, kern, s, reduce_axes
                 )
-            return ys[0].to(a.dtype)
+            return ys[mesh.first_local].to(a.dtype)
 
         return matvec
 
@@ -617,8 +644,9 @@ class MatvecStrategy(abc.ABC):
         self, mesh: Mesh, kern: Callable, gather_output: bool | str,
         storage: str, *, batched: bool,
     ) -> Callable:
+        _check_processes(mesh, storage)
         spec_y = (self.batched_specs if batched else self.specs)(mesh)[2]
-        body = self.local_body(mesh, kern)
+        body = self.local_body(mesh, local_kernel(mesh, kern))
         # The axes y is sharded over (its leading spec entry): the flat mesh
         # for the 1-D strategies, 'rows' alone for blockwise, where devices
         # along 'cols' hold replicas and run identical independent rings.
@@ -630,7 +658,7 @@ class MatvecStrategy(abc.ABC):
             ys = body(a.shards, x.shards)
             if ring_axes is not None:
                 with named_span(f"{self.name}/combine/ring_gather"):
-                    return ring_all_gather(ys, mesh, ring_axes)[0]
+                    return ring_all_gather(ys, mesh, ring_axes)[mesh.first_local]
             y = ShardedTensor(tuple(ys), shape, spec_y, mesh)
             return unshard(y) if gather_output else y
 

@@ -210,6 +210,12 @@ class ColwiseStrategy(MatvecStrategy):
         check_divisible(n_cols, p, "n_cols", "number of devices")
         if self.scatter_output:
             check_divisible(n_rows, p, "n_rows", "number of devices")
+        if self.combine == "pallas_ring" and mesh.spans_processes:
+            raise ShardingError(
+                "combine='pallas_ring' walks its ring inside one kernel on "
+                "one device; a mesh over several processes needs the 'ring' "
+                "schedule"
+            )
         if self.combine == "pallas_ring" and len(mesh.axis_names) != 1:
             # A ShardingError (not the kernel's ValueError) so sweep and
             # engine callers skip or fail fast at the validate layer.

@@ -109,7 +109,7 @@ def loss_and_grad(x: ShardedTensor, a, b, mesh: Mesh) -> tuple[torch.Tensor, lis
     r = [yb - bb for yb, bb in zip(y, b.shards)]
     # Each device of a row holds that row's residual; the sum over 'rows'
     # counts every row once on every device.
-    loss = psum([torch.sum(rb * rb) for rb in r], mesh, MESH_AXIS_ROWS)[0] / m
+    loss = psum([torch.sum(rb * rb) for rb in r], mesh, MESH_AXIS_ROWS)[mesh.first_local] / m
     grad = psum([torch.matmul(rb * (2.0 / m), ab) for rb, ab in zip(r, a.shards)], mesh,
                 MESH_AXIS_ROWS)
     return loss, grad

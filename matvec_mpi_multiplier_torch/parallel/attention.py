@@ -26,6 +26,8 @@ the fp32 output.
 The mesh is the single controller of ``parallel/mesh.py``: the functions
 take and return per-shard lists in flat mesh order, and the collectives
 are tensor ops on those lists (on one card, list rotations and slices).
+Over several processes each computes its own shards only; another's stay
+placeholders, and the hops and exchanges cross processes.
 Everything is differentiable with autograd: on one device a hop returns
 the same tensor.
 """
@@ -119,6 +121,8 @@ def ring_attention(
             ks = ppermute(ks, mesh, axes, perm)
             vs = ppermute(vs, mesh, axes, perm)
         for f in range(n):
+            if not mesh.is_local(f):
+                continue  # another process's shard: its state stays a placeholder
             # This shard's rows start at idx*blk; the KV block in hand at
             # step t came from ring index (idx - t) mod p.
             src = (idx[f] - t) % p
@@ -219,7 +223,9 @@ def ulysses_attention(
 
     qh, kh, vh = to_heads(qs), to_heads(ks), to_heads(vs)
     oh = [_local_heads_attention(q, k, v, causal=causal, kernel=kernel)
-          for q, k, v in zip(qh, kh, vh)]
+          if mesh.is_local(f) else
+          torch.empty((*q.shape[:2], v.shape[2]), dtype=torch.float32, device="meta")
+          for f, (q, k, v) in enumerate(zip(qh, kh, vh))]
     # (s, h/p, dh) -> (s/p, h, dh): the inverse exchange.
     return all_to_all(oh, mesh, axes, split_axis=0, concat_axis=1)
 

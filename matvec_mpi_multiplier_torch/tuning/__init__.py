@@ -61,12 +61,17 @@ _cache: TuningCache | None = None
 
 
 def get_cache() -> TuningCache:
-    """The dispatch-side view of the cache file (one process: a plain
-    read, ``broadcast_decisions`` being the identity)."""
+    """The dispatch-side view of the cache file. Over several processes
+    only the coordinator reads the file; its decisions reach every process
+    (``cache.broadcast_decisions``), so all dispatch the same schedules. One
+    process: a plain read."""
     global _cache
+    from ..parallel.distributed import is_main_process
+
     path = default_cache_path()
     if _cache is None or _cache.path != path:
-        _cache = broadcast_decisions(TuningCache.load(path))
+        loaded = TuningCache.load(path) if is_main_process() else TuningCache(path)
+        _cache = broadcast_decisions(loaded)
     return _cache
 
 

@@ -272,8 +272,33 @@ class TuningCache:
 
 
 def broadcast_decisions(cache: TuningCache) -> TuningCache:
-    """Give every process the coordinator's decisions. The port's mesh is a
-    single controller (``parallel/distributed.py``: a world of one), so
-    this returns ``cache`` as it is, as the JAX package does for one
-    process."""
+    """Replace every process's entries with the coordinator's (process 0).
+
+    Each process reading its own copy of the file could dispatch different
+    schedules of one sharded program, and the processes would wait on each
+    other's exchanges for ever. So only the coordinator reads the file
+    (``tuning.get_cache``), and its entries go to every process through the
+    process group (``parallel/distributed.py``): the length first (every
+    process must post an equal buffer), then the bytes. A world of one
+    returns ``cache`` as it is.
+    """
+    from ..parallel.distributed import process_count, process_index
+
+    if process_count() == 1:
+        return cache
+    import torch
+    import torch.distributed as dist
+
+    root = process_index() == 0
+    payload = json.dumps(cache.entries).encode() if root else b""
+    n = torch.tensor([len(payload)], dtype=torch.int64)
+    dist.broadcast(n, src=0)
+    buf = torch.zeros(int(n), dtype=torch.uint8)
+    if root:
+        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    dist.broadcast(buf, src=0)
+    entries = json.loads(bytes(buf.numpy()).decode() or "{}")
+    cache.entries = {
+        str(k): v for k, v in entries.items() if isinstance(v, dict)
+    }
     return cache

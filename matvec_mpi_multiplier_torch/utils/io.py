@@ -14,12 +14,18 @@ package's ``utils/io.py``:
 
 The generators draw seeded uniform values in [0, 10), the magnitude of the
 committed 4×8 fixture, with numpy's generator — so both packages generate
-the same operands from the same seed. Parsing uses numpy only.
+the same operands from the same seed. Parsing goes through the native C++
+loader (``native/textio.cc``, built by ``utils/native_lib.py``) where it is
+built, and ``np.loadtxt`` otherwise or with ``MATVEC_NATIVE_IO=0``; both
+give the same bits and reject the same files. :data:`LOADS` counts the
+files each parser read.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -27,9 +33,60 @@ import numpy as np
 from .constants import MATRIX_FILENAME_FMT, VECTOR_FILENAME_FMT
 from .errors import DataFileError
 
+_NATIVE_IO_ENV = "MATVEC_NATIVE_IO"  # set to "0" to force the numpy parser
+
+# Files parsed per loader ("native", "numpy") in this process: how a caller
+# tells which parser a load went through.
+LOADS: Counter = Counter()
+
+
+def _native_lib():
+    """The native library with the loader's signature declared, or None
+    (switched off, or no compiler and no earlier build)."""
+    if os.environ.get(_NATIVE_IO_ENV, "1") == "0":
+        return None
+    from .native_lib import library
+
+    lib = library()
+    if lib is None:
+        return None
+    if lib.matvec_load_text.restype != ctypes.c_int64:
+        lib.matvec_load_text.restype = ctypes.c_int64
+        lib.matvec_load_text.argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+        ]
+    return lib
+
 
 def _load_values(path: Path, count: int) -> np.ndarray:
-    """Parse exactly ``count`` whitespace-separated doubles from ``path``."""
+    """Parse exactly ``count`` whitespace-separated doubles from ``path``.
+
+    The native loader's return code (``native/textio.cc``): ``count`` is a
+    whole file; another ``n >= 0`` (``count + 1``: more values than
+    ``count``) is a count mismatch; ``-1`` (unreadable) and ``-3``
+    (malformed) fall through to ``np.loadtxt``, so both parsers reject the
+    same files with numpy's message. A count mismatch raises
+    :class:`DataFileError` either way.
+    """
+    lib = _native_lib()
+    if lib is not None:
+        out = np.empty(count, np.float64)
+        n = lib.matvec_load_text(
+            os.fsencode(path),  # not str.encode: paths may hold non-UTF-8
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            count,
+        )
+        if n == count:
+            LOADS["native"] += 1
+            return out
+        if n >= 0:
+            held = f"more than {count}" if n > count else str(n)
+            raise DataFileError(
+                f"{path} holds {held} values, expected {count}"
+            )
+    LOADS["numpy"] += 1
     flat = np.loadtxt(path, dtype=np.float64).reshape(-1)
     if flat.size != count:
         raise DataFileError(
@@ -96,6 +153,30 @@ def save_vector(v: np.ndarray, root: str | os.PathLike | None = None) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savetxt(path, v, fmt="%.4f")
     return path
+
+
+def format_matrix(a: np.ndarray, precision: int = 2) -> str:
+    """Debug-print formatting, the ``print_matr`` analog
+    (``src/matr_utils.c:21-31``): one row per line, fixed precision."""
+    a = np.atleast_2d(np.asarray(a))
+    if a.ndim != 2:
+        raise DataFileError(f"matrix must be 1-D or 2-D, got shape {a.shape}")
+    return "\n".join(
+        " ".join(f"{v:.{precision}f}" for v in row) for row in a
+    )
+
+
+def format_vector(v: np.ndarray, precision: int = 2) -> str:
+    """``print_vec`` analog (``src/matr_utils.c:33-39``): one value per line."""
+    return "\n".join(f"{x:.{precision}f}" for x in np.asarray(v).reshape(-1))
+
+
+def print_matrix(a: np.ndarray, precision: int = 2) -> None:
+    print(format_matrix(a, precision))
+
+
+def print_vector(v: np.ndarray, precision: int = 2) -> None:
+    print(format_vector(v, precision))
 
 
 def generate_matrix(

@@ -110,7 +110,12 @@ def test_ring_names_are_not_ported(devices, name):
 
 
 def test_gemm_kernel_registry():
-    assert available_gemm_kernels() == ["auto", "cuda", "ozaki", "ozaki6", "torch"]
+    # The host C++ tier registers once its library is built (ops/native_gemm.py).
+    from matvec_mpi_multiplier_torch.ops import native_gemm
+
+    native = ["native"] if native_gemm.register_if_available(build=True) else []
+    assert available_gemm_kernels() == sorted(["auto", "cuda", "ozaki", "ozaki6", "torch",
+                                               *native])
     assert get_gemm_kernel("cuda") is gemm_cuda
     assert get_gemm_kernel(gemm_torch) is gemm_torch
     # The one alias, as the JAX package maps xla_colwise -> xla.

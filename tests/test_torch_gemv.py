@@ -123,8 +123,13 @@ def test_accumulator_contract(kernel):
 
 
 def test_registry():
-    assert available_kernels() == ["auto", "compensated", "cuda", "ozaki", "ozaki6",
-                                   "ozaki_i8", "torch", "torch_colwise"]
+    # The host C++ tier registers once its library is built (it builds here
+    # where g++ exists; ops/native_gemv.py).
+    from matvec_mpi_multiplier_torch.ops import native_gemv
+
+    native = ["native"] if native_gemv.register_if_available(build=True) else []
+    assert available_kernels() == sorted(["auto", "compensated", "cuda", "ozaki", "ozaki6",
+                                          "ozaki_i8", "torch", "torch_colwise", *native])
     assert get_kernel("cuda") is gemv_cuda
     assert get_kernel(gemv_torch) is gemv_torch
     with pytest.raises(KeyError, match="unknown gemv kernel"):

@@ -15,6 +15,7 @@ import io
 import json
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,7 +172,11 @@ def test_named_span_reaches_the_trace_where_cuda_is_present(tmp_path, monkeypatc
 
 def _jax_spans(fn, a, x) -> set[str]:
     """Span names in the JAX program's debug metadata, each matched whole
-    (followed by '/' or '"', so ring does not match ring_overlap)."""
+    (followed by '/' or '"', so ring does not match ring_overlap). JAX's
+    caches are cleared first: a module-level jit traced earlier with
+    annotations off (``_collective_ring_gemv``) would otherwise serve that
+    trace, without the spans opened at trace time."""
+    jax.clear_caches()
     mod = fn.lower(a, x).compiler_ir(dialect="stablehlo")
     buf = io.StringIO()
     mod.operation.print(file=buf, enable_debug_info=True)

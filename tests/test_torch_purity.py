@@ -6,6 +6,7 @@ process has already imported jax (tests/conftest.py).
 """
 
 import ast
+import re
 import json
 import os
 import subprocess
@@ -86,3 +87,37 @@ def test_cost_model_and_scheduler_modules_are_scanned(module):
         f"                       if k.split('.')[0] in {FORBIDDEN!r})))\n"
     )
     assert loaded == []
+
+
+# The JAX package's native tier: its directory, its library and override,
+# its build, and the XLA FFI surface its sources include.
+JAX_NATIVE = re.compile(
+    r"jax\.ffi|jax\.extend\.ffi|xla/ffi|XLA_FFI|libmatvec_gemv|"
+    r"MATVEC_NATIVE_LIB\b|make -C native|parents\[2\] / \"native\""
+)
+NATIVE_SOURCES = sorted((PORT / "native").glob("*.cc"))
+
+
+@pytest.mark.parametrize("path", SOURCES + NATIVE_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax_native_tier(path):
+    """A port module, its C++ sources and chip_smoke.py name neither the JAX
+    package's native/ directory nor jax.ffi: the port builds its own copy."""
+    found = JAX_NATIVE.findall(path.read_text())
+    assert not found, f"{path.relative_to(ROOT)} names {found}"
+
+
+def test_native_build_reads_only_the_ports_sources(tmp_path):
+    from matvec_mpi_multiplier_torch.utils import native_lib
+
+    assert NATIVE_SOURCES, "the port ships no native sources"
+    assert [p.name for p in NATIVE_SOURCES] == ["gemm.cc", "gemv.cc", "textio.cc"]
+    cmd = native_lib.build_command(["g++"], tmp_path / "lib.so")
+    files = [Path(a) for a in cmd if a.endswith(".cc")]
+    assert files == list(native_lib.sources()) == NATIVE_SOURCES
+    jax_native = (ROOT / "native").resolve()
+    for arg in cmd:
+        assert not arg.startswith("-I"), f"the build takes an include path: {arg}"
+        assert str(jax_native) not in arg and "ffi" not in arg
+    assert native_lib.lib_path().resolve().is_relative_to(PORT) or \
+        native_lib.LIB_ENV in os.environ

@@ -483,13 +483,20 @@ def test_gemv_auto(cache_path, monkeypatch):
                            ({"kernel": "cuda", "route": "split", "blocks_per_sm": 1},
                             "cuda[split@1]"),
                            ({"kernel": "cuda", "route": "rows"}, "cuda[rows]"),
-                           ({"kernel": "native"}, "gemv_cuda")]:
+                           # A winner the port does not register (the JAX
+                           # package's Pallas tier) takes the default.
+                           ({"kernel": "pallas"}, "gemv_cuda")]:
         seed(cache_path, key, decision)
         y = auto(a, x)
         assert calls[-1] == name, decision
         want = gemv.gemv_torch(a, x) if name == "gemv_torch" else cuda_gemv.gemv_cuda(a, x)
         assert torch.equal(y, want)
     assert calls[0] == "gemv_cuda"
+    # A registered winner runs: the host C++ tier, once its library is built.
+    from matvec_mpi_multiplier_torch.ops import native_gemv
+
+    if native_gemv.register_if_available(build=True):
+        assert gemv.resolve_gemv({"kernel": "native"}) is native_gemv.gemv_native
     # A route or grid the kernel lacks is refused, never run as another.
     for decision in ({"kernel": "cuda", "route": "warp"},
                      {"kernel": "cuda", "route": "split", "blocks_per_sm": 3}):
@@ -507,11 +514,16 @@ def test_gemm_auto(cache_path):
     for decision, name in [({"kernel": "torch"}, "gemm_torch"),
                            ({"kernel": "cuda", "route": "ffma", "bn": 16, "stages": 3},
                             "cuda[ffma:16s3]"),
-                           ({"kernel": "native"}, "gemm_cuda")]:
+                           # A winner the port does not register takes the default.
+                           ({"kernel": "pallas"}, "gemm_cuda")]:
         seed(cache_path, key, decision)
         assert gemm_kernels.resolve_gemm(tuning.lookup_gemm(16, 32, 8, "float32")).__name__ == name
         assert torch.equal(auto(a, b), gemm_kernels.gemm_torch(a, b) if name == "gemm_torch"
                            else cuda_gemm.gemm_cuda(a, b))
+    from matvec_mpi_multiplier_torch.ops import native_gemm
+
+    if native_gemm.register_if_available(build=True):
+        assert gemm_kernels.resolve_gemm({"kernel": "native"}) is native_gemm.gemm_native
     # Tiles recorded for a route this A does not take, or that its face
     # cannot take, raise before any launch: never another plan.
     ffma = cuda_gemm.gemm_with_tiles("ffma", 16, 3)
