@@ -215,7 +215,26 @@ kernels' launch counts set to 0 just before it and read just after:
   ``benchmark_strategy(measure="sync")``, every y bitwise one process's on
   the same grid, the same max time on both sides, one CSV row, the times
   beside one process's and the exchange's share (``runtime_multiprocess``;
-  the GEMV launches under the ``multiprocess`` path).
+  the GEMV launches under the ``multiprocess`` path);
+* static analysis (section 49, ``staticcheck/``): the AST rules and the
+  lock graph over the checkout with zero findings and the CLI's ``--rules``
+  exiting 0 (``staticcheck_rules``); the collective census of every native
+  audited cell at 65536² bf16 on 4 logical shards (1x4, blockwise 2x2)
+  through ``build(..., kernel="cuda")`` under the mesh's collective
+  recorder, each census and per-device payload equal to
+  ``schedule_formula``, each y bitwise the recorder-off y
+  (``staticcheck_census``; GEMV launches under that path); the storage
+  cells at 65536² fp32 (int8, int8c, fp8 rowwise; int8, int8c colwise;
+  int8 blockwise 2x2), ``a_bytes_ratio`` under the storage ceiling, the
+  measured peak over the native cell's under the peak ceiling and the
+  dequant-first program over it (``staticcheck_storage``); three live
+  engines (rowwise 65536² bf16 p = 1, blockwise 32768² fp32 2x2, rowwise
+  int8c 65536² fp32) warmed, then a stream of widths 1-32 building and
+  capturing nothing more, their built keys the enumerated warmup class and
+  ``exec_keyspace()``'s, and a second fresh engine's fingerprints equal key
+  by key (``staticcheck_keyspace``); the dispatch-path sync audit on the
+  first engine under ``torch.cuda.set_sync_debug_mode("error")``, clean,
+  and red on a seeded ``.item()`` (``staticcheck_sync``).
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -654,6 +673,16 @@ RT = {
     "n": 65536, "mp_reps": 20, "mp_timeout_s": 240,
     "mp_configs": (("rowwise", (1, 2)), ("colwise", (1, 2)), ("blockwise", (2, 1)),
                    ("blockwise", (1, 2))),
+}
+
+SC = {
+    "census_n": 65536, "census_dtype": "bfloat16", "shards": 4,
+    "storage_n": 65536,
+    # (strategy, n, dtype, grid, dtype_storage) of each live engine.
+    "engines": (("rowwise", 65536, "bfloat16", (1, 1), None),
+                ("blockwise", 32768, "float32", (2, 2), None),
+                ("rowwise", 65536, "float32", (1, 1), "int8c")),
+    "promote": 8, "max_bucket": 32,
 }
 
 # An entry as the JAX package would write it for one of the same keys: its
@@ -2701,6 +2730,230 @@ def runtime_section(dev, seed: int, rt: dict) -> dict:
           "measure": "sync", "reps": reps, "configs": by_config,
           "csv_rows": len(csv_rows), "gemv_launches": total,
           "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def staticcheck_section(dev, seed: int, sc: dict) -> dict:
+    """Section 49: static analysis (``staticcheck/``) on ``dev`` at the
+    sizes of ``sc``: (a) the rule layer and the lock graph over the
+    checkout, zero findings, and the CLI's ``--rules`` exiting 0; (b) the
+    collective census of every native audited cell through
+    ``build(..., kernel="cuda")`` on 4 logical shards, equal to
+    ``schedule_formula``, y bitwise with the recorder on and off; (c) the
+    storage cells' resident bytes and measured peaks under the ceilings,
+    the dequant-first program over them; (d) live engines' build surface:
+    nothing built after warmup, the built keys the enumerated warmup class,
+    fingerprints equal across two fresh engines; (e) the dispatch-path sync
+    audit, clean and red on a seeded ``.item()``.
+
+    Emits one JSON line per part and returns the kernels' launches by path
+    ({kernel: {path: n}}). On a CPU device (a rehearsal at a small size)
+    the card twins, (c) and (e), do not run."""
+    import contextlib
+    import gc
+    import io as stdio
+
+    import torch
+
+    from matvec_mpi_multiplier_torch.engine import MatvecEngine
+    from matvec_mpi_multiplier_torch.engine.core import _CapturedProgram
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_quant import quant_gemv_cuda
+    from matvec_mpi_multiplier_torch.staticcheck import hlo, keyspace, run_rules
+    from matvec_mpi_multiplier_torch.staticcheck.__main__ import main as sc_main
+
+    on_card = dev.type == "cuda"
+    wrappers = {"gemv": gemv_cuda, "gemm": gemm_cuda, "quant_gemv": quant_gemv_cuda}
+    launches: dict = {k: {} for k in wrappers}
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def counted(name: str, fn):
+        """fn() with every count set to 0 just before it and read just after,
+        under the path ``name``."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        sync()
+        for k, w in wrappers.items():
+            if w.launches:
+                launches[k][name] = launches[k].get(name, 0) + w.launches
+        return out
+
+    def release() -> None:
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+
+    # ---- (a) the rule layer and the lock graph over the checkout ----
+    t0 = time.perf_counter()
+    findings = run_rules()
+    check(findings == [], "staticcheck rules: " + "; ".join(
+        f"{f.location} [{f.rule}] {f.message}" for f in findings[:5]))
+    buf = stdio.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = sc_main(["--rules"])
+    check(rc == 0, f"staticcheck --rules exited {rc}: {buf.getvalue()[-400:]}")
+    emit({"phase": "staticcheck_rules", "findings": len(findings), "cli_rc": rc,
+          "cli_last_line": buf.getvalue().strip().splitlines()[-1],
+          "seconds": time.perf_counter() - t0})
+
+    # ---- (b) the census at full width, recorder on and off ----
+    t0 = time.perf_counter()
+    n, dtype, p = sc["census_n"], sc["census_dtype"], sc["shards"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 490)
+    a = torch.rand((n, n), generator=gen, device=dev, dtype=getattr(torch, dtype))
+    cells = {}
+    for cfg in (c for c in hlo.AUDIT_CONFIGS if c.storage == "native"):
+        cfg = cfg._replace(kernel="cuda")
+        grid = None if cfg.strategy == "blockwise" else (1, p)
+        mesh = hlo.audit_mesh(p, dev, grid)
+        pa, px = hlo.audit_operands(cfg, mesh, m=n, k=n, dtype=dtype, seed=seed, a=a)
+        fn = hlo.build_config(cfg, mesh)
+        y_off = fn(pa, px)
+        y_on, rec, _ = counted("staticcheck_census",
+                               lambda: hlo.run_config(cfg, mesh, pa, px))
+        check(torch.equal(y_on, y_off),
+              f"staticcheck census {cfg.key}: y with the recorder on is not "
+              "bitwise the y with it off")
+        entry = hlo.audit_entry(cfg, mesh, m=n, k=n, dtype=dtype,
+                                run=(pa, px, y_on, rec, []))
+        bad = hlo.schedule_findings(cfg, entry, mesh, m=n, k=n, dtype=dtype)
+        check(bad == [], f"staticcheck census {cfg.key}: {[f.message for f in bad]}")
+        cells[cfg.key] = {"grid": list(mesh.grid), "census": entry["census"],
+                          "payload_bytes": entry["payload_bytes"],
+                          "boundary": [r.kind for r in entry["boundary"]]}
+        del pa, px, y_on, y_off, rec, entry
+        release()
+    del a
+    release()
+    emit({"phase": "staticcheck_census", "shape": [n, n], "dtype": dtype, "shards": p,
+          "kernel": "cuda", "cells": cells, "recorder_bitwise": True,
+          "equals_schedule_formula": True,
+          "launches": launches["gemv"].get("staticcheck_census", 0),
+          "seconds": time.perf_counter() - t0})
+
+    # ---- (c) the storage cells: resident bytes and the measured peaks ----
+    if on_card:
+        from matvec_mpi_multiplier_torch.staticcheck.card import peak_audit
+
+        t0 = time.perf_counter()
+        n = sc["storage_n"]
+        storage = [c for c in hlo.AUDIT_CONFIGS if c.storage != "native"]
+        peaks = {}
+        for grid, group in (((1, p), [c for c in storage if c.strategy != "blockwise"]),
+                            (None, [c for c in storage if c.strategy == "blockwise"])):
+            mesh = hlo.audit_mesh(p, dev, grid)
+            peaks.update(counted("staticcheck_storage", lambda: peak_audit(
+                group, mesh, m=n, k=n, dtype="float32", seed=seed, dequant_first=True)))
+            release()
+        for key, e in peaks.items():
+            storage_fmt = key.rsplit("|", 1)[1]
+            ceiling = hlo.STORAGE_BYTE_CEILING[storage_fmt]
+            check(e["a_bytes_ratio"] <= ceiling,
+                  f"staticcheck storage {key}: a_bytes_ratio {e['a_bytes_ratio']} over {ceiling}")
+            check(e["under_ceiling"],
+                  f"staticcheck storage {key}: peak ratio {e['peak_ratio']} over {e['ceiling']}")
+            check(not e["dequant_first"]["under_ceiling"],
+                  f"staticcheck storage {key}: the dequant-first program's peak ratio "
+                  f"{e['dequant_first']['peak_ratio']} stays under {e['ceiling']}")
+        emit({"phase": "staticcheck_storage", "shape": [n, n], "dtype": "float32",
+              "shards": p, "kernel": "cuda", "cells": peaks,
+              "storage_byte_ceiling": hlo.STORAGE_BYTE_CEILING,
+              "peak_ceiling": hlo.PEAK_LIVENESS_CEILING,
+              "launches": {k: v.get("staticcheck_storage", 0) for k, v in launches.items()},
+              "seconds": time.perf_counter() - t0})
+
+    # ---- (d) the keyspace on live engines ----
+    t0 = time.perf_counter()
+    engines_out = {}
+    first_engine = None
+    for strategy, n, dtype, grid, fmt in sc["engines"]:
+        cfg = keyspace.ServeConfig(
+            name=f"{strategy}_{n}_{dtype}_{fmt or 'native'}", strategy=strategy,
+            kernel="cuda", dtype=dtype, dtype_storage=fmt or "native",
+            promote=sc["promote"], max_bucket=sc["max_bucket"])
+        p_eng = grid[0] * grid[1]
+        mesh = hlo.audit_mesh(p_eng, dev, grid)
+        gen = torch.Generator(device=dev).manual_seed(seed + 491)
+        a = torch.rand((n, n), generator=gen, device=dev, dtype=getattr(torch, dtype))
+        prints = []
+        for round_ in range(2):
+            engine = MatvecEngine(a, mesh, strategy=strategy, kernel="cuda",
+                                  promote=sc["promote"], max_bucket=sc["max_bucket"],
+                                  dtype_storage=fmt)
+            counted("staticcheck_keyspace", engine.warmup)
+            prints.append(engine.fingerprints())
+            if round_ == 1:
+                engine.close()
+                break
+            built = engine.stats.compiles
+            captured = sum(isinstance(prog, _CapturedProgram)
+                           for prog in engine._cache._executables.values())
+            xs = [torch.rand((n,) if w == 1 else (n, w), generator=torch.Generator()
+                             .manual_seed(seed + w)).to(getattr(torch, dtype))
+                  for w in range(1, sc["max_bucket"] + 1)]
+            counted("staticcheck_keyspace",
+                    lambda: [f.result() for f in [engine.submit(x) for x in xs]])
+            steady = engine.stats.compiles - built
+            captured_after = sum(isinstance(prog, _CapturedProgram)
+                                 for prog in engine._cache._executables.values())
+            built_keys = sorted(k.label() for k in engine._cache.keys())
+            live = engine.exec_keyspace()
+            space = keyspace.enumerate_keyspace(cfg)
+            check(steady == 0 and captured_after == captured,
+                  f"staticcheck keyspace {cfg.name}: {steady} builds and "
+                  f"{captured_after - captured} captures after warmup")
+            check(built_keys == live["warmup"] == list(space.warmup),
+                  f"staticcheck keyspace {cfg.name}: built {built_keys}, engine "
+                  f"{live['warmup']}, enumerated {list(space.warmup)}")
+            check(set(live["steady"]) <= set(live["warmup"]),
+                  f"staticcheck keyspace {cfg.name}: steady beyond warmup")
+            engines_out[cfg.name] = {
+                "grid": list(grid), "storage": fmt or "native",
+                "built": len(built_keys), "captured": captured,
+                "compiles_steady": steady, "captures_steady": captured_after - captured,
+                "requests": len(xs), "dispatch": engine.stats.dispatch,
+                "warmup_class": list(space.warmup)}
+            if first_engine is None:
+                first_engine = engine
+            else:
+                engine.close()
+        check(prints[0] == prints[1] and len(prints[0]) == len(built_keys),
+              f"staticcheck keyspace {cfg.name}: fingerprints differ across two "
+              "fresh engines")
+        engines_out[cfg.name]["fingerprints_stable"] = True
+        engines_out[cfg.name]["fingerprints"] = {k: v[:16] for k, v in prints[0].items()}
+        del a
+        release()
+    emit({"phase": "staticcheck_keyspace", "promote": sc["promote"],
+          "max_bucket": sc["max_bucket"], "engines": engines_out,
+          "launches": {k: v.get("staticcheck_keyspace", 0) for k, v in launches.items()},
+          "seconds": time.perf_counter() - t0})
+
+    # ---- (e) the dispatch-path sync audit on the first engine ----
+    if on_card:
+        from matvec_mpi_multiplier_torch.staticcheck.card import (
+            seeded_sync_red,
+            sync_audit,
+        )
+
+        t0 = time.perf_counter()
+        built = first_engine.stats.compiles
+        audit = counted("staticcheck_sync", lambda: sync_audit(first_engine, seed=seed))
+        red = seeded_sync_red(first_engine, seed=seed)
+        check(first_engine.stats.compiles == built,
+              "staticcheck sync: the audited stream built a program")
+        emit({"phase": "staticcheck_sync", "engine": next(iter(engines_out)),
+              "mode": "error", **audit, "clean": True, "seeded_item_red": red,
+              "launches": launches["gemv"].get("staticcheck_sync", 0),
+              "seconds": time.perf_counter() - t0})
+    first_engine.close()
+    release()
     return launches
 
 
@@ -6555,8 +6808,17 @@ def main() -> int:
         for name, n in paths.items():
             launches_by_path[kernel][name] = n
 
-    # ---- 49. the kernels line ----
-    section("49. the kernels line")
+    # ---- 49. static analysis ----
+    section("49. static analysis")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, paths in staticcheck_section(dev, args.seed, SC).items():
+        target = quant_launches if kernel == "quant_gemv" else launches_by_path[kernel]
+        for name, n in paths.items():
+            target[name] = n
+
+    # ---- 50. the kernels line ----
+    section("50. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -6691,8 +6953,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 50. result ----
-    section("50. result")
+    # ---- 51. result ----
+    section("51. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -982,7 +982,7 @@ def solver_operand(n: int, dtype, seed: int, *, device=None):
     a = torch.empty((n, n), dtype=dt, device=device)
     for i in range(0, n, rows):
         j = min(n, i + rows)
-        blk = (g[i:j].double() + g[:, i:j].T.double()) / 2.0
+        blk = (g[i:j].double() + g[:, i:j].T.double()) / 2.0  # fp64-ok: the SPD operand is symmetrized in float64 before the cast to the serving dtype
         diag = torch.arange(j - i, device=device)
         blk[diag, diag + i] = blk.abs().sum(dim=1) + 1.0
         if i == 0:
@@ -1007,7 +1007,7 @@ def gershgorin_interval(a) -> tuple[float, float]:
     rows = max(1, (1 << 25) // max(1, a.shape[1]))
     lo, hi = [], []
     for i in range(0, n, rows):
-        blk = a[i:i + rows].double()
+        blk = a[i:i + rows].double()  # fp64-ok: Gershgorin bounds are taken in float64 off the operand
         d = blk.diagonal(offset=i)
         r = blk.abs().sum(dim=1) - d.abs()
         lo.append((d - r).min())

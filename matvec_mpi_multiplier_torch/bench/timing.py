@@ -115,7 +115,7 @@ def _max_across_processes(value: float) -> float:
         return value
     import torch.distributed as dist
 
-    mine = torch.tensor([value], dtype=torch.float64)
+    mine = torch.tensor([value], dtype=torch.float64)  # fp64-ok: a host timing value gathered across processes, kept exact
     every = [torch.empty_like(mine) for _ in range(world)]
     dist.all_gather(every, mine)
     return float(torch.cat(every).max())

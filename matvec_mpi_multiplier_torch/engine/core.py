@@ -156,8 +156,14 @@ escalation storm opened, serves native at submit and counts in
 falls back to native the same way; a real error of the candidate's kernel
 or of the check reaches the caller.
 
-Left for a later slice (ROADMAP.md, queue A item 6): lowering
-fingerprints.
+**Build fingerprints** (``engine/executables.py``): a key's first build
+records a sha256 over the key, the collective schedule, local shapes and
+kernel routes of its program (traced on the host with A as ``meta``
+shards, no device work), so two fresh engines can be held to the same
+fingerprints key by key (:meth:`MatvecEngine.fingerprints`). :meth:`MatvecEngine.exec_keyspace` is
+the engine's finite key space by class (warmup, steady, fault_only,
+rollover), built from its own key constructors: the ground truth the
+symbolic enumeration of ``staticcheck/keyspace.py`` is held against.
 """
 
 from __future__ import annotations
@@ -241,7 +247,13 @@ from .buckets import (
     pad_columns,
     split_widths,
 )
-from .executables import ExecKey, ExecStats, ExecutableCache
+from .executables import (
+    ExecKey,
+    ExecStats,
+    ExecutableCache,
+    build_fingerprint,
+    trace_program,
+)
 
 # The speculative tier's vocabulary: SPECULATE is the storage label its
 # ExecKeys carry (never a resident format: a speculative engine's own storage
@@ -299,7 +311,7 @@ class _Dispatch:
 
     def synchronize(self) -> None:
         for e in self.events:
-            e.synchronize()
+            e.synchronize()  # sync-ok: the drain primitive itself; callers are result(), backpressure and close
 
 
 def _clone_out(out):
@@ -399,13 +411,13 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     never holds page-locked memory and the staging block goes back to
     PyTorch's pinned-memory cache."""
     if t.device.type != "cuda":
-        return t.cpu()
+        return t.cpu()  # sync-ok: materialization in result(), never on submit
     staging = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     with torch.cuda.device(t.device):
         staging.copy_(t, non_blocking=True)
         copied = torch.cuda.Event()
         copied.record()
-    copied.synchronize()
+    copied.synchronize()  # sync-ok: materialization in result(), never on submit
     return torch.empty(t.shape, dtype=t.dtype).copy_(staging)
 
 
@@ -483,7 +495,7 @@ class MatvecFuture:
             verdicts = {}
             if spec:
                 flags = torch.stack([self._parts[i][4].reshape(()) for i in spec])
-                verdicts = dict(zip(spec, _host_copy(flags).tolist()))
+                verdicts = dict(zip(spec, _host_copy(flags).tolist()))  # sync-ok: the speculative verdict settles in result() by design
             settled = []
             for i, part in enumerate(self._parts):
                 if i not in verdicts:
@@ -659,7 +671,7 @@ class SolverFuture:
         status = "ok"
         try:
             res = self._res
-            x = res.x.cpu()
+            x = res.x.cpu()  # sync-ok: caller-requested materialization
             if self._corrupt and x.is_floating_point():
                 # Injected silent corruption (resilience/faults.py): the
                 # poison lands here so the refusal below catches it.
@@ -667,9 +679,9 @@ class SolverFuture:
                 x[0] = float("nan")
             n_iters = int(res.n_iters)
             # One copy for the three device scalars.
-            rnorm, value, converged = torch.stack((
-                res.residual_norm.double(), res.value.double(),
-                res.converged.double(),
+            rnorm, value, converged = torch.stack((  # sync-ok: caller-requested materialization
+                res.residual_norm.double(), res.value.double(),  # fp64-ok: the three device scalars ride one host copy as float64, exact for each
+                res.converged.double(),  # fp64-ok: same one-copy float64 stack as the line above
             )).tolist()
             if self._iter_hist is not None:
                 self._iter_hist.observe(n_iters)
@@ -1162,7 +1174,7 @@ class MatvecEngine:
         # reshard quantizes, and the ladder's native safe tier under
         # quantized storage.
         self._a_host = (
-            a.cpu() if self.retain_host or (resilience is not None and self.storage != NATIVE)
+            a.cpu() if self.retain_host or (resilience is not None and self.storage != NATIVE)  # sync-ok: one-time host copy of A at construction, never per request
             else None
         )
         # The native safe tier of a quantized resident: placed on the first
@@ -1211,7 +1223,7 @@ class MatvecEngine:
             self.spec_resident_bytes = int(sq.nbytes + self._spec_aux_bytes)
             self.resident_bytes += self.spec_resident_bytes
             if self.retain_host:
-                self._spec_host = (sq.to("cpu"), pm.cpu(), u.cpu())
+                self._spec_host = (sq.to("cpu"), pm.cpu(), u.cpu())  # sync-ok: one-time host copy of A at construction, never per request
             if not defer_placement:
                 self._spec = self._place_spec(sq, pm, u, self.strategy)
             del sq, pm, u
@@ -1249,9 +1261,9 @@ class MatvecEngine:
         # winner under "auto". The primary residency stays native.
         self.speculative = False
         if dtype_storage == SPECULATE:
-            if not self.strategy.storage_combine_ok(None):
+            if not self.strategy.storage_combine_ok(None):  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
                 raise ConfigError(
-                    f"strategy {self.strategy.name!r} binds an A-tiling "
+                    f"strategy {self.strategy.name!r} binds an A-tiling "  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
                     "combine schedule, which cannot compose with the "
                     f"speculative int8c resident (dtype_storage={SPECULATE!r})"
                 )
@@ -1261,12 +1273,12 @@ class MatvecEngine:
             from ..tuning import lookup_storage
 
             decision = lookup_storage(
-                strategy=self.strategy.name, m=self.m, k=self.k,
+                strategy=self.strategy.name, m=self.m, k=self.k,  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
                 p=self.mesh.size, dtype=dtype_name(self.dtype),
             )
             self.storage_reason = "tuned" if decision else "auto_miss"
             fmt = (decision or {}).get("storage") or NATIVE
-            if fmt == SPECULATE and self.strategy.storage_combine_ok(None):
+            if fmt == SPECULATE and self.strategy.storage_combine_ok(None):  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
                 self.speculative = True
                 return NATIVE
             try:
@@ -1274,14 +1286,14 @@ class MatvecEngine:
             except ConfigError:
                 fmt = None  # a format this build does not know (or speculate)
             if fmt is None or (fmt == "fp8" and not fp8_supported()) or (
-                    fmt != NATIVE and not self.strategy.storage_combine_ok(None)):
+                    fmt != NATIVE and not self.strategy.storage_combine_ok(None)):  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
                 self.storage_reason = "auto_degraded"
                 return NATIVE
             return fmt
         fmt = normalize_storage(dtype_storage)
-        if fmt != NATIVE and not self.strategy.storage_combine_ok(None):
+        if fmt != NATIVE and not self.strategy.storage_combine_ok(None):  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
             raise ConfigError(
-                f"strategy {self.strategy.name!r} binds an A-tiling combine "
+                f"strategy {self.strategy.name!r} binds an A-tiling combine "  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
                 "schedule, which cannot compose with quantized "
                 f"dtype_storage={fmt!r}"
             )
@@ -1332,7 +1344,7 @@ class MatvecEngine:
     def _effective_combine(self, combine: str | None, strategy=None) -> str | None:
         """The schedule a path runs: the resolved name, or the strategy
         instance's own binding (colwise_overlap & co.) when none was given."""
-        strategy = self.strategy if strategy is None else strategy
+        strategy = self.strategy if strategy is None else strategy  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
         return combine if combine is not None else strategy.combine
 
     def _is_overlap(self, combine: str | None, strategy=None) -> bool:
@@ -1355,8 +1367,8 @@ class MatvecEngine:
         """The combine identity an executable is cached under: the staged
         schedules embed their pinned S (``overlap@4``), as the JAX engine's
         labels do; a strategy-bound overlap labels the same way."""
-        if self.stages is not None and self._is_overlap(combine):
-            return f"{self._effective_combine(combine)}@{self.stages}"
+        if self.stages is not None and self._is_overlap(combine):  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
+            return f"{self._effective_combine(combine)}@{self.stages}"  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
         return combine
 
     def _resolve_promotion(self, promote: str | int | None, strategy) -> int | None:
@@ -1388,15 +1400,15 @@ class MatvecEngine:
 
     def _matvec_key(self) -> ExecKey:
         return ExecKey(
-            "matvec", self.strategy.name, self._kernel_label(),
-            self._combine_label(self._matvec_combine), 1,
+            "matvec", self.strategy.name, self._kernel_label(),  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+            self._combine_label(self._matvec_combine), 1,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             dtype_name(self.dtype), self.storage,
         )
 
     def _gemm_key(self, bucket: int) -> ExecKey:
         return ExecKey(
-            "gemm", self.strategy.name, self._kernel_label(),
-            self._combine_label(self._gemm_combine), bucket,
+            "gemm", self.strategy.name, self._kernel_label(),  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+            self._combine_label(self._gemm_combine), bucket,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             dtype_name(self.dtype), self.storage,
         )
 
@@ -1433,10 +1445,10 @@ class MatvecEngine:
         ))
 
     def _build_matvec(self):
-        return self._program(self._matvec_fn(), self._spec_x, (self.k,))
+        return self._program(self._matvec_fn(), self._spec_x, (self.k,))  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
 
     def _build_gemm(self, bucket: int):
-        return self._program(self._gemm_fn(bucket), self._spec_b, (self.k, bucket))
+        return self._program(self._gemm_fn(bucket), self._spec_b, (self.k, bucket))  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
 
     # ---- the speculative tier: candidate and check in one program, keyed
     # under storage="speculate", so it never collides with the native
@@ -1450,13 +1462,13 @@ class MatvecEngine:
         return None if combine in STORAGE_INCOMPATIBLE_COMBINES else combine
 
     def _spec_matvec_key(self) -> ExecKey:
-        return ExecKey("matvec", self.strategy.name, self._kernel_label(),
-                       self._spec_combine(self._matvec_combine), 1,
+        return ExecKey("matvec", self.strategy.name, self._kernel_label(),  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+                       self._spec_combine(self._matvec_combine), 1,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
                        dtype_name(self.dtype), SPECULATE)
 
     def _spec_gemm_key(self, bucket: int) -> ExecKey:
-        return ExecKey("gemm", self.strategy.name, self._kernel_label(),
-                       self._spec_combine(self._gemm_combine), bucket,
+        return ExecKey("gemm", self.strategy.name, self._kernel_label(),  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+                       self._spec_combine(self._gemm_combine), bucket,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
                        dtype_name(self.dtype), SPECULATE)
 
     def _spec_fn(self, bucket: int | None = None) -> Callable:
@@ -1471,8 +1483,8 @@ class MatvecEngine:
 
     def _build_spec(self, bucket: int | None = None):
         if bucket is None:
-            return self._program(self._spec_fn(), self._spec_x, (self.k,), SPECULATE)
-        return self._program(self._spec_fn(bucket), self._spec_b, (self.k, bucket),
+            return self._program(self._spec_fn(), self._spec_x, (self.k,), SPECULATE)  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+        return self._program(self._spec_fn(bucket), self._spec_b, (self.k, bucket),  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
                              SPECULATE)
 
     def _place_spec(self, sq: QuantizedMatrix, pm: torch.Tensor, u: torch.Tensor,
@@ -1483,6 +1495,147 @@ class MatvecEngine:
         mesh = self.mesh
         return (shard_operand(sq, strategy.specs(mesh)[0], mesh),
                 shard(pm, probe_spec(strategy, mesh), mesh), u.to(mesh.devices[0]))
+
+    # ---- build fingerprints (engine/executables.py) ----
+
+    def _get_program(self, key: ExecKey, build) -> Callable:
+        """The cache's program for ``key``, built (and fingerprinted) on a
+        miss. The caller holds ``_swap_lock``."""
+        return self._cache.get(key, build, lambda: self._fingerprint(key))  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+
+    def _fingerprint(self, key: ExecKey) -> str:
+        """The build fingerprint of ``key``: a matvec or GEMM program is
+        traced on the host, A as ``meta`` shards (its schedule, local shapes
+        and kernel routes); a solver, speculative or fused-ring program is
+        fingerprinted by its key alone, until the solver and speculative
+        audits trace them. The caller holds ``_swap_lock``."""
+        traced = (key.op in ("matvec", "gemm") and key.storage != SPECULATE
+                  and key.combine != "pallas_ring")
+        if not traced:
+            return build_fingerprint(key, None, None, None)
+        gemm = key.op == "gemm"
+        if key != (self._gemm_key(key.bucket) if gemm else self._matvec_key()):
+            # The ladder's safe tier (_build_safe_matvec/_build_safe_gemm).
+            kernel, combine, stages = (matmul_acc if gemm else gemv_acc), None, None
+        else:
+            kernel = self.kernel
+            combine = self._gemm_combine if gemm else self._matvec_combine  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+            stages = self.stages  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+        trace = trace_program(
+            self.strategy, self.mesh, batched=gemm, kernel=kernel, combine=combine,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+            stages=stages, gather_output=self.gather_output, storage=key.storage,
+            a_shape=(self.m, self.k), dtype=self.dtype, rhs_cols=key.bucket,
+            block=self.storage_block,
+        )
+        return build_fingerprint(key, trace["schedule"], trace["local_shapes"],
+                                 trace["routes"])
+
+    def fingerprints(self) -> dict[str, str]:
+        """Build fingerprint of every key this engine has built, by label."""
+        with self._swap_lock:
+            return {k.label(): fp for k, fp in self._cache.fingerprints.items()}
+
+    # ---- the compile surface (staticcheck/keyspace.py) ----
+
+    def exec_keyspace(
+        self,
+        solver_ops: Sequence[str] = (),
+        *,
+        restart: int | None = None,
+        steps: int | None = None,
+        widths: Sequence[int] | None = None,
+        reshard_to: Sequence[str] = (),
+    ) -> dict[str, list[str]]:
+        """The finite ExecKey space this engine can build, by WHEN each key
+        may build, from the engine's own key constructors: the ground truth
+        the symbolic enumeration (``staticcheck/keyspace.py``) is held
+        against. Sorted ``ExecKey.label()`` lists:
+
+        - ``"warmup"``: what :meth:`warmup` builds (``widths`` as it takes
+          them), plus the preferred key of every declared solver op (built
+          by the first solve of the warm phase).
+        - ``"steady"``: every key :meth:`submit` routing reaches on the
+          healthy path, by evaluating the routing over every chunk width
+          (or over ``widths``): another derivation than warmup's, so
+          ``steady`` within ``warmup`` is a checkable claim
+          (``compiles_steady == 0``).
+        - ``"fault_only"``: the ladder's safe tiers, reached only after a
+          breaker opens.
+        - ``"rollover"``: what the one-time warmup after a :meth:`reshard`
+          to each of ``reshard_to`` builds, off the request path. Modelled
+          for an engine with the default combine, no pinned stages, the
+          torch solver tier and a fixed ``promote`` (``ConfigError``
+          otherwise), as the symbolic model is.
+        """
+        restart = DEFAULT_RESTART if restart is None else int(restart)
+        steps = DEFAULT_STEPS if steps is None else int(steps)
+        for op in solver_ops:
+            if op not in SOLVER_OPS:
+                raise ConfigError(
+                    f"unknown solver op {op!r}; expected one of {sorted(SOLVER_OPS)}"
+                )
+        if reshard_to and (self._requested_combine is not None
+                           or self._requested_stages is not None
+                           or self.solver_kernel != "torch"
+                           or self._requested_promote == "auto"):
+            raise ConfigError(
+                "exec_keyspace(reshard_to=...) models engines with the default "
+                "combine, no pinned stages, the torch solver tier and a fixed "
+                "promote"
+            )
+        with self._swap_lock:
+            warm, steady, fault = self._keyspace_sets(solver_ops, restart, steps, widths)
+            rollover: set[ExecKey] = set()
+            for dst in reshard_to:
+                name = get_strategy(dst).name
+                rollover |= {k._replace(strategy=name) for k in warm}
+                fault |= {k._replace(strategy=name) for k in fault}
+        warm_l = {k.label() for k in warm}
+        steady_l = {k.label() for k in steady}
+        return {
+            "warmup": sorted(warm_l),
+            "steady": sorted(steady_l),
+            "fault_only": sorted({k.label() for k in fault} - warm_l - steady_l),
+            "rollover": sorted({k.label() for k in rollover} - warm_l - steady_l),
+        }
+
+    def _keyspace_sets(self, solver_ops, restart: int, steps: int, widths) -> tuple:
+        """The warmup, steady and fault key sets of :meth:`exec_keyspace`.
+        The caller holds ``_swap_lock``."""
+        warm: set[ExecKey] = {self._matvec_key()}
+        steady: set[ExecKey] = {self._matvec_key()}
+        if self.speculative:
+            warm.add(self._spec_matvec_key())
+            steady.add(self._spec_matvec_key())
+        if self.b_star is not None:  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+            warm_buckets: set[int] = set()
+            self._warmup(widths, lambda: None, warm_buckets.add, lambda bucket=None: None)
+            # submit() promotes a block of b >= b* and splits it into
+            # max_bucket chunks plus one remainder: without declared widths
+            # every width in 1..max_bucket is a reachable chunk.
+            reach = range(1, self.max_bucket + 1) if widths is None else [
+                chunk for w in widths if w >= self.b_star  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+                for chunk in split_widths(w, self.max_bucket)]
+            for bucket in warm_buckets:
+                warm.add(self._gemm_key(bucket))
+                if self.speculative:
+                    warm.add(self._spec_gemm_key(bucket))
+            for width in reach:
+                bucket = bucket_for(width, self.max_bucket)
+                steady.add(self._gemm_key(bucket))
+                if self.speculative:
+                    steady.add(self._spec_gemm_key(bucket))
+        fault: set[ExecKey] = {key for key, _ in self._matvec_levels()[1:]}
+        if self.b_star is not None:  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+            for bucket in bucket_ladder(self.max_bucket):
+                fault.update(key for key, _ in self._gemm_levels(bucket)[1:])
+        for op in solver_ops:
+            bucket = solver_bucket(op, restart=restart, steps=steps)
+            levels = self._solver_levels(op, bucket, restart, steps)
+            warm.add(levels[0][0])
+            steady.add(levels[0][0])
+            fault.update(key for key, _ in levels[1:])
+        return warm, steady, fault
 
     # ---- degradation ladders (module docstring) ----
     #
@@ -1500,19 +1653,19 @@ class MatvecEngine:
     # an engine that is dropped without close() in a reference cycle.
 
     def _build_safe_matvec(self):
-        return self._program(self.strategy.build(
+        return self._program(self.strategy.build(  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             self.mesh, kernel=gemv_acc, gather_output=self.gather_output,
             dtype_storage=NATIVE,
-        ), self._spec_x, (self.k,), NATIVE)
+        ), self._spec_x, (self.k,), NATIVE)  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
 
     def _build_safe_gemm(self, bucket: int):
-        return self._program(self.strategy.build_batched(
+        return self._program(self.strategy.build_batched(  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             self.mesh, kernel=matmul_acc, gather_output=self.gather_output,
             dtype_storage=NATIVE,
-        ), self._spec_b, (self.k, bucket), NATIVE)
+        ), self._spec_b, (self.k, bucket), NATIVE)  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
 
     def _safe_key(self, op: str, bucket: int) -> ExecKey:
-        return ExecKey(op, self.strategy.name, SAFE_KERNEL, None, bucket,
+        return ExecKey(op, self.strategy.name, SAFE_KERNEL, None, bucket,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
                        dtype_name(self.dtype), NATIVE)
 
     @staticmethod
@@ -1548,7 +1701,7 @@ class MatvecEngine:
         """True while the payload A operand is placed on the mesh: False
         after :meth:`release_residency` (until the next placement) and after
         :meth:`close`."""
-        return self._a is not None
+        return self._a is not None  # unguarded-ok: presence probe; a stale answer is benign, the dispatch path places again under _swap_lock
 
     @property
     def device_resident_bytes(self) -> int:
@@ -1557,8 +1710,8 @@ class MatvecEngine:
         or closed), plus the native safe tier once the ladder has placed
         it. An armed engine's speculative set is placed and released with
         the payload and counts here too."""
-        return (_placed_bytes(self._a) + _placed_bytes(self._a_native)
-                + _spec_bytes(self._spec))
+        return (_placed_bytes(self._a) + _placed_bytes(self._a_native)  # unguarded-ok: accounting snapshot; the registry's ledger reconciles to the next notification
+                + _spec_bytes(self._spec))  # unguarded-ok: accounting snapshot; the registry's ledger reconciles to the next notification
 
     def exec_signature(self) -> tuple:
         """Identity of this engine's space of built functions. A strategy's
@@ -1568,13 +1721,13 @@ class MatvecEngine:
         CUDA graphs, are never shared: each engine builds and captures its
         own."""
         return (
-            self.mesh, self.strategy.name,
+            self.mesh, self.strategy.name,  # unguarded-ok: stable config snapshot: the registry compares signatures only between reshards, and taking _swap_lock here would invert the registry->engine lock order
             # The kernel object for callables: two callables that share a
             # __name__ must not share functions.
             self.kernel,
-            self._combine_label(self._matvec_combine),
-            self._combine_label(self._gemm_combine),
-            self.stages, self.m, self.k, dtype_name(self.dtype), self.storage,
+            self._combine_label(self._matvec_combine),  # unguarded-ok: stable config snapshot: the registry compares signatures only between reshards, and taking _swap_lock here would invert the registry->engine lock order
+            self._combine_label(self._gemm_combine),  # unguarded-ok: stable config snapshot: the registry compares signatures only between reshards, and taking _swap_lock here would invert the registry->engine lock order
+            self.stages, self.m, self.k, dtype_name(self.dtype), self.storage,  # unguarded-ok: stable config snapshot: the registry compares signatures only between reshards, and taking _swap_lock here would invert the registry->engine lock order
             self.storage_block, self.gather_output, self.max_bucket, self.donate,
             # Arming adds the speculative functions; a plain engine's
             # signature is as it was.
@@ -1594,15 +1747,15 @@ class MatvecEngine:
         Degradation-ladder fallbacks are not modeled: admission predicts the
         healthy path. An advisory snapshot, read without the engine's locks
         (a racing reshard yields one stale prediction)."""
-        gemm = self.b_star is not None and b >= self.b_star
+        gemm = self.b_star is not None and b >= self.b_star  # unguarded-ok: advisory cost-model snapshot; a racing reshard yields one stale prediction, never corruption
         combine = self._effective_combine(
-            self._gemm_combine if gemm else self._matvec_combine)
+            self._gemm_combine if gemm else self._matvec_combine)  # unguarded-ok: advisory cost-model snapshot; a racing reshard yields one stale prediction, never corruption
         if combine is None:
-            combine = self.strategy.default_combine(self.mesh)
+            combine = self.strategy.default_combine(self.mesh)  # unguarded-ok: advisory cost-model snapshot; a racing reshard yields one stale prediction, never corruption
         return dict(
-            strategy=self.strategy.name,
+            strategy=self.strategy.name,  # unguarded-ok: advisory cost-model snapshot; a racing reshard yields one stale prediction, never corruption
             combine=combine,
-            stages=self.stages,
+            stages=self.stages,  # unguarded-ok: advisory cost-model snapshot; a racing reshard yields one stale prediction, never corruption
             m=self.m,
             k=self.k,
             p=self.mesh.size,
@@ -1615,7 +1768,7 @@ class MatvecEngine:
         """Report the queued footprint changes: the gauge, then the
         listener, which may take the registry's lock. Called only where no
         engine lock is held, so a listener never waits on a dispatch."""
-        if not self._notes:
+        if not self._notes:  # unguarded-ok: emptiness probe; the swap of the list itself happens under _residency_lock
             return
         with self._residency_lock:
             notes, self._notes = self._notes, []
@@ -1646,7 +1799,7 @@ class MatvecEngine:
             while self._retired and (wait or self._retired[0][0].query()):
                 done.append(self._retired.popleft())
         for fence, programs in done:
-            fence.synchronize()
+            fence.synchronize()  # sync-ok: frees retired programs whose fence query() already passed (or close's drain); never on submit
             for program in programs:
                 if isinstance(program, _CapturedProgram):
                     program.release()
@@ -1669,23 +1822,23 @@ class MatvecEngine:
         ``_swap_lock`` reports after it). The copy runs outside
         ``_residency_lock``; a reshard committed meanwhile makes it place
         again in the new layout."""
-        if self._a is not None:
+        if self._a is not None:  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
             return False
         self._sweep_retired()
         while True:
-            epoch = self._layout_epoch
-            payload = self._qa_host if self.storage != NATIVE else self._a_host
+            epoch = self._layout_epoch  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
+            payload = self._qa_host if self.storage != NATIVE else self._a_host  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
             if payload is None:
                 raise ResidencyError(
                     "resident A was released and the engine retains no host "
                     "payload (construct with retain_host=True for releasable "
                     "residency)"
                 )
-            strategy = self.strategy
+            strategy = self.strategy  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
             placed = shard_operand(payload, strategy.specs(self.mesh)[0], self.mesh)
             # The speculative set rides the payload's residency: placed with
             # it from the same host copies, bitwise the first placement.
-            spec = self._place_spec(*self._spec_host, strategy) if self.speculative else None
+            spec = self._place_spec(*self._spec_host, strategy) if self.speculative else None  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
             with self._residency_lock:
                 if self._layout_epoch != epoch:
                     continue  # resharded mid-placement: place again
@@ -1733,15 +1886,15 @@ class MatvecEngine:
         reported to the listener as ``"native_fallback"``, and is not
         installed over a layout a reshard committed meanwhile."""
         if storage == SPECULATE:
-            return self._spec
+            return self._spec  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
         if storage == self.storage:
-            return self._a
-        native = self._a_native
+            return self._a  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
+        native = self._a_native  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
         if native is not None:
             return native
         while True:
-            epoch = self._layout_epoch
-            placed = shard_operand(self._a_host, self.strategy.specs(self.mesh)[0],
+            epoch = self._layout_epoch  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
+            placed = shard_operand(self._a_host, self.strategy.specs(self.mesh)[0],  # unguarded-ok: deliberate stage-outside-lock read; the epoch re-check under _residency_lock below is decisive, and a lost race is a dropped copy, not corruption
                                    self.mesh)
             with self._residency_lock:
                 if self._layout_epoch != epoch:
@@ -1776,7 +1929,7 @@ class MatvecEngine:
                 if len(self._outstanding) < self.max_in_flight:
                     return
                 oldest = self._outstanding.popleft()
-            oldest.synchronize()
+            oldest.synchronize()  # sync-ok: backpressure: at the in-flight high-water mark submit waits for the oldest dispatch by contract
             self._c_drains.inc()
             self._reclaim()
 
@@ -1821,13 +1974,13 @@ class MatvecEngine:
         ``torch.cuda.OutOfMemoryError`` in the build or the dispatch raises
         ``ResourceExhaustedError``. Every fault check runs before the
         payload is staged, so a retry stages it once."""
-        if self._fault_plan is not None and key not in self._cache:
+        if self._fault_plan is not None and key not in self._cache:  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             self._check_faults("compile", key)
         with trace.span("exec_lookup") as span:
-            before = self._cache.stats.compiles
+            before = self._cache.stats.compiles  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             with out_of_memory_as_exhausted(f"the build of {key.label()}"):
-                program = self._cache.get(key, build)
-            span.attrs = {"outcome": "compile" if self._cache.stats.compiles > before
+                program = self._get_program(key, build)
+            span.attrs = {"outcome": "compile" if self._cache.stats.compiles > before  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
                           else "hit"}
         corrupt = self._check_faults("dispatch", key, block=rhs)
         self._c_dispatches.inc()
@@ -1892,7 +2045,7 @@ class MatvecEngine:
     # ---- resilient dispatch: retries, breakers, the ladder ----
 
     def _breaker_for(self, key: ExecKey) -> CircuitBreaker:
-        br = self._breakers.get(key)
+        br = self._breakers.get(key)  # unguarded-ok: double-checked creation: the decisive re-check runs under _breakers_lock, and a dict.get is atomic
         if br is None:
             with self._breakers_lock:
                 br = self._breakers.get(key)
@@ -2138,7 +2291,7 @@ class MatvecEngine:
                     # The self-heal: a released A is placed again before any
                     # program is looked up.
                     self._place()
-                    parts = self._dispatch_request(x, trace, spec_rtol)
+                    parts = self._dispatch_request(x, trace, spec_rtol)  # callback-ok: the breaker's transition callbacks are lock-free (one counter inc and one timeline append), by construction in _breaker_for
             except BaseException as exc:
                 self._c_dispatch_failures.inc()
                 trace.finish(status="dispatch_failed")
@@ -2170,7 +2323,7 @@ class MatvecEngine:
             return [column(x)]
         b = x.shape[1]
         self._c_cols.inc(b)
-        if self.b_star is None or b < self.b_star:
+        if self.b_star is None or b < self.b_star:  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             return [column(x[:, j].contiguous()) for j in range(b)]
         parts, offset = [], 0
         for width in split_widths(b, self.max_bucket):
@@ -2355,16 +2508,16 @@ class MatvecEngine:
         if self.solver_kernel == "cuda_fused":
             from ..ops.cuda_solver import check_fused_solver
 
-            check_fused_solver(op, self.strategy.name, self._requested_combine, self.mesh)
+            check_fused_solver(op, self.strategy.name, self._requested_combine, self.mesh)  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
             return "cuda_fused"
         if self.solver_kernel == "auto":
             from ..ops.cuda_solver import fused_solver_supported
             from ..tuning import lookup_solver_kernel
 
-            if fused_solver_supported(op, self.strategy.name,
+            if fused_solver_supported(op, self.strategy.name,  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
                                       self._requested_combine, self.mesh):
                 decision = lookup_solver_kernel(
-                    op=op, strategy=self.strategy.name, m=self.m, k=self.k,
+                    op=op, strategy=self.strategy.name, m=self.m, k=self.k,  # unguarded-ok: layout snapshot: construction and the dispatch, warmup and reshard paths read it under _swap_lock, where reshard swaps it
                     p=self.mesh.size, dtype=dtype_name(self.dtype),
                     storage=self.storage,
                 )
@@ -2381,14 +2534,14 @@ class MatvecEngine:
             from ..ops.cuda_solver import check_fused_solver
 
             return ExecKey(
-                op, self.strategy.name, "cuda_fused",
-                check_fused_solver(op, self.strategy.name, self._requested_combine,
+                op, self.strategy.name, "cuda_fused",  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+                check_fused_solver(op, self.strategy.name, self._requested_combine,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
                                    self.mesh),
                 bucket, dtype_name(self.dtype), self.storage,
             )
         return ExecKey(
-            op, self.strategy.name, self._kernel_label(),
-            self._combine_label(self._matvec_combine), bucket,
+            op, self.strategy.name, self._kernel_label(),  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+            self._combine_label(self._matvec_combine), bucket,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             dtype_name(self.dtype), self.storage,
         )
 
@@ -2401,9 +2554,9 @@ class MatvecEngine:
         elif key == self._safe_key(key.op, key.bucket):
             kernel, combine, stages = SAFE_KERNEL, None, None
         else:
-            kernel, combine, stages = self.kernel, self._matvec_combine, self.stages
+            kernel, combine, stages = self.kernel, self._matvec_combine, self.stages  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
         return build_solver(
-            key.op, self.strategy, self.mesh, dtype=self.dtype, kernel=kernel,
+            key.op, self.strategy, self.mesh, dtype=self.dtype, kernel=kernel,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             combine=combine, stages=stages, dtype_storage=key.storage,
             restart=restart, steps=steps,
         )
@@ -2506,7 +2659,7 @@ class MatvecEngine:
                         res, dispatch, corrupt = attempt(
                             key, lambda: self._build_solver(key, restart, steps))
                     else:
-                        res, dispatch, corrupt = self._walk_ladder(
+                        res, dispatch, corrupt = self._walk_ladder(  # callback-ok: the breaker's transition callbacks are lock-free (one counter inc and one timeline append), by construction in _breaker_for
                             self._solver_levels(op, bucket, restart, steps), attempt)
             except BaseException as exc:
                 self._c_dispatch_failures.inc()
@@ -2560,11 +2713,11 @@ class MatvecEngine:
 
             def spec(bucket=None):
                 key = self._spec_matvec_key() if bucket is None else self._spec_gemm_key(bucket)
-                self._cache.get(key, lambda: self._build_spec(bucket))
+                self._get_program(key, lambda: self._build_spec(bucket))
 
-            self._warmup(widths, lambda: self._cache.get(self._matvec_key(),
-                                                         self._build_matvec),
-                         lambda bucket: self._cache.get(
+            self._warmup(widths, lambda: self._get_program(self._matvec_key(),
+                                                           self._build_matvec),
+                         lambda bucket: self._get_program(
                              self._gemm_key(bucket), lambda: self._build_gemm(bucket)),
                          spec)
             return self._cache.stats.compiles - before
@@ -2574,13 +2727,13 @@ class MatvecEngine:
         matvec()
         if self.speculative:
             spec()
-        if self.b_star is not None:
+        if self.b_star is not None:  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             if widths is None:
                 buckets = set(bucket_ladder(self.max_bucket))
             else:
                 buckets = set()
                 for w in widths:
-                    if w < self.b_star:
+                    if w < self.b_star:  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
                         continue  # submit() serves these per column
                     for chunk in split_widths(w, self.max_bucket):
                         buckets.add(bucket_for(chunk, self.max_bucket))
@@ -2690,13 +2843,13 @@ class MatvecEngine:
                     validate_reshard((self.m, self.k // new_block), mesh,
                                      what="scales")
                 except ConfigError:
-                    if self._a_host is None:
+                    if self._a_host is None:  # unguarded-ok: the host payload is written only at construction and under _reshard_lock, which this migration holds
                         raise ConfigError(
                             "reshard needs the host A to recompute per-block "
                             "scales, and this engine retains none (construct "
                             "it with retain_host=True)"
                         ) from None
-                    requant = quantize_matrix(self._a_host, self.storage,
+                    requant = quantize_matrix(self._a_host, self.storage,  # unguarded-ok: the host payload is written only at construction and under _reshard_lock, which this migration holds
                                               contraction_shards=dst_shards)
             # An armed engine's int8c payload moves like a quantized
             # resident's (quantized again from the host A where the block
@@ -2710,31 +2863,31 @@ class MatvecEngine:
                         raise ConfigError("block→shard mapping changed")
                     validate_reshard((self.m, self.k // spec_block), mesh, what="scales")
                 except ConfigError:
-                    if self._a_host is None:
+                    if self._a_host is None:  # unguarded-ok: the host payload is written only at construction and under _reshard_lock, which this migration holds
                         raise ResidencyError(
                             "reshard needs the host A to recompute the "
                             "speculative int8c scales, and this engine retains "
                             "none (construct it with retain_host=True)"
                         ) from None
-                    spec_requant = quantize_matrix(self._a_host, SPEC_STORAGE,
+                    spec_requant = quantize_matrix(self._a_host, SPEC_STORAGE,  # unguarded-ok: the host payload is written only at construction and under _reshard_lock, which this migration holds
                                                    contraction_shards=dst_shards)
             with self._residency_lock:
                 src_a, src_spec = self._a, self._spec
             resident = src_a is not None
             new_a, new_spec, bytes_moved = None, None, 0
             if resident and requant is not None:
-                new_a = shard_operand(requant, dst.specs(mesh)[0], mesh)
+                new_a = shard_operand(requant, dst.specs(mesh)[0], mesh)  # registry-ok: _reshard_lock only serializes migrations: no dispatch or registry path takes it
             elif resident:
                 new_a = build_reshard(mesh, src.name, dst.name)(src_a)
                 bytes_moved = copy_bytes(mesh, src.name, dst.name, src_a)
             if resident and self.speculative:
                 src_qa, src_p, u = src_spec
                 if spec_requant is not None:
-                    new_qa = shard_operand(spec_requant, dst.specs(mesh)[0], mesh)
+                    new_qa = shard_operand(spec_requant, dst.specs(mesh)[0], mesh)  # registry-ok: _reshard_lock only serializes migrations: no dispatch or registry path takes it
                 else:
                     new_qa = build_reshard(mesh, src.name, dst.name)(src_qa)
                     bytes_moved += copy_bytes(mesh, src.name, dst.name, src_qa)
-                new_spec = (new_qa, shard(unshard(src_p), probe_spec(dst, mesh), mesh), u)
+                new_spec = (new_qa, shard(unshard(src_p), probe_spec(dst, mesh), mesh), u)  # registry-ok: _reshard_lock only serializes migrations: no dispatch or registry path takes it
 
             # ---- the commit: the only window a dispatch waits on ----
             with self._swap_lock:
@@ -2783,7 +2936,7 @@ class MatvecEngine:
                           requantized=requant is not None,
                           bytes_moved=int(bytes_moved))
             # Release the old layout once the work queued on it is done.
-            fence.synchronize()
+            fence.synchronize()  # registry-ok: _reshard_lock only serializes migrations: no dispatch or registry path takes it — sync-ok: reshard, not a dispatch: it waits for the old layout's queued work before freeing it
             del old
         self._fire_residency_notes()
         if warm_widths is not None:
@@ -2828,12 +2981,12 @@ class MatvecEngine:
                 "format": self.storage,
                 "reason": self.storage_reason,
                 "resident": self.resident,
-                "resident_bytes": self.resident_bytes,
+                "resident_bytes": self.resident_bytes,  # unguarded-ok: monitoring snapshot read without the dispatch lock; a racing reshard gives one stale value, never a torn one
                 "device_resident_bytes": self.device_resident_bytes,
                 "block": self.storage_block,
                 # True once the native safe tier is placed: the card then
                 # holds both residencies.
-                "native_fallback_resident": self._a_native is not None,
+                "native_fallback_resident": self._a_native is not None,  # unguarded-ok: monitoring snapshot read without the dispatch lock; a racing reshard gives one stale value, never a torn one
                 "speculative": self.speculative,
                 "escalation_rate": (self._g_escalation_rate.value
                                     if self._g_escalation_rate is not None else 0.0),
@@ -2859,9 +3012,9 @@ class MatvecEngine:
 
     @property
     def stats(self) -> EngineStats:
-        s = self._cache.stats
+        s = self._cache.stats  # unguarded-ok: monitoring snapshot read without the dispatch lock; a racing reshard gives one stale value, never a torn one
         self._reclaim()  # in_flight reports live work, not finished stubs
-        in_flight = len(self._outstanding)
+        in_flight = len(self._outstanding)  # unguarded-ok: monitoring snapshot read without the dispatch lock; a racing reshard gives one stale value, never a torn one
         self._g_in_flight.set(in_flight)
         return EngineStats(
             compiles=s.compiles, hits=s.hits,
@@ -2904,7 +3057,7 @@ class MatvecEngine:
         finally:
             self.tracer.close()
             with self._swap_lock:
-                _Dispatch(self._cuda_devices).synchronize()
+                _Dispatch(self._cuda_devices).synchronize()  # registry-ok: close drains the card under _swap_lock so no dispatch can enqueue on freed operands — sync-ok: close drains the card before freeing A and the captured programs
                 self._sweep_retired(wait=True)
                 with self._residency_lock:
                     for program in self._cache.clear():
@@ -2919,4 +3072,4 @@ class MatvecEngine:
 
     @property
     def n_executables(self) -> int:
-        return len(self._cache)
+        return len(self._cache)  # unguarded-ok: monitoring snapshot read without the dispatch lock; a racing reshard gives one stale value, never a torn one

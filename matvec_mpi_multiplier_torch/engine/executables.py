@@ -7,13 +7,28 @@ is one build of the key's strategy function (``MatvecStrategy.build`` or
 of its program as a CUDA graph (``engine/core.py``), held under an explicit
 key (op × strategy × kernel × combine × bucket × dtype × storage) with
 compile and hit counters the serve bench reports — a flat ``compiles``
-across a warm stream is the zero-recompilation criterion. Lowering
-fingerprints belong to the static-analysis item (ROADMAP.md, queue A 6).
+across a warm stream is the zero-recompilation criterion.
+
+**Build fingerprints** are the port's reading of the JAX package's lowering
+fingerprint (``staticcheck/hlo.py::lowering_fingerprint``): the cache
+records, for each key it builds, a sha256 over the key, the collective
+schedule the key's program issues, the local shapes it runs on and the
+route each local kernel plans (:func:`build_fingerprint`). The schedule and
+the kernel calls come from :func:`trace_program`, which runs the key's
+strategy function once under the collective recorder with A as data-less
+``meta`` shards and a stand-in kernel that records each call's shapes (the
+real kernel's planner gives its route) and returns CPU zeros: y-sized host
+work, no device work, no launch. The
+same key must give the same fingerprint on every fresh build
+(``staticcheck/hlo.py``'s fingerprint gate; ``chip_smoke.py`` section 49
+across two engines on the card).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Any, Callable, NamedTuple
 
 from ..obs.registry import Counter
@@ -70,17 +85,24 @@ class ExecutableCache:
         self._executables: dict[ExecKey, Any] = {}
         self._compiles = compile_counter or Counter("compiles")
         self._hits = hit_counter or Counter("hits")
+        # ExecKey -> build fingerprint, recorded at a key's first build that
+        # passes a fingerprint function and kept across clear(): a key
+        # built again (after a release) is the same program.
+        self.fingerprints: dict[ExecKey, str] = {}
 
     @property
     def stats(self) -> ExecStats:
         return ExecStats(compiles=self._compiles.value, hits=self._hits.value)
 
-    def get(self, key: ExecKey, build: Callable[[], Callable]) -> Callable:
+    def get(self, key: ExecKey, build: Callable[[], Callable],
+            fingerprint: Callable[[], str] | None = None) -> Callable:
         exe = self._executables.get(key)
         if exe is not None:
             self._hits.inc()
             return exe
         exe = build()
+        if fingerprint is not None and key not in self.fingerprints:
+            self.fingerprints[key] = fingerprint()
         self._executables[key] = exe
         self._compiles.inc()
         return exe
@@ -103,3 +125,112 @@ class ExecutableCache:
 
     def __contains__(self, key: ExecKey) -> bool:
         return key in self._executables
+
+
+# ------------------------------------------------------------ fingerprints
+
+
+def build_fingerprint(key: ExecKey, schedule, local_shapes, routes) -> str:
+    """sha256 over the key, its collective schedule (a list of records, or
+    None where the program was not traced), its local shapes and its
+    kernel routes, in one canonical JSON encoding."""
+    payload = {
+        "key": key.label(),
+        "schedule": None if schedule is None else [
+            [r.kind, r.op, list(r.axes), list(r.shape), r.dtype,
+             r.payload_bytes, r.boundary] for r in schedule
+        ],
+        "local_shapes": local_shapes,
+        "routes": routes,
+    }
+    text = json.dumps(payload, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def kernel_route(kernel, storage: str, a_shape: tuple, a_dtype, x_shape: tuple,
+                 device, block: int | None = None) -> str:
+    """The route the local kernel ``kernel`` plans for one call on a
+    ``device`` tensor: the hand-written kernels' planners on a card
+    (``gemv_plan``, ``default_gemm_tiles``, ``quant_route``; base addresses
+    are taken 16-byte aligned, as the caching allocator gives every shard),
+    ``plain`` for their plain versions on the CPU, and the tier's name for
+    the library tiers."""
+    import torch
+
+    name = kernel if isinstance(kernel, str) else getattr(kernel, "__name__", "custom")
+    if name != "cuda":
+        return name
+    if torch.device(device).type != "cuda":
+        return "plain"
+    m, k = a_shape
+    n = 1 if len(x_shape) == 1 else x_shape[1]
+    if storage != "native":
+        from ..ops.cuda_quant import quant_route
+
+        return quant_route(storage, a_dtype, m, k, n, block, True)
+    if len(x_shape) == 1:
+        from ..ops.cuda_gemv import gemv_plan, sm_count
+
+        return repr(gemv_plan(m, k, a_dtype, a_dtype, sm_count(torch.device(device))))
+    from ..ops.cuda_gemm import default_gemm_tiles
+
+    return repr(default_gemm_tiles(m, n, k, a_dtype, True, True))
+
+
+def trace_program(strategy, mesh, *, batched: bool, kernel, combine, stages,
+                  gather_output, storage: str, a_shape: tuple, dtype, rhs_cols: int = 1,
+                  block: int | None = None) -> dict:
+    """Run ``strategy``'s built function once under the collective
+    recorder on a copy of ``mesh`` whose shards all lie on the CPU: A's
+    shards are data-less ``meta`` tensors cut by A's spec, the right-hand
+    side and every partial are CPU zeros of their real shapes (the stand-in
+    kernel makes them), so the trace costs y-sized host work and moves no
+    A. Returns ``schedule`` (the records), ``local_shapes`` (A's shard
+    leaves and the RHS shards) and ``routes`` (one per distinct local kernel
+    call, from :func:`kernel_route` on the real mesh's first device)."""
+    import torch
+
+    from ..models.base import shard_operand
+    from ..ops.gemv import acc_dtype
+    from ..ops.quantize import NATIVE, quantized_struct
+    from ..parallel.mesh import CollectiveRecorder, ShardedTensor, shard
+
+    p = mesh.size
+    meta_mesh = dataclasses.replace(mesh, devices=(torch.device("meta"),) * p,
+                                    owners=None, rank=0)
+    host_mesh = dataclasses.replace(meta_mesh, devices=(torch.device("cpu"),) * p)
+    device = mesh.devices[0]
+    calls: list = []
+
+    def kern(a, x):
+        calls.append((tuple(a.shape), tuple(x.shape)))
+        return torch.zeros((a.shape[0], *x.shape[1:]), dtype=acc_dtype(a.dtype))
+
+    build = strategy.build_batched if batched else strategy.build
+    fn = build(host_mesh, kernel=kern, gather_output=gather_output,
+               combine=combine, stages=stages,
+               dtype_storage=None if storage == NATIVE else storage)
+    m, k = a_shape
+    if storage == NATIVE:
+        a = torch.empty((m, k), dtype=dtype, device="meta")
+    else:
+        a = quantized_struct(m, k, storage, dtype, block)
+    spec_a, spec_x, _ = (strategy.batched_specs if batched else strategy.specs)(host_mesh)
+    meta_a = shard_operand(a, spec_a, meta_mesh)
+    placed_a = ShardedTensor(meta_a.shards, meta_a.shape, meta_a.spec, host_mesh)
+    rhs = torch.zeros((k, rhs_cols) if batched else (k,), dtype=dtype)
+    placed_x = shard(rhs, spec_x, host_mesh)
+    with CollectiveRecorder() as rec:
+        fn(placed_a, placed_x)
+    leaves = [
+        [list(t.shape), str(t.dtype)]
+        for s in placed_a.shards
+        for t in ((s,) if storage == NATIVE else s.leaves) if t is not None
+    ]
+    local_shapes = {"a": leaves, "rhs": [list(t.shape) for t in placed_x.shards]}
+    routes = sorted({
+        f"{list(ash)}x{list(xsh)}:"
+        + kernel_route(kernel, storage, ash, dtype, xsh, device, block)
+        for ash, xsh in calls
+    })
+    return {"schedule": rec.records, "local_shapes": local_shapes, "routes": routes}

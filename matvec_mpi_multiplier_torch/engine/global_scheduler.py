@@ -392,7 +392,7 @@ class GlobalScheduler:
                 p=cfg["p"], dtype=cfg["dtype"], stages=cfg["stages"],
                 b=cfg["b"], storage=cfg["storage"],
             ).total_s
-        except Exception:  # a formula-less schedule predicts None: admitted, never rejected
+        except Exception:  # swallow-ok: a formula-less schedule predicts None: admitted, never rejected
             base = None
         with self._lock:
             self._predict_memo[memo_key] = base
@@ -415,7 +415,7 @@ class GlobalScheduler:
                 stages=cfg["stages"], storage=cfg["storage"],
                 k_est=k_est, restart=restart, steps=steps,
             ).total_s
-        except Exception:  # a formula-less schedule predicts None: admitted, never rejected
+        except Exception:  # swallow-ok: a formula-less schedule predicts None: admitted, never rejected
             return None
 
     def _queue_s(self) -> float:
@@ -565,7 +565,7 @@ class GlobalScheduler:
                     src, dst, m=cfg["m"], k=cfg["k"], p=cfg["p"],
                     dtype=cfg["dtype"],
                 ).total_s
-            except Exception:  # a formula-less candidate drops out of the comparison
+            except Exception:  # swallow-ok: a formula-less candidate drops out of the comparison
                 continue
             new_s = base * (width if cfg["b"] == 1 else 1)
             total = new_s + migrate_s / horizon_n
@@ -956,7 +956,7 @@ class GlobalScheduler:
         try:
             with bind_request(batch_rid):
                 inner = self.registry.submit(owner, stacked)
-        except Exception as e:  # parked in every member's future: result() raises it
+        except Exception as e:  # swallow-ok: parked in every member's future: result() raises it
             shared = _SharedResult(MatvecFuture.failed(e))
         else:
             self._track(inner, predicted)

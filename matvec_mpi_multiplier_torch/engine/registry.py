@@ -562,7 +562,7 @@ class MatrixRegistry:
         entry.g_strategy.set(1)
         with self._lock:
             if self._closed or tenant_id in self._tenants:
-                engine.close()
+                engine.close()  # callback-ok: closing a refused engine fires its residency listener, which re-enters this RLock to clear the ledger (reentrant by design)
                 raise ConfigError(
                     "registry is closed" if self._closed
                     else f"tenant {tenant_id!r} is already registered"
@@ -591,7 +591,7 @@ class MatrixRegistry:
         completes unaffected), clear its ledger, close its engine."""
         with self._lock:
             entry = self._entry(tenant_id)
-            entry.engine.release_residency()  # the listener re-enters this RLock
+            entry.engine.release_residency()  # callback-ok: the listener clears the ledger: it re-enters this RLock (reentrant by design)
             del self._tenants[tenant_id]
             self._g_tenants.set(len(self._tenants))
             self._g_resident_tenants.set(self._resident_count_locked())
@@ -690,7 +690,7 @@ class MatrixRegistry:
             if victim is None:
                 break
             score = self._victim_score_locked(victim, mean, now)
-            victim.engine.release_residency()  # the listener re-enters this RLock
+            victim.engine.release_residency()  # callback-ok: the victim's residency listener re-enters this RLock to update the ledger before the next victim is scored (the reentrancy the RLock is for)
             victim.evictions += 1
             victim.c_evictions.inc()
             self._c_evictions.inc()
@@ -704,7 +704,7 @@ class MatrixRegistry:
                 score=score,
             )
             if self.eviction_listener is not None:
-                self.eviction_listener(
+                self.eviction_listener(  # callback-ok: bookkeeping-only contract documented at the parameter: the global scheduler's hook appends to its ring and never takes the registry lock
                     victim.tenant_id, entry.tenant_id, score,
                     victim.engine.resident_bytes,
                 )
@@ -712,7 +712,7 @@ class MatrixRegistry:
     # ---- the serving face ----
 
     def _entry(self, tenant_id: str) -> _Tenant:
-        entry = self._tenants.get(tenant_id)
+        entry = self._tenants.get(tenant_id)  # unguarded-ok: atomic dict.get; serving callers hold the lock, and the lock-free faces tolerate racing an unregister (they get the entry or a ConfigError)
         if entry is None:
             raise ConfigError(f"unknown tenant {tenant_id!r}")
         return entry
@@ -845,7 +845,7 @@ class MatrixRegistry:
         if not sha:
             host = entry.engine._a_host.contiguous()
             sha = hashlib.sha256(
-                host.view(torch.uint8).numpy() if host.numel() else b""
+                host.view(torch.uint8).numpy() if host.numel() else b""  # sync-ok: the host payload already lies on the host: a byte view for hashing, no device read
             ).hexdigest()
             with self._lock:
                 entry.payload_sha = sha
@@ -1038,7 +1038,7 @@ class MatrixRegistry:
             self._closed = True
             entries = list(self._tenants.values())
             for e in entries:
-                e.engine.release_residency()  # the listener re-enters this RLock
+                e.engine.release_residency()  # callback-ok: same reentrant ledger-clearing release as unregister (the listener re-enters this RLock)
             self._tenants.clear()
             self._g_tenants.set(0)
             self._g_resident_tenants.set(0)

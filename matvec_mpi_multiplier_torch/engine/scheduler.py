@@ -134,7 +134,7 @@ class _SharedResult:
         with self._lock:
             if not self._done:
                 try:
-                    self._value = self._future.result()
+                    self._value = self._future.result()  # callback-ok: materialize-once latch by design: the engine future's result() fires no scheduler or registry callback
                 except Exception as e:  # a device error reaches every waiter
                     self._error = e
                 self._done = True
@@ -474,7 +474,7 @@ class ArrivalWindowScheduler:
         backpressure it absorbs) then runs on this thread."""
         if qos not in QOS_TIERS:
             raise ConfigError(f"unknown QoS tier {qos!r}; expected one of {QOS_TIERS}")
-        if self._closed:
+        if self._closed:  # unguarded-ok: advisory fast-fail; the decisive check repeats under the condition on the queued path
             # Checked again under the condition on the queued path; this
             # early check keeps the refusal uniform across the bypass and
             # stale-on-arrival paths.

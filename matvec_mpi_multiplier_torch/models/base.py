@@ -660,7 +660,7 @@ class MatvecStrategy(abc.ABC):
                 with named_span(f"{self.name}/combine/ring_gather"):
                     return ring_all_gather(ys, mesh, ring_axes)[mesh.first_local]
             y = ShardedTensor(tuple(ys), shape, spec_y, mesh)
-            return unshard(y) if gather_output else y
+            return unshard(y, boundary=True) if gather_output else y
 
         return run
 

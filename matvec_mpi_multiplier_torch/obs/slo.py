@@ -202,14 +202,14 @@ class SloMonitor:
         # is bounded by construction, and evaluate() then touches no
         # registry locks beyond the per-gauge sets.
         self._g_burn = {
-            (t.name, w): registry.gauge(
+            (t.name, w): registry.gauge(  # cardinality-ok: declared SLO targets x the fixed windows, bounded at construction
                 f"slo_{t.name}_burn_{w}",
                 f"error-budget burn rate of {t.name} over {w}",
             )
             for t in self.targets for w in WINDOWS_S
         }
         self._g_alert = {
-            t.name: registry.gauge(
+            t.name: registry.gauge(  # cardinality-ok: one gauge per declared SLO target, bounded at construction
                 f"slo_{t.name}_alert",
                 f"alert state of {t.name}: 0 ok, 1 ticket, 2 page, "
                 "-1 no data",

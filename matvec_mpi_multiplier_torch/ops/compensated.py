@@ -96,7 +96,7 @@ def ldexp(x: torch.Tensor, e) -> torch.Tensor:
     three."""
     mant, bias, _ = _FLOAT_BITS[x.dtype]
     lo, hi = 1 - bias, bias
-    rest = torch.as_tensor(e, device=x.device)
+    rest = torch.as_tensor(e, device=x.device)  # fp64-ok: e is an integer exponent (a Python int or an integer tensor), never a float array
     out = x
     for _ in range(3):
         step = rest.clamp(lo, hi)

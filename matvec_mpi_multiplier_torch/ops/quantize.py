@@ -181,13 +181,13 @@ def _block_quantize_int8(a64: torch.Tensor, block: int, residual: bool = True):
     scales = (grouped.abs().amax(dim=2) / _INT8_MAX).to(torch.float32)
     # Zero blocks: scale 0 with an all-zero payload round-trips exactly;
     # divide by a stand-in 1 to keep the quotient finite.
-    safe = torch.where(scales == 0, 1.0, scales).to(torch.float64)[:, :, None]
+    safe = torch.where(scales == 0, 1.0, scales).to(torch.float64)[:, :, None]  # quant-ok: the quotient runs in float64 as the JAX package's numpy quantizer does; the stored scales stay fp32 — fp64-ok: same
     # torch.round rounds half to even, as np.rint does.
     q = (grouped / safe).round_().clamp_(-_INT8_MAX, _INT8_MAX).to(torch.int8)
     if not residual:
         return q.view(m, k), scales, None
     # Two separate operations (q*s is exact in float64), as numpy does them.
-    rest = grouped - q.to(torch.float64) * safe
+    rest = grouped - q.to(torch.float64) * safe  # quant-ok: the int8c residual is computed in float64 so it is the true quantization error, then quantized again — fp64-ok: same
     return q.view(m, k), scales, rest.view(m, k)
 
 
@@ -204,7 +204,7 @@ def quantize_matrix(
         raise ConfigError("quantize_matrix needs a quantized format; "
                           "'native' storage is the unquantized path")
     if not isinstance(a, torch.Tensor):
-        a = from_numpy(np.asarray(a), "cpu")
+        a = from_numpy(np.asarray(a), "cpu")  # quant-ok: dtype passthrough: a host A keeps its own dtype
     if a.dim() != 2:
         raise ConfigError(f"A must be rank 2, got shape {tuple(a.shape)}")
     if not a.is_floating_point():
@@ -233,11 +233,11 @@ def quantize_matrix(
     rows = max(1, CHUNK_BYTES // (k * 8))
     for i in range(0, m, rows):
         sl = slice(i, min(m, i + rows))
-        a64 = a[sl].to(torch.float64)
+        a64 = a[sl].to(torch.float64)  # quant-ok: rows are widened to float64 one chunk at a time, as the JAX package's numpy quantizer computes; payload and scales are stored int8/fp8 and fp32 — fp64-ok: same
         if fmt == "fp8":
             grouped = a64.view(-1, nb, block)
             s = (grouped.abs().amax(dim=2) / _FP8_MAX).to(torch.float32)
-            safe = torch.where(s == 0, 1.0, s).to(torch.float64)[:, :, None]
+            safe = torch.where(s == 0, 1.0, s).to(torch.float64)[:, :, None]  # quant-ok: float64 quotient as the numpy quantizer's; scales stored fp32 — fp64-ok: same
             q[sl] = (grouped / safe).to(torch.float32).to(payload).view(-1, k)
             scales[sl] = s
             continue
@@ -294,6 +294,60 @@ def matvec_quantized(qa: QuantizedMatrix, x: torch.Tensor) -> torch.Tensor:
     if qa.q2 is not None:
         y = y + _contract_level(qa.q2, qa.scales2, x, qa.block, acc)
     return y
+
+
+def matvec_quantized_dequant_first(qa: QuantizedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The ANTI-PATTERN reference: materialize the dequantized full ``A``
+    and contract it — the same values as :func:`matvec_quantized` to the
+    rounding of the reordered sum, but it holds and moves full-width float
+    bytes, defeating the storage format. It exists so the staticcheck
+    early-dequant gate and the card's peak audit have a known-bad program
+    to catch (``staticcheck/hlo.py``, ``staticcheck/card.py``); nothing
+    dispatches it."""
+    acc = acc_dtype(qa.out_dtype)
+    m, k = qa.q.shape
+    nb = k // qa.block
+
+    def level(q, scales):
+        full = q.to(acc).view(m, nb, qa.block)  # the full dequant
+        return (full * scales.to(acc)[:, :, None]).view(m, k)
+
+    a = level(qa.q, qa.scales)
+    if qa.q2 is not None:
+        a = a + level(qa.q2, qa.scales2)
+    return a @ x.to(acc)
+
+
+def quantized_struct(m: int, k: int, fmt: str, out_dtype, block: int,
+                     device="meta") -> QuantizedMatrix:
+    """A :class:`QuantizedMatrix` of data-less leaves (``meta`` tensors by
+    default): the layout of a ``fmt`` resident of an (m, k) A in blocks of
+    ``block``, which the staticcheck storage gates read the structural
+    bytes off (no data is quantized; only the layout matters)."""
+    fmt = normalize_storage(fmt)
+    if fmt == NATIVE:
+        raise ConfigError("quantized_struct needs a quantized format")
+    if fmt == "fp8" and not fp8_supported():
+        raise ConfigError("fp8 storage unsupported on this torch build")
+    if block <= 0 or k % block:
+        raise ConfigError(f"block {block} must evenly divide k={k}")
+    nb = k // block
+    payload = torch.float8_e4m3fn if fmt == "fp8" else torch.int8
+
+    def leaf(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    pair = ((leaf((m, k), torch.int8), leaf((m, nb), torch.float32))
+            if fmt == "int8c" else (None, None))
+    return QuantizedMatrix(leaf((m, k), payload), leaf((m, nb), torch.float32),
+                           *pair, fmt=fmt, block=block, out_dtype=out_dtype)
+
+
+def quantized_like(qa: QuantizedMatrix, fn: Callable) -> QuantizedMatrix:
+    """Map ``fn`` over the present leaves (q, scales, and the int8c pair)
+    keeping the format metadata: how the staticcheck gates derive a
+    resident's per-device leaves from its structure."""
+    return qa.map(fn)
 
 
 # Tier name -> quantized-storage kernel. "cuda" (ops/cuda_quant.py) registers

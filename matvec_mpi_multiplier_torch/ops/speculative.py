@@ -110,7 +110,7 @@ def probe_matrix(n_probes: int, m: int, dtype=np.float32):
 
 def _float64_numpy(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
-        return t.detach().to("cpu", torch.float64).numpy()
+        return t.detach().to("cpu", torch.float64).numpy()  # fp64-ok: the acceptance check's reference P = U A is float64 by design (it measures the quantization error)
     return np.asarray(t, np.float64)
 
 
@@ -133,11 +133,11 @@ def project_probes(u, a, dtype=None, device=None):
         p = _float64_numpy(u) @ _float64_numpy(a)
         return torch.from_numpy(p).to(dtype)
     m, k = a.shape
-    u64 = torch.as_tensor(u).to(device, torch.float64)
-    acc = torch.zeros((u64.shape[0], k), dtype=torch.float64, device=device)
+    u64 = torch.as_tensor(u).to(device, torch.float64)  # fp64-ok: float64 reference projection, as above
+    acc = torch.zeros((u64.shape[0], k), dtype=torch.float64, device=device)  # fp64-ok: float64 accumulator of the reference projection
     rows = max(1, CHUNK_BYTES // (k * 8))
     for i in range(0, m, rows):
-        acc.addmm_(u64[:, i:i + rows], a[i:i + rows].to(device, torch.float64))
+        acc.addmm_(u64[:, i:i + rows], a[i:i + rows].to(device, torch.float64))  # fp64-ok: float64 reference projection, one row chunk at a time
     return acc.to(dtype)
 
 

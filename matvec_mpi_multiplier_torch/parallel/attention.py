@@ -247,7 +247,7 @@ def _build(schedule, mesh: Mesh, *, causal: bool, gather_output: bool,
         blocks = [list(shard(x, spec, mesh).shards) for x in (q, k, v)]
         o = schedule(*blocks, mesh, axes, causal=causal, kernel=kernel)
         out = ShardedTensor(tuple(o), tuple(q.shape), spec, mesh)
-        return unshard(out) if gather_output else out
+        return unshard(out, boundary=True) if gather_output else out
 
     return attn
 

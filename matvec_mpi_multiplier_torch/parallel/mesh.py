@@ -25,6 +25,20 @@ row-major). The collectives are explicit tensor ops:
 
 No collective here reads a value back to the host.
 
+**The collective recorder** (:class:`CollectiveRecorder`) is the port's
+reading of the JAX package's "lower the config and count the collectives":
+inside ``with CollectiveRecorder() as rec:`` every collective above appends
+one :class:`CollectiveRecord` — its census kind in the JAX package's HLO
+spelling, the axes, the shape and dtype of one device's operand block and
+its bytes — and nothing else. A record holds shapes and numbers, never a
+tensor, so a captured CUDA graph never holds one. With no recorder entered a
+collective only tests one integer; with one, the values it computes are the
+same, bit for bit. A recorder sees the collectives of the thread that
+entered it. The strategies' output gather (``unshard(...,
+boundary=True)``), which the JAX package leaves to its compiler outside the
+lowered program, is recorded apart (``rec.boundary``) and kept out of the
+census.
+
 **A mesh over several processes** (``parallel/distributed.py``, joined with
 ``initialize``): :func:`make_mesh` lays the processes' local device lists
 out in rank order, and ``Mesh.owners`` names the process that owns each
@@ -44,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Sequence
 
 import torch
@@ -290,11 +305,14 @@ def shard(t: torch.Tensor, spec: tuple, mesh: Mesh) -> ShardedTensor:
     return ShardedTensor(tuple(shards), tuple(t.shape), tuple(spec), mesh)
 
 
-def unshard(st: ShardedTensor) -> torch.Tensor:
+def unshard(st: ShardedTensor, *, boundary: bool = False) -> torch.Tensor:
     """The global tensor on the mesh's first device (the all-gather). Over
     several processes every process gets it, on its first device (the
-    names of the global list's first devices are every process's own)."""
+    names of the global list's first devices are every process's own).
+    ``boundary=True`` marks a strategy's output gather for the recorder."""
     mesh = st.mesh
+    if _RECORDERS:
+        _record("unshard", mesh.axis_names, st.shards[0], boundary)
     dev0 = mesh.devices[0]
     counts = [_axes_size(mesh, _axes(e)) for e in st.spec]
     counts += [1] * (len(st.shape) - len(counts))
@@ -390,6 +408,96 @@ def _gather_blocks(shards, mesh: Mesh, keys: list) -> dict:
     return blocks
 
 
+# ---- the collective recorder ----
+
+# The census spelling of each mesh collective (the JAX package's HLO ops).
+CENSUS_KINDS = {
+    "unshard": "all-gather",
+    "psum": "all-reduce",
+    "psum_scatter": "reduce-scatter",
+    "ppermute": "collective-permute",
+    "all_to_all": "all-to-all",
+}
+
+# How many recorders are entered in this process (usually none): the one
+# test a collective makes. Each thread keeps its own recorders, so a
+# program run on one thread never lands in another thread's record.
+_RECORDERS = 0
+_RECORDERS_LOCK = threading.Lock()
+_LOCAL = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveRecord:
+    """One collective as the recorder saw it: the census kind, the mesh
+    function, the axes it ran over, one device's operand block (shape,
+    dtype name) and that block's bytes, and whether it was the output
+    gather at the program's boundary."""
+
+    kind: str
+    op: str
+    axes: tuple[str, ...]
+    shape: tuple[int, ...]
+    dtype: str
+    payload_bytes: int
+    boundary: bool = False
+
+
+class CollectiveRecorder:
+    """Records every collective the mesh issues on the entering thread while
+    it is entered: ``records`` in issue order. :meth:`census` gives the
+    per-kind counts and per-device payload bytes of the program's own
+    collectives; ``boundary`` the output gathers it kept apart."""
+
+    def __init__(self) -> None:
+        self.records: list[CollectiveRecord] = []
+
+    def __enter__(self) -> "CollectiveRecorder":
+        global _RECORDERS
+        stack = getattr(_LOCAL, "recorders", None)
+        if stack is None:
+            stack = _LOCAL.recorders = []
+        stack.append(self)
+        with _RECORDERS_LOCK:
+            _RECORDERS += 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _RECORDERS
+        _LOCAL.recorders.remove(self)
+        with _RECORDERS_LOCK:
+            _RECORDERS -= 1
+
+    @property
+    def program(self) -> list[CollectiveRecord]:
+        return [r for r in self.records if not r.boundary]
+
+    @property
+    def boundary(self) -> list[CollectiveRecord]:
+        return [r for r in self.records if r.boundary]
+
+    def census(self) -> tuple[dict[str, int], dict[str, int]]:
+        """``(census, payload_bytes)`` keyed by kind, sorted, over the
+        program's collectives: the JAX package's audit-entry shape."""
+        census: dict[str, int] = {}
+        payload: dict[str, int] = {}
+        for r in self.program:
+            census[r.kind] = census.get(r.kind, 0) + 1
+            payload[r.kind] = payload.get(r.kind, 0) + r.payload_bytes
+        return dict(sorted(census.items())), dict(sorted(payload.items()))
+
+
+def _record(op: str, axes: tuple[str, ...], block: torch.Tensor,
+            boundary: bool = False) -> None:
+    rec = CollectiveRecord(
+        CENSUS_KINDS[op], op, tuple(axes), tuple(block.shape),
+        str(block.dtype).removeprefix("torch."),
+        block.numel() * block.element_size(), boundary,
+    )
+    for recorder in getattr(_LOCAL, "recorders", ()):
+        recorder.records.append(rec)
+
+
 # ---- collectives ----
 
 def _reduce_groups(mesh: Mesh, axes: tuple[str, ...]):
@@ -413,6 +521,8 @@ def psum(blocks: Sequence[torch.Tensor], mesh: Mesh, axes) -> list[torch.Tensor]
     """``lax.psum`` over ``axes``: every device gets the sum of its group,
     taken in shard-index order 0…n−1."""
     axes = _axes(axes)
+    if _RECORDERS:
+        _record("psum", axes, blocks[0])
     if mesh.spans_processes:
         return _psum_processes(blocks, mesh, axes, scatter=False)
     out: list[torch.Tensor] = [None] * mesh.size  # type: ignore[list-item]
@@ -467,6 +577,8 @@ def psum_scatter(
     """``lax.psum_scatter(..., tiled=True)`` over ``axes``: the group sum,
     split into equal row chunks, chunk i to the device of reduced index i."""
     axes = _axes(axes)
+    if _RECORDERS:
+        _record("psum_scatter", axes, blocks[0])
     if mesh.spans_processes:
         return _psum_processes(blocks, mesh, axes, scatter=True)
     n = _axes_size(mesh, axes)
@@ -488,6 +600,8 @@ def ppermute(
     to reduced index ``dst`` for every ``(src, dst)`` in ``perm``. A device
     that receives nothing gets zeros, as in JAX."""
     axes = _axes(axes)
+    if _RECORDERS:
+        _record("ppermute", axes, blocks[0])
     if mesh.spans_processes:
         return _ppermute_processes(blocks, mesh, axes, perm)
     out: list[torch.Tensor] = [None] * mesh.size  # type: ignore[list-item]
@@ -526,6 +640,8 @@ def all_to_all(
     ``concat_axis`` in reduced-index order. Each chunk keeps its dtype."""
     axes = _axes(axes)
     n = _axes_size(mesh, axes)
+    if _RECORDERS:
+        _record("all_to_all", axes, blocks[0])
     if mesh.spans_processes:
         return _all_to_all_processes(blocks, mesh, axes, n, split_axis,
                                      concat_axis)

@@ -44,7 +44,15 @@ from typing import Callable
 
 from ..utils.constants import MESH_AXIS_COLS, MESH_AXIS_ROWS
 from ..utils.errors import ConfigError
-from .mesh import Mesh, ShardedTensor, all_to_all, mesh_grid_shape, ppermute
+from .mesh import (
+    Mesh,
+    ShardedTensor,
+    all_to_all,
+    mesh_grid_shape,
+    ppermute,
+    shard,
+    unshard,
+)
 
 __all__ = [
     "RESHARD_STRATEGIES",
@@ -59,6 +67,15 @@ __all__ = [
 RESHARD_STRATEGIES = ("rowwise", "colwise", "blockwise")
 
 _FLAT = (MESH_AXIS_ROWS, MESH_AXIS_COLS)
+
+# The staticcheck audit's mutation seam (tests/test_torch_staticcheck.py):
+# None runs the real program; "host" swaps in a gather-everything-then-
+# slice migration (the stand-in for a host round trip: the full operand
+# materialized through an all-gather, which the census sees); "redundant"
+# appends a rotate/unrotate ppermute pair (the same result, two extra
+# collective-permutes in the census). Either must turn the reshard gate
+# red. Read once, when a migration is built.
+_MUTATION: str | None = None
 
 
 def _check_name(name: str) -> None:
@@ -182,8 +199,11 @@ def build_reshard(mesh: Mesh, src: str, dst: str) -> Callable[[ShardedTensor], S
     steps = reshard_program(src, dst, r, c)
     src_spec = get_strategy(src).specs(mesh)[0]
     dst_spec = get_strategy(dst).specs(mesh)[0]
+    mutation = _MUTATION
 
     def migrate_leaf(blocks: list) -> list:
+        if mutation == "host":
+            return _gather_and_slice(blocks, mesh, src_spec, dst_spec)
         for step in steps:
             if step[0] == "a2a":
                 blocks = all_to_all(blocks, mesh, _axes(mesh, step[1]),
@@ -191,6 +211,10 @@ def build_reshard(mesh: Mesh, src: str, dst: str) -> Callable[[ShardedTensor], S
             else:
                 blocks = ppermute(blocks, mesh, _axes(mesh, "flat"),
                                   _perm(step[1], r, c))
+        if mutation == "redundant":
+            p = r * c
+            blocks = ppermute(blocks, mesh, _FLAT, [(d, (d + 1) % p) for d in range(p)])
+            blocks = ppermute(blocks, mesh, _FLAT, [(d, (d - 1) % p) for d in range(p)])
         return blocks
 
     def migrate(st: ShardedTensor) -> ShardedTensor:
@@ -217,3 +241,26 @@ def build_reshard(mesh: Mesh, src: str, dst: str) -> Callable[[ShardedTensor], S
         return ShardedTensor(shards, tuple(st.shape), tuple(dst_spec), mesh)
 
     return migrate
+
+
+def _gather_and_slice(blocks: list, mesh: Mesh, src_spec: tuple,
+                      dst_spec: tuple) -> list:
+    """The seeded "host" mutation: materialize the full operand (an
+    all-gather onto the mesh's first device), then cut the destination
+    layout out of it. The same values, but the census shows a full-``A``
+    all-gather — the signature a host round trip implies."""
+    m = blocks[0].shape[0] * _spec_size(mesh, src_spec, 0)
+    k = blocks[0].shape[1] * _spec_size(mesh, src_spec, 1)
+    full = unshard(ShardedTensor(tuple(blocks), (m, k), tuple(src_spec), mesh))
+    return list(shard(full, dst_spec, mesh).shards)
+
+
+def _spec_size(mesh: Mesh, spec: tuple, dim: int) -> int:
+    entry = spec[dim] if dim < len(spec) else None
+    if entry is None:
+        return 1
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
+    n = 1
+    for name in names:
+        n *= mesh.shape[name]
+    return n

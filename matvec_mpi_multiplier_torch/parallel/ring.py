@@ -295,7 +295,7 @@ def staged_overlap_scatter(
     if step == "ring":
         combine = lambda v: ring_psum_scatter(v, mesh, axes)  # noqa: E731
     else:
-        combine = lambda v: psum_scatter(v, mesh, axes)  # noqa: E731
+        combine = lambda v: psum_scatter(v, mesh, axes)  # noqa: E731  # overlap-ok: chunked (each stage's slab is m/S rows of the partial)
     return _concat_stages(_pipeline_stages(compute, combine, stages))
 
 
@@ -334,7 +334,7 @@ def staged_overlap_gather(
         parts = [kernel(a[s * sub:(s + 1) * sub], x) for a, x in zip(a_blks, x_locs)]
         if reduce_axes is not None:
             # Chunked reduce-over-grid-columns: m_loc/S rows per psum.
-            parts = psum(parts, mesh, reduce_axes)
+            parts = psum(parts, mesh, reduce_axes)  # overlap-ok: chunked (m_loc/S rows per stage)
         return parts
 
     pieces = _pipeline_stages(

@@ -1,16 +1,60 @@
-"""The symbolic collective census: what each schedule issues, by formula.
+"""The collective census: what each schedule issues, by formula and by run.
 
-The port's own copy of the formulas of the JAX package's
-``staticcheck/hlo.py`` that the analytic cost model
-(``tuning/cost_model.py``) evaluates. There they also pin the audit of
-lowered programs; here they are the model's single source of truth for what
-each (strategy, combine, stages) schedule and each reshard migration puts
-on the wire, and for the resident bytes of each storage format. The cost
-model imports this module at call time, so patching
-:func:`schedule_formula` reddens every prediction through the one symbol.
+The port's counterpart of the JAX package's ``staticcheck/hlo.py`` (the
+name is kept so a reader finds it; the port lowers nothing). Two halves:
+
+* **The formulas** (:func:`schedule_formula`, :func:`reshard_formula`,
+  :func:`storage_bytes_ratio`): the JAX package's, which the analytic cost
+  model (``tuning/cost_model.py``) evaluates and which pin the audit. The
+  cost model imports this module at call time, so patching
+  :func:`schedule_formula` reddens every prediction through the one symbol.
+* **The audit**, the port's reading of "lower each config and count its
+  collectives": every :data:`AUDIT_CONFIGS` cell (17 native schedules and 6
+  quantized-storage cells; ``pallas_ring`` is absent, as in the JAX
+  package, its exchange being inside the kernel) is built through
+  ``MatvecStrategy.build`` at ``AUDIT_M x AUDIT_K`` fp32 on 8 logical CPU
+  shards (2x4), run once under the mesh's collective recorder
+  (``parallel/mesh.py::CollectiveRecorder``), and held to
+
+  - its census and per-device payload bytes against :func:`schedule_formula`
+    (``hlo-schedule``), and a staged ``overlap@S`` to S chunked collectives,
+    never a full-width one (``hlo-overlap``);
+  - the storage gates: the resident leaves' ``a_bytes_ratio`` under
+    :data:`STORAGE_BYTE_CEILING` and equal to the format's structure
+    (``hlo-storage-bytes``), a quantized cell's census equal to its native
+    counterpart's (``hlo-storage-census``), and no full-width low-bit to
+    float conversion of A while the program runs (``hlo-early-dequant``,
+    watched at the ATen level; ``ops.quantize.matvec_quantized_dequant_first``
+    is the known-bad program it must catch);
+  - the build fingerprint (``engine/executables.py``): the same ExecKey
+    fingerprints the same on two fresh builds (``hlo-fingerprint``);
+  - every online-reshard migration (:data:`RESHARD_AUDIT_CONFIGS`) against
+    :func:`reshard_formula`, with no gather/reduce kind (a host round
+    trip's signature) and no redundant collective
+    (``hlo-reshard-schedule``);
+  - the port's golden table (``golden_schedule.json`` beside this module,
+    :func:`write_golden`): a disagreement is drift (``hlo-golden``,
+    ``hlo-census``).
+
+The comparison is made at the JAX lowering's boundary: the strategies'
+output gather, which the JAX package leaves to its compiler outside the
+lowered program, is recorded apart and not counted, so ``rowwise|gather``
+has an empty census in both packages. The census of every cell equals the
+JAX package's committed golden (``tests/test_torch_staticcheck.py``).
+
+Payload bytes are the operand bytes each collective presents per device.
+At fp32 every collective moves fp32; at a 16-bit A the port's combines move
+the kernels' fp32 accumulator partials where its programs combine them
+(:func:`expected_schedule` says which kinds), and y in A's dtype elsewhere.
 """
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Iterable, NamedTuple
+
+from .findings import Finding, dedup
 
 # Bytes per element for the census dtype names (the same table the byte
 # accounting uses).
@@ -142,3 +186,644 @@ def reshard_formula(
         census[kind] = census.get(kind, 0) + 1
     payload = {kind: n * shard_bytes for kind, n in census.items()}
     return census, payload
+
+
+# ------------------------------------------------------------------ audit
+
+AUDIT_DEVICES = 8
+AUDIT_M = 64
+AUDIT_K = 2048
+AUDIT_DTYPE = "float32"
+GOLDEN_NAME = "golden_schedule.json"
+GOLDEN_SCHEMA = 1
+
+# Resident-A byte-ratio ceilings the quantized cells must meet: a 1-byte
+# payload plus an fp32 scale plane at 1/block density, doubled for the
+# compensated pair (the JAX package's acceptance pins).
+STORAGE_BYTE_CEILING = {"int8": 0.30, "fp8": 0.30, "int8c": 0.55}
+
+# Peak ceilings: a quantized cell's peak device memory during a matvec
+# (resident leaves plus every transient) against its native counterpart's,
+# the JAX package's peak-liveness ceilings. A program that materializes a
+# dequantized full-width A lands above them. The card measures the peak
+# (staticcheck/card.py); nothing estimates it here.
+PEAK_LIVENESS_CEILING = {"int8": 0.70, "fp8": 0.70, "int8c": 0.90}
+
+_CENSUS_KINDS = ("all-gather", "all-reduce", "all-to-all",
+                 "collective-permute", "reduce-scatter")
+
+
+class AuditConfig(NamedTuple):
+    """One audited program: a strategy x combine(@stages) x kernel x
+    storage cell. ``kernel`` is the port's tier name (``torch`` where the
+    JAX package says ``xla``)."""
+
+    strategy: str
+    combine: str
+    stages: int | None = None
+    kernel: str = "torch"
+    storage: str = "native"
+
+    @property
+    def key(self) -> str:
+        combine = self.combine + (
+            f"@{self.stages}" if self.stages is not None else ""
+        )
+        base = f"{self.strategy}|{combine}|{self.kernel}"
+        return base if self.storage == "native" else f"{base}|{self.storage}"
+
+
+# The JAX package's audit family, cell for cell.
+AUDIT_CONFIGS: tuple[AuditConfig, ...] = (
+    AuditConfig("rowwise", "gather"),
+    AuditConfig("rowwise", "ring"),
+    AuditConfig("rowwise", "overlap", 2),
+    AuditConfig("rowwise", "overlap", 4),
+    AuditConfig("colwise", "psum"),
+    AuditConfig("colwise", "psum_scatter"),
+    AuditConfig("colwise", "ring"),
+    AuditConfig("colwise", "ring_overlap"),
+    AuditConfig("colwise", "a2a"),
+    AuditConfig("colwise", "overlap", 2),
+    AuditConfig("colwise", "overlap", 4),
+    AuditConfig("colwise", "overlap_ring", 2),
+    AuditConfig("colwise", "overlap_ring", 4),
+    AuditConfig("blockwise", "gather"),
+    AuditConfig("blockwise", "ring"),
+    AuditConfig("blockwise", "overlap", 2),
+    AuditConfig("blockwise", "overlap", 4),
+    # Quantized storage: each strategy's default schedule, and the format
+    # ladder on rowwise (no in-body collective: every resident byte is the
+    # payload's). Their census must equal the native counterpart's.
+    AuditConfig("rowwise", "gather", storage="int8"),
+    AuditConfig("rowwise", "gather", storage="int8c"),
+    AuditConfig("rowwise", "gather", storage="fp8"),
+    AuditConfig("colwise", "psum_scatter", storage="int8"),
+    AuditConfig("colwise", "psum_scatter", storage="int8c"),
+    AuditConfig("blockwise", "gather", storage="int8"),
+)
+
+
+class ReshardAuditConfig(NamedTuple):
+    """One audited migration: a (src, dst) strategy pair."""
+
+    src: str
+    dst: str
+
+    @property
+    def key(self) -> str:
+        return f"reshard|{self.src}|{self.dst}"
+
+
+RESHARD_AUDIT_CONFIGS = tuple(
+    ReshardAuditConfig(src, dst)
+    for src in ("rowwise", "colwise", "blockwise")
+    for dst in ("rowwise", "colwise", "blockwise")
+    if src != dst
+)
+
+
+def native_counterpart(cfg: AuditConfig) -> AuditConfig:
+    """The same schedule under native storage."""
+    return AuditConfig(cfg.strategy, cfg.combine, cfg.stages, cfg.kernel)
+
+
+def supported_configs(configs: Iterable[AuditConfig]) -> tuple[AuditConfig, ...]:
+    """The cells this torch build can run (fp8 needs ``float8_e4m3fn``)."""
+    from ..ops.quantize import fp8_supported
+
+    return tuple(c for c in configs if c.storage != "fp8" or fp8_supported())
+
+
+def audit_mesh(p: int = AUDIT_DEVICES, device="cpu", grid=None):
+    """``p`` logical shards of ``device``: the most-square grid (2x4 at
+    8, the JAX audit's), or ``grid``."""
+    import torch
+
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(p, shape=grid, devices=[torch.device(device)] * p)
+
+
+def _acc_name(dtype: str) -> str:
+    return "float64" if dtype == "float64" else "float32"
+
+
+def _acc_kinds(strategy: str, combine: str) -> frozenset:
+    """The kinds a schedule moves in the kernels' accumulator dtype: colwise
+    combines its partials; blockwise sums its partials over the grid
+    columns (and its staged gather carries them); rowwise's staged gather
+    carries the accumulator too. The plain gathers move y in A's dtype."""
+    if strategy == "colwise":
+        return frozenset(_CENSUS_KINDS)
+    if strategy == "blockwise":
+        return frozenset({"all-reduce", "collective-permute"}
+                         if combine == "overlap" else {"all-reduce"})
+    return frozenset({"collective-permute"} if combine == "overlap" else ())
+
+
+def expected_schedule(
+    cfg: AuditConfig, mesh, *, m: int = AUDIT_M, dtype: str = AUDIT_DTYPE,
+) -> tuple[dict[str, int], dict[str, int]]:
+    """:func:`schedule_formula` evaluated for one cell on ``mesh``: what
+    the cell must issue, with each kind's bytes at the dtype it moves."""
+    from ..parallel.mesh import mesh_grid_shape
+
+    r, _c = mesh_grid_shape(mesh)
+    kw = dict(m=m, p=mesh.size, r=r)
+    census, payload = schedule_formula(
+        cfg.strategy, cfg.combine, cfg.stages, itemsize=dtype_itemsize(dtype), **kw)
+    _, acc = schedule_formula(
+        cfg.strategy, cfg.combine, cfg.stages,
+        itemsize=dtype_itemsize(_acc_name(dtype)), **kw)
+    wide = _acc_kinds(cfg.strategy, cfg.combine)
+    return (dict(sorted(census.items())),
+            {k: (acc[k] if k in wide else payload[k]) for k in sorted(payload)})
+
+
+def expected_reshard(
+    rcfg: ReshardAuditConfig, mesh, *, m: int = AUDIT_M, k: int = AUDIT_K,
+    dtype: str = AUDIT_DTYPE,
+) -> tuple[dict[str, int], dict[str, int]]:
+    """:func:`reshard_formula` evaluated for one migration on ``mesh``."""
+    from ..parallel.mesh import mesh_grid_shape
+
+    r, c = mesh_grid_shape(mesh)
+    census, payload = reshard_formula(
+        rcfg.src, rcfg.dst, m=m, k=k, p=mesh.size, r=r, c=c,
+        itemsize=dtype_itemsize(dtype))
+    return dict(sorted(census.items())), dict(sorted(payload.items()))
+
+
+def audit_block(cfg: AuditConfig, mesh, k: int = AUDIT_K) -> int | None:
+    """The quantization block of a quantized cell: the engine's derivation
+    (``default_block`` against the strategy's contraction sharding)."""
+    if cfg.storage == "native":
+        return None
+    from ..models import get_strategy
+    from ..ops.quantize import default_block
+
+    return default_block(k, get_strategy(cfg.strategy).contraction_shards(mesh))
+
+
+def _bound(cfg: AuditConfig):
+    from ..models import get_strategy
+
+    strat = get_strategy(cfg.strategy)
+    return strat.with_combine(cfg.combine, stages=cfg.stages) or strat
+
+
+def build_config(cfg: AuditConfig, mesh, kernel=None):
+    """The cell's program, through ``MatvecStrategy.build``. ``kernel``
+    overrides the local kernel (the dequant-first mutation injects the
+    known-bad program here)."""
+    from ..models import get_strategy
+
+    kwargs: dict = {"combine": cfg.combine,
+                    "kernel": kernel if kernel is not None else cfg.kernel}
+    if cfg.stages is not None:
+        kwargs["stages"] = cfg.stages
+    if cfg.storage != "native":
+        kwargs["dtype_storage"] = cfg.storage
+    return get_strategy(cfg.strategy).build(mesh, **kwargs)
+
+
+def audit_operands(cfg: AuditConfig, mesh, *, m: int = AUDIT_M, k: int = AUDIT_K,
+                   dtype: str = AUDIT_DTYPE, seed: int = 0, a=None):
+    """The cell's operands placed on ``mesh``: a seeded uniform A (made on
+    the mesh's first device) and x, A quantized for a quantized cell. ``a``
+    passes a native A in instead (the card shares one across cells)."""
+    import torch
+
+    from ..ops.quantize import quantize_matrix
+
+    device = mesh.devices[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    if a is None:
+        a = torch.rand((m, k), generator=gen, device=device, dtype=tdt)
+    x = torch.rand((k,), generator=gen, device=device, dtype=tdt)
+    if cfg.storage != "native":
+        a = quantize_matrix(a, cfg.storage, block=audit_block(cfg, mesh, k))
+    return _bound(cfg).place(a, x, mesh)
+
+
+def resident_bytes(placed) -> int:
+    """Bytes of a placed A's shards: every leaf of a quantized resident."""
+    total = 0
+    for s in placed.shards:
+        for t in ((s,) if not hasattr(s, "leaves") else s.leaves):
+            if t is not None:
+                total += t.numel() * t.element_size()
+    return total
+
+
+class _ConvertWatch:
+    """Records every ATen conversion of a low-bit (int8 or float8) tensor
+    to a float one while entered: ``(source shape, source dtype, result
+    dtype)``. The port's reading of the JAX gate's walk over StableHLO
+    converts."""
+
+    def __init__(self):
+        self.converts: list[tuple] = []
+        self._mode = None
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        watch = self
+        lowbit = {torch.int8} | ({torch.float8_e4m3fn}
+                                 if hasattr(torch, "float8_e4m3fn") else set())
+        ops = {torch.ops.aten._to_copy.default: 0, torch.ops.aten.copy_.default: 1}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                pos = ops.get(func)
+                if pos is not None:
+                    src = args[pos]
+                    dst = out if pos == 0 else args[0]
+                    if src.dtype in lowbit and dst.dtype.is_floating_point:
+                        watch.converts.append((tuple(src.shape), str(src.dtype),
+                                               str(dst.dtype)))
+                return out
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def run_config(cfg: AuditConfig, mesh, a, x, *, kernel=None, watch: bool = False):
+    """Run the cell's program once on placed operands under the collective
+    recorder (and, with ``watch``, the low-bit conversion watch). Returns
+    ``(y, recorder, converts)``."""
+    from ..parallel.mesh import CollectiveRecorder
+
+    fn = build_config(cfg, mesh, kernel)
+    with CollectiveRecorder() as rec:
+        if watch:
+            with _ConvertWatch() as w:
+                y = fn(a, x)
+            converts = w.converts
+        else:
+            y, converts = fn(a, x), []
+    return y, rec, converts
+
+
+def _local_a_shape(cfg: AuditConfig, mesh, m: int, k: int, dtype, block) -> tuple:
+    """The per-device payload shape of a quantized cell, derived from its
+    structure (``quantized_struct``) and the strategy's A spec."""
+    import torch
+
+    from ..ops.quantize import quantized_like, quantized_struct
+
+    spec = _bound(cfg).specs(mesh)[0]
+
+    def cut(dim_entry) -> int:
+        if dim_entry is None:
+            return 1
+        names = (dim_entry,) if isinstance(dim_entry, str) else tuple(dim_entry)
+        n = 1
+        for name in names:
+            n *= mesh.shape[name]
+        return n
+
+    rows, cols = cut(spec[0]), cut(spec[1] if len(spec) > 1 else None)
+    local = quantized_like(
+        quantized_struct(m, k, cfg.storage, dtype, block),
+        lambda leaf: torch.empty((leaf.shape[0] // rows, leaf.shape[1] // cols),
+                                 dtype=leaf.dtype, device="meta"),
+    )
+    return tuple(local.shape)
+
+
+def early_dequant_findings(cfg: AuditConfig, converts, mesh, *, m: int = AUDIT_M,
+                           k: int = AUDIT_K, dtype: str = AUDIT_DTYPE) -> list[Finding]:
+    """A quantized cell must never convert a full-width low-bit A — the
+    global (m, k) or the per-device shard — to float: the sanctioned
+    kernels upcast (m, block) tiles, or nothing outside registers."""
+    if cfg.storage == "native":
+        return []
+    import torch
+
+    full = {(m, k), _local_a_shape(cfg, mesh, m, k, getattr(torch, dtype),
+                                   audit_block(cfg, mesh, k))}
+    return [
+        Finding(f"<hlo:{cfg.key}>", 0, "hlo-early-dequant",
+                f"the program converts a full-width {src_dtype} {list(shape)} A to "
+                f"{dst_dtype} before the contraction: the quantized cell stores "
+                "the payload's bytes but holds and moves full-width float "
+                "bytes (upcast per (m, block) tile, or in registers)")
+        for shape, src_dtype, dst_dtype in dict.fromkeys(converts)
+        if shape in full
+    ]
+
+
+def exec_key(cfg: AuditConfig, dtype: str = AUDIT_DTYPE):
+    """The engine-cache identity the cell dispatches under."""
+    from ..engine.executables import ExecKey
+
+    combine = cfg.combine + (f"@{cfg.stages}" if cfg.stages is not None else "")
+    return ExecKey("matvec", cfg.strategy, cfg.kernel, combine, 1, dtype,
+                   cfg.storage)
+
+
+def config_fingerprint(cfg: AuditConfig, mesh, *, m: int = AUDIT_M, k: int = AUDIT_K,
+                       dtype: str = AUDIT_DTYPE) -> str:
+    """The cell's build fingerprint from a fresh build, as the engine
+    records it (``engine/executables.py``)."""
+    import torch
+
+    from ..engine.executables import build_fingerprint, trace_program
+    from ..models import get_strategy
+
+    trace = trace_program(
+        get_strategy(cfg.strategy), mesh, batched=False, kernel=cfg.kernel,
+        combine=cfg.combine, stages=cfg.stages, gather_output=True,
+        storage=cfg.storage, a_shape=(m, k), dtype=getattr(torch, dtype),
+        block=audit_block(cfg, mesh, k),
+    )
+    return build_fingerprint(exec_key(cfg, dtype), trace["schedule"],
+                             trace["local_shapes"], trace["routes"])
+
+
+def audit_entry(cfg: AuditConfig, mesh, *, m: int = AUDIT_M, k: int = AUDIT_K,
+                dtype: str = AUDIT_DTYPE, kernel=None, seed: int = 0,
+                run=None) -> dict:
+    """Run one cell and package what it issued: the census, per-device
+    payload bytes, the resident leaves' ``a_bytes`` and their ratio to the
+    native stream, the full-width low-bit conversions seen (``converts``),
+    and the records (``records``) and the output gathers kept apart
+    (``boundary``). ``run`` passes in a ``(a, x, y, recorder, converts)``
+    already made."""
+    if run is None:
+        a, x = audit_operands(cfg, mesh, m=m, k=k, dtype=dtype, seed=seed)
+        y, rec, converts = run_config(cfg, mesh, a, x, kernel=kernel,
+                                      watch=cfg.storage != "native")
+    else:
+        a, x, y, rec, converts = run
+    census, payload = rec.census()
+    a_bytes = resident_bytes(a)
+    native = m * k * dtype_itemsize(dtype)
+    return {
+        "census": census,
+        "payload_bytes": payload,
+        "payload_total_bytes": sum(payload.values()),
+        "a_bytes": a_bytes,
+        "a_bytes_ratio": round(a_bytes / native, 6),
+        "converts": converts,
+        "records": rec.program,
+        "boundary": rec.boundary,
+    }
+
+
+# The golden-pinned fields of an entry.
+_GOLDEN_FIELDS = ("census", "payload_bytes", "payload_total_bytes", "a_bytes",
+                  "a_bytes_ratio")
+
+
+def schedule_findings(cfg: AuditConfig, entry: dict, mesh, *, m: int = AUDIT_M,
+                      k: int = AUDIT_K, dtype: str = AUDIT_DTYPE,
+                      native_census: dict | None = None) -> list[Finding]:
+    """The structural gates of one cell's entry (golden-independent)."""
+    findings: list[Finding] = []
+    where = f"<hlo:{cfg.key}>"
+    exp_census, exp_payload = expected_schedule(cfg, mesh, m=m, dtype=dtype)
+    hint = (f" — a staged overlap body must issue S={cfg.stages} chunked "
+            "collectives (1/S of the un-staged bytes each), never a full-width one"
+            if cfg.stages is not None else "")
+    if entry["census"] != exp_census:
+        findings.append(Finding(
+            where, 0, "hlo-schedule",
+            f"collective census {entry['census']} != structural expectation "
+            f"{exp_census}{hint}"))
+    elif entry["payload_bytes"] != exp_payload:
+        findings.append(Finding(
+            where, 0, "hlo-schedule",
+            f"collective payload {entry['payload_bytes']} != structural "
+            f"expectation {exp_payload}{hint}"))
+    if cfg.stages is not None:
+        for rec in entry["records"]:
+            count = exp_census.get(rec.kind)
+            chunk = exp_payload[rec.kind] // count if count else 0
+            if rec.payload_bytes > chunk:
+                findings.append(Finding(
+                    where, 0, "hlo-overlap",
+                    f"a full-width {rec.kind} ({rec.op} of {rec.payload_bytes} "
+                    f"bytes a device, the chunk is {chunk}) inside overlap@"
+                    f"{cfg.stages}: the staged pipeline re-serializes the "
+                    "transfer it exists to hide"))
+                break
+    ceiling = STORAGE_BYTE_CEILING.get(cfg.storage)
+    if ceiling is not None:
+        import torch
+
+        from ..ops.quantize import quantized_struct
+
+        struct = quantized_struct(m, k, cfg.storage, getattr(torch, dtype),
+                                  audit_block(cfg, mesh, k))
+        if entry["a_bytes_ratio"] > ceiling:
+            findings.append(Finding(
+                where, 0, "hlo-storage-bytes",
+                f"resident-A bytes are {entry['a_bytes_ratio']:.3f}x the native "
+                f"stream, over the {cfg.storage} ceiling of {ceiling}x — the "
+                "storage format is not shrinking the bytes it exists to shrink"))
+        elif entry["a_bytes"] != struct.nbytes:
+            findings.append(Finding(
+                where, 0, "hlo-storage-bytes",
+                f"resident-A bytes {entry['a_bytes']} != the {cfg.storage} "
+                f"structure's {struct.nbytes} (a leaf is wider than its format)"))
+        if native_census is not None and entry["census"] != native_census:
+            findings.append(Finding(
+                where, 0, "hlo-storage-census",
+                f"quantized census {entry['census']} != the native "
+                f"counterpart's {native_census}: the combine must run on the "
+                "fp32 partials, never on the payload"))
+    findings.extend(early_dequant_findings(cfg, entry["converts"], mesh,
+                                           m=m, k=k, dtype=dtype))
+    return findings
+
+
+def reshard_audit_entry(rcfg: ReshardAuditConfig, mesh, *, m: int = AUDIT_M,
+                        k: int = AUDIT_K, dtype: str = AUDIT_DTYPE,
+                        seed: int = 0) -> dict:
+    """Run one migration of a seeded A under the recorder."""
+    import torch
+
+    from ..models import get_strategy
+    from ..parallel.mesh import CollectiveRecorder, shard, unshard
+    from ..parallel.reshard import build_reshard
+
+    device = mesh.devices[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.rand((m, k), generator=gen, device=device, dtype=getattr(torch, dtype))
+    st = shard(a, get_strategy(rcfg.src).specs(mesh)[0], mesh)
+    migrate = build_reshard(mesh, rcfg.src, rcfg.dst)
+    with CollectiveRecorder() as rec:
+        out = migrate(st)
+    if not torch.equal(unshard(out), a):
+        raise RuntimeError(f"{rcfg.key}: the migration changed A's values")
+    census, payload = rec.census()
+    return {"census": census, "payload_bytes": payload,
+            "payload_total_bytes": sum(payload.values())}
+
+
+def reshard_findings(rcfg: ReshardAuditConfig, entry: dict, mesh, *,
+                     m: int = AUDIT_M, k: int = AUDIT_K,
+                     dtype: str = AUDIT_DTYPE) -> list[Finding]:
+    """No gather/reduce kind anywhere (a host round trip's signature), and
+    census and payload exactly the formula's minimal program."""
+    where = f"<hlo:{rcfg.key}>"
+    exp_census, exp_payload = expected_reshard(rcfg, mesh, m=m, k=k, dtype=dtype)
+    census = entry["census"]
+    gatherish = sorted(set(census) - {"all-to-all", "collective-permute"})
+    if gatherish:
+        return [Finding(
+            where, 0, "hlo-reshard-schedule",
+            f"migration issues {gatherish} — a gather/reduce kind materializes "
+            "more than the 1/p local shard somewhere, the signature of a host "
+            f"round trip; the {rcfg.src}->{rcfg.dst} move must be the minimal "
+            "all_to_all/ppermute program")]
+    if census != exp_census:
+        return [Finding(
+            where, 0, "hlo-reshard-schedule",
+            f"collective census {census} != structural expectation {exp_census} "
+            "— a redundant (or missing) collective in the migration")]
+    if entry["payload_bytes"] != exp_payload:
+        return [Finding(
+            where, 0, "hlo-reshard-schedule",
+            f"collective payload {entry['payload_bytes']} != structural "
+            f"expectation {exp_payload} — each step must move exactly the "
+            "device's 1/p local shard")]
+    return []
+
+
+def golden_path() -> Path:
+    return Path(__file__).resolve().parent / GOLDEN_NAME
+
+
+def build_schedule_table(configs: Iterable[AuditConfig] | None = None,
+                         reshard_configs: Iterable[ReshardAuditConfig] | None = None,
+                         mesh=None) -> dict:
+    """The golden table's payload for the current tree."""
+    import torch
+
+    mesh = mesh if mesh is not None else audit_mesh()
+    configs = supported_configs(configs or AUDIT_CONFIGS)
+    entries = {}
+    for cfg in configs:
+        entry = audit_entry(cfg, mesh)
+        entries[cfg.key] = {f: entry[f] for f in _GOLDEN_FIELDS}
+    reshards = {r.key: reshard_audit_entry(r, mesh)
+                for r in (reshard_configs or RESHARD_AUDIT_CONFIGS)}
+    return {
+        "schema": GOLDEN_SCHEMA,
+        "mesh": {"devices": mesh.size, "grid": list(mesh.grid)},
+        "operand": {"m": AUDIT_M, "k": AUDIT_K, "dtype": AUDIT_DTYPE},
+        "torch_version_at_capture": torch.__version__,
+        "configs": entries,
+        "reshards": reshards,
+    }
+
+
+def write_golden(path: Path | None = None) -> Path:
+    """Bless the current census as the golden table."""
+    path = Path(path) if path is not None else golden_path()
+    path.write_text(json.dumps(build_schedule_table(), indent=2) + "\n")
+    return path
+
+
+def run_hlo_audit(
+    golden: Path | None = None,
+    configs: Iterable[AuditConfig] | None = None,
+    reshard_configs: Iterable[ReshardAuditConfig] | None = None,
+    *,
+    check_fingerprints: bool = True,
+    kernel=None,
+    mesh=None,
+) -> list[Finding]:
+    """The whole census audit on 8 logical CPU shards: every cell's
+    structural, storage, early-dequant and fingerprint gates, every
+    migration's, and the golden table over whichever cells ran (a narrowed
+    run compares only those). ``kernel`` overrides every cell's local
+    kernel (the dequant-first mutation). Empty means clean."""
+    golden = Path(golden) if golden is not None else golden_path()
+    mesh = mesh if mesh is not None else audit_mesh()
+    full_run = configs is None and reshard_configs is None
+    configs = supported_configs(configs or AUDIT_CONFIGS)
+    reshard_configs = tuple(RESHARD_AUDIT_CONFIGS if reshard_configs is None and full_run
+                            else reshard_configs or ())
+    findings: list[Finding] = []
+    pinned: dict = {}
+    pinned_reshards: dict = {}
+    if golden.is_file():
+        table = json.loads(golden.read_text())
+        if table.get("schema") != GOLDEN_SCHEMA:
+            findings.append(Finding(
+                GOLDEN_NAME, 0, "hlo-golden",
+                f"golden schema {table.get('schema')!r} != {GOLDEN_SCHEMA}; "
+                "regenerate with --write-golden"))
+        pinned = table.get("configs", {})
+        pinned_reshards = table.get("reshards", {})
+        have_golden = True
+    else:
+        findings.append(Finding(
+            GOLDEN_NAME, 0, "hlo-golden",
+            "golden collective-schedule table missing; generate it with "
+            "`python -m matvec_mpi_multiplier_torch.staticcheck --write-golden`"))
+        have_golden = False
+    native_census: dict[str, dict] = {}
+    for cfg in sorted(configs, key=lambda c: c.storage != "native"):
+        entry = audit_entry(cfg, mesh, kernel=kernel)
+        base = native_counterpart(cfg)
+        if cfg.storage == "native":
+            native_census[cfg.key] = entry["census"]
+        elif base.key not in native_census:
+            native_census[base.key] = audit_entry(base, mesh)["census"]
+        findings.extend(schedule_findings(
+            cfg, entry, mesh, native_census=native_census.get(base.key)))
+        if check_fingerprints:
+            fp_a, fp_b = config_fingerprint(cfg, mesh), config_fingerprint(cfg, mesh)
+            if fp_a != fp_b:
+                findings.append(Finding(
+                    f"<hlo:{cfg.key}>", 0, "hlo-fingerprint",
+                    f"two fresh builds of ExecKey {exec_key(cfg).label()} "
+                    f"fingerprint differently ({fp_a[:12]} vs {fp_b[:12]}): the "
+                    "engine's cache would hold two programs for one key"))
+        if have_golden:
+            observed = {f: entry[f] for f in _GOLDEN_FIELDS}
+            want = pinned.get(cfg.key)
+            if want is None:
+                findings.append(Finding(
+                    GOLDEN_NAME, 0, "hlo-golden",
+                    f"config {cfg.key} missing from the golden table; bless it "
+                    "with --write-golden"))
+            elif want != observed:
+                findings.append(Finding(
+                    GOLDEN_NAME, 0, "hlo-census",
+                    f"{cfg.key}: the program issues {observed} != golden {want}; "
+                    "if the change is deliberate, bless it with --write-golden"))
+    for rcfg in reshard_configs:
+        entry = reshard_audit_entry(rcfg, mesh)
+        findings.extend(reshard_findings(rcfg, entry, mesh))
+        if have_golden:
+            want = pinned_reshards.get(rcfg.key)
+            if want is None:
+                findings.append(Finding(
+                    GOLDEN_NAME, 0, "hlo-golden",
+                    f"reshard config {rcfg.key} missing from the golden table"))
+            elif want != entry:
+                findings.append(Finding(
+                    GOLDEN_NAME, 0, "hlo-census",
+                    f"{rcfg.key}: the migration issues {entry} != golden {want}"))
+    if have_golden and full_run:
+        for stale in sorted(set(pinned) - {c.key for c in AUDIT_CONFIGS}):
+            findings.append(Finding(
+                GOLDEN_NAME, 0, "hlo-golden",
+                f"golden table pins unknown config {stale}; regenerate with "
+                "--write-golden"))
+    return dedup(findings)

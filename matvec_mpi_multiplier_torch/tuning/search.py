@@ -57,7 +57,7 @@ from ..bench.timing import benchmark_gemm, benchmark_strategy, fence, time_fn_lo
 from ..models import get_strategy
 from ..parallel.mesh import Mesh, make_1d_mesh, mesh_grid_shape
 from ..utils.convert import torch_dtype
-from ..utils.errors import MatvecError, TimingError
+from ..utils.errors import ConfigError, MatvecError, TimingError
 from .cache import (
     TuningCache,
     combine_key,
@@ -96,8 +96,15 @@ def _cuda_offered(device: torch.device) -> bool:
 
 
 def _tune_device() -> torch.device:
-    """The device a kernel axis measures on: the first card, else the CPU."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    """The device a kernel axis measures on when none is given: the first
+    card. Never a quiet CPU race: without a card it raises ``ConfigError``
+    (pass ``device=torch.device("cpu")`` to measure the CPU)."""
+    if not torch.cuda.is_available():
+        raise ConfigError(
+            "no CUDA device is visible: the kernel tuner measures on the first "
+            "card; pass device=torch.device('cpu') to tune on the CPU"
+        )
+    return torch.device("cuda", 0)
 
 
 def _uniform(shape: tuple, dtype: str, seed: int, device) -> torch.Tensor:

@@ -326,8 +326,9 @@ def _run_all_axes(cache, mesh, *, prune_margin, log):
     decisions = {}
     kw = dict(n_reps=2, samples=1, min_gain=0.25, log=log,
               prune_margin=prune_margin)
-    decisions["gemv"] = search.tune_gemv(8, 64, "float32", cache, **kw)["kernel"]
-    decisions["gemm"] = search.tune_gemm(8, 64, 8, "float32", cache, **kw)["kernel"]
+    cpu = dict(kw, device=torch.device("cpu"))
+    decisions["gemv"] = search.tune_gemv(8, 64, "float32", cache, **cpu)["kernel"]
+    decisions["gemm"] = search.tune_gemm(8, 64, 8, "float32", cache, **cpu)["kernel"]
     for strategy in ("rowwise", "colwise", "blockwise"):
         d = search.tune_combine(strategy, mesh, 64, 64, "float32", cache,
                                 measure="sync", **kw)

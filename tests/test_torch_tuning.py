@@ -320,14 +320,14 @@ def test_tune_gemv_records_the_fastest_route(cache_path, monkeypatch):
     monkeypatch.setattr(search, "_candidate_gemv_fn", tagged)
     monkeypatch.setattr(search, "_measure_fn", fake_measure)
     cache = tuning.TuningCache.load(cache_path)
-    decision = search.tune_gemv(32, 128, "float32", cache, **QUIET)
+    decision = search.tune_gemv(32, 128, "float32", cache, device=CPU, **QUIET)
     assert {k: decision[k] for k in cands[1]} == cands[1]
     assert decision["time_s"] == 1.0
     assert set(decision["candidates"]) == {search._candidate_label(c) for c in cands}
     assert cache.lookup(tuning.gemv_key(32, 128, "float32")) == decision
     monkeypatch.setattr(search, "_measure_fn",
                         lambda *a, **k: pytest.fail("a cache hit must not measure"))
-    assert search.tune_gemv(32, 128, "float32", cache, **QUIET) == decision
+    assert search.tune_gemv(32, 128, "float32", cache, device=CPU, **QUIET) == decision
 
 
 def _jax_axis(axis, mesh_j, cache):
@@ -351,9 +351,9 @@ def _jax_axis(axis, mesh_j, cache):
 def _port_axis(axis, mesh, cache):
     f = dict(measure="sync", **FAST)
     if axis == "gemv":
-        return search.tune_gemv(32, 64, "float32", cache, **f)
+        return search.tune_gemv(32, 64, "float32", cache, device=CPU, **f)
     if axis == "gemm":
-        return search.tune_gemm(32, 64, 8, "float32", cache, **f)
+        return search.tune_gemm(32, 64, 8, "float32", cache, device=CPU, **f)
     if axis == "combine":
         return search.tune_combine("colwise", mesh, 16, 16, "float32", cache, **f)
     if axis == "gemm_combine":
