@@ -234,7 +234,28 @@ kernels' launch counts set to 0 just before it and read just after:
   ``exec_keyspace()``'s, and a second fresh engine's fingerprints equal key
   by key (``staticcheck_keyspace``); the dispatch-path sync audit on the
   first engine under ``torch.cuda.set_sync_debug_mode("error")``, clean,
-  and red on a seeded ``.item()`` (``staticcheck_sync``).
+  and red on a seeded ``.item()`` (``staticcheck_sync``);
+* the rest of static analysis (section 50): the solver, fused-solver and
+  speculative audits on the 8-shard CPU mesh and the dataflow rules over
+  the checkout, zero findings (``audit_layers``); on section 17's 65536²
+  fp32 operand, rowwise, p = 1, cg and chebyshev on both tiers on the device
+  loop, whose warm solve of 48 iterations reads the host once a chunk (1 +
+  48/16 reads), the fused tier host-stepped for 24 iterations with one
+  ``solver_step`` call an iteration and only the prologue's and the
+  verification's GEMVs, and the speculative engine at b = 1: no sync on
+  submit, one verdict read a future, the check's bytes and its collective
+  bytes (``audit_card_twins``); the traced fingerprints of the fused cg,
+  the torch tier's gmres, lanczos and power, the speculative and the
+  ``pallas_ring`` keys equal across two fresh engines at 8192² fp32
+  (``audit_fingerprints``);
+* the eight study CLIs (section 51): each ``bench/<name>_study.py`` once
+  through its ``main(argv)`` into a temporary directory on 8 logical shards
+  of ``cuda:0`` (crossover, quantized and refine on one), at the JAX
+  scripts' default sizes, one ``study_<name>`` line each with its headline
+  numbers and seconds. An A/B study (reshard, gsched, cost model) whose
+  verdict over measured times does not hold on the card exits 1 and prints
+  its numbers: that verdict is the study's result; any other failed gate
+  or error fails the section.
 
 Every section prints its seconds (``"phase": "seconds"`` lines, and all of
 them before the kernels line).
@@ -684,6 +705,46 @@ SC = {
                 ("rowwise", 65536, "float32", (1, 1), "int8c")),
     "promote": 8, "max_bucket": 32,
 }
+
+# The rest of static analysis (section 50): the solver, fused-solver and
+# speculative audits and the dataflow rules on the CPU mesh, zero findings;
+# the card twins on section 17's operand at AU["n"]² fp32, rowwise, p = 1:
+# cg and chebyshev on both tiers, each solved twice at rtol AU["rtol"] for
+# AU["maxiter"] iterations (the second solve replays the captured chunks:
+# 1 + ceil(maxiter / DEFAULT_CHUNK) host reads), the fused tier host-stepped
+# for AU["step_iters"] iterations (one step call an iteration, the two GEMVs
+# of the prologue and the verification), the speculative engine at b = 1 for
+# AU["spec_requests"] futures (one verdict read a future, no sync on
+# submit); the fingerprints of solver, speculative and pallas_ring keys
+# across two fresh engines at AU["fp_n"]² fp32 (pallas_ring on AU["ring_p"]
+# logical shards).
+AU = {
+    "n": 65536, "rtol": 1e-30, "maxiter": 48, "step_iters": 24,
+    "spec_requests": 8, "spec_rtol": 1e-3, "fp_n": 8192, "ring_p": 4,
+}
+
+# The eight study CLIs (section 51), each through its main(argv) into a
+# temporary directory, at the JAX study's default sizes (the logical
+# shards of cuda:0 standing in for the JAX CPU mesh's devices), except the
+# flags listed per study (their reasons in STUDY_NOTES).
+STUDIES = {
+    "overlap": ["--devices", "8"],
+    "crossover": [],
+    "reshard": ["--devices", "8", "--in-process"],
+    "gsched": ["--devices", "8"],
+    "slo": ["--devices", "8"],
+    "quantized": [],
+    "refine": [],
+    "cost_model": ["--devices", "8"],
+}
+STUDY_NOTES = {
+    "reshard": "both arms in this process (--in-process), not one fresh process "
+               "each: a process of its own would start CUDA and load the kernels again",
+}
+# The studies whose verdict is an A/B gate over measured times: a gate that
+# does not hold is the study's result (printed with its numbers), not a
+# failure of the program.
+AB_STUDIES = ("reshard", "gsched", "cost_model")
 
 # An entry as the JAX package would write it for one of the same keys: its
 # fingerprint is never the port's, so it must never apply.
@@ -2955,6 +3016,361 @@ def staticcheck_section(dev, seed: int, sc: dict) -> dict:
     first_engine.close()
     release()
     return launches
+
+
+def audits_section(dev, seed: int, au: dict) -> dict:
+    """Section 50: the rest of static analysis on ``dev`` at the sizes of
+    ``au``: (a) the solver, fused-solver and speculative audits on the CPU
+    mesh and the dataflow rules over the checkout, zero findings; (b) the
+    card twins: cg and chebyshev on both tiers on the device loop, one host
+    read a chunk on a warm solve; the fused tier's one step call an
+    iteration and no GEMV in the loop; the speculative engine at b = 1, one
+    verdict read a future and the check's extra bytes; (c) the fingerprints
+    of solver, speculative and pallas_ring keys equal across two fresh
+    engines.
+
+    Emits one JSON line per part and returns the kernels' launches by path
+    ({kernel: {path: n}}). On a CPU device (a rehearsal at a small size)
+    the loops are host-stepped and no read or sync is counted."""
+    import gc
+    import math
+
+    import torch
+
+    from matvec_mpi_multiplier_torch.bench.serve import solver_operand
+    from matvec_mpi_multiplier_torch.engine import MatvecEngine
+    from matvec_mpi_multiplier_torch.models import get_strategy
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_quant import quant_gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_ring import ring_gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_solver import solver_step_cuda
+    from matvec_mpi_multiplier_torch.parallel.mesh import CollectiveRecorder, make_1d_mesh
+    from matvec_mpi_multiplier_torch.solvers import build_solver
+    from matvec_mpi_multiplier_torch.solvers.device_loop import DEFAULT_CHUNK
+    from matvec_mpi_multiplier_torch.solvers.ops import _build_solver
+    from matvec_mpi_multiplier_torch.staticcheck import DATAFLOW_RULES, hlo, run_rules
+
+    on_card = dev.type == "cuda"
+    wrappers = {"gemv": gemv_cuda, "quant_gemv": quant_gemv_cuda,
+                "solver_step": solver_step_cuda, "ring_gemv": ring_gemv_cuda}
+    launches: dict = {k: {} for k in wrappers}
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def counted(name: str, fn):
+        """fn() with every count set to 0 just before it and read just after,
+        under the path ``name``; returns (fn(), {kernel: launches})."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        sync()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for k, n in counts.items():
+            if n:
+                launches[k][name] = launches[k].get(name, 0) + n
+        return out, counts
+
+    def release() -> None:
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+
+    # ---- (a) the audit layers and the dataflow rules ----
+    t0 = time.perf_counter()
+    findings = hlo.run_hlo_audit(solver_configs=hlo.SOLVER_AUDIT_CONFIGS,
+                                 fused_solver_configs=hlo.FUSED_SOLVER_AUDIT_CONFIGS,
+                                 spec_configs=hlo.SPEC_AUDIT_CONFIGS)
+    check(findings == [], "staticcheck audits: " + "; ".join(
+        f"{f.location} [{f.rule}] {f.message}" for f in findings[:5]))
+    dataflow = run_rules(rules=list(DATAFLOW_RULES))
+    check(dataflow == [], "staticcheck dataflow: " + "; ".join(
+        f"{f.location} [{f.rule}] {f.message}" for f in dataflow[:5]))
+    mesh8 = hlo.audit_mesh()
+    emit({"phase": "audit_layers", "mesh": list(mesh8.grid),
+          "solvers": {c.key: hlo.solver_audit_entry(c, mesh8)
+                      for c in hlo.SOLVER_AUDIT_CONFIGS if c.strategy == "colwise"},
+          "fused_solvers": {c.key: hlo.fused_solver_audit_entry(c, mesh8)
+                            for c in hlo.FUSED_SOLVER_AUDIT_CONFIGS},
+          "speculative": {c.key: hlo.spec_audit_entry(c, mesh8)
+                          for c in hlo.SPEC_AUDIT_CONFIGS},
+          "audit_findings": len(findings), "dataflow_rules": list(DATAFLOW_RULES),
+          "dataflow_findings": len(dataflow), "seconds": time.perf_counter() - t0})
+
+    # ---- (b) the card twins at full width ----
+    t0 = time.perf_counter()
+    n = au["n"]
+    mesh1 = hlo.audit_mesh(1, dev)
+    rowwise = get_strategy("rowwise")
+    a = solver_operand(n, "float32", seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 500)
+    b = torch.rand((n,), generator=gen, device=dev)
+    lo, hi = 1.0, float(2 * n)  # chebyshev's interval: the operand's spectrum lies inside
+    loops = {}
+    for op in ("cg", "chebyshev"):
+        for tier in ("cuda", "cuda_fused"):
+            fn = build_solver(op, rowwise, mesh1, dtype=torch.float32, kernel=tier)
+            label = f"audit_loop_{op}_{tier}"
+            fn(a, b, au["rtol"], au["maxiter"], lo, hi)  # first solve: eager chunk, capture
+            reads0 = fn.device_loops.reads() if on_card else 0
+            res, counts = counted(label, lambda: fn(a, b, au["rtol"], au["maxiter"], lo, hi))
+            iters = int(res.n_iters)
+            entry = {"loop": fn.loop, "n_iters": iters, "launches": counts}
+            if on_card:
+                reads = fn.device_loops.reads() - reads0
+                chunks = math.ceil(iters / DEFAULT_CHUNK)
+                check(fn.loop == "device" and reads == 1 + chunks,
+                      f"{label}: loop {fn.loop}, {reads} host reads for {iters} "
+                      f"iterations, expected {1 + chunks}")
+                entry.update(reads=reads, chunks=chunks)
+            loops[f"{op}|{tier}"] = entry
+            del fn, res
+        release()
+    steps = {}
+    for op in ("cg", "chebyshev"):
+        fn = _build_solver(op, rowwise, mesh1, "host", dtype=torch.float32,
+                           kernel="cuda_fused")
+        res, counts = counted(f"audit_fused_{op}",
+                              lambda: fn(a, b, au["rtol"], au["step_iters"], lo, hi))
+        iters = int(res.n_iters)
+        check(iters == au["step_iters"] and (not on_card or (
+              counts["solver_step"] == iters and counts["gemv"] == 2)),
+              f"audit fused {op}: {counts} for {iters} iterations (one step an "
+              "iteration, the prologue's and the verification's GEMVs)")
+        steps[op] = {"n_iters": iters, "launches": counts}
+        del fn, res
+    release()
+
+    spec = {}
+    engine = MatvecEngine(a, mesh1, strategy="rowwise", promote=None,
+                          dtype_storage="speculate")
+    try:
+        xs = [torch.rand((n,), generator=torch.Generator().manual_seed(seed + i))
+              for i in range(au["spec_requests"])]
+        engine.submit(xs[0], rtol=au["spec_rtol"]).result()  # warm: build and capture
+        copies = Counter()
+
+        def watch_copies(fn):
+            from torch.utils._python_dispatch import TorchDispatchMode
+
+            class Copies(TorchDispatchMode):
+                def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                    out = func(*args, **(kwargs or {}))
+                    if func is torch.ops.aten.copy_.default:
+                        dst, src = args[0], args[1]
+                        if src.device.type != "cpu" and dst.device.type == "cpu":
+                            copies["verdict" if src.dtype == torch.bool else "value"] += 1
+                    return out
+
+            with Copies():
+                return fn()
+
+        sync()
+        if on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            futures, counts = counted("audit_speculative",
+                                      lambda: [engine.submit(x, rtol=au["spec_rtol"])
+                                               for x in xs])
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        values = watch_copies(lambda: [f.result() for f in futures])
+        check(all(torch.isfinite(v).all() for v in values),
+              "audit speculative: a non-finite result")
+        if on_card:
+            check(copies["verdict"] == len(futures),
+                  f"audit speculative: {copies['verdict']} verdict reads for "
+                  f"{len(futures)} futures")
+        qa, pm, u = engine._spec
+        with CollectiveRecorder() as rec:
+            engine.submit(xs[0], rtol=au["spec_rtol"]).result()
+        census, payload = rec.census()
+        health = engine.health()
+        spec = {"requests": len(futures), "verdict_reads": copies["verdict"],
+                "value_copies": copies["value"], "submit_syncs": 0 if on_card else None,
+                "check_bytes": sum(t.numel() * t.element_size()
+                                   for t in (*pm.shards[:1], u)),
+                "check_collective_bytes": sum(payload.values()), "census": census,
+                "escalations": health.get("escalations"),
+                "launches": counts}
+    finally:
+        engine.close()
+    del a, b
+    release()
+    emit({"phase": "audit_card_twins", "shape": [n, n], "dtype": "float32",
+          "strategy": "rowwise", "shards": 1, "chunk": DEFAULT_CHUNK,
+          "maxiter": au["maxiter"], "loops": loops, "fused_steps": steps,
+          "speculative": spec, "seconds": time.perf_counter() - t0})
+
+    # ---- (c) traced fingerprints across two fresh engines ----
+    t0 = time.perf_counter()
+    fp_n = au["fp_n"]
+    a = solver_operand(fp_n, "float32", seed, device=dev)
+    x = torch.rand((fp_n,), generator=torch.Generator().manual_seed(seed + 501))
+    ring_mesh = make_1d_mesh(au["ring_p"], devices=[dev] * au["ring_p"])
+
+    def drive(kind):
+        if kind == "solver_fused":
+            e = MatvecEngine(a, mesh1, strategy="rowwise", promote=None,
+                             solver_kernel="cuda_fused")
+            e.submit(op="cg", rhs=x, rtol=1e-5).result()
+        elif kind == "solver_torch":
+            e = MatvecEngine(a, mesh1, strategy="rowwise", promote=None)
+            for op, rtol in (("gmres", 1e-4), ("lanczos", 1e-4), ("power", 1e-3)):
+                e.submit(op=op, rhs=x, rtol=rtol).result()
+        elif kind == "speculative":
+            e = MatvecEngine(a, mesh1, strategy="rowwise", promote=None,
+                             dtype_storage="speculate")
+            e.submit(x, rtol=1e-3).result()
+        else:
+            e = MatvecEngine(a, ring_mesh, strategy="colwise", combine="pallas_ring",
+                             promote=None)
+            e.submit(x).result()
+        try:
+            return e.fingerprints()
+        finally:
+            e.close()
+
+    prints = {}
+    for kind in ("solver_fused", "solver_torch", "speculative", "pallas_ring"):
+        first = counted("audit_fingerprints", lambda: drive(kind))[0]
+        second = counted("audit_fingerprints", lambda: drive(kind))[0]
+        check(first == second and first,
+              f"audit fingerprints {kind}: two fresh engines differ: {first} vs {second}")
+        prints[kind] = {k: v[:16] for k, v in first.items()}
+    del a
+    release()
+    labels = [k for p in prints.values() for k in p]
+    check(len(set(labels)) == len(labels) and
+          len({v for p in prints.values() for v in p.values()}) == len(labels),
+          f"audit fingerprints: keys that differ fingerprint the same: {prints}")
+    emit({"phase": "audit_fingerprints", "shape": [fp_n, fp_n], "dtype": "float32",
+          "ring_shards": au["ring_p"], "stable_across_fresh_engines": True,
+          "fingerprints": prints, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def studies_section(dev, seed: int, studies: dict) -> dict:
+    """Section 51: each of the eight study CLIs once through its
+    ``main(argv)`` into a temporary directory, on ``dev`` (the CPU with
+    ``--platform cpu`` for a rehearsal), with the flags of ``studies``; one
+    line each with its headline numbers and its seconds. Returns the
+    kernels' launches by path."""
+    import contextlib
+    import importlib
+    import io as stdio
+
+    import torch
+
+    from matvec_mpi_multiplier_torch.obs.registry import reset_registry
+    from matvec_mpi_multiplier_torch.ops.cuda_gemm import gemm_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_gemv import gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_quant import quant_gemv_cuda
+    from matvec_mpi_multiplier_torch.ops.cuda_solver import solver_step_cuda
+
+    wrappers = {"gemv": gemv_cuda, "gemm": gemm_cuda, "quant_gemv": quant_gemv_cuda,
+                "solver_step": solver_step_cuda}
+    launches: dict = {k: {} for k in wrappers}
+    platform = [] if dev.type == "cuda" else ["--platform", "cpu"]
+    root = Path(tempfile.mkdtemp(prefix="studies_"))
+    try:
+        for name, flags in studies.items():
+            module = importlib.import_module(
+                f"matvec_mpi_multiplier_torch.bench.{name}_study")
+            out = root / name
+            argv = platform + list(flags)
+            if name in ("crossover",):
+                argv += ["--data-root", str(out), "--report", str(out / "report.md")]
+            elif name in ("overlap", "refine"):
+                argv += ["--report", str(out / "report.md")]
+            else:
+                argv += ["--out", str(out)]
+            for w in wrappers.values():
+                w.launches = 0
+            buf, err = stdio.StringIO(), stdio.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                rc = module.main(argv)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            reset_registry()
+            counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+            for k, n in counts.items():
+                launches[k][f"study_{name}"] = n
+            text = buf.getvalue()
+            # An A/B study's verdict over measured times is its result, and
+            # is printed with its numbers; a failed gate of any other kind,
+            # or an error, fails the section.
+            gates = study_gate_failures(err.getvalue())
+            timing = getattr(module, "TIMING_GATES", ())
+            check(rc == 0 or (rc == 1 and gates and timing
+                              and all(g.startswith(timing) for g in gates)),
+                  f"study {name} exited {rc}: {err.getvalue()[-600:]} {text[-300:]}")
+            emit({"phase": f"study_{name}", "argv": argv, "rc": rc,
+                  "timing_gates_failed": gates,
+                  "note": STUDY_NOTES.get(name), **study_headline(name, out, text),
+                  "outputs": sorted(str(p.relative_to(out)) for p in out.rglob("*")
+                                    if p.is_file()) if out.is_dir() else [],
+                  "launches": counts, "seconds": seconds})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def study_gate_failures(err: str) -> list[str]:
+    """The failed gates a study printed on its standard error: the lines
+    under ``GATE FAILURES:``, and the cost model's one-line verdicts."""
+    lines = err.splitlines()
+    failed = [ln.strip() for ln in lines if ln.startswith(("PARITY FAILURE", "SAVINGS FAILURE"))]
+    if "GATE FAILURES:" in lines:
+        for ln in lines[lines.index("GATE FAILURES:") + 1:]:
+            if not ln.startswith("  "):
+                break
+            failed.append(ln.strip())
+    return failed
+
+
+def study_headline(name: str, out: Path, text: str) -> dict:
+    """The headline numbers of one study's run: what its outputs or its
+    printed report say."""
+    def last_lines(prefix: str, n: int = 1) -> list[str]:
+        return [ln for ln in text.splitlines() if ln.startswith(prefix)][-n:]
+
+    if name == "overlap":
+        return {"rows": last_lines("colwise_ring", 2),
+                "ratio": last_lines("Overlapped/non-overlapped")}
+    if name == "crossover":
+        return {"rows": [ln for ln in text.splitlines() if ln.startswith("n_rhs=")],
+                "knee": last_lines("Measured knee") or last_lines("No measured knee")}
+    if name in ("reshard", "gsched"):
+        # The summary as printed before the gates (summary.json is written
+        # only after them).
+        start = text.index("\n{\n") + 1
+        summary = json.loads(text[start:text.index("\n}\n", start) + 2])
+        arms = ("off", "auto") if name == "reshard" else ("greedy", "scheduled")
+        keep = (("p50_steady_ms", "p99_steady_ms", "reshards", "reshard_bytes",
+                 "last_reshard_at", "compiles_steady") if name == "reshard" else
+                ("p50_e2e_ms", "p99_e2e_ms", "availability", "on_time", "rejected",
+                 "deadline_expires"))
+        return {arm: {k: summary[arm][k] for k in keep} for arm in arms}
+    if name == "slo":
+        summary = json.loads((out / "summary.json").read_text())
+        return {k: summary[k] for k in ("failed_requests", "offered_requests", "retries",
+                                        "downgrades", "n_events", "flight_dumps")} | {
+            "alerts": [a["severity"] for a in summary["alerts"]]}
+    if name == "quantized":
+        errors = json.loads((out / "errors.json").read_text())
+        return {"errors": {cfg: {fmt: row["max_relerr_vs_fp64"] for fmt, row in e.items()}
+                           for cfg, e in errors["configs"].items()},
+                "winners": last_lines("  -> ", 4)}
+    if name == "refine":
+        return {"rows": [ln for ln in text.splitlines() if ln.startswith("cond=")],
+                "gain": last_lines("Refinement")}
+    return {"parity": last_lines("== parity:")}
 
 
 def main() -> int:
@@ -6817,8 +7233,28 @@ def main() -> int:
         for name, n in paths.items():
             target[name] = n
 
-    # ---- 50. the kernels line ----
-    section("50. the kernels line")
+    # ---- 50. the rest of static analysis ----
+    section("50. the rest of static analysis")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, paths in audits_section(dev, args.seed, AU).items():
+        target = {"quant_gemv": quant_launches, "ring_gemv": ring_launches,
+                  "solver_step": solver_paths["solver_step"]}.get(kernel, launches_by_path.get(kernel))
+        for name, n in paths.items():
+            target[name] = n
+
+    # ---- 51. the eight studies ----
+    section("51. the eight studies")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, paths in studies_section(dev, args.seed, STUDIES).items():
+        target = {"quant_gemv": quant_launches, "ring_gemv": ring_launches,
+                  "solver_step": solver_paths["solver_step"]}.get(kernel, launches_by_path.get(kernel))
+        for name, n in paths.items():
+            target[name] = n
+
+    # ---- 52. the kernels line ----
+    section("52. the kernels line")
     emit({"phase": "phase_seconds", "sections": clock["seconds"],
           "total_s": sum(clock["seconds"].values())})
     head = at["{0}x{0}".format(KERNEL_SHAPES[-1][0])]
@@ -6953,8 +7389,8 @@ def main() -> int:
         "at": flash_at,
     }]})
 
-    # ---- 51. result ----
-    section("51. result")
+    # ---- 53. result ----
+    section("53. result")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1385,6 +1385,7 @@ def run_serve_multitenant(
     on_result=None,
     global_sched: bool = False,
     demand_weight: float = 0.0,
+    deadline_margin: float = 1.0,
     decision_jsonl: str | None = None,
     reshard: str = "off",
 ) -> MultiTenantResult:
@@ -1510,6 +1511,7 @@ def run_serve_multitenant(
             from ..engine.global_scheduler import GlobalScheduler
 
             gs = GlobalScheduler(registry, cost_model="auto",
+                                 deadline_margin=deadline_margin,
                                  decision_jsonl=decision_jsonl, reshard=reshard)
         submit = gs.submit if gs is not None else registry.submit
         failed = [0] * n_tenants

@@ -253,6 +253,8 @@ from .executables import (
     ExecutableCache,
     build_fingerprint,
     trace_program,
+    trace_solver,
+    trace_speculative,
 )
 
 # The speculative tier's vocabulary: SPECULATE is the storage label its
@@ -411,7 +413,7 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     never holds page-locked memory and the staging block goes back to
     PyTorch's pinned-memory cache."""
     if t.device.type != "cuda":
-        return t.cpu()  # sync-ok: materialization in result(), never on submit
+        return t.cpu()  # sync-ok: materialization in result(), never on submit; tracer-sync-ok: the one copy result() makes of a settled output
     staging = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     with torch.cuda.device(t.device):
         staging.copy_(t, non_blocking=True)
@@ -495,7 +497,7 @@ class MatvecFuture:
             verdicts = {}
             if spec:
                 flags = torch.stack([self._parts[i][4].reshape(()) for i in spec])
-                verdicts = dict(zip(spec, _host_copy(flags).tolist()))  # sync-ok: the speculative verdict settles in result() by design
+                verdicts = dict(zip(spec, _host_copy(flags).tolist()))  # sync-ok: the speculative verdict settles in result() by design; tracer-sync-ok: the future's one pinned read of the verdicts, at settlement
             settled = []
             for i, part in enumerate(self._parts):
                 if i not in verdicts:
@@ -679,7 +681,7 @@ class SolverFuture:
                 x[0] = float("nan")
             n_iters = int(res.n_iters)
             # One copy for the three device scalars.
-            rnorm, value, converged = torch.stack((  # sync-ok: caller-requested materialization
+            rnorm, value, converged = torch.stack((  # sync-ok: caller-requested materialization; tracer-sync-ok: result()'s one stacked read of the solve's scalars
                 res.residual_norm.double(), res.value.double(),  # fp64-ok: the three device scalars ride one host copy as float64, exact for each
                 res.converged.double(),  # fp64-ok: same one-copy float64 stack as the line above
             )).tolist()
@@ -692,7 +694,7 @@ class SolverFuture:
                 # device wait included).
                 self._iter_time_hist.observe(
                     (time.perf_counter() - self._submit_t0) * 1e3 / max(n_iters, 1))
-            if not bool(torch.isfinite(x).all()) or not np.isfinite(rnorm):
+            if not bool(torch.isfinite(x).all()) or not np.isfinite(rnorm):  # tracer-sync-ok: x is the host copy made above, so the check reads no card
                 status = "integrity_failed"
                 self._emit_failure("integrity_refused")
                 if self._integrity_counter is not None:
@@ -776,7 +778,7 @@ def _engine_dtype(dtype) -> torch.dtype | None:
 def _as_tensor(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
-    return from_numpy(np.asarray(x), "cpu")
+    return from_numpy(np.asarray(x), "cpu")  # tracer-sync-ok: x is no tensor here (the isinstance above returned tensors)
 
 
 class MatvecEngine:
@@ -1174,7 +1176,7 @@ class MatvecEngine:
         # reshard quantizes, and the ladder's native safe tier under
         # quantized storage.
         self._a_host = (
-            a.cpu() if self.retain_host or (resilience is not None and self.storage != NATIVE)  # sync-ok: one-time host copy of A at construction, never per request
+            a.cpu() if self.retain_host or (resilience is not None and self.storage != NATIVE)  # sync-ok: one-time host copy of A at construction, never per request; tracer-sync-ok: the one host copy of A at construction
             else None
         )
         # The native safe tier of a quantized resident: placed on the first
@@ -1223,7 +1225,7 @@ class MatvecEngine:
             self.spec_resident_bytes = int(sq.nbytes + self._spec_aux_bytes)
             self.resident_bytes += self.spec_resident_bytes
             if self.retain_host:
-                self._spec_host = (sq.to("cpu"), pm.cpu(), u.cpu())  # sync-ok: one-time host copy of A at construction, never per request
+                self._spec_host = (sq.to("cpu"), pm.cpu(), u.cpu())  # sync-ok: one-time host copy of A at construction, never per request; tracer-sync-ok: the one host copy of the speculative set at construction
             if not defer_placement:
                 self._spec = self._place_spec(sq, pm, u, self.strategy)
             del sq, pm, u
@@ -1504,15 +1506,33 @@ class MatvecEngine:
         return self._cache.get(key, build, lambda: self._fingerprint(key))  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
 
     def _fingerprint(self, key: ExecKey) -> str:
-        """The build fingerprint of ``key``: a matvec or GEMM program is
-        traced on the host, A as ``meta`` shards (its schedule, local shapes
-        and kernel routes); a solver, speculative or fused-ring program is
-        fingerprinted by its key alone, until the solver and speculative
-        audits trace them. The caller holds ``_swap_lock``."""
-        traced = (key.op in ("matvec", "gemm") and key.storage != SPECULATE
-                  and key.combine != "pallas_ring")
-        if not traced:
-            return build_fingerprint(key, None, None, None)
+        """The build fingerprint of ``key``, from a trace on the host with A
+        as ``meta`` shards (``engine/executables.py``): a matvec or GEMM
+        program's schedule, local shapes and kernel routes (the ring GEMV's
+        ranks for ``pallas_ring``); a solver's one-trip schedule, loop kind,
+        local shapes and routes; a speculative program's candidate schedule
+        and check reduction. The caller holds ``_swap_lock``."""
+        shape = (self.m, self.k)
+        if key.storage == SPECULATE:
+            trace = trace_speculative(
+                self.strategy, self.mesh, kernel=self.kernel, combine=key.combine,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+                gather_output=self.gather_output, a_shape=shape, dtype=self.dtype,
+                probes=self._spec_probes, bucket=key.bucket if key.op == "gemm" else None,
+                block=self.spec_storage_block,
+            )
+            return build_fingerprint(key, trace["schedule"], trace["local_shapes"],
+                                     trace["routes"])
+        if key.op in SOLVER_OPS:
+            kernel, combine, stages = self._solver_build_args(key)
+            trace = trace_solver(
+                self.strategy, self.mesh, op=key.op, kernel=kernel, combine=combine,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+                stages=stages, storage=key.storage, a_shape=shape, dtype=self.dtype,
+                restart=key.bucket if key.op == "gmres" else DEFAULT_RESTART,
+                steps=key.bucket if key.op == "lanczos" else DEFAULT_STEPS,
+                block=self.storage_block,
+            )
+            return build_fingerprint(key, trace["schedule"], trace["local_shapes"],
+                                     trace["routes"], loop=trace["loop"])
         gemm = key.op == "gemm"
         if key != (self._gemm_key(key.bucket) if gemm else self._matvec_key()):
             # The ladder's safe tier (_build_safe_matvec/_build_safe_gemm).
@@ -1524,7 +1544,7 @@ class MatvecEngine:
         trace = trace_program(
             self.strategy, self.mesh, batched=gemm, kernel=kernel, combine=combine,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             stages=stages, gather_output=self.gather_output, storage=key.storage,
-            a_shape=(self.m, self.k), dtype=self.dtype, rhs_cols=key.bucket,
+            a_shape=shape, dtype=self.dtype, rhs_cols=key.bucket,
             block=self.storage_block,
         )
         return build_fingerprint(key, trace["schedule"], trace["local_shapes"],
@@ -2545,16 +2565,20 @@ class MatvecEngine:
             dtype_name(self.dtype), self.storage,
         )
 
-    def _build_solver(self, key: ExecKey, restart: int, steps: int) -> Callable:
-        """The solver loop of ``key``: the fused tier (its own combine
-        spelling, no stages), the safe tier (SAFE_KERNEL, the default
-        combine, NATIVE storage) or the engine's kernel and combine."""
+    def _solver_build_args(self, key: ExecKey) -> tuple:
+        """``(kernel, combine, stages)`` of the solver loop of ``key``: the
+        fused tier (its own combine spelling, no stages), the safe tier
+        (SAFE_KERNEL, the default combine, NATIVE storage) or the engine's
+        kernel and combine. The caller holds ``_swap_lock``."""
         if key.kernel == "cuda_fused":
-            kernel, combine, stages = "cuda_fused", self._requested_combine, None
-        elif key == self._safe_key(key.op, key.bucket):
-            kernel, combine, stages = SAFE_KERNEL, None, None
-        else:
-            kernel, combine, stages = self.kernel, self._matvec_combine, self.stages  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+            return "cuda_fused", self._requested_combine, None
+        if key == self._safe_key(key.op, key.bucket):
+            return SAFE_KERNEL, None, None
+        return self.kernel, self._matvec_combine, self.stages  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
+
+    def _build_solver(self, key: ExecKey, restart: int, steps: int) -> Callable:
+        """The solver loop of ``key`` (:meth:`_solver_build_args`)."""
+        kernel, combine, stages = self._solver_build_args(key)
         return build_solver(
             key.op, self.strategy, self.mesh, dtype=self.dtype, kernel=kernel,  # unguarded-ok: caller holds _swap_lock (dispatch, warmup and reshard enter it before they build keys or programs); reshard swaps this under the same lock
             combine=combine, stages=stages, dtype_storage=key.storage,

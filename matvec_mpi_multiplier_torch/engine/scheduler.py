@@ -298,7 +298,7 @@ def _host_request(x, dtype: torch.dtype) -> torch.Tensor:
     stacks requests on the host, so a request already on a card is refused
     (submit it to the engine directly)."""
     if not isinstance(x, torch.Tensor):
-        x = from_numpy(np.asarray(x), "cpu")
+        x = from_numpy(np.asarray(x), "cpu")  # tracer-sync-ok: x is no tensor here (the isinstance above)
     if x.device.type != "cpu":
         raise ConfigError(
             f"the scheduler stacks requests on the host; this one is on "

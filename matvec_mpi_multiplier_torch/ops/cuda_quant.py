@@ -41,6 +41,7 @@ from collections import Counter
 
 import torch
 
+from ..parallel.mesh import kernel_entered
 from . import _build
 from .graphs import refuse_predicate
 from .cuda_gemv import _DTYPE_CODES, PLAIN_CHUNK_BYTES
@@ -163,7 +164,11 @@ def _check(qa: QuantizedMatrix, x: torch.Tensor) -> None:
 
 def quant_gemv_cuda(qa: QuantizedMatrix, x: torch.Tensor) -> torch.Tensor:
     """``deq(A) @ x`` by the CUDA kernel on the route :func:`quant_route`
-    plans (plain version for CPU tensors)."""
+    plans (plain version for CPU tensors; zeros of y's shape under a
+    recorder that stands the kernels in)."""
+    if kernel_entered("quant_gemv", qa, x):
+        return torch.zeros((qa.shape[0], *x.shape[1:]), dtype=acc_dtype(qa.dtype),
+                           device=x.device)
     _check(qa, x)
     if x.device.type == "cpu":
         return quant_gemv_plain(qa, x)

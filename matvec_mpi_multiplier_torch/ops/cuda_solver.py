@@ -39,7 +39,7 @@ from typing import Callable
 import torch
 
 from ..models.base import MatvecStrategy
-from ..parallel.mesh import Mesh, psum
+from ..parallel.mesh import Mesh, ShardedTensor, kernel_entered, psum, unshard
 from ..solvers.common import (
     SolverResult,
     convergence_threshold,
@@ -237,7 +237,12 @@ def _check(op, a_local, off, x, r, p, ap, s_in) -> None:
 def solver_step_cuda(op, a_local, off, x, r, p, ap, s_in):
     """One fused step by ``csrc/solver_step.cu`` (the plain version for CPU
     tensors): the update kernel, then the row GEMV of the shard against
-    ``p2[off : off + k_loc]``, both on the current stream."""
+    ``p2[off : off + k_loc]``, both on the current stream. Under a recorder
+    that stands the kernels in it returns zeros of the outputs' shapes."""
+    if kernel_entered("solver_step", a_local, x):
+        return (torch.zeros_like(x), torch.zeros_like(r), torch.zeros_like(p),
+                torch.zeros(1 if op == "cg" else 2, dtype=x.dtype, device=x.device),
+                torch.zeros(a_local.shape[0], dtype=x.dtype, device=x.device))
     _check(op, a_local, off, x, r, p, ap, s_in)
     if x.device.type == "cpu":
         return solver_step_plain(op, a_local, off, x, r, p, ap, s_in)
@@ -342,6 +347,7 @@ def _build_fused_solver(
     acc = acc_dtype(dtype)
     kern = get_kernel("cuda") if storage == NATIVE else get_storage_kernel("cuda")
     colwise = strategy.name == "colwise"
+    spec_y = strategy.specs(mesh)[2]
     devices = mesh.devices
     dev0 = devices[0]
 
@@ -366,7 +372,7 @@ def _build_fused_solver(
             """The iteration's one hop: every shard gets the combined vector."""
             if combine_r == "psum":
                 return psum(parts, mesh, mesh.axis_names)
-            full = torch.cat([part.to(dev0) for part in parts])
+            full = unshard(ShardedTensor(tuple(parts), (b.shape[0],), spec_y, mesh))
             return [full.to(dev) for dev in devices]
 
         def full_mv(vs):
@@ -435,6 +441,7 @@ def _build_fused_solver(
         )
 
     fn.loop = loop
+    fn.device_loops = states
     return fn
 
 

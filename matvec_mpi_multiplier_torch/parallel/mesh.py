@@ -59,7 +59,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -443,14 +443,37 @@ class CollectiveRecord:
     boundary: bool = False
 
 
+class KernelCall(NamedTuple):
+    """One entry into a hand-written kernel's wrapper as a recorder saw it:
+    the kernel's name, the operand's (for a quantized shard: the payload's)
+    shape and logical dtype, its storage format, the right-hand side's
+    shape, and the ranks one call runs (the ring GEMV's p panels)."""
+
+    name: str
+    a_shape: tuple
+    a_dtype: str
+    storage: str
+    x_shape: tuple
+    ranks: int = 1
+
+
 class CollectiveRecorder:
     """Records every collective the mesh issues on the entering thread while
     it is entered: ``records`` in issue order. :meth:`census` gives the
     per-kind counts and per-device payload bytes of the program's own
-    collectives; ``boundary`` the output gathers it kept apart."""
+    collectives; ``boundary`` the output gathers it kept apart.
 
-    def __init__(self) -> None:
+    It also notes every entry into a hand-written kernel's wrapper
+    (``kernels``, :func:`kernel_entered`): on the CPU a wrapper computes its
+    plain version, so a run there counts its kernels at the wrapper's entry.
+    ``stand_in=True`` makes the wrappers return zeros of their outputs'
+    shapes instead of computing anything: the data-less traces of
+    ``engine/executables.py`` and the fused-solver audit."""
+
+    def __init__(self, stand_in: bool = False) -> None:
         self.records: list[CollectiveRecord] = []
+        self.kernels: list[KernelCall] = []
+        self.stand_in = stand_in
 
     def __enter__(self) -> "CollectiveRecorder":
         global _RECORDERS
@@ -485,6 +508,24 @@ class CollectiveRecorder:
             census[r.kind] = census.get(r.kind, 0) + 1
             payload[r.kind] = payload.get(r.kind, 0) + r.payload_bytes
         return dict(sorted(census.items())), dict(sorted(payload.items()))
+
+
+def kernel_entered(name: str, a, x: torch.Tensor, ranks: int = 1) -> bool:
+    """A hand-written kernel's wrapper was entered with operand ``a`` (a
+    tensor or a quantized shard) and right-hand side ``x``: every recorder
+    entered on this thread notes the call. True when the innermost one
+    stands the kernels in, and the wrapper must then return zeros of its
+    outputs' shapes on ``x``'s device and launch nothing."""
+    if not _RECORDERS:
+        return False
+    stack = getattr(_LOCAL, "recorders", None)
+    if not stack:
+        return False
+    call = KernelCall(name, tuple(a.shape), str(a.dtype).removeprefix("torch."),
+                      getattr(a, "fmt", "native"), tuple(x.shape), ranks)
+    for recorder in stack:
+        recorder.kernels.append(call)
+    return stack[-1].stand_in
 
 
 def _record(op: str, axes: tuple[str, ...], block: torch.Tensor,

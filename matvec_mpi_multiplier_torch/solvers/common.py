@@ -43,7 +43,7 @@ def residual_norm(v: torch.Tensor) -> torch.Tensor:
 def host_norm(v: torch.Tensor) -> float:
     """:func:`residual_norm` fetched to the host, for host-driven outer
     loops that want a Python float."""
-    return float(residual_norm(v))
+    return float(residual_norm(v))  # tracer-sync-ok: host_norm is the host-driven models' one read a trip, by contract
 
 
 def above_tolerance(rnorm, threshold):

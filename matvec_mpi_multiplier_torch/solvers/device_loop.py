@@ -56,7 +56,7 @@ def when(flag: torch.Tensor, body: Callable[[], object],
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         with launch_predicate(flag):
             return body()
-    return body() if bool(flag) else otherwise()
+    return body() if bool(flag) else otherwise()  # tracer-sync-ok: eager only (off the card or before capture); under capture the flag is a launch predicate
 
 
 def commit(flag: torch.Tensor, pairs) -> None:
@@ -84,6 +84,7 @@ class ChunkedLoop:
         self.device = device
         self.chunk = DEFAULT_CHUNK
         self.graph = None
+        self.reads = 0  # read() calls (the eager first chunk reads its flag apart)
 
     def iteration(self) -> None:
         self._iteration()()
@@ -94,7 +95,8 @@ class ChunkedLoop:
 
     def read(self) -> tuple[bool, int]:
         """``(go, k)``: the loop's one device->host read."""
-        go, k = torch.stack((self.go.to(self.k.dtype), self.k)).tolist()
+        self.reads += 1
+        go, k = torch.stack((self.go.to(self.k.dtype), self.k)).tolist()  # tracer-sync-ok: the device loop's one read per chunk
         return bool(go), int(k)
 
     def _first_chunk(self) -> None:

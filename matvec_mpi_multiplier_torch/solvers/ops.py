@@ -209,7 +209,8 @@ def build_solver(
 
     cg and chebyshev run as the device loop where its chunks are captured,
     host-stepped elsewhere (module docstring); the returned function's
-    ``loop`` attribute names the loop it runs."""
+    ``loop`` attribute names the loop it runs, and a device loop's
+    ``device_loops`` holds its states (``reads()``: the host reads so far)."""
     return _build_solver(
         op, strategy, mesh, None, dtype=dtype, kernel=kernel, combine=combine,
         stages=stages, dtype_storage=dtype_storage, restart=restart, steps=steps,
@@ -305,6 +306,7 @@ def _build_solver(
                                   x_alt=state.x_best.clone())
 
         solver.loop = "device"
+        solver.device_loops = loops
         return solver
 
     if op == "cg":
@@ -317,7 +319,7 @@ def _build_solver(
             rz = rr_best = torch.sum(r * r)
             x_best = x
             k = 0
-            go = bool(keep_iterating(torch.sqrt(rz), threshold, k, maxiter))
+            go = bool(keep_iterating(torch.sqrt(rz), threshold, k, maxiter))  # tracer-sync-ok: the host-stepped loop's first continuation read
             while go:
                 ap = mv(p)
                 # pᵀAp > 0 for SPD A; stall (not inf/NaN) on breakdown so
@@ -332,7 +334,7 @@ def _build_solver(
                 # recurrence is about to declare convergence, so the loop
                 # exits converged only on a verified residual. The decision
                 # is the iteration's one read.
-                about = bool(torch.sqrt(rr_rec) <= threshold)
+                about = bool(torch.sqrt(rr_rec) <= threshold)  # tracer-sync-ok: the host-stepped loop's one read an iteration (the device loop reads once a chunk)
                 refresh = (k + 1) % _RECOMPUTE_EVERY == 0 or about
                 if refresh:
                     r = b_acc - mv(x)
@@ -348,7 +350,7 @@ def _build_solver(
                 k += 1
                 # Without a refresh, ||r|| = sqrt(rr_rec) > threshold was
                 # just read: only the cap can stop the loop.
-                go = (bool(keep_iterating(torch.sqrt(rz), threshold, k, maxiter))
+                go = (bool(keep_iterating(torch.sqrt(rz), threshold, k, maxiter))  # tracer-sync-ok: read only on a refresh trip, which already read
                       if refresh else k < maxiter)
             return _linear_result(mv, b_acc, threshold, x, k, x_alt=x_best)
 
@@ -368,7 +370,7 @@ def _build_solver(
             k = 0
             # maxiter caps restart CYCLES; the worst-case matvec count is
             # maxiter * (restart + 2).
-            while bool(keep_iterating(rnorm, threshold, k, maxiter)):
+            while bool(keep_iterating(rnorm, threshold, k, maxiter)):  # tracer-sync-ok: gmres is host-stepped: one read a cycle
                 x, r, rnorm = gmres_cycle(mv, b_acc, x, r, rnorm, m)
                 better = rnorm < rn_best
                 x_best = torch.where(better, x, x_best)
@@ -394,7 +396,7 @@ def _build_solver(
                 # Relative eigenresidual: ||A v − λ v|| <= rtol·|λ|.
                 return convergence_threshold(rtol_acc, torch.clamp(lam.abs(), min=_TINY))
 
-            while bool(keep_iterating(resid, thresh_of(lam), k, maxiter)):
+            while bool(keep_iterating(resid, thresh_of(lam), k, maxiter)):  # tracer-sync-ok: the power iteration is host-stepped: one read an iteration
                 av = mv(v)
                 lam = torch.sum(v * av)  # Rayleigh quotient (unit v)
                 resid = residual_norm(av - lam * v)
@@ -468,6 +470,7 @@ def _build_solver(
             return _linear_result(state.mv, b_acc, threshold, state.x.clone(), k)
 
         solver.loop = "device"
+        solver.device_loops = loops
         return solver
 
     # chebyshev
@@ -488,7 +491,7 @@ def _build_solver(
         k = 0
         # Early divergence exit: an interval that excludes part of the
         # spectrum amplifies the excluded modes geometrically.
-        go = bool(keep_iterating(torch.sqrt(b_rr), threshold, k, maxiter)
+        go = bool(keep_iterating(torch.sqrt(b_rr), threshold, k, maxiter)  # tracer-sync-ok: the host-stepped loop's first continuation read
                   & ~diverged(b_rr, b_rr))
         while go:
             # Classic Chebyshev semi-iteration (Saad Alg. 12.1), with the
@@ -506,14 +509,14 @@ def _build_solver(
             # One read: whether the recurrence is about to stop the loop
             # (then the TRUE residual replaces it, so a converged exit is a
             # verified one) and whether it diverged.
-            about, blown = torch.stack(
+            about, blown = torch.stack(  # tracer-sync-ok: the host-stepped loop's one read an iteration (the device loop reads once a chunk)
                 (torch.sqrt(rr_rec) <= threshold, diverged(rr_rec, b_rr))).tolist()
             alpha = alpha_new
             k += 1
             if about:
                 r = b_acc - mv(x)
                 rr = torch.sum(r * r)
-                go = bool(keep_iterating(torch.sqrt(rr), threshold, k, maxiter)
+                go = bool(keep_iterating(torch.sqrt(rr), threshold, k, maxiter)  # tracer-sync-ok: read only on a refresh trip, which already read
                           & ~diverged(rr, b_rr))
             else:
                 r = r_rec
@@ -567,6 +570,10 @@ class DeviceLoops:
             state.a = a  # keep the operand the capture reads alive
             self._states[key] = state
         return self._states[key]
+
+    def reads(self) -> int:
+        """Host reads of every state's loop (``ChunkedLoop.read`` calls)."""
+        return sum(s.loop.reads for s in self._states.values() if s.loop is not None)
 
 
 def _data_ptrs(t) -> tuple:

@@ -3,12 +3,15 @@
 The port's counterpart of the JAX package's ``staticcheck/``, one CLI
 (``python -m matvec_mpi_multiplier_torch.staticcheck``) over four layers:
 
-* **AST rule engine** (``rules``, ``lockgraph``): visitor-based lint over
+* **AST rule engine** (``rules``, ``lockgraph``, ``dataflow``): visitor-based lint over
   the port's corpus (the package, ``tests/test_torch_*.py`` and
   ``chip_smoke.py``), with per-rule ``# <marker>: <reason>`` exemptions that
   must carry a reason and sit where their rule fires, and the whole-program
   lock-graph auditor (rules #13-#15) over ``engine/``, ``obs/``,
-  ``resilience/`` and ``tuning/``.
+  ``resilience/`` and ``tuning/``, and the whole-program value-flow rules
+  (#17-#20) over the package: device-tensor branches in program bodies,
+  float or per-request values and unhashable values in build keys, host
+  reads of device tensors in ``engine/`` and ``solvers/``.
 * **ExecKey-space audit** (``keyspace``): the engine's build surface
   enumerated per serve configuration, golden-pinned, with the
   ``steady`` within ``warmup`` budget (``compiles_steady == 0``) proved
@@ -17,7 +20,8 @@ The port's counterpart of the JAX package's ``staticcheck/``, one CLI
   storage cell run once under the mesh's collective recorder, its census
   and per-device payload bytes held to the formulas and a golden table,
   with the overlap, storage, early-dequant, reshard and build-fingerprint
-  gates.
+  gates; the served solvers, the fused solves and the speculative programs
+  with their loop, kernel-count and verdict gates.
 * **Card twins** (``card``): the dispatch-path sync audit and the peak
   audit, on a CUDA device only.
 """
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 from .corpus import SCAN_FILES, SCAN_ROOTS, SourceFile, iter_corpus, repo_root
 from .findings import DRIFT_RULES, Finding, render_json, render_text
+from .dataflow import DATAFLOW_RULES, dataflow_scope, sync_scope
 from .lockgraph import LOCKGRAPH_RULES, analyze, lockgraph_scope
 from .rules import (
     MARKERS,
@@ -36,6 +41,7 @@ from .rules import (
 )
 
 __all__ = [
+    "DATAFLOW_RULES",
     "DRIFT_RULES",
     "Finding",
     "LOCKGRAPH_RULES",
@@ -46,6 +52,7 @@ __all__ = [
     "SourceFile",
     "analyze",
     "check_marker_reasons",
+    "dataflow_scope",
     "get_rule",
     "iter_corpus",
     "lockgraph_scope",
@@ -53,4 +60,5 @@ __all__ = [
     "render_text",
     "repo_root",
     "run_rules",
+    "sync_scope",
 ]

@@ -2,8 +2,8 @@
 
 Usage::
 
-    python -m matvec_mpi_multiplier_torch.staticcheck            # rules + lock graph + keyspace + census
-    python -m matvec_mpi_multiplier_torch.staticcheck --rules    # AST rules (the lock graph included)
+    python -m matvec_mpi_multiplier_torch.staticcheck            # rules + lock graph + dataflow + keyspace + census
+    python -m matvec_mpi_multiplier_torch.staticcheck --rules    # AST rules (the lock graph and the dataflow rules included)
     python -m matvec_mpi_multiplier_torch.staticcheck --lockgraph  # rules #13-#15 only
     python -m matvec_mpi_multiplier_torch.staticcheck --keyspace  # ExecKey-space audit
     python -m matvec_mpi_multiplier_torch.staticcheck --hlo-audit  # collective census
@@ -14,7 +14,12 @@ Usage::
 
 The rule layer is pure AST work. ``--keyspace`` is a symbolic enumeration
 (no mesh, no run). ``--hlo-audit`` runs every audited cell once on 8
-logical CPU shards under the collective recorder (a few seconds). A bare
+logical CPU shards under the collective recorder: the matvec cells, the
+migrations, the served solvers (census of one trip and the one-card loop),
+the fused solves (one step call a shard and one hop a trip) and the
+speculative programs (the check's one reduction and its device verdict),
+with the traced fingerprints of solver, speculative and ``pallas_ring``
+keys (about ten seconds). A bare
 run does all four and never asks for a card. ``--memory-audit`` runs the
 card twins (``staticcheck/card.py``): the dispatch-path sync audit and the
 peak audit on ``cuda:0`` at a small size (``chip_smoke.py`` section 49

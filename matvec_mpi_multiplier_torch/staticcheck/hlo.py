@@ -34,7 +34,12 @@ name is kept so a reader finds it; the port lowers nothing). Two halves:
     (``hlo-reshard-schedule``);
   - the port's golden table (``golden_schedule.json`` beside this module,
     :func:`write_golden`): a disagreement is drift (``hlo-golden``,
-    ``hlo-census``).
+    ``hlo-census``);
+  - the served solvers, the fused solves and the speculative programs
+    (:data:`SOLVER_AUDIT_CONFIGS`, :data:`FUSED_SOLVER_AUDIT_CONFIGS`,
+    :data:`SPEC_AUDIT_CONFIGS`; the section below says how a run stands in
+    for a lowering), and the traced fingerprints of their keys and of
+    ``pallas_ring``'s.
 
 The comparison is made at the JAX lowering's boundary: the strategies'
 output gather, which the JAX package leaves to its compiler outside the
@@ -195,7 +200,7 @@ AUDIT_M = 64
 AUDIT_K = 2048
 AUDIT_DTYPE = "float32"
 GOLDEN_NAME = "golden_schedule.json"
-GOLDEN_SCHEMA = 1
+GOLDEN_SCHEMA = 2
 
 # Resident-A byte-ratio ceilings the quantized cells must meet: a 1-byte
 # payload plus an fp32 scale plane at 1/block density, doubled for the
@@ -702,6 +707,513 @@ def reshard_findings(rcfg: ReshardAuditConfig, entry: dict, mesh, *,
     return []
 
 
+# ------------------------------------------------------------ solver audit
+#
+# The served solvers (solvers/ops.py) and the fused tier (ops/cuda_solver.py)
+# run their loops as Python over the strategy's matvec program, so the port
+# has no while op to count. A run records what a lowering would count:
+# ``maxiter`` 0 runs everything outside the loop, ``maxiter`` 1 adds exactly
+# one trip (records of the second run beyond the first's,
+# ``engine/executables.py::trip_records``). A lowering holds each loop body
+# once and calls one matvec program from it however often the body does, so
+# the solver census counts each distinct collective of the trip once and each
+# distinct collective outside the loop once (Lanczos's fixed depth is
+# straight-line code in the port, as its maxiter is ignored). The output
+# gather is kept apart, as in the matvec cells. The fused census counts
+# every collective of the trip: its body has one hop.
+
+SOLVER_AUDIT_N = 256
+FUSED_SOLVER_AUDIT_N = 2048
+
+_SOLVER_AUDIT_OPS = ("cg", "gmres", "power", "lanczos", "chebyshev")
+
+# The ops whose loop the port runs on the device on one card; the others
+# are host-stepped (a departure from the JAX package's while loops).
+DEVICE_LOOP_SOLVERS = ("cg", "chebyshev")
+
+
+class SolverAuditConfig(NamedTuple):
+    """One audited served solver: an op around one strategy x combine
+    matvec (``solvers/ops.py::build_solver``, what ``submit(op=...)``
+    dispatches)."""
+
+    op: str
+    strategy: str
+    combine: str
+
+    @property
+    def key(self) -> str:
+        return f"{self.op}|{self.strategy}|{self.combine}"
+
+    @property
+    def matvec(self) -> AuditConfig:
+        """The matvec cell whose collective kinds the solver's must equal."""
+        return AuditConfig(self.strategy, self.combine)
+
+
+SOLVER_AUDIT_CONFIGS: tuple[SolverAuditConfig, ...] = tuple(
+    SolverAuditConfig(op, strategy, combine)
+    for strategy, combine in (("rowwise", "gather"), ("colwise", "psum"),
+                              ("blockwise", "gather"))
+    for op in _SOLVER_AUDIT_OPS
+)
+
+
+class FusedSolverAuditConfig(NamedTuple):
+    """One audited fused solve: a fixed-recurrence op on the fused tier
+    (``build_solver(kernel="cuda_fused")``) at one strategy x canonical
+    combine x resident storage."""
+
+    op: str
+    strategy: str
+    combine: str
+    storage: str = "native"
+
+    @property
+    def key(self) -> str:
+        return f"{self.op}|{self.strategy}|{self.combine}|{self.storage}"
+
+
+FUSED_SOLVER_AUDIT_CONFIGS: tuple[FusedSolverAuditConfig, ...] = tuple(
+    FusedSolverAuditConfig(op, strategy, combine, storage)
+    for op in ("cg", "chebyshev")
+    for strategy, combine, storage in (("rowwise", "gather", "native"),
+                                       ("colwise", "psum", "native"),
+                                       ("colwise", "psum", "int8c"))
+)
+
+# What one trip of each canonical fused combine issues: one hop.
+_FUSED_EXPECTED_CENSUS = {"gather": {"all-gather": 1}, "psum": {"all-reduce": 1}}
+
+# The JAX package's jaxpr names of the fused hop, in the census's spelling.
+FUSED_CENSUS_NAMES = {"all_gather": "all-gather", "psum": "all-reduce"}
+
+
+class SpecAuditConfig(NamedTuple):
+    """One audited speculative program: the int8c candidate and the
+    acceptance check of one strategy x combine
+    (``ops/speculative.py::build_speculative``)."""
+
+    strategy: str
+    combine: str
+
+    @property
+    def key(self) -> str:
+        return f"speculate|{self.strategy}|{self.combine}"
+
+    @property
+    def counterpart(self) -> AuditConfig:
+        """The int8c matvec cell whose schedule the program must keep."""
+        return AuditConfig(self.strategy, self.combine, storage="int8c")
+
+
+SPEC_AUDIT_CONFIGS: tuple[SpecAuditConfig, ...] = (
+    SpecAuditConfig("rowwise", "gather"),
+    SpecAuditConfig("colwise", "psum"),
+    SpecAuditConfig("blockwise", "gather"),
+)
+
+
+def audit_probes() -> int:
+    """The probe count an armed engine places (``probe_count`` at the
+    eligibility floor)."""
+    from ..ops.speculative import SPEC_RTOL_FLOOR, probe_count
+
+    return probe_count(SPEC_RTOL_FLOOR)
+
+
+def _census_of(records) -> tuple[dict[str, int], dict[str, int]]:
+    census: dict[str, int] = {}
+    payload: dict[str, int] = {}
+    for r in records:
+        census[r.kind] = census.get(r.kind, 0) + 1
+        payload[r.kind] = payload.get(r.kind, 0) + r.payload_bytes
+    return dict(sorted(census.items())), dict(sorted(payload.items()))
+
+
+def _distinct(records) -> list:
+    return list(dict.fromkeys(records))
+
+
+def one_card_loop(op: str, strategy: str, combine: str, *, kernel: str = "cuda",
+                  storage: str = "native") -> str:
+    """The loop a build of the cell takes on a mesh of one CUDA device, as
+    ``solvers/ops.py::solver_loop`` decides it; the build allocates
+    nothing, so a CPU-only host can ask."""
+    import torch
+
+    from ..models import get_strategy
+    from ..parallel.mesh import make_mesh
+    from ..solvers import build_solver
+
+    mesh = make_mesh(1, devices=[torch.device("cuda", 0)])
+    return build_solver(op, get_strategy(strategy), mesh, dtype=torch.float32,
+                        kernel=kernel, combine=combine,
+                        dtype_storage=None if storage == "native" else storage).loop
+
+
+def _solver_operand(n: int, device, seed: int):
+    """A seeded SPD operand: a symmetric uniform matrix shifted by n·I."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.rand((n, n), generator=gen, device=device, dtype=torch.float32)
+    b = torch.rand((n,), generator=gen, device=device, dtype=torch.float32)
+    return (a + a.T) / 2 + n * torch.eye(n, device=device), b
+
+
+def _two_runs(fn, a, b, *, stand_in: bool = False, watch: bool = False) -> list:
+    """``fn`` run with ``maxiter`` 0 and 1 under the recorder (and, with
+    ``watch``, the low-bit conversion watch): ``[(recorder, converts)] * 2``."""
+    from ..parallel.mesh import CollectiveRecorder
+
+    runs = []
+    for maxiter in (0, 1):
+        with CollectiveRecorder(stand_in) as rec:
+            if watch:
+                with _ConvertWatch() as w:
+                    fn(a, b, 1e-6, maxiter, 1.0, float(2 * b.shape[0]))
+                converts = w.converts
+            else:
+                fn(a, b, 1e-6, maxiter, 1.0, float(2 * b.shape[0]))
+                converts = []
+        runs.append((rec, converts))
+    return runs
+
+
+def solver_audit_entry(scfg: SolverAuditConfig, mesh, *, seed: int = 0,
+                       loop: str | None = None) -> dict:
+    """One solver cell on ``mesh`` at :data:`SOLVER_AUDIT_N`: the census and
+    payload bytes of its distinct collectives outside the loop and in one
+    trip (the output gather apart), and ``loop``, what the cell's build
+    takes on one card (:func:`one_card_loop`, unless given)."""
+    from ..engine.executables import trip_records
+    from ..models import get_strategy
+    from ..solvers import build_solver
+
+    strat = get_strategy(scfg.strategy)
+    a, b = _solver_operand(SOLVER_AUDIT_N, mesh.devices[0], seed)
+    fn = build_solver(scfg.op, strat, mesh, dtype=a.dtype, combine=scfg.combine)
+    (rec0, _), (rec1, _) = _two_runs(fn, a, b)
+    trip = trip_records(rec0.program, rec1.program)
+    census, payload = _census_of(_distinct(trip) + _distinct(rec0.program))
+    return {"census": census, "payload_bytes": payload,
+            "loop": loop if loop is not None else one_card_loop(
+                scfg.op, scfg.strategy, scfg.combine)}
+
+
+def solver_findings(scfg: SolverAuditConfig, entry: dict, mesh) -> list[Finding]:
+    """The structural gates of one solver entry: its collective kinds equal
+    the matvec counterpart's (``hlo-solver-schedule``), and cg and
+    chebyshev keep their loop on the device on one card
+    (``hlo-solver-loop``)."""
+    findings: list[Finding] = []
+    exp_census, _ = expected_schedule(scfg.matvec, mesh, m=SOLVER_AUDIT_N)
+    if set(entry["census"]) != set(exp_census):
+        findings.append(Finding(
+            f"<hlo:{scfg.key}>", 0, "hlo-solver-schedule",
+            f"solver program's collective kinds {sorted(entry['census'])} != the "
+            f"{scfg.strategy}|{scfg.combine} matvec counterpart's "
+            f"{sorted(exp_census)} — the loop body issues collectives the audited "
+            "matvec schedule does not (an un-staged gather or a stray reduction "
+            "inside the iteration)"))
+    if scfg.op in DEVICE_LOOP_SOLVERS and entry["loop"] != "device":
+        findings.append(Finding(
+            f"<hlo:{scfg.key}>", 0, "hlo-solver-loop",
+            f"{scfg.op} takes the {entry['loop']} loop on one card: the iteration "
+            "left the device (a host read per iteration re-dispatching matvecs, "
+            "where solvers/device_loop.py reads once per chunk)"))
+    return findings
+
+
+def fused_operand(fcfg: FusedSolverAuditConfig, mesh, *, seed: int = 0):
+    """The fused cell's placed operand at :data:`FUSED_SOLVER_AUDIT_N`
+    (int8c quantized with the engine's block) and right-hand side."""
+    from ..models import get_strategy
+    from ..models.base import shard_operand
+    from ..ops.quantize import default_block, quantize_matrix
+
+    strat = get_strategy(fcfg.strategy)
+    n = FUSED_SOLVER_AUDIT_N
+    a, b = _solver_operand(n, mesh.devices[0], seed)
+    if fcfg.storage != "native":
+        a = quantize_matrix(a, fcfg.storage,
+                            block=default_block(n, strat.contraction_shards(mesh)))
+    return shard_operand(a, strat.specs(mesh)[0], mesh), b
+
+
+def _fused_full_shapes(n: int, p: int) -> set:
+    return {(n, n), (n // p, n), (n, n // p)}
+
+
+def fused_solver_audit_entry(fcfg: FusedSolverAuditConfig, mesh, *, fn=None,
+                             seed: int = 0) -> dict:
+    """One fused cell: the recorder stands the kernels in (the wrappers
+    are counted at their entry and compute nothing), and one trip gives
+    ``steps`` (fused step calls a shard), ``gemv_calls`` (separate GEMV
+    calls) and ``census`` (every collective of the trip); over the whole
+    run, ``lowbit_shard_converts`` counts conversions of a full-width
+    low-bit A to float outside the kernels. ``loop`` is what the cell's
+    build takes on one card. ``fn`` passes a fused program in (the
+    mutations)."""
+    import torch
+
+    from ..engine.executables import trip_records
+    from ..models import get_strategy
+    from ..solvers import build_solver
+
+    a, b = fused_operand(fcfg, mesh, seed=seed)
+    if fn is None:
+        fn = build_solver(fcfg.op, get_strategy(fcfg.strategy), mesh, dtype=torch.float32,
+                          kernel="cuda_fused", combine=fcfg.combine,
+                          dtype_storage=None if fcfg.storage == "native" else fcfg.storage)
+    (rec0, _), (rec1, converts) = _two_runs(fn, a, b, stand_in=True, watch=True)
+    kernels = [c.name for c in trip_records(rec0.kernels, rec1.kernels)]
+    census, _ = _census_of(trip_records(rec0.program, rec1.program))
+    full = _fused_full_shapes(FUSED_SOLVER_AUDIT_N, mesh.size)
+    steps, rest = divmod(kernels.count("solver_step"), mesh.size)
+    return {
+        "steps": steps if not rest else steps + rest / mesh.size,
+        "gemv_calls": sum(k in ("gemv", "quant_gemv") for k in kernels),
+        "census": census,
+        "lowbit_shard_converts": sum(shape in full for shape, _, _ in converts),
+        "loop": one_card_loop(fcfg.op, fcfg.strategy, fcfg.combine, kernel="cuda_fused",
+                              storage=fcfg.storage),
+    }
+
+
+def fused_solver_findings(fcfg: FusedSolverAuditConfig, entry: dict) -> list[Finding]:
+    """The structural gates of one fused entry (``hlo-fused-solver``, and
+    ``hlo-early-dequant`` for a quantized cell)."""
+    findings: list[Finding] = []
+    where = f"<hlo:fused:{fcfg.key}>"
+    if entry["steps"] != 1:
+        findings.append(Finding(
+            where, 0, "hlo-fused-solver",
+            f"one iteration makes {entry['steps']} fused step calls a shard, "
+            "expected exactly 1 — the tier's claim is the whole recurrence (the "
+            "vector updates, the residual reduction and the next GEMV) in one "
+            "solver_step call, so p, x and r never round-trip between launches"))
+    if entry["gemv_calls"]:
+        findings.append(Finding(
+            where, 0, "hlo-fused-solver",
+            f"one iteration makes {entry['gemv_calls']} separate GEMV calls beside "
+            "the fused step: an unfused body pays the torch tier's launches while "
+            "reporting the fused ExecKey"))
+    expected = _FUSED_EXPECTED_CENSUS[fcfg.combine]
+    if entry["census"] != expected:
+        findings.append(Finding(
+            where, 0, "hlo-fused-solver",
+            f"one iteration's collective census {entry['census']} != the canonical "
+            f"{fcfg.combine} combine's {expected} — a stray collective inside the "
+            "loop multiplies per-iteration latency by its cost"))
+    if fcfg.storage != "native" and entry["lowbit_shard_converts"]:
+        findings.append(Finding(
+            where, 0, "hlo-early-dequant",
+            f"the quantized fused solve converts {entry['lowbit_shard_converts']} "
+            "full-width low-bit A tensor(s) to float outside the kernels: the "
+            "int8c-resident tier upcasts inside the step, a tile at a time"))
+    return findings
+
+
+class _HostReadWatch:
+    """Counts host reads of a tensor's value (``aten._local_scalar_dense``:
+    ``.item()``, ``bool()``, ``int()``, ``float()``) while entered."""
+
+    def __init__(self):
+        self.reads = 0
+        self._mode = None
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        watch = self
+        read = torch.ops.aten._local_scalar_dense.default
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func is read:
+                    watch.reads += 1
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def spec_operands(scfg: SpecAuditConfig, mesh, *, seed: int = 0):
+    """The armed engine's operands at ``AUDIT_M x AUDIT_K`` fp32, placed on
+    ``mesh``: the int8c payload, P = U A, U, x and a float32 tolerance."""
+    import torch
+
+    from ..models import get_strategy
+    from ..models.base import shard_operand
+    from ..ops.quantize import quantize_matrix
+    from ..ops.speculative import probe_matrix, probe_spec, project_probes
+    from ..parallel.mesh import shard
+
+    strat = get_strategy(scfg.strategy)
+    device = mesh.devices[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.rand((AUDIT_M, AUDIT_K), generator=gen, device=device)
+    x = torch.rand((AUDIT_K,), generator=gen, device=device)
+    s = audit_probes()
+    u = probe_matrix(s, AUDIT_M, torch.float32).to(device)
+    aq = quantize_matrix(a, "int8c", block=audit_block(scfg.counterpart, mesh))
+    spec_a, spec_x, _ = strat.specs(mesh)
+    return (shard_operand(aq, spec_a, mesh),
+            shard(project_probes(u, a, device=device), probe_spec(strat, mesh), mesh),
+            u, shard(x, spec_x, mesh), torch.tensor(1e-3, dtype=torch.float32,
+                                                    device=device))
+
+
+def spec_audit_entry(scfg: SpecAuditConfig, mesh, *, seed: int = 0) -> dict:
+    """One speculative cell, its second run watched (the first fills the
+    caches a warm-up fills): the census and payload bytes (the output
+    gather apart), the probes, the verdict's dtype and the host reads the
+    program made (the port's reading of the JAX gate's i1 output: the
+    verdict leaves as a device bool, read by nobody inside)."""
+    from ..models import get_strategy
+    from ..ops.speculative import build_speculative
+    from ..parallel.mesh import CollectiveRecorder
+
+    fn = build_speculative(get_strategy(scfg.strategy), mesh, probes=audit_probes(),
+                           combine=scfg.combine, storage="int8c")
+    operands = spec_operands(scfg, mesh, seed=seed)
+    fn(*operands)  # the warm run fills the per-dtype scale cache, as the engine's warm-up does
+    with CollectiveRecorder() as rec, _HostReadWatch() as watch:
+        _, _, accept = fn(*operands)
+    census, payload = rec.census()
+    return {"census": census, "payload_bytes": payload, "probes": audit_probes(),
+            "verdict_dtype": str(accept.dtype).removeprefix("torch."),
+            "host_reads": watch.reads}
+
+
+def spec_findings(scfg: SpecAuditConfig, entry: dict, mesh) -> list[Finding]:
+    """The structural gates of one speculative entry: the counterpart's
+    schedule survives, the check adds at most one all-reduce of at most
+    ``probes x 4`` bytes (``hlo-spec-schedule``), and the verdict is a
+    device bool nobody reads inside the program (``hlo-spec-host-sync``)."""
+    findings: list[Finding] = []
+    where = f"<hlo:{scfg.key}>"
+    exp_census, exp_payload = expected_schedule(scfg.counterpart, mesh)
+    census, payload = entry["census"], entry["payload_bytes"]
+    missing = {k: n for k, n in exp_census.items() if census.get(k, 0) < n}
+    extra = {k: census[k] - exp_census.get(k, 0) for k in census
+             if census[k] > exp_census.get(k, 0)}
+    if missing:
+        findings.append(Finding(
+            where, 0, "hlo-spec-schedule",
+            f"the speculative program lost collectives {missing} from its "
+            f"{scfg.counterpart.key} counterpart's schedule {exp_census} — the "
+            "candidate no longer runs the audited combine"))
+    if set(extra) - {"all-reduce"} or sum(extra.values()) > 1:
+        findings.append(Finding(
+            where, 0, "hlo-spec-schedule",
+            f"the acceptance check added {extra} beyond the {scfg.counterpart.key} "
+            "counterpart's schedule — the check costs at most one extra reduction "
+            "(the sum of s probe scalars; rowwise adds none)"))
+    ceiling = entry["probes"] * dtype_itemsize(AUDIT_DTYPE)
+    extra_bytes = payload.get("all-reduce", 0) - exp_payload.get("all-reduce", 0)
+    if extra.get("all-reduce") and extra_bytes > ceiling:
+        findings.append(Finding(
+            where, 0, "hlo-spec-schedule",
+            f"the check's extra all-reduce moves {extra_bytes} bytes, over the "
+            f"{ceiling}-byte probe-vector ceiling ({entry['probes']} probes x "
+            f"{dtype_itemsize(AUDIT_DTYPE)} B) — a full-width collective in the check "
+            "spends the bandwidth the speculation exists to save"))
+    if entry["verdict_dtype"] != "bool" or entry["host_reads"]:
+        findings.append(Finding(
+            where, 0, "hlo-spec-host-sync",
+            f"the verdict leaves as {entry['verdict_dtype']} after "
+            f"{entry['host_reads']} host read(s) inside the program: the "
+            "accept/escalate decision must stay a device bool until "
+            "MatvecFuture.result() reads it"))
+    return findings
+
+
+def solver_coverage_findings() -> list[Finding]:
+    """``hlo-solver-coverage``: every op of ``solvers/ops.py::SOLVER_OPS``
+    has audit cells, so a new op cannot ship unpinned."""
+    from ..solvers import ops
+
+    missing = sorted(set(ops.SOLVER_OPS) - {c.op for c in SOLVER_AUDIT_CONFIGS})
+    return [Finding(
+        "<hlo:solvers>", 0, "hlo-solver-coverage",
+        f"served solver ops {missing} have no audit cells; extend "
+        "SOLVER_AUDIT_CONFIGS and bless the golden table")] if missing else []
+
+
+def solver_fingerprint_findings(configs, mesh) -> list[Finding]:
+    """``hlo-fingerprint`` over the traced solver, speculative and
+    ``pallas_ring`` keys: two fresh traces of one key fingerprint equal,
+    and keys that differ in op or combine fingerprint differently."""
+    import torch
+
+    from ..engine.executables import (
+        ExecKey, build_fingerprint, trace_program, trace_solver, trace_speculative)
+    from ..models import get_strategy
+    from ..parallel.mesh import make_1d_mesh
+
+    def solver_fp(op, strategy, combine, kernel="cuda"):
+        trace = trace_solver(get_strategy(strategy), mesh, op=op, kernel=kernel,
+                             combine=combine, stages=None, storage="native",
+                             a_shape=(SOLVER_AUDIT_N,) * 2, dtype=torch.float32,
+                             restart=10, steps=32)
+        key = ExecKey(op, strategy, kernel, combine, 1, AUDIT_DTYPE)
+        return key, build_fingerprint(key, trace["schedule"], trace["local_shapes"],
+                                      trace["routes"], loop=trace["loop"])
+
+    def spec_fp(strategy, combine):
+        cfg = SpecAuditConfig(strategy, combine)
+        trace = trace_speculative(get_strategy(strategy), mesh, kernel="cuda",
+                                  combine=combine, gather_output=True,
+                                  a_shape=(AUDIT_M, AUDIT_K), dtype=torch.float32,
+                                  probes=audit_probes(), bucket=None,
+                                  block=audit_block(cfg.counterpart, mesh))
+        key = ExecKey("matvec", strategy, "cuda", combine, 1, AUDIT_DTYPE, "speculate")
+        return key, build_fingerprint(key, trace["schedule"], trace["local_shapes"],
+                                      trace["routes"])
+
+    ring_mesh = make_1d_mesh(AUDIT_DEVICES, devices=[torch.device("cpu")] * AUDIT_DEVICES)
+
+    def ring_fp(combine):
+        trace = trace_program(get_strategy("colwise"), ring_mesh, batched=False,
+                              kernel="cuda", combine=combine, stages=None,
+                              gather_output=True, storage="native",
+                              a_shape=(AUDIT_M, AUDIT_K), dtype=torch.float32)
+        key = ExecKey("matvec", "colwise", "cuda", combine, 1, AUDIT_DTYPE)
+        return key, build_fingerprint(key, trace["schedule"], trace["local_shapes"],
+                                      trace["routes"])
+
+    makers = [lambda c=c: solver_fp(c.op, c.strategy, c.combine) for c in configs]
+    makers += [lambda c=c: solver_fp(c.op, c.strategy, c.combine, "cuda_fused")
+               for c in FUSED_SOLVER_AUDIT_CONFIGS if c.storage == "native"]
+    makers += [lambda c=c: spec_fp(c.strategy, c.combine) for c in SPEC_AUDIT_CONFIGS]
+    makers += [lambda c=c: ring_fp(c) for c in ("pallas_ring", "psum")]
+    findings: list[Finding] = []
+    seen: dict[str, str] = {}
+    for make in makers:
+        (key, fp_a), (_, fp_b) = make(), make()
+        if fp_a != fp_b:
+            findings.append(Finding(
+                f"<hlo:{key.label()}>", 0, "hlo-fingerprint",
+                f"two fresh traces of ExecKey {key.label()} fingerprint differently "
+                f"({fp_a[:12]} vs {fp_b[:12]}): the engine's cache would hold two "
+                "programs for one key"))
+        other = seen.setdefault(fp_a, key.label())
+        if other != key.label():
+            findings.append(Finding(
+                f"<hlo:{key.label()}>", 0, "hlo-fingerprint",
+                f"ExecKeys {other} and {key.label()} fingerprint the same: the "
+                "trace does not see what sets them apart"))
+    return findings
+
+
 def golden_path() -> Path:
     return Path(__file__).resolve().parent / GOLDEN_NAME
 
@@ -709,7 +1221,9 @@ def golden_path() -> Path:
 def build_schedule_table(configs: Iterable[AuditConfig] | None = None,
                          reshard_configs: Iterable[ReshardAuditConfig] | None = None,
                          mesh=None) -> dict:
-    """The golden table's payload for the current tree."""
+    """The golden table's payload for the current tree: the matvec cells,
+    the served solvers, the fused solves, the speculative programs and the
+    migrations (schema 2)."""
     import torch
 
     mesh = mesh if mesh is not None else audit_mesh()
@@ -724,8 +1238,14 @@ def build_schedule_table(configs: Iterable[AuditConfig] | None = None,
         "schema": GOLDEN_SCHEMA,
         "mesh": {"devices": mesh.size, "grid": list(mesh.grid)},
         "operand": {"m": AUDIT_M, "k": AUDIT_K, "dtype": AUDIT_DTYPE},
+        "solver_operand": {"n": SOLVER_AUDIT_N, "dtype": AUDIT_DTYPE},
+        "fused_solver_operand": {"n": FUSED_SOLVER_AUDIT_N, "dtype": AUDIT_DTYPE},
         "torch_version_at_capture": torch.__version__,
         "configs": entries,
+        "solvers": {c.key: solver_audit_entry(c, mesh) for c in SOLVER_AUDIT_CONFIGS},
+        "fused_solvers": {c.key: fused_solver_audit_entry(c, mesh)
+                          for c in FUSED_SOLVER_AUDIT_CONFIGS},
+        "speculative": {c.key: spec_audit_entry(c, mesh) for c in SPEC_AUDIT_CONFIGS},
         "reshards": reshards,
     }
 
@@ -742,21 +1262,33 @@ def run_hlo_audit(
     configs: Iterable[AuditConfig] | None = None,
     reshard_configs: Iterable[ReshardAuditConfig] | None = None,
     *,
+    solver_configs: Iterable[SolverAuditConfig] | None = None,
+    fused_solver_configs: Iterable[FusedSolverAuditConfig] | None = None,
+    spec_configs: Iterable[SpecAuditConfig] | None = None,
     check_fingerprints: bool = True,
     kernel=None,
     mesh=None,
 ) -> list[Finding]:
     """The whole census audit on 8 logical CPU shards: every cell's
     structural, storage, early-dequant and fingerprint gates, every
-    migration's, and the golden table over whichever cells ran (a narrowed
-    run compares only those). ``kernel`` overrides every cell's local
-    kernel (the dequant-first mutation). Empty means clean."""
+    migration's, every served solver's, fused solve's and speculative
+    program's, and the golden table over whichever cells ran (a narrowed
+    run, which names some of the families, runs and compares only those).
+    ``kernel`` overrides every matvec cell's local kernel (the
+    dequant-first mutation). Empty means clean."""
     golden = Path(golden) if golden is not None else golden_path()
     mesh = mesh if mesh is not None else audit_mesh()
-    full_run = configs is None and reshard_configs is None
-    configs = supported_configs(configs or AUDIT_CONFIGS)
-    reshard_configs = tuple(RESHARD_AUDIT_CONFIGS if reshard_configs is None and full_run
-                            else reshard_configs or ())
+    full_run = (configs is None and reshard_configs is None and solver_configs is None
+                and fused_solver_configs is None and spec_configs is None)
+
+    def family(given, default):
+        return tuple(default if given is None and full_run else given or ())
+
+    configs = supported_configs(family(configs, AUDIT_CONFIGS))
+    reshard_configs = family(reshard_configs, RESHARD_AUDIT_CONFIGS)
+    solver_configs = family(solver_configs, SOLVER_AUDIT_CONFIGS)
+    fused_solver_configs = family(fused_solver_configs, FUSED_SOLVER_AUDIT_CONFIGS)
+    spec_configs = family(spec_configs, SPEC_AUDIT_CONFIGS)
     findings: list[Finding] = []
     pinned: dict = {}
     pinned_reshards: dict = {}
@@ -771,6 +1303,7 @@ def run_hlo_audit(
         pinned_reshards = table.get("reshards", {})
         have_golden = True
     else:
+        table = {}
         findings.append(Finding(
             GOLDEN_NAME, 0, "hlo-golden",
             "golden collective-schedule table missing; generate it with "
@@ -820,6 +1353,43 @@ def run_hlo_audit(
                 findings.append(Finding(
                     GOLDEN_NAME, 0, "hlo-census",
                     f"{rcfg.key}: the migration issues {entry} != golden {want}"))
+    layers = (
+        ("solvers", "solver", solver_configs, SOLVER_AUDIT_CONFIGS,
+         lambda c: solver_audit_entry(c, mesh), lambda c, e: solver_findings(c, e, mesh)),
+        ("fused_solvers", "fused solver", fused_solver_configs,
+         FUSED_SOLVER_AUDIT_CONFIGS, lambda c: fused_solver_audit_entry(c, mesh),
+         fused_solver_findings),
+        ("speculative", "speculative", spec_configs, SPEC_AUDIT_CONFIGS,
+         lambda c: spec_audit_entry(c, mesh), lambda c, e: spec_findings(c, e, mesh)),
+    )
+    if full_run:
+        findings.extend(solver_coverage_findings())
+    for section, label, cells, every, entry_of, gates in layers:
+        pinned_section = table.get(section, {})
+        for cfg in cells:
+            entry = entry_of(cfg)
+            findings.extend(gates(cfg, entry))
+            if not have_golden:
+                continue
+            want = pinned_section.get(cfg.key)
+            if want is None:
+                findings.append(Finding(
+                    GOLDEN_NAME, 0, "hlo-golden",
+                    f"{label} config {cfg.key} missing from the golden table; bless "
+                    "it with --write-golden"))
+            elif want != entry:
+                findings.append(Finding(
+                    GOLDEN_NAME, 0, "hlo-census",
+                    f"{cfg.key}: the {label} program issues {entry} != golden {want}; "
+                    "if the change is deliberate, bless it with --write-golden"))
+        if have_golden and full_run:
+            for stale in sorted(set(pinned_section) - {c.key for c in every}):
+                findings.append(Finding(
+                    GOLDEN_NAME, 0, "hlo-golden",
+                    f"golden table pins unknown {label} config {stale}; regenerate "
+                    "with --write-golden"))
+    if check_fingerprints and (solver_configs or spec_configs or full_run):
+        findings.extend(solver_fingerprint_findings(solver_configs, mesh))
     if have_golden and full_run:
         for stale in sorted(set(pinned) - {c.key for c in AUDIT_CONFIGS}):
             findings.append(Finding(

@@ -40,6 +40,10 @@ metric-label-cardinality             cardinality-ok   no per-iteration series
 lock-mixed-guard                     unguarded-ok     (lockgraph.py)
 lock-order-inversion                 lock-order-ok    (lockgraph.py)
 callback-under-lock                  callback-ok      (lockgraph.py)
+traced-python-branch                 traced-branch-ok (dataflow.py)
+weak-type-cache-split                weak-type-ok     (dataflow.py)
+unhashable-static-arg                static-arg-ok    (dataflow.py)
+host-sync-on-tracer                  tracer-sync-ok   (dataflow.py)
 ===================================  ===============  ==========================
 
 Nine rules keep the JAX package's bodies (their fixtures give the same
@@ -61,6 +65,8 @@ from typing import Callable, Iterable, Iterator
 
 from .corpus import SourceFile, iter_corpus, repo_root, source_file
 from .findings import Finding, dedup
+from .dataflow import new_generation as dataflow_new_generation
+from .dataflow import register_dataflow_rules
 from .lockgraph import new_generation as lockgraph_new_generation
 from .lockgraph import register_lockgraph_rules
 
@@ -111,8 +117,27 @@ def _markers() -> dict[str, str]:
     return {r.marker: r.name for r in RULES.values() if r.marker}
 
 
+def _marker_at(comment: str, marker: str) -> int:
+    """Where ``marker:`` starts in ``comment`` as a marker of its own (not
+    the tail of a longer one: ``sync-ok:`` inside ``tracer-sync-ok:``), or
+    -1."""
+    token = f"{marker}:"
+    start = comment.find(token)
+    while start > 0 and (comment[start - 1].isalnum() or comment[start - 1] in "-_"):
+        start = comment.find(token, start + 1)
+    return start
+
+
+def _has_marker(comment: str, marker: str) -> bool:
+    return _marker_at(comment, marker) >= 0
+
+
+def _marker_reason(comment: str, marker: str) -> str:
+    return comment[_marker_at(comment, marker) + len(marker) + 1:].strip()
+
+
 def _exempt(sf: SourceFile, node: ast.AST, marker: str) -> bool:
-    return f"{marker}:" in sf.span_comments(node)
+    return _has_marker(sf.span_comments(node), marker)
 
 
 def _marker_reason_findings(
@@ -127,7 +152,7 @@ def _marker_reason_findings(
         if token not in sf.text:
             continue  # skip the tokenize pass for marker-free files
         for lineno, comment in sf.comments.items():
-            if token in comment and not comment.split(token, 1)[1].strip():
+            if _has_marker(comment, rule.marker) and not _marker_reason(comment, rule.marker):
                 yield Finding(
                     sf.rel, lineno, "marker-missing-reason",
                     f"'# {token}' without a reason (the {rule.name} "
@@ -157,7 +182,7 @@ def _stale_marker_findings(
             continue
         live = covered.get(rule.marker, set())
         for lineno, comment in sf.comments.items():
-            if token not in comment or lineno in live:
+            if not _has_marker(comment, rule.marker) or lineno in live:
                 continue
             if stale_token in comment:
                 if not comment.split(stale_token, 1)[1].strip():
@@ -190,8 +215,9 @@ def run_rules(
         list(RULES.values()) if rules is None
         else [get_rule(n) for n in rules]
     )
-    # One corpus validation per run for the whole-program lock graph.
+    # One corpus validation per run for the whole-program analyses.
     lockgraph_new_generation()
+    dataflow_new_generation()
     findings: list[Finding] = []
     for path in iter_corpus(root):
         try:
@@ -944,10 +970,12 @@ def _check_metric_cardinality(sf: SourceFile):
             )
 
 
-# Rules #13-#15: the whole-program lock-graph auditor registers through the
-# same decorator, so markers, fixtures and the CLI inherit; registration
-# precedes the MARKERS snapshot below.
+# Rules #13-#15: the whole-program lock-graph auditor, and rules #17-#20:
+# the value-flow engine (dataflow.py), register through the same decorator,
+# so markers, fixtures and the CLI inherit; registration precedes the
+# MARKERS snapshot below.
 register_lockgraph_rules(_register)
+register_dataflow_rules(_register)
 
 MARKERS: dict[str, str] = _markers()
 
@@ -963,6 +991,8 @@ _SCOPE_LABELS: dict[str, str] = {
     "_quant_scope": "ops/quantize.py, ops/cuda_quant.py",
     "_admission_scope": "engine/global_scheduler.py",
     "lockgraph_scope": "engine/, obs/, resilience/, tuning/",
+    "dataflow_scope": "package",
+    "sync_scope": "engine/, solvers/",
 }
 
 

@@ -49,3 +49,8 @@ DTYPE_ITEMSIZE: dict[str, int] = {
 # given no HBM bound.
 H100_HBM_PEAK_GBPS: float = 3350.0
 H100_L2_BYTES: int = 50 * 1000 * 1000
+# NVIDIA H100 SXM (data sheet): dense bf16/fp16 tensor-core peak, and the
+# fp32 rate outside the tensor cores, in GFLOP/s: the compute roofs of the
+# GEMV-to-GEMM crossover study (bench/crossover_study.py).
+H100_TENSOR_BF16_GFLOPS: float = 989e3
+H100_FP32_GFLOPS: float = 67e3

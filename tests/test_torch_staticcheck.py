@@ -400,6 +400,31 @@ PORT_FIXTURES = {
     "lock-mixed-guard": JAX_FIXTURES["lock-mixed-guard"],
     "lock-order-inversion": JAX_FIXTURES["lock-order-inversion"],
     "callback-under-lock": JAX_FIXTURES["callback-under-lock"],
+    # The value-flow rules (dataflow.py), read the port's way.
+    "traced-python-branch": (
+        f"{P}/models/seeded.py",
+        "import torch\ndef build(mesh):\n    def fn(a, x):\n        y = torch.mv(a, x)\n"
+        "        if y.sum() > 0:\n            return y\n        return -y\n    return fn\n",
+        "import torch\ndef build(mesh):\n    def fn(a, x):\n        y = torch.mv(a, x)\n"
+        "        if y.dim() == 1:\n            return y\n        return -y\n    return fn\n",
+    ),
+    "weak-type-cache-split": (
+        f"{P}/engine/seeded.py",
+        "def key(op, n):\n    return ExecKey(op, 'rowwise', 'cuda', None, n / 2, 'float32')\n",
+        "def key(op, n):\n    return ExecKey(op, 'rowwise', 'cuda', None, n // 2, 'float32')\n",
+    ),
+    "unhashable-static-arg": (
+        f"{P}/engine/seeded.py",
+        "def key(op, parts):\n"
+        "    return ExecKey(op, 'rowwise', 'cuda', [p for p in parts], 1, 'float32')\n",
+        "def key(op, parts):\n"
+        "    return ExecKey(op, 'rowwise', 'cuda', tuple(parts), 1, 'float32')\n",
+    ),
+    "host-sync-on-tracer": (
+        f"{P}/solvers/seeded.py",
+        "import torch\ndef norm(v):\n    return float(torch.linalg.vector_norm(v))\n",
+        "import torch\ndef norm(v):\n    return torch.linalg.vector_norm(v)\n",
+    ),
 }
 
 
