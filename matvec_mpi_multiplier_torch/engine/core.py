@@ -184,6 +184,7 @@ from ..models.base import (
     not_ported,
     shard_operand,
 )
+from ..obs.annotations import profiler_span
 from ..obs.registry import MetricsRegistry
 from ..obs.sink import JsonlSink
 from ..obs.slo import ENGINE_TARGETS, SloMonitor
@@ -234,6 +235,7 @@ from ..solvers import (
     build_solver,
     solver_bucket,
 )
+from ..solvers.device_loop import host_read
 from ..utils.errors import (
     ConfigError,
     DeadlineExceededError,
@@ -419,7 +421,9 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
         staging.copy_(t, non_blocking=True)
         copied = torch.cuda.Event()
         copied.record()
-    copied.synchronize()  # sync-ok: materialization in result(), never on submit
+    # The span ends when Python runs again: a wait for the GIL is inside.
+    with profiler_span("engine/host_copy_wait"):
+        copied.synchronize()  # sync-ok: materialization in result(), never on submit
     return torch.empty(t.shape, dtype=t.dtype).copy_(staging)
 
 
@@ -673,7 +677,8 @@ class SolverFuture:
         status = "ok"
         try:
             res = self._res
-            x = res.x.cpu()  # sync-ok: caller-requested materialization
+            with host_read():
+                x = res.x.cpu()  # sync-ok: caller-requested materialization
             if self._corrupt and x.is_floating_point():
                 # Injected silent corruption (resilience/faults.py): the
                 # poison lands here so the refusal below catches it.
@@ -681,10 +686,11 @@ class SolverFuture:
                 x[0] = float("nan")
             n_iters = int(res.n_iters)
             # One copy for the three device scalars.
-            rnorm, value, converged = torch.stack((  # sync-ok: caller-requested materialization; tracer-sync-ok: result()'s one stacked read of the solve's scalars
-                res.residual_norm.double(), res.value.double(),  # fp64-ok: the three device scalars ride one host copy as float64, exact for each
-                res.converged.double(),  # fp64-ok: same one-copy float64 stack as the line above
-            )).tolist()
+            with host_read():
+                rnorm, value, converged = torch.stack((  # sync-ok: caller-requested materialization; tracer-sync-ok: result()'s one stacked read of the solve's scalars
+                    res.residual_norm.double(), res.value.double(),  # fp64-ok: the three device scalars ride one host copy as float64, exact for each
+                    res.converged.double(),  # fp64-ok: same one-copy float64 stack as the line above
+                )).tolist()
             if self._iter_hist is not None:
                 self._iter_hist.observe(n_iters)
             if self._residual_gauge is not None:

@@ -20,8 +20,15 @@ The port's counterpart of the JAX package's ``obs/``:
   alerts (``engine.health()["slo"]``, the serve bench's ``--slo-out``);
 * **flight recorder** (``flight.py``) — a bounded ring over the event
   timeline that dumps a post-mortem bundle on typed failures;
-* **named trace spans** (``annotations.py``) — ``record_function`` (and
-  NVTX) ranges around each strategy's local GEMV and combine.
+* **named trace spans** (``annotations.py``), under two rules. Strategy
+  spans (``named_span``: ``record_function`` and NVTX ranges around each
+  strategy's local GEMV and combine) follow the annotation switch, off by
+  default, as in the JAX package. Engine and solver spans
+  (``annotations.profiler_span``: the tracer's phases as ``engine/<phase>``,
+  ``engine/host_copy_wait``, ``solver/loop``, ``solver/host_read``) are on
+  whenever a ``torch.profiler`` records, and put the program's phases on
+  the device trace's clock; the tracer's own records keep their
+  ``perf_counter`` times either way.
 
 ``python -m matvec_mpi_multiplier_torch.obs`` renders their files
 (``__main__.py``: ``metrics``, ``trace``, ``timeline``, ``slo``, ``dump``).

@@ -1,5 +1,21 @@
 """Named trace spans: make profiler captures read by phase.
 
+Two kinds of span, under two rules:
+
+* **Strategy spans** (:func:`named_span`) follow the annotation switch, as
+  in the JAX package (its names and its off-by-default contract are held
+  to the JAX package's by ``tests/test_torch_profiling.py``).
+* **Engine and solver spans** (:func:`profiler_span`) are on whenever a
+  ``torch.profiler`` records, with no switch: the request tracer's phases
+  (``engine/submit``, ``engine/dispatch``, ... from ``obs/tracing.py``),
+  the event wait of a result's copy (``engine/host_copy_wait``) and the
+  solver's loop and host reads (``solver/loop``, ``solver/host_read``,
+  ``solvers/device_loop.py``). They put the program's phases on the
+  device trace's clock, beside the kernels they launch. A profiler records
+  the spans of the threads it profiles: those of the thread that started
+  it, or of every thread under ``_ExperimentalConfig(profile_all_threads=
+  True)``.
+
 The port's counterpart of the JAX package's ``obs/annotations.py``.
 :func:`named_span` wraps a region in ``torch.profiler.record_function`` (so
 it shows in a ``torch.profiler`` trace, ``bench/profiling.py::trace``, on
@@ -23,8 +39,13 @@ import contextlib
 import os
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 _override: bool | None = None  # None -> consult the environment
+
+# What :func:`profiler_span` returns while no profiler records: one shared
+# context that does nothing.
+NOT_RECORDING = contextlib.nullcontext()
 
 
 def annotations_enabled() -> bool:
@@ -65,3 +86,13 @@ def named_span(name: str):
                 yield
         else:
             yield
+
+
+def profiler_span(name: str):
+    """A ``record_function`` range named ``name`` while a ``torch.profiler``
+    records, else :data:`NOT_RECORDING`; use as a context manager. No NVTX
+    and no switch: off a profiler it costs one attribute read, and enters
+    nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NOT_RECORDING
+    return torch.profiler.record_function(name)

@@ -18,26 +18,42 @@ Threading model: one :class:`ActiveTrace` is built by the submitting
 thread and later completed (materialize span + finish) by whichever thread
 materializes the future — sequential hand-off, not concurrent mutation.
 ``finish`` is idempotent: only the first call emits.
+
+The device trace's clock: while a ``torch.profiler`` records, each span
+also opens a ``record_function`` range named ``engine/<name>``
+(``engine/submit``, ``engine/gate``, ``engine/bucket_pad``,
+``engine/exec_lookup``, ``engine/dispatch``, ``engine/materialize``,
+``engine/escalate``; ``obs/annotations.py::profiler_span``), so the
+profiler's trace holds the phases beside the kernels they launch. A range
+closes where its span ends, on the thread that opened it: when ``finish``
+ends a span from another thread it closes no range, and the opening
+thread's ``__exit__`` closes it. The tracer's own records keep their
+``perf_counter`` times, ring and sink whether a profiler records or not.
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 import time
 from collections import deque
 from typing import TYPE_CHECKING
 
+from .annotations import NOT_RECORDING, profiler_span
 from .timeline import bound_request_id
 
 if TYPE_CHECKING:  # import cycle guard only; sink.py imports nothing back
     from .sink import JsonlSink
+
+# The profiler ranges' names: ``engine/`` and the span's name.
+ENGINE_PREFIX = "engine/"
 
 
 class Span:
     """One named, timed region. ``attrs`` carry phase facts (bucket width,
     cache outcome); ``children`` nest (dispatch inside submit)."""
 
-    __slots__ = ("name", "attrs", "children", "t0", "t1")
+    __slots__ = ("name", "attrs", "children", "t0", "t1", "_range")
 
     def __init__(self, name: str, attrs: dict | None = None):
         self.name = name
@@ -45,10 +61,25 @@ class Span:
         self.children: list[Span] = []
         self.t0 = time.perf_counter()
         self.t1: float | None = None
+        # (profiler range, opening thread) while a profiler records.
+        self._range: tuple | None = None
 
     def end(self) -> None:
         if self.t1 is None:
             self.t1 = time.perf_counter()
+
+    def _open_range(self) -> None:
+        rng = profiler_span(ENGINE_PREFIX + self.name)
+        if rng is not NOT_RECORDING:
+            rng.__enter__()
+            self._range = (rng, threading.get_ident())
+
+    def _close_range(self) -> None:
+        """Close the profiler range on the thread that opened it; elsewhere
+        leave it to that thread."""
+        if self._range is not None and self._range[1] == threading.get_ident():
+            rng, self._range = self._range[0], None
+            rng.__exit__(None, None, None)
 
     @property
     def duration_ms(self) -> float:
@@ -84,6 +115,7 @@ class _SpanContext:
 
     def __exit__(self, *exc) -> None:
         self.span.end()
+        self.span._close_range()
         stack = self._trace._stack
         if stack and stack[-1] is self.span:
             stack.pop()
@@ -113,6 +145,7 @@ class ActiveTrace:
         """Open a named child span (nested under the innermost open span,
         or at the root). Use as a context manager."""
         span = Span(name, attrs or None)
+        span._open_range()
         (self._stack[-1].children if self._stack else self._roots).append(
             span
         )
@@ -129,6 +162,8 @@ class ActiveTrace:
         self.status = status
         for span in self._stack:
             span.end()
+        for span in reversed(self._stack):
+            span._close_range()
         self._stack.clear()
         record = {
             "request_id": self.request_id,

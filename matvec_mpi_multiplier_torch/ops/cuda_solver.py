@@ -47,7 +47,8 @@ from ..solvers.common import (
     keep_iterating,
     residual_norm,
 )
-from ..solvers.device_loop import ChunkedLoop, commit, when
+from ..obs.annotations import profiler_span
+from ..solvers.device_loop import LOOP_SPAN, ChunkedLoop, commit, host_read, when
 from ..solvers.ops import DeviceLoops, f32_scalar, placed_operand, solver_loop
 from ..utils.errors import ConfigError, ShardingError
 from . import _build
@@ -421,10 +422,15 @@ def _build_fused_solver(
             xs = [torch.zeros_like(v) for v in bs]
             rs, ps = bs, bs
             rr, k = b_rr, 0
-            while bool(keep(rr, k, maxiter, threshold, b_rr)):
-                xs, rs, ps, scal, aps = step(xs, rs, ps, aps, scal, dc2, k)
-                rr = scal[0][0] if op == "cg" else scal[0][1]
-                k += 1
+            with profiler_span(LOOP_SPAN):
+                while True:
+                    with host_read():
+                        go = bool(keep(rr, k, maxiter, threshold, b_rr))
+                    if not go:
+                        break
+                    xs, rs, ps, scal, aps = step(xs, rs, ps, aps, scal, dc2, k)
+                    rr = scal[0][0] if op == "cg" else scal[0][1]
+                    k += 1
             x_out = xs
         else:
             state = states.get(placed, b_acc, step)

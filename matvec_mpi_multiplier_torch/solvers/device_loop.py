@@ -28,22 +28,57 @@ over several CUDA devices) every chunk runs eagerly and whole, masked
 iterations included: the solvers run it there only where a caller asks
 for it (``solvers/ops.py::solver_loop``). The arithmetic is the host-stepped loop's, operation
 for operation, so both give the same iterate bitwise.
+
+Every device→host read on a solve's path goes through :class:`host_read`:
+while a ``torch.profiler`` records, it opens a ``solver/host_read`` range
+over the read and the work that feeds it, and inside a running
+:class:`ChunkedLoop` it counts the read in that loop's ``reads``. A loop
+runs inside one ``solver/loop`` range (:data:`LOOP_SPAN`), the
+host-stepped loops of ``solvers/ops.py`` too.
 """
 
 from __future__ import annotations
 
 import inspect
+import threading
 import weakref
 from typing import Callable
 
 import torch
 
+from ..obs.annotations import profiler_span
 from ..ops.graphs import capture, launch_predicate
 
 # Iterations per chunk: one flag read per chunk; after the loop stops, at
 # most DEFAULT_CHUNK - 1 masked iterations run, each with its kernels
 # predicated off.
 DEFAULT_CHUNK = 16
+
+# The profiler ranges of the solver's loop and of each of its host reads.
+LOOP_SPAN = "solver/loop"
+HOST_READ_SPAN = "solver/host_read"
+
+# The ChunkedLoop that runs on this thread, whose ``reads`` count the reads.
+_running = threading.local()
+
+
+class host_read:
+    """``with host_read(): <one device->host read>``: opens a
+    ``solver/host_read`` range while a profiler records, and counts the
+    read in the ``reads`` of the loop that runs on this thread. The read
+    itself stays at its site, with its ``tracer-sync-ok`` marker."""
+
+    __slots__ = ("_range",)
+
+    def __enter__(self) -> None:
+        loop = getattr(_running, "loop", None)
+        if loop is not None:
+            loop.reads += 1
+        self._range = profiler_span(HOST_READ_SPAN)
+        self._range.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
 
 
 def when(flag: torch.Tensor, body: Callable[[], object],
@@ -56,7 +91,9 @@ def when(flag: torch.Tensor, body: Callable[[], object],
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         with launch_predicate(flag):
             return body()
-    return body() if bool(flag) else otherwise()  # tracer-sync-ok: eager only (off the card or before capture); under capture the flag is a launch predicate
+    with host_read():
+        go = bool(flag)  # tracer-sync-ok: eager only (off the card or before capture); under capture the flag is a launch predicate
+    return body() if go else otherwise()
 
 
 def commit(flag: torch.Tensor, pairs) -> None:
@@ -84,7 +121,7 @@ class ChunkedLoop:
         self.device = device
         self.chunk = DEFAULT_CHUNK
         self.graph = None
-        self.reads = 0  # read() calls (the eager first chunk reads its flag apart)
+        self.reads = 0  # host reads, through host_read: read(), the eager flags, when()
 
     def iteration(self) -> None:
         self._iteration()()
@@ -94,31 +131,42 @@ class ChunkedLoop:
             self.iteration()
 
     def read(self) -> tuple[bool, int]:
-        """``(go, k)``: the loop's one device->host read."""
-        self.reads += 1
-        go, k = torch.stack((self.go.to(self.k.dtype), self.k)).tolist()  # tracer-sync-ok: the device loop's one read per chunk
+        """``(go, k)``: the loop's one device->host read a chunk."""
+        with host_read():
+            go, k = torch.stack((self.go.to(self.k.dtype), self.k)).tolist()  # tracer-sync-ok: the device loop's one read per chunk
         return bool(go), int(k)
+
+    def _go(self) -> bool:
+        """The flag alone, as the eager chunk reads it."""
+        with host_read():
+            return bool(self.go)
 
     def _first_chunk(self) -> None:
         """The eager chunk on the card before the capture: it stops where
         the loop does (its iterations read the flag anyway), so a solve
         that ends inside it runs no masked iteration."""
         for _ in range(self.chunk):
-            if not bool(self.go):
+            if not self._go():
                 return
             self.iteration()
 
     def run(self) -> int:
         """Run the loop to its end; return the iteration count."""
-        go, k = self.read()
-        while go:
-            if self.graph is not None:
-                self.graph.replay()
-            elif self.device is not None:
-                self._first_chunk()
-                if bool(self.go):
-                    self.graph, _ = capture(self._chunk, self.device, warm=False)
-            else:
-                self._chunk()
-            go, k = self.read()
+        outer = getattr(_running, "loop", None)
+        _running.loop = self
+        try:
+            with profiler_span(LOOP_SPAN):
+                go, k = self.read()
+                while go:
+                    if self.graph is not None:
+                        self.graph.replay()
+                    elif self.device is not None:
+                        self._first_chunk()
+                        if self._go():
+                            self.graph, _ = capture(self._chunk, self.device, warm=False)
+                    else:
+                        self._chunk()
+                    go, k = self.read()
+        finally:
+            _running.loop = outer
         return k

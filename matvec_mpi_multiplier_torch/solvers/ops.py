@@ -61,7 +61,8 @@ from ..ops.graphs import single_cuda_device
 from ..ops.quantize import NATIVE, normalize_storage
 from ..parallel.mesh import Mesh, ShardedTensor, shard
 from ..utils.convert import torch_dtype
-from .device_loop import ChunkedLoop, commit, when
+from ..obs.annotations import profiler_span
+from .device_loop import LOOP_SPAN, ChunkedLoop, commit, host_read, when
 from .common import (
     SolverResult,
     convergence_threshold,
@@ -319,39 +320,45 @@ def _build_solver(
             rz = rr_best = torch.sum(r * r)
             x_best = x
             k = 0
-            go = bool(keep_iterating(torch.sqrt(rz), threshold, k, maxiter))  # tracer-sync-ok: the host-stepped loop's first continuation read
-            while go:
-                ap = mv(p)
-                # pᵀAp > 0 for SPD A; stall (not inf/NaN) on breakdown so
-                # the loop exits on maxiter with converged=False.
-                pap = torch.sum(p * ap)
-                safe = pap > 0
-                alpha = torch.where(safe, rz / torch.where(safe, pap, 1.0), 0.0)
-                x = x + alpha * p
-                r_rec = r - alpha * ap
-                rr_rec = torch.sum(r_rec * r_rec)
-                # True-residual refresh: periodically, AND whenever the
-                # recurrence is about to declare convergence, so the loop
-                # exits converged only on a verified residual. The decision
-                # is the iteration's one read.
-                about = bool(torch.sqrt(rr_rec) <= threshold)  # tracer-sync-ok: the host-stepped loop's one read an iteration (the device loop reads once a chunk)
-                refresh = (k + 1) % _RECOMPUTE_EVERY == 0 or about
-                if refresh:
-                    r = b_acc - mv(x)
-                    rz_new = torch.sum(r * r)
-                else:
-                    r, rz_new = r_rec, rr_rec
-                beta = torch.where(safe, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
-                p = r + beta * p
-                better = rz_new < rr_best
-                x_best = torch.where(better, x, x_best)
-                rr_best = torch.where(better, rz_new, rr_best)
-                rz = rz_new
-                k += 1
-                # Without a refresh, ||r|| = sqrt(rr_rec) > threshold was
-                # just read: only the cap can stop the loop.
-                go = (bool(keep_iterating(torch.sqrt(rz), threshold, k, maxiter))  # tracer-sync-ok: read only on a refresh trip, which already read
-                      if refresh else k < maxiter)
+            with profiler_span(LOOP_SPAN):
+                with host_read():
+                    go = bool(keep_iterating(torch.sqrt(rz), threshold, k, maxiter))  # tracer-sync-ok: the host-stepped loop's first continuation read
+                while go:
+                    ap = mv(p)
+                    # pᵀAp > 0 for SPD A; stall (not inf/NaN) on breakdown so
+                    # the loop exits on maxiter with converged=False.
+                    pap = torch.sum(p * ap)
+                    safe = pap > 0
+                    alpha = torch.where(safe, rz / torch.where(safe, pap, 1.0), 0.0)
+                    x = x + alpha * p
+                    r_rec = r - alpha * ap
+                    rr_rec = torch.sum(r_rec * r_rec)
+                    # True-residual refresh: periodically, AND whenever the
+                    # recurrence is about to declare convergence, so the loop
+                    # exits converged only on a verified residual. The decision
+                    # is the iteration's one read.
+                    with host_read():
+                        about = bool(torch.sqrt(rr_rec) <= threshold)  # tracer-sync-ok: the host-stepped loop's one read an iteration (the device loop reads once a chunk)
+                    refresh = (k + 1) % _RECOMPUTE_EVERY == 0 or about
+                    if refresh:
+                        r = b_acc - mv(x)
+                        rz_new = torch.sum(r * r)
+                    else:
+                        r, rz_new = r_rec, rr_rec
+                    beta = torch.where(safe, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
+                    p = r + beta * p
+                    better = rz_new < rr_best
+                    x_best = torch.where(better, x, x_best)
+                    rr_best = torch.where(better, rz_new, rr_best)
+                    rz = rz_new
+                    k += 1
+                    if refresh:
+                        with host_read():
+                            go = bool(keep_iterating(torch.sqrt(rz), threshold, k, maxiter))  # tracer-sync-ok: read only on a refresh trip, which already read
+                    else:
+                        # Without a refresh, ||r|| = sqrt(rr_rec) > threshold
+                        # was just read: only the cap can stop the loop.
+                        go = k < maxiter
             return _linear_result(mv, b_acc, threshold, x, k, x_alt=x_best)
 
         solver.loop = "host"
@@ -370,12 +377,17 @@ def _build_solver(
             k = 0
             # maxiter caps restart CYCLES; the worst-case matvec count is
             # maxiter * (restart + 2).
-            while bool(keep_iterating(rnorm, threshold, k, maxiter)):  # tracer-sync-ok: gmres is host-stepped: one read a cycle
-                x, r, rnorm = gmres_cycle(mv, b_acc, x, r, rnorm, m)
-                better = rnorm < rn_best
-                x_best = torch.where(better, x, x_best)
-                rn_best = torch.where(better, rnorm, rn_best)
-                k += 1
+            with profiler_span(LOOP_SPAN):
+                while True:
+                    with host_read():
+                        go = bool(keep_iterating(rnorm, threshold, k, maxiter))  # tracer-sync-ok: gmres is host-stepped: one read a cycle
+                    if not go:
+                        break
+                    x, r, rnorm = gmres_cycle(mv, b_acc, x, r, rnorm, m)
+                    better = rnorm < rn_best
+                    x_best = torch.where(better, x, x_best)
+                    rn_best = torch.where(better, rnorm, rn_best)
+                    k += 1
             return _linear_result(mv, b_acc, threshold, x_best, k)
 
         solver.loop = "host"
@@ -396,12 +408,17 @@ def _build_solver(
                 # Relative eigenresidual: ||A v − λ v|| <= rtol·|λ|.
                 return convergence_threshold(rtol_acc, torch.clamp(lam.abs(), min=_TINY))
 
-            while bool(keep_iterating(resid, thresh_of(lam), k, maxiter)):  # tracer-sync-ok: the power iteration is host-stepped: one read an iteration
-                av = mv(v)
-                lam = torch.sum(v * av)  # Rayleigh quotient (unit v)
-                resid = residual_norm(av - lam * v)
-                v = av / torch.clamp(residual_norm(av), min=_TINY)
-                k += 1
+            with profiler_span(LOOP_SPAN):
+                while True:
+                    with host_read():
+                        go = bool(keep_iterating(resid, thresh_of(lam), k, maxiter))  # tracer-sync-ok: the power iteration is host-stepped: one read an iteration
+                    if not go:
+                        break
+                    av = mv(v)
+                    lam = torch.sum(v * av)  # Rayleigh quotient (unit v)
+                    resid = residual_norm(av - lam * v)
+                    v = av / torch.clamp(residual_norm(av), min=_TINY)
+                    k += 1
             # Final Rayleigh pair from the returned vector (same matvec).
             av = mv(v)
             lam = torch.sum(v * av)
@@ -428,20 +445,21 @@ def _build_solver(
             alphas, betas = [], []
             # Fixed depth: the step count is the ExecKey bucket, so
             # `maxiter` is ignored, and the loop reads nothing.
-            for j in range(s_steps):
-                w = mv(v) - beta_prev * v_prev
-                alpha = torch.sum(v * w)
-                w = w - alpha * v
-                # One full reorthogonalization pass against the built basis
-                # (rows > j are zero, masking implicit).
-                w = w - (V @ w) @ V
-                beta = residual_norm(w)
-                v_next = w / torch.clamp(beta, min=_TINY)
-                if j + 1 < s_steps:
-                    V[j + 1] = v_next
-                v_prev, v, beta_prev = v, v_next, beta
-                alphas.append(alpha)
-                betas.append(beta)
+            with profiler_span(LOOP_SPAN):
+                for j in range(s_steps):
+                    w = mv(v) - beta_prev * v_prev
+                    alpha = torch.sum(v * w)
+                    w = w - alpha * v
+                    # One full reorthogonalization pass against the built basis
+                    # (rows > j are zero, masking implicit).
+                    w = w - (V @ w) @ V
+                    beta = residual_norm(w)
+                    v_next = w / torch.clamp(beta, min=_TINY)
+                    if j + 1 < s_steps:
+                        V[j + 1] = v_next
+                    v_prev, v, beta_prev = v, v_next, beta
+                    alphas.append(alpha)
+                    betas.append(beta)
             alphas, betas = torch.stack(alphas), torch.stack(betas)
             T = (torch.diag(alphas) + torch.diag(betas[:-1], 1)
                  + torch.diag(betas[:-1], -1))
@@ -491,36 +509,40 @@ def _build_solver(
         k = 0
         # Early divergence exit: an interval that excludes part of the
         # spectrum amplifies the excluded modes geometrically.
-        go = bool(keep_iterating(torch.sqrt(b_rr), threshold, k, maxiter)  # tracer-sync-ok: the host-stepped loop's first continuation read
-                  & ~diverged(b_rr, b_rr))
-        while go:
-            # Classic Chebyshev semi-iteration (Saad Alg. 12.1), with the
-            # β/α division folded away: β = factor·α where factor is ½c²α
-            # (k=1) or ¼c²α (k≥2), so α' = 1/(d − factor).
-            coef = 0.0 if k == 0 else (0.5 if k == 1 else 0.25)
-            factor = coef * c * c * alpha
-            alpha_new = 1.0 / (d - factor)
-            beta = factor * alpha
-            p = r + beta * p
-            ap = mv(p)
-            x = x + alpha_new * p
-            r_rec = r - alpha_new * ap
-            rr_rec = torch.sum(r_rec * r_rec)
-            # One read: whether the recurrence is about to stop the loop
-            # (then the TRUE residual replaces it, so a converged exit is a
-            # verified one) and whether it diverged.
-            about, blown = torch.stack(  # tracer-sync-ok: the host-stepped loop's one read an iteration (the device loop reads once a chunk)
-                (torch.sqrt(rr_rec) <= threshold, diverged(rr_rec, b_rr))).tolist()
-            alpha = alpha_new
-            k += 1
-            if about:
-                r = b_acc - mv(x)
-                rr = torch.sum(r * r)
-                go = bool(keep_iterating(torch.sqrt(rr), threshold, k, maxiter)  # tracer-sync-ok: read only on a refresh trip, which already read
-                          & ~diverged(rr, b_rr))
-            else:
-                r = r_rec
-                go = k < maxiter and not blown
+        with profiler_span(LOOP_SPAN):
+            with host_read():
+                go = bool(keep_iterating(torch.sqrt(b_rr), threshold, k, maxiter)  # tracer-sync-ok: the host-stepped loop's first continuation read
+                          & ~diverged(b_rr, b_rr))
+            while go:
+                # Classic Chebyshev semi-iteration (Saad Alg. 12.1), with the
+                # β/α division folded away: β = factor·α where factor is ½c²α
+                # (k=1) or ¼c²α (k≥2), so α' = 1/(d − factor).
+                coef = 0.0 if k == 0 else (0.5 if k == 1 else 0.25)
+                factor = coef * c * c * alpha
+                alpha_new = 1.0 / (d - factor)
+                beta = factor * alpha
+                p = r + beta * p
+                ap = mv(p)
+                x = x + alpha_new * p
+                r_rec = r - alpha_new * ap
+                rr_rec = torch.sum(r_rec * r_rec)
+                # One read: whether the recurrence is about to stop the loop
+                # (then the TRUE residual replaces it, so a converged exit is a
+                # verified one) and whether it diverged.
+                with host_read():
+                    about, blown = torch.stack(  # tracer-sync-ok: the host-stepped loop's one read an iteration (the device loop reads once a chunk)
+                        (torch.sqrt(rr_rec) <= threshold, diverged(rr_rec, b_rr))).tolist()
+                alpha = alpha_new
+                k += 1
+                if about:
+                    r = b_acc - mv(x)
+                    rr = torch.sum(r * r)
+                    with host_read():
+                        go = bool(keep_iterating(torch.sqrt(rr), threshold, k, maxiter)  # tracer-sync-ok: read only on a refresh trip, which already read
+                                  & ~diverged(rr, b_rr))
+                else:
+                    r = r_rec
+                    go = k < maxiter and not blown
         return _linear_result(mv, b_acc, threshold, x, k)
 
     solver.loop = "host"
@@ -572,7 +594,8 @@ class DeviceLoops:
         return self._states[key]
 
     def reads(self) -> int:
-        """Host reads of every state's loop (``ChunkedLoop.read`` calls)."""
+        """Host reads of every state's loop (``ChunkedLoop.reads``: every
+        read its solves made, each one ``solver/host_read`` span)."""
         return sum(s.loop.reads for s in self._states.values() if s.loop is not None)
 
 
