@@ -42,22 +42,27 @@ nothing.
 The algorithms are the JAX package's, operation for operation: CG with a
 best-so-far iterate, a true-residual refresh every ``_RECOMPUTE_EVERY``
 iterations and whenever the recurrence is about to declare convergence,
-and a two-candidate verified exit; restarted GMRES with CGS2 Arnoldi and a
-Hessenberg least-squares solve; power iteration with ``_TINY`` guards;
-Lanczos with full reorthogonalisation and ``eigh`` of the tridiagonal;
-Chebyshev with the folded β/α and the divergence exit. All stopping
-arithmetic imports from ``solvers/common.py``.
+and a two-candidate verified exit (the true residuals of the last and of
+the best-so-far iterate; the smaller wins); restarted GMRES with CGS2
+Arnoldi and a Hessenberg least-squares solve; power iteration with
+``_TINY`` guards; Lanczos with full reorthogonalisation and ``eigh`` of the
+tridiagonal; Chebyshev with the folded β/α and the divergence exit. All
+stopping arithmetic imports from ``solvers/common.py``. The device CG
+loop's exit takes from its state each residual that its last trip already
+verified, and on the card predicates off the GEMV that would measure it
+again (``_CgLoop.verified``): the same bits, fewer reads of A.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
 
 from ..models.base import MatvecStrategy, shard_operand
 from ..ops.gemv import acc_dtype
-from ..ops.graphs import single_cuda_device
+from ..ops.graphs import launch_predicate, single_cuda_device
 from ..ops.quantize import NATIVE, normalize_storage
 from ..parallel.mesh import Mesh, ShardedTensor, shard
 from ..utils.convert import torch_dtype
@@ -109,6 +114,9 @@ def solver_matvec_count(
         return steps + 1
     if op == "cg":
         # Body + periodic refresh + the final two-candidate verification.
+        # Launches: on the card the device loop's exit launches both
+        # verification GEMVs, but predicates off those whose answer its
+        # state already holds (``_CgLoop.verify_saved`` counts them).
         return k_est + k_est // _RECOMPUTE_EVERY + 2
     # power, chebyshev: body + one final verification matvec.
     return k_est + 1
@@ -280,14 +288,32 @@ def _build_solver(
     def _n_iters(k: int) -> torch.Tensor:
         return torch.tensor(k, dtype=torch.int32)
 
-    def _linear_result(mv, b_acc, threshold, x, k, x_alt=None):
+    def _true_norm(mv, b_acc, v, flag=None, norm=None):
+        # ||b - A v||, or ``norm`` where the device ``flag`` holds: the loop
+        # already measured it, bitwise (the same GEMV on the same v). On the
+        # loop's one card the product then runs with the launch predicate
+        # ~flag and reads no A; elsewhere it runs and is masked. The select
+        # is on the norms alone: a GEMV predicated off leaves its output
+        # unwritten.
+        if flag is None:
+            return residual_norm(b_acc - mv(v))
+        with launch_predicate(~flag) if device is not None else contextlib.nullcontext():
+            measured = residual_norm(b_acc - mv(v))
+        return torch.where(flag, norm, measured)
+
+    def _linear_result(mv, b_acc, threshold, x, k, x_alt=None,
+                       fresh=None, r_norm=None, best_is_x=None):
         # TRUE residual of the returned iterate (one extra matvec): a
         # recurrence minimum is biased low and could claim convergence the
         # returned x does not have. With ``x_alt`` (CG's best-so-far), both
-        # candidates are measured and the verified-better one wins.
-        rnorm = residual_norm(b_acc - mv(x))
+        # candidates are measured and the verified-better one wins. The
+        # device CG loop passes what its last trip verified
+        # (``_CgLoop.verified``): ``r_norm`` is x's true residual norm where
+        # ``fresh`` holds, and x_alt is x where ``best_is_x`` holds (its
+        # norm is then x's, so x stays); those products read no A.
+        rnorm = _true_norm(mv, b_acc, x, fresh, r_norm)
         if x_alt is not None:
-            rnorm_alt = residual_norm(b_acc - mv(x_alt))
+            rnorm_alt = _true_norm(mv, b_acc, x_alt, best_is_x, rnorm)
             better = rnorm_alt < rnorm
             x = torch.where(better, x_alt, x)
             rnorm = torch.where(better, rnorm_alt, rnorm)
@@ -304,7 +330,7 @@ def _build_solver(
             state = loops.get(a, b_acc, mv)
             threshold, k = state.solve(b_acc, rtol_acc, maxiter)
             return _linear_result(state.mv, b_acc, threshold, state.x.clone(), k,
-                                  x_alt=state.x_best.clone())
+                                  x_alt=state.x_best.clone(), **state.verified())
 
         solver.loop = "device"
         solver.device_loops = loops
@@ -598,6 +624,13 @@ class DeviceLoops:
         read its solves made, each one ``solver/host_read`` span)."""
         return sum(s.loop.reads for s in self._states.values() if s.loop is not None)
 
+    def verify_saved(self) -> int:
+        """Verification products the CG states' exits found redundant
+        (``_CgLoop.verify_saved``), read from the device: for a caller
+        between solves, never inside one. 0 for the other loops."""
+        return sum(int(s.verify_saved) for s in self._states.values()
+                   if getattr(s, "verify_saved", None) is not None)
+
 
 def _data_ptrs(t) -> tuple:
     leaves = getattr(t, "leaves", None)
@@ -615,7 +648,13 @@ class _CgLoop:
     device (``solvers/device_loop.py``). Each iteration is the host-stepped
     one, operation for operation: the refresh runs where that loop runs it
     (every _RECOMPUTE_EVERY-th iteration and where the recurrence is about
-    to stop), through :func:`when`."""
+    to stop), through :func:`when`.
+
+    Two device flags of the last active trip serve the verified exit
+    (:meth:`verified`): ``fresh``, that trip refreshed, so ``r`` is the true
+    residual of ``x``; ``best_is_x``, that trip's residual was the best
+    yet, so ``x_best`` is ``x``. ``verify_saved`` counts, on the device,
+    the exit products they made redundant over every solve."""
 
     def __init__(self, mv: Callable, acc: torch.dtype, dev0: torch.device,
                  device: torch.device | None):
@@ -628,8 +667,9 @@ class _CgLoop:
         self.b, self.x, self.r, self.p, self.x_best = (
             _zeros((n,), acc, dev0) for _ in range(5))
         self.threshold, self.rz, self.rr_best = (_zeros((), acc, dev0) for _ in range(3))
-        self.k, self.maxiter = (_zeros((), torch.int64, dev0) for _ in range(2))
-        self.go = _zeros((), torch.bool, dev0)
+        self.k, self.maxiter, self.verify_saved = (
+            _zeros((), torch.int64, dev0) for _ in range(3))
+        self.go, self.fresh, self.best_is_x = (_zeros((), torch.bool, dev0) for _ in range(3))
         self.loop = ChunkedLoop(self.iteration, self.go, self.k, self._device)
 
     def iteration(self) -> None:
@@ -659,8 +699,16 @@ class _CgLoop:
             k_new < self.maxiter)
         commit(go, ((self.x, x_new), (self.r, r_new), (self.p, p_new),
                     (self.x_best, x_best), (self.rr_best, rr_best),
-                    (self.rz, rz_new), (self.k, k_new)))
+                    (self.rz, rz_new), (self.k, k_new),
+                    (self.fresh, refresh), (self.best_is_x, better)))
         torch.logical_and(go, go_new, out=go)
+
+    def verified(self) -> dict:
+        """What the last active trip verified, as ``_linear_result``'s
+        keywords, counted in ``verify_saved`` on the device."""
+        self.verify_saved.add_(self.fresh.to(torch.int64) + self.best_is_x.to(torch.int64))
+        return {"fresh": self.fresh, "r_norm": residual_norm(self.r),
+                "best_is_x": self.best_is_x}
 
     def solve(self, b_acc: torch.Tensor, rtol_acc: torch.Tensor, maxiter: int):
         """Run the loop from x = 0; return ``(threshold, n_iters)``."""
@@ -675,6 +723,8 @@ class _CgLoop:
         self.rz.copy_(torch.sum(b_acc * b_acc))
         self.rr_best.copy_(self.rz)
         self.x_best.zero_()
+        self.fresh.zero_()
+        self.best_is_x.zero_()
         self.k.zero_()
         self.maxiter.fill_(maxiter)
         self.go.copy_(keep_iterating(torch.sqrt(self.rz), threshold, self.k, self.maxiter))

@@ -10,6 +10,7 @@ machine with a card they run alone:
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -253,3 +254,49 @@ def test_captured_solver_loop_is_bitwise_the_host_stepped_one(card, op, kernel, 
             for field in dataclasses.fields(res["host"]):
                 h, d = (getattr(res[loop], field.name) for loop in ("host", "device"))
                 torch.testing.assert_close(h, d, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_converged_cg_exit_skips_its_two_verification_reads(card, tmp_path):
+    """A converged device-loop CG solve on the card: the answer is bitwise
+    the host-stepped loop's; its two verification GEMVs (the last two
+    ``gemv_rows`` launches) run under a False launch predicate, so each
+    takes under 5% of an iteration's GEMV; and the exit makes no host read
+    (the solve's ``solver/host_read`` spans are the loop's 3k + 4)."""
+    from matvec_mpi_multiplier_torch.bench.serve import solver_operand
+
+    n = 16384  # 1 GiB of fp32 A: an iteration's GEMV streams it in about 0.33 ms
+    strategy, mesh = get_strategy("rowwise"), make_mesh(1, devices=[card])
+    a = placed_operand(strategy, mesh, solver_operand(n, "float32", 0, device=card))
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).to(card)
+    fns = {loop: _build_solver("cg", strategy, mesh, loop, dtype=torch.float32)
+           for loop in ("host", "device")}
+    assert fns["device"].loop == "device"
+    args = (a, b, 1e-6, 1000, 0.0, 0.0)
+    want = fns["host"](*args)
+    fns["device"](*args)
+    loops = fns["device"].device_loops
+    reads, saved = loops.reads(), loops.verify_saved()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        got = fns["device"](*args)
+        torch.cuda.synchronize(card)
+    for field in dataclasses.fields(want):
+        torch.testing.assert_close(getattr(got, field.name), getattr(want, field.name),
+                                   rtol=0, atol=0, equal_nan=True)
+    k = int(got.n_iters)
+    assert bool(got.converged) and 0 < k < device_loop.DEFAULT_CHUNK
+    assert loops.verify_saved() - saved == 2
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    gemvs = sorted((e for e in events if e.get("cat") == "kernel" and "gemv_rows" in e["name"]),
+                   key=lambda e: e["ts"])
+    # k iterations, the last trip's true-residual refresh, the exit's two products.
+    assert len(gemvs) == k + 3
+    iteration = min(e["dur"] for e in gemvs[:k + 1])
+    assert all(e["dur"] < 0.05 * iteration for e in gemvs[-2:]), [e["dur"] for e in gemvs]
+    spans = sum(e["name"] == "solver/host_read" and e.get("cat") == "user_annotation"
+                for e in events)  # not the range's copy on the card's timeline
+    assert spans == loops.reads() - reads == 3 * k + 4

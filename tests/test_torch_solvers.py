@@ -556,6 +556,45 @@ def test_device_loop_refreshes_where_the_host_loop_does(op, monkeypatch):
         assert counts["host"] == (4 * (123 + 2 + 2), 123)
 
 
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("rtol,maxiter,fresh,best_is_x", [
+    (1e-10, 1000, True, True),  # converged: the last trip refreshed and was the best
+    (1e-300, 13, False, True),  # the cap, off a refresh: the x product is needed
+    (1e-300, 50, True, False),  # the cap, on the periodic refresh
+    (1e-10, 0, False, False),   # k = 0: nothing verified yet
+], ids=["converged", "cap-13", "cap-50", "k0"])
+def test_cg_verified_exit_reuses_what_the_loop_verified(p, rtol, maxiter, fresh, best_is_x,
+                                                        monkeypatch):
+    """The device CG loop's exit takes the last trip's true residual where
+    that trip refreshed, and x_best's where it is x (on the card those
+    verification GEMVs are predicated off): the SolverResult stays bitwise
+    the host-stepped loop's on each kind of exit, the flags say what holds
+    (r is b - A x bitwise, x_best is x), and ``verify_saved`` counts them."""
+    a, b = serve.solver_operand(N, "float64", seed=3), rhs()
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    mesh = make_mesh(p, devices=[CPU] * p)
+    monkeypatch.setattr(device_loop, "DEFAULT_CHUNK", 5)
+    fns = {loop: _build_solver("cg", get_strategy("rowwise"), mesh, loop, dtype=at.dtype)
+           for loop in ("host", "device")}
+    loops = fns["device"].device_loops
+    before = loops.verify_saved()
+    got = {loop: fn(at, bt, rtol, maxiter, 0.0, 0.0) for loop, fn in fns.items()}
+    for field in dataclasses.fields(got["host"]):
+        h, d = (getattr(got[k], field.name) for k in ("host", "device"))
+        torch.testing.assert_close(h, d, rtol=0, atol=0, equal_nan=True)
+    if maxiter < 1000:
+        assert int(got["device"].n_iters) == maxiter and not bool(got["device"].converged)
+    else:
+        assert bool(got["device"].converged)
+    (state,) = loops._states.values()
+    assert (bool(state.fresh), bool(state.best_is_x)) == (fresh, best_is_x)
+    if fresh:
+        assert torch.equal(state.r, bt - state.mv(state.x))
+    if best_is_x:
+        assert torch.equal(state.x_best, state.x)
+    assert loops.verify_saved() - before == fresh + best_is_x
+
+
 def test_solver_loop_choice():
     """The public builders take the device loop only where its chunks are
     captured: one CUDA device and every kernel of the iteration predicated.
