@@ -2,12 +2,15 @@
 precision below what the configuration states, to show that the check
 fails it.
 
-- A bfloat16 multiply's control is int8: A quantized by rows and X by
-  columns (symmetric, scale = max|v| / 127, round to nearest), the integer
-  products summed exactly, the sum scaled back and rounded to the stated
-  dtype. It answers every request of the window from its own table, each
-  after the least time the card could take for it (``roofline``), so that
-  a window checks about as many answers as a run of the program does.
+- A multiply's control answers every request of the window from its own
+  table, each after the least time the card could take for it
+  (``roofline``), so that a window checks about as many answers as a run
+  of the program does. The table is A @ X one precision below the
+  configuration's dtype, rounded to that dtype (:data:`PRODUCTS`): for
+  bfloat16 or float16, int8 (A quantized by rows and X by columns,
+  symmetric, scale = max|v| / 127, round to nearest; the integer products
+  summed exactly, the sum scaled back); for float32 with TF32 off, TF32 (A
+  and X rounded to 10 mantissa bits, float32 sums); for float64, float32.
 - A float32 solve's control is TF32 (the configuration states float32
   with TF32 off): plain conjugate gradients whose products round A and the
   vector to TF32's 10-bit mantissa first (round to nearest even) and sum in
@@ -32,6 +35,7 @@ import time
 import torch
 
 from . import operands, roofline
+from .spec import SpecError
 from .systems import Answer
 
 INT8_MAX = 127
@@ -53,6 +57,33 @@ def int8_product(a: torch.Tensor, x: torch.Tensor, out_dtype: torch.dtype,
         out[i:i + rows] = ((qa @ qx) * sa.double() * sx.double()).to(out_dtype)
         del blk, qa
     return out
+
+
+def tf32_product(a: torch.Tensor, x: torch.Tensor, out_dtype: torch.dtype,
+                 rows: int = 4096) -> torch.Tensor:
+    """``A @ X`` with A and X rounded to TF32 and float32 sums, rounded to
+    ``out_dtype``."""
+    x32 = tf32_round_(x.to(torch.float32, copy=True).contiguous())
+    out = torch.empty((a.shape[0], x.shape[1]), dtype=out_dtype, device=a.device)
+    for i in range(0, a.shape[0], rows):
+        out[i:i + rows] = (tf32_round_(a[i:i + rows].to(torch.float32, copy=True)) @ x32
+                           ).to(out_dtype)
+    return out
+
+
+def fp32_product(a: torch.Tensor, x: torch.Tensor, out_dtype: torch.dtype,
+                 rows: int = 4096) -> torch.Tensor:
+    """``A @ X`` in float32 (A, X and the sums), rounded to ``out_dtype``."""
+    x32 = x.float()
+    out = torch.empty((a.shape[0], x.shape[1]), dtype=out_dtype, device=a.device)
+    for i in range(0, a.shape[0], rows):
+        out[i:i + rows] = (a[i:i + rows].float() @ x32).to(out_dtype)
+    return out
+
+
+# A multiply's product one precision below the configuration's dtype.
+PRODUCTS = {"bfloat16": int8_product, "float16": int8_product,
+            "float32": tf32_product, "float64": fp32_product}
 
 
 def tf32_round_(t: torch.Tensor, rows: int = 4096) -> torch.Tensor:
@@ -86,25 +117,36 @@ def plain_cg(matvec, b: torch.Tensor, rtol: float, maxiter: int) -> tuple[torch.
     return x, it
 
 
-class Int8Control:
-    """In place of a multiply entry: answers from an int8 table of every
-    payload, made in set-up."""
+class ProductControl:
+    """In place of a multiply entry: answers from a table of every
+    payload's product one precision below (:data:`PRODUCTS`), made in
+    set-up from A whole or from its row blocks (a cell on several cards),
+    one block of rows at a time."""
 
-    def __init__(self, cfg: dict, traffic: dict, device, a: torch.Tensor):
-        self.a, self.device = a, device
+    def __init__(self, cfg: dict, traffic: dict, cards, a):
+        self.a, self.device = a, cards[0]
         self.cfg = cfg
         self.dtype = operands.torch_dtype(cfg["dtype"])
+        self.product = PRODUCTS[cfg["dtype"]]
         self.table = {}
 
     def prepare(self, payload):
         return payload
 
     def warm(self, prepared: list) -> None:
-        m = self.a.shape[0]
-        for p in prepared:
-            x = p.value.reshape(p.value.shape[0], -1).to(self.device)
-            self.table[p.pid] = int8_product(self.a, x, self.dtype).reshape(
-                (m,) + tuple(p.value.shape[1:]))
+        m = self.cfg["m"]
+        rows = [(0, self.a)] if isinstance(self.a, torch.Tensor) else self.a
+        xs = {p.pid: p.value.reshape(p.value.shape[0], -1).to(self.device) for p in prepared}
+        out = {pid: torch.empty((m, x.shape[1]), dtype=self.dtype, device=self.device)
+               for pid, x in xs.items()}
+        # Each product takes A by rows and X by columns: a block of A's rows
+        # gives those rows of every answer, as A whole does.
+        for row0, blk in rows:
+            for pid, x in xs.items():
+                out[pid][row0:row0 + blk.shape[0]] = self.product(blk, x, self.dtype)
+            del blk
+        self.table = {p.pid: out[p.pid].reshape((m,) + tuple(p.value.shape[1:]))
+                      for p in prepared}
         self.a = None
 
     def request(self, payload):
@@ -125,11 +167,13 @@ class Int8Control:
 class Tf32CgControl:
     """In place of a served solve: plain CG on TF32-rounded products."""
 
-    def __init__(self, cfg: dict, traffic: dict, device, a: torch.Tensor):
+    def __init__(self, cfg: dict, traffic: dict, cards, a):
+        if not isinstance(a, torch.Tensor):
+            raise SpecError("the TF32 control takes a whole A: it runs on one card")
         if a.dtype != torch.float32:
             raise ValueError("the TF32 control is for a float32 configuration")
         self.a = tf32_round_(a)
-        self.device = device
+        self.device = cards[0]
         self.rtol = cfg["rtol"]
         self.maxiter = cfg.get("maxiter", 1000)
 
@@ -158,11 +202,11 @@ class Tf32CgControl:
         self.a = None
 
 
-CONTROLS = {"matvec": Int8Control, "cg": Tf32CgControl}
+CONTROLS = {"matvec": ProductControl, "cg": Tf32CgControl}
 
 
-def control_system(cfg: dict, traffic: dict, device, a: torch.Tensor):
-    return CONTROLS[traffic["op"]](cfg, traffic, device, a)
+def control_system(cfg: dict, traffic: dict, cards, a):
+    return CONTROLS[traffic["op"]](cfg, traffic, cards, a)
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -3,10 +3,11 @@ run, its Chrome trace written under ``TMPDIR``, and the reduction of that
 trace to what the per-layer readers and the ``breakdown`` read.
 
 Device time comes from the profiler's CUPTI records (kernels, copies and
-sets on the card); the window from the harness's own ``cellbench.window``
-annotation; what the host was doing in an idle gap from the innermost host
-event (an annotation, an operator or a runtime call) open when the gap
-began.
+sets on the cards), over all the cards and card by card (by each record's
+``args.device``, or a peer copy's ``args.inDevice``); the window from the
+harness's own ``cellbench.window`` annotation; what the host was doing in
+an idle gap from the innermost host event (an annotation, an operator or a
+runtime call) open when the gap began.
 """
 
 from __future__ import annotations
@@ -30,11 +31,13 @@ HOST_LOOKBACK = 2000
 @dataclass
 class TraceSummary:
     window_s: float
-    busy_s: float                       # union of device intervals
-    kernel_s: float                     # sum of kernel durations
+    busy_s: float                       # union of device intervals, all cards
+    kernel_s: float                     # sum of kernel durations, all cards
     kernels: int                        # kernels started in the window
     by_kernel: dict = field(default_factory=dict)    # name -> seconds
     idle_by_host: dict = field(default_factory=dict)  # host activity -> seconds
+    busy_s_by_card: dict = field(default_factory=dict)    # card -> its busy_s
+    kernel_s_by_card: dict = field(default_factory=dict)  # card -> its kernel_s
 
     def breakdown(self, top: int = 10) -> dict:
         def head(d: dict) -> list:
@@ -106,15 +109,19 @@ def summarize(trace: dict) -> TraceSummary:
 
     device, by_kernel = [], defaultdict(float)
     kernel_us, kernels = 0.0, 0
+    device_by_card, kernel_us_by_card = defaultdict(list), defaultdict(float)
     for e in events:
         if e.get("cat") not in DEVICE_CATS:
             continue
         s, t = clip(e)
         if t <= s:
             continue
+        card = _card(e.get("args", {}))
         device.append((s, t))
+        device_by_card[card].append((s, t))
         if e["cat"] == "kernel":
             kernel_us += t - s
+            kernel_us_by_card[card] += t - s
             kernels += 1
         by_kernel[e["name"]] += (t - s) * 1e-6
     busy = _union(device)
@@ -134,7 +141,17 @@ def summarize(trace: dict) -> TraceSummary:
     return TraceSummary(
         window_s=(w1 - w0) * 1e-6, busy_s=busy_us * 1e-6,
         kernel_s=kernel_us * 1e-6, kernels=kernels,
-        by_kernel=dict(by_kernel), idle_by_host=dict(idle))
+        by_kernel=dict(by_kernel), idle_by_host=dict(idle),
+        busy_s_by_card={card: sum(t - s for s, t in _union(spans)) * 1e-6
+                        for card, spans in device_by_card.items()},
+        kernel_s_by_card={card: us * 1e-6 for card, us in kernel_us_by_card.items()})
+
+
+def _card(args: dict):
+    """The card a device record ran on: its ``device``, or for a copy
+    between cards (CUPTI's ``Memcpy PtoP``, which names ``fromDevice``,
+    ``toDevice`` and ``inDevice``) the card that ran the copy."""
+    return args["device"] if "device" in args else args.get("inDevice")
 
 
 def _host_at(host: list, starts: list, t: float) -> str:

@@ -4,7 +4,8 @@ file and drives a system with them for ``seconds``.
 Two drivers, chosen by the traffic file's ``driver``:
 
 - ``stream``: one caller starts requests back to back, with no wait a
-  request, and the window closes with a device synchronize. ``ms_per_call``
+  request, and the window closes with a synchronize of each of the cell's
+  cards. ``ms_per_call``
   is the whole window (first call to the closing synchronize) over the
   calls made.
 - ``closed_loop``: ``clients`` threads, each ``request`` then ``finish`` and
@@ -25,7 +26,6 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from . import operands
 from .stats import percentile
@@ -121,7 +121,7 @@ class Record:
         return out
 
 
-def _stream(system, prepared: list, pool: Pool, seconds: float, device, span) -> Record:
+def _stream(system, prepared: list, pool: Pool, seconds: float, cards, span) -> Record:
     rec = Record()
     order, keep, n_order = pool.order, pool.keep, len(pool.order)
     calls = []
@@ -138,7 +138,7 @@ def _stream(system, prepared: list, pool: Pool, seconds: float, device, span) ->
                 calls.append(pid)
                 i += 1
         with span("cellbench.synchronize"):
-            synchronize(device)
+            synchronize(cards)
         rec.closed = time.perf_counter()
     rec.index = list(range(len(calls)))
     rec.pid = calls
@@ -210,11 +210,12 @@ def _closed_loop(system, prepared: list, pool: Pool, seconds: float, clients: in
 
 
 def drive(traffic: dict, system, prepared: list, pool: Pool, seconds: float,
-          device: torch.device, span) -> Record:
-    """Run the traffic's driver for ``seconds``; ``span(name)`` is a context
-    manager that marks the harness's phases (a no-op when not traced)."""
+          cards: list, span) -> Record:
+    """Run the traffic's driver for ``seconds`` over the cell's ``cards``;
+    ``span(name)`` is a context manager that marks the harness's phases (a
+    no-op when not traced)."""
     if traffic["driver"] == "stream":
-        return _stream(system, prepared, pool, seconds, device, span)
+        return _stream(system, prepared, pool, seconds, cards, span)
     if traffic["driver"] == "closed_loop":
         return _closed_loop(system, prepared, pool, seconds, traffic["clients"], span)
     raise ValueError(f"unknown driver {traffic['driver']!r}")

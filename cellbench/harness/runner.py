@@ -9,6 +9,12 @@ once. The window runs the traffic's driver for ``--seconds``; with
 ``--trace 1`` under the profiler, whose trace the per-layer readers read.
 Then the program is freed and the reference checks the kept answers.
 
+A cell's ``chips`` are its cards, ``cuda:0 ... cuda:chips-1``. On more than
+one, A goes from its seeded row blocks straight onto the cards, never
+whole on one, and every card is synchronized, weighed and traced. The
+first card holds the payloads, the answers and the reference. Each card's
+memory peak is a line of standard error.
+
 The last line of standard output is the result, a JSON object; the
 numbers compared, each beside its limit, are the last lines of standard
 error and the result's last key.
@@ -55,17 +61,20 @@ class Context:
     trace: TraceSummary | None
     counters_warm: dict
     counters_end: dict
+    cards: list
 
 
-def pick_device(chips: int, require_cuda: bool) -> torch.device:
+def pick_cards(chips: int, require_cuda: bool) -> list[torch.device]:
+    """The cell's cards: ``cuda:0 ... cuda:chips-1``, or as many logical
+    CPU devices where no card is required."""
     if not require_cuda:
-        return torch.device("cpu")
+        return [torch.device("cpu")] * chips
     if not torch.cuda.is_available():
         raise NoDevice("torch.cuda.is_available() is False: the benchmark runs on a card")
     if torch.cuda.device_count() < chips:
         raise NoDevice(f"the cell asks for {chips} cards; "
                        f"torch.cuda.device_count() is {torch.cuda.device_count()}")
-    return torch.device("cuda", 0)
+    return [torch.device("cuda", i) for i in range(chips)]
 
 
 def trace_path(workload: str, seed: int) -> Path:
@@ -99,7 +108,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     cell = spec.cell(bench, workload)
     cfg = spec.load_config(bench, root, cell["config"])
     traffic = spec.load_traffic(root, cell["traffic"])
-    device = pick_device(cell["chips"], require_cuda)
+    cards = pick_cards(cell["chips"], require_cuda)
+    device = cards[0]
     torch.backends.cuda.matmul.allow_tf32 = bool(cfg.get("tf32", False))
     torch.backends.cudnn.allow_tf32 = bool(cfg.get("tf32", False))
 
@@ -109,17 +119,20 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
 
     def lap(name: str) -> None:
         nonlocal mark
-        synchronize(device)
+        synchronize(cards)
         now = time.perf_counter()
         phases[name] = now - mark
         mark = now
 
     pool = drivers.make_pool(traffic, cfg, seed)
     lap("payloads_s")
-    a = operands.make_operand(cfg, device, seed)
+    if len(cards) == 1:
+        a = operands.make_operand(cfg, device, seed)
+    else:  # drawn as the system fills each card's block from it
+        a = operands.operand_rows(cfg, device, seed)
     lap("operand_s")
     factory = program_system if system == "program" else control_system
-    sut = factory(cfg, traffic, device, a)
+    sut = factory(cfg, traffic, cards, a)
     del a
     prepared, warm = drivers.prepare_all(sut, pool)
     lap("place_s")
@@ -132,14 +145,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
 
     # ---- the window ----
     with tracer:
-        record = drivers.drive(traffic, sut, prepared, pool, seconds, device, tracer.span)
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        record = drivers.drive(traffic, sut, prepared, pool, seconds, cards, tracer.span)
+    peaks = [torch.cuda.max_memory_allocated(card) if card.type == "cuda" else 0
+             for card in cards]
     counters_end = sut.counters()
     sut.close()
     del sut, prepared, warm
     gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    for card in cards:
+        if card.type == "cuda":
+            with torch.cuda.device(card):
+                torch.cuda.empty_cache()
     summary = tracer.summary()
 
     # ---- the check ----
@@ -155,7 +171,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
-        ctx = Context(cfg, traffic, record, summary, counters_warm, counters_end)
+        ctx = Context(cfg, traffic, record, summary, counters_warm, counters_end, cards)
         for m in spec.metrics_of(bench, "per_layer", workload):
             value = spec.load_reader(root, m["name"])(ctx)
             if value is not None:
@@ -164,7 +180,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "count": cell["chips"] if device.type == "cuda" else 1,
-           "memory_peak_bytes": peak}
+           "memory_peak_bytes": max(peaks)}
     result = {"correct": checked["correct"], "attempted": record.attempted,
               "failed": record.failed, "metrics": metrics, "device": dev}
     if summary is not None:
@@ -175,6 +191,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     if device.type == "cuda":
         result["power"] = power_limit()
     result["setup_phases"] = phases
+    result["memory_peak_by_card"] = [[str(card), peak] for card, peak in zip(cards, peaks)]
     if record.failures:
         result["first_failure"] = record.failures[0][:500]
     result["checks"] = {
@@ -205,6 +222,8 @@ def main(argv: list[str] | None = None, started: float | None = None) -> int:
     trace_file = result.pop("trace_file", None)
     if trace_file is not None:
         print(f"trace: {trace_file}", flush=True)
+    for card, peak in result.pop("memory_peak_by_card"):
+        print(f"memory_peak {card} {peak}", file=sys.stderr)
     for name, entry in result["checks"].items():
         bound = (f"least {entry['least']}" if "least" in entry else f"limit {entry['limit']}")
         print(f"check {name} {entry['value']!r} {bound}", file=sys.stderr)

@@ -101,10 +101,17 @@ def problems(bench: dict, root: Path = DEFAULT_ROOT) -> list[str]:
                 out.append(f"bad reduced key {key!r}")
         if not (Path(root) / c["file"]).is_file():
             out.append(f"missing config file {c['file']}")
+    files = {c["name"]: Path(root) / c["file"] for c in bench["configs"]}
     for w in bench["workloads"]:
         for key in ("config", "traffic"):
             if not NAME_RE.fullmatch(w[key]):
                 out.append(f"bad {key} {w[key]!r}")
+        path = files.get(w["config"])
+        if w["chips"] > 1 and path is not None and path.is_file():
+            r, c = json.loads(path.read_text())["grid"]
+            if r * c != w["chips"]:
+                out.append(f"the {r}x{c} grid of {w['name']} does not cover its "
+                           f"{w['chips']} cards, one shard a card")
         if not (Path(root) / HARNESS_DIR.name / "traffic" / f"{w['traffic']}.json").is_file():
             out.append(f"missing traffic file for {w['traffic']}")
     for m in bench["end_to_end"] + bench["per_layer"]:

@@ -48,8 +48,15 @@ def test_names_and_units_match_the_rules():
 
 def test_every_cell_reports_set_up_another_end_to_end_and_a_layer():
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    # A cell takes 1 card or 4, and at most a quarter of the cells, or one,
+    # take 4; a four-card cell's grid holds one shard a card.
+    four = [w for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
+        if w["chips"] == 4:
+            r, c = spec.load_config(BENCH, REPO, w["config"])["grid"]
+            assert r * c == 4, w["name"]
         names = {m["name"] for m in spec.metrics_of(BENCH, "end_to_end", w["name"])}
         assert "setup_s" in names and len(names) >= 2
         layers = spec.metrics_of(BENCH, "per_layer", w["name"])
