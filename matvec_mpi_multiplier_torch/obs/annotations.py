@@ -5,12 +5,14 @@ Two kinds of span, under two rules:
 * **Strategy spans** (:func:`named_span`) follow the annotation switch, as
   in the JAX package (its names and its off-by-default contract are held
   to the JAX package's by ``tests/test_torch_profiling.py``).
-* **Engine and solver spans** (:func:`profiler_span`) are on whenever a
+* **Engine, solver and mesh spans** (:func:`profiler_span`) are on whenever a
   ``torch.profiler`` records, with no switch: the request tracer's phases
   (``engine/submit``, ``engine/dispatch``, ... from ``obs/tracing.py``),
   the event wait of a result's copy (``engine/host_copy_wait``) and the
   solver's loop and host reads (``solver/loop``, ``solver/host_read``,
-  ``solvers/device_loop.py``). They put the program's phases on the
+  ``solvers/device_loop.py``), and the mesh's collectives where they move
+  blocks between shards (``mesh/psum``, ``mesh/gather``,
+  ``parallel/mesh.py``). They put the program's phases on the
   device trace's clock, beside the kernels they launch. A profiler records
   the spans of the threads it profiles: those of the thread that started
   it, or of every thread under ``_ExperimentalConfig(profile_all_threads=

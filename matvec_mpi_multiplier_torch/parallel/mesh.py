@@ -39,6 +39,30 @@ boundary=True)``), which the JAX package leaves to its compiler outside the
 lowered program, is recorded apart (``rec.boundary``) and kept out of the
 census.
 
+**Traffic between shards.** A collective that moves a block from one shard
+to another opens a profiler span while a ``torch.profiler`` records
+(``obs/annotations.py::profiler_span``): ``mesh/psum`` around
+:func:`psum` and :func:`psum_scatter`, ``mesh/gather`` around
+:func:`unshard`. A collective over groups of one moves nothing and opens
+none. The process's default registry (``obs/registry.py::get_registry``)
+counts the copies and their bytes, ``mesh_shard_copies_total`` and
+``mesh_shard_bytes_total``, labelled by ``collective`` (``psum``,
+``psum_scatter``, ``gather``). A copy counts wherever its two shards live,
+on two cards or as logical shards of one; it counts when the collective
+runs in Python, so a captured graph's replays add nothing. Over several
+processes the blocks travel through :func:`_exchange` instead and are not
+counted. For a group of n shards with blocks of B bytes: :func:`psum`
+copies n - 1 blocks to the group's first shard and its sum back to the
+other n - 1, 2(n - 1)·B bytes; :func:`psum_scatter` copies n - 1 blocks in
+and n - 1 row chunks of B/n out; :func:`unshard` copies every distinct
+block but the first shard's to the first device. So the blockwise matvec
+on an r × c grid with m rows (``models/blockwise.py``: a psum over the
+grid columns of partials of m/r accumulator elements, then the output
+gather of r row blocks) moves 2r(c - 1) + (r - 1) blocks a call,
+2(c - 1)·m·acc + (r - 1)·(m/r)·out bytes, where acc and out are the
+itemsizes of the accumulator and of A. At 2×2 and 131072 rows in float64:
+5 copies of 524,288 bytes, 2,621,440 bytes a call.
+
 **A mesh over several processes** (``parallel/distributed.py``, joined with
 ``initialize``): :func:`make_mesh` lays the processes' local device lists
 out in rank order, and ``Mesh.owners`` names the process that owns each
@@ -63,8 +87,13 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..obs.annotations import NOT_RECORDING, profiler_span
+from ..obs.registry import get_registry, label
 from ..utils.constants import MESH_AXIS_COLS, MESH_AXIS_ROWS
 from ..utils.errors import ConfigError
+
+SHARD_COPIES = "mesh_shard_copies_total"
+SHARD_BYTES = "mesh_shard_bytes_total"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,28 +342,31 @@ def unshard(st: ShardedTensor, *, boundary: bool = False) -> torch.Tensor:
     mesh = st.mesh
     if _RECORDERS:
         _record("unshard", mesh.axis_names, st.shards[0], boundary)
-    dev0 = mesh.devices[0]
     counts = [_axes_size(mesh, _axes(e)) for e in st.spec]
     counts += [1] * (len(st.shape) - len(counts))
-    blocks: dict[tuple, torch.Tensor] = {}
+    dev0 = mesh.devices[0]
     keys = [
         tuple(_axis_index(mesh, f, _axes(e)) for e in st.spec)
         + (0,) * (len(st.shape) - len(st.spec))
         for f in range(mesh.size)
     ]
-    if mesh.spans_processes:
-        blocks = _gather_blocks(st.shards, mesh, keys)
-    else:
-        for f, key in enumerate(keys):
-            blocks.setdefault(key, st.shards[f])
+    with _moving("mesh/gather", math.prod(counts)):
+        blocks: dict[tuple, torch.Tensor] = {}
+        if mesh.spans_processes:
+            blocks = _gather_blocks(st.shards, mesh, keys)
+        else:
+            for f, key in enumerate(keys):
+                blocks.setdefault(key, st.shards[f])
+            moved = [blocks[key] for key in blocks if key != keys[0]]
+            _count("gather", len(moved), sum(_nbytes(b) for b in moved))
 
-    def assemble(prefix: tuple, d: int) -> torch.Tensor:
-        if d == len(counts):
-            return blocks[prefix].to(dev0)
-        parts = [assemble(prefix + (i,), d + 1) for i in range(counts[d])]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
+        def assemble(prefix: tuple, d: int) -> torch.Tensor:
+            if d == len(counts):
+                return blocks[prefix].to(dev0)
+            parts = [assemble(prefix + (i,), d + 1) for i in range(counts[d])]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
 
-    return assemble((), 0)
+        return assemble((), 0)
 
 
 # ---- exchange between processes ----
@@ -541,6 +573,27 @@ def _record(op: str, axes: tuple[str, ...], block: torch.Tensor,
 
 # ---- collectives ----
 
+def _moving(span: str, group: int):
+    """The span ``span`` while a profiler records, where a collective's
+    groups of ``group`` shards move blocks between shards (``group > 1``);
+    else nothing."""
+    return profiler_span(span) if group > 1 else NOT_RECORDING
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _count(collective: str, copies: int, nbytes: int) -> None:
+    """Count ``copies`` moves of ``nbytes`` bytes in all between shards."""
+    if copies:
+        registry = get_registry()
+        registry.counter(label(SHARD_COPIES, collective=collective),
+                         "blocks a mesh collective moved between shards").inc(copies)
+        registry.counter(label(SHARD_BYTES, collective=collective),
+                         "bytes a mesh collective moved between shards").inc(nbytes)
+
+
 def _reduce_groups(mesh: Mesh, axes: tuple[str, ...]):
     """Devices that reduce together, each group in reduced-index order."""
     groups: dict[tuple, list[tuple[int, int]]] = {}
@@ -564,15 +617,19 @@ def psum(blocks: Sequence[torch.Tensor], mesh: Mesh, axes) -> list[torch.Tensor]
     axes = _axes(axes)
     if _RECORDERS:
         _record("psum", axes, blocks[0])
-    if mesh.spans_processes:
-        return _psum_processes(blocks, mesh, axes, scatter=False)
-    out: list[torch.Tensor] = [None] * mesh.size  # type: ignore[list-item]
-    for members in _reduce_groups(mesh, axes):
-        first = members[0][1]
-        total = _ordered_sum([blocks[f] for _, f in members], mesh.devices[first])
-        for _, f in members:
-            out[f] = total.to(mesh.devices[f])
-    return out
+    n = _axes_size(mesh, axes)
+    with _moving("mesh/psum", n):
+        if mesh.spans_processes:
+            return _psum_processes(blocks, mesh, axes, scatter=False)
+        out: list[torch.Tensor] = [None] * mesh.size  # type: ignore[list-item]
+        for members in _reduce_groups(mesh, axes):
+            first = members[0][1]
+            total = _ordered_sum([blocks[f] for _, f in members], mesh.devices[first])
+            for _, f in members:
+                out[f] = total.to(mesh.devices[f])
+        copies = 2 * (n - 1) * (mesh.size // n)
+        _count("psum", copies, copies * _nbytes(blocks[0]))
+        return out
 
 
 def _psum_processes(blocks, mesh: Mesh, axes: tuple[str, ...], *,
@@ -620,17 +677,22 @@ def psum_scatter(
     axes = _axes(axes)
     if _RECORDERS:
         _record("psum_scatter", axes, blocks[0])
-    if mesh.spans_processes:
-        return _psum_processes(blocks, mesh, axes, scatter=True)
     n = _axes_size(mesh, axes)
-    out: list[torch.Tensor] = [None] * mesh.size  # type: ignore[list-item]
-    for members in _reduce_groups(mesh, axes):
-        first = members[0][1]
-        total = _ordered_sum([blocks[f] for _, f in members], mesh.devices[first])
-        rows = total.shape[0] // n
-        for i, f in members:
-            out[f] = total[i * rows:(i + 1) * rows].to(mesh.devices[f])
-    return out
+    with _moving("mesh/psum", n):
+        if mesh.spans_processes:
+            return _psum_processes(blocks, mesh, axes, scatter=True)
+        out: list[torch.Tensor] = [None] * mesh.size  # type: ignore[list-item]
+        for members in _reduce_groups(mesh, axes):
+            first = members[0][1]
+            total = _ordered_sum([blocks[f] for _, f in members], mesh.devices[first])
+            rows = total.shape[0] // n
+            for i, f in members:
+                out[f] = total[i * rows:(i + 1) * rows].to(mesh.devices[f])
+        groups = mesh.size // n
+        chunk = _nbytes(out[0])
+        _count("psum_scatter", 2 * (n - 1) * groups,
+               (n - 1) * groups * (_nbytes(blocks[0]) + chunk))
+        return out
 
 
 def ppermute(
